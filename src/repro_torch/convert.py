@@ -1,0 +1,93 @@
+"""Carry a DLRM serve state between the JAX package and the port.
+
+The JAX side is given as nested dicts of numpy arrays under the JAX field
+names (a dataclass becomes a dict of its fields), e.g.::
+
+    {"params": {"bottom": {"l0": {"w": ..., "b": ...}}, "top": ...},
+     "emb": {"slabs": {"__shared__": {
+         "full": {"data": {"weight": ...}, "sideband": {}, "codec": "fp32", ...},
+         "cache": {"cached_rows": {"weight": ...}, "slot_to_row": ..., ...,
+                   "tracker": {"score": ..., ...}},
+         "idx_map": ...}}},
+     "step": ...}
+
+:func:`dlrm_state_from_numpy` builds the port's state from that (params,
+the ``HostStore`` weight, every ``CacheState`` field, the ``FreqTracker``
+and ``idx_map``); :func:`to_numpy` turns a port state back into the same
+layout so the two can be compared leaf by leaf.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.core.cache import CacheState
+from repro_torch.core.collection import CachedSlab, CollectionState
+from repro_torch.core.freq import FreqTracker
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.store.host_store import HostStore
+
+__all__ = ["dlrm_state_from_numpy", "to_numpy"]
+
+
+def _t(x: Any, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.array(x)).to(device)
+
+
+def _tree(d: Mapping[str, Any], device: torch.device) -> Dict[str, Any]:
+    return {k: _tree(v, device) if isinstance(v, Mapping) else _t(v, device) for k, v in d.items()}
+
+
+def _cache_state(d: Mapping[str, Any], device: torch.device) -> CacheState:
+    fields = {f.name for f in dataclasses.fields(CacheState)} - {"cached_rows", "tracker"}
+    tracker = FreqTracker(**{f.name: _t(d["tracker"][f.name], device)
+                             for f in dataclasses.fields(FreqTracker)})
+    return CacheState(
+        cached_rows=_tree(d["cached_rows"], device),
+        tracker=tracker,
+        **{f: _t(d[f], device) for f in fields},
+    )
+
+
+def _host_store(d: Mapping[str, Any], pin: bool) -> HostStore:
+    if d.get("sideband"):
+        raise NotImplementedError("only fp32 host stores are ported so far")
+    data = {k: torch.from_numpy(np.array(v)) for k, v in d["data"].items()}
+    return HostStore.create(data, codec=d.get("codec", "fp32"), pin=pin)
+
+
+def dlrm_state_from_numpy(tree: Mapping[str, Any], device: DeviceLike = None) -> Dict[str, Any]:
+    """The port's DLRM serve state from the JAX state's numpy tree."""
+    dev = resolve_device(device)
+    slabs = {
+        name: CachedSlab(
+            full=_host_store(s["full"], pin=dev.type == "cuda"),
+            cache=_cache_state(s["cache"], dev),
+            idx_map=_t(s["idx_map"], dev),
+        )
+        for name, s in tree["emb"]["slabs"].items()
+    }
+    return {
+        "params": _tree(tree["params"], dev),
+        "emb": CollectionState(slabs=slabs),
+        "step": _t(tree["step"], dev),
+    }
+
+
+def to_numpy(obj: Any) -> Any:
+    """Port state -> nested dicts of numpy arrays under the JAX field names
+    (host-store bookkeeping that the JAX side lacks is left out)."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu().numpy()
+    if dataclasses.is_dataclass(obj):
+        return {
+            f.name: to_numpy(getattr(obj, f.name))
+            for f in dataclasses.fields(obj)
+            if not f.name.startswith("_") and f.name != "pinned"
+        }
+    if isinstance(obj, Mapping):
+        return {k: to_numpy(v) for k, v in obj.items()}
+    return obj

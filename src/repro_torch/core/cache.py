@@ -1,0 +1,323 @@
+"""The dynamic module (paper §4.3, Algorithm 1), port of ``repro.core.cache``.
+
+State layout (device tensors, as in the reference):
+
+  cached_rows   dict; each leaf [capacity, ...]   the cached-weight arena
+  slot_to_row   int32 [capacity]   freq-ranked row held by each slot (-1 = empty)
+  row_to_slot   int32 [vocab]      inverse map (-1 = not cached)
+  last_used / use_count  int32 [capacity]  only read by non-paper policies
+  counters      int32 scalars that wrap like the reference's
+
+``plan_prepare`` is functional: it returns a :class:`CachePlan` and leaves
+the state untouched.  ``apply_plan`` moves rows through the transmitter,
+which updates the arena (and, with writeback, the host table) IN PLACE: the
+state passed to it must not be used again.
+
+Not in this slice: lookahead (``future_rows``), tiered arenas
+(``arena_precision != "fp32"``), chunked staging, and ``flush`` (training).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.core import freq as freq_lib
+from repro_torch.core import transmitter
+from repro_torch.core.lanes import i32, scatter_drop, take_fill
+from repro_torch.core.policies import Policy, eviction_key
+from repro_torch.kernels.cache_ops import ops as cache_ops
+
+__all__ = [
+    "CacheConfig",
+    "CacheState",
+    "CachePlan",
+    "init_cache",
+    "plan_prepare",
+    "apply_plan",
+    "prepare",
+    "lookup_slots",
+    "warmup",
+]
+
+INT_MAX = 2**31 - 1
+_BIG = INT_MAX // 2
+
+
+@dataclasses.dataclass(frozen=True)
+class CacheConfig:
+    vocab: int  # total rows of the (concatenated, freq-ordered) table
+    capacity: int  # cached rows (= cache_ratio * vocab)
+    ids_per_step: int  # size of the flattened id vector per prepare()
+    buffer_rows: int = 65536  # transmitter staging-block rows per round
+    policy: Policy = Policy.FREQ_LFU
+    writeback: bool = True  # False for inference (cache rows stay clean)
+    protect_via_inverse: bool = True  # O(K) scatter instead of the paper's isin
+    max_unique_per_step: int = 0  # 0 = ids_per_step; overflow is counted
+    arena_precision: str = "fp32"  # fp16/int8 tiered arenas: a later slice
+    freq_half_life: int = 1024  # plan calls for a tracker count to halve
+    use_pallas_plan: bool = False  # bounded top-K + fused dedup route
+
+    def __post_init__(self):
+        if self.capacity < self.unique_size:
+            raise ValueError(
+                f"cache capacity {self.capacity} must hold one batch's unique rows "
+                f"(<= {self.unique_size})"
+            )
+        if self.arena_precision != "fp32":
+            raise NotImplementedError(
+                "tiered arenas (fp16/int8) arrive with the port's mixed-precision slice"
+            )
+
+    @property
+    def unique_size(self) -> int:
+        k = min(self.ids_per_step, self.vocab)
+        if self.max_unique_per_step:
+            k = min(k, self.max_unique_per_step)
+        return k
+
+
+@dataclasses.dataclass
+class CacheState:
+    cached_rows: Dict[str, torch.Tensor]  # leaves [capacity, ...]
+    slot_to_row: torch.Tensor  # int32 [capacity]
+    row_to_slot: torch.Tensor  # int32 [vocab]
+    last_used: torch.Tensor  # int32 [capacity]
+    use_count: torch.Tensor  # int32 [capacity]
+    step: torch.Tensor  # int32 []
+    hits: torch.Tensor  # int32 [] id-level hits
+    misses: torch.Tensor  # int32 [] unique-row misses (= rows moved host->device)
+    evictions: torch.Tensor  # int32 [] rows written back device->host
+    uniq_overflows: torch.Tensor  # int32 [] steps whose distinct rows > unique_size
+    tier_promotions: torch.Tensor  # int32 [] (always 0: fp32 arena)
+    tier_demotions: torch.Tensor  # int32 [] (always 0: fp32 arena)
+    tracker: freq_lib.FreqTracker
+
+    def hit_rate(self) -> torch.Tensor:
+        tot = self.hits + self.misses
+        return torch.where(tot > 0, self.hits / torch.clamp(tot, min=1), 0.0)
+
+
+def init_cache(
+    cfg: CacheConfig, row_tree_example: Dict[str, torch.Tensor], device: torch.device
+) -> CacheState:
+    """Empty cache; ``row_tree_example`` leaves give per-row shapes/dtypes."""
+    cached_rows = {
+        k: torch.zeros((cfg.capacity,) + tuple(v.shape), dtype=v.dtype, device=device)
+        for k, v in row_tree_example.items()
+    }
+
+    def z(*shape, fill=0):
+        return torch.full(shape, fill, dtype=torch.int32, device=device)
+
+    return CacheState(
+        cached_rows=cached_rows,
+        slot_to_row=z(cfg.capacity, fill=-1),
+        row_to_slot=z(cfg.vocab, fill=-1),
+        last_used=z(cfg.capacity),
+        use_count=z(cfg.capacity),
+        step=z(),
+        hits=z(),
+        misses=z(),
+        evictions=z(),
+        uniq_overflows=z(),
+        tier_promotions=z(),
+        tier_demotions=z(),
+        tracker=freq_lib.init_tracker(cfg.vocab, device),
+    )
+
+
+@dataclasses.dataclass
+class CachePlan:
+    """A movement program plus the post-apply index image (see reference)."""
+
+    miss_rows: torch.Tensor  # int32 [kv] freq-ranked rows to load (-1 inactive)
+    victim_slots: torch.Tensor  # int32 [kv] destination slots
+    victim_rows: torch.Tensor  # int32 [kv] rows being displaced (-1 = empty)
+    load_active: torch.Tensor  # bool [kv]
+    evict_active: torch.Tensor  # bool [kv] displaced rows needing write-back
+    slot_to_row: torch.Tensor
+    row_to_slot: torch.Tensor
+    last_used: torch.Tensor
+    use_count: torch.Tensor
+    step: torch.Tensor
+    hits: torch.Tensor
+    misses: torch.Tensor
+    evictions: torch.Tensor
+    uniq_overflows: torch.Tensor
+    tier_promotions: torch.Tensor
+    tier_demotions: torch.Tensor
+    tracker: freq_lib.FreqTracker
+    slots: torch.Tensor  # per-lane resident slot for the current batch (-1 pad)
+
+
+def _unique_fixed(x: torch.Tensor, k: int, fill: int) -> torch.Tensor:
+    """``jnp.unique(x, size=k, fill_value=fill)``: the k smallest distinct
+    values ascending, padded with ``fill``."""
+    u = torch.unique(x, sorted=True)[:k]
+    pad = torch.full((k - u.shape[0],), fill, dtype=x.dtype, device=x.device)
+    return torch.cat([u, pad])
+
+
+def plan_prepare(
+    cfg: CacheConfig,
+    state: CacheState,
+    rows: torch.Tensor,
+    future_rows: Optional[torch.Tensor] = None,
+) -> CachePlan:
+    """Planning half of ``prepare``: dedup, victim selection, movement plan
+    and index bookkeeping, from the index state and ids alone."""
+    if future_rows is not None and future_rows.shape[0] > 0:
+        raise NotImplementedError("lookahead planning arrives with the port's pipelining slice")
+    k = cfg.unique_size
+    capacity = state.slot_to_row.shape[0]
+    valid = rows >= 0
+
+    pre_slots = take_fill(state.row_to_slot, torch.where(valid, rows, 0), -1)
+    id_hits = i32(((pre_slots >= 0) & valid).sum())
+
+    big_rows = torch.where(valid, rows, INT_MAX)
+    if cfg.use_pallas_plan:
+        img = cache_ops.plan_image_impl(big_rows, state.row_to_slot, k)
+        uniq, uniq_valid = img.uniq, img.uniq_valid
+        overflow = i32(img.n_distinct > k)
+        uniq_slots, miss, n_miss = img.uniq_slots, img.miss, img.n_miss
+    else:
+        uniq = _unique_fixed(big_rows, k, INT_MAX)
+        uniq_valid = uniq != INT_MAX
+        uniq = torch.where(uniq_valid, uniq, -1)
+        srt = torch.sort(big_rows).values
+        n_distinct = ((srt[1:] != srt[:-1]) & (srt[1:] != INT_MAX)).sum() + (srt[0] != INT_MAX)
+        overflow = i32(n_distinct > k)
+        uniq_slots = take_fill(state.row_to_slot, torch.where(uniq_valid, uniq, 0), -1)
+        miss = (uniq_slots < 0) & uniq_valid
+        n_miss = i32(miss.sum())
+
+    # online frequency tracking (no planning decision below reads it)
+    step = state.step + 1
+    tracker = freq_lib.tracker_touch(state.tracker, uniq, uniq_valid, step, cfg.freq_half_life)
+    tracker = freq_lib.tracker_observe(tracker, id_hits, n_miss, cfg.freq_half_life)
+
+    # victim selection (Algorithm 1 lines 15-26): needed-now slots evict last
+    if cfg.protect_via_inverse:
+        hit = (uniq_slots >= 0) & uniq_valid
+        protected = scatter_drop(
+            torch.zeros((capacity,), dtype=torch.bool, device=rows.device), uniq_slots, True, hit
+        )
+    else:
+        needed = torch.where(uniq_valid, uniq, -7)
+        protected = torch.isin(state.slot_to_row, needed) & (state.slot_to_row >= 0)
+    key = eviction_key(cfg.policy, state.slot_to_row, state.last_used, state.use_count)
+    key = torch.where(state.slot_to_row < 0, _BIG, key)  # empty slots evict first
+    key = torch.where(protected, -_BIG, key).to(torch.int32)
+    kv = min(k, capacity)
+    if cfg.use_pallas_plan:
+        victim_slots = cache_ops.victim_topk_impl(key, kv)
+    else:
+        victim_slots = i32(torch.argsort(key, descending=True, stable=True)[:kv])
+
+    active = torch.arange(kv, device=rows.device) < n_miss  # one victim per miss
+    if cfg.use_pallas_plan:
+        miss_rows = torch.where(active, img.miss_rows[:kv], -1)
+    else:
+        perm = torch.argsort(torch.where(miss, 0, 1), stable=True)
+        miss_rows = torch.where(active, uniq[perm][:kv], -1)
+
+    victim_rows = state.slot_to_row[victim_slots]
+    evict_active = active & (victim_rows >= 0)
+
+    row_to_slot = scatter_drop(state.row_to_slot, victim_rows, -1, evict_active)
+    slot_to_row = scatter_drop(state.slot_to_row, victim_slots, miss_rows, active)
+    row_to_slot = scatter_drop(row_to_slot, miss_rows, victim_slots, active)
+
+    # recency / runtime-frequency bookkeeping
+    touched = take_fill(row_to_slot, torch.where(uniq_valid, uniq, 0), -1)
+    last_used = scatter_drop(state.last_used, touched, step, uniq_valid)
+    # valid touched slots are distinct, so the reference's scatter-add is a
+    # gather + set (CUDA's accumulating index_put_ serialises on the trash
+    # element that every padding lane hits)
+    use_count = scatter_drop(
+        state.use_count, touched, take_fill(state.use_count, touched, 0) + 1, uniq_valid
+    )
+    use_count = scatter_drop(use_count, victim_slots, 1, active)  # loaded rows start fresh
+
+    slots = torch.where(valid, take_fill(row_to_slot, torch.where(valid, rows, 0), -1), -1)
+    zero = torch.zeros((), dtype=torch.int32, device=rows.device)
+    return CachePlan(
+        miss_rows=miss_rows,
+        victim_slots=victim_slots,
+        victim_rows=victim_rows,
+        load_active=active,
+        evict_active=evict_active,
+        slot_to_row=slot_to_row,
+        row_to_slot=row_to_slot,
+        last_used=last_used,
+        use_count=use_count,
+        step=step,
+        hits=state.hits + id_hits,
+        misses=state.misses + n_miss,
+        evictions=state.evictions + i32(evict_active.sum()),
+        uniq_overflows=state.uniq_overflows + overflow,
+        tier_promotions=state.tier_promotions + zero,
+        tier_demotions=state.tier_demotions + zero,
+        tracker=tracker,
+        slots=slots,
+    )
+
+
+_INDEX_FIELDS = (
+    "slot_to_row", "row_to_slot", "last_used", "use_count", "step", "hits", "misses",
+    "evictions", "uniq_overflows", "tier_promotions", "tier_demotions", "tracker",
+)
+
+
+def apply_plan(cfg: CacheConfig, full_rows, state: CacheState, plan: CachePlan) -> Tuple:
+    """Execute a plan: write back displaced rows (``cfg.writeback``), load
+    missed rows, install the index image.  Returns ``(full_rows, state')``;
+    the arena and the host table are updated in place."""
+    if cfg.writeback:
+        full_rows = transmitter.move_rows(
+            state.cached_rows, full_rows, plan.victim_slots, plan.victim_rows,
+            plan.evict_active, buffer_rows=cfg.buffer_rows,
+        )
+    cached_rows = transmitter.move_rows(
+        full_rows, state.cached_rows, plan.miss_rows, plan.victim_slots,
+        plan.load_active, buffer_rows=cfg.buffer_rows,
+    )
+    new_state = CacheState(
+        cached_rows=cached_rows, **{f: getattr(plan, f) for f in _INDEX_FIELDS}
+    )
+    return full_rows, new_state
+
+
+def prepare(cfg: CacheConfig, full_rows, state: CacheState, rows: torch.Tensor):
+    """Algorithm 1 ``PrepareCache``: make every row of ``rows`` resident.
+    Returns ``(full_rows', state', slots)``."""
+    plan = plan_prepare(cfg, state, rows)
+    full_rows, new_state = apply_plan(cfg, full_rows, state, plan)
+    return full_rows, new_state, plan.slots
+
+
+def lookup_slots(state: CacheState, slots: torch.Tensor, leaf: str = "weight") -> torch.Tensor:
+    """Gather cached rows by slot; -1 (padding) lanes return zero rows."""
+    return take_fill(state.cached_rows[leaf], slots, 0)
+
+
+def warmup(cfg: CacheConfig, full_rows, state: CacheState) -> Tuple:
+    """Paper §4.3 cache warm-up: pre-fill with the hottest (lowest-rank) rows."""
+    capacity = state.slot_to_row.shape[0]
+    vocab = state.row_to_slot.shape[0]
+    dev = state.slot_to_row.device
+    slots = torch.arange(capacity, dtype=torch.int32, device=dev)
+    active = slots < min(capacity, vocab)
+    rows = torch.where(active, slots, -1)
+    cached_rows = transmitter.move_rows(
+        full_rows, state.cached_rows, rows, slots, active, buffer_rows=cfg.buffer_rows
+    )
+    return full_rows, dataclasses.replace(
+        state,
+        cached_rows=cached_rows,
+        slot_to_row=rows,
+        row_to_slot=scatter_drop(state.row_to_slot, rows, slots, active),
+    )

@@ -1,0 +1,434 @@
+"""Keyed-feature embeddings over the frequency-aware cache: the single-arena
+serving subset of ``repro.core.collection``.
+
+The paper manages ONE concatenated, frequency-ordered table through one
+software cache.  This slice ports exactly that layout (every table
+GROUPED into the shared arena, ``PlacementPlan.single_arena``) and the
+serving surface: ``init`` / ``plan_prepare`` / ``apply_plan`` / ``prepare``
+/ ``weights`` / ``gather`` / ``lookup`` / ``metrics``.  DEVICE and CACHED
+placements, the planner, lookahead, refresh and ``apply_grads`` / ``flush``
+come with later slices.
+
+On a CUDA device the host tier (``CachedSlab.full``) is a pinned
+:class:`HostStore` in host memory; the arena, the index maps and
+``idx_map`` live on the card.
+"""
+from __future__ import annotations
+
+import dataclasses
+import enum
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import cache as cache_lib
+from repro_torch.core import freq as freq_lib
+from repro_torch.core.lanes import i32, take_fill
+from repro_torch.core.policies import Policy
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.store.host_store import HostStore
+
+__all__ = [
+    "Placement",
+    "TableConfig",
+    "FeatureBatch",
+    "TablePlacement",
+    "ArenaConfig",
+    "PlacementPlan",
+    "EmbeddingCollection",
+    "CachedSlab",
+    "CollectionState",
+    "CollectionPlan",
+]
+
+SHARED_ARENA = "__shared__"
+_INIT_CHUNK_ROWS = 1 << 20  # host-table init: rows drawn per device chunk
+
+
+class Placement(enum.Enum):
+    """This slice has the paper's placement only; DEVICE and CACHED tables
+    come with the planner in a later slice."""
+
+    GROUPED = "grouped"  # shares the collection-wide cache arena (the paper)
+
+
+@dataclasses.dataclass(frozen=True)
+class TableConfig:
+    """One logical embedding table.  In the shared arena the cache knobs
+    are the arena's (``ArenaConfig``); per-table knobs come with CACHED
+    placement."""
+
+    name: str
+    vocab: int
+    dim: int
+    ids_per_step: int
+    feature_names: Tuple[str, ...] = ()
+    dtype: torch.dtype = torch.float32
+
+    @property
+    def features(self) -> Tuple[str, ...]:
+        return self.feature_names or (self.name,)
+
+
+@dataclasses.dataclass
+class FeatureBatch:
+    """Keyed feature ids: name -> int32 id tensor (-1 = padding)."""
+
+    ids: Dict[str, torch.Tensor]
+
+    @classmethod
+    def from_onehot(cls, names: Sequence[str], id_matrix: torch.Tensor) -> "FeatureBatch":
+        """Criteo-style [batch, fields] matrix -> one [batch] feature per name."""
+        if id_matrix.dim() != 2 or id_matrix.shape[1] != len(names):
+            raise ValueError(f"want a [batch, {len(names)}] id matrix, got {tuple(id_matrix.shape)}")
+        return cls(ids={n: id_matrix[:, j].to(torch.int32) for j, n in enumerate(names)})
+
+    @property
+    def features(self) -> Tuple[str, ...]:
+        return tuple(self.ids)
+
+
+@dataclasses.dataclass(frozen=True)
+class TablePlacement:
+    placement: Placement
+
+
+@dataclasses.dataclass(frozen=True)
+class ArenaConfig:
+    """Knobs of the shared GROUPED cache arena."""
+
+    cache_ratio: float = 0.015
+    policy: Policy = Policy.FREQ_LFU
+    buffer_rows: int = 65536
+    max_unique_per_step: int = 0
+    protect_via_inverse: bool = True
+    freq_half_life: int = 1024
+    use_pallas_plan: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class PlacementPlan:
+    placements: Dict[str, TablePlacement]
+    arena: ArenaConfig = ArenaConfig()
+
+    @classmethod
+    def single_arena(cls, tables: Sequence[TableConfig], **arena_kw) -> "PlacementPlan":
+        """The paper's layout: every table GROUPED into one shared cache."""
+        arena = ArenaConfig(**arena_kw)
+        return cls(
+            placements={t.name: TablePlacement(Placement.GROUPED) for t in tables},
+            arena=arena,
+        )
+
+
+@dataclasses.dataclass
+class CachedSlab:
+    """A two-tier cached arena: host table, cache state, raw id -> rank map."""
+
+    full: HostStore
+    cache: cache_lib.CacheState
+    idx_map: torch.Tensor  # int32 [vocab] raw id -> freq-ranked row
+
+
+@dataclasses.dataclass
+class CollectionState:
+    slabs: Dict[str, CachedSlab]
+
+
+@dataclasses.dataclass
+class CollectionPlan:
+    slab_plans: Dict[str, cache_lib.CachePlan]
+    addresses: Dict[str, torch.Tensor]  # feature -> slots (-1 pad)
+    writeback: bool = True
+
+
+def _translate(slab: CachedSlab, raw_ids: torch.Tensor) -> torch.Tensor:
+    """Slab-global raw ids (-1 pad) -> freq-ranked rows (-1 pad)."""
+    valid = raw_ids >= 0
+    rows = take_fill(slab.idx_map, torch.where(valid, raw_ids, 0), -1)
+    return torch.where(valid, rows, -1)
+
+
+@dataclasses.dataclass(frozen=True)
+class _CachedSlabSpec:
+    """Static geometry of the shared arena."""
+
+    tables: Tuple[TableConfig, ...]
+    arena: ArenaConfig
+
+    @property
+    def vocab(self) -> int:
+        return sum(t.vocab for t in self.tables)
+
+    @property
+    def dim(self) -> int:
+        return self.tables[0].dim
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.tables[0].dtype
+
+    @property
+    def ids_per_step(self) -> int:
+        return sum(t.ids_per_step for t in self.tables)
+
+    @property
+    def offsets(self) -> np.ndarray:
+        return freq_lib.concat_table_offsets([t.vocab for t in self.tables])
+
+    def unique_size(self, ids_per_step: Optional[int] = None) -> int:
+        k = min(ids_per_step or self.ids_per_step, self.vocab)
+        if self.arena.max_unique_per_step:
+            k = min(k, self.arena.max_unique_per_step)
+        return k
+
+    @property
+    def capacity(self) -> int:
+        cap = max(int(self.arena.cache_ratio * self.vocab), self.unique_size())
+        return min(cap, self.vocab)
+
+    def cache_config(self, ids_per_step: Optional[int] = None, writeback: bool = True):
+        a = self.arena
+        return cache_lib.CacheConfig(
+            vocab=self.vocab,
+            capacity=self.capacity,
+            ids_per_step=ids_per_step or self.ids_per_step,
+            buffer_rows=a.buffer_rows,
+            policy=a.policy,
+            writeback=writeback,
+            max_unique_per_step=a.max_unique_per_step,
+            protect_via_inverse=a.protect_via_inverse,
+            freq_half_life=a.freq_half_life,
+            use_pallas_plan=a.use_pallas_plan,
+        )
+
+
+class EmbeddingCollection:
+    """N tables in one shared cache arena, behind one keyed-feature surface."""
+
+    def __init__(self, tables: Sequence[TableConfig], plan: PlacementPlan):
+        names = [t.name for t in tables]
+        if len(set(names)) != len(names):
+            raise ValueError(f"duplicate table names: {names}")
+        dims = {(t.dim, t.dtype) for t in tables}
+        if len(dims) != 1:
+            raise ValueError(f"GROUPED tables must share (dim, dtype); got {dims}")
+        self.tables: Dict[str, TableConfig] = {t.name: t for t in tables}
+        self.plan = plan
+        self.feature_to_table: Dict[str, str] = {}
+        for t in tables:
+            for f in t.features:
+                if f in self.feature_to_table:
+                    raise ValueError(f"feature {f!r} claimed by two tables")
+                self.feature_to_table[f] = t.name
+        spec = _CachedSlabSpec(tables=tuple(tables), arena=plan.arena)
+        self.cached_slabs: Dict[str, _CachedSlabSpec] = {SHARED_ARENA: spec}
+        self.table_slab: Dict[str, Tuple[str, int]] = {
+            t.name: (SHARED_ARENA, int(off)) for t, off in zip(spec.tables, spec.offsets)
+        }
+
+    @classmethod
+    def create(
+        cls, tables: Sequence[TableConfig], budget_bytes: Optional[int] = None, **arena_kw
+    ) -> "EmbeddingCollection":
+        """The paper's layout: one shared cache arena over all tables."""
+        if budget_bytes is not None:
+            raise NotImplementedError("the placement planner arrives with a later slice")
+        return cls(tables, PlacementPlan.single_arena(tables, **arena_kw))
+
+    # ----- init -------------------------------------------------------------
+
+    def init(
+        self,
+        seed: int,
+        counts: Optional[Mapping[str, np.ndarray]] = None,
+        warm: bool = True,
+        device: DeviceLike = None,
+    ) -> CollectionState:
+        """Build the state: a host table of uniform(+-1/sqrt(dim)) rows drawn
+        from ``seed``, an empty (or warmed) arena on ``device``.  On a CUDA
+        device the rows are drawn on the card in chunks and land in a
+        pinned host table."""
+        dev = resolve_device(device)
+        slabs = {}
+        for sname, spec in self.cached_slabs.items():
+            scale = 1.0 / np.sqrt(spec.dim)
+            gen = torch.Generator(device=dev).manual_seed(int(seed))
+            weight = torch.empty((spec.vocab, spec.dim), dtype=spec.dtype)
+            for r0 in range(0, spec.vocab, _INIT_CHUNK_ROWS):
+                n = min(_INIT_CHUNK_ROWS, spec.vocab - r0)
+                chunk = torch.rand((n, spec.dim), generator=gen, dtype=spec.dtype, device=dev)
+                weight[r0 : r0 + n] = (chunk * (2 * scale) - scale).cpu()
+            if counts is not None:
+                slab_counts = np.concatenate(
+                    [np.asarray(counts.get(t.name, np.zeros((t.vocab,), np.int64)), np.int64)
+                     for t in spec.tables]
+                )
+                idx_map = torch.from_numpy(freq_lib.build_freq_stats(slab_counts).idx_map)
+            else:
+                idx_map = torch.arange(spec.vocab, dtype=torch.int32)
+            ccfg = spec.cache_config()
+            slab = CachedSlab(
+                full=HostStore.create({"weight": weight}, pin=dev.type == "cuda"),
+                cache=cache_lib.init_cache(
+                    ccfg, {"weight": torch.zeros((spec.dim,), dtype=spec.dtype)}, dev
+                ),
+                idx_map=idx_map.to(dev),
+            )
+            if warm:
+                full, cache_state = cache_lib.warmup(ccfg, slab.full, slab.cache)
+                slab = dataclasses.replace(slab, full=full, cache=cache_state)
+            slabs[sname] = slab
+        return CollectionState(slabs=slabs)
+
+    # ----- the non-diff bookkeeping pass ------------------------------------
+
+    def _slab_lanes(self, fb: FeatureBatch, sname: str) -> List[Tuple[str, int]]:
+        member = {t.name for t in self.cached_slabs[sname].tables}
+        return [
+            (f, int(fb.ids[f].numel())) for f in fb.features
+            if self.feature_to_table.get(f) in member
+        ]
+
+    def _slab_raw(self, fb: FeatureBatch, sname: str) -> Optional[torch.Tensor]:
+        """Flat offset-translated id vector of this slab's lanes in ``fb``."""
+        parts = []
+        for f, _ in self._slab_lanes(fb, sname):
+            ids = fb.ids[f].reshape(-1).to(torch.int32)
+            off = self.table_slab[self.feature_to_table[f]][1]
+            parts.append(torch.where(ids >= 0, ids + off, -1))
+        if not parts:
+            return None
+        return torch.cat(parts) if len(parts) > 1 else parts[0]
+
+    def plan_prepare(
+        self, state: CollectionState, fb: FeatureBatch, writeback: bool = True
+    ) -> CollectionPlan:
+        """Planning half of ``prepare``: per-slab cache plans plus addresses."""
+        for f in fb.features:
+            if f not in self.feature_to_table:
+                raise KeyError(f"unknown feature {f!r}; known: {sorted(self.feature_to_table)}")
+        addresses: Dict[str, torch.Tensor] = {}
+        slab_plans: Dict[str, cache_lib.CachePlan] = {}
+        for sname, spec in self.cached_slabs.items():
+            raw = self._slab_raw(fb, sname)
+            if raw is None:
+                continue
+            slab = state.slabs[sname]
+            ccfg = spec.cache_config(ids_per_step=int(raw.shape[0]), writeback=writeback)
+            plan = cache_lib.plan_prepare(ccfg, slab.cache, _translate(slab, raw))
+            slab_plans[sname] = plan
+            pos = 0
+            for f, n in self._slab_lanes(fb, sname):
+                addresses[f] = plan.slots[pos : pos + n].reshape(fb.ids[f].shape)
+                pos += n
+        return CollectionPlan(slab_plans=slab_plans, addresses=addresses, writeback=writeback)
+
+    def apply_plan(self, state: CollectionState, plan: CollectionPlan) -> CollectionState:
+        """Apply half: execute each slab's row movement (in place on the
+        arena and, with writeback, the host table) and install the index
+        images."""
+        slabs = dict(state.slabs)
+        for sname, p in plan.slab_plans.items():
+            ccfg = self.cached_slabs[sname].cache_config(writeback=plan.writeback)
+            slab = slabs[sname]
+            full, cache_state = cache_lib.apply_plan(ccfg, slab.full, slab.cache, p)
+            slabs[sname] = dataclasses.replace(slab, full=full, cache=cache_state)
+        return CollectionState(slabs=slabs)
+
+    def prepare(
+        self, state: CollectionState, fb: FeatureBatch, writeback: bool = True
+    ) -> Tuple[CollectionState, Dict[str, torch.Tensor]]:
+        """Make every requested row resident; return per-feature slots."""
+        p = self.plan_prepare(state, fb, writeback=writeback)
+        return self.apply_plan(state, p), p.addresses
+
+    # ----- read path --------------------------------------------------------
+
+    def weights(self, state: CollectionState) -> Dict[str, torch.Tensor]:
+        """The fast-tier weights, keyed by slab."""
+        return {s: state.slabs[s].cache.cached_rows["weight"] for s in self.cached_slabs}
+
+    def gather(
+        self,
+        weights: Mapping[str, torch.Tensor],
+        addresses: Mapping[str, torch.Tensor],
+        fb: FeatureBatch,
+    ) -> Dict[str, torch.Tensor]:
+        """feature -> rows of shape ``ids.shape + (dim,)``; -1 lanes are zero."""
+        out = {}
+        for f in fb.features:
+            w = weights[self.table_slab[self.feature_to_table[f]][0]]
+            addr = addresses[f]
+            out[f] = take_fill(w, addr.reshape(-1), 0).reshape(addr.shape + (w.shape[-1],))
+        return out
+
+    def lookup(self, state: CollectionState, fb: FeatureBatch, writeback: bool = True):
+        """Convenience prepare+gather: (state', addresses, feature -> rows)."""
+        state, addresses = self.prepare(state, fb, writeback=writeback)
+        return state, addresses, self.gather(self.weights(state), addresses, fb)
+
+    def dense_reference(self, state: CollectionState, fb: FeatureBatch) -> Dict[str, torch.Tensor]:
+        """Rows read straight out of the host table through ``idx_map``: the
+        uncached oracle (exact for a read-only cache, or after a flush)."""
+        out = {}
+        for f in fb.features:
+            sname, off = self.table_slab[self.feature_to_table[f]]
+            slab = state.slabs[sname]
+            ids = fb.ids[f].reshape(-1)
+            raw = torch.where(ids >= 0, ids + off, -1)
+            rows = _translate(slab, raw).cpu()
+            full = slab.full.decode_rows(rows)["weight"]
+            out[f] = full.reshape(fb.ids[f].shape + (full.shape[-1],))
+        return out
+
+    # ----- telemetry ----------------------------------------------------------
+
+    def metrics(self, state: CollectionState, writeback: bool = True) -> Dict[str, object]:
+        """Cache telemetry over the cached slabs, as in the reference: int32
+        cumulative counters per slab (reconstructed exactly by the obs hub),
+        plus the float32 convenience scalars."""
+        hits = misses = evictions = overflows = 0
+        win_h = win_m = 0.0
+        ref_swaps = ref_rows = 0
+        wire = 0.0
+        per = {k: {} for k in (
+            "host_moved_rows", "host_row_bytes", "slab_hits", "slab_misses",
+            "slab_refresh_swaps", "slab_refresh_rows", "slab_tier_promotions",
+            "slab_tier_demotions")}
+        for sname in self.cached_slabs:
+            c = state.slabs[sname].cache
+            hits, misses = hits + c.hits, misses + c.misses
+            evictions, overflows = evictions + c.evictions, overflows + c.uniq_overflows
+            win_h, win_m = win_h + c.tracker.win_hits, win_m + c.tracker.win_misses
+            ref_swaps = ref_swaps + c.tracker.refresh_swaps
+            ref_rows = ref_rows + c.tracker.refresh_rows
+            per["slab_hits"][sname] = i32(c.hits)
+            per["slab_misses"][sname] = i32(c.misses)
+            per["slab_refresh_swaps"][sname] = i32(c.tracker.refresh_swaps)
+            per["slab_refresh_rows"][sname] = i32(c.tracker.refresh_rows)
+            per["slab_tier_promotions"][sname] = i32(c.tier_promotions)
+            per["slab_tier_demotions"][sname] = i32(c.tier_demotions)
+            row_bytes = state.slabs[sname].full.row_wire_bytes()
+            moved = c.misses + c.evictions if writeback else c.misses
+            per["host_moved_rows"][sname] = i32(moved)
+            per["host_row_bytes"][sname] = torch.tensor(
+                row_bytes, dtype=torch.int32, device=c.hits.device
+            )
+            wire = wire + moved.to(torch.float32) * row_bytes
+        tot = hits + misses
+        win_tot = win_h + win_m
+        return {
+            "hit_rate": torch.where(tot > 0, hits / torch.clamp(tot, min=1), 0.0),
+            "window_hit_rate": torch.where(
+                win_tot > 0, win_h / torch.clamp(win_tot, min=1e-9), 0.0
+            ),
+            "refresh_swaps": ref_swaps,
+            "refresh_rows_moved": ref_rows,
+            "cache_misses": misses,
+            "cache_evictions": evictions,
+            "uniq_overflows": overflows,
+            "host_wire_bytes": wire,
+            **per,
+        }

@@ -1,0 +1,135 @@
+"""The data transmitter (paper §4.3), row path (port of
+``repro.core.transmitter``).
+
+Rows move in rounds of at most ``buffer_rows`` through a staging block:
+pack (gather) on the source side, one copy across the link, scatter on the
+destination side.  Host to device, the pack fills a pinned staging block of
+the :class:`HostStore`, which crosses PCIe with a non-blocking copy and is
+scattered into the arena; device to host (``writeback=True``) runs the same
+rounds in reverse.
+
+Where the reference runs ``ceil(K / buffer_rows)`` rounds over all K lanes
+(static shapes), the port first brings the lane indices and the ``active``
+mask to the host (one device-to-host sync per move: the host has to know
+which rows to pack out of its table) and moves only the active lanes.  The
+result is the same, bit for bit; inactive lanes never cross the link.
+
+Unlike the functional reference, ``move_rows`` updates the destination tree
+in place (the host table is tens of GB) and returns it.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple, Union
+
+import torch
+
+from repro_torch.store.host_store import HostStore
+
+__all__ = ["move_rows", "gather_rows", "scatter_rows", "num_rounds"]
+
+Tree = Dict[str, torch.Tensor]
+
+
+def num_rounds(k: int, buffer_rows: int) -> int:
+    return -(-k // buffer_rows)
+
+
+def _mask_like(mask: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return mask.reshape(mask.shape + (1,) * (x.dim() - mask.dim()))
+
+
+def gather_rows(tree: Tree, idx: torch.Tensor, out: Optional[Tree] = None) -> Tree:
+    """Pack: rows ``idx`` of every leaf into a block (``out`` if given).
+    Negative / out-of-range lanes give zero rows (JAX ``mode="fill"``)."""
+    res = {}
+    for k, leaf in tree.items():
+        ok = (idx >= 0) & (idx < leaf.shape[0])
+        safe = torch.where(ok, idx, 0)
+        rows = torch.index_select(leaf, 0, safe, out=out[k]) if out else leaf.index_select(0, safe)
+        res[k] = rows.masked_fill_(_mask_like(~ok, rows), 0)
+    return res
+
+
+def scatter_rows(
+    tree: Tree, idx: torch.Tensor, block: Tree, active: Optional[torch.Tensor] = None
+) -> Tree:
+    """Unpack in place: ``tree[idx] = block`` on active, in-range lanes.
+
+    Dropped lanes are not filtered out (that would sync the host): each one
+    rewrites a copy of the first kept lane, index and row alike, so every
+    duplicate write carries the same bits.  With no kept lane they rewrite
+    row 0 with its own value.  Kept lanes must be unique."""
+    if idx.numel() == 0:
+        return tree
+    n = next(iter(tree.values())).shape[0]
+    keep = (idx >= 0) & (idx < n)
+    if active is not None:
+        keep = keep & active
+    j = torch.argmax(keep.to(torch.int32))  # first kept lane (0 if none)
+    has = keep.any()
+    dest = torch.where(keep, idx, torch.where(has, idx[j], 0)).to(torch.int64)
+    for k, leaf in tree.items():
+        blk = block[k]
+        fill = torch.where(has, blk[j], leaf[0])
+        leaf.index_copy_(0, dest, torch.where(_mask_like(keep, blk), blk, fill))
+    return tree
+
+
+def _active_lanes(
+    src_idx: torch.Tensor, dst_idx: torch.Tensor, active: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(src, dst) indices of the active lanes, on the host (one D2H copy)."""
+    lanes = torch.stack(
+        [src_idx.to(torch.int64), dst_idx.to(torch.int64), active.to(torch.int64)]
+    ).cpu()
+    sel = lanes[2] != 0
+    return lanes[0][sel], lanes[1][sel]
+
+
+def _leaves(tree: Union[HostStore, Tree]) -> Tree:
+    return tree.data if isinstance(tree, HostStore) else tree
+
+
+def move_rows(
+    src_tree: Union[HostStore, Tree],
+    dst_tree: Union[HostStore, Tree],
+    src_idx: torch.Tensor,
+    dst_idx: torch.Tensor,
+    active: torch.Tensor,
+    *,
+    buffer_rows: int,
+) -> Union[HostStore, Tree]:
+    """Move rows ``src_idx`` of ``src_tree`` to rows ``dst_idx`` of
+    ``dst_tree`` on the ``active`` lanes, in rounds of ``buffer_rows``.
+
+    Either side may be a :class:`HostStore`.  Source lanes out of range give
+    zero rows; destination lanes out of range are dropped.  Active
+    destination lanes must be unique.  Returns ``dst_tree``, updated in
+    place."""
+    src, dst = _leaves(src_tree), _leaves(dst_tree)
+    src_dev = next(iter(src.values())).device
+    dst_dev = next(iter(dst.values())).device
+    s_all, d_all = _active_lanes(src_idx, dst_idx, active)
+    step = max(1, min(buffer_rows, int(src_idx.shape[0])))
+    load = isinstance(src_tree, HostStore) and src_tree.pinned and dst_dev.type == "cuda"
+    save = isinstance(dst_tree, HostStore) and dst_tree.pinned and src_dev.type == "cuda"
+    ring = src_tree.staging(step) if load else dst_tree.staging(step) if save else None
+    for r in range(num_rounds(int(s_all.numel()), step)):
+        s = s_all[r * step : (r + 1) * step]
+        d = d_all[r * step : (r + 1) * step]
+        n = int(s.numel())
+        if load:  # pack into pinned staging, async H2D
+            i, stage = ring.acquire()
+            block = gather_rows(src, s, out={k: b[:n] for k, b in stage.items()})
+            block = {k: v.to(dst_dev, non_blocking=True) for k, v in block.items()}
+            ring.release_after_copy(i)
+        elif save:  # pack on the card, D2H into pinned staging
+            packed = gather_rows(src, s.to(src_dev))
+            _, stage = ring.acquire()
+            block = {k: stage[k][:n].copy_(v, non_blocking=True) for k, v in packed.items()}
+            torch.cuda.current_stream(src_dev).synchronize()  # block lands before the host scatter
+        else:
+            block = gather_rows(src, s.to(src_dev))
+            block = {k: v.to(dst_dev) for k, v in block.items()}
+        scatter_rows(dst, d.to(dst_dev), block)
+    return dst_tree

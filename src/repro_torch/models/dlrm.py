@@ -1,0 +1,117 @@
+"""DLRM (Naumov et al. 2019), the paper's evaluation model, served through
+the frequency-aware cache (port of the serving part of
+``repro.models.dlrm``).
+
+Paper §5.1 configuration: embedding dim 128 for every table, bottom MLP
+512-256-128 over 13 dense features, dot-product feature interaction, top MLP
+1024-1024-512-256-1.  Every sparse field is GROUPED into one shared cache
+arena (the paper's one-big-table layout).  The model computes in fp32;
+float32 matmuls run in full fp32 (``allow_tf32`` stays False).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import collection as col
+from repro_torch.core.policies import Policy
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.nn.layers import Dtypes, mlp, mlp_init
+
+__all__ = ["DLRMConfig", "DLRM"]
+
+
+@dataclasses.dataclass(frozen=True)
+class DLRMConfig:
+    vocab_sizes: Tuple[int, ...]  # 26 sparse features (Criteo)
+    n_dense: int = 13
+    embed_dim: int = 128
+    bottom_mlp: Tuple[int, ...] = (512, 256, 128)
+    top_mlp: Tuple[int, ...] = (1024, 1024, 512, 256)
+    batch_size: int = 16384
+    cache_ratio: float = 0.015
+    buffer_rows: int = 65536
+    max_unique_per_step: int = 0
+    policy: Optional[Policy] = None  # None -> FREQ_LFU
+    dtypes: Dtypes = Dtypes(param=torch.float32, compute=torch.float32)
+    use_pallas_plan: bool = False  # bounded top-K victim selection (the kernel)
+
+    @property
+    def n_sparse(self) -> int:
+        return len(self.vocab_sizes)
+
+
+class DLRM:
+    def __init__(self, cfg: DLRMConfig):
+        self.cfg = cfg
+        f = cfg.n_sparse + 1  # embeddings + bottom-MLP output
+        self.top_in = cfg.embed_dim + f * (f - 1) // 2
+        self.feature_names = tuple(f"f{i}" for i in range(cfg.n_sparse))
+        policy = cfg.policy or Policy.FREQ_LFU
+        tables = [
+            col.TableConfig(
+                name=n, vocab=v, dim=cfg.embed_dim, ids_per_step=cfg.batch_size,
+                dtype=cfg.dtypes.param,
+            )
+            for n, v in zip(self.feature_names, cfg.vocab_sizes)
+        ]
+        self.collection = col.EmbeddingCollection.create(
+            tables,
+            cache_ratio=cfg.cache_ratio,
+            policy=policy,
+            buffer_rows=cfg.buffer_rows,
+            max_unique_per_step=cfg.max_unique_per_step,
+            use_pallas_plan=cfg.use_pallas_plan,
+        )
+
+    # ----- params ----------------------------------------------------------
+    def init(
+        self, seed: int, counts: Optional[np.ndarray] = None, device: DeviceLike = None
+    ) -> Dict[str, Any]:
+        """Random weights from ``seed`` (the MLPs from ``seed``, the table
+        from ``seed + 1``) on ``device`` (the CUDA card unless told
+        otherwise; no silent CPU fallback)."""
+        cfg = self.cfg
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev).manual_seed(int(seed))
+        params = {
+            "bottom": mlp_init(gen, (cfg.n_dense,) + cfg.bottom_mlp, cfg.dtypes, dev),
+            "top": mlp_init(gen, (self.top_in,) + cfg.top_mlp + (1,), cfg.dtypes, dev),
+        }
+        by_table = None
+        if counts is not None:
+            by_table, off = {}, 0
+            for n, v in zip(self.feature_names, cfg.vocab_sizes):
+                by_table[n] = np.asarray(counts[off : off + v])
+                off += v
+        emb = self.collection.init(int(seed) + 1, counts=by_table, device=dev)
+        return {"params": params, "emb": emb, "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+    def features(self, batch) -> col.FeatureBatch:
+        return col.FeatureBatch.from_onehot(self.feature_names, batch["sparse"])
+
+    # ----- forward ----------------------------------------------------------
+    def interact(self, dense_vec: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+        """Dot-product interaction: pairwise dots of [dense_vec] + embeddings,
+        upper triangle in row-major order (as ``jnp.triu_indices(f, k=1)``)."""
+        z = torch.cat([dense_vec[:, None, :], emb], dim=1)  # [B, F+1, D]
+        zz = torch.bmm(z, z.transpose(1, 2))
+        f = z.shape[1]
+        iu, ju = torch.triu_indices(f, f, 1, device=z.device)
+        return zz[:, iu, ju]  # [B, F*(F-1)/2]
+
+    def fwd(self, params, rows: Dict[str, torch.Tensor], batch) -> torch.Tensor:
+        cfg = self.cfg
+        emb = torch.stack([rows[n] for n in self.feature_names], dim=1)  # [B, F, D]
+        dense_vec = mlp(params["bottom"], batch["dense"].to(cfg.dtypes.compute), cfg.dtypes,
+                        final_act=True)
+        x = torch.cat([dense_vec, self.interact(dense_vec, emb)], dim=-1)
+        return mlp(params["top"], x, cfg.dtypes)[:, 0]
+
+    def serve_step(self, state, batch):
+        """Inference: the cache read path without writeback."""
+        emb_state, _, rows = self.collection.lookup(state["emb"], self.features(batch), writeback=False)
+        return self.fwd(state["params"], rows, batch), emb_state

@@ -1,0 +1,4 @@
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (skips without one; run on the card with -m cuda)"
+    )

@@ -1,0 +1,122 @@
+"""repro_torch.kernels.cache_ops against repro.kernels.cache_ops, bitwise.
+
+* the port's plain ``victim_topk`` / ``dedup`` / ``compact_front`` /
+  ``plan_image`` against ``repro.kernels.cache_ops.ref`` on the same
+  numpy-seeded inputs, including the tie-heavy, sentinel and all-equal
+  cases;
+* the port's plain threshold against the Pallas kernel itself,
+  ``victim_threshold_pallas`` in interpret mode.
+
+The CUDA kernel is held against the plain threshold on the card by
+``test_torch_cuda.py``.
+"""
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from repro.kernels.cache_ops import kernel as jkernel
+from repro.kernels.cache_ops import ref as jref
+from repro_torch.kernels.cache_ops import kernel, ops, ref
+
+_BIG = (2**31 - 1) // 2
+INT_MAX = 2**31 - 1
+GEOMETRIES = ((5, 5), (257, 1), (257, 100), (399, 398))
+
+
+def _tie_heavy_keys(rng, c):
+    pool = np.concatenate([rng.integers(-4, 4, size=c), np.array([_BIG, -_BIG, -(_BIG // 2)])])
+    return rng.choice(pool, size=c).astype(np.int32)
+
+
+def test_victim_topk_matches_reference_under_ties():
+    # a few (capacity, kv) geometries, so JAX compiles each op only once
+    rng = np.random.default_rng(0)
+    for trial in range(24):
+        c, kv = GEOMETRIES[trial % len(GEOMETRIES)]
+        key = _tie_heavy_keys(rng, c)
+        want = np.asarray(jref.victim_topk(jnp.asarray(key), kv))
+        got = ref.victim_topk(torch.from_numpy(key), kv)
+        assert got.dtype == torch.int32
+        assert np.array_equal(want, got.numpy()), (trial, c, kv)
+        # the dispatching entry point takes the same plain route on the CPU
+        assert torch.equal(ops.victim_topk_impl(torch.from_numpy(key), kv), got)
+        # and both equal the full stable argsort they replace
+        order = torch.argsort(torch.from_numpy(key), descending=True, stable=True)[:kv]
+        assert torch.equal(order.to(torch.int32), got)
+
+
+def test_victim_topk_all_equal_keys():
+    key = torch.full((33,), 7, dtype=torch.int32)
+    assert torch.equal(ref.victim_topk(key, 33), torch.arange(33, dtype=torch.int32))
+
+
+def test_ordered_u32_matches_reference():
+    key = np.array([-(2**31), -1, 0, 1, 2**31 - 1, _BIG, -_BIG], np.int32)
+    want = np.asarray(jref.ordered_u32(jnp.asarray(key))).astype(np.int64)
+    assert np.array_equal(ref.ordered_u32(torch.from_numpy(key)).numpy(), want)
+
+
+def test_plain_threshold_matches_pallas_interpret():
+    rng = np.random.default_rng(7)
+    for trial in range(10):
+        c = int(rng.integers(8, 600))
+        kv = int(rng.integers(1, c + 1))
+        if trial % 2:
+            key = _tie_heavy_keys(rng, c)
+        else:
+            key = rng.integers(-1000, 1000, size=c).astype(np.int32)
+        u = jref.ordered_u32(jnp.asarray(key))
+        t_want, n_want = jkernel.victim_threshold_pallas(u, kv, tile_rows=64, interpret=True)
+        t, n_gt = kernel.victim_threshold_plain(torch.from_numpy(key), kv)
+        assert int(t) == int(np.asarray(t_want)), trial
+        assert int(n_gt) == int(np.asarray(n_want)), trial
+        assert t.dtype == torch.int64 and n_gt.dtype == torch.int32
+
+
+def test_threshold_wrapper_takes_plain_route_on_cpu():
+    key = torch.tensor([5, 1, 5, 3, 9, -2], dtype=torch.int32)
+    before = kernel.victim_threshold.launches
+    t, n_gt = kernel.victim_threshold(key, 3)
+    assert kernel.victim_threshold.launches == before  # no kernel launched
+    t_p, n_p = kernel.victim_threshold_plain(key, 3)
+    assert int(t) == int(t_p) == 5 + 2**31 and int(n_gt) == int(n_p) == 1
+
+
+def test_dedup_matches_reference_and_true_count():
+    rng = np.random.default_rng(1)
+    for trial in range(18):
+        n, k = GEOMETRIES[trial % len(GEOMETRIES)]
+        rows = rng.integers(0, 40, size=n).astype(np.int32)
+        rows[rng.random(n) < 0.3] = INT_MAX  # sentinel padding lanes
+        want_u, want_n = jref.dedup(jnp.asarray(rows), k, INT_MAX)
+        got_u, got_n = ref.dedup(torch.from_numpy(rows), k, INT_MAX)
+        assert np.array_equal(np.asarray(want_u), got_u.numpy()), trial
+        assert got_u.dtype == torch.int32 and got_n.dtype == torch.int32
+        assert int(want_n) == int(got_n), trial
+
+
+def test_compact_front_matches_reference():
+    rng = np.random.default_rng(2)
+    for trial in range(18):
+        n, out_len = GEOMETRIES[trial % len(GEOMETRIES)]
+        mask = rng.random(n) < 0.5
+        vals = rng.integers(0, 100, size=n).astype(np.int32)
+        want = jref.compact_front(jnp.asarray(mask), jnp.asarray(vals), out_len)
+        got = ref.compact_front(torch.from_numpy(mask), torch.from_numpy(vals), out_len)
+        assert np.array_equal(np.asarray(want), got.numpy()), trial
+
+
+def test_plan_image_matches_reference():
+    rng = np.random.default_rng(3)
+    for trial in range(12):
+        vocab = int(rng.integers(8, 200))
+        n, k = GEOMETRIES[trial % len(GEOMETRIES)]
+        rows = rng.integers(-1, vocab, size=n).astype(np.int32)
+        rows = np.where(rows >= 0, rows, INT_MAX).astype(np.int32)
+        r2s = np.where(rng.random(vocab) < 0.4, rng.integers(0, 64, size=vocab), -1).astype(np.int32)
+        want = jref.plan_image(jnp.asarray(rows), jnp.asarray(r2s), k)
+        got = ops.plan_image_impl(torch.from_numpy(rows), torch.from_numpy(r2s), k)
+        for f in ("uniq", "uniq_sorted", "uniq_valid", "uniq_slots", "miss", "miss_rows",
+                  "n_miss", "n_distinct"):
+            w, g = np.asarray(getattr(want, f)), getattr(got, f).numpy()
+            assert w.dtype == g.dtype and np.array_equal(w, g), (trial, f)

@@ -1,0 +1,48 @@
+"""The port stands alone: importing every module of ``repro_torch`` loads
+neither JAX nor the JAX package, and its entry points never fall back to
+the CPU when no card is present."""
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models.dlrm import DLRM, DLRMConfig
+
+SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
+
+
+def test_port_imports_no_jax_and_no_reference_package():
+    code = textwrap.dedent(
+        """
+        import importlib, pkgutil, sys
+        import repro_torch
+        names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith("jax.") or m == "repro" or m.startswith("repro."))
+        assert not bad, bad
+        assert len(names) > 20, names
+        print(len(names))
+        """
+    )
+    env = dict(os.environ, PYTHONPATH=SRC)
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_no_silent_cpu_fallback_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid here")
+    cfg = DLRMConfig(vocab_sizes=(16, 8), embed_dim=8, batch_size=4, cache_ratio=0.5,
+                     bottom_mlp=(8,), top_mlp=(8,))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DLRM(cfg).init(0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device(None)
+    assert resolve_device("cpu") == torch.device("cpu")
