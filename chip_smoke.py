@@ -1,28 +1,42 @@
 """Smoke run of the PyTorch port on one CUDA card (an NVIDIA H100).
 
-    python3 chip_smoke.py [--vocab-scale 1.0] [--batches 8]
+    python3 chip_smoke.py [--vocab-scale 1.0] [--batches 8] [--train-steps 8]
 
 Phases (any failure exits non-zero, with no result line):
 
 1. the card: ``nvidia-smi`` name and power limit; exits when CUDA is absent.
-2. build: every CUDA source of the serving path, from this checkout, one
-   ``nvcc`` per source, all started together.
-3. kernels: each kernel held against its plain PyTorch version on the card
-   (bitwise), on >= 20 seeded tie-heavy trials with the planner's sentinel
-   keys and at the main path's shape (capacity 506 438, kv 425 984).
+2. build: every CUDA source of the serving and training paths, from this
+   checkout, in one ``build_all`` call (one ``nvcc`` per source, all started
+   together).
+3. kernels, each held bitwise against its plain PyTorch version on the card:
+   the victim threshold on >= 20 seeded tie-heavy trials with the planner's
+   sentinel keys and at the main path's shape (capacity 506 438, kv
+   425 984); the tiered-arena gather-decode on 24 seeded fp16 / int8 cases
+   (D 8, 16, 36, 128; slots at -1, H-1, H, H+T-1, H+T and far out of range)
+   and at the paper shape (H 126 610, T 379 828, D 128, K 65 536).
 4. serve: the paper's DLRM (``configs/dlrm_criteo.CONFIG``: 26 fields, dim
    128, MLPs 512-256-128 / 1024-1024-512-256-1, batch 16384) with
    ``use_pallas_plan=True``: a 33 762 577-row fp32 host table pinned in host
    memory, a 506 438-row arena on the card, cache warm-up, then
    ``ServeEngine.score`` on ``--batches`` Zipf batches.  Checks finite
-   scores, no unique-buffer overflow, one kernel launch per plan, and the
+   scores, no unique-buffer overflow, one threshold launch per plan, and the
    cache invariant: logits from cached rows equal logits from rows read
    straight out of the host table.  Then one more plan's eviction key is
-   captured and the kernel held against its plain version on it.
-5. timing, on that captured key: the kernel, its plain version and
-   ``torch.topk`` by CUDA events over back-to-back calls, their summed
-   device time per call from ``torch.profiler``, and the kernel wrapper's
-   host enqueue time.
+   captured and the kernel held against its plain version on it.  The host
+   table is unpinned and freed before the next phase.
+5. train: the same DLRM with ``arena_precision="int8"`` (126 610 fp32 head
+   slots, 379 828 int8 tail slots): init + warm-up, then ``--train-steps``
+   ``DLRM.train_step`` calls on batches of 16384 with writeback on, then
+   ``DLRM.flush``.  Checks finite losses, no overflow, one threshold launch
+   per plan, one gather-decode launch per writeback round the plans implied
+   plus one per flush round, the kernel bitwise = plain on the arguments of
+   one live writeback, and, after the flush, rows gathered from the
+   torch-decoded arena equal the host table's rows (written by the kernel)
+   bitwise.  Then a synced stage breakdown and a profiled step.
+6. timing: each kernel, its plain version (and ``torch.topk`` beside the
+   threshold) by CUDA events over back-to-back calls, their summed device
+   time per call from ``torch.profiler``, and the wrapper's host enqueue
+   time, on the live inputs of the main paths.
 
 The last three lines are the ``kernels`` JSON, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  ``--vocab-scale`` < 1 cuts
@@ -32,6 +46,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -70,6 +85,13 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / iters
+
+
+def rss_gb() -> float:
+    """This process's resident host memory, GB."""
+    with open("/proc/self/status") as f:
+        kb = next(int(line.split()[1]) for line in f if line.startswith("VmRSS:"))
+    return kb * 1024 / 1e9
 
 
 def sync_ms(fn):
@@ -192,7 +214,7 @@ def host_ms(fn, iters: int = 10) -> float:
     return 1e3 * (t1 - t0) / iters
 
 
-def time_threshold(key, kv, max_err, launches):
+def time_threshold(key, kv, max_err, launches_by_path):
     """Times the kernel, its plain version and torch.topk on one key vector
     of the main path: back-to-back CUDA-event time (what a caller pays on the
     stream), summed device time per call, and the kernel wrapper's host
@@ -221,7 +243,8 @@ def time_threshold(key, kv, max_err, launches):
         "route": "cuda",
         "source": "src/repro_torch/kernels/cache_ops/csrc/victim_threshold.cu",
         "replaces": "src/repro/kernels/cache_ops/kernel.py:79",
-        "launches": launches,
+        "launches": sum(launches_by_path.values()),
+        "launches_by_path": launches_by_path,
         "max_abs_err": max_err,
         "ms": ev["kernel"],
         "plain_ms": ev["plain"],
@@ -241,18 +264,12 @@ def time_threshold(key, kv, max_err, launches):
 
 
 def serve_phase(dev, vocab_scale, n_batches):
-    from repro_torch.configs.dlrm_criteo import CONFIG
     from repro_torch.data import synth
     from repro_torch.kernels.cache_ops import kernel
     from repro_torch.models.dlrm import DLRM
     from repro_torch.serve.engine import ServeEngine
 
-    vocabs = CONFIG.vocab_sizes
-    if vocab_scale != 1.0:
-        vocabs = tuple(max(1, int(v * vocab_scale)) for v in vocabs)
-        log(f"CUT: vocabularies scaled by {vocab_scale} (total {sum(vocabs)} rows, "
-            f"full {sum(CONFIG.vocab_sizes)}); dim, widths, fields and batch unchanged")
-    cfg = dataclasses.replace(CONFIG, vocab_sizes=vocabs, use_pallas_plan=True)
+    cfg = _scaled(vocab_scale)
     model = DLRM(cfg)
     spec = model.collection.cached_slabs["__shared__"]
     t0 = time.perf_counter()
@@ -358,14 +375,302 @@ def serve_phase(dev, vocab_scale, n_batches):
         f"argsort; protected {int((key == -_BIG).sum())}, empty {int((key == _BIG).sum())}, "
         f"distinct {int(torch.unique(key).numel())}")
 
-    profile(engine, batches[n_batches + 4])
+    spans = set(engine.tracer.stage_summary())
+    profile_call("one score call", lambda: engine.score(batches[n_batches + 4]), skip=spans)
     slab.full.close()
     return launches, key, kv, err
 
 
-def profile(engine, batch):
-    """Device time by kernel over one scored batch (torch.profiler); a
-    machine where the profiler cannot trace the card reports it as not measured."""
+# ---------------------------------------------------------------------------
+# phase 3b: tiered-arena gather-decode vs its plain version
+# ---------------------------------------------------------------------------
+
+PAPER_H, PAPER_T, PAPER_K = 126_610, 379_828, 65_536  # head / tail of 506 438 slots
+
+
+def _gd_inputs(rng, dev, codec, h, t, d, k):
+    """Head, encoded tail (+ sideband), and slots with every edge lane."""
+    from repro_torch.store.codec import get_codec
+
+    head = torch.randn((h, d), generator=rng, device=dev)
+    rows = torch.randn((t, d), generator=rng, device=dev) * 3
+    payload, side = get_codec(codec).encode(rows)
+    edges = torch.tensor([-1, h - 1, h, h + t - 1, h + t, 2**31 - 1, -(2**31), h + t + 1000],
+                         dtype=torch.int32, device=dev)
+    rand = torch.randint(-2, h + t + 2, (k - edges.numel(),), generator=rng, device=dev,
+                         dtype=torch.int32)
+    return head, payload.contiguous(), side, torch.cat([edges, rand])
+
+
+def check_gather_decode(args, codec, what):
+    """The kernel against its plain version on one input, bitwise; returns
+    max_abs_err."""
+    from repro_torch.kernels.cache_ops import kernel
+
+    got = kernel.gather_decode(*args, codec)
+    want = kernel.gather_decode_plain(*args, codec)
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    if not torch.equal(got, want):
+        raise AssertionError(f"gather_decode {what}: kernel != plain (max |diff| {err})")
+    return err
+
+
+def gather_decode_phase(dev):
+    rng = torch.Generator(device=dev).manual_seed(0)
+    sizes = np.random.default_rng(0)
+    cases = 0
+    max_err = 0.0
+    for codec in ("fp16", "int8"):
+        for d in (8, 16, 36, 128):
+            for _ in range(3):
+                h, t, k = (int(x) for x in sizes.integers(1, 5000, size=3))
+                args = _gd_inputs(rng, dev, codec, h, t, d, k + 8)
+                max_err = max(max_err, check_gather_decode(args, codec, f"{codec} D={d}"))
+                cases += 1
+        args = _gd_inputs(rng, dev, codec, PAPER_H, PAPER_T, 128, PAPER_K)
+        max_err = max(max_err, check_gather_decode(args, codec, f"{codec} paper shape"))
+        cases += 1
+    log(f"gather_decode phase: {cases} cases bitwise equal (max_abs_err {max_err}), incl. the "
+        f"paper shape H={PAPER_H} T={PAPER_T} D=128 K={PAPER_K} for fp16 and int8")
+    return max_err
+
+
+# ---------------------------------------------------------------------------
+# phase 5: train the paper's DLRM through an int8-tiered arena
+# ---------------------------------------------------------------------------
+
+
+def _scaled(vocab_scale):
+    from repro_torch.configs.dlrm_criteo import CONFIG
+
+    vocabs = CONFIG.vocab_sizes
+    if vocab_scale != 1.0:
+        vocabs = tuple(max(1, int(v * vocab_scale)) for v in vocabs)
+        log(f"CUT: vocabularies scaled by {vocab_scale} (total {sum(vocabs)} rows, "
+            f"full {sum(CONFIG.vocab_sizes)}); dim, widths, fields and batch unchanged")
+    return dataclasses.replace(CONFIG, vocab_sizes=vocabs, use_pallas_plan=True)
+
+
+def train_phase(dev, vocab_scale, n_steps):
+    from repro_torch.core.collection import SHARED_ARENA
+    from repro_torch.data import synth
+    from repro_torch.kernels.cache_ops import kernel, ops
+    from repro_torch.models.dlrm import DLRM
+    from repro_torch.obs.hub import fetch_ints
+
+    cfg = dataclasses.replace(_scaled(vocab_scale), arena_precision="int8")
+    model = DLRM(cfg)
+    coll = model.collection
+    spec = coll.cached_slabs[SHARED_ARENA]
+    t0 = time.perf_counter()
+    state = model.init(0, device=dev)
+    torch.cuda.synchronize()
+    slab = state["emb"].slabs[SHARED_ARENA]
+    arena = slab.cache.cached_rows
+    log(f"train init+warmup {time.perf_counter() - t0} s: host table {spec.vocab} x {spec.dim} "
+        f"fp32 = {slab.full.host_bytes() / 1e9} GB pinned={slab.full.pinned}; int8 arena "
+        f"{arena.capacity} slots = {arena.head_capacity} fp32 head + "
+        f"{arena.capacity - arena.head_capacity} int8 tail: device_bytes {arena.device_bytes()} "
+        f"vs fp32_equiv_bytes {arena.fp32_equiv_bytes()} "
+        f"({arena.fp32_equiv_bytes() / arena.device_bytes()}x); collection device_bytes "
+        f"{json.dumps(coll.device_bytes())}; host RSS {rss_gb()} GB")
+
+    bspec = synth.ZipfSparseSpec(vocab_sizes=cfg.vocab_sizes, n_dense=cfg.n_dense)
+    # warm-up, measured, breakdown (3), profiled
+    batches = [synth.sparse_batch(bspec, cfg.batch_size, 1, i) for i in range(n_steps + 5)]
+
+    def dev_batch(i):
+        return {k: torch.from_numpy(v).to(dev) for k, v in batches[i].items()}
+
+    state, m = model.train_step(state, dev_batch(n_steps + 4))  # allocator, cuBLAS, autograd
+    float(m["loss"])
+    counters = ("cache_evictions", "cache_misses", "uniq_overflows", "slab_hits",
+                "slab_tier_promotions", "slab_tier_demotions", "host_moved_rows")
+    prev = fetch_ints({k: m[k] for k in counters})
+
+    captured = []
+    impl = ops.arena_gather_impl
+
+    def capture(head, tail, sideband, slots, codec):  # the first writeback's arguments
+        if not captured:
+            captured.append(tuple(None if x is None else x.clone()
+                                  for x in (head, tail, sideband, slots)))
+        return impl(head, tail, sideband, slots, codec)
+
+    # --- the main path: counts at 0, n_steps train steps + flush, counts read
+    ops.arena_gather_impl = capture
+    kernel.victim_threshold.launches = 0
+    kernel.gather_decode.launches = 0
+    try:
+        step_ms, losses, per_step = [], [], []
+        for i in range(n_steps):
+            b = dev_batch(i)
+            t0 = time.perf_counter()
+            state, m = model.train_step(state, b)
+            losses.append(float(m["loss"]))  # the step's one sync
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            cur = fetch_ints({k: m[k] for k in counters})
+            per_step.append({k: (cur[k] - prev[k]) if not isinstance(cur[k], dict) else
+                             sum(cur[k].values()) - sum(prev[k].values()) for k in counters})
+            per_step[-1]["hit_rate"] = float(m["hit_rate"])
+            prev = cur
+        ops.arena_gather_impl = impl  # the flush's gathers are not captured
+        resident = int((state["emb"].slabs[SHARED_ARENA].cache.slot_to_row >= 0).sum())
+        t0 = time.perf_counter()
+        state = model.flush(state)
+        torch.cuda.synchronize()
+        flush_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        ops.arena_gather_impl = impl
+    thr_launches = kernel.victim_threshold.launches
+    gd_launches = kernel.gather_decode.launches
+
+    rows_per_round = min(spec.cache_config().buffer_rows,
+                         min(spec.unique_size(cfg.batch_size * cfg.n_sparse), spec.capacity))
+    wb_rounds = sum(-(-p["cache_evictions"] // rows_per_round) for p in per_step)
+    flush_rounds = -(-resident // min(spec.cache_config().buffer_rows, spec.capacity))
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if any(p["uniq_overflows"] for p in per_step):
+        raise AssertionError(f"unique-buffer overflow: {per_step}")
+    if thr_launches != n_steps:
+        raise AssertionError(f"victim_threshold launched {thr_launches} times for {n_steps} plans")
+    if gd_launches != wb_rounds + flush_rounds or not gd_launches:
+        raise AssertionError(f"gather_decode launched {gd_launches} times; the plans imply "
+                             f"{wb_rounds} writeback rounds + {flush_rounds} flush rounds")
+    if not captured:
+        raise AssertionError("no live writeback went through arena_gather_impl")
+    live_err = check_gather_decode(captured[0], "int8", "live writeback")
+    wb_slots = captured[0][3]
+    log(f"train: {n_steps} steps of {cfg.batch_size}; losses {losses}; step ms {step_ms}; "
+        f"p50 {np.percentile(step_ms, 50)} ms, p99 {np.percentile(step_ms, 99)} ms "
+        f"(numpy percentiles of {n_steps} samples); flush {flush_ms} ms")
+    log(f"train per step (evictions, misses, hits, tier promotions / demotions, host rows "
+        f"moved, hit rate): {json.dumps(per_step)}")
+    moved = sum(p["host_moved_rows"] for p in per_step)
+    log(f"train totals: host wire bytes {moved * slab.full.row_wire_bytes()} "
+        f"({moved} rows x {slab.full.row_wire_bytes()} B), threshold launches {thr_launches} "
+        f"(1 per plan), gather_decode launches {gd_launches} = {wb_rounds} writeback rounds "
+        f"+ {flush_rounds} flush rounds of <= {rows_per_round} lanes; live writeback "
+        f"[{wb_slots.numel()} lanes, {int((wb_slots < arena.head_capacity).sum())} head] "
+        f"kernel bitwise = plain; host RSS {rss_gb()} GB")
+
+    # --- after the flush: torch-decoded arena rows == host rows the kernel wrote
+    b = dev_batch(n_steps - 1)
+    fb = model.features(b)
+    plan = coll.plan_prepare(state["emb"], fb)  # pure: the resident slots of the batch
+    rows = coll.gather(coll.weights(state["emb"]), plan.addresses, fb)
+    ref_rows = coll.dense_reference(state["emb"], fb)
+    bad = [f for f in fb.features if not torch.equal(rows[f].cpu(), ref_rows[f])]
+    if bad:
+        f = bad[0]
+        diff = float((rows[f].cpu() - ref_rows[f]).abs().max())
+        raise AssertionError(f"post-flush gather != dense_reference on {len(bad)} features, "
+                             f"e.g. {f}: max |diff| {diff}")
+    log(f"post-flush: gather(weights) == dense_reference bitwise on all {len(fb.features)} "
+        f"features of the last trained batch ({cfg.batch_size} rows each)")
+
+    # --- stage by stage with syncs, three steps: where the time goes --------
+    grads_ms = []
+    apply_grads = coll.apply_grads
+
+    def timed_apply_grads(*a, **k):
+        out, ms = sync_ms(lambda: apply_grads(*a, **k))
+        grads_ms.append(ms)
+        return out
+
+    coll.apply_grads = timed_apply_grads
+    try:
+        for i in range(n_steps, n_steps + 3):
+            b = dev_batch(i)
+            plan, t_plan = sync_ms(lambda: model.plan_step(state, b))
+            state, t_apply = sync_ms(lambda: model.apply_step(state, plan))
+            (state, m), t_compute = sync_ms(lambda: model.compute_step(state, b, plan.addresses))
+            log(f"train breakdown ms (synced, step {i}): plan_prepare {t_plan}, apply_plan "
+                f"(writeback + load) {t_apply}, fwd+bwd+dense SGD {t_compute - grads_ms[-1]}, "
+                f"apply_grads (decode, SGD, re-encode) {grads_ms[-1]}")
+    finally:
+        del coll.apply_grads
+    b = dev_batch(n_steps + 3)
+    profile_call("one train step", lambda: model.train_step(state, b))
+    return {"launches": gd_launches, "thr_launches": thr_launches, "captured": captured[0],
+            "live_err": live_err, "arena": state["emb"].slabs[SHARED_ARENA].cache.cached_rows,
+            "full": slab.full}
+
+
+def _gd_bytes(head, tail, side, slots):
+    """Bytes the gather-decode must move for these slots: each slot read,
+    each lane's head row or tail payload (+ sideband) read, each output row
+    written (out-of-range lanes read no row)."""
+    h, d = head.shape
+    t = tail.shape[0]
+    n_head = int(((slots >= 0) & (slots < h)).sum())
+    n_tail = int(((slots >= h) & (slots < h + t)).sum())
+    tail_row = d * tail.element_size() + (0 if side is None else 2 * side.element_size())
+    k = slots.numel()
+    return k * 4 + n_head * d * head.element_size() + n_tail * tail_row + k * d * 4
+
+
+def time_gather_decode(live, arena, max_err, launches):
+    """Times the kernel and its plain version by CUDA events and profiler
+    device time, and the wrapper's host enqueue, on the live writeback's
+    arguments (the main path's call), on one all-tail flush-size round and on
+    a whole-arena gather of the trained arena."""
+    from repro_torch.kernels.cache_ops import kernel
+
+    h = arena.head_capacity
+    t = arena.capacity - h
+    args = (arena.head["weight"], arena.tail["weight"], arena.sideband["weight"])
+    dev = args[0].device
+    g = torch.Generator(device=dev).manual_seed(1)
+    k = min(PAPER_K, t)
+    tail_round = h + torch.randperm(t, generator=g, device=dev)[:k].to(torch.int32)
+    whole = torch.arange(arena.capacity, dtype=torch.int32, device=dev)
+    out = {}
+    for what, inp in (("live writeback", live),
+                      ("all-tail round", args + (tail_round,)),
+                      ("whole arena", args + (whole,))):
+        check_gather_decode(inp, "int8", what)
+        calls = {"kernel": lambda inp=inp: kernel.gather_decode(*inp, "int8"),
+                 "plain": lambda inp=inp: kernel.gather_decode_plain(*inp, "int8")}
+        ev = {n: cuda_ms(fn) for n, fn in calls.items()}
+        dv = {n: device_ms(fn)[0] for n, fn in calls.items()}
+        n_bytes = _gd_bytes(*inp)
+        r = {"lanes": inp[3].numel(), "ms": ev["kernel"], "plain_ms": ev["plain"],
+             "device_ms": dv["kernel"], "plain_device_ms": dv["plain"],
+             "host_enqueue_ms": host_ms(calls["kernel"]), "bytes": n_bytes,
+             "bound_ms": 1e3 * n_bytes / HBM_BYTES_PER_S}
+        out[what] = r
+        log(f"gather_decode on the {what} [{r['lanes']} lanes]: event-timed ms kernel "
+            f"{r['ms']}, plain {r['plain_ms']}; device ms kernel {r['device_ms']}, plain "
+            f"{r['plain_device_ms']}; host enqueue {r['host_enqueue_ms']} ms; bound "
+            f"{r['bound_ms']} ms ({n_bytes} B at {HBM_BYTES_PER_S / 1e12} TB/s)")
+    live_r = out["live writeback"]
+    return {
+        "name": "gather_decode",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/cache_ops/csrc/gather_decode.cu",
+        "replaces": "src/repro/kernels/cache_ops/kernel.py:178",
+        "launches": launches,
+        "max_abs_err": max_err,
+        "ms": live_r["ms"],
+        "plain_ms": live_r["plain_ms"],
+        "bound_ms": live_r["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,  # no single PyTorch call gathers and decodes a tiered arena
+        "device_ms": live_r["device_ms"],
+        "plain_device_ms": live_r["plain_device_ms"],
+        "host_enqueue_ms": live_r["host_enqueue_ms"],
+        "lanes": live_r["lanes"],
+        "all_tail_round": out["all-tail round"],
+        "whole_arena": out["whole arena"],
+    }
+
+
+def profile_call(what, fn, skip=()):
+    """Device time by kernel over one call of ``fn`` (torch.profiler); a
+    machine where the profiler cannot trace the card reports it as not
+    measured.  ``skip`` names span annotations to leave out."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
@@ -373,33 +678,37 @@ def profile(engine, batch):
     try:
         with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            engine.score(batch)
+            out = fn()
+            torch.cuda.synchronize()
             wall = 1e3 * (time.perf_counter() - t0)
     except RuntimeError as e:
         log(f"profiler: not measured ({e})")
-        return
+        return None
+
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
     # device-side events only (kernels and copies): CPU ops would count their
-    # kernels twice, and the engine's span annotations cover whole calls
-    spans = set(engine.tracer.stage_summary())
+    # kernels twice, and span annotations cover whole calls
     events = prof.key_averages()
-    rows = sorted((e for e in events if e.device_type == DeviceType.CUDA and e.key not in spans),
+    rows = sorted((e for e in events if e.device_type == DeviceType.CUDA and e.key not in skip),
                   key=lambda e: -dev_us(e))
     busy = sum(dev_us(e) for e in rows) / 1e3
-    top = [(e.key[:60], e.count, dev_us(e) / 1e3) for e in rows[:10]]
-    host = sorted((e for e in events if e.device_type == DeviceType.CPU and e.key not in spans),
+    top = [(e.key[:60], e.count, dev_us(e) / 1e3) for e in rows[:12]]
+    host = sorted((e for e in events if e.device_type == DeviceType.CPU and e.key not in skip),
                   key=lambda e: -e.self_cpu_time_total)
     top_host = [(e.key[:40], e.count, e.self_cpu_time_total / 1e3) for e in host[:10]]
-    log(f"profiler: one score call {wall} ms wall, device busy {busy} ms (sum of kernel and "
-        f"copy times; idle share {1 - busy / wall}); top device (name, calls, ms): {top}; "
+    log(f"profiler: {what} {wall} ms wall, device busy {busy} ms (sum of kernel and copy "
+        f"times; idle share {1 - busy / wall}); top device (name, calls, ms): {top}; "
         f"top host ops by self time (name, calls, ms): {top_host}")
+    return out
+
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--vocab-scale", type=float, default=1.0)
     ap.add_argument("--batches", type=int, default=8)
+    ap.add_argument("--train-steps", type=int, default=8)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device available")
@@ -414,7 +723,7 @@ def main():
     dev = torch.device("cuda")
 
     t0 = time.perf_counter()
-    reports = build.build_all([kernel.SOURCE])
+    reports = build.build_all([kernel.SOURCE, kernel.GATHER_DECODE_SOURCE])
     log(f"build {time.perf_counter() - t0} s: " + " | ".join(
         f"{src.name}: {' '.join(r.split())}" for src, r in reports.items()))
 
@@ -423,14 +732,23 @@ def main():
 
     spec = DLRM(CONFIG).collection.cached_slabs["__shared__"]  # the main path's geometry
     max_err = kernel_phase(dev, spec.capacity, spec.unique_size(), spec.vocab)
-    launches, key, kv, err = serve_phase(dev, args.vocab_scale, args.batches)
-    entry = time_threshold(key, kv, max(max_err, err), launches)
+    gd_err = gather_decode_phase(dev)
+    log(f"host RSS before serve {rss_gb()} GB")
+    serve_launches, key, kv, err = serve_phase(dev, args.vocab_scale, args.batches)
+    gc.collect()
+    log(f"host RSS after serve (table unpinned and freed) {rss_gb()} GB")
+    train = train_phase(dev, args.vocab_scale, args.train_steps)
+    thr = time_threshold(key, kv, max(max_err, err),
+                         {"serve": serve_launches, "train": train["thr_launches"]})
+    gd = time_gather_decode(train["captured"], train["arena"], max(gd_err, train["live_err"]),
+                            train["launches"])
+    train["full"].close()
 
-    log(json.dumps({"kernels": [entry]}))
+    log(json.dumps({"kernels": [thr, gd]}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
-                                           "count": torch.cuda.device_count()}}))
+                                           "count": 1}}))
 
 
 if __name__ == "__main__":

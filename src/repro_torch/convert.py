@@ -1,4 +1,4 @@
-"""Carry a DLRM serve state between the JAX package and the port.
+"""Carry a DLRM state (serve or train) between the JAX package and the port.
 
 The JAX side is given as nested dicts of numpy arrays under the JAX field
 names (a dataclass becomes a dict of its fields), e.g.::
@@ -9,12 +9,18 @@ names (a dataclass becomes a dict of its fields), e.g.::
          "cache": {"cached_rows": {"weight": ...}, "slot_to_row": ..., ...,
                    "tracker": {"score": ..., ...}},
          "idx_map": ...}}},
+     "opt": (),
      "step": ...}
 
+where a tiered arena's ``cached_rows`` is an ``ArenaStore`` dict
+``{"head": {...}, "tail": {...}, "sideband": {...}, "raw": {...},
+"codec": "int8", "out_dtype": "float32"}``.
+
 :func:`dlrm_state_from_numpy` builds the port's state from that (params,
-the ``HostStore`` weight, every ``CacheState`` field, the ``FreqTracker``
-and ``idx_map``); :func:`to_numpy` turns a port state back into the same
-layout so the two can be compared leaf by leaf.
+the optimizer state — empty for SGD without momentum — the ``HostStore``
+weight, every ``CacheState`` field with its fp32 dict or ``ArenaStore``
+arena, the ``FreqTracker`` and ``idx_map``); :func:`to_numpy` turns a port
+state back into the same layout so the two can be compared leaf by leaf.
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ from repro_torch.core.cache import CacheState
 from repro_torch.core.collection import CachedSlab, CollectionState
 from repro_torch.core.freq import FreqTracker
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.store.arena import ArenaStore
 from repro_torch.store.host_store import HostStore
 
 __all__ = ["dlrm_state_from_numpy", "to_numpy"]
@@ -41,12 +48,22 @@ def _tree(d: Mapping[str, Any], device: torch.device) -> Dict[str, Any]:
     return {k: _tree(v, device) if isinstance(v, Mapping) else _t(v, device) for k, v in d.items()}
 
 
+def _arena(d: Mapping[str, Any], device: torch.device):
+    """An fp32 arena dict, or an ``ArenaStore`` from its field dict."""
+    if "codec" not in d:
+        return _tree(d, device)
+    return ArenaStore(
+        **{k: _tree(d[k], device) for k in ("head", "tail", "sideband", "raw")},
+        codec=d["codec"], out_dtype=d["out_dtype"],
+    )
+
+
 def _cache_state(d: Mapping[str, Any], device: torch.device) -> CacheState:
     fields = {f.name for f in dataclasses.fields(CacheState)} - {"cached_rows", "tracker"}
     tracker = FreqTracker(**{f.name: _t(d["tracker"][f.name], device)
                              for f in dataclasses.fields(FreqTracker)})
     return CacheState(
-        cached_rows=_tree(d["cached_rows"], device),
+        cached_rows=_arena(d["cached_rows"], device),
         tracker=tracker,
         **{f: _t(d[f], device) for f in fields},
     )
@@ -60,7 +77,8 @@ def _host_store(d: Mapping[str, Any], pin: bool) -> HostStore:
 
 
 def dlrm_state_from_numpy(tree: Mapping[str, Any], device: DeviceLike = None) -> Dict[str, Any]:
-    """The port's DLRM serve state from the JAX state's numpy tree."""
+    """The port's DLRM state from the JAX state's numpy tree (a serve
+    state has no ``opt``; SGD without momentum has an empty one)."""
     dev = resolve_device(device)
     slabs = {
         name: CachedSlab(
@@ -70,11 +88,15 @@ def dlrm_state_from_numpy(tree: Mapping[str, Any], device: DeviceLike = None) ->
         )
         for name, s in tree["emb"]["slabs"].items()
     }
-    return {
+    state = {
         "params": _tree(tree["params"], dev),
         "emb": CollectionState(slabs=slabs),
         "step": _t(tree["step"], dev),
     }
+    if "opt" in tree:
+        opt = tree["opt"]
+        state["opt"] = _tree(opt, dev) if isinstance(opt, Mapping) else ()
+    return state
 
 
 def to_numpy(obj: Any) -> Any:

@@ -2,7 +2,9 @@
 
 State layout (device tensors, as in the reference):
 
-  cached_rows   dict; each leaf [capacity, ...]   the cached-weight arena
+  cached_rows   the cached-weight arena: a dict of [capacity, ...] leaves
+                (fp32), or a frequency-tiered ``ArenaStore`` (fp32 head +
+                fp16 / int8 tail) when ``arena_precision`` is fp16 / int8
   slot_to_row   int32 [capacity]   freq-ranked row held by each slot (-1 = empty)
   row_to_slot   int32 [vocab]      inverse map (-1 = not cached)
   last_used / use_count  int32 [capacity]  only read by non-paper policies
@@ -13,13 +15,13 @@ the state untouched.  ``apply_plan`` moves rows through the transmitter,
 which updates the arena (and, with writeback, the host table) IN PLACE: the
 state passed to it must not be used again.
 
-Not in this slice: lookahead (``future_rows``), tiered arenas
-(``arena_precision != "fp32"``), chunked staging, and ``flush`` (training).
+Not ported yet: lookahead (``future_rows``, the pipelining slice) and
+chunked staging.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -28,6 +30,7 @@ from repro_torch.core import transmitter
 from repro_torch.core.lanes import i32, scatter_drop, take_fill
 from repro_torch.core.policies import Policy, eviction_key
 from repro_torch.kernels.cache_ops import ops as cache_ops
+from repro_torch.store.arena import ArenaStore
 
 __all__ = [
     "CacheConfig",
@@ -38,6 +41,7 @@ __all__ = [
     "apply_plan",
     "prepare",
     "lookup_slots",
+    "flush",
     "warmup",
 ]
 
@@ -55,7 +59,8 @@ class CacheConfig:
     writeback: bool = True  # False for inference (cache rows stay clean)
     protect_via_inverse: bool = True  # O(K) scatter instead of the paper's isin
     max_unique_per_step: int = 0  # 0 = ids_per_step; overflow is counted
-    arena_precision: str = "fp32"  # fp16/int8 tiered arenas: a later slice
+    arena_precision: str = "fp32"  # fp16/int8: a frequency-tiered ArenaStore
+    arena_head_ratio: float = 0.25  # fraction of capacity kept fp32 when tiered
     freq_half_life: int = 1024  # plan calls for a tracker count to halve
     use_pallas_plan: bool = False  # bounded top-K + fused dedup route
 
@@ -65,10 +70,15 @@ class CacheConfig:
                 f"cache capacity {self.capacity} must hold one batch's unique rows "
                 f"(<= {self.unique_size})"
             )
-        if self.arena_precision != "fp32":
+        if self.arena_precision == "auto":
             raise NotImplementedError(
-                "tiered arenas (fp16/int8) arrive with the port's mixed-precision slice"
+                "arena_precision='auto' needs the PrecisionPolicy, which arrives with "
+                "the port's host-precision slice"
             )
+        if self.arena_precision not in ("fp32", "fp16", "int8"):
+            raise ValueError(f"arena_precision must be fp32/fp16/int8, got {self.arena_precision!r}")
+        if not 0.0 < self.arena_head_ratio <= 1.0:
+            raise ValueError(f"arena_head_ratio must be in (0, 1], got {self.arena_head_ratio}")
 
     @property
     def unique_size(self) -> int:
@@ -77,10 +87,20 @@ class CacheConfig:
             k = min(k, self.max_unique_per_step)
         return k
 
+    @property
+    def head_capacity(self) -> int:
+        """Slots kept fp32 when the arena is tiered (all of them for fp32)."""
+        if self.arena_precision == "fp32":
+            return self.capacity
+        return min(self.capacity, max(1, int(round(self.arena_head_ratio * self.capacity))))
+
+
+Arena = Union[Dict[str, torch.Tensor], ArenaStore]
+
 
 @dataclasses.dataclass
 class CacheState:
-    cached_rows: Dict[str, torch.Tensor]  # leaves [capacity, ...]
+    cached_rows: Arena  # leaves [capacity, ...], or a tiered ArenaStore
     slot_to_row: torch.Tensor  # int32 [capacity]
     row_to_slot: torch.Tensor  # int32 [vocab]
     last_used: torch.Tensor  # int32 [capacity]
@@ -90,8 +110,9 @@ class CacheState:
     misses: torch.Tensor  # int32 [] unique-row misses (= rows moved host->device)
     evictions: torch.Tensor  # int32 [] rows written back device->host
     uniq_overflows: torch.Tensor  # int32 [] steps whose distinct rows > unique_size
-    tier_promotions: torch.Tensor  # int32 [] (always 0: fp32 arena)
-    tier_demotions: torch.Tensor  # int32 [] (always 0: fp32 arena)
+    tier_promotions: torch.Tensor  # int32 [] rows loaded INTO the fp32 head tier
+    tier_demotions: torch.Tensor  # int32 [] resident rows displaced OUT of it
+    # (both always 0 for a raw fp32 arena: every slot is the head then)
     tracker: freq_lib.FreqTracker
 
     def hit_rate(self) -> torch.Tensor:
@@ -102,11 +123,15 @@ class CacheState:
 def init_cache(
     cfg: CacheConfig, row_tree_example: Dict[str, torch.Tensor], device: torch.device
 ) -> CacheState:
-    """Empty cache; ``row_tree_example`` leaves give per-row shapes/dtypes."""
+    """Empty cache; ``row_tree_example`` leaves give per-row shapes/dtypes.
+    A tiered arena starts as zeros too: zeros encode to zeros under both
+    codecs."""
     cached_rows = {
         k: torch.zeros((cfg.capacity,) + tuple(v.shape), dtype=v.dtype, device=device)
         for k, v in row_tree_example.items()
     }
+    if cfg.arena_precision != "fp32":
+        cached_rows = ArenaStore.create(cached_rows, cfg.head_capacity, cfg.arena_precision)
 
     def z(*shape, fill=0):
         return torch.full(shape, fill, dtype=torch.int32, device=device)
@@ -227,6 +252,15 @@ def plan_prepare(
     victim_rows = state.slot_to_row[victim_slots]
     evict_active = active & (victim_rows >= 0)
 
+    # precision-tier telemetry: a load into a head slot promotes its row to
+    # fp32, displacing a resident row from a head slot demotes it
+    zero = torch.zeros((), dtype=torch.int32, device=rows.device)
+    n_promote = n_demote = zero
+    if isinstance(state.cached_rows, ArenaStore):
+        in_head = victim_slots < state.cached_rows.head_capacity
+        n_promote = i32((active & in_head).sum())
+        n_demote = i32((evict_active & in_head).sum())
+
     row_to_slot = scatter_drop(state.row_to_slot, victim_rows, -1, evict_active)
     slot_to_row = scatter_drop(state.slot_to_row, victim_slots, miss_rows, active)
     row_to_slot = scatter_drop(row_to_slot, miss_rows, victim_slots, active)
@@ -243,7 +277,6 @@ def plan_prepare(
     use_count = scatter_drop(use_count, victim_slots, 1, active)  # loaded rows start fresh
 
     slots = torch.where(valid, take_fill(row_to_slot, torch.where(valid, rows, 0), -1), -1)
-    zero = torch.zeros((), dtype=torch.int32, device=rows.device)
     return CachePlan(
         miss_rows=miss_rows,
         victim_slots=victim_slots,
@@ -259,8 +292,8 @@ def plan_prepare(
         misses=state.misses + n_miss,
         evictions=state.evictions + i32(evict_active.sum()),
         uniq_overflows=state.uniq_overflows + overflow,
-        tier_promotions=state.tier_promotions + zero,
-        tier_demotions=state.tier_demotions + zero,
+        tier_promotions=state.tier_promotions + n_promote,
+        tier_demotions=state.tier_demotions + n_demote,
         tracker=tracker,
         slots=slots,
     )
@@ -275,7 +308,8 @@ _INDEX_FIELDS = (
 def apply_plan(cfg: CacheConfig, full_rows, state: CacheState, plan: CachePlan) -> Tuple:
     """Execute a plan: write back displaced rows (``cfg.writeback``), load
     missed rows, install the index image.  Returns ``(full_rows, state')``;
-    the arena and the host table are updated in place."""
+    the arena and the host table are updated in place, so the victims are
+    written back before their slots are loaded."""
     if cfg.writeback:
         full_rows = transmitter.move_rows(
             state.cached_rows, full_rows, plan.victim_slots, plan.victim_rows,
@@ -300,8 +334,24 @@ def prepare(cfg: CacheConfig, full_rows, state: CacheState, rows: torch.Tensor):
 
 
 def lookup_slots(state: CacheState, slots: torch.Tensor, leaf: str = "weight") -> torch.Tensor:
-    """Gather cached rows by slot; -1 (padding) lanes return zero rows."""
+    """Gather cached rows by slot; -1 (padding) lanes return zero rows.  On
+    a tiered arena the gather decodes on read."""
+    if isinstance(state.cached_rows, ArenaStore):
+        return state.cached_rows.gather_slots(slots)[leaf]
     return take_fill(state.cached_rows[leaf], slots, 0)
+
+
+def flush(cfg: CacheConfig, full_rows, state: CacheState) -> Tuple:
+    """Write every resident row back to the host table (checkpoint barrier).
+    The table becomes authoritative; the cache stays warm.  Returns
+    ``(full_rows, state)``; the table is updated in place."""
+    capacity = state.slot_to_row.shape[0]
+    slots = torch.arange(capacity, dtype=torch.int32, device=state.slot_to_row.device)
+    rows = state.slot_to_row
+    full_rows = transmitter.move_rows(
+        state.cached_rows, full_rows, slots, rows, rows >= 0, buffer_rows=cfg.buffer_rows
+    )
+    return full_rows, state
 
 
 def warmup(cfg: CacheConfig, full_rows, state: CacheState) -> Tuple:

@@ -1,13 +1,15 @@
 """Keyed-feature embeddings over the frequency-aware cache: the single-arena
-serving subset of ``repro.core.collection``.
+subset of ``repro.core.collection``.
 
 The paper manages ONE concatenated, frequency-ordered table through one
-software cache.  This slice ports exactly that layout (every table
-GROUPED into the shared arena, ``PlacementPlan.single_arena``) and the
-serving surface: ``init`` / ``plan_prepare`` / ``apply_plan`` / ``prepare``
-/ ``weights`` / ``gather`` / ``lookup`` / ``metrics``.  DEVICE and CACHED
-placements, the planner, lookahead, refresh and ``apply_grads`` / ``flush``
-come with later slices.
+software cache.  The port has exactly that layout (every table GROUPED into
+the shared arena, ``PlacementPlan.single_arena``) with its serving and
+training surface: ``init`` / ``plan_prepare`` / ``apply_plan`` /
+``prepare`` / ``weights`` / ``gather`` / ``lookup`` / ``apply_grads`` /
+``flush`` / ``metrics`` / ``device_bytes``.  The arena is fp32, or
+frequency-tiered (``arena_precision`` fp16 / int8: an fp32 head over the
+hottest slots, an encoded tail).  DEVICE and CACHED placements, the
+planner, lookahead and refresh come with later slices.
 
 On a CUDA device the host tier (``CachedSlab.full``) is a pinned
 :class:`HostStore` in host memory; the arena, the index maps and
@@ -27,6 +29,7 @@ from repro_torch.core import freq as freq_lib
 from repro_torch.core.lanes import i32, take_fill
 from repro_torch.core.policies import Policy
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.store.arena import ArenaStore, tiered_arena_bytes
 from repro_torch.store.host_store import HostStore
 
 __all__ = [
@@ -40,6 +43,7 @@ __all__ = [
     "CachedSlab",
     "CollectionState",
     "CollectionPlan",
+    "cached_slab_flush",
 ]
 
 SHARED_ARENA = "__shared__"
@@ -55,9 +59,8 @@ class Placement(enum.Enum):
 
 @dataclasses.dataclass(frozen=True)
 class TableConfig:
-    """One logical embedding table.  In the shared arena the cache knobs
-    are the arena's (``ArenaConfig``); per-table knobs come with CACHED
-    placement."""
+    """One logical embedding table.  In the shared arena the cache knobs,
+    ``arena_precision`` among them, are the arena's (``ArenaConfig``)."""
 
     name: str
     vocab: int
@@ -105,6 +108,8 @@ class ArenaConfig:
     protect_via_inverse: bool = True
     freq_half_life: int = 1024
     use_pallas_plan: bool = False
+    arena_precision: str = "fp32"  # the arena's device-tail codec (fp32/fp16/int8)
+    arena_head_ratio: float = 0.25  # fp32 head fraction when the arena is tiered
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,6 +146,12 @@ class CollectionPlan:
     slab_plans: Dict[str, cache_lib.CachePlan]
     addresses: Dict[str, torch.Tensor]  # feature -> slots (-1 pad)
     writeback: bool = True
+
+
+def cached_slab_flush(ccfg: cache_lib.CacheConfig, slab: CachedSlab) -> CachedSlab:
+    """Write every resident row back to the slab's host table (in place)."""
+    full, cache_state = cache_lib.flush(ccfg, slab.full, slab.cache)
+    return dataclasses.replace(slab, full=full, cache=cache_state)
 
 
 def _translate(slab: CachedSlab, raw_ids: torch.Tensor) -> torch.Tensor:
@@ -188,6 +199,11 @@ class _CachedSlabSpec:
         cap = max(int(self.arena.cache_ratio * self.vocab), self.unique_size())
         return min(cap, self.vocab)
 
+    @property
+    def head_capacity(self) -> int:
+        """fp32 slots of the (possibly tiered) arena."""
+        return self.cache_config().head_capacity
+
     def cache_config(self, ids_per_step: Optional[int] = None, writeback: bool = True):
         a = self.arena
         return cache_lib.CacheConfig(
@@ -201,6 +217,8 @@ class _CachedSlabSpec:
             protect_via_inverse=a.protect_via_inverse,
             freq_half_life=a.freq_half_life,
             use_pallas_plan=a.use_pallas_plan,
+            arena_precision=a.arena_precision,
+            arena_head_ratio=a.arena_head_ratio,
         )
 
 
@@ -249,7 +267,8 @@ class EmbeddingCollection:
         """Build the state: a host table of uniform(+-1/sqrt(dim)) rows drawn
         from ``seed``, an empty (or warmed) arena on ``device``.  On a CUDA
         device the rows are drawn on the card in chunks and land in a
-        pinned host table."""
+        pinned host table.  A tiered ``arena_precision`` (fp16 / int8)
+        builds the arena as an :class:`ArenaStore`."""
         dev = resolve_device(device)
         slabs = {}
         for sname, spec in self.cached_slabs.items():
@@ -347,8 +366,16 @@ class EmbeddingCollection:
     # ----- read path --------------------------------------------------------
 
     def weights(self, state: CollectionState) -> Dict[str, torch.Tensor]:
-        """The fast-tier weights, keyed by slab."""
-        return {s: state.slabs[s].cache.cached_rows["weight"] for s in self.cached_slabs}
+        """The trainable fast-tier weights, keyed by slab: differentiate the
+        loss w.r.t. this dict and feed the grads to ``apply_grads``.  A
+        tiered arena returns its full decoded ``[capacity, dim]`` view (the
+        straight-through scheme of arXiv 2010.11305)."""
+        out = {}
+        for sname in self.cached_slabs:
+            cached = state.slabs[sname].cache.cached_rows
+            out[sname] = (cached.decode_leaf("weight") if isinstance(cached, ArenaStore)
+                          else cached["weight"])
+        return out
 
     def gather(
         self,
@@ -356,18 +383,55 @@ class EmbeddingCollection:
         addresses: Mapping[str, torch.Tensor],
         fb: FeatureBatch,
     ) -> Dict[str, torch.Tensor]:
-        """feature -> rows of shape ``ids.shape + (dim,)``; -1 lanes are zero."""
-        out = {}
+        """feature -> rows of shape ``ids.shape + (dim,)``; -1 lanes are zero.
+
+        One ``take_fill`` per slab over all its features' lanes: the
+        backward builds ONE dense ``[capacity, dim]`` gradient (not one per
+        feature) and accumulates duplicate ids with ``index_add_``, which
+        the card does with atomics (so its summation order is not fixed)."""
+        by_slab: Dict[str, List[str]] = {}
         for f in fb.features:
-            w = weights[self.table_slab[self.feature_to_table[f]][0]]
-            addr = addresses[f]
-            out[f] = take_fill(w, addr.reshape(-1), 0).reshape(addr.shape + (w.shape[-1],))
+            by_slab.setdefault(self.table_slab[self.feature_to_table[f]][0], []).append(f)
+        out = {}
+        for sname, feats in by_slab.items():
+            w = weights[sname]
+            flat = torch.cat([addresses[f].reshape(-1) for f in feats])
+            rows = take_fill(w, flat, 0.0)
+            parts = rows.split([addresses[f].numel() for f in feats])
+            for f, part in zip(feats, parts):
+                out[f] = part.reshape(addresses[f].shape + (w.shape[-1],))
         return out
 
     def lookup(self, state: CollectionState, fb: FeatureBatch, writeback: bool = True):
         """Convenience prepare+gather: (state', addresses, feature -> rows)."""
         state, addresses = self.prepare(state, fb, writeback=writeback)
         return state, addresses, self.gather(self.weights(state), addresses, fb)
+
+    # ----- updates ----------------------------------------------------------
+
+    def apply_grads(
+        self, state: CollectionState, grads: Mapping[str, torch.Tensor], lr
+    ) -> CollectionState:
+        """Synchronous SGD on the fast tier (paper §2.2.3: resident rows are
+        authoritative; the host tier catches up at eviction or flush), in
+        place.  A tiered arena steps on its decoded view, then stores the
+        head raw and re-encodes the tail (rows with a zero gradient
+        re-encode to the identical payload)."""
+        for sname in self.cached_slabs:
+            cached = state.slabs[sname].cache.cached_rows
+            if isinstance(cached, ArenaStore):
+                w = cached.decode_leaf("weight")
+                cached.replace_leaf("weight", w - lr * grads[sname])
+            else:
+                cached["weight"].sub_(lr * grads[sname])
+        return CollectionState(slabs=dict(state.slabs))
+
+    def flush(self, state: CollectionState) -> CollectionState:
+        """Checkpoint barrier: every cached slab writes its residents back."""
+        return CollectionState(slabs={
+            sname: cached_slab_flush(spec.cache_config(), state.slabs[sname])
+            for sname, spec in self.cached_slabs.items()
+        })
 
     def dense_reference(self, state: CollectionState, fb: FeatureBatch) -> Dict[str, torch.Tensor]:
         """Rows read straight out of the host table through ``idx_map``: the
@@ -384,6 +448,30 @@ class EmbeddingCollection:
         return out
 
     # ----- telemetry ----------------------------------------------------------
+
+    def device_bytes(self) -> Dict[str, object]:
+        """Device-resident vs host-tier footprint of the single arena: the
+        arena's weight bytes (fp32 head + encoded tail + sideband when
+        tiered), its index maps and tracker, and the fp32 host table."""
+        per_slab: Dict[str, int] = {}
+        slow = fast_fp32 = fast_actual = 0
+        for sname, spec in self.cached_slabs.items():
+            item = spec.dtype.itemsize
+            w = tiered_arena_bytes(spec.capacity, spec.head_capacity, spec.dim, spec.dtype,
+                                   spec.arena.arena_precision)
+            # slot_to_row, last_used, use_count; row_to_slot, idx_map, tracker (2)
+            per_slab[sname] = w + spec.capacity * 4 * 3 + spec.vocab * 4 * 4
+            fast_actual += w
+            fast_fp32 += spec.capacity * spec.dim * item
+            slow += spec.vocab * spec.dim * item
+        return {
+            "device_total": sum(per_slab.values()),
+            "slow_tier_bytes": slow,
+            "host_bytes_saved": 0,
+            "arena_bytes_saved": fast_fp32 - fast_actual,
+            "per_slab": per_slab,
+            "budget_bytes": None,
+        }
 
     def metrics(self, state: CollectionState, writeback: bool = True) -> Dict[str, object]:
         """Cache telemetry over the cached slabs, as in the reference: int32

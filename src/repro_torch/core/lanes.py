@@ -12,14 +12,16 @@ every lane that JAX would fill or drop is masked explicitly here:
   redirected there and the trash is sliced off.  No boolean filtering, so no
   host sync.  Kept lanes must be unique (CUDA ``index_put_`` gives duplicate
   indices no order); the trash element may take any of its writes.
+* :func:`scatter_rows_` — in-place row scatter on kept lanes, also with no
+  host sync: every dropped lane rewrites a copy of the first kept lane.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
-__all__ = ["take_fill", "scatter_drop", "i32"]
+__all__ = ["take_fill", "scatter_drop", "scatter_rows_", "i32"]
 
 
 def i32(x: torch.Tensor) -> torch.Tensor:
@@ -28,10 +30,14 @@ def i32(x: torch.Tensor) -> torch.Tensor:
 
 
 def take_fill(x: torch.Tensor, idx: torch.Tensor, fill) -> torch.Tensor:
-    """``x[idx]`` along dim 0 with ``fill`` on lanes outside ``[0, n)``."""
+    """``x[idx]`` along dim 0 with ``fill`` on lanes outside ``[0, n)``.
+
+    An ``index_select``: its backward is one dense ``index_add_`` (that of
+    ``x[idx]`` is an accumulating ``index_put_``, which sorts the ids)."""
     n = x.shape[0]
     ok = (idx >= 0) & (idx < n)
-    out = x[torch.where(ok, idx, 0)]
+    out = torch.index_select(x, 0, torch.where(ok, idx, 0).reshape(-1))
+    out = out.reshape(tuple(idx.shape) + tuple(x.shape[1:]))
     mask = ok.reshape(ok.shape + (1,) * (out.dim() - ok.dim()))
     return torch.where(mask, out, fill)
 
@@ -53,3 +59,27 @@ def scatter_drop(
         val = torch.full(idx.shape + tuple(x.shape[1:]), val, dtype=x.dtype, device=x.device)
     ext.index_put_((torch.where(ok, idx, n).to(torch.int64),), val)
     return ext[:n]
+
+
+def scatter_rows_(
+    leaves: Sequence[torch.Tensor],
+    idx: torch.Tensor,
+    blocks: Sequence[torch.Tensor],
+    keep: torch.Tensor,
+) -> None:
+    """In place ``leaf[idx] = block`` for each (leaf, block) pair, on the
+    lanes where ``keep`` holds (their ``idx`` must be in range and unique).
+
+    Dropped lanes are not filtered out (that would sync the host): each one
+    rewrites a copy of the first kept lane, index and row alike, so every
+    duplicate write carries the same bits.  With no kept lane they rewrite
+    row 0 with its own value."""
+    if idx.numel() == 0 or leaves[0].shape[0] == 0:
+        return
+    j = torch.argmax(keep.to(torch.int32))  # first kept lane (0 if none)
+    has = keep.any()
+    dest = torch.where(keep, idx, torch.where(has, idx[j], 0)).to(torch.int64)
+    for leaf, blk in zip(leaves, blocks):
+        fill = torch.where(has, blk[j], leaf[0])
+        mask = keep.reshape(keep.shape + (1,) * (blk.dim() - keep.dim()))
+        leaf.index_copy_(0, dest, torch.where(mask, blk, fill))

@@ -14,6 +14,11 @@ mask to the host (one device-to-host sync per move: the host has to know
 which rows to pack out of its table) and moves only the active lanes.  The
 result is the same, bit for bit; inactive lanes never cross the link.
 
+Either side may also be a tiered :class:`ArenaStore`: as the source it
+packs with ``gather_slots`` (the gather-decode kernel on the card), as the
+destination it unpacks with ``scatter_slots`` (tail lanes encode on the
+device).
+
 Unlike the functional reference, ``move_rows`` updates the destination tree
 in place (the host table is tens of GB) and returns it.
 """
@@ -23,11 +28,14 @@ from typing import Dict, Optional, Tuple, Union
 
 import torch
 
+from repro_torch.core.lanes import scatter_rows_
+from repro_torch.store.arena import ArenaStore
 from repro_torch.store.host_store import HostStore
 
 __all__ = ["move_rows", "gather_rows", "scatter_rows", "num_rounds"]
 
 Tree = Dict[str, torch.Tensor]
+Side = Union[HostStore, ArenaStore, Tree]
 
 
 def num_rounds(k: int, buffer_rows: int) -> int:
@@ -53,25 +61,15 @@ def gather_rows(tree: Tree, idx: torch.Tensor, out: Optional[Tree] = None) -> Tr
 def scatter_rows(
     tree: Tree, idx: torch.Tensor, block: Tree, active: Optional[torch.Tensor] = None
 ) -> Tree:
-    """Unpack in place: ``tree[idx] = block`` on active, in-range lanes.
-
-    Dropped lanes are not filtered out (that would sync the host): each one
-    rewrites a copy of the first kept lane, index and row alike, so every
-    duplicate write carries the same bits.  With no kept lane they rewrite
-    row 0 with its own value.  Kept lanes must be unique."""
+    """Unpack in place: ``tree[idx] = block`` on active, in-range lanes
+    (kept lanes must be unique; see :func:`core.lanes.scatter_rows_`)."""
     if idx.numel() == 0:
         return tree
     n = next(iter(tree.values())).shape[0]
     keep = (idx >= 0) & (idx < n)
     if active is not None:
         keep = keep & active
-    j = torch.argmax(keep.to(torch.int32))  # first kept lane (0 if none)
-    has = keep.any()
-    dest = torch.where(keep, idx, torch.where(has, idx[j], 0)).to(torch.int64)
-    for k, leaf in tree.items():
-        blk = block[k]
-        fill = torch.where(has, blk[j], leaf[0])
-        leaf.index_copy_(0, dest, torch.where(_mask_like(keep, blk), blk, fill))
+    scatter_rows_(list(tree.values()), idx, [block[k] for k in tree], keep)
     return tree
 
 
@@ -86,29 +84,43 @@ def _active_lanes(
     return lanes[0][sel], lanes[1][sel]
 
 
-def _leaves(tree: Union[HostStore, Tree]) -> Tree:
-    return tree.data if isinstance(tree, HostStore) else tree
+def _leaves(tree: Side) -> Tree:
+    if isinstance(tree, HostStore):
+        return tree.data
+    return tree.head if isinstance(tree, ArenaStore) else tree
+
+
+def _gather(tree: Side, idx: torch.Tensor, out: Optional[Tree] = None) -> Tree:
+    if isinstance(tree, ArenaStore):
+        return tree.gather_slots(idx.to(torch.int32))
+    return gather_rows(_leaves(tree), idx, out=out)
+
+
+def _scatter(tree: Side, idx: torch.Tensor, block: Tree) -> None:
+    if isinstance(tree, ArenaStore):
+        tree.scatter_slots(idx, block)
+    else:
+        scatter_rows(_leaves(tree), idx, block)
 
 
 def move_rows(
-    src_tree: Union[HostStore, Tree],
-    dst_tree: Union[HostStore, Tree],
+    src_tree: Side,
+    dst_tree: Side,
     src_idx: torch.Tensor,
     dst_idx: torch.Tensor,
     active: torch.Tensor,
     *,
     buffer_rows: int,
-) -> Union[HostStore, Tree]:
+) -> Side:
     """Move rows ``src_idx`` of ``src_tree`` to rows ``dst_idx`` of
     ``dst_tree`` on the ``active`` lanes, in rounds of ``buffer_rows``.
 
-    Either side may be a :class:`HostStore`.  Source lanes out of range give
-    zero rows; destination lanes out of range are dropped.  Active
-    destination lanes must be unique.  Returns ``dst_tree``, updated in
-    place."""
-    src, dst = _leaves(src_tree), _leaves(dst_tree)
-    src_dev = next(iter(src.values())).device
-    dst_dev = next(iter(dst.values())).device
+    Either side may be a :class:`HostStore` or an :class:`ArenaStore`.
+    Source lanes out of range give zero rows; destination lanes out of range
+    are dropped.  Active destination lanes must be unique.  Returns
+    ``dst_tree``, updated in place."""
+    src_dev = next(iter(_leaves(src_tree).values())).device
+    dst_dev = next(iter(_leaves(dst_tree).values())).device
     s_all, d_all = _active_lanes(src_idx, dst_idx, active)
     step = max(1, min(buffer_rows, int(src_idx.shape[0])))
     load = isinstance(src_tree, HostStore) and src_tree.pinned and dst_dev.type == "cuda"
@@ -120,16 +132,16 @@ def move_rows(
         n = int(s.numel())
         if load:  # pack into pinned staging, async H2D
             i, stage = ring.acquire()
-            block = gather_rows(src, s, out={k: b[:n] for k, b in stage.items()})
+            block = gather_rows(src_tree.data, s, out={k: b[:n] for k, b in stage.items()})
             block = {k: v.to(dst_dev, non_blocking=True) for k, v in block.items()}
             ring.release_after_copy(i)
-        elif save:  # pack on the card, D2H into pinned staging
-            packed = gather_rows(src, s.to(src_dev))
+        elif save:  # pack (and decode) on the card, D2H into pinned staging
+            packed = _gather(src_tree, s.to(src_dev))
             _, stage = ring.acquire()
             block = {k: stage[k][:n].copy_(v, non_blocking=True) for k, v in packed.items()}
             torch.cuda.current_stream(src_dev).synchronize()  # block lands before the host scatter
         else:
-            block = gather_rows(src, s.to(src_dev))
+            block = _gather(src_tree, s.to(src_dev))
             block = {k: v.to(dst_dev) for k, v in block.items()}
-        scatter_rows(dst, d.to(dst_dev), block)
+        _scatter(dst_tree, d.to(dst_dev), block)
     return dst_tree

@@ -1,12 +1,13 @@
-"""Victim threshold for bounded top-K eviction: the CUDA kernel's wrapper
-and its plain PyTorch version.
+"""The cache hot path's CUDA kernels: their wrappers and their plain
+PyTorch versions.
 
-Replaces ``repro/kernels/cache_ops/kernel.py::victim_threshold_pallas``.
-Both versions take the int32 eviction keys, work in the order-preserving
-uint32 domain (``u = key ^ 0x80000000``), and return ``(t, n_gt)``: ``t``
-the kv-th largest ``u`` (an int64 0-dim tensor holding the uint32 value)
-and ``n_gt`` the count of keys strictly above it (int32 0-dim).  Both stay
-on the tensor's device; nothing syncs the host.
+**Victim threshold** — replaces
+``repro/kernels/cache_ops/kernel.py::victim_threshold_pallas``.  Both
+versions take the int32 eviction keys, work in the order-preserving uint32
+domain (``u = key ^ 0x80000000``), and return ``(t, n_gt)``: ``t`` the
+kv-th largest ``u`` (an int64 0-dim tensor holding the uint32 value) and
+``n_gt`` the count of keys strictly above it (int32 0-dim).  Both stay on
+the tensor's device; nothing syncs the host.
 
 * :func:`victim_threshold_plain` — int64 keys offset by 2**31 and the same
   33 rounds (32 bit rounds of "count keys >= candidate", then one count of
@@ -15,18 +16,42 @@ on the tensor's device; nothing syncs the host.
   kernel in ``csrc/victim_threshold.cu`` (bound by bytes: 33 reads of the
   keys; see the note there) or raises; on a CPU tensor it takes the plain
   version.  ``victim_threshold.launches`` counts kernel launches.
+
+**Tiered-arena gather + decode** — replaces
+``repro/kernels/cache_ops/kernel.py::gather_decode_pallas``.  Given the fp32
+head ``[H, D]``, the fp16 / int8 tail ``[T, D]`` (int8 with its ``[T, 2]``
+``(scale, zp)`` sideband) and int32 slots ``[K]``, both versions return the
+fp32 ``[K, D]`` rows: head rows as stored, tail rows decoded, zero rows for
+slots outside ``[0, H + T)``.
+
+* :func:`gather_decode_plain` — ``ref.arena_gather`` with the store codec's
+  eager decode (``q * scale + zp`` as two torch ops).
+* :func:`gather_decode` — on CUDA tensors it launches the hand-written
+  kernel in ``csrc/gather_decode.cu`` (bound by bytes: one read of each
+  lane's row, one write of its output row) or raises; on CPU tensors it
+  takes the plain version.  ``gather_decode.launches`` counts kernel
+  launches.  The kernel decodes without a fused multiply-add, so it is
+  bitwise the plain version.
 """
 from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["SOURCE", "victim_threshold", "victim_threshold_plain"]
+__all__ = [
+    "GATHER_DECODE_SOURCE",
+    "SOURCE",
+    "gather_decode",
+    "gather_decode_plain",
+    "victim_threshold",
+    "victim_threshold_plain",
+]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "victim_threshold.cu"
+GATHER_DECODE_SOURCE = SOURCE.with_name("gather_decode.cu")
 _SIGN = 2**31
 
 
@@ -42,20 +67,18 @@ def victim_threshold_plain(key: torch.Tensor, kv: int) -> Tuple[torch.Tensor, to
     return t, (u > t).sum().to(torch.int32)
 
 
-_entry = None  # the bound C entry point, resolved on the first launch
+_entries = {}  # the bound C entry points, resolved on their first launch
 
 
-def _launcher():
-    global _entry
-    if _entry is None:
+def _launcher(source: Path, name: str, argtypes):
+    if name not in _entries:
         from repro_torch.kernels import build
 
-        fn = build.load(SOURCE).victim_threshold
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+        fn = getattr(build.load(source), name)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _entry = fn
-    return _entry
+        _entries[name] = fn
+    return _entries[name]
 
 
 def victim_threshold(key: torch.Tensor, kv: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -76,7 +99,9 @@ def victim_threshold(key: torch.Tensor, kv: int) -> Tuple[torch.Tensor, torch.Te
     t = torch.empty((1,), dtype=torch.int64, device=key.device)
     n_gt = torch.empty((1,), dtype=torch.int32, device=key.device)
     scratch = torch.empty((4,), dtype=torch.int32, device=key.device)
-    launch = _launcher()
+    launch = _launcher(SOURCE, "victim_threshold", [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
     with torch.cuda.device(key.device):
         stream = torch.cuda.current_stream(key.device).cuda_stream
         err = launch(
@@ -89,3 +114,82 @@ def victim_threshold(key: torch.Tensor, kv: int) -> Tuple[torch.Tensor, torch.Te
 
 
 victim_threshold.launches = 0
+
+
+_GD_CODECS = {"fp16": (0, torch.float16), "int8": (1, torch.int8)}
+
+
+def gather_decode_plain(
+    head: torch.Tensor,
+    tail: torch.Tensor,
+    sideband: Optional[torch.Tensor],
+    slots: torch.Tensor,
+    codec: str,
+) -> torch.Tensor:
+    """fp32 ``[K, D]`` rows of ``slots``: masked takes of head, tail and
+    sideband, the codec's eager decode, then a per-lane select."""
+    from repro_torch.kernels.cache_ops.ref import arena_gather  # ref imports this module
+    from repro_torch.store.codec import get_codec
+
+    return arena_gather(head, tail, sideband, slots, get_codec(codec).decode, torch.float32)
+
+
+def gather_decode(
+    head: torch.Tensor,
+    tail: torch.Tensor,
+    sideband: Optional[torch.Tensor],
+    slots: torch.Tensor,
+    codec: str,
+) -> torch.Tensor:
+    """fp32 ``[K, D]`` rows of ``slots``: the CUDA kernel on CUDA tensors,
+    the plain version on CPU tensors."""
+    if codec not in _GD_CODECS:
+        raise ValueError(f"gather_decode supports fp16/int8, got {codec!r}")
+    args = [head, tail, slots] + ([] if sideband is None else [sideband])
+    if all(a.device.type == "cpu" for a in args):
+        return gather_decode_plain(head, tail, sideband, slots, codec)
+    dev = head.device
+    if not all(a.is_cuda and a.device == dev for a in args):
+        raise ValueError(f"gather_decode: tensors on mixed or unsupported devices "
+                         f"{sorted({str(a.device) for a in args})}")
+    code, payload_dtype = _GD_CODECS[codec]
+    if head.dtype != torch.float32 or head.dim() != 2:
+        raise ValueError(f"gather_decode: head must be fp32 [H, D], got {head.dtype} "
+                         f"{tuple(head.shape)}")
+    h, d = head.shape
+    if tail.dtype != payload_dtype or tail.dim() != 2 or tail.shape[1] != d:
+        raise ValueError(f"gather_decode: {codec} tail must be {payload_dtype} [T, {d}], "
+                         f"got {tail.dtype} {tuple(tail.shape)}")
+    t = tail.shape[0]
+    if codec == "int8":
+        if sideband is None or sideband.dtype != torch.float32 or tuple(sideband.shape) != (t, 2):
+            raise ValueError(f"gather_decode: int8 needs an fp32 [{t}, 2] sideband")
+    elif sideband is not None:
+        raise ValueError("gather_decode: fp16 takes no sideband")
+    if slots.dtype != torch.int32 or slots.dim() != 1:
+        raise ValueError(f"gather_decode: slots must be int32 [K], got {slots.dtype} "
+                         f"{tuple(slots.shape)}")
+    if not all(a.is_contiguous() for a in args):
+        raise ValueError("gather_decode: every tensor must be contiguous")
+    k = slots.shape[0]
+    out = torch.empty((k, d), dtype=torch.float32, device=dev)
+    if k == 0:
+        return out
+    launch = _launcher(GATHER_DECODE_SOURCE, "gather_decode", [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = launch(
+            head.data_ptr(), h, tail.data_ptr(), t,
+            None if sideband is None else sideband.data_ptr(),
+            slots.data_ptr(), k, d, code, out.data_ptr(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"gather_decode kernel launch failed: CUDA error {err}")
+    gather_decode.launches += 1
+    return out
+
+
+gather_decode.launches = 0

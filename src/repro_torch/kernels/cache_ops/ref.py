@@ -9,6 +9,7 @@
 * ``compact_front`` — masked values compacted to the front, as a cumsum
   scatter.
 * ``plan_image`` — fused dedup -> residency probe -> miss compaction.
+* ``arena_gather`` — decode-on-read gather over one tiered arena leaf.
 
 The reference's uint32 keys are carried here as int64 values (torch's
 uint32 supports too few ops): ``ordered_u32(key) = key + 2**31``.
@@ -16,7 +17,7 @@ uint32 supports too few ops): ``ordered_u32(key) = key + 2**31``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -25,6 +26,7 @@ from repro_torch.kernels.cache_ops.kernel import victim_threshold_plain
 
 __all__ = [
     "PlanImage",
+    "arena_gather",
     "compact_front",
     "dedup",
     "ordered_u32",
@@ -121,3 +123,25 @@ def plan_image(rows: torch.Tensor, row_to_slot: torch.Tensor, k: int) -> PlanIma
         n_miss=i32(miss.sum()),
         n_distinct=n_distinct,
     )
+
+
+def arena_gather(
+    head: torch.Tensor,
+    tail: torch.Tensor,
+    sideband: Optional[torch.Tensor],
+    slots: torch.Tensor,
+    decode: Callable,
+    out_dtype,
+) -> torch.Tensor:
+    """Decode-on-read gather over one tiered leaf: head lanes as stored,
+    tail lanes ``decode(payload, sideband, out_dtype)``, negative / OOB
+    lanes zero rows (their zero payload decodes to zero)."""
+    h = head.shape[0]
+    in_tail = slots >= h
+    head_rows = take_fill(head, torch.where((slots >= 0) & ~in_tail, slots, h), 0)
+    safe_t = torch.where(in_tail, slots - h, tail.shape[0])
+    payload = take_fill(tail, safe_t, 0)
+    side = None if sideband is None else take_fill(sideband, safe_t, 0)
+    tail_rows = decode(payload, side, out_dtype)
+    mask = in_tail.reshape(in_tail.shape + (1,) * (head_rows.dim() - in_tail.dim()))
+    return torch.where(mask, tail_rows, head_rows)

@@ -1,0 +1,160 @@
+"""Shared model scaffolding (port of the collection part of
+``repro.models.common``): losses, metrics, and the cached-embedding train
+step (plan -> apply -> differentiable gather -> synchronous row update).
+
+``CollectionTrainStep`` is the reference's step: a ``FeatureBatch`` goes
+through ``EmbeddingCollection.plan_prepare`` / ``apply_plan`` outside the
+gradient, the loss is differentiated with ``torch.autograd`` w.r.t. the
+dense parameters and ``collection.weights`` (the fast tier, marked as
+autograd leaves), the optimizer steps the dense parameters, and
+``apply_grads`` performs the synchronous row update with the dense
+``[capacity, dim]`` gradient.  The arena and the host table are updated in
+place, so a state passed to a step must not be used again.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, List
+
+import torch
+
+from repro_torch.core.collection import CollectionPlan, EmbeddingCollection, FeatureBatch
+from repro_torch.optim.optimizers import Optimizer, tree_map
+
+__all__ = [
+    "bce_with_logits",
+    "auc_proxy",
+    "flush_embeddings",
+    "CollectionTrainStep",
+    "CollectionModelMixin",
+]
+
+
+def flush_embeddings(collection: EmbeddingCollection, state: Dict[str, Any]) -> Dict[str, Any]:
+    """The pre-checkpoint barrier: flush every cached slab under ``emb``."""
+    return dict(state, emb=collection.flush(state["emb"]))
+
+
+def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean binary cross-entropy on logits, by the reference's formula."""
+    z = logits.to(torch.float32)
+    y = labels.to(torch.float32)
+    return torch.mean(torch.clamp_min(z, 0) - z * y + torch.log1p(torch.exp(-torch.abs(z))))
+
+
+def auc_proxy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Pairwise-ranking AUC estimate (exact when no score ties)."""
+    s = logits.detach().to(torch.float32).reshape(-1)
+    y = labels.to(torch.float32).reshape(-1)
+    order = torch.argsort(s, stable=True)
+    ranks = torch.zeros_like(s)
+    ranks[order] = torch.arange(1, s.numel() + 1, dtype=torch.float32, device=s.device)
+    n_pos = torch.sum(y)
+    n_neg = y.numel() - n_pos
+    auc = (torch.sum(ranks * y) - n_pos * (n_pos + 1) / 2) / torch.clamp_min(n_pos * n_neg, 1.0)
+    return torch.where((n_pos > 0) & (n_neg > 0), auc, 0.5)
+
+
+def _leaves(tree: Any) -> List[torch.Tensor]:
+    out: List[torch.Tensor] = []
+    tree_map(out.append, tree)
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class CollectionTrainStep:
+    """Train step over an ``EmbeddingCollection``, fused (``__call__``) and
+    split into ``plan_step`` / ``apply_step`` / ``compute_step``.
+
+    ``fwd(dense_params, rows, batch) -> logits`` receives the keyed gather
+    output (feature name -> [.., dim] rows)."""
+
+    collection: EmbeddingCollection
+    optimizer: Optimizer
+    features: Callable[[Dict[str, torch.Tensor]], FeatureBatch]
+    fwd: Callable[..., torch.Tensor]
+    loss: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] = bce_with_logits
+    emb_lr: float = 0.05
+
+    def plan_step(self, state: Dict[str, Any], batch: Dict[str, torch.Tensor]) -> CollectionPlan:
+        """Weight-free planning half: dedup, slot assignment, movement plan."""
+        return self.collection.plan_prepare(state["emb"], self.features(batch))
+
+    def apply_step(self, state: Dict[str, Any], plan: CollectionPlan) -> Dict[str, Any]:
+        """Execute a plan's row movement (writeback first, then loads)."""
+        return dict(state, emb=self.collection.apply_plan(state["emb"], plan))
+
+    def compute_step(
+        self,
+        state: Dict[str, Any],
+        batch: Dict[str, torch.Tensor],
+        addresses: Dict[str, torch.Tensor],
+    ):
+        """Dense fwd/bwd + optimizer + synchronous row update, given the
+        addresses planned for ``batch`` (whose rows are resident)."""
+        fb = self.features(batch)
+        emb_state = state["emb"]
+        params = tree_map(lambda p: p.detach().requires_grad_(), state["params"])
+        weights = {k: w.detach().requires_grad_()
+                   for k, w in self.collection.weights(emb_state).items()}
+        rows = self.collection.gather(weights, addresses, fb)
+        logits = self.fwd(params, rows, batch)
+        loss = self.loss(logits, batch["label"])
+        p_leaves = _leaves(params)
+        grads = torch.autograd.grad(loss, p_leaves + list(weights.values()))
+        it = iter(grads[: len(p_leaves)])
+        p_grads = tree_map(lambda _: next(it), params)
+        w_grads = dict(zip(weights, grads[len(p_leaves):]))
+        new_params, opt_state = self.optimizer.update(
+            p_grads, state["opt"], state["params"], state["step"]
+        )
+        emb_state = self.collection.apply_grads(emb_state, w_grads, self.emb_lr)
+        metrics = {
+            "loss": loss.detach(),
+            "auc": auc_proxy(logits, batch["label"]),
+            **self.collection.metrics(emb_state),
+        }
+        new_state = dict(state, params=new_params, opt=opt_state, emb=emb_state,
+                         step=state["step"] + 1)
+        return new_state, metrics
+
+    def __call__(self, state: Dict[str, Any], batch: Dict[str, torch.Tensor]):
+        plan = self.plan_step(state, batch)
+        state = self.apply_step(state, plan)
+        return self.compute_step(state, batch, plan.addresses)
+
+
+class CollectionModelMixin:
+    """The step surface of a model whose embeddings live in an
+    ``EmbeddingCollection`` (expects ``self.collection`` /
+    ``self.optimizer`` / ``self.features`` / ``self.fwd`` and the embedding
+    learning rate at ``cfg.lr``)."""
+
+    @property
+    def emb_lr(self) -> float:
+        return self.cfg.lr
+
+    def _train_step(self) -> CollectionTrainStep:
+        return CollectionTrainStep(
+            collection=self.collection,
+            optimizer=self.optimizer,
+            features=self.features,
+            fwd=self.fwd,
+            emb_lr=self.emb_lr,
+        )
+
+    def train_step(self, state, batch):
+        return self._train_step()(state, batch)
+
+    def plan_step(self, state, batch):
+        return self._train_step().plan_step(state, batch)
+
+    def apply_step(self, state, plan):
+        return self._train_step().apply_step(state, plan)
+
+    def compute_step(self, state, batch, addresses):
+        return self._train_step().compute_step(state, batch, addresses)
+
+    def refresh(self, state, cfg=None, writeback: bool = True):
+        raise NotImplementedError("the adaptive frequency refresh arrives with the port's "
+                                  "refresh slice")

@@ -1,12 +1,15 @@
-"""DLRM (Naumov et al. 2019), the paper's evaluation model, served through
-the frequency-aware cache (port of the serving part of
+"""DLRM (Naumov et al. 2019), the paper's evaluation model, trained and
+served through the frequency-aware cache (port of the single-arena part of
 ``repro.models.dlrm``).
 
 Paper §5.1 configuration: embedding dim 128 for every table, bottom MLP
 512-256-128 over 13 dense features, dot-product feature interaction, top MLP
-1024-1024-512-256-1.  Every sparse field is GROUPED into one shared cache
-arena (the paper's one-big-table layout).  The model computes in fp32;
-float32 matmuls run in full fp32 (``allow_tf32`` stays False).
+1024-1024-512-256-1, SGD with a constant learning rate.  Every sparse field
+is GROUPED into one shared cache arena (the paper's one-big-table layout),
+fp32 or frequency-tiered (``arena_precision`` fp16 / int8).  The model
+computes in fp32; float32 matmuls run in full fp32 (``allow_tf32`` stays
+False).  ``train_step`` / ``plan_step`` / ``apply_step`` / ``compute_step``
+come from :class:`~repro_torch.models.common.CollectionModelMixin`.
 """
 from __future__ import annotations
 
@@ -19,7 +22,9 @@ import torch
 from repro_torch.core import collection as col
 from repro_torch.core.policies import Policy
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import common
 from repro_torch.nn.layers import Dtypes, mlp, mlp_init
+from repro_torch.optim import optimizers as opt_lib
 
 __all__ = ["DLRMConfig", "DLRM"]
 
@@ -35,20 +40,26 @@ class DLRMConfig:
     cache_ratio: float = 0.015
     buffer_rows: int = 65536
     max_unique_per_step: int = 0
+    lr: float = 1.0  # paper: 1.0 (Criteo)
     policy: Optional[Policy] = None  # None -> FREQ_LFU
     dtypes: Dtypes = Dtypes(param=torch.float32, compute=torch.float32)
     use_pallas_plan: bool = False  # bounded top-K victim selection (the kernel)
+    # device-arena codec: fp32 keeps the raw arena; fp16/int8 tier it (the
+    # hot head stays fp32, the cold resident tail is stored encoded)
+    arena_precision: str = "fp32"
+    arena_head_ratio: float = 0.25  # fp32 head share of a tiered arena
 
     @property
     def n_sparse(self) -> int:
         return len(self.vocab_sizes)
 
 
-class DLRM:
+class DLRM(common.CollectionModelMixin):
     def __init__(self, cfg: DLRMConfig):
         self.cfg = cfg
         f = cfg.n_sparse + 1  # embeddings + bottom-MLP output
         self.top_in = cfg.embed_dim + f * (f - 1) // 2
+        self.optimizer = opt_lib.sgd(cfg.lr)
         self.feature_names = tuple(f"f{i}" for i in range(cfg.n_sparse))
         policy = cfg.policy or Policy.FREQ_LFU
         tables = [
@@ -65,6 +76,8 @@ class DLRM:
             buffer_rows=cfg.buffer_rows,
             max_unique_per_step=cfg.max_unique_per_step,
             use_pallas_plan=cfg.use_pallas_plan,
+            arena_precision=cfg.arena_precision,
+            arena_head_ratio=cfg.arena_head_ratio,
         )
 
     # ----- params ----------------------------------------------------------
@@ -88,10 +101,19 @@ class DLRM:
                 by_table[n] = np.asarray(counts[off : off + v])
                 off += v
         emb = self.collection.init(int(seed) + 1, counts=by_table, device=dev)
-        return {"params": params, "emb": emb, "step": torch.zeros((), dtype=torch.int32, device=dev)}
+        return {
+            "params": params,
+            "opt": self.optimizer.init(params),
+            "emb": emb,
+            "step": torch.zeros((), dtype=torch.int32, device=dev),
+        }
 
     def features(self, batch) -> col.FeatureBatch:
         return col.FeatureBatch.from_onehot(self.feature_names, batch["sparse"])
+
+    def flush(self, state):
+        """Cache barrier (pre-checkpoint): the host table becomes authoritative."""
+        return common.flush_embeddings(self.collection, state)
 
     # ----- forward ----------------------------------------------------------
     def interact(self, dense_vec: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:

@@ -9,7 +9,9 @@ non-blocking copies.  The table is pinned in place with
 allocator, which rounds each allocation up to a power of two (a 17.3 GB
 Criteo table would take 32 GB).
 
-This slice carries the fp32 codec only (see :mod:`repro_torch.store.codec`).
+The host tier is fp32 only; fp16/int8/auto host codecs arrive with the
+port's host-precision slice (the device arena's codecs are in
+:mod:`repro_torch.store.codec`).
 """
 from __future__ import annotations
 
@@ -76,7 +78,11 @@ class HostStore:
     ) -> "HostStore":
         """Wrap a raw full-table dict of CPU tensors (one codec per store).
         ``pin`` page-locks every leaf in place for non-blocking transfers."""
-        get_codec(codec)
+        if codec != "fp32":
+            raise NotImplementedError(
+                f"host codec {codec!r}: fp16/int8/auto host stores arrive with the "
+                "port's host-precision slice"
+            )
         data = {k: v.contiguous() for k, v in full_tree.items()}
         for k, v in data.items():
             if v.device.type != "cpu":

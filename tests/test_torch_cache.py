@@ -2,7 +2,15 @@
 every ``CachePlan`` field and every ``CacheState`` field after
 ``apply_plan`` agree bitwise (the tracker's float leaves within the stated
 fp32 tolerance of ``torch_parity``), for all four policies, both planning
-routes (``use_pallas_plan`` off and on) and writeback on and off."""
+routes (``use_pallas_plan`` off and on) and writeback on and off, and for
+fp16 / int8 tiered arenas (tier promotion and demotion counters included).
+
+Tiered runs apply the reference's plans eagerly, with one transmitter
+round per move (``buffer_rows`` = capacity): compiled (under ``jax.jit``,
+or in the ``fori_loop`` of a multi-round move) XLA may fuse the int8
+decode into an FMA and its encode's scale may come out an ulp off, which
+the port (like the eager reference) never does.  Eagerly, arena and host table agree
+bitwise too."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,8 +33,8 @@ _jit_apply = jax.jit(jcache.apply_plan, static_argnums=0)
 
 
 def _pair(policy, pallas, writeback, warm, **kw):
-    geo = dict(vocab=128, capacity=32, ids_per_step=16, buffer_rows=8, writeback=writeback,
-               use_pallas_plan=pallas, **kw)
+    geo = {**dict(vocab=128, capacity=32, ids_per_step=16, buffer_rows=8, writeback=writeback,
+                  use_pallas_plan=pallas), **kw}
     jcfg = jcache.CacheConfig(policy=JPolicy(policy.value), **geo)
     tcfg = cache.CacheConfig(policy=policy, **geo)
     rng = np.random.default_rng(0)
@@ -41,8 +49,9 @@ def _pair(policy, pallas, writeback, warm, **kw):
     return (jcfg, jfull, jst), (tcfg, tfull, tst), rng
 
 
-def _run(policy, pallas, writeback, warm=False, steps=4, **kw):
+def _run(policy, pallas, writeback, warm=False, steps=4, jit_apply=True, **kw):
     (jcfg, jfull, jst), (tcfg, tfull, tst), rng = _pair(policy, pallas, writeback, warm, **kw)
+    japply = _jit_apply if jit_apply else jcache.apply_plan
     assert_tree_equal(jax_to_numpy(jst), to_numpy(tst), "init")
     for step in range(steps):
         # skewed ids with repeats and -1 padding lanes
@@ -51,7 +60,7 @@ def _run(policy, pallas, writeback, warm=False, steps=4, **kw):
         jplan = _jit_plan(jcfg, jst, jnp.asarray(rows))
         tplan = cache.plan_prepare(tcfg, tst, torch.from_numpy(rows))
         assert_tree_equal(jax_to_numpy(jplan), to_numpy(tplan), f"plan{step}")
-        jfull, jst = _jit_apply(jcfg, jfull, jst, jplan)
+        jfull, jst = japply(jcfg, jfull, jst, jplan)
         tfull, tst = cache.apply_plan(tcfg, tfull, tst, tplan)
         assert_tree_equal(jax_to_numpy(jst), to_numpy(tst), f"state{step}")
         assert_tree_equal(jax_to_numpy(jfull), to_numpy(tfull), f"full{step}")
@@ -76,6 +85,35 @@ def test_unique_overflow_is_counted_like_reference(pallas):
     assert int(st.uniq_overflows) > 0
 
 
+@pytest.mark.parametrize("warm", [False, True])
+@pytest.mark.parametrize("policy", [Policy.FREQ_LFU, Policy.LRU])
+@pytest.mark.parametrize("precision", ["fp16", "int8"])
+def test_tiered_arena_plan_and_apply_match_reference(precision, policy, warm):
+    st = _run(policy, True, writeback=True, warm=warm, steps=6, jit_apply=False,
+              buffer_rows=32, arena_precision=precision, arena_head_ratio=0.25)
+    assert st.cached_rows.head_capacity == 8 and st.cached_rows.codec == precision
+    if not warm:  # the first loads fill the empty fp32 head
+        assert int(st.tier_promotions) >= 8
+    if policy is Policy.LRU and warm:  # recency evicts head rows too
+        assert int(st.tier_demotions) > 0
+
+
+def test_flush_makes_the_host_table_authoritative():
+    (jcfg, jfull, jst), (tcfg, tfull, tst), rng = _pair(
+        Policy.FREQ_LFU, True, True, warm=True, buffer_rows=32, arena_precision="int8")
+    for _ in range(3):
+        rows = torch.from_numpy(rng.integers(-1, 128, size=16).astype(np.int32))
+        tfull, tst, _ = cache.prepare(tcfg, tfull, tst, rows)
+        jfull, jst, _ = jcache.prepare(jcfg, jfull, jst, jnp.asarray(rows.numpy()))
+    tfull, tst = cache.flush(tcfg, tfull, tst)
+    jfull, jst = jcache.flush(jcfg, jfull, jst)
+    assert_tree_equal(jax_to_numpy(jfull), to_numpy(tfull), "flushed")
+    resident = tst.slot_to_row >= 0
+    slots = torch.arange(32, dtype=torch.int32)
+    assert torch.equal(cache.lookup_slots(tst, slots)[resident],
+                       tfull["weight"][tst.slot_to_row[resident].long()])
+
+
 def test_prepare_then_lookup_is_the_uncached_table():
     (_, _, _), (tcfg, tfull, tst), rng = _pair(Policy.FREQ_LFU, True, True, warm=False)
     for _ in range(4):
@@ -87,8 +125,10 @@ def test_prepare_then_lookup_is_the_uncached_table():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        cache.CacheConfig(vocab=8, capacity=4, ids_per_step=4, arena_precision="int8")
+    with pytest.raises(NotImplementedError, match="host-precision slice"):
+        cache.CacheConfig(vocab=8, capacity=4, ids_per_step=4, arena_precision="auto")
+    with pytest.raises(ValueError):
+        cache.CacheConfig(vocab=8, capacity=4, ids_per_step=4, arena_precision="bf16")
     cfg = cache.CacheConfig(vocab=8, capacity=4, ids_per_step=4)
     st = cache.init_cache(cfg, {"weight": torch.zeros((2,))}, CPU)
     with pytest.raises(NotImplementedError):

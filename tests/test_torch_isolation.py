@@ -10,7 +10,9 @@ import pytest
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.launch import train
 from repro_torch.models.dlrm import DLRM, DLRMConfig
+from repro_torch.train.trainer import Trainer, TrainerConfig
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
 
@@ -27,6 +29,9 @@ def test_port_imports_no_jax_and_no_reference_package():
                      if m == "jax" or m.startswith("jax.") or m == "repro" or m.startswith("repro."))
         assert not bad, bad
         assert len(names) > 20, names
+        for need in ("optim.optimizers", "train.trainer", "train.checkpoint", "store.arena",
+                     "data.pipeline", "models.common", "launch.train"):
+            assert "repro_torch." + need in names, need
         print(len(names))
         """
     )
@@ -45,4 +50,8 @@ def test_no_silent_cpu_fallback_without_a_card():
         DLRM(cfg).init(0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device(None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(TrainerConfig(max_steps=1), init_fn=dict, step_fn=None, make_batch=None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--steps", "1", "--batch", "4", "--arena-precision", "int8"])
     assert resolve_device("cpu") == torch.device("cpu")
