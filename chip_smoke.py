@@ -5,15 +5,23 @@
 Phases (any failure exits non-zero, with no result line):
 
 1. the card: ``nvidia-smi`` name and power limit; exits when CUDA is absent.
-2. build: every CUDA source of the serving and training paths, from this
-   checkout, in one ``build_all`` call (one ``nvcc`` per source, all started
-   together).
-3. kernels, each held bitwise against its plain PyTorch version on the card:
-   the victim threshold on >= 20 seeded tie-heavy trials with the planner's
-   sentinel keys and at the main path's shape (capacity 506 438, kv
-   425 984); the tiered-arena gather-decode on 24 seeded fp16 / int8 cases
-   (D 8, 16, 36, 128; slots at -1, H-1, H, H+T-1, H+T and far out of range)
-   and at the paper shape (H 126 610, T 379 828, D 128, K 65 536).
+2. build: every CUDA source of the port's paths (victim threshold,
+   gather-decode, FM interaction, embedding bag), from this checkout, in one
+   ``build_all`` call (one ``nvcc`` per source, all started together).
+3. kernels, each held against its plain PyTorch version on the card: the
+   victim threshold bitwise on >= 20 seeded tie-heavy trials with the
+   planner's sentinel keys, at the DLRM path's shape (capacity 506 438, kv
+   425 984) and at FM's (capacity = kv = 2 097 152); the tiered-arena
+   gather-decode bitwise on 24 seeded fp16 / int8 cases (D 8, 16, 36, 128;
+   slots at -1, H-1, H, H+T-1, H+T and far out of range) and at the paper
+   shape (H 126 610, T 379 828, D 128, K 65 536); the FM interaction on 24
+   cases (``test_kernels.py``'s shapes, B 4097, FM's (65536, 40, 10); fp32
+   and bf16; contiguous and the strided ``[..., :D]`` view of [B, F, D+1])
+   within the reference's rtol 1e-3 / atol 1e-5 * (max|ref| + 1) (bf16 rtol
+   + 2^-7: one output rounding); the embedding bag on 26 cases
+   (``test_kernels.py``'s sweep, bags longer than ``max_bag``, empty bags,
+   -1 lanes, D 37, path (b)'s shape; sum and mean; fp32 and bf16) within
+   fp32 1e-5 / bf16 3e-2.
 4. serve: the paper's DLRM (``configs/dlrm_criteo.CONFIG``: 26 fields, dim
    128, MLPs 512-256-128 / 1024-1024-512-256-1, batch 16384) with
    ``use_pallas_plan=True``: a 33 762 577-row fp32 host table pinned in host
@@ -26,17 +34,38 @@ Phases (any failure exits non-zero, with no result line):
    table is unpinned and freed before the next phase.
 5. train: the same DLRM with ``arena_precision="int8"`` (126 610 fp32 head
    slots, 379 828 int8 tail slots): init + warm-up, then ``--train-steps``
-   ``DLRM.train_step`` calls on batches of 16384 with writeback on, then
-   ``DLRM.flush``.  Checks finite losses, no overflow, one threshold launch
-   per plan, one gather-decode launch per writeback round the plans implied
-   plus one per flush round, the kernel bitwise = plain on the arguments of
-   one live writeback, and, after the flush, rows gathered from the
-   torch-decoded arena equal the host table's rows (written by the kernel)
-   bitwise.  Then a synced stage breakdown and a profiled step.
-6. timing: each kernel, its plain version (and ``torch.topk`` beside the
-   threshold) by CUDA events over back-to-back calls, their summed device
-   time per call from ``torch.profiler``, and the wrapper's host enqueue
-   time, on the live inputs of the main paths.
+   ``DLRM.train_step`` calls on batches of 16384 with writeback on; then
+   two bag steps (path (b): each field's 16384 ids regrouped into 4096 bags
+   of 1-4 lanes; ``prepare`` with writeback, ``pool`` through the
+   embedding-bag kernel with ``max_bag=4``, sum then mean, autograd of
+   sum_f <pooled_f, g_f>, ``apply_grads``); then ``DLRM.flush``.  Checks
+   finite losses, no overflow, one threshold launch per plan, 26 bag
+   launches per bag step, the bag kernel route = the plain route (gather +
+   segment sum) in pooled output and gradient within 1e-5, one
+   gather-decode launch per writeback round the plans implied plus one per
+   flush round, the kernel bitwise = plain on one live writeback, and,
+   after the flush, that every resident slot of the torch-decoded arena
+   equals its host row bitwise.  Then a synced stage breakdown and a
+   profiled step.
+6. FM serve: ``configs/fm.CONFIG`` at full width (40 fields, 33 764 352
+   rows of 11 fp32 = 1.486 GB pinned, a 2 097 152-slot arena, batch 65536)
+   with ``use_pallas=True``: ``ServeEngine(FMModel.serve_step)`` on
+   ``FM_BATCHES`` (8) batches.  Checks finite scores, no overflow, one
+   threshold and one FM-kernel launch per batch, the cache invariant, and
+   the FM kernel = plain on one live batch's strided v.  The table is
+   unpinned and freed.
+7. FM train: the same FM with ``use_pallas=False`` (the kernel has no
+   backward): ``FM_TRAIN_STEPS`` (4) ``train_step`` calls, then ``flush``.
+   Checks finite losses, no overflow, one threshold launch per plan, and
+   that after the flush every resident arena row equals its host row
+   bitwise.
+8. timing: each kernel, its plain version (and ``torch.topk`` beside the
+   threshold, ``F.embedding_bag`` beside the bag) by CUDA events over
+   back-to-back calls, their summed device time per call from
+   ``torch.profiler``, and the wrapper's host enqueue time, on the live
+   inputs of the main paths.  The bag is timed on two live features of a
+   bag step: f0 (vocab 1460) and f2 (vocab 10 131 227, the largest); the
+   ``kernels`` line carries f2.
 
 The last three lines are the ``kernels`` JSON, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  ``--vocab-scale`` < 1 cuts
@@ -58,7 +87,9 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores (NVIDIA data sheet)
 TOL_RTOL, TOL_ATOL = 1e-5, 1e-6  # cached vs uncached logits (fp32)
+FM_BATCHES, FM_TRAIN_STEPS = 8, 4  # FM serve batches and train steps
 
 
 def log(*a):
@@ -455,6 +486,7 @@ def train_phase(dev, vocab_scale, n_steps):
     from repro_torch.core.collection import SHARED_ARENA
     from repro_torch.data import synth
     from repro_torch.kernels.cache_ops import kernel, ops
+    from repro_torch.kernels.embedding_bag import kernel as eb_kernel
     from repro_torch.models.dlrm import DLRM
     from repro_torch.obs.hub import fetch_ints
 
@@ -497,10 +529,12 @@ def train_phase(dev, vocab_scale, n_steps):
                                   for x in (head, tail, sideband, slots)))
         return impl(head, tail, sideband, slots, codec)
 
-    # --- the main path: counts at 0, n_steps train steps + flush, counts read
+    # --- the main path: counts at 0, n_steps train steps, the two bag steps
+    # (sum, mean) and the flush, counts read
     ops.arena_gather_impl = capture
     kernel.victim_threshold.launches = 0
     kernel.gather_decode.launches = 0
+    eb_kernel.embedding_bag.launches = 0
     try:
         step_ms, losses, per_step = [], [], []
         for i in range(n_steps):
@@ -514,6 +548,22 @@ def train_phase(dev, vocab_scale, n_steps):
                              sum(cur[k].values()) - sum(prev[k].values()) for k in counters})
             per_step[-1]["hit_rate"] = float(m["hit_rate"])
             prev = cur
+        bag_rng = np.random.default_rng(2)
+        gen = torch.Generator(device=dev).manual_seed(2)
+        bags = []
+        for j, combiner in enumerate(("sum", "mean")):
+            fb = bag_batch(model, dev, j, bag_rng)
+            t0 = time.perf_counter()
+            state, info = bag_step(model, state, fb, combiner, gen)
+            torch.cuda.synchronize()
+            info["ms"] = 1e3 * (time.perf_counter() - t0)
+            m = coll.metrics(state["emb"])
+            cur = fetch_ints({k: m[k] for k in counters})
+            per_step.append({k: (cur[k] - prev[k]) if not isinstance(cur[k], dict) else
+                             sum(cur[k].values()) - sum(prev[k].values()) for k in counters})
+            per_step[-1]["hit_rate"] = float(m["hit_rate"])
+            prev = cur
+            bags.append(info)
         ops.arena_gather_impl = impl  # the flush's gathers are not captured
         resident = int((state["emb"].slabs[SHARED_ARENA].cache.slot_to_row >= 0).sum())
         t0 = time.perf_counter()
@@ -524,6 +574,7 @@ def train_phase(dev, vocab_scale, n_steps):
         ops.arena_gather_impl = impl
     thr_launches = kernel.victim_threshold.launches
     gd_launches = kernel.gather_decode.launches
+    eb_launches = eb_kernel.embedding_bag.launches
 
     rows_per_round = min(spec.cache_config().buffer_rows,
                          min(spec.unique_size(cfg.batch_size * cfg.n_sparse), spec.capacity))
@@ -533,8 +584,12 @@ def train_phase(dev, vocab_scale, n_steps):
         raise AssertionError(f"non-finite training loss: {losses}")
     if any(p["uniq_overflows"] for p in per_step):
         raise AssertionError(f"unique-buffer overflow: {per_step}")
-    if thr_launches != n_steps:
-        raise AssertionError(f"victim_threshold launched {thr_launches} times for {n_steps} plans")
+    if thr_launches != n_steps + len(bags):
+        raise AssertionError(f"victim_threshold launched {thr_launches} times for "
+                             f"{n_steps + len(bags)} plans")
+    if eb_launches != len(bags) * cfg.n_sparse:
+        raise AssertionError(f"embedding_bag launched {eb_launches} times in {len(bags)} bag "
+                             f"steps of {cfg.n_sparse} bag features")
     if gd_launches != wb_rounds + flush_rounds or not gd_launches:
         raise AssertionError(f"gather_decode launched {gd_launches} times; the plans imply "
                              f"{wb_rounds} writeback rounds + {flush_rounds} flush rounds")
@@ -545,8 +600,15 @@ def train_phase(dev, vocab_scale, n_steps):
     log(f"train: {n_steps} steps of {cfg.batch_size}; losses {losses}; step ms {step_ms}; "
         f"p50 {np.percentile(step_ms, 50)} ms, p99 {np.percentile(step_ms, 99)} ms "
         f"(numpy percentiles of {n_steps} samples); flush {flush_ms} ms")
-    log(f"train per step (evictions, misses, hits, tier promotions / demotions, host rows "
-        f"moved, hit rate): {json.dumps(per_step)}")
+    log(f"train per step, the last {len(bags)} the bag steps (evictions, misses, hits, tier "
+        f"promotions / demotions, host rows moved, hit rate): {json.dumps(per_step)}")
+    log(f"bag steps ({BAGS} bags of <= {BAG_LANES} lanes x {cfg.n_sparse} features, sum then "
+        f"mean; prepare with writeback, pool through the kernel, autograd, apply_grads, and "
+        f"the plain-route check): ms {[b['ms'] for b in bags]}; embedding_bag launches "
+        f"{eb_launches} ({[b['launches'] for b in bags]} per step); kernel route = plain route "
+        f"within 1e-5: max |diff| pooled {[b['err'] for b in bags]}, gradient |diff| / (sum "
+        f"of magnitudes + 1) {[b['grad_err'] for b in bags]}; their write-back rounds are in "
+        f"the gather_decode count below")
     moved = sum(p["host_moved_rows"] for p in per_step)
     log(f"train totals: host wire bytes {moved * slab.full.row_wire_bytes()} "
         f"({moved} rows x {slab.full.row_wire_bytes()} B), threshold launches {thr_launches} "
@@ -555,20 +617,11 @@ def train_phase(dev, vocab_scale, n_steps):
         f"[{wb_slots.numel()} lanes, {int((wb_slots < arena.head_capacity).sum())} head] "
         f"kernel bitwise = plain; host RSS {rss_gb()} GB")
 
-    # --- after the flush: torch-decoded arena rows == host rows the kernel wrote
-    b = dev_batch(n_steps - 1)
-    fb = model.features(b)
-    plan = coll.plan_prepare(state["emb"], fb)  # pure: the resident slots of the batch
-    rows = coll.gather(coll.weights(state["emb"]), plan.addresses, fb)
-    ref_rows = coll.dense_reference(state["emb"], fb)
-    bad = [f for f in fb.features if not torch.equal(rows[f].cpu(), ref_rows[f])]
-    if bad:
-        f = bad[0]
-        diff = float((rows[f].cpu() - ref_rows[f]).abs().max())
-        raise AssertionError(f"post-flush gather != dense_reference on {len(bad)} features, "
-                             f"e.g. {f}: max |diff| {diff}")
-    log(f"post-flush: gather(weights) == dense_reference bitwise on all {len(fb.features)} "
-        f"features of the last trained batch ({cfg.batch_size} rows each)")
+    # --- after the flush: every resident slot of the torch-decoded arena ==
+    # its host row (the kernel wrote them), bitwise
+    check_resident(coll.weights(state["emb"])[SHARED_ARENA],
+                   state["emb"].slabs[SHARED_ARENA].cache.slot_to_row, slab.full,
+                   "DLRM train (int8 arena)")
 
     # --- stage by stage with syncs, three steps: where the time goes --------
     grads_ms = []
@@ -586,16 +639,22 @@ def train_phase(dev, vocab_scale, n_steps):
             plan, t_plan = sync_ms(lambda: model.plan_step(state, b))
             state, t_apply = sync_ms(lambda: model.apply_step(state, plan))
             (state, m), t_compute = sync_ms(lambda: model.compute_step(state, b, plan.addresses))
+            if not np.isfinite(float(m["loss"])):
+                raise AssertionError(f"non-finite loss {float(m['loss'])} at step {i}")
             log(f"train breakdown ms (synced, step {i}): plan_prepare {t_plan}, apply_plan "
                 f"(writeback + load) {t_apply}, fwd+bwd+dense SGD {t_compute - grads_ms[-1]}, "
                 f"apply_grads (decode, SGD, re-encode) {grads_ms[-1]}")
     finally:
         del coll.apply_grads
+    mem = torch.cuda.memory_stats()
+    log(f"card memory after the breakdown: peak allocated {mem['allocated_bytes.all.peak'] / 1e9} "
+        f"GB, reserved {mem['reserved_bytes.all.current'] / 1e9} GB, allocator retries "
+        f"{mem['num_alloc_retries']}, cudaFree calls {mem.get('num_device_free', 'n/a')}")
     b = dev_batch(n_steps + 3)
     profile_call("one train step", lambda: model.train_step(state, b))
     return {"launches": gd_launches, "thr_launches": thr_launches, "captured": captured[0],
             "live_err": live_err, "arena": state["emb"].slabs[SHARED_ARENA].cache.cached_rows,
-            "full": slab.full}
+            "full": slab.full, "bag_launches": eb_launches, "bag_live": bags[0]["live"]}
 
 
 def _gd_bytes(head, tail, side, slots):
@@ -667,6 +726,486 @@ def time_gather_decode(live, arena, max_err, launches):
     }
 
 
+# ---------------------------------------------------------------------------
+# phase 3c: the FM-interaction and embedding-bag kernels vs their plain versions
+# ---------------------------------------------------------------------------
+
+FM_RTOL = 1e-3  # the reference's FM sweep: rtol 1e-3, atol 1e-5 * (max|ref| + 1)
+BF16_ULP = 2**-7  # one bf16 rounding of the output, either way: relative <= 2^-7
+BAG_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}  # the reference's bag sweep
+
+
+def check_fm(v, what):
+    """The FM kernel against its plain version on one input, at the
+    reference's sweep tolerance (bf16: plus one output rounding); returns
+    max_abs_err."""
+    from repro_torch.kernels.fm_interaction import kernel as fm_kernel
+
+    got = fm_kernel.fm_interaction(v)
+    want = fm_kernel.fm_interaction_plain(v)
+    if got.dtype != v.dtype or got.shape != (v.shape[0],):
+        raise AssertionError(f"fm_interaction {what}: got {got.dtype} {tuple(got.shape)}")
+    scale = float(want.float().abs().max()) + 1.0
+    rtol = FM_RTOL + (BF16_ULP if v.dtype == torch.bfloat16 else 0.0)
+    err = float((got.float() - want.float()).abs().max())
+    if not torch.allclose(got.float(), want.float(), rtol=rtol, atol=1e-5 * scale):
+        raise AssertionError(f"fm_interaction {what}: kernel != plain (max |diff| {err}, "
+                             f"rtol {rtol}, atol {1e-5 * scale})")
+    return err
+
+
+def fm_kernel_phase(dev):
+    g = torch.Generator(device=dev).manual_seed(0)
+    errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    cases = 0
+    shapes = [(64, 39, 10), (1000, 26, 16), (128, 8, 128), (1, 4, 4), (4097, 40, 10),
+              (65536, 40, 10)]  # test_kernels.py's, a B that fits no block, FM's
+    for b, f, d in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            for strided in (False, True):  # strided: the [..., :D] view of [B, F, D+1]
+                v = torch.randn((b, f, d + 1), generator=g, device=dev).to(dtype)
+                v = v[..., :d] if strided else v[..., :d].contiguous()
+                errs[dtype] = max(errs[dtype], check_fm(v, f"{(b, f, d)} {dtype} "
+                                                           f"strided={strided}"))
+                cases += 1
+    log(f"fm_interaction phase: {cases} cases within rtol {FM_RTOL} / atol 1e-5*(max|ref|+1) "
+        f"(bf16 rtol + {BF16_ULP}); max_abs_err fp32 {errs[torch.float32]}, bf16 "
+        f"{errs[torch.bfloat16]}; shapes {shapes}, fp32 and bf16, contiguous and strided")
+    return errs[torch.float32]
+
+
+def check_bag(args, what):
+    """The embedding-bag kernel against its plain version on one input,
+    within the reference's sweep tolerance; returns (max_abs_err, bitwise)."""
+    from repro_torch.kernels.embedding_bag import kernel as eb_kernel
+
+    got = eb_kernel.embedding_bag(*args)
+    want = eb_kernel.embedding_bag_plain(*args)
+    tol = BAG_TOL[args[0].dtype]
+    err = float((got.float() - want.float()).abs().max()) if got.numel() else 0.0
+    if got.dtype != want.dtype or not torch.allclose(got.float(), want.float(), rtol=tol,
+                                                     atol=tol):
+        raise AssertionError(f"embedding_bag {what}: kernel != plain (max |diff| {err}, "
+                             f"tol {tol})")
+    return err, bool(torch.equal(got, want))
+
+
+def _bag_case(rng, dev, v, d, n, s, dtype, max_bag=None, id_lo=-1):
+    seg = np.sort(rng.integers(0, s, n)).astype(np.int32)
+    ids = rng.integers(id_lo, v, n).astype(np.int32)
+    if max_bag is None:  # the reference sweep's: the longest bag
+        max_bag = int(np.bincount(seg, minlength=s).max())
+    table = torch.from_numpy(rng.normal(size=(v, d)).astype(np.float32)).to(dev, dtype)
+    return (table, torch.from_numpy(ids).to(dev), torch.from_numpy(seg).to(dev), s, max_bag)
+
+
+def bag_kernel_phase(dev):
+    rng = np.random.default_rng(0)
+    cases, errs, bitwise = [], {torch.float32: 0.0, torch.bfloat16: 0.0}, True
+    for v, d, n, s in ((64, 512, 40, 10), (128, 1024, 100, 7), (32, 256, 16, 16)):
+        for dtype in (torch.float32, torch.bfloat16):
+            cases.append((f"sweep {(v, d, n, s)}", _bag_case(rng, dev, v, d, n, s, dtype)))
+    for dtype in (torch.float32, torch.bfloat16):
+        # bags longer than max_bag, empty segments, -1/-2 lanes, D % 4 != 0
+        cases.append(("truncated", _bag_case(rng, dev, 500, 64, 4000, 300, dtype, max_bag=3,
+                                             id_lo=-2)))
+        cases.append(("empty bags", _bag_case(rng, dev, 500, 32, 50, 400, dtype, max_bag=0)))
+        cases.append(("D=37", _bag_case(rng, dev, 300, 37, 200, 90, dtype, max_bag=2)))
+    cases.append(("path (b) shape", _bag_case(rng, dev, 506_438, 128, 16384, 4096,
+                                              torch.float32, max_bag=4)))
+    n = 0
+    for what, (table, ids, seg, s, mb) in cases:
+        for combiner in ("sum", "mean"):
+            err, same = check_bag((table, ids, seg, s, combiner, mb), f"{what} {combiner}")
+            errs[table.dtype] = max(errs[table.dtype], err)
+            bitwise &= same
+            n += 1
+    log(f"embedding_bag phase: {n} cases within fp32 1e-5 / bf16 3e-2 (the reference sweep's); "
+        f"max_abs_err fp32 {errs[torch.float32]}, bf16 {errs[torch.bfloat16]}; bitwise equal "
+        f"on every case: {bitwise}")
+    return errs[torch.float32]
+
+
+def time_fm(v, max_err, launches):
+    """The FM kernel and its plain version on the live serve batch's v."""
+    from repro_torch.kernels.fm_interaction import kernel as fm_kernel
+
+    calls = {"kernel": lambda: fm_kernel.fm_interaction(v),
+             "plain": lambda: fm_kernel.fm_interaction_plain(v)}
+    ev = {n: cuda_ms(fn) for n, fn in calls.items()}
+    dv = {n: device_ms(fn)[0] for n, fn in calls.items()}
+    enqueue = host_ms(calls["kernel"])
+    b, f, d = v.shape
+    n_bytes = b * f * d * v.element_size() + b * v.element_size()  # v read once, out written
+    n_ops = 3 * b * f * d + 3 * b * d  # s += x, sq += x*x; s*s - sq summed over d
+    bytes_ms, ops_ms = 1e3 * n_bytes / HBM_BYTES_PER_S, 1e3 * n_ops / FP32_OPS_PER_S
+    log(f"fm_interaction on the live serve batch v {tuple(v.shape)} strides {v.stride()} "
+        f"{v.dtype}: event-timed ms kernel {ev['kernel']}, plain {ev['plain']}; device ms "
+        f"kernel {dv['kernel']}, plain {dv['plain']}; host enqueue {enqueue} ms; bound "
+        f"{max(bytes_ms, ops_ms)} ms ({n_bytes} B at {HBM_BYTES_PER_S / 1e12} TB/s: {bytes_ms} "
+        f"ms; {n_ops} fp32 ops at {FP32_OPS_PER_S / 1e12} TFLOP/s: {ops_ms} ms)")
+    return {
+        "name": "fm_interaction",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/fm_interaction/csrc/fm_interaction.cu",
+        "replaces": "src/repro/kernels/fm_interaction/kernel.py:24",
+        "launches": launches,
+        "max_abs_err": max_err,
+        "ms": ev["kernel"],
+        "plain_ms": ev["plain"],
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None,  # no single PyTorch call computes the FM interaction
+        "device_ms": dv["kernel"],
+        "plain_device_ms": dv["plain"],
+        "host_enqueue_ms": enqueue,
+    }
+
+
+def time_bag(feature, args, max_err, launches):
+    """The embedding-bag kernel, its plain version and F.embedding_bag (on
+    the same bags with the -1 lanes compacted away) on one live feature of a
+    bag step."""
+    from repro_torch.core.lanes import segment_sum, take_fill
+    from repro_torch.kernels.embedding_bag import kernel as eb_kernel
+
+    table, ids, seg, s, combiner, mb = args
+    starts = eb_kernel.bag_starts(seg, s)
+    pos = torch.arange(ids.numel(), device=ids.device) - take_fill(starts, seg, 0)
+    kept = (ids >= 0) & (pos < mb)
+    if bool((kept & (ids >= table.shape[0])).any()):
+        raise AssertionError("a live bag lane addresses a slot past the arena")
+    lib_ids = ids[kept].to(torch.int64)
+    counts = segment_sum(kept.to(torch.int64), seg, s)
+    offsets = torch.cumsum(counts, 0) - counts
+    lib = lambda: torch.nn.functional.embedding_bag(lib_ids, table, offsets, mode=combiner)
+    if not torch.allclose(lib(), eb_kernel.embedding_bag(*args), rtol=1e-5, atol=1e-5):
+        raise AssertionError("F.embedding_bag disagrees with the kernel on the live bags")
+    calls = {"kernel": lambda: eb_kernel.embedding_bag(*args),
+             "plain": lambda: eb_kernel.embedding_bag_plain(*args), "library": lib}
+    ev = {n: cuda_ms(fn) for n, fn in calls.items()}
+    dv = {n: device_ms(fn)[0] for n, fn in calls.items()}
+    enqueue = host_ms(calls["kernel"])
+    n_rows = int(kept.sum())
+    n_distinct = int(torch.unique(lib_ids).numel())
+    d = table.shape[1]
+    item = table.element_size()
+    # each distinct kept row read once (a repeat comes from L2), the ids and
+    # the S + 1 bag starts read once, the output written once
+    n_bytes = n_distinct * d * item + ids.numel() * 4 + (s + 1) * 4 + s * d * item
+    n_ops = n_rows * d + (s * d if combiner == "mean" else 0)
+    bytes_ms, ops_ms = 1e3 * n_bytes / HBM_BYTES_PER_S, 1e3 * n_ops / FP32_OPS_PER_S
+    log(f"embedding_bag on live bag feature {feature} ({ids.numel()} lanes, {n_rows} kept of "
+        f"{n_distinct} distinct rows, {s} bags, D {d}, {combiner}): event-timed ms kernel "
+        f"{ev['kernel']}, plain {ev['plain']}, F.embedding_bag {ev['library']}; device ms kernel {dv['kernel']}, plain "
+        f"{dv['plain']}, F.embedding_bag {dv['library']}; host enqueue {enqueue} ms; bound "
+        f"{max(bytes_ms, ops_ms)} ms ({n_bytes} B: {bytes_ms} ms; {n_ops} ops: {ops_ms} ms)")
+    return {
+        "name": "embedding_bag",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/embedding_bag/csrc/embedding_bag.cu",
+        "replaces": "src/repro/kernels/embedding_bag/kernel.py:36",
+        "launches": launches,
+        "max_abs_err": max_err,
+        "ms": ev["kernel"],
+        "plain_ms": ev["plain"],
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": ev["library"],
+        "device_ms": dv["kernel"],
+        "plain_device_ms": dv["plain"],
+        "library_device_ms": dv["library"],
+        "host_enqueue_ms": enqueue,
+        "feature": feature,
+        "lanes": ids.numel(),
+        "kept_rows": n_rows,
+        "distinct_rows": n_distinct,
+    }
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: bag pooling through the cache (inside the DLRM training run)
+# ---------------------------------------------------------------------------
+
+BAGS, BAG_LANES = 4096, 4  # 16384 lanes per field per step, as the DLRM's batch
+
+
+def bag_batch(model, dev, step, rng):
+    """A ``synth.sparse_batch`` of 16384 rows regrouped per field into 4096
+    bags of 4 lanes, each bag 1-4 lanes long (the rest -1)."""
+    from repro_torch.core.collection import FeatureBatch
+    from repro_torch.data import synth
+
+    cfg = model.cfg
+    spec = synth.ZipfSparseSpec(vocab_sizes=cfg.vocab_sizes, n_dense=cfg.n_dense)
+    sparse = synth.sparse_batch(spec, BAGS * BAG_LANES, 2, step)["sparse"]
+    seg = torch.arange(BAGS, dtype=torch.int32, device=dev).repeat_interleave(BAG_LANES)
+    bags = {}
+    for j, name in enumerate(model.feature_names):
+        ids = sparse[:, j].reshape(BAGS, BAG_LANES).copy()
+        length = rng.integers(1, BAG_LANES + 1, size=BAGS)
+        ids[np.arange(BAG_LANES)[None, :] >= length[:, None]] = -1
+        bags[name] = (torch.from_numpy(ids.reshape(-1)).to(dev), seg)
+    return FeatureBatch.from_bags(bags, num_segments=BAGS)
+
+
+def bag_step(model, state, fb, combiner, gen):
+    """prepare (writeback on) -> decoded weights -> pool through the kernel
+    -> loss = sum_f <pooled_f, g_f> -> autograd -> apply_grads.  Holds the
+    pooled output and the gradient to the plain route (gather + segment
+    sum) on the same weights and addresses, within 1e-5: the pooled output
+    absolutely and relatively; the gradient relative to the sum of the
+    magnitudes it adds up (a hot row sums thousands of lanes, and both
+    routes' ``index_add_`` sum them with atomics, in no fixed order).
+    Returns (state, info)."""
+    from repro_torch.kernels.embedding_bag import kernel as eb_kernel
+
+    coll = model.collection
+    emb, addr = coll.prepare(state["emb"], fb, writeback=True)
+    base = coll.weights(emb)
+    # a cotangent of the size a batch-mean loss gives each bag (O(1 / bags)):
+    # SGD at the DLRM's lr 1.0 keeps the trained rows in range
+    g = {f: torch.randn((BAGS, model.cfg.embed_dim), generator=gen, device=addr[f].device) / BAGS
+         for f in fb.segments}
+
+    def route(use_pallas, cot):
+        w = {k: v.detach().requires_grad_() for k, v in base.items()}
+        rows = {} if use_pallas else coll.gather(w, addr, fb)
+        pooled = coll.pool(rows, fb, combiner, weights=w, addresses=addr,
+                           use_pallas=use_pallas, max_bag=BAG_LANES)
+        loss = sum(torch.sum(pooled[f] * cot[f]) for f in fb.segments)
+        grads = torch.autograd.grad(loss, list(w.values()))
+        return {f: x.detach() for f, x in pooled.items()}, dict(zip(w, grads))
+
+    before = eb_kernel.embedding_bag.launches
+    pooled, grads = route(True, g)
+    step_launches = eb_kernel.embedding_bag.launches - before
+    if step_launches != len(fb.segments):
+        raise AssertionError(f"embedding_bag launched {step_launches} times for "
+                             f"{len(fb.segments)} bag features")
+    pooled_p, grads_p = route(False, g)
+    # the gradient is linear in g: with |g| it is the sum of the magnitudes added
+    _, magnitude = route(False, {f: x.abs() for f, x in g.items()})
+    err_out = max(float((pooled[f] - pooled_p[f]).abs().max()) for f in fb.segments)
+    err_grad = max(float(((grads[k] - grads_p[k]).abs() / (magnitude[k] + 1)).max())
+                   for k in grads)
+    bad = [f for f in fb.segments if not torch.allclose(pooled[f], pooled_p[f], rtol=1e-5,
+                                                        atol=1e-5)]
+    bad += [k for k in grads if err_grad > 1e-5]
+    if bad:
+        raise AssertionError(f"bag step ({combiner}): kernel route != plain route on {bad}: "
+                             f"max |diff| pooled {err_out}, gradient relative to its summed "
+                             f"magnitudes {err_grad}")
+    # the kernel's live arguments on the first feature and the largest-vocab one
+    vocab = dict(zip(model.feature_names, model.cfg.vocab_sizes))
+    live = {f: (base[coll.table_slab[coll.feature_to_table[f]][0]].detach(),
+                addr[f].reshape(-1), fb.segments[f], BAGS, combiner, BAG_LANES)
+            for f in (model.feature_names[0], max(fb.segments, key=vocab.get))}
+    emb = coll.apply_grads(emb, grads, model.cfg.lr)
+    return dict(state, emb=emb), {"launches": step_launches, "err": err_out,
+                                  "grad_err": err_grad, "live": live}
+
+
+# ---------------------------------------------------------------------------
+# phases 6-7: FM at full width, served through its kernel and trained
+# ---------------------------------------------------------------------------
+
+
+def _fm_scaled(vocab_scale, **kw):
+    from repro_torch.configs.fm import CONFIG
+
+    vocabs = CONFIG.vocab_sizes
+    if vocab_scale != 1.0:
+        vocabs = tuple(max(1, int(v * vocab_scale)) for v in vocabs)
+        log(f"CUT: FM vocabularies scaled by {vocab_scale} (total {sum(vocabs)} rows, full "
+            f"{sum(CONFIG.vocab_sizes)}); dim, fields and batch unchanged")
+    return dataclasses.replace(CONFIG, vocab_sizes=vocabs, use_pallas_plan=True, **kw)
+
+
+def _fm_init(model, dev, what):
+    from repro_torch.core.collection import SHARED_ARENA
+
+    spec = model.collection.cached_slabs[SHARED_ARENA]
+    t0 = time.perf_counter()
+    state = model.init(0, device=dev)
+    torch.cuda.synchronize()
+    slab = state["emb"].slabs[SHARED_ARENA]
+    log(f"FM {what} init+warmup {time.perf_counter() - t0} s: host table {spec.vocab} x "
+        f"{spec.dim} fp32 = {slab.full.host_bytes() / 1e9} GB pinned={slab.full.pinned}; arena "
+        f"{spec.capacity} slots (unique bound {spec.unique_size()}) = "
+        f"{spec.capacity * spec.dim * 4 / 1e6} MB; host RSS {rss_gb()} GB")
+    return state, slab
+
+
+def fm_serve_phase(dev, vocab_scale, n_batches):
+    from repro_torch.data import synth
+    from repro_torch.kernels.cache_ops import kernel
+    from repro_torch.kernels.fm_interaction import kernel as fm_kernel
+    from repro_torch.kernels.fm_interaction import ops as fm_ops
+    from repro_torch.models.recsys_models import FMModel
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = _fm_scaled(vocab_scale, use_pallas=True)
+    model = FMModel(cfg)
+    state, slab = _fm_init(model, dev, "serve")
+    n_fields = len(cfg.vocab_sizes)
+    bspec = synth.ZipfSparseSpec(vocab_sizes=cfg.vocab_sizes)
+    # measured, invariant check, profiled, warm-up
+    batches = [synth.sparse_batch(bspec, cfg.batch_size, 0, i) for i in range(n_batches + 3)]
+    pad = {"sparse": np.zeros((n_fields,), np.int32), "label": np.zeros((), np.float32)}
+    engine = ServeEngine(
+        model.serve_step, state, batch_size=cfg.batch_size, pad_example=pad, device=dev,
+        state_stats_fn=lambda s: model.collection.metrics(s["emb"], writeback=False),
+        obs_annotate=True,
+    )
+    engine.score(batches[n_batches + 2])
+    engine.stats = type(engine.stats)()
+    base = engine.summary()
+
+    # --- the main path: counts at 0, n_batches scored requests, counts read ---
+    kernel.victim_threshold.launches = 0
+    fm_kernel.fm_interaction.launches = 0
+    lat, all_scores = [], []
+    for b in batches[:n_batches]:
+        t0 = time.perf_counter()
+        all_scores.append(engine.score(b))
+        lat.append(1e3 * (time.perf_counter() - t0))
+    thr_launches = kernel.victim_threshold.launches
+    fm_launches = fm_kernel.fm_interaction.launches
+    summary = engine.summary()
+    hits = summary["cache_hits"] - base["cache_hits"]
+    misses = summary["cache_misses"] - base["cache_misses"]
+
+    scores = np.concatenate(all_scores)
+    if scores.shape != (n_batches * cfg.batch_size,) or not np.isfinite(scores).all():
+        raise AssertionError(f"FM scores: shape {scores.shape}, finite "
+                             f"{np.isfinite(scores).all()}")
+    if summary["uniq_overflows"] != 0:
+        raise AssertionError(f"FM uniq_overflows = {summary['uniq_overflows']}")
+    if thr_launches != n_batches or fm_launches != n_batches:
+        raise AssertionError(f"FM serve: victim_threshold launched {thr_launches}, "
+                             f"fm_interaction {fm_launches} times for {n_batches} batches")
+    log(f"FM serve: {n_batches} batches of {cfg.batch_size} x {n_fields} fields; per-batch ms "
+        f"{lat}; p50 {summary['p50_ms']} ms, p99 {summary['p99_ms']} ms (histogram bounds), "
+        f"requests/s {summary['requests'] / (sum(lat) / 1e3)}, hit rate "
+        f"{hits / max(hits + misses, 1)} ({hits} id hits, {misses} row misses), host wire "
+        f"bytes {summary['host_wire_bytes'] - base['host_wire_bytes']}, launches: threshold "
+        f"{thr_launches}, fm_interaction {fm_launches}")
+    log(f"FM score span: {json.dumps(engine.tracer.stage_summary())}")
+
+    # --- cache invariant, and the kernel on one live batch's v ---------------
+    captured = []
+    impl = fm_ops.fm_interaction
+
+    def capture(v):  # the strided [..., :D] view the model hands the kernel
+        captured.append(v)
+        return impl(v)
+
+    b = {k: torch.from_numpy(v).to(dev) for k, v in batches[n_batches].items()}
+    fm_ops.fm_interaction = capture
+    try:
+        logits, emb = model.serve_step(engine.state, b)
+    finally:
+        fm_ops.fm_interaction = impl
+    ref_rows = model.collection.dense_reference(emb, model.features(b))
+    ref_logits = model.fwd(engine.state["params"], {k: v.to(dev) for k, v in ref_rows.items()},
+                           b)
+    diff = float((logits - ref_logits).abs().max())
+    if not torch.allclose(logits, ref_logits, rtol=TOL_RTOL, atol=TOL_ATOL):
+        raise AssertionError(f"FM cached vs uncached logits differ by {diff}")
+    v = captured[0]
+    live_err = check_fm(v, "live serve batch")
+    log(f"FM cache invariant: max |cached - uncached| logit = {diff} (rtol {TOL_RTOL} atol "
+        f"{TOL_ATOL}); kernel = plain on the live v {tuple(v.shape)} strides {v.stride()} "
+        f"(max |diff| {live_err})")
+    engine.state = dict(engine.state, emb=emb)
+    profile_call("one FM score call", lambda: engine.score(batches[n_batches + 1]),
+                 skip=set(engine.tracer.stage_summary()))
+    slab.full.close()
+    return {"fm_launches": fm_launches, "thr_launches": thr_launches, "v": v,
+            "live_err": live_err}
+
+
+def fm_train_phase(dev, vocab_scale, n_steps):
+    from repro_torch.core.collection import SHARED_ARENA
+    from repro_torch.data import synth
+    from repro_torch.kernels.cache_ops import kernel
+    from repro_torch.kernels.fm_interaction import kernel as fm_kernel
+    from repro_torch.models.recsys_models import FMModel
+    from repro_torch.obs.hub import fetch_ints
+
+    cfg = _fm_scaled(vocab_scale, use_pallas=False)  # the FM kernel has no backward
+    model = FMModel(cfg)
+    state, slab = _fm_init(model, dev, "train")
+    bspec = synth.ZipfSparseSpec(vocab_sizes=cfg.vocab_sizes)
+    batches = [synth.sparse_batch(bspec, cfg.batch_size, 1, i) for i in range(n_steps + 2)]
+
+    def dev_batch(i):
+        return {k: torch.from_numpy(v).to(dev) for k, v in batches[i].items()}
+
+    state, m = model.train_step(state, dev_batch(n_steps + 1))  # allocator, autograd
+    counters = ("cache_evictions", "cache_misses", "uniq_overflows", "slab_hits",
+                "host_moved_rows")
+    prev = fetch_ints({k: m[k] for k in counters})
+
+    # --- the main path: counts at 0, n_steps train steps + flush, counts read
+    kernel.victim_threshold.launches = 0
+    fm_kernel.fm_interaction.launches = 0
+    step_ms, losses, per_step = [], [], []
+    for i in range(n_steps):
+        b = dev_batch(i)
+        t0 = time.perf_counter()
+        state, m = model.train_step(state, b)
+        losses.append(float(m["loss"]))
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        cur = fetch_ints({k: m[k] for k in counters})
+        per_step.append({k: (cur[k] - prev[k]) if not isinstance(cur[k], dict) else
+                         sum(cur[k].values()) - sum(prev[k].values()) for k in counters})
+        per_step[-1]["hit_rate"] = float(m["hit_rate"])
+        prev = cur
+    t0 = time.perf_counter()
+    state = model.flush(state)
+    torch.cuda.synchronize()
+    flush_ms = 1e3 * (time.perf_counter() - t0)
+    thr_launches = kernel.victim_threshold.launches
+    fm_launches = fm_kernel.fm_interaction.launches
+
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"FM non-finite training loss: {losses}")
+    if any(p["uniq_overflows"] for p in per_step):
+        raise AssertionError(f"FM unique-buffer overflow: {per_step}")
+    if thr_launches != n_steps or fm_launches != 0:
+        raise AssertionError(f"FM train: victim_threshold launched {thr_launches} times for "
+                             f"{n_steps} plans, fm_interaction {fm_launches} (want 0)")
+    log(f"FM train: {n_steps} steps of {cfg.batch_size}; losses {losses}; step ms {step_ms}; "
+        f"p50 {np.percentile(step_ms, 50)} ms, p99 {np.percentile(step_ms, 99)} ms (numpy "
+        f"percentiles of {n_steps}); flush {flush_ms} ms; per step {json.dumps(per_step)}")
+
+    # --- after the flush: every resident arena row == its host row, bitwise
+    cache = state["emb"].slabs[SHARED_ARENA].cache
+    check_resident(cache.cached_rows["weight"], cache.slot_to_row, slab.full, "FM train")
+    b = dev_batch(n_steps)
+    profile_call("one FM train step", lambda: model.train_step(state, b))
+    slab.full.close()
+    return {"thr_launches": thr_launches}
+
+
+def check_resident(rows, slot_to_row, full, what):
+    """After a flush: every resident slot's arena row (``rows``, the arena's
+    fp32 ``[capacity, dim]`` view) equals its host row in ``full``,
+    bitwise; a flush that left no slot resident fails too."""
+    resident = torch.nonzero(slot_to_row >= 0)[:, 0]
+    if not resident.numel():
+        raise AssertionError(f"{what} post-flush: no resident slot to check")
+    got = rows[resident].cpu()
+    want = full.decode_rows(slot_to_row[resident].cpu().to(torch.int64))["weight"]
+    if not torch.equal(got, want):
+        diff = float((got - want).abs().max())
+        raise AssertionError(f"{what} post-flush: arena rows != host rows (max |diff| {diff})")
+    log(f"{what} post-flush: all {resident.numel()} resident arena rows of "
+        f"{slot_to_row.numel()} slots equal their host rows bitwise")
+
+
 def profile_call(what, fn, skip=()):
     """Device time by kernel over one call of ``fn`` (torch.profiler); a
     machine where the profiler cannot trace the card reports it as not
@@ -715,6 +1254,8 @@ def main():
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.kernels import build
     from repro_torch.kernels.cache_ops import kernel
+    from repro_torch.kernels.embedding_bag import kernel as eb_kernel
+    from repro_torch.kernels.fm_interaction import kernel as fm_kernel
 
     card = card_line()
     log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
@@ -723,28 +1264,57 @@ def main():
     dev = torch.device("cuda")
 
     t0 = time.perf_counter()
-    reports = build.build_all([kernel.SOURCE, kernel.GATHER_DECODE_SOURCE])
+    reports = build.build_all([kernel.SOURCE, kernel.GATHER_DECODE_SOURCE, fm_kernel.SOURCE,
+                               eb_kernel.SOURCE])
     log(f"build {time.perf_counter() - t0} s: " + " | ".join(
         f"{src.name}: {' '.join(r.split())}" for src, r in reports.items()))
 
+    from repro_torch.configs import fm
     from repro_torch.configs.dlrm_criteo import CONFIG
     from repro_torch.models.dlrm import DLRM
+    from repro_torch.models.recsys_models import FMModel
 
-    spec = DLRM(CONFIG).collection.cached_slabs["__shared__"]  # the main path's geometry
+    spec = DLRM(CONFIG).collection.cached_slabs["__shared__"]  # the main paths' geometry
+    fm_spec = FMModel(fm.CONFIG).collection.cached_slabs["__shared__"]
     max_err = kernel_phase(dev, spec.capacity, spec.unique_size(), spec.vocab)
+    rng = np.random.default_rng(1)  # FM: the unique bound equals the capacity (kv == capacity)
+    for what, key in (("FM planner keys", _freq_lfu_keys(rng, fm_spec.capacity, fm_spec.vocab,
+                                                          n_protect=fm_spec.capacity // 3)),
+                      ("FM tie-heavy keys", _tie_heavy(rng, fm_spec.capacity))):
+        key = torch.from_numpy(key).to(dev)
+        max_err = max(max_err, check_threshold(key, fm_spec.unique_size(), what))
+    log(f"threshold at FM's shape: capacity {fm_spec.capacity}, kv {fm_spec.unique_size()}: "
+        f"kernel bitwise = plain, victim order = argsort, on planner and tie-heavy keys")
     gd_err = gather_decode_phase(dev)
+    fm_err = fm_kernel_phase(dev)
+    bag_err = bag_kernel_phase(dev)
     log(f"host RSS before serve {rss_gb()} GB")
     serve_launches, key, kv, err = serve_phase(dev, args.vocab_scale, args.batches)
     gc.collect()
     log(f"host RSS after serve (table unpinned and freed) {rss_gb()} GB")
     train = train_phase(dev, args.vocab_scale, args.train_steps)
-    thr = time_threshold(key, kv, max(max_err, err),
-                         {"serve": serve_launches, "train": train["thr_launches"]})
     gd = time_gather_decode(train["captured"], train["arena"], max(gd_err, train["live_err"]),
                             train["launches"])
+    live_bag_err = max(check_bag(a, f"live bag feature {f}")[0]
+                       for f, a in train["bag_live"].items())
+    for f, a in train["bag_live"].items():  # f0, then the largest-vocab feature: its row
+        bag = time_bag(f, a, max(bag_err, live_bag_err), train["bag_launches"])
     train["full"].close()
+    train_thr = train["thr_launches"]
+    del train
+    gc.collect()
+    log(f"host RSS after train (table unpinned and freed) {rss_gb()} GB")
+    fm_serve = fm_serve_phase(dev, args.vocab_scale, FM_BATCHES)
+    gc.collect()
+    fm_train = fm_train_phase(dev, args.vocab_scale, FM_TRAIN_STEPS)
+    gc.collect()
+    fmk = time_fm(fm_serve["v"], max(fm_err, fm_serve["live_err"]), fm_serve["fm_launches"])
+    thr = time_threshold(key, kv, max(max_err, err),
+                         {"serve": serve_launches, "train": train_thr,
+                          "fm_serve": fm_serve["thr_launches"],
+                          "fm_train": fm_train["thr_launches"]})
 
-    log(json.dumps({"kernels": [thr, gd]}))
+    log(json.dumps({"kernels": [thr, gd, fmk, bag]}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,24 @@
-"""Criteo Kaggle per-field cardinalities (public; sum = 33,762,577)."""
+"""Model input shapes (the recsys part of ``repro.configs.shapes``, copied:
+the port imports nothing of the JAX package)."""
 
+RECSYS_SHAPES = ("train_batch", "serve_p99", "serve_bulk", "retrieval_cand")
+RECSYS_DEFS = {
+    "train_batch": ("train", 65536),
+    "serve_p99": ("serve", 512),
+    "serve_bulk": ("serve", 262144),
+    "retrieval_cand": ("retrieval", 1),  # + n_candidates=1_000_000
+}
+
+# Criteo Kaggle per-field cardinalities (public; sum = 33,762,577)
 CRITEO_VOCABS = (
     1460, 583, 10131227, 2202608, 305, 24, 12517, 633, 3, 93145, 5683,
     8351593, 3194, 27, 14992, 5461306, 10, 5652, 2173, 4, 7046547, 18, 15,
     286181, 105, 142572,
 )
+
+# FM (criteo-full featurization): 26 categorical + 13 bucketized-dense fields
+# of 100 rows, plus a padding field that rounds the total up to a multiple of
+# 512 (33,764,352 rows in 40 fields)
+_FM_RAW = CRITEO_VOCABS + (100,) * 13
+FM_VOCABS = _FM_RAW + (-(-sum(_FM_RAW) // 512) * 512 - sum(_FM_RAW),)
+assert sum(FM_VOCABS) % 512 == 0

@@ -1,4 +1,5 @@
-"""Carry a DLRM state (serve or train) between the JAX package and the port.
+"""Carry a model state (serve or train: DLRM, FM) between the JAX package and
+the port.
 
 The JAX side is given as nested dicts of numpy arrays under the JAX field
 names (a dataclass becomes a dict of its fields), e.g.::
@@ -16,7 +17,7 @@ where a tiered arena's ``cached_rows`` is an ``ArenaStore`` dict
 ``{"head": {...}, "tail": {...}, "sideband": {...}, "raw": {...},
 "codec": "int8", "out_dtype": "float32"}``.
 
-:func:`dlrm_state_from_numpy` builds the port's state from that (params,
+:func:`state_from_numpy` builds the port's state from that (params,
 the optimizer state — empty for SGD without momentum — the ``HostStore``
 weight, every ``CacheState`` field with its fp32 dict or ``ArenaStore``
 arena, the ``FreqTracker`` and ``idx_map``); :func:`to_numpy` turns a port
@@ -37,7 +38,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.store.arena import ArenaStore
 from repro_torch.store.host_store import HostStore
 
-__all__ = ["dlrm_state_from_numpy", "to_numpy"]
+__all__ = ["collection_state_from_numpy", "state_from_numpy", "to_numpy"]
 
 
 def _t(x: Any, device: torch.device) -> torch.Tensor:
@@ -76,21 +77,28 @@ def _host_store(d: Mapping[str, Any], pin: bool) -> HostStore:
     return HostStore.create(data, codec=d.get("codec", "fp32"), pin=pin)
 
 
-def dlrm_state_from_numpy(tree: Mapping[str, Any], device: DeviceLike = None) -> Dict[str, Any]:
-    """The port's DLRM state from the JAX state's numpy tree (a serve
-    state has no ``opt``; SGD without momentum has an empty one)."""
+def collection_state_from_numpy(tree: Mapping[str, Any], device: DeviceLike = None
+                                ) -> CollectionState:
+    """The port's ``CollectionState`` from a JAX one's numpy tree (``emb``)."""
     dev = resolve_device(device)
-    slabs = {
+    return CollectionState(slabs={
         name: CachedSlab(
             full=_host_store(s["full"], pin=dev.type == "cuda"),
             cache=_cache_state(s["cache"], dev),
             idx_map=_t(s["idx_map"], dev),
         )
-        for name, s in tree["emb"]["slabs"].items()
-    }
+        for name, s in tree["slabs"].items()
+    })
+
+
+def state_from_numpy(tree: Mapping[str, Any], device: DeviceLike = None) -> Dict[str, Any]:
+    """The port's model state from the JAX state's numpy tree: any model
+    whose state is ``params`` / ``opt`` / ``emb`` / ``step`` (DLRM, FM).  A
+    serve state has no ``opt``; SGD without momentum has an empty one."""
+    dev = resolve_device(device)
     state = {
         "params": _tree(tree["params"], dev),
-        "emb": CollectionState(slabs=slabs),
+        "emb": collection_state_from_numpy(tree["emb"], dev),
         "step": _t(tree["step"], dev),
     }
     if "opt" in tree:

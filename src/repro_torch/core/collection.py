@@ -5,8 +5,8 @@ The paper manages ONE concatenated, frequency-ordered table through one
 software cache.  The port has exactly that layout (every table GROUPED into
 the shared arena, ``PlacementPlan.single_arena``) with its serving and
 training surface: ``init`` / ``plan_prepare`` / ``apply_plan`` /
-``prepare`` / ``weights`` / ``gather`` / ``lookup`` / ``apply_grads`` /
-``flush`` / ``metrics`` / ``device_bytes``.  The arena is fp32, or
+``prepare`` / ``weights`` / ``gather`` / ``pool`` / ``lookup`` /
+``apply_grads`` / ``flush`` / ``metrics`` / ``device_bytes``.  The arena is fp32, or
 frequency-tiered (``arena_precision`` fp16 / int8: an fp32 head over the
 hottest slots, an encoded tail).  DEVICE and CACHED placements, the
 planner, lookahead and refresh come with later slices.
@@ -26,7 +26,7 @@ import torch
 
 from repro_torch.core import cache as cache_lib
 from repro_torch.core import freq as freq_lib
-from repro_torch.core.lanes import i32, take_fill
+from repro_torch.core.lanes import i32, segment_sum, take_fill
 from repro_torch.core.policies import Policy
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.store.arena import ArenaStore, tiered_arena_bytes
@@ -76,9 +76,15 @@ class TableConfig:
 
 @dataclasses.dataclass
 class FeatureBatch:
-    """Keyed feature ids: name -> int32 id tensor (-1 = padding)."""
+    """Keyed feature ids: name -> int32 id tensor (any shape, -1 = padding).
+
+    For pooled ("bag") features, ``segments[name]`` assigns each flat lane to
+    an output row (``num_segments`` rows in all); ``EmbeddingCollection.pool``
+    runs the segment reduction after the cached gather."""
 
     ids: Dict[str, torch.Tensor]
+    segments: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+    num_segments: int = 0
 
     @classmethod
     def from_onehot(cls, names: Sequence[str], id_matrix: torch.Tensor) -> "FeatureBatch":
@@ -86,6 +92,20 @@ class FeatureBatch:
         if id_matrix.dim() != 2 or id_matrix.shape[1] != len(names):
             raise ValueError(f"want a [batch, {len(names)}] id matrix, got {tuple(id_matrix.shape)}")
         return cls(ids={n: id_matrix[:, j].to(torch.int32) for j, n in enumerate(names)})
+
+    @classmethod
+    def from_bags(
+        cls,
+        bags: Mapping[str, Tuple[torch.Tensor, torch.Tensor]],
+        num_segments: int,
+        extra_onehot: Optional[Mapping[str, torch.Tensor]] = None,
+    ) -> "FeatureBatch":
+        """Ragged multi-hot bags: name -> (flat_ids, segment_ids)."""
+        ids = {n: flat.to(torch.int32) for n, (flat, _) in bags.items()}
+        segments = {n: seg.to(torch.int32) for n, (_, seg) in bags.items()}
+        if extra_onehot:
+            ids.update({n: v.to(torch.int32) for n, v in extra_onehot.items()})
+        return cls(ids=ids, segments=segments, num_segments=num_segments)
 
     @property
     def features(self) -> Tuple[str, ...]:
@@ -257,6 +277,17 @@ class EmbeddingCollection:
 
     # ----- init -------------------------------------------------------------
 
+    def split_concat_counts(self, counts: np.ndarray) -> Dict[str, np.ndarray]:
+        """Split a concatenated-vocab count vector (table declaration order)
+        into the per-table dict ``init`` expects."""
+        out, off = {}, 0
+        for t in self.tables.values():
+            out[t.name] = np.asarray(counts[off : off + t.vocab])
+            off += t.vocab
+        if off != counts.shape[0]:
+            raise ValueError(f"counts length {counts.shape[0]} != total vocab {off}")
+        return out
+
     def init(
         self,
         seed: int,
@@ -400,6 +431,46 @@ class EmbeddingCollection:
             parts = rows.split([addresses[f].numel() for f in feats])
             for f, part in zip(feats, parts):
                 out[f] = part.reshape(addresses[f].shape + (w.shape[-1],))
+        return out
+
+    def pool(
+        self,
+        rows: Mapping[str, torch.Tensor],
+        fb: FeatureBatch,
+        combiner: str = "sum",
+        *,
+        weights: Optional[Mapping[str, torch.Tensor]] = None,
+        addresses: Optional[Mapping[str, torch.Tensor]] = None,
+        use_pallas: bool = False,
+        max_bag: int = 0,
+    ) -> Dict[str, torch.Tensor]:
+        """Segment-reduce bag features ([lanes, dim] -> [num_segments, dim]);
+        one-hot features pass through.
+
+        With ``use_pallas`` (and ``weights`` + ``addresses`` from the same
+        step), bag features skip the per-lane ``rows``: the embedding-bag
+        kernel gathers and pools straight off the fast-tier weights, with
+        the cache slots as its ids (-1 lanes are padding), one launch per
+        bag feature; differentiable w.r.t. ``weights``.  The segment-sum
+        route below is the reference for it."""
+        out = dict(rows)
+        if use_pallas and (weights is None or addresses is None):
+            raise ValueError("use_pallas pooling needs weights= and addresses=")
+        for f, seg in fb.segments.items():
+            if use_pallas:
+                from repro_torch.kernels.embedding_bag import ops as eb_ops
+
+                sname = self.table_slab[self.feature_to_table[f]][0]
+                out[f] = eb_ops.embedding_bag(
+                    weights[sname], addresses[f].reshape(-1), seg, fb.num_segments,
+                    combiner=combiner, max_bag=max_bag,
+                )
+                continue
+            pooled = segment_sum(rows[f], seg, fb.num_segments)
+            if combiner == "mean":
+                cnt = segment_sum((fb.ids[f] >= 0).to(pooled.dtype), seg, fb.num_segments)
+                pooled = pooled / torch.clamp_min(cnt, 1.0)[:, None]
+            out[f] = pooled
         return out
 
     def lookup(self, state: CollectionState, fb: FeatureBatch, writeback: bool = True):

@@ -14,6 +14,8 @@ every lane that JAX would fill or drop is masked explicitly here:
   indices no order); the trash element may take any of its writes.
 * :func:`scatter_rows_` — in-place row scatter on kept lanes, also with no
   host sync: every dropped lane rewrites a copy of the first kept lane.
+* :func:`segment_sum` — ``jax.ops.segment_sum``: rows summed into their
+  segment, lanes with a segment outside ``[0, num_segments)`` dropped.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ from typing import Optional, Sequence
 
 import torch
 
-__all__ = ["take_fill", "scatter_drop", "scatter_rows_", "i32"]
+__all__ = ["take_fill", "scatter_drop", "scatter_rows_", "segment_sum", "i32"]
 
 
 def i32(x: torch.Tensor) -> torch.Tensor:
@@ -83,3 +85,13 @@ def scatter_rows_(
         fill = torch.where(has, blk[j], leaf[0])
         mask = keep.reshape(keep.shape + (1,) * (blk.dim() - keep.dim()))
         leaf.index_copy_(0, dest, torch.where(mask, blk, fill))
+
+
+def segment_sum(x: torch.Tensor, seg: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """``[num_segments, ...]`` sums of the rows of ``x`` by ``seg`` (any
+    order); out-of-range segments land in a trash row that is sliced off.
+    One ``index_add_``: on the card its summation order is not fixed."""
+    ok = (seg >= 0) & (seg < num_segments)
+    out = x.new_zeros((num_segments + 1,) + tuple(x.shape[1:]))
+    out.index_add_(0, torch.where(ok, seg, num_segments).to(torch.int64), x)
+    return out[:num_segments]

@@ -16,9 +16,9 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Sequence, Tuple
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "build_all", "load"]
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "build_all", "entry", "load"]
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = (
@@ -27,6 +27,7 @@ NVCC_FLAGS = (
 )
 
 _loaded: Dict[Path, ctypes.CDLL] = {}  # by source path: loaded once per process
+_entries: Dict[Tuple[Path, str], ctypes._CFuncPtr] = {}  # bound C entry points
 
 
 def _nvcc() -> str:
@@ -79,3 +80,17 @@ def load(source: Path) -> ctypes.CDLL:
         build_all([source])
         _loaded[source] = ctypes.CDLL(str(_target(source)))
     return _loaded[source]
+
+
+def entry(source: Path, name: str, argtypes: Sequence) -> ctypes._CFuncPtr:
+    """The C function ``name`` of ``source``'s library with its argument
+    types set and an ``int`` (CUDA error) result, bound on first use.  Runs
+    on every launch, so it touches no file once bound (callers pass the
+    same ``source`` object each time)."""
+    key = (source, name)
+    if key not in _entries:
+        fn = getattr(load(source), name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _entries[key] = fn
+    return _entries[key]

@@ -41,6 +41,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import build
+
 __all__ = [
     "GATHER_DECODE_SOURCE",
     "SOURCE",
@@ -67,20 +69,6 @@ def victim_threshold_plain(key: torch.Tensor, kv: int) -> Tuple[torch.Tensor, to
     return t, (u > t).sum().to(torch.int32)
 
 
-_entries = {}  # the bound C entry points, resolved on their first launch
-
-
-def _launcher(source: Path, name: str, argtypes):
-    if name not in _entries:
-        from repro_torch.kernels import build
-
-        fn = getattr(build.load(source), name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _entries[name] = fn
-    return _entries[name]
-
-
 def victim_threshold(key: torch.Tensor, kv: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """(t, n_gt) of the int32 keys: the CUDA kernel on a CUDA tensor, the
     plain version on a CPU tensor."""
@@ -99,7 +87,7 @@ def victim_threshold(key: torch.Tensor, kv: int) -> Tuple[torch.Tensor, torch.Te
     t = torch.empty((1,), dtype=torch.int64, device=key.device)
     n_gt = torch.empty((1,), dtype=torch.int32, device=key.device)
     scratch = torch.empty((4,), dtype=torch.int32, device=key.device)
-    launch = _launcher(SOURCE, "victim_threshold", [
+    launch = build.entry(SOURCE, "victim_threshold", [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
     with torch.cuda.device(key.device):
@@ -175,7 +163,7 @@ def gather_decode(
     out = torch.empty((k, d), dtype=torch.float32, device=dev)
     if k == 0:
         return out
-    launch = _launcher(GATHER_DECODE_SOURCE, "gather_decode", [
+    launch = build.entry(GATHER_DECODE_SOURCE, "gather_decode", [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p])

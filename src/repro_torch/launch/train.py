@@ -1,10 +1,11 @@
 """Training launcher: the serial trainer on synthetic Zipf batches.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-criteo --steps 50 --arena-precision int8
+  PYTHONPATH=src python -m repro_torch.launch.train --arch fm --steps 50
 
-Runs on the CUDA card; ``--device cpu`` runs it on the CPU.  The other
-architectures of the reference launcher come with their models in later
-slices of the port.
+Runs on the CUDA card; ``--device cpu`` runs it on the CPU.  DIN, DIEN and
+MIND, the reference launcher's other architectures, come with their models
+in a later slice of the port.
 """
 from __future__ import annotations
 
@@ -12,12 +13,29 @@ import argparse
 
 from repro_torch.data import synth
 from repro_torch.models.dlrm import DLRM, DLRMConfig
+from repro_torch.models.recsys_models import FMConfig, FMModel
 from repro_torch.train.trainer import Trainer, TrainerConfig
+
+
+def build(arch: str, batch: int, arena_precision: str):
+    """The reference launcher's config of ``arch``: (model, batch spec).
+    Victim selection always goes through the bounded top-K route, whose
+    threshold is the CUDA kernel on the card (bit-identical to the full
+    argsort route)."""
+    if arch == "dlrm-criteo":
+        cfg = DLRMConfig(vocab_sizes=(100_000, 50_000, 20_000), embed_dim=32, batch_size=batch,
+                         cache_ratio=0.02, lr=0.3, bottom_mlp=(64, 32), top_mlp=(64,),
+                         arena_precision=arena_precision, use_pallas_plan=True)
+        return DLRM(cfg), synth.ZipfSparseSpec(vocab_sizes=cfg.vocab_sizes, n_dense=13)
+    # fm trains through the sum-square torch ops: the FM kernel has no backward
+    cfg = FMConfig(vocab_sizes=(100_000,) * 6, embed_dim=10, batch_size=batch, cache_ratio=0.02,
+                   arena_precision=arena_precision, use_pallas_plan=True)
+    return FMModel(cfg), synth.ZipfSparseSpec(vocab_sizes=cfg.vocab_sizes)
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="dlrm-criteo", choices=["dlrm-criteo"])
+    ap.add_argument("--arch", default="dlrm-criteo", choices=["dlrm-criteo", "fm"])
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=512)
     ap.add_argument("--ckpt-dir", default=None)
@@ -29,14 +47,7 @@ def main(argv=None):
     ap.add_argument("--device", default=None, help="default: the CUDA card")
     args = ap.parse_args(argv)
 
-    # the reference launcher's dlrm-criteo config; victim selection always
-    # goes through the bounded top-K route, whose threshold is the CUDA
-    # kernel on the card (bit-identical to the full argsort route)
-    cfg = DLRMConfig(vocab_sizes=(100_000, 50_000, 20_000), embed_dim=32, batch_size=args.batch,
-                     cache_ratio=0.02, lr=0.3, bottom_mlp=(64, 32), top_mlp=(64,),
-                     arena_precision=args.arena_precision, use_pallas_plan=True)
-    model = DLRM(cfg)
-    spec = synth.ZipfSparseSpec(vocab_sizes=cfg.vocab_sizes, n_dense=13)
+    model, spec = build(args.arch, args.batch, args.arena_precision)
     tc = TrainerConfig(max_steps=args.steps, ckpt_dir=args.ckpt_dir, ckpt_every=25,
                        obs_dir=args.obs_dir)
     trainer = Trainer(

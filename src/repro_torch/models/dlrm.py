@@ -94,12 +94,8 @@ class DLRM(common.CollectionModelMixin):
             "bottom": mlp_init(gen, (cfg.n_dense,) + cfg.bottom_mlp, cfg.dtypes, dev),
             "top": mlp_init(gen, (self.top_in,) + cfg.top_mlp + (1,), cfg.dtypes, dev),
         }
-        by_table = None
-        if counts is not None:
-            by_table, off = {}, 0
-            for n, v in zip(self.feature_names, cfg.vocab_sizes):
-                by_table[n] = np.asarray(counts[off : off + v])
-                off += v
+        by_table = (self.collection.split_concat_counts(np.asarray(counts))
+                    if counts is not None else None)
         emb = self.collection.init(int(seed) + 1, counts=by_table, device=dev)
         return {
             "params": params,

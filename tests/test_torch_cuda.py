@@ -1,6 +1,7 @@
 """Card-only paths of the port against their CPU versions, on the card:
-the CUDA kernels (victim threshold, tiered-arena gather + decode) against
-their plain PyTorch versions (bitwise), and the pinned host-tier
+the CUDA kernels (victim threshold, tiered-arena gather + decode, FM
+interaction, embedding bag) against their plain PyTorch versions (bitwise,
+the FM kernel within the reference's sweep tolerance), and the pinned host-tier
 transmitter (staging ring, async copies, fp32 and tiered arenas) against
 the CPU move.
 
@@ -14,6 +15,9 @@ import torch
 
 from repro_torch.core import transmitter
 from repro_torch.kernels.cache_ops import kernel, ops
+from repro_torch.kernels.embedding_bag import kernel as eb_kernel
+from repro_torch.kernels.embedding_bag import ops as eb_ops
+from repro_torch.kernels.fm_interaction import kernel as fm_kernel
 from repro_torch.store.arena import ArenaStore
 from repro_torch.store.codec import get_codec
 from repro_torch.store.host_store import HostStore
@@ -169,3 +173,106 @@ def test_pinned_move_rows_with_a_tiered_arena_matches_cpu_move(cuda, codec, dire
             assert torch.equal(got_store["w"], want_store["w"])
     finally:
         got_store.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,f,d", [(64, 39, 10), (1000, 26, 16), (128, 8, 128), (1, 4, 4),
+                                   (4097, 40, 10), (33, 3, 33)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("strided", [False, True])
+def test_fm_kernel_matches_plain(cuda, b, f, d, dtype, strided):
+    """rtol 1e-3, atol 1e-5 * (max|ref| + 1): the reference's sweep tolerance
+    (the kernel and torch sum over F and D in different orders); bf16 adds
+    2^-7 to rtol: one rounding of the output, which may fall either way, is
+    at most 2^-7 of the value."""
+    g = torch.Generator(device=cuda).manual_seed(b + f)
+    v = torch.randn((b, f, d + strided), generator=g, device=cuda).to(dtype)
+    v = v[..., :d]
+    before = fm_kernel.fm_interaction.launches
+    got = fm_kernel.fm_interaction(v)
+    assert fm_kernel.fm_interaction.launches == before + 1
+    want = fm_kernel.fm_interaction_plain(v)
+    assert got.dtype == dtype and got.shape == (b,)
+    scale = float(want.float().abs().max()) + 1.0
+    rtol = 1e-3 if dtype == torch.float32 else 1e-3 + 2**-7
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=1e-5 * scale)
+
+
+@pytest.mark.cuda
+def test_fm_kernel_rejects_bad_input(cuda):
+    v = torch.ones((4, 3, 8), device=cuda)
+    with pytest.raises(ValueError):
+        fm_kernel.fm_interaction(v.double())
+    with pytest.raises(ValueError):
+        fm_kernel.fm_interaction(v.transpose(1, 2))  # d not unit-stride
+    with pytest.raises(ValueError):
+        fm_kernel.fm_interaction(v[0])
+    with pytest.raises(RuntimeError, match="no backward"):
+        fm_kernel.fm_interaction(v.requires_grad_())
+
+
+def _bags(rng, v, n, s, mb_hi):
+    seg = np.sort(rng.integers(0, s, n)).astype(np.int32)
+    ids = rng.integers(-1, v + (v // 10), n).astype(np.int32)  # some ids >= V
+    return torch.from_numpy(ids), torch.from_numpy(seg), int(rng.integers(0, mb_hi))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v,d,n,s", [(64, 512, 40, 10), (128, 1024, 100, 7), (32, 256, 16, 16),
+                                     (1000, 6, 3000, 500), (5000, 128, 16384, 4096),
+                                     (300, 37, 200, 90)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+def test_embedding_bag_kernel_matches_plain(cuda, v, d, n, s, dtype, combiner):
+    """Bitwise: both sum each bag in order in the table's dtype."""
+    rng = np.random.default_rng(v + n)
+    ids, seg, mb = _bags(rng, v, n, s, 6)
+    table = torch.from_numpy(rng.normal(size=(v, d)).astype(np.float32)).to(cuda, dtype)
+    args = (table, ids.to(cuda), seg.to(cuda), s, combiner, mb)
+    before = eb_kernel.embedding_bag.launches
+    got = eb_kernel.embedding_bag(*args)
+    assert eb_kernel.embedding_bag.launches == before + 1
+    want = eb_kernel.embedding_bag_plain(*args)
+    assert got.dtype == dtype and torch.equal(got, want)
+    assert torch.equal(want.cpu(), eb_kernel.embedding_bag_plain(
+        table.cpu(), ids, seg, s, combiner, mb))
+    # a row-strided view of a wider table
+    wide = torch.cat([table, table[:, :3]], dim=1)[:, :d]
+    assert torch.equal(eb_kernel.embedding_bag(wide, *args[1:]), want)
+
+
+@pytest.mark.cuda
+def test_embedding_bag_op_grad_on_the_card(cuda):
+    rng = np.random.default_rng(2)
+    ids, seg, _ = _bags(rng, 200, 900, 64, 2)
+    table = torch.from_numpy(rng.normal(size=(200, 16)).astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=(64, 16)).astype(np.float32))
+    for combiner in ("sum", "mean"):
+        grads = []
+        for dev in ("cpu", cuda):
+            w = table.to(dev).requires_grad_()
+            out = eb_ops.embedding_bag(w, ids.to(dev), seg.to(dev), 64, combiner, max_bag=5)
+            (gw,) = torch.autograd.grad(torch.sum(out * g.to(dev)), [w])
+            grads.append(gw.cpu())
+        torch.testing.assert_close(grads[1], grads[0], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_embedding_bag_kernel_rejects_bad_input(cuda):
+    """Sorted segment ids are the caller's contract, as in the reference:
+    checking them would sync the host."""
+    table = torch.ones((10, 8), device=cuda)
+    ids = torch.zeros(6, dtype=torch.int32, device=cuda)
+    seg = torch.zeros(6, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        eb_kernel.embedding_bag(table.double(), ids, seg, 2)
+    with pytest.raises(ValueError):
+        eb_kernel.embedding_bag(table, ids.long(), seg, 2)
+    with pytest.raises(ValueError):
+        eb_kernel.embedding_bag(table, ids, seg[:5], 2)
+    with pytest.raises(ValueError):
+        eb_kernel.embedding_bag(table.t(), ids, seg, 2)  # columns not unit-stride
+    with pytest.raises(ValueError):
+        eb_kernel.embedding_bag(table, ids.cpu(), seg, 2)  # mixed devices
+    with pytest.raises(ValueError):
+        eb_kernel.embedding_bag(table, ids, seg, 2, combiner="max")

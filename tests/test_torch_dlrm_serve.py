@@ -34,7 +34,7 @@ def _engines():
     jmodel = JDLRM(JDLRMConfig(**SHAPE))
     jstate = jmodel.init(jax.random.PRNGKey(0))
     tmodel = DLRM(DLRMConfig(**SHAPE))
-    tstate = convert.dlrm_state_from_numpy(jax_to_numpy(jstate), device="cpu")
+    tstate = convert.state_from_numpy(jax_to_numpy(jstate), device="cpu")
     jeng = JServeEngine(jmodel.serve_step, jstate, batch_size=16, pad_example=PAD,
                         state_stats_fn=lambda s: jmodel.collection.metrics(s["emb"], writeback=False))
     teng = ServeEngine(tmodel.serve_step, tstate, batch_size=16, pad_example=PAD, device="cpu",
@@ -45,7 +45,7 @@ def _engines():
 def test_converted_state_round_trips():
     jmodel = JDLRM(JDLRMConfig(**SHAPE))
     want = jax_to_numpy(jmodel.init(jax.random.PRNGKey(1)))
-    got = convert.to_numpy(convert.dlrm_state_from_numpy(want, device="cpu"))
+    got = convert.to_numpy(convert.state_from_numpy(want, device="cpu"))
     assert_tree_equal(want, got, skip=("opt",))
 
 

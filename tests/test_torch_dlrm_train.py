@@ -83,7 +83,7 @@ def _pair(precision, **kw):
     cfg = dict(SHAPE, arena_precision=precision, **kw)
     jmodel, tmodel = JDLRM(JDLRMConfig(**cfg)), DLRM(DLRMConfig(**cfg))
     jstate = jmodel.init(jax.random.PRNGKey(0))
-    tstate = convert.dlrm_state_from_numpy(jax_to_numpy(jstate), device="cpu")
+    tstate = convert.state_from_numpy(jax_to_numpy(jstate), device="cpu")
     return (jmodel, jstate), (tmodel, tstate)
 
 
@@ -264,7 +264,7 @@ def test_train_launcher_matches_reference_launcher(capsys, monkeypatch):
                        arena_precision="int8", use_pallas_plan=True)
     init = jax_to_numpy(JDLRM(jcfg).init(jax.random.PRNGKey(0)))
     monkeypatch.setattr(DLRM, "init", lambda self, seed, counts=None, device=None:
-                        convert.dlrm_state_from_numpy(init, device=device))
+                        convert.state_from_numpy(init, device=device))
     got = train.main(["--device", "cpu", *argv])
     got_out = capsys.readouterr().out
     want = runs[0].history

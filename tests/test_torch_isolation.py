@@ -12,6 +12,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.launch import train
 from repro_torch.models.dlrm import DLRM, DLRMConfig
+from repro_torch.models.recsys_models import FMConfig, FMModel
 from repro_torch.train.trainer import Trainer, TrainerConfig
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
@@ -30,7 +31,11 @@ def test_port_imports_no_jax_and_no_reference_package():
         assert not bad, bad
         assert len(names) > 20, names
         for need in ("optim.optimizers", "train.trainer", "train.checkpoint", "store.arena",
-                     "data.pipeline", "models.common", "launch.train"):
+                     "data.pipeline", "models.common", "launch.train",
+                     "kernels.fm_interaction.ops", "kernels.fm_interaction.kernel",
+                     "kernels.embedding_bag.ops", "kernels.embedding_bag.kernel",
+                     "models.recsys_models", "nn.recsys", "nn.embedding_bag", "nn.indexing",
+                     "configs.fm"):
             assert "repro_torch." + need in names, need
         print(len(names))
         """
@@ -54,4 +59,9 @@ def test_no_silent_cpu_fallback_without_a_card():
         Trainer(TrainerConfig(max_steps=1), init_fn=dict, step_fn=None, make_batch=None)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main(["--steps", "1", "--batch", "4", "--arena-precision", "int8"])
+    fm = FMModel(FMConfig(vocab_sizes=(16, 8), embed_dim=4, batch_size=4, cache_ratio=0.5))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fm.init(0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "fm", "--steps", "1", "--batch", "4"])
     assert resolve_device("cpu") == torch.device("cpu")
