@@ -6,8 +6,9 @@ Phases (any failure exits non-zero, with no result line):
 
 1. the card: ``nvidia-smi`` name and power limit; exits when CUDA is absent.
 2. build: every CUDA source of the port's paths (victim threshold,
-   gather-decode, FM interaction, embedding bag), from this checkout, in one
-   ``build_all`` call (one ``nvcc`` per source, all started together).
+   gather-decode, FM interaction, embedding bag, bucketize), from this
+   checkout, in one ``build_all`` call (one ``nvcc`` per source, all
+   started together).
 3. kernels, each held against its plain PyTorch version on the card: the
    victim threshold bitwise on >= 20 seeded tie-heavy trials with the
    planner's sentinel keys, at the DLRM path's shape (capacity 506 438, kv
@@ -21,7 +22,9 @@ Phases (any failure exits non-zero, with no result line):
    + 2^-7: one output rounding); the embedding bag on 26 cases
    (``test_kernels.py``'s sweep, bags longer than ``max_bag``, empty bags,
    -1 lanes, D 37, path (b)'s shape; sum and mean; fp32 and bf16) within
-   fp32 1e-5 / bf16 3e-2.
+   fp32 1e-5 / bf16 3e-2; the bucketize bitwise on 28 cases (S 1, 2, 4, 8;
+   U 0, 1, 3, 4097, 425 984; owners out of [0, S); every lane padding;
+   every lane replicated).
 4. serve: the paper's DLRM (``configs/dlrm_criteo.CONFIG``: 26 fields, dim
    128, MLPs 512-256-128 / 1024-1024-512-256-1, batch 16384) with
    ``use_pallas_plan=True``: a 33 762 577-row fp32 host table pinned in host
@@ -47,6 +50,20 @@ Phases (any failure exits non-zero, with no result line):
    after the flush, that every resident slot of the torch-decoded arena
    equals its host row bitwise.  Then a synced stage breakdown and a
    profiled step.
+5b. sharded: the same DLRM split over 4 shards on the card
+   (``model_shards=4``, ``replicate_top_k=2048``, fp32 exchange and arena,
+   full-width plans: 4 x 425 984 slots, one 17.3 GB table pinned whole):
+   ``ServeEngine`` on ``--batches`` batches, then a warm-up and
+   ``--train-steps`` ``train_step`` calls, each run with the launch counts
+   at 0 before it and read after it (one bucketize and 4 threshold
+   launches per plan).  Checks finite scores and losses, no overflow,
+   cached logits = ``dense_reference`` logits (rtol 1e-5 / atol 1e-6), the
+   kernel bitwise = plain on the first plan's live router inputs, and after
+   ``flush`` every resident slot of every shard and every replicated row
+   equal to its host row bitwise.  Prints per-step routed lanes per shard,
+   exchange id / row bytes, ``shard_imbalance``, a synced stage breakdown
+   and a profiled step.  Then, at vocab scale 0.02, 4 steps sharded and 4
+   unsharded from one seed: losses within rtol 1e-5.
 6. FM serve: ``configs/fm.CONFIG`` at full width (40 fields, 33 764 352
    rows of 11 fp32 = 1.486 GB pinned, a 2 097 152-slot arena, batch 65536)
    with ``use_pallas=True``: ``ServeEngine(FMModel.serve_step)`` on
@@ -67,6 +84,7 @@ Phases (any failure exits non-zero, with no result line):
    bag step: f0 (vocab 1460) and f2 (vocab 10 131 227, the largest); the
    ``kernels`` line carries f2.
 
+The bucketize is timed on the first sharded plan's live router inputs.
 The last three lines are the ``kernels`` JSON, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  ``--vocab-scale`` < 1 cuts
 only the vocabularies (never dim, widths, fields or batch) and says so.
@@ -1007,6 +1025,310 @@ def bag_step(model, state, fb, combiner, gen):
 
 
 # ---------------------------------------------------------------------------
+# phase 3d + 5b: the bucketize kernel, and the DLRM split over 4 shards
+# ---------------------------------------------------------------------------
+
+SHARDS, REP_K = 4, 2048  # the sharded phase: 4 shards, BENCH_PR7's replicated head
+
+
+def check_bucketize(owner, local, s, what):
+    """The bucketize kernel against its plain version, bitwise; returns
+    max_abs_err."""
+    from repro_torch.kernels.cache_ops import kernel
+
+    got = kernel.bucketize(owner, local, s)
+    want = kernel.bucketize_plain(owner, local, s)
+    if got.shape != want.shape or not torch.equal(got, want):
+        raise AssertionError(f"bucketize {what}: kernel != plain")
+    return 0
+
+
+def bucketize_kernel_phase(dev):
+    rng = np.random.default_rng(0)
+    n = 0
+    for s in (1, 2, 4, 8):
+        for u in (0, 1, 3, 4097, 425_984):
+            owner = torch.from_numpy(rng.integers(-2, s + 2, u).astype(np.int32)).to(dev)
+            local = torch.from_numpy(rng.integers(-1, 1 << 23, u).astype(np.int32)).to(dev)
+            check_bucketize(owner, local, s, f"S={s} U={u}")
+            n += 1
+        pad = torch.full((425_984,), -1, dtype=torch.int32, device=dev)
+        check_bucketize(pad, pad, s, f"S={s} every lane padding")
+        rep = torch.zeros_like(pad)
+        check_bucketize(rep, pad, s, f"S={s} every lane replicated")
+        n += 2
+    log(f"bucketize phase: {n} cases bitwise equal (S 1, 2, 4, 8; U 0, 1, 3, 4097, 425984, "
+        f"owners in [-2, S + 2); every lane padding; every lane replicated)")
+    return 0
+
+
+def _sharded_cfg(vocab_scale):
+    return dataclasses.replace(_scaled(vocab_scale), model_shards=SHARDS, replicate_top_k=REP_K,
+                               exchange_codec="fp32", max_routed_per_shard=0)
+
+
+def _exchange_ints(m):
+    """Routed lanes per slab and per shard, and the overflow count, as ints
+    (one device-to-host copy)."""
+    from repro_torch.obs.hub import fetch_ints
+
+    per = m["exchange_per_shard_lanes"]
+    out = fetch_ints({"lanes": m["exchange_routed_lanes"], "overflows": m["uniq_overflows"],
+                      "per_shard": {str(s): per[s] for s in range(per.shape[0])}})
+    out["per_shard"] = [out["per_shard"][str(s)] for s in range(per.shape[0])]
+    return out
+
+
+def sharded_phase(dev, vocab_scale, n_batches, n_steps):
+    from repro_torch.core.collection import SHARED_ARENA
+    from repro_torch.core.sharded import flat_store
+    from repro_torch.data import synth
+    from repro_torch.kernels.cache_ops import kernel, ops
+    from repro_torch.models.dlrm import DLRM
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = _sharded_cfg(vocab_scale)
+    model = DLRM(cfg)
+    coll = model.collection
+    spec = coll.cached_slabs[SHARED_ARENA]
+    S, cap, vs = cfg.model_shards, coll.shard_capacity(spec), coll.rows_per_shard(spec)
+    t0 = time.perf_counter()
+    state = model.init(0, device=dev)
+    torch.cuda.synchronize()
+    slab = state["emb"].slabs[SHARED_ARENA]
+    log(f"sharded init+warmup {time.perf_counter() - t0} s: {S} shards x {vs} rows x {spec.dim} "
+        f"fp32 in one host table = {slab.full.host_bytes() / 1e9} GB pinned={slab.full.pinned}; "
+        f"arena {S} x {cap} slots = {S * cap * spec.dim * 4 / 1e6} MB; replicated head "
+        f"{slab.rep.rows.shape[0]} rows; device_bytes {json.dumps(coll.device_bytes())}; "
+        f"host RSS {rss_gb()} GB")
+    bspec = synth.ZipfSparseSpec(vocab_sizes=cfg.vocab_sizes, n_dense=cfg.n_dense)
+    serve_b = [synth.sparse_batch(bspec, cfg.batch_size, 0, i) for i in range(n_batches + 2)]
+    train_b = [synth.sparse_batch(bspec, cfg.batch_size, 1, i) for i in range(n_steps + 5)]
+
+    def dev_batch(b):
+        return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+
+    pad = {"dense": np.zeros((cfg.n_dense,), np.float32),
+           "sparse": np.zeros((cfg.n_sparse,), np.int32), "label": np.zeros((), np.float32)}
+    engine = ServeEngine(
+        model.serve_step, state, batch_size=cfg.batch_size, pad_example=pad, device=dev,
+        state_stats_fn=lambda st: coll.metrics(st["emb"], writeback=False),
+    )
+    engine.score(serve_b[n_batches + 1])  # first call: allocator, cuBLAS
+    engine.stats = type(engine.stats)()
+    captured = []
+    impl = ops.bucketize_impl
+
+    def capture(owner, local, s):  # the first plan's live router inputs
+        if not captured:
+            captured.append((owner.clone(), local.clone(), s))
+        return impl(owner, local, s)
+
+    # --- main path 1: serve, counts at 0 before and read after --------------
+    ops.bucketize_impl = capture
+    try:
+        kernel.bucketize.launches = kernel.victim_threshold.launches = 0
+        lat, scores = [], []
+        for b in serve_b[:n_batches]:
+            t0 = time.perf_counter()
+            scores.append(engine.score(b))
+            lat.append(1e3 * (time.perf_counter() - t0))
+        serve_bz, serve_thr = kernel.bucketize.launches, kernel.victim_threshold.launches
+    finally:
+        ops.bucketize_impl = impl
+    summary = engine.summary()
+    scores = np.concatenate(scores)
+    if scores.shape != (n_batches * cfg.batch_size,) or not np.isfinite(scores).all():
+        raise AssertionError(f"sharded scores: shape {scores.shape}, finite "
+                             f"{np.isfinite(scores).all()}")
+    if summary["uniq_overflows"] != 0:
+        raise AssertionError(f"sharded serve uniq_overflows = {summary['uniq_overflows']}")
+    if serve_bz != n_batches or serve_thr != S * n_batches:
+        raise AssertionError(f"sharded serve: bucketize launched {serve_bz}, threshold "
+                             f"{serve_thr} times for {n_batches} plans of {S} shards")
+    log(f"sharded serve: {n_batches} batches of {cfg.batch_size}; per-batch ms {lat}; p50 "
+        f"{np.percentile(lat, 50)} ms, p99 {np.percentile(lat, 99)} ms (numpy percentiles of "
+        f"{n_batches}); requests/s {summary['requests'] / (sum(lat) / 1e3)}; hit rate "
+        f"{summary['hit_rate']}; launches: bucketize {serve_bz}, threshold {serve_thr}")
+    b = dev_batch(serve_b[n_batches])
+    logits, emb = model.serve_step(engine.state, b)
+    ref_rows = coll.dense_reference(emb, model.features(b))
+    ref_logits = model.fwd(engine.state["params"], ref_rows, b)
+    diff = float((logits - ref_logits).abs().max())
+    if not torch.allclose(logits, ref_logits, rtol=TOL_RTOL, atol=TOL_ATOL):
+        raise AssertionError(f"sharded cached vs dense_reference logits differ by {diff}")
+    log(f"sharded cache invariant: max |cached - dense_reference| logit = {diff} (rtol "
+        f"{TOL_RTOL} atol {TOL_ATOL})")
+    state = dict(engine.state, emb=emb)
+
+    # --- main path 2: train, counts at 0 before and read after --------------
+    kernel.bucketize.launches = kernel.victim_threshold.launches = 0
+    step_ms, losses, per_step = [], [], []
+    prev = None
+    for i in range(n_steps + 1):  # step 0 warms the allocator and autograd up
+        t0 = time.perf_counter()
+        state, m = model.train_step(state, dev_batch(train_b[n_steps + 4 if i == 0 else i - 1]))
+        losses.append(float(m["loss"]))  # the step's one sync
+        dt = 1e3 * (time.perf_counter() - t0)
+        cur = _exchange_ints(m)
+        if prev is not None:
+            step_ms.append(dt)
+            lanes = cur["lanes"][SHARED_ARENA] - prev["lanes"][SHARED_ARENA]
+            per_step.append({"routed_lanes_per_shard": [c - p for c, p in zip(
+                cur["per_shard"], prev["per_shard"])], "exchange_id_bytes": 4 * lanes,
+                "exchange_row_bytes": lanes * spec.dim * 4,
+                "shard_imbalance": float(m["shard_imbalance"]), "hit_rate": float(m["hit_rate"])})
+        prev = cur
+    train_bz, train_thr = kernel.bucketize.launches, kernel.victim_threshold.launches
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"sharded non-finite loss: {losses}")
+    if prev["overflows"]:
+        raise AssertionError(f"sharded train uniq_overflows = {prev['overflows']}")
+    if train_bz != n_steps + 1 or train_thr != S * (n_steps + 1):
+        raise AssertionError(f"sharded train: bucketize launched {train_bz}, threshold "
+                             f"{train_thr} times for {n_steps + 1} plans of {S} shards")
+    log(f"sharded train: {n_steps} steps of {cfg.batch_size} after a warm-up step; losses "
+        f"{losses}; step ms {step_ms}; p50 {np.percentile(step_ms, 50)} ms, p99 "
+        f"{np.percentile(step_ms, 99)} ms (numpy percentiles of {n_steps}); launches: "
+        f"bucketize {train_bz}, threshold {train_thr}; D2H lane syncs per step "
+        f"{2 * S} (a writeback and a load move per shard)")
+    log(f"sharded train per step (routed lanes per shard, exchange id / row bytes, live "
+        f"shard_imbalance, hit rate): {json.dumps(per_step)}")
+
+    # --- stage by stage with syncs, three steps: where the time goes --------
+    grads_ms = []
+    apply_grads = coll.apply_grads
+
+    def timed_apply_grads(*a, **k):
+        out, ms = sync_ms(lambda: apply_grads(*a, **k))
+        grads_ms.append(ms)
+        return out
+
+    coll.apply_grads = timed_apply_grads
+    try:
+        for i in range(n_steps, n_steps + 3):
+            b = dev_batch(train_b[i])
+            plan, t_plan = sync_ms(lambda: model.plan_step(state, b))
+            state, t_apply = sync_ms(lambda: model.apply_step(state, plan))
+            (state, m), t_compute = sync_ms(lambda: model.compute_step(state, b, plan.addresses))
+            if not np.isfinite(float(m["loss"])):
+                raise AssertionError(f"sharded non-finite loss {float(m['loss'])} at step {i}")
+            log(f"sharded train breakdown ms (synced, step {i}): plan_prepare {t_plan}, "
+                f"apply_plan ({S} shards: writeback + load) {t_apply}, fwd+bwd+dense SGD "
+                f"{t_compute - grads_ms[-1]}, apply_grads {grads_ms[-1]}; routed lanes per "
+                f"shard {plan.routed[SHARED_ARENA].tolist()}")
+    finally:
+        del coll.apply_grads
+    b = dev_batch(train_b[n_steps + 3])
+    profile_call("one sharded train step", lambda: model.train_step(state, b))
+
+    # --- flush: every shard's residents and the replicated head on the host
+    t0 = time.perf_counter()
+    state = model.flush(state)
+    torch.cuda.synchronize()
+    log(f"sharded flush {1e3 * (time.perf_counter() - t0)} ms")
+    slab = state["emb"].slabs[SHARED_ARENA]
+    arena = coll.weights(state["emb"])[SHARED_ARENA]
+    K = slab.rep.rows.shape[0]
+    stale = []
+    for s in range(S):
+        # a warm copy of a replicated rank's home may sit in an arena slot:
+        # it is never read (those lanes read the replicated arena), and the
+        # flush writes the replicated row over its home after the shards'
+        rows = slab.cache.slot_to_row[s].clone()
+        skip = torch.isin(rows, slab.rank_local[:K][slab.rank_owner[:K] == s]) & (rows >= 0)
+        stale.append(int(skip.sum()))
+        rows[skip] = -1
+        check_resident(arena[s], rows, slab.full.shard(s), f"sharded shard {s}")
+    log(f"sharded post-flush: resident warm copies of replicated homes (never read, left "
+        f"out above) per shard {stale}")
+    homes = (slab.rank_owner[:K].long() * vs + slab.rank_local[:K].long()).cpu()
+    host = flat_store(slab.full).decode_rows(homes)["weight"]
+    if not torch.equal(slab.rep.rows.cpu(), host):
+        raise AssertionError("sharded post-flush: replicated rows != their host homes")
+    log(f"sharded post-flush: all {K} replicated rows equal their host homes bitwise")
+    live_err = check_bucketize(*captured[0], "live router inputs of the first plan")
+    log(f"bucketize on the first plan's live router inputs [{captured[0][0].numel()} lanes, "
+        f"{int((captured[0][1] >= 0).sum())} routed]: kernel bitwise = plain")
+    slab.full.close()
+    return {"launches": {"serve": serve_bz, "train": train_bz},
+            "thr_launches": serve_thr + train_thr, "captured": captured[0],
+            "live_err": live_err}
+
+
+def sharded_crosscheck(dev, vocab_scale=0.02, n_steps=4):
+    """4 train steps split over 4 shards and 4 unsharded, from one seed and
+    the same batches: losses within rtol 1e-5 (bitwise on the CPU; the
+    card's atomic ``index_add_`` sums in no fixed order)."""
+    from repro_torch.data import synth
+    from repro_torch.models.dlrm import DLRM
+
+    log(f"sharded cross-check at vocab scale {vocab_scale}:")
+    runs = {}
+    for name, cfg in (("sharded", _sharded_cfg(vocab_scale)),
+                      ("unsharded", dataclasses.replace(_scaled(vocab_scale), model_shards=0))):
+        model = DLRM(cfg)
+        state = model.init(0, device=dev)
+        bspec = synth.ZipfSparseSpec(vocab_sizes=cfg.vocab_sizes, n_dense=cfg.n_dense)
+        losses = []
+        for i in range(n_steps):
+            b = {k: torch.from_numpy(v).to(dev)
+                 for k, v in synth.sparse_batch(bspec, cfg.batch_size, 1, i).items()}
+            state, m = model.train_step(state, b)
+            losses.append(float(m["loss"]))
+        for slab in state["emb"].slabs.values():
+            slab.full.close()
+        runs[name] = np.asarray(losses)
+    diff = float(np.abs(runs["sharded"] - runs["unsharded"]).max())
+    if not np.allclose(runs["sharded"], runs["unsharded"], rtol=1e-5, atol=0):
+        raise AssertionError(f"sharded vs unsharded losses differ by {diff}: {runs}")
+    log(f"sharded cross-check: losses sharded {runs['sharded'].tolist()}, unsharded "
+        f"{runs['unsharded'].tolist()}, max |diff| {diff} (rtol 1e-5)")
+    return diff
+
+
+def time_bucketize(live, max_err, launches):
+    """The bucketize kernel and its plain version on the first sharded
+    plan's live router inputs."""
+    from repro_torch.kernels.cache_ops import kernel
+
+    owner, local, s = live
+    calls = {"kernel": lambda: kernel.bucketize(owner, local, s),
+             "plain": lambda: kernel.bucketize_plain(owner, local, s)}
+    ev = {n: cuda_ms(fn) for n, fn in calls.items()}
+    dv = {n: device_ms(fn)[0] for n, fn in calls.items()}
+    enqueue = host_ms(calls["kernel"])
+    u = owner.numel()
+    n_bytes = 2 * 4 * u + 4 * s * u  # owner and local read once, the image written once
+    n_ops = 3 * s * u  # two compares and a select per output word
+    bytes_ms, ops_ms = 1e3 * n_bytes / HBM_BYTES_PER_S, 1e3 * n_ops / FP32_OPS_PER_S
+    log(f"bucketize on the live router inputs (U {u}, S {s}): event-timed ms kernel "
+        f"{ev['kernel']}, plain {ev['plain']}; device ms kernel {dv['kernel']}, plain "
+        f"{dv['plain']}; host enqueue {enqueue} ms; bound {max(bytes_ms, ops_ms)} ms "
+        f"({n_bytes} B at {HBM_BYTES_PER_S / 1e12} TB/s: {bytes_ms} ms; {n_ops} int32 ops at "
+        f"the fp32 SIMT rate {FP32_OPS_PER_S / 1e12} T/s: {ops_ms} ms)")
+    return {
+        "name": "bucketize",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/cache_ops/csrc/bucketize.cu",
+        "replaces": "src/repro/kernels/cache_ops/kernel.py:131",
+        "launches": sum(launches.values()),
+        "launches_by_path": launches,
+        "max_abs_err": max_err,
+        "ms": ev["kernel"],
+        "plain_ms": ev["plain"],
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None,  # no single PyTorch call builds the per-shard image
+        "device_ms": dv["kernel"],
+        "plain_device_ms": dv["plain"],
+        "host_enqueue_ms": enqueue,
+        "lanes": u,
+        "shards": s,
+    }
+
+
+# ---------------------------------------------------------------------------
 # phases 6-7: FM at full width, served through its kernel and trained
 # ---------------------------------------------------------------------------
 
@@ -1265,7 +1587,7 @@ def main():
 
     t0 = time.perf_counter()
     reports = build.build_all([kernel.SOURCE, kernel.GATHER_DECODE_SOURCE, fm_kernel.SOURCE,
-                               eb_kernel.SOURCE])
+                               eb_kernel.SOURCE, kernel.BUCKETIZE_SOURCE])
     log(f"build {time.perf_counter() - t0} s: " + " | ".join(
         f"{src.name}: {' '.join(r.split())}" for src, r in reports.items()))
 
@@ -1288,6 +1610,7 @@ def main():
     gd_err = gather_decode_phase(dev)
     fm_err = fm_kernel_phase(dev)
     bag_err = bag_kernel_phase(dev)
+    bz_err = bucketize_kernel_phase(dev)
     log(f"host RSS before serve {rss_gb()} GB")
     serve_launches, key, kv, err = serve_phase(dev, args.vocab_scale, args.batches)
     gc.collect()
@@ -1304,6 +1627,11 @@ def main():
     del train
     gc.collect()
     log(f"host RSS after train (table unpinned and freed) {rss_gb()} GB")
+    sharded = sharded_phase(dev, args.vocab_scale, args.batches, args.train_steps)
+    gc.collect()
+    log(f"host RSS after sharded (table unpinned and freed) {rss_gb()} GB")
+    sharded_crosscheck(dev)
+    gc.collect()
     fm_serve = fm_serve_phase(dev, args.vocab_scale, FM_BATCHES)
     gc.collect()
     fm_train = fm_train_phase(dev, args.vocab_scale, FM_TRAIN_STEPS)
@@ -1311,10 +1639,13 @@ def main():
     fmk = time_fm(fm_serve["v"], max(fm_err, fm_serve["live_err"]), fm_serve["fm_launches"])
     thr = time_threshold(key, kv, max(max_err, err),
                          {"serve": serve_launches, "train": train_thr,
+                          "sharded": sharded["thr_launches"],
                           "fm_serve": fm_serve["thr_launches"],
                           "fm_train": fm_train["thr_launches"]})
+    bz = time_bucketize(sharded["captured"], max(bz_err, sharded["live_err"]),
+                        sharded["launches"])
 
-    log(json.dumps({"kernels": [thr, gd, fmk, bag]}))
+    log(json.dumps({"kernels": [thr, gd, fmk, bag, bz]}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

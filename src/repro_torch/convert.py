@@ -15,7 +15,10 @@ names (a dataclass becomes a dict of its fields), e.g.::
 
 where a tiered arena's ``cached_rows`` is an ``ArenaStore`` dict
 ``{"head": {...}, "tail": {...}, "sideband": {...}, "raw": {...},
-"codec": "int8", "out_dtype": "float32"}``.
+"codec": "int8", "out_dtype": "float32"}``.  A sharded slab (``model_shards``
+> 0) adds ``rank_owner``, ``rank_local``, ``routed_lanes`` and ``rep`` (the
+replicated arena's fields), and its ``full`` and ``cache`` leaves lead with
+the shard dim.
 
 :func:`state_from_numpy` builds the port's state from that (params,
 the optimizer state — empty for SGD without momentum — the ``HostStore``
@@ -77,18 +80,29 @@ def _host_store(d: Mapping[str, Any], pin: bool) -> HostStore:
     return HostStore.create(data, codec=d.get("codec", "fp32"), pin=pin)
 
 
+def _slab(s: Mapping[str, Any], dev: torch.device):
+    """A ``CachedSlab``, or a ``ShardedSlab`` (its stacked ``[S, ...]``
+    host table pinned whole, every cache leaf stacked, the routing maps,
+    the routed-lane counts and the replicated arena)."""
+    full = _host_store(s["full"], pin=dev.type == "cuda")
+    cache = _cache_state(s["cache"], dev)
+    if "rank_owner" not in s:
+        return CachedSlab(full=full, cache=cache, idx_map=_t(s["idx_map"], dev))
+    from repro_torch.core.sharded import RepArena, ShardedSlab
+
+    return ShardedSlab(
+        full=full, cache=cache,
+        **{k: _t(s[k], dev) for k in ("idx_map", "rank_owner", "rank_local", "routed_lanes")},
+        rep=RepArena(**{f.name: _t(s["rep"][f.name], dev) for f in dataclasses.fields(RepArena)}),
+    )
+
+
 def collection_state_from_numpy(tree: Mapping[str, Any], device: DeviceLike = None
                                 ) -> CollectionState:
-    """The port's ``CollectionState`` from a JAX one's numpy tree (``emb``)."""
+    """The port's ``CollectionState`` from a JAX one's numpy tree (``emb``),
+    sharded or not."""
     dev = resolve_device(device)
-    return CollectionState(slabs={
-        name: CachedSlab(
-            full=_host_store(s["full"], pin=dev.type == "cuda"),
-            cache=_cache_state(s["cache"], dev),
-            idx_map=_t(s["idx_map"], dev),
-        )
-        for name, s in tree["slabs"].items()
-    })
+    return CollectionState(slabs={name: _slab(s, dev) for name, s in tree["slabs"].items()})
 
 
 def state_from_numpy(tree: Mapping[str, Any], device: DeviceLike = None) -> Dict[str, Any]:

@@ -177,7 +177,7 @@ class CachePlan:
     slots: torch.Tensor  # per-lane resident slot for the current batch (-1 pad)
 
 
-def _unique_fixed(x: torch.Tensor, k: int, fill: int) -> torch.Tensor:
+def unique_fixed(x: torch.Tensor, k: int, fill: int) -> torch.Tensor:
     """``jnp.unique(x, size=k, fill_value=fill)``: the k smallest distinct
     values ascending, padded with ``fill``."""
     u = torch.unique(x, sorted=True)[:k]
@@ -209,7 +209,7 @@ def plan_prepare(
         overflow = i32(img.n_distinct > k)
         uniq_slots, miss, n_miss = img.uniq_slots, img.miss, img.n_miss
     else:
-        uniq = _unique_fixed(big_rows, k, INT_MAX)
+        uniq = unique_fixed(big_rows, k, INT_MAX)
         uniq_valid = uniq != INT_MAX
         uniq = torch.where(uniq_valid, uniq, -1)
         srt = torch.sort(big_rows).values
@@ -299,7 +299,7 @@ def plan_prepare(
     )
 
 
-_INDEX_FIELDS = (
+INDEX_FIELDS = (
     "slot_to_row", "row_to_slot", "last_used", "use_count", "step", "hits", "misses",
     "evictions", "uniq_overflows", "tier_promotions", "tier_demotions", "tracker",
 )
@@ -320,7 +320,7 @@ def apply_plan(cfg: CacheConfig, full_rows, state: CacheState, plan: CachePlan) 
         plan.load_active, buffer_rows=cfg.buffer_rows,
     )
     new_state = CacheState(
-        cached_rows=cached_rows, **{f: getattr(plan, f) for f in _INDEX_FIELDS}
+        cached_rows=cached_rows, **{f: getattr(plan, f) for f in INDEX_FIELDS}
     )
     return full_rows, new_state
 

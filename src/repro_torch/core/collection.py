@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import heapq
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -39,6 +40,8 @@ __all__ = [
     "TablePlacement",
     "ArenaConfig",
     "PlacementPlan",
+    "PlacementPlanner",
+    "ShardAssignment",
     "EmbeddingCollection",
     "CachedSlab",
     "CollectionState",
@@ -147,6 +150,99 @@ class PlacementPlan:
         )
 
 
+@dataclasses.dataclass(frozen=True)
+class ShardAssignment:
+    """Frequency-driven shard assignment of one cached slab's ranked rows
+    (host numpy, as in the reference): ``owner[r]`` / ``local[r]`` place
+    rank ``r`` on a shard and a row there.  Replicated ranks (``r <
+    replicate_top_k``) keep a home too, appended after the routed ranks, and
+    carry no routed load."""
+
+    num_shards: int
+    owner: np.ndarray  # int32 [vocab] rank -> owning shard
+    local: np.ndarray  # int32 [vocab] rank -> row on the owner
+    shard_rows: np.ndarray  # int64 [S] real rows per shard
+    shard_load: np.ndarray  # float64 [S] expected routed traffic per shard
+    replicate_top_k: int = 0
+
+    @property
+    def rows_per_shard(self) -> int:
+        """Uniform local vocab of the stacked ``[S, rows_per_shard, ...]`` layout."""
+        return -(-int(self.owner.shape[0]) // self.num_shards)
+
+    def imbalance(self) -> float:
+        """max / mean expected routed traffic across shards (1.0 = even)."""
+        mean = float(np.mean(self.shard_load))
+        return float(np.max(self.shard_load)) / mean if mean > 0 else 1.0
+
+
+class PlacementPlanner:
+    """The planner's static device-assignment pass (``assign_devices``).
+    The budget-driven ``plan`` with DEVICE and CACHED placements arrives with
+    a later slice."""
+
+    @staticmethod
+    def assign_devices(
+        vocab: int,
+        num_shards: int,
+        counts_ranked: Optional[np.ndarray] = None,
+        replicate_top_k: int = 0,
+    ) -> ShardAssignment:
+        """Spread a slab's ranked rows over ``num_shards`` shards, balancing
+        expected traffic: greedy longest-processing-time over the routed
+        ranks, hottest first, each to the least-loaded shard with room (at
+        most ``ceil(vocab / S)`` rows each), ties broken by (rows held, shard).
+        Without counts (or with one shard), round-robin over the routed
+        ranks.  The ``replicate_top_k`` head ranks get their homes last, on
+        the least-filled shards."""
+        if num_shards < 1:
+            raise ValueError(f"num_shards must be >= 1, got {num_shards}")
+        S = int(num_shards)
+        vocab = int(vocab)
+        K = min(max(int(replicate_top_k), 0), vocab)
+        cap = -(-vocab // S)
+        routed = np.arange(K, vocab, dtype=np.int64)
+        c = None
+        if counts_ranked is not None:
+            c = np.asarray(counts_ranked, np.float64)
+            if c.shape[0] != vocab:
+                raise ValueError(f"counts_ranked has {c.shape[0]} entries, want {vocab}")
+        owner = np.empty((vocab,), np.int32)
+        local = np.empty((vocab,), np.int32)
+        if c is None or S == 1:
+            seq = np.concatenate([routed, np.arange(K, dtype=np.int64)])
+            pos = np.arange(vocab, dtype=np.int64)
+            owner[seq] = (pos % S).astype(np.int32)
+            local[seq] = (pos // S).astype(np.int32)
+        else:
+            hot_first = routed[np.argsort(-c[routed], kind="stable")]
+            sizes = np.zeros((S,), np.int64)
+            heap = [(0.0, 0, s) for s in range(S)]  # (load, rows held, shard)
+            for r in hot_first:
+                ld, size, s = heapq.heappop(heap)
+                owner[r] = s
+                local[r] = size
+                sizes[s] = size + 1
+                if size + 1 < cap:  # a full shard leaves the heap
+                    heapq.heappush(heap, (ld + c[r], size + 1, s))
+            rep_heap = [(int(sizes[s]), s) for s in range(S)]
+            heapq.heapify(rep_heap)
+            for r in range(K):
+                size, s = heapq.heappop(rep_heap)
+                owner[r] = s
+                local[r] = size
+                if size + 1 < cap:
+                    heapq.heappush(rep_heap, (size + 1, s))
+        load = np.zeros((S,), np.float64)
+        if routed.size:
+            np.add.at(load, owner[routed], c[routed] if c is not None else 1.0)
+        return ShardAssignment(
+            num_shards=S, owner=owner, local=local,
+            shard_rows=np.bincount(owner, minlength=S).astype(np.int64),
+            shard_load=load, replicate_top_k=K,
+        )
+
+
 @dataclasses.dataclass
 class CachedSlab:
     """A two-tier cached arena: host table, cache state, raw id -> rank map."""
@@ -172,6 +268,31 @@ def cached_slab_flush(ccfg: cache_lib.CacheConfig, slab: CachedSlab) -> CachedSl
     """Write every resident row back to the slab's host table (in place)."""
     full, cache_state = cache_lib.flush(ccfg, slab.full, slab.cache)
     return dataclasses.replace(slab, full=full, cache=cache_state)
+
+
+def draw_table(seed: int, spec: "_CachedSlabSpec", device: torch.device):
+    """The initial table of a slab, rank by rank: ``(first_rank, rows)``
+    chunks of uniform(+-1/sqrt(dim)) host rows, drawn on ``device`` from
+    ``seed``.  The sharded collection draws the same chunks, so the two
+    start from one logical table."""
+    scale = 1.0 / np.sqrt(spec.dim)
+    gen = torch.Generator(device=device).manual_seed(int(seed))
+    for r0 in range(0, spec.vocab, _INIT_CHUNK_ROWS):
+        n = min(_INIT_CHUNK_ROWS, spec.vocab - r0)
+        chunk = torch.rand((n, spec.dim), generator=gen, dtype=spec.dtype, device=device)
+        yield r0, (chunk * (2 * scale) - scale).cpu()
+
+
+def slab_freq_stats(
+    spec: "_CachedSlabSpec", counts: Optional[Mapping[str, np.ndarray]]
+) -> Optional[freq_lib.FreqStats]:
+    """The slab's frequency ranking from per-table counts (None without)."""
+    if counts is None:
+        return None
+    return freq_lib.build_freq_stats(np.concatenate(
+        [np.asarray(counts.get(t.name, np.zeros((t.vocab,), np.int64)), np.int64)
+         for t in spec.tables]
+    ))
 
 
 def _translate(slab: CachedSlab, raw_ids: torch.Tensor) -> torch.Tensor:
@@ -303,21 +424,12 @@ class EmbeddingCollection:
         dev = resolve_device(device)
         slabs = {}
         for sname, spec in self.cached_slabs.items():
-            scale = 1.0 / np.sqrt(spec.dim)
-            gen = torch.Generator(device=dev).manual_seed(int(seed))
             weight = torch.empty((spec.vocab, spec.dim), dtype=spec.dtype)
-            for r0 in range(0, spec.vocab, _INIT_CHUNK_ROWS):
-                n = min(_INIT_CHUNK_ROWS, spec.vocab - r0)
-                chunk = torch.rand((n, spec.dim), generator=gen, dtype=spec.dtype, device=dev)
-                weight[r0 : r0 + n] = (chunk * (2 * scale) - scale).cpu()
-            if counts is not None:
-                slab_counts = np.concatenate(
-                    [np.asarray(counts.get(t.name, np.zeros((t.vocab,), np.int64)), np.int64)
-                     for t in spec.tables]
-                )
-                idx_map = torch.from_numpy(freq_lib.build_freq_stats(slab_counts).idx_map)
-            else:
-                idx_map = torch.arange(spec.vocab, dtype=torch.int32)
+            for r0, chunk in draw_table(seed, spec, dev):
+                weight[r0 : r0 + chunk.shape[0]] = chunk
+            stats = slab_freq_stats(spec, counts)
+            idx_map = (torch.from_numpy(stats.idx_map) if stats is not None
+                       else torch.arange(spec.vocab, dtype=torch.int32))
             ccfg = spec.cache_config()
             slab = CachedSlab(
                 full=HostStore.create({"weight": weight}, pin=dev.type == "cuda"),
@@ -518,6 +630,15 @@ class EmbeddingCollection:
             out[f] = full.reshape(fb.ids[f].shape + (full.shape[-1],))
         return out
 
+    def full_lookup(self, state: CollectionState, table: str, local_ids: torch.Tensor
+                    ) -> torch.Tensor:
+        """Rows of ``table``'s local ids read straight out of the host table
+        (-1 lanes give zero rows), on the host."""
+        sname, off = self.table_slab[table]
+        slab = state.slabs[sname]
+        raw = torch.where(local_ids >= 0, local_ids + off, -1)
+        return slab.full.decode_rows(_translate(slab, raw).cpu())["weight"]
+
     # ----- telemetry ----------------------------------------------------------
 
     def device_bytes(self) -> Dict[str, object]:
@@ -557,21 +678,26 @@ class EmbeddingCollection:
             "slab_refresh_swaps", "slab_refresh_rows", "slab_tier_promotions",
             "slab_tier_demotions")}
         for sname in self.cached_slabs:
+            # a sharded slab stacks every counter [S]: the sums fold them
+            # into one wrapping int32 per slab (0-dim counters pass through)
             c = state.slabs[sname].cache
-            hits, misses = hits + c.hits, misses + c.misses
-            evictions, overflows = evictions + c.evictions, overflows + c.uniq_overflows
-            win_h, win_m = win_h + c.tracker.win_hits, win_m + c.tracker.win_misses
-            ref_swaps = ref_swaps + c.tracker.refresh_swaps
-            ref_rows = ref_rows + c.tracker.refresh_rows
-            per["slab_hits"][sname] = i32(c.hits)
-            per["slab_misses"][sname] = i32(c.misses)
-            per["slab_refresh_swaps"][sname] = i32(c.tracker.refresh_swaps)
-            per["slab_refresh_rows"][sname] = i32(c.tracker.refresh_rows)
-            per["slab_tier_promotions"][sname] = i32(c.tier_promotions)
-            per["slab_tier_demotions"][sname] = i32(c.tier_demotions)
-            row_bytes = state.slabs[sname].full.row_wire_bytes()
-            moved = c.misses + c.evictions if writeback else c.misses
-            per["host_moved_rows"][sname] = i32(moved)
+            tr = c.tracker
+            hits, misses = hits + i32(c.hits.sum()), misses + i32(c.misses.sum())
+            evictions = evictions + i32(c.evictions.sum())
+            overflows = overflows + i32(c.uniq_overflows.sum())
+            win_h, win_m = win_h + tr.win_hits.sum(), win_m + tr.win_misses.sum()
+            ref_swaps = ref_swaps + i32(tr.refresh_swaps.sum())
+            ref_rows = ref_rows + i32(tr.refresh_rows.sum())
+            per["slab_hits"][sname] = i32(c.hits.sum())
+            per["slab_misses"][sname] = i32(c.misses.sum())
+            per["slab_refresh_swaps"][sname] = i32(tr.refresh_swaps.sum())
+            per["slab_refresh_rows"][sname] = i32(tr.refresh_rows.sum())
+            per["slab_tier_promotions"][sname] = i32(c.tier_promotions.sum())
+            per["slab_tier_demotions"][sname] = i32(c.tier_demotions.sum())
+            full = state.slabs[sname].full
+            row_bytes = full.row_wire_bytes(batch_dims=full["weight"].dim() - 1)
+            moved = i32((c.misses + c.evictions if writeback else c.misses).sum())
+            per["host_moved_rows"][sname] = moved
             per["host_row_bytes"][sname] = torch.tensor(
                 row_bytes, dtype=torch.int32, device=c.hits.device
             )

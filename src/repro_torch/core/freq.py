@@ -25,6 +25,8 @@ __all__ = [
     "init_tracker",
     "tracker_touch",
     "tracker_observe",
+    "decay_to",
+    "decayed_scores",
 ]
 
 
@@ -113,3 +115,21 @@ def tracker_observe(
         win_hits=tracker.win_hits * d + hits.to(torch.float32),
         win_misses=tracker.win_misses * d + misses.to(torch.float32),
     )
+
+
+def decay_to(
+    score: torch.Tensor, last_touch: torch.Tensor, step: torch.Tensor, half_life: int
+) -> torch.Tensor:
+    """float32 decayed masses normalised to a common ``step`` (broadcasts:
+    pass ``step[:, None]`` for a stacked per-shard tracker).  The live
+    ``shard_imbalance`` metric and the replicated arena's tracker use it."""
+    dt = torch.clamp(step - last_touch, min=0).to(torch.float32)
+    return score * torch.exp2(-dt / half_life)
+
+
+def decayed_scores(score, last_touch, step, half_life: int) -> np.ndarray:
+    """Host-side float64 twin of :func:`decay_to`: every row's decayed mass
+    as of ``step``."""
+    s = np.asarray(score, np.float64)
+    lt = np.asarray(last_touch, np.float64)
+    return s * np.exp2(-np.maximum(step - lt, 0.0) / half_life)

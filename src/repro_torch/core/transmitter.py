@@ -32,7 +32,7 @@ from repro_torch.core.lanes import scatter_rows_
 from repro_torch.store.arena import ArenaStore
 from repro_torch.store.host_store import HostStore
 
-__all__ = ["move_rows", "gather_rows", "scatter_rows", "num_rounds"]
+__all__ = ["move_rows", "write_rows", "gather_rows", "scatter_rows", "num_rounds"]
 
 Tree = Dict[str, torch.Tensor]
 Side = Union[HostStore, ArenaStore, Tree]
@@ -145,3 +145,14 @@ def move_rows(
             block = {k: v.to(dst_dev) for k, v in block.items()}
         _scatter(dst_tree, d.to(dst_dev), block)
     return dst_tree
+
+
+def write_rows(
+    rows: Tree, dst_tree: Side, dst_idx: torch.Tensor, active: torch.Tensor, *, buffer_rows: int
+) -> Side:
+    """Scatter an explicit block (row ``i`` -> ``dst_idx[i]``) into
+    ``dst_tree`` through the same staging rounds as :func:`move_rows`.  The
+    sharded collection pushes its replicated arena back to the rows' host
+    homes with it."""
+    src_idx = torch.arange(dst_idx.shape[0], dtype=dst_idx.dtype, device=dst_idx.device)
+    return move_rows(rows, dst_tree, src_idx, dst_idx, active, buffer_rows=buffer_rows)

@@ -32,6 +32,18 @@ slots outside ``[0, H + T)``.
   takes the plain version.  ``gather_decode.launches`` counts kernel
   launches.  The kernel decodes without a fused multiply-add, so it is
   bitwise the plain version.
+
+**Bucketize** — replaces ``repro/kernels/cache_ops/kernel.py::bucketize_pallas``.
+Given int32 ``owner[U]`` and ``local[U]`` (-1 on padding and replicated
+lanes) and the shard count ``S``, both versions return the int32 ``[S, U]``
+routing image: ``out[s, i] = local[i]`` where ``owner[i] == s`` and
+``local[i] >= 0``, else -1.
+
+* :func:`bucketize_plain` — the where-image as three torch ops.
+* :func:`bucketize` — on CUDA tensors it launches the hand-written kernel
+  in ``csrc/bucketize.cu`` (one pass over the lanes for all S rows, 16 B
+  loads and stores; bound by bytes) or raises; on CPU tensors it takes the
+  plain version.  ``bucketize.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -44,8 +56,11 @@ import torch
 from repro_torch.kernels import build
 
 __all__ = [
+    "BUCKETIZE_SOURCE",
     "GATHER_DECODE_SOURCE",
     "SOURCE",
+    "bucketize",
+    "bucketize_plain",
     "gather_decode",
     "gather_decode_plain",
     "victim_threshold",
@@ -54,6 +69,7 @@ __all__ = [
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "victim_threshold.cu"
 GATHER_DECODE_SOURCE = SOURCE.with_name("gather_decode.cu")
+BUCKETIZE_SOURCE = SOURCE.with_name("bucketize.cu")
 _SIGN = 2**31
 
 
@@ -181,3 +197,50 @@ def gather_decode(
 
 
 gather_decode.launches = 0
+
+
+def bucketize_plain(owner: torch.Tensor, local: torch.Tensor, num_shards: int) -> torch.Tensor:
+    """int32 ``[S, U]`` routing image by a shard-id column, a mask and a
+    select."""
+    sids = torch.arange(int(num_shards), dtype=torch.int32, device=owner.device)[:, None]
+    mine = (owner[None, :] == sids) & (local[None, :] >= 0)
+    return torch.where(mine, local[None, :], -1).to(torch.int32)
+
+
+def bucketize(owner: torch.Tensor, local: torch.Tensor, num_shards: int) -> torch.Tensor:
+    """int32 ``[S, U]`` routing image: the CUDA kernel on CUDA tensors, the
+    plain version on CPU tensors."""
+    num_shards = int(num_shards)
+    if owner.device.type == "cpu" and local.device.type == "cpu":
+        return bucketize_plain(owner, local, num_shards)
+    dev = owner.device
+    if not (owner.is_cuda and local.device == dev):
+        raise ValueError(f"bucketize: tensors on mixed or unsupported devices "
+                         f"{owner.device}, {local.device}")
+    if num_shards < 1:
+        raise ValueError(f"bucketize: num_shards must be >= 1, got {num_shards}")
+    for name, x in (("owner", owner), ("local", local)):
+        if x.dtype != torch.int32 or x.dim() != 1 or not x.is_contiguous():
+            raise ValueError(f"bucketize: {name} must be contiguous int32 [U], got {x.dtype} "
+                             f"{tuple(x.shape)}")
+        if x.data_ptr() % 16:
+            raise ValueError(f"bucketize: {name} must start on a 16 B boundary")
+    if owner.shape != local.shape:
+        raise ValueError(f"bucketize: owner {tuple(owner.shape)} != local {tuple(local.shape)}")
+    u = owner.shape[0]
+    out = torch.empty((num_shards, u), dtype=torch.int32, device=dev)
+    if u == 0:
+        return out
+    launch = build.entry(BUCKETIZE_SOURCE, "bucketize", [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = launch(owner.data_ptr(), local.data_ptr(), u, num_shards, out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"bucketize kernel launch failed: CUDA error {err}")
+    bucketize.launches += 1
+    return out
+
+
+bucketize.launches = 0

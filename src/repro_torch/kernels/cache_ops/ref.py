@@ -10,6 +10,8 @@
   scatter.
 * ``plan_image`` — fused dedup -> residency probe -> miss compaction.
 * ``arena_gather`` — decode-on-read gather over one tiered arena leaf.
+* ``bucketize`` — the sharded router's ``[S, U]`` per-shard routing image
+  (``kernel.bucketize_plain``, which the CUDA kernel is held against).
 
 The reference's uint32 keys are carried here as int64 values (torch's
 uint32 supports too few ops): ``ordered_u32(key) = key + 2**31``.
@@ -22,11 +24,13 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from repro_torch.core.lanes import i32, scatter_drop, take_fill
+from repro_torch.kernels.cache_ops.kernel import bucketize_plain as bucketize
 from repro_torch.kernels.cache_ops.kernel import victim_threshold_plain
 
 __all__ = [
     "PlanImage",
     "arena_gather",
+    "bucketize",
     "compact_front",
     "dedup",
     "ordered_u32",

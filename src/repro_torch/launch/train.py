@@ -2,6 +2,7 @@
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-criteo --steps 50 --arena-precision int8
   PYTHONPATH=src python -m repro_torch.launch.train --arch fm --steps 50
+  PYTHONPATH=src python -m repro_torch.launch.train --model-shards 4 --replicate-top-k 64
 
 Runs on the CUDA card; ``--device cpu`` runs it on the CPU.  DIN, DIEN and
 MIND, the reference launcher's other architectures, come with their models
@@ -17,15 +18,26 @@ from repro_torch.models.recsys_models import FMConfig, FMModel
 from repro_torch.train.trainer import Trainer, TrainerConfig
 
 
-def build(arch: str, batch: int, arena_precision: str):
+def build(arch: str, batch: int, arena_precision: str, model_shards: int = 0,
+          replicate_top_k: int = 0, exchange_codec: str = "fp32", max_routed_per_shard: int = 0):
     """The reference launcher's config of ``arch``: (model, batch spec).
     Victim selection always goes through the bounded top-K route, whose
     threshold is the CUDA kernel on the card (bit-identical to the full
-    argsort route)."""
+    argsort route); a sharded DLRM's router builds its per-shard image with
+    the bucketize kernel there."""
+    if model_shards and arch != "dlrm-criteo":
+        raise SystemExit(f"--model-shards is wired for dlrm archs; {arch} builds an "
+                         f"unsharded collection")
+    if (replicate_top_k or exchange_codec != "fp32" or max_routed_per_shard) and not model_shards:
+        raise SystemExit("--replicate-top-k / --exchange-codec / --max-routed-per-shard shape "
+                         "the sharded exchange; they need --model-shards >= 1")
     if arch == "dlrm-criteo":
         cfg = DLRMConfig(vocab_sizes=(100_000, 50_000, 20_000), embed_dim=32, batch_size=batch,
                          cache_ratio=0.02, lr=0.3, bottom_mlp=(64, 32), top_mlp=(64,),
-                         arena_precision=arena_precision, use_pallas_plan=True)
+                         arena_precision=arena_precision, use_pallas_plan=True,
+                         model_shards=model_shards, replicate_top_k=replicate_top_k,
+                         exchange_codec=exchange_codec,
+                         max_routed_per_shard=max_routed_per_shard)
         return DLRM(cfg), synth.ZipfSparseSpec(vocab_sizes=cfg.vocab_sizes, n_dense=13)
     # fm trains through the sum-square torch ops: the FM kernel has no backward
     cfg = FMConfig(vocab_sizes=(100_000,) * 6, embed_dim=10, batch_size=batch, cache_ratio=0.02,
@@ -44,10 +56,23 @@ def main(argv=None):
     ap.add_argument("--arena-precision", default="fp32", choices=["fp32", "fp16", "int8"],
                     help="device-arena codec: fp32 = raw arena; fp16/int8 tier it (the hot "
                          "head stays fp32, the cold resident tail is stored encoded)")
+    ap.add_argument("--model-shards", type=int, default=0,
+                    help="0 = one collection; S >= 1 = hybrid parallel: the cached slab is "
+                         "split over S shards, each with its own arena and host-table slice "
+                         "(dlrm-criteo; on one card, the stacked layout)")
+    ap.add_argument("--replicate-top-k", type=int, default=0,
+                    help="sharded: the K hottest ranks live in a replicated arena and never "
+                         "enter the exchange")
+    ap.add_argument("--exchange-codec", default="fp32", choices=["fp32", "fp16", "int8"],
+                    help="sharded: codec of the exchange's row leg (fp32 = exact)")
+    ap.add_argument("--max-routed-per-shard", type=int, default=0,
+                    help="sharded: per-shard plan width bound (0 = full width); lanes past "
+                         "it raise through the overflow guard")
     ap.add_argument("--device", default=None, help="default: the CUDA card")
     args = ap.parse_args(argv)
 
-    model, spec = build(args.arch, args.batch, args.arena_precision)
+    model, spec = build(args.arch, args.batch, args.arena_precision, args.model_shards,
+                        args.replicate_top_k, args.exchange_codec, args.max_routed_per_shard)
     tc = TrainerConfig(max_steps=args.steps, ckpt_dir=args.ckpt_dir, ckpt_every=25,
                        obs_dir=args.obs_dir)
     trainer = Trainer(
@@ -72,6 +97,13 @@ def main(argv=None):
         print(f"arena tier ({args.arena_precision}): saved "
               f"{db['arena_bytes_saved'] / 1e6:.2f} MB HBM vs fp32")
     print(f"host<->device traffic: {h[-1]['host_wire_bytes'] / 1e6:.1f} MB total")
+    if args.model_shards:
+        print(f"hybrid parallel: {args.model_shards} shards, "
+              f"exchange {h[-1]['exchange_bytes'] / 1e6:.1f} MB total "
+              f"(ids {h[-1]['exchange_id_bytes'] / 1e6:.1f} MB + rows "
+              f"{h[-1]['exchange_row_bytes'] / 1e6:.1f} MB [{args.exchange_codec}], "
+              f"top-{args.replicate_top_k} replicated), live imbalance "
+              f"{h[-1]['shard_imbalance']:.2f}x")
     if args.obs_dir:
         print(f"observability: {trainer.hub.jsonl_path} | chrome trace: {trainer.trace_path}")
     return trainer

@@ -6,7 +6,9 @@ Paper §5.1 configuration: embedding dim 128 for every table, bottom MLP
 512-256-128 over 13 dense features, dot-product feature interaction, top MLP
 1024-1024-512-256-1, SGD with a constant learning rate.  Every sparse field
 is GROUPED into one shared cache arena (the paper's one-big-table layout),
-fp32 or frequency-tiered (``arena_precision`` fp16 / int8).  The model
+fp32 or frequency-tiered (``arena_precision`` fp16 / int8); with
+``model_shards`` > 0 that arena is split over shards (hybrid parallel,
+``core.sharded``).  The model
 computes in fp32; float32 matmuls run in full fp32 (``allow_tf32`` stays
 False).  ``train_step`` / ``plan_step`` / ``apply_step`` / ``compute_step``
 come from :class:`~repro_torch.models.common.CollectionModelMixin`.
@@ -48,6 +50,13 @@ class DLRMConfig:
     # hot head stays fp32, the cold resident tail is stored encoded)
     arena_precision: str = "fp32"
     arena_head_ratio: float = 0.25  # fp32 head share of a tiered arena
+    # 0: one collection; S >= 1: hybrid parallel, the cached slab split over
+    # S shards (each its own arena and host-table slice; on one card the
+    # stacked [S, ...] layout)
+    model_shards: int = 0
+    replicate_top_k: int = 0  # sharded: K hottest ranks in a replicated arena
+    exchange_codec: str = "fp32"  # sharded: row-leg wire codec (fp32 / fp16 / int8)
+    max_routed_per_shard: int = 0  # sharded: per-shard plan width bound (0 = full width)
 
     @property
     def n_sparse(self) -> int:
@@ -69,8 +78,7 @@ class DLRM(common.CollectionModelMixin):
             )
             for n, v in zip(self.feature_names, cfg.vocab_sizes)
         ]
-        self.collection = col.EmbeddingCollection.create(
-            tables,
+        arena_kw = dict(
             cache_ratio=cfg.cache_ratio,
             policy=policy,
             buffer_rows=cfg.buffer_rows,
@@ -79,6 +87,16 @@ class DLRM(common.CollectionModelMixin):
             arena_precision=cfg.arena_precision,
             arena_head_ratio=cfg.arena_head_ratio,
         )
+        if cfg.model_shards > 0:
+            from repro_torch.core.sharded import ShardedEmbeddingCollection
+
+            self.collection = ShardedEmbeddingCollection.create(
+                tables, num_shards=cfg.model_shards, replicate_top_k=cfg.replicate_top_k,
+                exchange_codec=cfg.exchange_codec,
+                max_routed_per_shard=cfg.max_routed_per_shard, **arena_kw,
+            )
+        else:
+            self.collection = col.EmbeddingCollection.create(tables, **arena_kw)
 
     # ----- params ----------------------------------------------------------
     def init(

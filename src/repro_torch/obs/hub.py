@@ -98,6 +98,10 @@ _CUMULATIVE_FAMILIES = (
     ("cache_misses", "slab_misses", None),
     ("host_moved_rows", "host_moved_rows", None),
     ("host_wire_bytes", "host_moved_rows", "host_row_bytes"),
+    ("exchange_routed_lanes", "exchange_routed_lanes", None),
+    ("exchange_bytes", "exchange_routed_lanes", "exchange_lane_bytes"),
+    ("exchange_id_bytes", "exchange_routed_lanes", "exchange_id_lane_bytes"),
+    ("exchange_row_bytes", "exchange_routed_lanes", "exchange_row_lane_bytes"),
     ("refresh_swaps_exact", "slab_refresh_swaps", None),
     ("refresh_rows_moved_exact", "slab_refresh_rows", None),
     ("slab_tier_promotions", "slab_tier_promotions", None),

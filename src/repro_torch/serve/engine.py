@@ -87,7 +87,9 @@ class ServeEngine:
         out: Dict[str, float] = dict(self.stats.summary())
         if self.state_stats_fn is not None:
             stats = self.state_stats_fn(self.state)
-            scalars = {k: v for k, v in stats.items() if not isinstance(v, dict)}
+            # per-slab dicts and per-shard vectors stay internal
+            scalars = {k: v for k, v in stats.items()
+                       if not isinstance(v, dict) and torch.as_tensor(v).dim() == 0}
             if scalars:
                 dev = next(iter(scalars.values())).device
                 vals = torch.stack(

@@ -165,19 +165,22 @@ class ArenaStore:
         return torch.cat([self.head[key].to(self._out), tail], dim=-2)
 
     def replace_leaf(self, key: str, full: torch.Tensor) -> "ArenaStore":
-        """In place: set leaf ``key`` from a full decoded ``[capacity, dim]``
-        array — the head slice lands raw, the tail slice re-encodes with a
-        fresh per-row scale.  Untouched rows re-encode to the identical
-        payload (the codec's stable projection)."""
+        """In place: set leaf ``key`` from a full decoded ``[..., capacity,
+        dim]`` array (a sharded arena leads with its shard dim) — the head
+        slice lands raw, the tail slice re-encodes with a fresh per-row
+        scale.  Untouched rows re-encode to the identical payload (the
+        codec's stable projection)."""
         if key in self.raw:
             self.raw[key].copy_(full)
             return self
         h = self.head_capacity
-        self.head[key].copy_(full[:h])
-        payload, side = self._codec.encode(full[h:])
-        self.tail[key].copy_(payload)
+        self.head[key].copy_(full[..., :h, :])
+        tail = full[..., h:, :]
+        # a sharded arena stacks [S, slots, dim]: encode per row, not per shard
+        payload, side = self._codec.encode(tail.reshape((-1,) + tuple(tail.shape[-1:])))
+        self.tail[key].copy_(payload.reshape(tail.shape))
         if key in self.sideband:
-            self.sideband[key].copy_(side)
+            self.sideband[key].copy_(side.reshape(self.sideband[key].shape))
         return self
 
     # ----- accounting -------------------------------------------------------

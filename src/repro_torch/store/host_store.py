@@ -71,6 +71,9 @@ class HostStore:
     out_dtype: str = "float32"
     pinned: bool = False  # data leaves page-locked for async copies
     _ring: Optional[StagingRing] = dataclasses.field(default=None, repr=False, compare=False)
+    # the store whose table a view (``view`` / ``shard``) reads: it holds the
+    # pin and the staging ring that all its views share
+    _owner: Optional["HostStore"] = dataclasses.field(default=None, repr=False, compare=False)
 
     @classmethod
     def create(
@@ -97,8 +100,28 @@ class HostStore:
             store.pinned = True
         return store
 
+    def view(self, reshape) -> "HostStore":
+        """A store over the same memory with every leaf reshaped by
+        ``reshape`` (a view: writes land in this store's table).  The sharded
+        collection keeps one stacked ``[S, rows, ...]`` table and reads it
+        through per-shard and flat ``[S * rows, ...]`` views."""
+        owner = self._owner or self
+        return HostStore(
+            data={k: reshape(v) for k, v in self.data.items()},
+            sideband={k: reshape(v) for k, v in self.sideband.items()},
+            codec=self.codec, out_dtype=self.out_dtype, pinned=owner.pinned, _owner=owner,
+        )
+
+    def shard(self, s: int) -> "HostStore":
+        """Shard ``s`` of a stacked ``[S, rows, ...]`` store, as a view."""
+        return self.view(lambda v: v[s])
+
     def close(self) -> None:
-        """Unpin the table (safe to call twice)."""
+        """Unpin the table (safe to call twice; a view closes its owner)."""
+        if self._owner is not None:
+            self._owner.close()
+            self.pinned = False
+            return
         if self.pinned:
             cudart = torch.cuda.cudart()
             for v in self.data.values():
@@ -107,10 +130,13 @@ class HostStore:
         self._ring = None
 
     def staging(self, rows: int) -> StagingRing:
-        """The store's staging ring of ``rows``-row blocks (built on first use)."""
-        if self._ring is None or self._ring.rows != rows:
-            self._ring = StagingRing(self.data, rows)
-        return self._ring
+        """The store's staging ring of ``rows``-row blocks (built on first
+        use), shared by the owner's views; blocks take this store's row
+        shape."""
+        home = self._owner or self
+        if home._ring is None or home._ring.rows != rows:
+            home._ring = StagingRing(self.data, rows)
+        return home._ring
 
     # ----- reads ---------------------------------------------------------------
 

@@ -147,8 +147,9 @@ class Trainer:
                     f"max_unique_per_step (exactness is violated otherwise)"
                 )
         rec: Dict[str, Any] = {"step": step_i, "loss": loss, "time_s": dt}
-        float_keys = [k for k in ("auc", "hit_rate", "cache_evictions", "window_hit_rate",
-                                  "refresh_swaps", "refresh_rows_moved") if k in metrics]
+        float_keys = [k for k in ("auc", "hit_rate", "cache_evictions", "shard_imbalance",
+                                  "window_hit_rate", "refresh_swaps", "refresh_rows_moved")
+                      if k in metrics]
         if float_keys:  # one fetch for all float telemetry
             vals = torch.stack([torch.as_tensor(metrics[k]).to(torch.float64).reshape(())
                                 for k in float_keys]).cpu().tolist()

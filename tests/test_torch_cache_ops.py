@@ -5,16 +5,22 @@
   numpy-seeded inputs, including the tie-heavy, sentinel and all-equal
   cases;
 * the port's plain threshold against the Pallas kernel itself,
-  ``victim_threshold_pallas`` in interpret mode.
+  ``victim_threshold_pallas`` in interpret mode;
+* the sharded router's ``[S, U]`` bucketize image against the reference's
+  ``ref.bucketize`` and ``bucketize_pallas`` in interpret mode, and the
+  fused ``shard_bucketize`` front end's five outputs against the
+  reference's, bitwise.
 
-The CUDA kernel is held against the plain threshold on the card by
+The CUDA kernels are held against their plain versions on the card by
 ``test_torch_cuda.py``.
 """
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from repro.kernels.cache_ops import kernel as jkernel
+from repro.kernels.cache_ops import ops as jops
 from repro.kernels.cache_ops import ref as jref
 from repro_torch.kernels.cache_ops import kernel, ops, ref
 
@@ -120,3 +126,60 @@ def test_plan_image_matches_reference():
                   "n_miss", "n_distinct"):
             w, g = np.asarray(getattr(want, f)), getattr(got, f).numpy()
             assert w.dtype == g.dtype and np.array_equal(w, g), (trial, f)
+
+
+def _routing(rng, u, s):
+    """Owners in and out of [0, S), -1 locals on padding / replicated lanes."""
+    owner = rng.integers(-2, s + 2, size=u).astype(np.int32)
+    local = rng.integers(-1, 100, size=u).astype(np.int32)
+    local[rng.random(u) < 0.2] = -1
+    return owner, local
+
+
+@pytest.mark.parametrize("s", [1, 2, 4, 8])
+def test_bucketize_matches_reference_and_pallas(s):
+    rng = np.random.default_rng(s)
+    for u in (0, 1, 3, 4, 4097):
+        owner, local = _routing(rng, u, s)
+        got = ref.bucketize(torch.from_numpy(owner), torch.from_numpy(local), s)
+        assert got.dtype == torch.int32 and tuple(got.shape) == (s, u)
+        want = np.asarray(jref.bucketize(jnp.asarray(owner), jnp.asarray(local), s))
+        assert np.array_equal(want, got.numpy()), (s, u)
+        if u:
+            pallas = jkernel.bucketize_pallas(jnp.asarray(owner), jnp.asarray(local), s,
+                                              interpret=True)
+            assert np.array_equal(np.asarray(pallas), got.numpy()), (s, u)
+        assert torch.equal(ops.bucketize_impl(torch.from_numpy(owner), torch.from_numpy(local),
+                                              s), got)
+    # the edge images: every lane padding, every lane replicated
+    pad = torch.full((9,), -1, dtype=torch.int32)
+    assert bool((ref.bucketize(pad, pad, s) == -1).all())
+    assert bool((ref.bucketize(torch.zeros(9, dtype=torch.int32), pad, s) == -1).all())
+
+
+def test_bucketize_wrapper_takes_plain_route_on_cpu():
+    owner = torch.tensor([0, 1, 1, -1, 2], dtype=torch.int32)
+    local = torch.tensor([4, 5, -1, 3, 7], dtype=torch.int32)
+    before = kernel.bucketize.launches
+    got = kernel.bucketize(owner, local, 2)
+    assert kernel.bucketize.launches == before  # no kernel launched
+    assert got.tolist() == [[4, -1, -1, -1, -1], [-1, 5, -1, -1, -1]]
+    assert torch.equal(got, kernel.bucketize_plain(owner, local, 2))
+
+
+@pytest.mark.parametrize("s,rep_k", [(1, 0), (2, 0), (4, 8), (3, 40)])
+def test_shard_bucketize_matches_reference(s, rep_k):
+    rng = np.random.default_rng(10 + s)
+    vocab = 64
+    owner_map = rng.integers(0, s, size=vocab).astype(np.int32)
+    local_map = rng.integers(0, vocab // s + 1, size=vocab).astype(np.int32)
+    for lanes in (8, 100):
+        rank = rng.integers(-1, vocab, size=lanes).astype(np.int32)
+        u = min(lanes, vocab)
+        want = jops.shard_bucketize(jnp.asarray(rank), jnp.asarray(owner_map),
+                                    jnp.asarray(local_map), rep_k, s, u)
+        got = ops.shard_bucketize(torch.from_numpy(rank), torch.from_numpy(owner_map),
+                                  torch.from_numpy(local_map), rep_k, s, u)
+        for w, g, name in zip(want, got, ("uniq", "pos", "owner_u", "local_u", "rows_sh")):
+            w = np.asarray(w)
+            assert w.dtype == g.numpy().dtype and np.array_equal(w, g.numpy()), (s, lanes, name)

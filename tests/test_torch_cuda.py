@@ -1,9 +1,10 @@
 """Card-only paths of the port against their CPU versions, on the card:
 the CUDA kernels (victim threshold, tiered-arena gather + decode, FM
-interaction, embedding bag) against their plain PyTorch versions (bitwise,
-the FM kernel within the reference's sweep tolerance), and the pinned host-tier
-transmitter (staging ring, async copies, fp32 and tiered arenas) against
-the CPU move.
+interaction, embedding bag, bucketize) against their plain PyTorch versions
+(bitwise, the FM kernel within the reference's sweep tolerance), the pinned
+host-tier transmitter (staging ring, async copies, fp32 and tiered arenas)
+against the CPU move, and a 4-shard collection's lookups against its dense
+reference.
 
 Imports neither JAX nor the JAX package, so the machine with the card runs
 it as is:  ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
@@ -276,3 +277,57 @@ def test_embedding_bag_kernel_rejects_bad_input(cuda):
         eb_kernel.embedding_bag(table, ids.cpu(), seg, 2)  # mixed devices
     with pytest.raises(ValueError):
         eb_kernel.embedding_bag(table, ids, seg, 2, combiner="max")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 2, 4, 8])
+def test_bucketize_kernel_matches_plain(cuda, s):
+    rng = np.random.default_rng(s)
+    for u in (0, 1, 3, 4, 4097, 425_984):
+        owner = torch.from_numpy(rng.integers(-2, s + 2, size=u).astype(np.int32)).to(cuda)
+        local = torch.from_numpy(rng.integers(-1, 1 << 20, size=u).astype(np.int32)).to(cuda)
+        before = kernel.bucketize.launches
+        got = kernel.bucketize(owner, local, s)
+        assert kernel.bucketize.launches == before + (1 if u else 0)
+        assert torch.equal(got, kernel.bucketize_plain(owner, local, s)), (s, u)
+    pad = torch.full((4097,), -1, dtype=torch.int32, device=cuda)
+    assert bool((kernel.bucketize(pad, pad, s) == -1).all())  # every lane padding
+    rep = torch.zeros((4097,), dtype=torch.int32, device=cuda)
+    assert bool((kernel.bucketize(rep, pad, s) == -1).all())  # every lane replicated
+
+
+@pytest.mark.cuda
+def test_bucketize_kernel_rejects_bad_input(cuda):
+    x = torch.zeros(8, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        kernel.bucketize(x.to(torch.int64), x, 2)
+    with pytest.raises(ValueError):
+        kernel.bucketize(x[1:], x[1:], 2)  # not 16 B aligned
+    with pytest.raises(ValueError):
+        kernel.bucketize(x, x, 0)
+    with pytest.raises(ValueError):
+        kernel.bucketize(x, x.cpu(), 2)
+
+
+@pytest.mark.cuda
+def test_four_shard_lookup_matches_dense_reference(cuda):
+    from repro_torch.core.collection import FeatureBatch, TableConfig
+    from repro_torch.core.sharded import ShardedEmbeddingCollection
+
+    tables = [TableConfig("big", vocab=512, dim=8, ids_per_step=16),
+              TableConfig("small", vocab=96, dim=8, ids_per_step=16)]
+    coll = ShardedEmbeddingCollection.create(tables, num_shards=4, cache_ratio=0.2,
+                                             replicate_top_k=8, use_pallas_plan=True)
+    rng = np.random.default_rng(1)
+    state = coll.init(0, counts={t.name: rng.integers(0, 50, t.vocab) for t in tables},
+                      device=cuda)
+    before = kernel.bucketize.launches
+    for i in range(6):
+        fb = FeatureBatch(ids={t.name: torch.from_numpy(
+            rng.integers(-1, t.vocab, 16).astype(np.int32)).to(cuda) for t in tables})
+        state, _, rows = coll.lookup(state, fb)
+        ref = coll.dense_reference(coll.flush(state), fb)
+        for f in fb.features:
+            assert torch.equal(rows[f], ref[f].to(cuda)), (i, f)
+    assert kernel.bucketize.launches == before + 6
+    state.slabs["__shared__"].full.close()

@@ -35,7 +35,7 @@ def test_port_imports_no_jax_and_no_reference_package():
                      "kernels.fm_interaction.ops", "kernels.fm_interaction.kernel",
                      "kernels.embedding_bag.ops", "kernels.embedding_bag.kernel",
                      "models.recsys_models", "nn.recsys", "nn.embedding_bag", "nn.indexing",
-                     "configs.fm"):
+                     "configs.fm", "core.sharded"):
             assert "repro_torch." + need in names, need
         print(len(names))
         """
@@ -65,3 +65,14 @@ def test_no_silent_cpu_fallback_without_a_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main(["--arch", "fm", "--steps", "1", "--batch", "4"])
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_sharded_dlrm_has_no_silent_cpu_fallback():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid here")
+    cfg = DLRMConfig(vocab_sizes=(16, 8), embed_dim=8, batch_size=4, cache_ratio=0.5,
+                     bottom_mlp=(8,), top_mlp=(8,), model_shards=2, replicate_top_k=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DLRM(cfg).init(0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--steps", "1", "--batch", "4", "--model-shards", "2"])
