@@ -6,9 +6,9 @@ Phases (any failure exits non-zero, with no result line):
 
 1. the card: ``nvidia-smi`` name and power limit; exits when CUDA is absent.
 2. build: every CUDA source of the port's paths (victim threshold,
-   gather-decode, FM interaction, embedding bag, bucketize), from this
-   checkout, in one ``build_all`` call (one ``nvcc`` per source, all
-   started together).
+   gather-decode, FM interaction, embedding bag, bucketize, flash
+   attention), from this checkout, in one ``build_all`` call (one ``nvcc``
+   per source, all started together).
 3. kernels, each held against its plain PyTorch version on the card: the
    victim threshold bitwise on >= 20 seeded tie-heavy trials with the
    planner's sentinel keys, at the DLRM path's shape (capacity 506 438, kv
@@ -85,13 +85,54 @@ Phases (any failure exits non-zero, with no result line):
    ``kernels`` line carries f2.
 
 The bucketize is timed on the first sharded plan's live router inputs.
-The last three lines are the ``kernels`` JSON, the card's name and power
-limit, and ``{"ok": true, "device": {...}}``.  ``--vocab-scale`` < 1 cuts
-only the vocabularies (never dim, widths, fields or batch) and says so.
+
+9. flash kernels: the flash-attention kernel against its plain version on
+   ``test_kernels.py``'s sweep, head dims 16 and 20 (the SMOKE configs'),
+   15 query heads over 5 KV heads, a length of 96, a window wider than S
+   and d 256, fp32 and bf16, within 2e-5 * (1 + |o|) per element (the
+   reference's fp32 tolerance), plus one bf16 ulp of o in bf16; then the
+   autograd backward (kernel forward, plain recompute) against the plain
+   version's autograd, q/k/v grads within 1e-4.
+10. LM serve: SmolLM-360M (``configs/smollm_360m.CONFIG``: 32 layers,
+   d_model 960, 15/5 heads of 64, d_ff 2560, vocab 49152, bf16) with
+   ``use_pallas=True``, initialised on the card from a seeded generator:
+   a warm-up and ``LM_PREFILLS`` (3) ``prefill_step`` requests of B 8 x S
+   4096 from ``seq_batch`` (the batch cut from prefill_32k's 32 for the
+   full-vocab logits; printed), one request of B 1 x S 32 768, and a
+   greedy decode of B 8 (a 64-token prompt through ``decode_fn`` from
+   position 0 into 4096-slot caches, then 64 tokens).  Checks finite
+   logits, 32 kernel launches per prefill and none in decode, and the
+   kernel against plain, within the bound of phase 9, on layer 0's live
+   q/k/v at both lengths (captured where the model calls
+   ``ops.flash_attention``; max and mean |o| printed).
+   Prints prefill p50 and tokens/s, decode ms/token p50, the max |diff|
+   of last logits against the ``use_pallas=False`` route (not gated: the
+   routes round differently in bf16), and profiles one prefill and one
+   decode step.
+11. LM fp32: the same model in fp32 (TF32 off), B 2 x S 4096: last logits
+   of the kernel route and the chunked route, and 64 teacher-forced
+   ``decode_step`` calls against ``forward``'s logits at positions 0-63,
+   within rtol 1e-4, atol 1e-4 * max|logit|; 32 launches; the kernel
+   against plain on layer 0's live fp32 q/k/v.
+12. Gemma: ``configs/gemma3_27b.CONFIG`` at published width (d_model 5376,
+   32/16 heads of 128, d_ff 21504, vocab 262144, window 1024, bf16), depth
+   cut to one pattern group of 6 (5 local, 1 global; printed): a prefill
+   of B 1 x S 8192 through the kernel; checks finite logits, 6 launches and
+   the kernel against plain on layer 0's live windowed q/k/v.
+13. flash timing: on the live layer-0 q/k/v of the B 8 x 4096 prefill, the
+   kernel, its plain version and ``F.scaled_dot_product_attention`` (the
+   yardstick; the port never calls it), with the bound from the live
+   (q, k) pairs at 989 TFLOP/s bf16 and the bytes at 3.35 TB/s.
+
+Each phase's seconds are printed.  The last three lines are the
+``kernels`` JSON, the card's name and power limit, and ``{"ok": true,
+"device": {...}}``.  ``--vocab-scale`` < 1 cuts only the vocabularies
+(never dim, widths, fields or batch) and says so.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -1512,6 +1553,358 @@ def fm_train_phase(dev, vocab_scale, n_steps):
     return {"thr_launches": thr_launches}
 
 
+# ---------------------------------------------------------------------------
+# phases 9-13: the LM family (SmolLM-360M and Gemma-3-27B) and flash attention
+# ---------------------------------------------------------------------------
+
+BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores (NVIDIA data sheet)
+FLASH_TOL = 2e-5  # the reference's fp32 flash sweep: rtol and atol
+LM_RTOL = 1e-4  # fp32 routes: rtol and atol 1e-4 * max|logit|; read: 3e-6 relative
+LM_PREFILLS, LM_B, LM_S = 3, 8, 4096  # prefill requests of B 8 x S 4096 (train_4k's length)
+LM_LONG_S = 32768  # one B 1 request at prefill_32k's length
+LM_PROMPT, LM_NEW, LM_MAX_LEN = 64, 64, 4096  # decode: prompt, greedy tokens, cache length
+GEMMA_S = 8192
+
+
+def _bf16_ulp(x):
+    """The spacing of bf16 values at each element of ``x`` (0 where x is 0)."""
+    m, e = torch.frexp(x.float())  # |x| in [2^(e-1), 2^e): 8 significant bits
+    return torch.where(x == 0, 0.0, torch.ldexp(torch.ones_like(m), e - 8))
+
+
+def check_flash(q, k, v, causal, window, what, show=False):
+    """The flash kernel against its plain version on [B, S, H, D] inputs;
+    returns max_abs_err.  fp32 is held within the reference sweep's 2e-5
+    (rtol and atol).  The two bf16 outputs are each one rounding of fp32
+    results, so bf16 is held within that plus one bf16 ulp of the plain
+    output: a bound that scales with |o| (the sweep's flat 3e-2 would pass
+    a kernel that drops a key tile of a long row, whose |o| is ~0.01-0.05)."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    got = fa_kernel.flash_attention(qt, kt, vt, causal, window)
+    want = fa_kernel.flash_attention_plain(qt, kt, vt, causal, window)
+    if got.dtype != q.dtype or got.shape != qt.shape:
+        raise AssertionError(f"flash_attention {what}: got {got.dtype} {tuple(got.shape)}")
+    diff = (got.float() - want.float()).abs()
+    bound = FLASH_TOL * (1 + want.float().abs())
+    if q.dtype == torch.bfloat16:
+        bound = bound + _bf16_ulp(want)
+    err, o = float(diff.max()), want.float().abs()
+    if not bool(torch.isfinite(got).all()) or not bool((diff <= bound).all()):
+        raise AssertionError(f"flash_attention {what}: kernel != plain (max |diff| {err}, "
+                             f"worst excess over the bound {float((diff - bound).max())})")
+    if show:
+        log(f"flash_attention {what}: {q.dtype} max |diff| {err}, max |o| {float(o.max())}, "
+            f"mean |o| {float(o.mean())}; bound per element "
+            + ("2e-5 (1 + |o|)" + ("" if q.dtype == torch.float32 else " + one bf16 ulp of o")))
+    return err
+
+
+def flash_kernel_phase(dev):
+    """Phase 9: the kernel against its plain version on the reference sweep,
+    the SMOKE configs' head dims, SmolLM's 15/5 heads, a ragged length, a
+    window wider than S and the widest head; then the autograd backward."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    cases = [(2, 4, 2, 512, 64, True, None), (1, 4, 4, 512, 64, True, 128),
+             (2, 8, 2, 256, 32, False, None), (1, 2, 1, 1024, 128, True, 256),
+             (2, 6, 3, 256, 16, True, None), (2, 6, 2, 256, 20, True, 64),
+             (1, 15, 5, 512, 64, True, None), (2, 4, 2, 96, 64, True, None),
+             (1, 4, 2, 512, 64, True, 4096), (1, 2, 1, 256, 256, False, 100)]
+    g = torch.Generator(device=dev).manual_seed(0)
+    errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for b, hq, hkv, s, d, causal, window in cases:
+        for dtype in errs:
+            q, k, v = (torch.randn((b, s, h, d), generator=g, device=dev).to(dtype)
+                       for h in (hq, hkv, hkv))
+            errs[dtype] = max(errs[dtype], check_flash(q, k, v, causal, window,
+                                                       f"{(b, hq, hkv, s, d, causal, window)}"))
+    want = [torch.randn((1, 256, h, 32), generator=g, device=dev) for h in (4, 2, 2)]
+    got = [t.clone().requires_grad_() for t in want]
+    want = [t.requires_grad_() for t in want]
+    cot = torch.randn((1, 256, 4, 32), generator=g, device=dev)
+    (fa_ops.flash_attention(*got) * cot).sum().backward()
+    q, k, v = (t.transpose(1, 2) for t in want)
+    (fa_kernel.flash_attention_plain(q, k, v).transpose(1, 2) * cot).sum().backward()
+    grad_err = max(float((a.grad - b.grad).abs().max()) for a, b in zip(got, want))
+    if grad_err > 1e-4:
+        raise AssertionError(f"flash_attention backward: q/k/v grads off the plain "
+                             f"version's autograd by {grad_err} > 1e-4")
+    log(f"flash_attention phase: {len(cases)} shapes x fp32/bf16 within 2e-5 (1 + |o|), bf16 "
+        f"plus one bf16 ulp of o; max_abs_err fp32 {errs[torch.float32]}, bf16 "
+        f"{errs[torch.bfloat16]}; autograd (kernel forward, plain recompute backward) q/k/v "
+        f"grads within {grad_err} of the plain version's (<= 1e-4)")
+    return max(errs.values())
+
+
+@contextlib.contextmanager
+def layer0_inputs():
+    """Records the first (q, k, v, causal, window) that the model hands
+    ``ops.flash_attention`` inside the block: layer 0's live inputs, in the
+    model's [B, S, H, D] layout."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    seen, impl = [], fa_ops.flash_attention
+
+    def capture(q, k, v, causal=True, window=None):
+        if not seen:
+            seen.append((q, k, v, causal, window))
+        return impl(q, k, v, causal, window)
+
+    fa_ops.flash_attention = capture
+    try:
+        yield seen
+    finally:
+        fa_ops.flash_attention = impl
+
+
+def _prefill(model, params, batch, what):
+    """One prefill request, timed to its sync, with the kernel's launches
+    counted from 0; checks finite [B, V] logits.  Returns the logits, the
+    ms, the launches and layer 0's live kernel inputs."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+
+    fa_kernel.flash_attention.launches = 0
+    with layer0_inputs() as seen:
+        logits, ms = sync_ms(lambda: model.prefill_step(params, batch))
+    n = fa_kernel.flash_attention.launches
+    b = batch["tokens"].shape[0]
+    if logits.shape != (b, model.cfg.vocab) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{what}: logits {tuple(logits.shape)} not finite [B, V]")
+    return logits, ms, n, seen[0]
+
+
+def lm_serve_phase(dev, cfg, b=LM_B, s=LM_S, n_requests=LM_PREFILLS, long_s=LM_LONG_S,
+                   prompt=LM_PROMPT, new=LM_NEW, max_len=LM_MAX_LEN):
+    """Phase 10: SmolLM-360M served at its published width and depth in bf16
+    with ``use_pallas=True``: prefill requests, one long request, a greedy
+    decode against KV caches, layer 0's live inputs through the kernel, the
+    chunked route beside it, and one profiled prefill."""
+    from repro_torch.data import synth
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.models.lm import LMModel
+    from repro_torch.nn import transformer as T
+
+    model = LMModel(cfg)
+    params, init_ms = sync_ms(
+        lambda: model.init(torch.Generator(device=dev).manual_seed(0), dev)["params"])
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    log(f"lm serve: {cfg.n_layers} layers, d_model {cfg.d_model}, heads {cfg.n_heads}/"
+        f"{cfg.n_kv_heads}, d_head {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+        f"{cfg.dtypes.compute}; {n_bytes} B of weights, init {init_ms} ms; "
+        f"cut: prefill batch {b} (prefill_32k's is 32: the full-vocab [B, S, V] logits) at S "
+        f"{s} (train_4k's length), and one request of B 1 at S {long_s}")
+    batches = [synth.seq_batch(cfg.vocab, b, s, 0, i) for i in range(n_requests + 1)]
+    _prefill(model, params, batches[0], "warm-up prefill")
+    lat, counts = [], []
+    for i in range(n_requests):
+        logits, ms, n, live = _prefill(model, params, batches[i + 1], f"prefill request {i}")
+        lat.append(ms)
+        counts.append(n)
+    if counts != [cfg.n_layers] * n_requests:
+        raise AssertionError(f"lm serve: kernel launches per prefill {counts}, want "
+                             f"{cfg.n_layers} each")
+    p50 = float(np.percentile(lat, 50))
+    log(f"lm serve prefill B {b} x S {s}: ms {lat}, p50 {p50}, {b * s / p50 * 1e3} tokens/s; "
+        f"kernel launches per prefill {counts}")
+
+    last = batches[n_requests]  # the last request's tokens and logits
+    err = check_flash(*live, f"live layer-0 q/k/v at B {b} x S {s}", show=True)
+    chunked = LMModel(dataclasses.replace(cfg, use_pallas=False))
+    ref_logits, ref_ms = sync_ms(lambda: chunked.prefill_step(params, last))
+    delta = float((logits.float() - ref_logits.float()).abs().max())
+    log(f"lm serve: kernel within {err} of plain on live layer-0 q/k/v {tuple(live[0].shape)} "
+        f"(causal {live[3]}, window {live[4]}); last-position logits of the last request vs the use_pallas=False route: max |diff| "
+        f"{delta} "
+        f"(max |logit| {float(ref_logits.float().abs().max())}; printed, not gated: the routes "
+        f"round p differently in bf16); chunked route {ref_ms} ms")
+    del ref_logits
+    stats = {}
+    profile_call(f"one prefill B {b} x S {s}", lambda: model.prefill_step(params, last),
+                 stats=stats)
+    fa_per_launch = None  # the kernel's device ms a launch, where the profiler traced it
+    if stats:
+        fa = sum(ms for name, ms in stats["by_kernel"].items() if "flash_fwd_kernel" in name)
+        fa_per_launch = fa / cfg.n_layers
+        log(f"lm serve profiled prefill: flash kernel {fa} ms of {stats['busy']} ms device "
+            f"busy (share {fa / stats['busy']}, {fa_per_launch} ms a launch); idle share "
+            f"{1 - stats['busy'] / stats['wall']}")
+
+    long_batch = synth.seq_batch(cfg.vocab, 1, long_s, 0, n_requests + 1)
+    _, long_ms, long_n, long_live = _prefill(model, params, long_batch,
+                                             f"prefill B 1 x S {long_s}")
+    if long_n != cfg.n_layers:
+        raise AssertionError(f"lm serve long prefill: {long_n} launches, want {cfg.n_layers}")
+    long_err = check_flash(*long_live, f"live layer-0 q/k/v at B 1 x S {long_s}", show=True)
+    del long_live
+    log(f"lm serve prefill B 1 x S {long_s}: {long_ms} ms, {long_s / long_ms * 1e3} tokens/s, "
+        f"{long_n} launches; kernel within {long_err} of plain on live layer-0 q/k/v")
+
+    fa_kernel.flash_attention.launches = 0
+    caches = T.init_decode_caches(cfg, b, max_len, device=dev)
+    prompt_toks = torch.from_numpy(batches[1]["tokens"][:, :prompt]).to(dev)
+    pos = torch.zeros((), dtype=torch.int32, device=dev)
+    step_ms = []
+    for t in range(prompt + new):
+        tok = prompt_toks[:, t:t + 1] if t < prompt else nxt
+        (out, caches), ms = sync_ms(lambda: model.decode_fn(params, caches, tok, pos))
+        nxt = out.argmax(-1, keepdim=True).to(torch.int32)
+        pos = pos + 1
+        if t >= prompt:
+            step_ms.append(ms)
+    if not bool(torch.isfinite(out).all()) or fa_kernel.flash_attention.launches != 0:
+        raise AssertionError(f"lm decode: finite logits {bool(torch.isfinite(out).all())}, "
+                             f"{fa_kernel.flash_attention.launches} kernel launches (want 0)")
+    profile_call(f"one decode step B {b}", lambda: model.decode_fn(params, caches, nxt, pos))
+    dec_p50 = float(np.percentile(step_ms, 50))
+    log(f"lm decode B {b}: {prompt}-token prompt from position 0 into caches of max_len "
+        f"{max_len}, then {new} greedy tokens: ms/token p50 {dec_p50} (min {min(step_ms)}, max "
+        f"{max(step_ms)}), {b / dec_p50 * 1e3} tokens/s; 0 kernel launches")
+    return {"live": live, "err": max(err, long_err), "launches": sum(counts) + long_n,
+            "device_ms": fa_per_launch}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def lm_fp32_phase(dev, cfg, b=2, s=LM_S, steps=LM_PROMPT):
+    """Phase 11: SmolLM-360M at the same width in fp32 (TF32 off): prefill
+    through the kernel and through the chunked route, and teacher-forced
+    decode steps from position 0 against ``forward``'s logits."""
+    from repro_torch.data import synth
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.models.lm import LMModel
+    from repro_torch.nn import transformer as T
+
+    model = LMModel(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(1), dev)["params"]
+    toks = torch.from_numpy(synth.seq_batch(cfg.vocab, b, s, 1, 0)["tokens"]).to(dev)
+    fa_kernel.flash_attention.launches = 0
+    with torch.no_grad(), layer0_inputs() as seen:
+        logits, _ = T.forward(params, cfg, toks)
+    n = fa_kernel.flash_attention.launches
+    live_err = check_flash(*seen[0], f"fp32 live layer-0 q/k/v at B {b} x S {s}", show=True)
+    del seen
+    chunked = LMModel(dataclasses.replace(cfg, use_pallas=False))
+    ref_last = chunked.prefill_step(params, {"tokens": toks})
+    last = logits[:, -1]
+    scale = float(ref_last.abs().max())
+    d_route = float((last - ref_last).abs().max())
+    ok_route = torch.allclose(last, ref_last, rtol=LM_RTOL, atol=LM_RTOL * scale)
+    caches = T.init_decode_caches(cfg, b, steps, device=dev)
+    d_dec = 0.0
+    ok_dec = True
+    for t in range(steps):
+        out, caches = model.decode_fn(params, caches, toks[:, t:t + 1],
+                                      torch.tensor(t, dtype=torch.int32, device=dev))
+        want = logits[:, t]
+        d_dec = max(d_dec, float((out - want).abs().max()))
+        ok_dec &= torch.allclose(out, want, rtol=LM_RTOL,
+                                 atol=LM_RTOL * float(want.abs().max()))
+    log(f"lm fp32 (TF32 off) B {b} x S {s}: {n} kernel launches; last logits kernel route vs "
+        f"use_pallas=False route max |diff| {d_route} (max |logit| {scale}, relative "
+        f"{d_route / scale}); {steps} teacher-forced decode steps vs forward's logits at "
+        f"positions 0-{steps - 1}: max |diff| {d_dec}; tolerance rtol {LM_RTOL}, atol "
+        f"{LM_RTOL} * max|logit|")
+    if n != cfg.n_layers or not (ok_route and ok_dec):
+        raise AssertionError(f"lm fp32: launches {n}, routes agree {ok_route}, decode agrees "
+                             f"{ok_dec}")
+    return live_err
+
+
+def gemma_phase(dev, cfg, s=GEMMA_S):
+    """Phase 12: Gemma-3-27B at its published width, depth cut to one pattern
+    group (5 local layers of window 1024, 1 global): one prefill through the
+    kernel, and layer 0's live windowed inputs through it."""
+    from repro_torch.data import synth
+    from repro_torch.models.lm import LMModel
+
+    model = LMModel(cfg)
+    params, init_ms = sync_ms(
+        lambda: model.init(torch.Generator(device=dev).manual_seed(2), dev)["params"])
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    log(f"gemma: d_model {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, d_head "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, window {cfg.window}, "
+        f"{cfg.dtypes.compute}; cut: depth 62 -> {cfg.n_layers} (one group: "
+        f"{cfg.pattern.count('local')} local, {cfg.pattern.count('global')} global); "
+        f"{n_bytes} B of weights, init {init_ms} ms")
+    batch = synth.seq_batch(cfg.vocab, 1, s, 0, 0)
+    _prefill(model, params, batch, "gemma warm-up prefill")
+    _, ms, n, live = _prefill(model, params, batch, f"gemma prefill B 1 x S {s}")
+    if n != cfg.n_layers:
+        raise AssertionError(f"gemma prefill: {n} launches, want {cfg.n_layers}")
+    if live[3:] != (True, cfg.window):
+        raise AssertionError(f"gemma layer 0: causal {live[3]}, window {live[4]}; want a local "
+                             f"layer of window {cfg.window}")
+    err = check_flash(*live, f"gemma live layer-0 q/k/v (window {cfg.window})", show=True)
+    log(f"gemma prefill B 1 x S {s}: {ms} ms, {s / ms * 1e3} tokens/s, {n} launches; kernel "
+        f"within {err} of plain on live layer-0 q/k/v {tuple(live[0].shape)}, window "
+        f"{cfg.window}")
+    return err, n
+
+
+def _live_pairs(s, window):
+    """(q, k) pairs a causal mask with this window keeps: sum_q min(q+1, W)."""
+    w = s if window is None else min(window, s)
+    return w * (w + 1) // 2 + (s - w) * w
+
+
+def time_flash(live, max_err, launches_by_path, device_ms):
+    """The kernel, its plain version and F.scaled_dot_product_attention on
+    the live layer-0 inputs of a SmolLM prefill.  ``device_ms`` is the
+    kernel's device time a launch in phase 10's profiled prefill: on an
+    H100, a profile of back-to-back calls here, late in the process, lost
+    most of the kernel's events (2.2 ms reported for an 11.2 ms kernel)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+
+    q, k, v = (t.transpose(1, 2) for t in live[:3])  # [B, H, S, D] views
+    calls = {"kernel": lambda: fa_kernel.flash_attention(q, k, v, True, None),
+             "plain": lambda: fa_kernel.flash_attention_plain(q, k, v, True, None),
+             "sdpa": lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                            enable_gqa=True)}
+    ev = {n: cuda_ms(fn, iters=10) for n, fn in calls.items()}
+    enqueue = host_ms(calls["kernel"])
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    flops = 4 * d * _live_pairs(s, None) * b * hq  # q.k and p.v over the live pairs
+    n_bytes = (2 * b * hq + 2 * b * hkv) * s * d * q.element_size()  # q, k, v read; o written
+    ops_ms, bytes_ms = 1e3 * flops / BF16_OPS_PER_S, 1e3 * n_bytes / HBM_BYTES_PER_S
+    log(f"flash_attention on live layer-0 q/k/v {tuple(q.shape)} / {tuple(k.shape)} {q.dtype}: "
+        f"event-timed ms kernel {ev['kernel']}, plain {ev['plain']}, sdpa {ev['sdpa']}; device "
+        f"ms kernel {device_ms} (a launch in the profiled prefill); host enqueue {enqueue} ms; "
+        f"bound {max(ops_ms, bytes_ms)} ms ({flops} FLOP at "
+        f"{BF16_OPS_PER_S / 1e12} TFLOP/s bf16: {ops_ms} ms; {n_bytes} B at "
+        f"{HBM_BYTES_PER_S / 1e12} TB/s: {bytes_ms} ms); achieved {flops / ev['kernel'] / 1e9} "
+        f"TFLOP/s")
+    return {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:75",
+        "launches": sum(launches_by_path.values()),
+        "launches_by_path": launches_by_path,
+        "max_abs_err": max_err,
+        "ms": ev["kernel"],
+        "plain_ms": ev["plain"],
+        "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "library_ms": ev["sdpa"],
+        "device_ms": device_ms,
+        "host_enqueue_ms": enqueue,
+        "flops": flops,
+        "bytes": n_bytes,
+    }
+
+
 def check_resident(rows, slot_to_row, full, what):
     """After a flush: every resident slot's arena row (``rows``, the arena's
     fp32 ``[capacity, dim]`` view) equals its host row in ``full``,
@@ -1528,10 +1921,11 @@ def check_resident(rows, slot_to_row, full, what):
         f"{slot_to_row.numel()} slots equal their host rows bitwise")
 
 
-def profile_call(what, fn, skip=()):
+def profile_call(what, fn, skip=(), stats=None):
     """Device time by kernel over one call of ``fn`` (torch.profiler); a
     machine where the profiler cannot trace the card reports it as not
-    measured.  ``skip`` names span annotations to leave out."""
+    measured.  ``skip`` names span annotations to leave out; a ``stats``
+    dict receives the wall and busy ms and the device ms by kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
@@ -1559,9 +1953,19 @@ def profile_call(what, fn, skip=()):
     host = sorted((e for e in events if e.device_type == DeviceType.CPU and e.key not in skip),
                   key=lambda e: -e.self_cpu_time_total)
     top_host = [(e.key[:40], e.count, e.self_cpu_time_total / 1e3) for e in host[:10]]
+    if stats is not None:
+        stats.update(wall=wall, busy=busy, by_kernel={e.key: dev_us(e) / 1e3 for e in rows})
     log(f"profiler: {what} {wall} ms wall, device busy {busy} ms (sum of kernel and copy "
         f"times; idle share {1 - busy / wall}); top device (name, calls, ms): {top}; "
         f"top host ops by self time (name, calls, ms): {top_host}")
+    return out
+
+
+def timed(what, fn, *args):
+    """``fn(*args)``, logging the phase's seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"phase {what}: {time.perf_counter() - t0} s")
     return out
 
 
@@ -1577,6 +1981,7 @@ def main():
     from repro_torch.kernels import build
     from repro_torch.kernels.cache_ops import kernel
     from repro_torch.kernels.embedding_bag import kernel as eb_kernel
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.fm_interaction import kernel as fm_kernel
 
     card = card_line()
@@ -1587,7 +1992,7 @@ def main():
 
     t0 = time.perf_counter()
     reports = build.build_all([kernel.SOURCE, kernel.GATHER_DECODE_SOURCE, fm_kernel.SOURCE,
-                               eb_kernel.SOURCE, kernel.BUCKETIZE_SOURCE])
+                               eb_kernel.SOURCE, kernel.BUCKETIZE_SOURCE, fa_kernel.SOURCE])
     log(f"build {time.perf_counter() - t0} s: " + " | ".join(
         f"{src.name}: {' '.join(r.split())}" for src, r in reports.items()))
 
@@ -1644,8 +2049,31 @@ def main():
                           "fm_train": fm_train["thr_launches"]})
     bz = time_bucketize(sharded["captured"], max(bz_err, sharded["live_err"]),
                         sharded["launches"])
+    del sharded, fm_serve, fm_train
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phases 1-8: {time.perf_counter() - t0} s since the build began")
 
-    log(json.dumps({"kernels": [thr, gd, fmk, bag, bz]}))
+    from repro_torch.configs import gemma3_27b, smollm_360m
+    from repro_torch.nn.layers import Dtypes
+
+    fa_err = timed("9 (flash kernels)", flash_kernel_phase, dev)
+    smol = timed("10 (SmolLM-360M serve)", lm_serve_phase, dev,
+                 dataclasses.replace(smollm_360m.CONFIG, use_pallas=True))
+    fp32 = Dtypes(param=torch.float32, compute=torch.float32)
+    fp32_err = timed("11 (SmolLM-360M fp32 routes and decode)", lm_fp32_phase, dev,
+          dataclasses.replace(smollm_360m.CONFIG, dtypes=fp32, use_pallas=True))
+    gc.collect()
+    torch.cuda.empty_cache()
+    gemma_err, gemma_n = timed("12 (Gemma-3-27B one group)", gemma_phase, dev,
+                               dataclasses.replace(gemma3_27b.CONFIG, n_layers=6,
+                                                   use_pallas=True))
+    fa = timed("13 (flash timing)", time_flash, smol["live"],
+               max(fa_err, smol["err"], fp32_err, gemma_err),
+               {"smollm_prefill": smol["launches"], "gemma_prefill": gemma_n},
+               smol["device_ms"])
+
+    log(json.dumps({"kernels": [thr, gd, fmk, bag, bz, fa]}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
-"""Carry a model state (serve or train: DLRM, FM) between the JAX package and
-the port.
+"""Carry a model state (serve or train: DLRM, FM; LM parameters) between the
+JAX package and the port.
 
 The JAX side is given as nested dicts of numpy arrays under the JAX field
 names (a dataclass becomes a dict of its fields), e.g.::
@@ -23,8 +23,16 @@ the shard dim.
 :func:`state_from_numpy` builds the port's state from that (params,
 the optimizer state — empty for SGD without momentum — the ``HostStore``
 weight, every ``CacheState`` field with its fp32 dict or ``ArenaStore``
-arena, the ``FreqTracker`` and ``idx_map``); :func:`to_numpy` turns a port
-state back into the same layout so the two can be compared leaf by leaf.
+arena, the ``FreqTracker`` and ``idx_map``); :func:`lm_params_from_numpy`
+builds an LM's parameter tree (``embed`` / ``groups`` / ``rem`` /
+``final_norm`` / ``head``, copied leaf for leaf); :func:`to_numpy` turns a
+port state back into the same layout so the two can be compared leaf by
+leaf.
+
+bf16 leaves (``ml_dtypes.bfloat16`` on the JAX side, which
+``torch.from_numpy`` cannot read) cross as their 16 raw bits: into the port
+through an int16 view, and out of it by :func:`to_numpy` as ``uint16``
+arrays, which the caller views as ``ml_dtypes.bfloat16``.
 """
 from __future__ import annotations
 
@@ -41,11 +49,15 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.store.arena import ArenaStore
 from repro_torch.store.host_store import HostStore
 
-__all__ = ["collection_state_from_numpy", "state_from_numpy", "to_numpy"]
+__all__ = ["collection_state_from_numpy", "lm_params_from_numpy", "state_from_numpy",
+           "to_numpy"]
 
 
 def _t(x: Any, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(np.array(x)).to(device)
+    x = np.array(x)
+    if x.dtype.name == "bfloat16":  # ml_dtypes: the same bits through int16
+        return torch.from_numpy(x.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(x).to(device)
 
 
 def _tree(d: Mapping[str, Any], device: torch.device) -> Dict[str, Any]:
@@ -121,11 +133,22 @@ def state_from_numpy(tree: Mapping[str, Any], device: DeviceLike = None) -> Dict
     return state
 
 
+def lm_params_from_numpy(tree: Mapping[str, Any], device: DeviceLike = None) -> Dict[str, Any]:
+    """The port's LM parameters from the JAX tree of numpy leaves (fp32 or
+    bf16), leaf for leaf, stacked group leaves included."""
+    return _tree(tree, resolve_device(device))
+
+
 def to_numpy(obj: Any) -> Any:
     """Port state -> nested dicts of numpy arrays under the JAX field names
-    (host-store bookkeeping that the JAX side lacks is left out)."""
+    (host-store bookkeeping that the JAX side lacks is left out); a bf16
+    tensor becomes the ``uint16`` array of its bits, tuples stay tuples."""
     if isinstance(obj, torch.Tensor):
+        if obj.dtype == torch.bfloat16:
+            return obj.detach().cpu().view(torch.int16).numpy().view(np.uint16)
         return obj.detach().cpu().numpy()
+    if isinstance(obj, tuple):
+        return tuple(to_numpy(x) for x in obj)
     if dataclasses.is_dataclass(obj):
         return {
             f.name: to_numpy(getattr(obj, f.name))

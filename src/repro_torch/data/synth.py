@@ -1,7 +1,8 @@
-"""Synthetic Criteo-like batches with the paper's access skew (the
-``ZipfSparseSpec`` / ``sparse_batch`` part of ``repro.data.synth``, copied
-so that the same (seed, step) gives bit-identical batches in both
-packages).  Batch ``i`` is a pure function of (seed, i)."""
+"""Synthetic batches (the ``ZipfSparseSpec`` / ``sparse_batch`` /
+``seq_batch`` part of ``repro.data.synth``, copied so that the same (seed,
+step) gives bit-identical batches in both packages): Criteo-like sparse
+batches with the paper's access skew, and LM token streams.  Batch ``i`` is
+a pure function of (seed, i)."""
 from __future__ import annotations
 
 import dataclasses
@@ -9,7 +10,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-__all__ = ["ZipfSparseSpec", "sparse_batch"]
+__all__ = ["ZipfSparseSpec", "seq_batch", "sparse_batch"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,3 +60,14 @@ def sparse_batch(
     noise = rng.normal(scale=0.3, size=batch)
     out["label"] = ((h + noise) > 0.5).astype(np.float32)
     return out
+
+
+def seq_batch(vocab: int, batch: int, seq: int, seed: int, step: int) -> Dict[str, np.ndarray]:
+    """LM token stream (markov-ish so loss decreases)."""
+    rng = np.random.default_rng(np.random.SeedSequence([seed, step]))
+    toks = rng.integers(0, vocab, size=(batch, seq + 1), dtype=np.int64)
+    # make it predictable: next token often (prev*7+3) % vocab
+    for t in range(1, seq + 1):
+        m = rng.random(batch) < 0.7
+        toks[m, t] = (toks[m, t - 1] * 7 + 3) % vocab
+    return {"tokens": toks[:, :-1].astype(np.int32), "labels": toks[:, 1:].astype(np.int32)}

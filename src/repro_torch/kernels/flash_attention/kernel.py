@@ -1,0 +1,109 @@
+"""The flash-attention CUDA kernel: its wrapper and its plain PyTorch version.
+
+Replaces ``repro/kernels/flash_attention/kernel.py::flash_attention_pallas``.
+Both versions take ``q`` ``[B, Hq, Sq, D]`` and ``k``, ``v`` ``[B, Hkv, Sk,
+D]`` (fp32 or bf16; ``Hkv`` divides ``Hq``, query head ``h`` reads KV head
+``h // (Hq // Hkv)``) and return ``softmax(mask(q k^T / sqrt(D))) v`` in
+``q``'s dtype, with the causal mask and the optional sliding window
+``q_pos - k_pos < window``.
+
+* :func:`flash_attention_plain` — ``attention_ref``'s dense masked softmax in
+  fp32, one block of 256 query rows at a time, so its scores take
+  ``O(256 * Sk)`` memory per head (the dense ``[B, H, S, S]`` scores of a
+  32 768-token prefill would take 64 GB).  The CPU tests and the CPU route
+  of the wrapper use it; on the card only ``chip_smoke.py``'s checks do.
+* :func:`flash_attention` — on CUDA tensors it launches the hand-written
+  kernel in ``csrc/flash_attention.cu`` (bound by operations) or raises; on
+  CPU tensors it takes the plain version.  ``flash_attention.launches``
+  counts kernel launches.  The kernel reads ``q``, ``k`` and ``v`` through
+  their strides and writes its output in ``q``'s layout, so the model's
+  ``[B, S, H, D]`` tensors pass as transposed views and nothing is copied.
+
+Both routes accept exactly the shapes the reference accepts: its wrapper
+asserts ``S % min(256, S) == 0`` for the query and key lengths (its block
+size), and here that is a ``ValueError``.  The kernel takes any ``D <= 256``.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention.ref import attention_ref
+
+__all__ = ["BLOCK", "SOURCE", "flash_attention", "flash_attention_plain"]
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+BLOCK = 256  # the reference's block_q / block_k: min(BLOCK, S) must divide S
+MAX_D = 256  # the kernel's widest head
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 6 + (ctypes.c_longlong,) * 16
+             + (ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p))
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"flash_attention takes q [B, Hq, Sq, D] and k, v [B, Hkv, Sk, D], got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    b, hq, sq, d = q.shape
+    if k.shape[0] != b or k.shape[3] != d or k.shape[1] < 1 or hq % k.shape[1]:
+        raise ValueError(f"flash_attention: k {tuple(k.shape)} does not fit q {tuple(q.shape)} "
+                         "(same B and D, Hkv dividing Hq)")
+    for name, s in (("query", sq), ("key", k.shape[2])):
+        if s < 1 or s % min(BLOCK, s):
+            raise ValueError(f"flash_attention: {name} length {s} is not a multiple of "
+                             f"min({BLOCK}, {s}), as the reference's block size requires")
+
+
+def flash_attention_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """``attention_ref`` one block of 256 query rows at a time."""
+    _check(q, k, v)
+    return torch.cat([attention_ref(q[:, :, q0:q0 + BLOCK], k, v, causal, window, q0)
+                      for q0 in range(0, q.shape[2], BLOCK)], dim=2)
+
+
+def flash_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """``[B, Hq, Sq, D]`` attention of ``q`` over ``k``, ``v``: the CUDA
+    kernel on CUDA tensors, the plain version on CPU tensors."""
+    _check(q, k, v)
+    if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal, window)
+    if not (q.is_cuda and k.device == q.device and v.device == q.device):
+        raise ValueError(f"flash_attention: q, k and v must lie on one CUDA device, got "
+                         f"{q.device}, {k.device}, {v.device}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"flash_attention takes fp32 or bf16 q, k, v of one dtype, got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    if d > MAX_D:
+        raise ValueError(f"flash_attention: the kernel takes head dims up to {MAX_D}, got {d}")
+    out = torch.empty_like(q)  # q's layout: a [B, S, H, D] tensor's view comes back as one
+    if out.numel() == 0:
+        return out
+    # a window of sq or more masks nothing, one of -sk or less masks every key
+    has_window, w = window is not None, 0 if window is None else max(-sk, min(window, sq))
+    launch = build.entry(SOURCE, "flash_attention_fwd", _ARGTYPES)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hkv, sq, sk,
+                     d, *q.stride(), *k.stride(), *v.stride(), *out.stride(), _DTYPES[q.dtype],
+                     1.0 / math.sqrt(d), int(causal), int(has_window), w, stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -1,7 +1,8 @@
 """Card-only paths of the port against their CPU versions, on the card:
 the CUDA kernels (victim threshold, tiered-arena gather + decode, FM
-interaction, embedding bag, bucketize) against their plain PyTorch versions
-(bitwise, the FM kernel within the reference's sweep tolerance), the pinned
+interaction, embedding bag, bucketize, flash attention) against their plain
+PyTorch versions (bitwise; the FM and flash-attention kernels within the
+reference's sweep tolerances), the pinned
 host-tier transmitter (staging ring, async copies, fp32 and tiered arenas)
 against the CPU move, and a 4-shard collection's lookups against its dense
 reference.
@@ -18,6 +19,8 @@ from repro_torch.core import transmitter
 from repro_torch.kernels.cache_ops import kernel, ops
 from repro_torch.kernels.embedding_bag import kernel as eb_kernel
 from repro_torch.kernels.embedding_bag import ops as eb_ops
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.fm_interaction import kernel as fm_kernel
 from repro_torch.store.arena import ArenaStore
 from repro_torch.store.codec import get_codec
@@ -331,3 +334,70 @@ def test_four_shard_lookup_matches_dense_reference(cuda):
             assert torch.equal(rows[f], ref[f].to(cuda)), (i, f)
     assert kernel.bucketize.launches == before + 6
     state.slabs["__shared__"].full.close()
+
+
+FLASH_CASES = [
+    (2, 4, 2, 512, 64, True, None),  # test_kernels.py's sweep
+    (1, 4, 4, 512, 64, True, 128),
+    (2, 8, 2, 256, 32, False, None),
+    (1, 2, 1, 1024, 128, True, 256),
+    (2, 6, 3, 256, 16, True, None),  # head dims of the SMOKE configs
+    (2, 6, 2, 256, 20, True, 64),
+    (1, 15, 5, 512, 64, True, None),  # SmolLM-360M's heads
+    (2, 4, 2, 96, 64, True, None),  # a ragged last tile
+    (1, 4, 2, 512, 64, True, 4096),  # a window wider than the sequence
+    (1, 2, 1, 256, 256, False, 100),  # the widest head, a window without causality
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv,s,d,causal,window", FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain(cuda, b, hq, hkv, s, d, causal, window, dtype):
+    """The reference sweep's tolerances: fp32 2e-5, bf16 3e-2."""
+    g = torch.Generator(device=cuda).manual_seed(s + hq)
+    q, k, v = (torch.randn((b, s, h, d), generator=g, device=cuda).to(dtype)
+               for h in (hq, hkv, hkv))
+    before = fa_kernel.flash_attention.launches
+    got = fa_ops.flash_attention(q, k, v, causal, window)
+    assert fa_kernel.flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape and got.is_contiguous()
+    want = fa_kernel.flash_attention_plain(q.transpose(1, 2), k.transpose(1, 2),
+                                           v.transpose(1, 2), causal, window).transpose(1, 2)
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_grad_matches_plain_autograd(cuda):
+    """Forward by the kernel, backward by recompute through the plain
+    version: q, k and v gradients equal the plain version's own autograd
+    within 1e-4 (fp32)."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    leaves = [torch.randn((1, 256, h, 32), generator=g, device=cuda) for h in (4, 2, 2)]
+    want = [t.clone().requires_grad_() for t in leaves]
+    got = [t.clone().requires_grad_() for t in leaves]
+    cot = torch.randn((1, 256, 4, 32), generator=g, device=cuda)
+    before = fa_kernel.flash_attention.launches
+    (fa_ops.flash_attention(*got) * cot).sum().backward()
+    assert fa_kernel.flash_attention.launches == before + 1
+    q, k, v = (t.transpose(1, 2) for t in want)
+    (fa_kernel.flash_attention_plain(q, k, v).transpose(1, 2) * cot).sum().backward()
+    for name, a, b in zip("qkv", got, want):
+        torch.testing.assert_close(a.grad, b.grad, rtol=1e-4, atol=1e-4, msg=name)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_rejects_bad_input(cuda):
+    q = torch.ones((1, 2, 64, 8), device=cuda)
+    kv = torch.ones((1, 1, 64, 8), device=cuda)
+    with pytest.raises(ValueError):
+        fa_kernel.flash_attention(q.double(), kv.double(), kv.double())
+    with pytest.raises(ValueError):
+        fa_kernel.flash_attention(q, kv.cpu(), kv.cpu())
+    with pytest.raises(ValueError):
+        fa_kernel.flash_attention(torch.ones((1, 2, 300, 8), device=cuda), kv, kv)
+    with pytest.raises(ValueError):
+        fa_kernel.flash_attention(torch.ones((1, 2, 64, 264), device=cuda),
+                                  torch.ones((1, 1, 64, 264), device=cuda),
+                                  torch.ones((1, 1, 64, 264), device=cuda))

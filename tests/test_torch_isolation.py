@@ -6,12 +6,17 @@ import subprocess
 import sys
 import textwrap
 
+import numpy as np
 import pytest
 import torch
 
+from repro_torch import convert
+from repro_torch.configs import smollm_360m
 from repro_torch.device import resolve_device
 from repro_torch.launch import train
 from repro_torch.models.dlrm import DLRM, DLRMConfig
+from repro_torch.models.lm import LMModel
+from repro_torch.nn import transformer
 from repro_torch.models.recsys_models import FMConfig, FMModel
 from repro_torch.train.trainer import Trainer, TrainerConfig
 
@@ -35,7 +40,11 @@ def test_port_imports_no_jax_and_no_reference_package():
                      "kernels.fm_interaction.ops", "kernels.fm_interaction.kernel",
                      "kernels.embedding_bag.ops", "kernels.embedding_bag.kernel",
                      "models.recsys_models", "nn.recsys", "nn.embedding_bag", "nn.indexing",
-                     "configs.fm", "core.sharded"):
+                     "configs.fm", "core.sharded",
+                     "kernels.flash_attention.ops", "kernels.flash_attention.kernel",
+                     "kernels.flash_attention.ref", "nn.layers", "nn.moe", "nn.transformer",
+                     "models.lm", "configs.lm_common", "configs.smollm_360m",
+                     "configs.gemma3_27b", "configs.internlm2_20b"):
             assert "repro_torch." + need in names, need
         print(len(names))
         """
@@ -76,3 +85,14 @@ def test_sharded_dlrm_has_no_silent_cpu_fallback():
         DLRM(cfg).init(0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main(["--steps", "1", "--batch", "4", "--model-shards", "2"])
+
+
+def test_lm_has_no_silent_cpu_fallback():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid here")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LMModel(smollm_360m.SMOKE).init(0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.lm_params_from_numpy({"head": {"w": np.zeros((2, 3), np.float32)}})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        transformer.init_decode_caches(smollm_360m.SMOKE, 1, 4)
