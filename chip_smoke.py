@@ -7,8 +7,10 @@ Phases (any failure exits non-zero, with no result line):
 1. the card: ``nvidia-smi`` name and power limit; exits when CUDA is absent.
 2. build: every CUDA source of the port's paths (victim threshold,
    gather-decode, FM interaction, embedding bag, bucketize, flash
-   attention), from this checkout, in one ``build_all`` call (one ``nvcc``
-   per source, all started together).
+   attention's fp32 SIMT and bf16 tensor-core kernels), from this checkout,
+   in one ``build_all`` call (one ``nvcc`` per source, all started
+   together); prints the tensor-core kernel's ptxas registers and spills
+   for each instantiation, and fails on a spill.
 3. kernels, each held against its plain PyTorch version on the card: the
    victim threshold bitwise on >= 20 seeded tie-heavy trials with the
    planner's sentinel keys, at the DLRM path's shape (capacity 506 438, kv
@@ -86,13 +88,15 @@ Phases (any failure exits non-zero, with no result line):
 
 The bucketize is timed on the first sharded plan's live router inputs.
 
-9. flash kernels: the flash-attention kernel against its plain version on
-   ``test_kernels.py``'s sweep, head dims 16 and 20 (the SMOKE configs'),
-   15 query heads over 5 KV heads, a length of 96, a window wider than S
-   and d 256, fp32 and bf16, within 2e-5 * (1 + |o|) per element (the
-   reference's fp32 tolerance), plus one bf16 ulp of o in bf16; then the
-   autograd backward (kernel forward, plain recompute) against the plain
-   version's autograd, q/k/v grads within 1e-4.
+9. flash kernels: the flash-attention kernels against their plain version
+   on ``test_kernels.py``'s sweep, head dims 16 and 20 (the SMOKE
+   configs'), 15 query heads over 5 KV heads, a length of 96, a window
+   wider than S and d 256, fp32 (the SIMT kernel) and bf16 (the
+   tensor-core kernel), each launch counted on its dtype's route, within
+   2e-5 * (1 + |o|) per element (the reference's fp32 tolerance), plus one
+   bf16 ulp of o in bf16; then the autograd backward (kernel forward, plain
+   recompute) against the plain version's autograd, q/k/v grads within
+   1e-4.
 10. LM serve: SmolLM-360M (``configs/smollm_360m.CONFIG``: 32 layers,
    d_model 960, 15/5 heads of 64, d_ff 2560, vocab 49152, bf16) with
    ``use_pallas=True``, initialised on the card from a seeded generator:
@@ -108,21 +112,27 @@ The bucketize is timed on the first sharded plan's live router inputs.
    Prints prefill p50 and tokens/s, decode ms/token p50, the max |diff|
    of last logits against the ``use_pallas=False`` route (not gated: the
    routes round differently in bf16), and profiles one prefill and one
-   decode step.
+   decode step; every prefill launch takes the tensor-core route, and the
+   profiled prefill must show the tensor-core kernel's symbol and not the
+   SIMT kernel's.
 11. LM fp32: the same model in fp32 (TF32 off), B 2 x S 4096: last logits
    of the kernel route and the chunked route, and 64 teacher-forced
    ``decode_step`` calls against ``forward``'s logits at positions 0-63,
-   within rtol 1e-4, atol 1e-4 * max|logit|; 32 launches; the kernel
-   against plain on layer 0's live fp32 q/k/v.
+   within rtol 1e-4, atol 1e-4 * max|logit|; 32 launches, all on the SIMT
+   route; the kernel against plain on layer 0's live fp32 q/k/v.
 12. Gemma: ``configs/gemma3_27b.CONFIG`` at published width (d_model 5376,
    32/16 heads of 128, d_ff 21504, vocab 262144, window 1024, bf16), depth
    cut to one pattern group of 6 (5 local, 1 global; printed): a prefill
    of B 1 x S 8192 through the kernel; checks finite logits, 6 launches and
    the kernel against plain on layer 0's live windowed q/k/v.
 13. flash timing: on the live layer-0 q/k/v of the B 8 x 4096 prefill, the
-   kernel, its plain version and ``F.scaled_dot_product_attention`` (the
-   yardstick; the port never calls it), with the bound from the live
-   (q, k) pairs at 989 TFLOP/s bf16 and the bytes at 3.35 TB/s.
+   tensor-core kernel, its plain version and
+   ``F.scaled_dot_product_attention`` (the yardstick; the port never calls
+   it), with the bound from the live (q, k) pairs at 989 TFLOP/s bf16 and
+   the bytes at 3.35 TB/s; the same kernel on Gemma's live windowed
+   layer-0 inputs (d 128) beside their bound; and the SIMT kernel, its
+   plain version and SDPA on phase 11's live fp32 inputs, bound at 67
+   TFLOP/s fp32.
 
 Each phase's seconds are printed.  The last three lines are the
 ``kernels`` JSON, the card's name and power limit, and ``{"ok": true,
@@ -137,6 +147,7 @@ import dataclasses
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -1564,12 +1575,18 @@ LM_PREFILLS, LM_B, LM_S = 3, 8, 4096  # prefill requests of B 8 x S 4096 (train_
 LM_LONG_S = 32768  # one B 1 request at prefill_32k's length
 LM_PROMPT, LM_NEW, LM_MAX_LEN = 64, 64, 4096  # decode: prompt, greedy tokens, cache length
 GEMMA_S = 8192
+WGMMA_SYMBOL, SIMT_SYMBOL = "flash_wgmma_kernel", "flash_fwd_kernel"  # bf16, fp32 kernels
 
 
 def _bf16_ulp(x):
     """The spacing of bf16 values at each element of ``x`` (0 where x is 0)."""
     m, e = torch.frexp(x.float())  # |x| in [2^(e-1), 2^e): 8 significant bits
     return torch.where(x == 0, 0.0, torch.ldexp(torch.ones_like(m), e - 8))
+
+
+def _route(dtype):
+    """The flash kernel a dtype launches: bf16 the tensor cores, fp32 SIMT."""
+    return "wgmma" if dtype == torch.bfloat16 else "simt"
 
 
 def check_flash(q, k, v, causal, window, what, show=False):
@@ -1582,7 +1599,11 @@ def check_flash(q, k, v, causal, window, what, show=False):
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
 
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    route = _route(q.dtype)
+    before = fa_kernel.flash_attention.route_launches[route]
     got = fa_kernel.flash_attention(qt, kt, vt, causal, window)
+    if fa_kernel.flash_attention.route_launches[route] != before + 1:
+        raise AssertionError(f"flash_attention {what}: {q.dtype} did not launch the {route} kernel")
     want = fa_kernel.flash_attention_plain(qt, kt, vt, causal, window)
     if got.dtype != q.dtype or got.shape != qt.shape:
         raise AssertionError(f"flash_attention {what}: got {got.dtype} {tuple(got.shape)}")
@@ -1632,11 +1653,11 @@ def flash_kernel_phase(dev):
     if grad_err > 1e-4:
         raise AssertionError(f"flash_attention backward: q/k/v grads off the plain "
                              f"version's autograd by {grad_err} > 1e-4")
-    log(f"flash_attention phase: {len(cases)} shapes x fp32/bf16 within 2e-5 (1 + |o|), bf16 "
-        f"plus one bf16 ulp of o; max_abs_err fp32 {errs[torch.float32]}, bf16 "
-        f"{errs[torch.bfloat16]}; autograd (kernel forward, plain recompute backward) q/k/v "
-        f"grads within {grad_err} of the plain version's (<= 1e-4)")
-    return max(errs.values())
+    log(f"flash_attention phase: {len(cases)} shapes x fp32 (SIMT kernel) / bf16 (tensor-core "
+        f"kernel) within 2e-5 (1 + |o|), bf16 plus one bf16 ulp of o; max_abs_err fp32 "
+        f"{errs[torch.float32]}, bf16 {errs[torch.bfloat16]}; autograd (kernel forward, plain "
+        f"recompute backward) q/k/v grads within {grad_err} of the plain version's (<= 1e-4)")
+    return errs
 
 
 @contextlib.contextmanager
@@ -1666,10 +1687,14 @@ def _prefill(model, params, batch, what):
     ms, the launches and layer 0's live kernel inputs."""
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
 
+    route = _route(model.cfg.dtypes.compute)
     fa_kernel.flash_attention.launches = 0
+    before = fa_kernel.flash_attention.route_launches[route]
     with layer0_inputs() as seen:
         logits, ms = sync_ms(lambda: model.prefill_step(params, batch))
     n = fa_kernel.flash_attention.launches
+    if fa_kernel.flash_attention.route_launches[route] - before != n:
+        raise AssertionError(f"{what}: {n} flash launches, not all on the {route} route")
     b = batch["tokens"].shape[0]
     if logits.shape != (b, model.cfg.vocab) or not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"{what}: logits {tuple(logits.shape)} not finite [B, V]")
@@ -1724,13 +1749,17 @@ def lm_serve_phase(dev, cfg, b=LM_B, s=LM_S, n_requests=LM_PREFILLS, long_s=LM_L
     stats = {}
     profile_call(f"one prefill B {b} x S {s}", lambda: model.prefill_step(params, last),
                  stats=stats)
-    fa_per_launch = None  # the kernel's device ms a launch, where the profiler traced it
-    if stats:
-        fa = sum(ms for name, ms in stats["by_kernel"].items() if "flash_fwd_kernel" in name)
-        fa_per_launch = fa / cfg.n_layers
-        log(f"lm serve profiled prefill: flash kernel {fa} ms of {stats['busy']} ms device "
-            f"busy (share {fa / stats['busy']}, {fa_per_launch} ms a launch); idle share "
-            f"{1 - stats['busy'] / stats['wall']}")
+    # the bf16 prefill runs the tensor-core kernel, never the SIMT one
+    by_kernel = stats.get("by_kernel", {})
+    fa = sum(ms for name, ms in by_kernel.items() if WGMMA_SYMBOL in name)
+    simt = [name for name in by_kernel if SIMT_SYMBOL in name]
+    if fa <= 0 or simt:
+        raise AssertionError(f"lm serve profiled prefill: {fa} ms of {WGMMA_SYMBOL}, SIMT "
+                             f"kernels {simt}: want the tensor-core kernel alone")
+    fa_per_launch = fa / cfg.n_layers  # the kernel's device ms a launch
+    log(f"lm serve profiled prefill: flash kernel ({WGMMA_SYMBOL}) {fa} ms of {stats['busy']} "
+        f"ms device busy (share {fa / stats['busy']}, {fa_per_launch} ms a launch); idle share "
+        f"{1 - stats['busy'] / stats['wall']}")
 
     long_batch = synth.seq_batch(cfg.vocab, 1, long_s, 0, n_requests + 1)
     _, long_ms, long_n, long_live = _prefill(model, params, long_batch,
@@ -1787,10 +1816,14 @@ def lm_fp32_phase(dev, cfg, b=2, s=LM_S, steps=LM_PROMPT):
     params = model.init(torch.Generator(device=dev).manual_seed(1), dev)["params"]
     toks = torch.from_numpy(synth.seq_batch(cfg.vocab, b, s, 1, 0)["tokens"]).to(dev)
     fa_kernel.flash_attention.launches = 0
+    simt_before = fa_kernel.flash_attention.route_launches["simt"]
     with torch.no_grad(), layer0_inputs() as seen:
         logits, _ = T.forward(params, cfg, toks)
+    if fa_kernel.flash_attention.route_launches["simt"] - simt_before != cfg.n_layers:
+        raise AssertionError("lm fp32: the prefill's flash launches are not all on the SIMT route")
     n = fa_kernel.flash_attention.launches
-    live_err = check_flash(*seen[0], f"fp32 live layer-0 q/k/v at B {b} x S {s}", show=True)
+    live = seen[0]
+    live_err = check_flash(*live, f"fp32 live layer-0 q/k/v at B {b} x S {s}", show=True)
     del seen
     chunked = LMModel(dataclasses.replace(cfg, use_pallas=False))
     ref_last = chunked.prefill_step(params, {"tokens": toks})
@@ -1816,7 +1849,7 @@ def lm_fp32_phase(dev, cfg, b=2, s=LM_S, steps=LM_PROMPT):
     if n != cfg.n_layers or not (ok_route and ok_dec):
         raise AssertionError(f"lm fp32: launches {n}, routes agree {ok_route}, decode agrees "
                              f"{ok_dec}")
-    return live_err
+    return {"live": live, "err": live_err, "launches": n}
 
 
 def gemma_phase(dev, cfg, s=GEMMA_S):
@@ -1847,7 +1880,7 @@ def gemma_phase(dev, cfg, s=GEMMA_S):
     log(f"gemma prefill B 1 x S {s}: {ms} ms, {s / ms * 1e3} tokens/s, {n} launches; kernel "
         f"within {err} of plain on live layer-0 q/k/v {tuple(live[0].shape)}, window "
         f"{cfg.window}")
-    return err, n
+    return {"live": live, "err": err, "launches": n}
 
 
 def _live_pairs(s, window):
@@ -1856,53 +1889,102 @@ def _live_pairs(s, window):
     return w * (w + 1) // 2 + (s - w) * w
 
 
-def time_flash(live, max_err, launches_by_path, device_ms):
-    """The kernel, its plain version and F.scaled_dot_product_attention on
-    the live layer-0 inputs of a SmolLM prefill.  ``device_ms`` is the
-    kernel's device time a launch in phase 10's profiled prefill: on an
-    H100, a profile of back-to-back calls here, late in the process, lost
-    most of the kernel's events (2.2 ms reported for an 11.2 ms kernel)."""
+def _flash_work(q, k, window, ops_per_s):
+    """FLOP over the live (q, k) pairs of a causal layer (q.k and p.v), the
+    bytes of q, k, v read and o written, and the bound: the larger of the
+    FLOP at ``ops_per_s`` and the bytes at 3.35 TB/s, in ms."""
+    b, hq, s, d = q.shape
+    flops = 4 * d * _live_pairs(s, window) * b * hq
+    n_bytes = (2 * b * hq + 2 * b * k.shape[1]) * s * d * q.element_size()
+    ops_ms, bytes_ms = 1e3 * flops / ops_per_s, 1e3 * n_bytes / HBM_BYTES_PER_S
+    return flops, n_bytes, ops_ms, bytes_ms
+
+
+def time_flash(smol, gemma, fp32, errs, ptxas):
+    """The tensor-core kernel, its plain version and
+    F.scaled_dot_product_attention on the live layer-0 inputs of a SmolLM
+    prefill, the same kernel on Gemma's live windowed layer-0 inputs, and
+    the SIMT kernel, plain and SDPA on phase 11's live fp32 inputs.  The
+    tensor-core kernel's device time a launch comes from phase 10's profiled
+    prefill: on an H100, a profile of back-to-back calls here, late in the
+    process, lost most of a kernel's events (2.2 ms reported for 11.2 ms)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
 
-    q, k, v = (t.transpose(1, 2) for t in live[:3])  # [B, H, S, D] views
-    calls = {"kernel": lambda: fa_kernel.flash_attention(q, k, v, True, None),
-             "plain": lambda: fa_kernel.flash_attention_plain(q, k, v, True, None),
-             "sdpa": lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                                            enable_gqa=True)}
-    ev = {n: cuda_ms(fn, iters=10) for n, fn in calls.items()}
-    enqueue = host_ms(calls["kernel"])
-    b, hq, s, d = q.shape
-    hkv = k.shape[1]
-    flops = 4 * d * _live_pairs(s, None) * b * hq  # q.k and p.v over the live pairs
-    n_bytes = (2 * b * hq + 2 * b * hkv) * s * d * q.element_size()  # q, k, v read; o written
-    ops_ms, bytes_ms = 1e3 * flops / BF16_OPS_PER_S, 1e3 * n_bytes / HBM_BYTES_PER_S
-    log(f"flash_attention on live layer-0 q/k/v {tuple(q.shape)} / {tuple(k.shape)} {q.dtype}: "
-        f"event-timed ms kernel {ev['kernel']}, plain {ev['plain']}, sdpa {ev['sdpa']}; device "
-        f"ms kernel {device_ms} (a launch in the profiled prefill); host enqueue {enqueue} ms; "
-        f"bound {max(ops_ms, bytes_ms)} ms ({flops} FLOP at "
-        f"{BF16_OPS_PER_S / 1e12} TFLOP/s bf16: {ops_ms} ms; {n_bytes} B at "
-        f"{HBM_BYTES_PER_S / 1e12} TB/s: {bytes_ms} ms); achieved {flops / ev['kernel'] / 1e9} "
-        f"TFLOP/s")
-    return {
-        "name": "flash_attention",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention/kernel.py:75",
-        "launches": sum(launches_by_path.values()),
-        "launches_by_path": launches_by_path,
-        "max_abs_err": max_err,
-        "ms": ev["kernel"],
-        "plain_ms": ev["plain"],
-        "bound_ms": max(ops_ms, bytes_ms),
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "library_ms": ev["sdpa"],
-        "device_ms": device_ms,
-        "host_enqueue_ms": enqueue,
-        "flops": flops,
-        "bytes": n_bytes,
-    }
+    def views(live):
+        return [t.transpose(1, 2) for t in live[:3]]  # [B, H, S, D] views
+
+    entries = []
+    for name, source, live, window, ops_per_s, launches_by_path, err in (
+            ("flash_attention", fa_kernel.SM90_SOURCE, smol["live"], None, BF16_OPS_PER_S,
+             {"smollm_prefill": smol["launches"], "gemma_prefill": gemma["launches"]},
+             max(errs[torch.bfloat16], smol["err"], gemma["err"])),
+            ("flash_attention_fp32", fa_kernel.SOURCE, fp32["live"], None, FP32_OPS_PER_S,
+             {"smollm_fp32_prefill": fp32["launches"]}, max(errs[torch.float32], fp32["err"]))):
+        q, k, v = views(live)
+        calls = {"kernel": lambda: fa_kernel.flash_attention(q, k, v, True, window),
+                 "plain": lambda: fa_kernel.flash_attention_plain(q, k, v, True, window),
+                 "sdpa": lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                                enable_gqa=True)}
+        ev = {n: cuda_ms(fn, iters=10) for n, fn in calls.items()}
+        enqueue = host_ms(calls["kernel"])
+        flops, n_bytes, ops_ms, bytes_ms = _flash_work(q, k, window, ops_per_s)
+        log(f"{name} on live layer-0 q/k/v {tuple(q.shape)} / {tuple(k.shape)} {q.dtype}: "
+            f"event-timed ms kernel {ev['kernel']}, plain {ev['plain']}, sdpa {ev['sdpa']} "
+            f"(kernel / sdpa {ev['kernel'] / ev['sdpa']}); host enqueue {enqueue} ms; bound "
+            f"{max(ops_ms, bytes_ms)} ms ({flops} FLOP at {ops_per_s / 1e12} TFLOP/s: {ops_ms} "
+            f"ms; {n_bytes} B at {HBM_BYTES_PER_S / 1e12} TB/s: {bytes_ms} ms); achieved "
+            f"{flops / ev['kernel'] / 1e9} TFLOP/s")
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": os.path.relpath(source, ROOT),
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:75",
+            "launches": sum(launches_by_path.values()),
+            "launches_by_path": launches_by_path,
+            "max_abs_err": err,
+            "ms": ev["kernel"],
+            "plain_ms": ev["plain"],
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": ev["sdpa"],
+            "host_enqueue_ms": enqueue,
+            "flops": flops,
+            "bytes": n_bytes,
+        })
+    tc = entries[0]
+    tc["device_ms"] = smol["device_ms"]
+    tc["ptxas"] = ptxas
+    q, k, v = views(gemma["live"])
+    window = gemma["live"][4]
+    g_ms = cuda_ms(lambda: fa_kernel.flash_attention(q, k, v, True, window), iters=10)
+    flops, n_bytes, ops_ms, bytes_ms = _flash_work(q, k, window, BF16_OPS_PER_S)
+    tc["gemma_window"] = {"ms": g_ms, "bound_ms": max(ops_ms, bytes_ms), "flops": flops,
+                          "window": window}
+    log(f"flash_attention on gemma's live layer-0 q/k/v {tuple(q.shape)} / {tuple(k.shape)} "
+        f"window {window}: event-timed {g_ms} ms; bound {max(ops_ms, bytes_ms)} ms ({flops} "
+        f"FLOP at {BF16_OPS_PER_S / 1e12} TFLOP/s); achieved {flops / g_ms / 1e9} TFLOP/s")
+    return entries
+
+
+def ptxas_usage(report):
+    """Registers and spill bytes of each instantiation of the tensor-core
+    flash kernel in an ``nvcc -Xptxas -v`` report, named by its template
+    arguments: <64-column atoms of the head, copy bytes>."""
+    rows, name, spills = [], None, None
+    for line in report.splitlines():
+        m = re.search(WGMMA_SYMBOL + r"ILi(\d+)ELi(\d+)E", line)
+        if m and "Function properties" in line:
+            name = f"<{m.group(1)}, {m.group(2)}>"
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append({"kernel": name, "registers": int(m.group(1)), "spill_bytes": spills})
+            name = None
+    return rows
 
 
 def check_resident(rows, slot_to_row, full, what):
@@ -1992,9 +2074,15 @@ def main():
 
     t0 = time.perf_counter()
     reports = build.build_all([kernel.SOURCE, kernel.GATHER_DECODE_SOURCE, fm_kernel.SOURCE,
-                               eb_kernel.SOURCE, kernel.BUCKETIZE_SOURCE, fa_kernel.SOURCE])
+                               eb_kernel.SOURCE, kernel.BUCKETIZE_SOURCE, fa_kernel.SOURCE,
+                               fa_kernel.SM90_SOURCE])
     log(f"build {time.perf_counter() - t0} s: " + " | ".join(
         f"{src.name}: {' '.join(r.split())}" for src, r in reports.items()))
+    ptxas = ptxas_usage(reports.get(fa_kernel.SM90_SOURCE, ""))
+    log(f"{fa_kernel.SM90_SOURCE.name} ptxas (kernel<head atoms of 64, copy bytes>: registers, "
+        f"spill bytes): {[(r['kernel'], r['registers'], r['spill_bytes']) for r in ptxas]}")
+    if not ptxas or any(r["spill_bytes"] for r in ptxas):
+        raise AssertionError(f"{fa_kernel.SM90_SOURCE.name}: no ptxas report, or spills: {ptxas}")
 
     from repro_torch.configs import fm
     from repro_torch.configs.dlrm_criteo import CONFIG
@@ -2057,23 +2145,19 @@ def main():
     from repro_torch.configs import gemma3_27b, smollm_360m
     from repro_torch.nn.layers import Dtypes
 
-    fa_err = timed("9 (flash kernels)", flash_kernel_phase, dev)
+    fa_errs = timed("9 (flash kernels)", flash_kernel_phase, dev)
     smol = timed("10 (SmolLM-360M serve)", lm_serve_phase, dev,
                  dataclasses.replace(smollm_360m.CONFIG, use_pallas=True))
     fp32 = Dtypes(param=torch.float32, compute=torch.float32)
-    fp32_err = timed("11 (SmolLM-360M fp32 routes and decode)", lm_fp32_phase, dev,
-          dataclasses.replace(smollm_360m.CONFIG, dtypes=fp32, use_pallas=True))
+    fp32_lm = timed("11 (SmolLM-360M fp32 routes and decode)", lm_fp32_phase, dev,
+                    dataclasses.replace(smollm_360m.CONFIG, dtypes=fp32, use_pallas=True))
     gc.collect()
     torch.cuda.empty_cache()
-    gemma_err, gemma_n = timed("12 (Gemma-3-27B one group)", gemma_phase, dev,
-                               dataclasses.replace(gemma3_27b.CONFIG, n_layers=6,
-                                                   use_pallas=True))
-    fa = timed("13 (flash timing)", time_flash, smol["live"],
-               max(fa_err, smol["err"], fp32_err, gemma_err),
-               {"smollm_prefill": smol["launches"], "gemma_prefill": gemma_n},
-               smol["device_ms"])
+    gemma = timed("12 (Gemma-3-27B one group)", gemma_phase, dev,
+                  dataclasses.replace(gemma3_27b.CONFIG, n_layers=6, use_pallas=True))
+    fa = timed("13 (flash timing)", time_flash, smol, gemma, fp32_lm, fa_errs, ptxas)
 
-    log(json.dumps({"kernels": [thr, gd, fmk, bag, bz, fa]}))
+    log(json.dumps({"kernels": [thr, gd, fmk, bag, bz, *fa]}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,6 @@
-// Flash attention forward, CUDA C++ for sm_90a.
+// Flash attention forward in fp32 on the SIMT units, CUDA C++ for sm_90a.
+// The fp32 route of the port's flash attention; bf16 inputs take the
+// tensor-core kernel in flash_attention_sm90.cu.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention/kernel.py::
 // flash_attention_pallas (body _kernel).  For each batch b and query head h
@@ -8,14 +10,12 @@
 // (q_pos >= k_pos) and the optional sliding window (q_pos - k_pos < window).
 // The softmax is the reference's online softmax in fp32: masked scores are
 // the finite sentinel -1e30 (not -inf), the running max starts at -1e30, and
-// the output is acc / max(l, 1e-30), stored in q's dtype (fp32 or bf16).
+// the output is acc / max(l, 1e-30), stored in fp32.
 //
-// What bounds it on an H100: operations.  At SmolLM-360M's prefill (B 8,
-// S 4096, 15 query heads, d 64, causal) one launch does 2.58e11 FLOP on
-// 168 MB of q, k, v and o: 0.26 ms at the tensor cores' 989 TFLOP/s bf16,
-// 0.05 ms at 3.35 TB/s.  This kernel runs on the SIMT fp32 units (67
-// TFLOP/s), so it cannot come near that bound; tensor cores (mma / wgmma),
-// TMA and a warp-specialised pipeline are the work of a later redesign.
+// What bounds it on an H100: operations.  At the fp32 SmolLM-360M's prefill
+// (B 2, S 4096, 15 query heads, d 64, causal) one launch does 6.4e10 FLOP,
+// 0.96 ms at the SIMT units' 67 TFLOP/s fp32.  fp32 inputs cannot take the
+// tensor cores: TF32's 10-bit mantissa misses the port's 2e-5 bound.
 //
 // Design.  The Pallas grid (B, Hq, nq, nk) walks the KV blocks in order on
 // one core, carrying m, l and acc in VMEM scratch.  Here one CTA of 256
@@ -39,7 +39,6 @@
 //   * q tiles are issued heaviest first (the last causal tile has the most
 //     live keys).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -52,16 +51,9 @@ constexpr int kThreads = 256;       // 16 x 16
 constexpr int kLd = kBQ + 4;        // leading dim of q^T, k^T and p^T in shared memory
 constexpr float kNegInf = -1e30f;   // the reference's mask sentinel
 
-enum Dtype { kF32 = 0, kBF16 = 1 };
-
 struct Strides {
   long long b, h, s, d;
 };
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
 __device__ __forceinline__ float get(const float4& x, int i) {
   return i == 0 ? x.x : i == 1 ? x.y : i == 2 ? x.z : x.w;
@@ -71,10 +63,10 @@ constexpr size_t smem_bytes(int nm) {
   return sizeof(float) * (2 * 64 * nm * kLd + kBK * 64 * nm + kBK * kLd);
 }
 
-template <typename T, int NM>
+template <int NM>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, Strides qs, Strides ks, Strides vs, Strides os, int Sq,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, Strides qs, Strides ks, Strides vs, Strides os, int Sq,
                  int Sk, int D, int group, float scale, int causal, int has_window,
                  int window) {
   constexpr int DP = 64 * NM;  // padded head width
@@ -88,15 +80,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int iq = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
   const int h = blockIdx.y, b = blockIdx.z;
   const int q0 = iq * kBQ, q_hi = q0 + kBQ - 1;
-  const T* qp = q + b * qs.b + h * qs.h;
-  const T* kp = k + b * ks.b + (h / group) * ks.h;
-  const T* vp = v + b * vs.b + (h / group) * vs.h;
+  const float* qp = q + b * qs.b + h * qs.h;
+  const float* kp = k + b * ks.b + (h / group) * ks.h;
+  const float* vp = v + b * vs.b + (h / group) * vs.h;
 
   // consecutive threads take consecutive d: coalesced reads of a row
   for (int i = tid; i < kBQ * DP; i += kThreads) {
     const int r = i / DP, d = i % DP;
     float x = 0.f;
-    if (q0 + r < Sq && d < D) x = to_f(qp[(q0 + r) * qs.s + d * qs.d]) * scale;
+    if (q0 + r < Sq && d < D) x = qp[(q0 + r) * qs.s + d * qs.d] * scale;
     Qt[d * kLd + r] = x;
   }
 
@@ -120,8 +112,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       const int r = i / DP, d = i % DP;
       float kx = 0.f, vx = 0.f;
       if (k0 + r < Sk && d < D) {
-        kx = to_f(kp[(k0 + r) * ks.s + d * ks.d]);
-        vx = to_f(vp[(k0 + r) * vs.s + d * vs.d]);
+        kx = kp[(k0 + r) * ks.s + d * ks.d];
+        vx = vp[(k0 + r) * vs.s + d * vs.d];
       }
       Kt[d * kLd + r] = kx;
       Vs[r * DP + d] = vx;
@@ -193,7 +185,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     }
   }
 
-  T* op = o + b * os.b + h * os.h;
+  float* op = o + b * os.b + h * os.h;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = q0 + 4 * ty + i;
@@ -204,12 +196,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int d = 64 * mm + 4 * tx + j;
-        if (d < D) store(op + r * os.s + d * os.d, acc[i][4 * mm + j] / den);
+        if (d < D) op[r * os.s + d * os.d] = acc[i][4 * mm + j] / den;
       }
   }
 }
 
-template <typename T, int NM>
+template <int NM>
 cudaError_t launch_nm(const void* q, const void* k, const void* v, void* o, int B, int Hq,
                       int Sq, int Sk, int D, int group, const Strides* st, float scale,
                       int causal, int has_window, int window, cudaStream_t stream) {
@@ -217,62 +209,46 @@ cudaError_t launch_nm(const void* q, const void* k, const void* v, void* o, int 
   static bool configured = false;  // the attribute is per function: set it once
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, NM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_fwd_kernel<NM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(bytes));
     if (err != cudaSuccess) return err;
     configured = true;
   }
   const dim3 grid((Sq + kBQ - 1) / kBQ, Hq, B);
-  flash_fwd_kernel<T, NM><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), st[0], st[1], st[2], st[3], Sq, Sk, D, group, scale, causal,
+  flash_fwd_kernel<NM><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), st[0], st[1], st[2], st[3], Sq, Sk, D, group, scale, causal,
       has_window, window);
   return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int Hq,
-                   int Sq, int Sk, int D, int group, const Strides* st, float scale,
-                   int causal, int has_window, int window, cudaStream_t stream) {
-  const int nm = (D + 63) / 64;
-  if (nm == 1)
-    return launch_nm<T, 1>(q, k, v, o, B, Hq, Sq, Sk, D, group, st, scale, causal, has_window,
-                           window, stream);
-  if (nm == 2)
-    return launch_nm<T, 2>(q, k, v, o, B, Hq, Sq, Sk, D, group, st, scale, causal, has_window,
-                           window, stream);
-  if (nm == 3)
-    return launch_nm<T, 3>(q, k, v, o, B, Hq, Sq, Sk, D, group, st, scale, causal, has_window,
-                           window, stream);
-  return launch_nm<T, 4>(q, k, v, o, B, Hq, Sq, Sk, D, group, st, scale, causal, has_window,
-                         window, stream);
 }
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes).  q [B, Hq, Sq, D], k and v
-// [B, Hkv, Sk, D], o [B, Hq, Sq, D], all on the card in one dtype (0 = fp32,
-// 1 = bf16), each given by its four element strides (b, h, s, d).  scale is
-// 1/sqrt(D) rounded to fp32; has_window = 0 means no window.  Enqueues one
-// launch on `stream`, never synchronises, and returns the CUDA error of the
-// launch (0 on success).
+// [B, Hkv, Sk, D], o [B, Hq, Sq, D], all fp32 on the card, each given by its
+// four element strides (b, h, s, d).  scale is 1/sqrt(D) rounded to fp32;
+// has_window = 0 means no window.  Enqueues one launch on `stream`, never
+// synchronises, and returns the CUDA error of the launch (0 on success).
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv, int Sq,
     int Sk, int D, long long qsb, long long qsh, long long qss, long long qsd, long long ksb,
     long long ksh, long long kss, long long ksd, long long vsb, long long vsh, long long vss,
-    long long vsd, long long osb, long long osh, long long oss, long long osd, int dtype,
-    float scale, int causal, int has_window, int window, cudaStream_t stream) {
+    long long vsd, long long osb, long long osh, long long oss, long long osd, float scale,
+    int causal, int has_window, int window, cudaStream_t stream) {
   if (B <= 0 || B > 65535 || Hq <= 0 || Hq > 65535 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 ||
-      Sk <= 0 || D <= 0 || D > 256 || (dtype != kF32 && dtype != kBF16))
+      Sk <= 0 || D <= 0 || D > 256)
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides st[4] = {{qsb, qsh, qss, qsd}, {ksb, ksh, kss, ksd}, {vsb, vsh, vss, vsd},
                          {osb, osh, oss, osd}};
-  const int group = Hq / Hkv;
+  const int group = Hq / Hkv, nm = (D + 63) / 64;
   const cudaError_t err =
-      dtype == kF32
-          ? launch<float>(q, k, v, o, B, Hq, Sq, Sk, D, group, st, scale, causal, has_window,
-                          window, stream)
-          : launch<__nv_bfloat16>(q, k, v, o, B, Hq, Sq, Sk, D, group, st, scale, causal,
-                                  has_window, window, stream);
+      nm == 1   ? launch_nm<1>(q, k, v, o, B, Hq, Sq, Sk, D, group, st, scale, causal,
+                               has_window, window, stream)
+      : nm == 2 ? launch_nm<2>(q, k, v, o, B, Hq, Sq, Sk, D, group, st, scale, causal,
+                               has_window, window, stream)
+      : nm == 3 ? launch_nm<3>(q, k, v, o, B, Hq, Sq, Sk, D, group, st, scale, causal,
+                               has_window, window, stream)
+                : launch_nm<4>(q, k, v, o, B, Hq, Sq, Sk, D, group, st, scale, causal,
+                               has_window, window, stream);
   return static_cast<int>(err);
 }

@@ -12,12 +12,17 @@ D]`` (fp32 or bf16; ``Hkv`` divides ``Hq``, query head ``h`` reads KV head
   ``O(256 * Sk)`` memory per head (the dense ``[B, H, S, S]`` scores of a
   32 768-token prefill would take 64 GB).  The CPU tests and the CPU route
   of the wrapper use it; on the card only ``chip_smoke.py``'s checks do.
-* :func:`flash_attention` — on CUDA tensors it launches the hand-written
-  kernel in ``csrc/flash_attention.cu`` (bound by operations) or raises; on
-  CPU tensors it takes the plain version.  ``flash_attention.launches``
-  counts kernel launches.  The kernel reads ``q``, ``k`` and ``v`` through
-  their strides and writes its output in ``q``'s layout, so the model's
-  ``[B, S, H, D]`` tensors pass as transposed views and nothing is copied.
+* :func:`flash_attention` — on CUDA tensors it launches a hand-written
+  kernel (bound by operations) or raises: bf16 the tensor-core kernel in
+  ``csrc/flash_attention_sm90.cu`` (wgmma, cp.async, P @ V by a bf16
+  ``hi + lo`` split of p), fp32 the SIMT kernel in
+  ``csrc/flash_attention.cu``.  On CPU tensors it takes the plain version.
+  ``flash_attention.launches`` counts kernel launches, and
+  ``flash_attention.route_launches`` counts them by route (``"wgmma"``,
+  ``"simt"``).  The kernels read ``q``, ``k`` and ``v`` through their
+  strides and write their output in ``q``'s layout, so the model's
+  ``[B, S, H, D]`` tensors pass as transposed views and nothing is copied;
+  the bf16 route needs a head-dim stride of 1 and raises on another.
 
 Both routes accept exactly the shapes the reference accepts: its wrapper
 asserts ``S % min(256, S) == 0`` for the query and key lengths (its block
@@ -35,15 +40,18 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
-__all__ = ["BLOCK", "SOURCE", "flash_attention", "flash_attention_plain"]
+__all__ = ["BLOCK", "SOURCE", "SM90_SOURCE", "flash_attention", "flash_attention_plain"]
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"  # fp32, SIMT
+SM90_SOURCE = SOURCE.with_name("flash_attention_sm90.cu")  # bf16, tensor cores
 BLOCK = 256  # the reference's block_q / block_k: min(BLOCK, S) must divide S
-MAX_D = 256  # the kernel's widest head
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_D = 256  # the kernels' widest head
 _ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 6 + (ctypes.c_longlong,) * 16
-             + (ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_void_p))
+             + (ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int))
+_ROUTES = {  # dtype: (route, source, C entry, extra argument types before the stream)
+    torch.float32: ("simt", SOURCE, "flash_attention_fwd", ()),
+    torch.bfloat16: ("wgmma", SM90_SOURCE, "flash_attention_bf16_fwd", (ctypes.c_int,)),
+}
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -82,28 +90,45 @@ def flash_attention(
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError(f"flash_attention: q, k and v must lie on one CUDA device, got "
                          f"{q.device}, {k.device}, {v.device}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in _ROUTES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention takes fp32 or bf16 q, k, v of one dtype, got "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     if d > MAX_D:
         raise ValueError(f"flash_attention: the kernel takes head dims up to {MAX_D}, got {d}")
+    route, source, name, extra = _ROUTES[q.dtype]
+    if route == "wgmma" and any(t.stride(3) != 1 for t in (q, k, v)):
+        raise ValueError(f"flash_attention: the bf16 kernel reads rows with head-dim stride 1, "
+                         f"got strides {q.stride()}, {k.stride()}, {v.stride()}")
     out = torch.empty_like(q)  # q's layout: a [B, S, H, D] tensor's view comes back as one
     if out.numel() == 0:
         return out
     # a window of sq or more masks nothing, one of -sk or less masks every key
     has_window, w = window is not None, 0 if window is None else max(-sk, min(window, sq))
-    launch = build.entry(SOURCE, "flash_attention_fwd", _ARGTYPES)
+    args = [1.0 / math.sqrt(d), int(causal), int(has_window), w]
+    if route == "wgmma":
+        args.append(_copy_bytes(d, q, k, v, out))
+    launch = build.entry(source, name, _ARGTYPES + extra + (ctypes.c_void_p,))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hkv, sq, sk,
-                     d, *q.stride(), *k.stride(), *v.stride(), *out.stride(), _DTYPES[q.dtype],
-                     1.0 / math.sqrt(d), int(causal), int(has_window), w, stream)
+                     d, *q.stride(), *k.stride(), *v.stride(), *out.stride(), *args, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
     flash_attention.launches += 1
+    flash_attention.route_launches[route] += 1
     return out
 
 
+def _copy_bytes(d: int, *tensors: torch.Tensor) -> int:
+    """The widest copy (16, 8 or 4 bytes, else 2: ordinary loads) that
+    divides a bf16 row of ``d`` and every tensor's address and b/h/s stride
+    in bytes: a ``[B, S, H, D]`` view's rows need not be 16-byte aligned."""
+    byte_offsets = [2 * d] + [t.data_ptr() for t in tensors] + [
+        2 * s for t in tensors for s in t.stride()[:3]]
+    return next((w for w in (16, 8, 4) if all(x % w == 0 for x in byte_offsets)), 2)
+
+
 flash_attention.launches = 0
+flash_attention.route_launches = {"wgmma": 0, "simt": 0}

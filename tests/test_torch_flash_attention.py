@@ -111,3 +111,72 @@ def test_block_misfit_raises_where_the_reference_asserts(sq, sk):
 def test_wrapper_rejects_shapes_that_do_not_fit(q_shape, k_shape, v_shape):
     with pytest.raises(ValueError):
         kernel.flash_attention(torch.zeros(q_shape), torch.zeros(k_shape), torch.zeros(v_shape))
+
+
+def _bf16_ulp(x):
+    """The spacing of bf16 values at each element of ``x`` (0 where x is 0)."""
+    m, e = torch.frexp(x.float())
+    return torch.where(x == 0, 0.0, torch.ldexp(torch.ones_like(m), e - 8))
+
+
+def _tensor_core_arithmetic(q, k, v, causal, window, split):
+    """The bf16 card kernel's arithmetic in torch, on [B, H, S, D] bf16
+    inputs: fp32 scores of the bf16 q and k; the online softmax over 64-key
+    tiles in log2 units with the -1e30 sentinel (-inf past Sk), a 64-row
+    group skipping a tile with no live pair; p @ v from p split into bf16
+    ``hi + lo`` (``split``) or rounded to bf16 once, accumulated in fp32."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    pad = (0, 0, 0, -sk % 64)  # the kernel zero-fills a ragged last tile
+    kk = torch.nn.functional.pad(k.float().repeat_interleave(hq // hkv, dim=1), pad)
+    vv = torch.nn.functional.pad(v.float().repeat_interleave(hq // hkv, dim=1), pad)
+    sc = torch.tensor(1.0 / np.sqrt(d), dtype=torch.float32) * torch.tensor(
+        1.4426950408889634, dtype=torch.float32)
+    m = torch.full((b, hq, sq, 1), -1e30)
+    l = torch.zeros((b, hq, sq, 1))
+    acc = torch.zeros((b, hq, sq, d))
+    rows = torch.arange(sq)[:, None]
+    group = rows // 64  # a warpgroup's 64 rows
+    for k0 in range(0, sk, 64):
+        keys = torch.arange(k0, k0 + 64)[None, :]
+        live = keys < sk
+        if causal:
+            live = live & (rows >= keys)
+        if window is not None:
+            live = live & (rows - keys < window)
+        group_live = torch.zeros(int(group.max()) + 1, dtype=torch.bool).index_put_(
+            (group[:, 0],), live.any(1), accumulate=True)[group]  # [Sq, 1]
+        s = q.float() @ kk[:, :, k0:k0 + 64].transpose(2, 3)
+        s = torch.where(live, s, torch.tensor(-1e30))
+        s = torch.where(keys < sk, s, torch.tensor(-torch.inf))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        corr = torch.exp2((m - m_new) * sc)
+        p = torch.exp2(s * sc - m_new * sc)
+        hi = p.bfloat16().float()
+        pv = hi @ vv[:, :, k0:k0 + 64]
+        if split:
+            pv = pv + (p - hi).bfloat16().float() @ vv[:, :, k0:k0 + 64]
+        m = torch.where(group_live, m_new, m)
+        l = torch.where(group_live, l * corr + p.sum(-1, keepdim=True), l)
+        acc = torch.where(group_live, acc * corr + pv, acc)
+    return (acc / l.clamp_min(1e-30)).bfloat16()
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,causal,window",
+                         SWEEP + EXTRA + [(1, 2, 1, 4096, 64, True, None)])
+def test_tensor_core_rounding_scheme_meets_the_card_bound(b, hq, hkv, s, d, causal, window):
+    """The card kernel's bf16 arithmetic, emulated, within the card smoke's
+    bound of the plain version: 2e-5 (1 + |o|) plus one bf16 ulp of o.  At
+    S 4096 a single bf16 rounding of p breaks that bound: the reason p is
+    split into hi + lo."""
+    _, (q, k, v) = _inputs(b, hq, hkv, s, d, "bfloat16")
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    want = kernel.flash_attention_plain(q, k, v, causal, window).float()
+    bound = 2e-5 * (1 + want.abs()) + _bf16_ulp(want)
+    got = _tensor_core_arithmetic(q, k, v, causal, window, split=True)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    over = (got.float() - want).abs() - bound
+    assert float(over.max()) <= 0, f"{int((over > 0).sum())} elements over, worst {over.max()}"
+    if s == 4096:
+        once = _tensor_core_arithmetic(q, k, v, causal, window, split=False)
+        assert int(((once.float() - want).abs() > bound).sum()) > 0
