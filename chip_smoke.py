@@ -12,7 +12,8 @@ Phases (any failure exits non-zero, with no result line):
    together); prints the tensor-core kernel's ptxas registers and spills
    for each instantiation, and fails on a spill.
 3. kernels, each held against its plain PyTorch version on the card: the
-   victim threshold bitwise on >= 20 seeded tie-heavy trials with the
+   victim threshold (one launch: a radix select over a cooperative grid)
+   bitwise on >= 20 seeded tie-heavy trials with the
    planner's sentinel keys, at the DLRM path's shape (capacity 506 438, kv
    425 984) and at FM's (capacity = kv = 2 097 152); the tiered-arena
    gather-decode bitwise on 24 seeded fp16 / int8 cases (D 8, 16, 36, 128;
@@ -24,7 +25,10 @@ Phases (any failure exits non-zero, with no result line):
    + 2^-7: one output rounding); the embedding bag on 26 cases
    (``test_kernels.py``'s sweep, bags longer than ``max_bag``, empty bags,
    -1 lanes, D 37, path (b)'s shape; sum and mean; fp32 and bf16) within
-   fp32 1e-5 / bf16 3e-2; the bucketize bitwise on 28 cases (S 1, 2, 4, 8;
+   fp32 1e-5 / bf16 3e-2, and each case again through the many-feature call
+   (its lanes, their first half, a copy with -1 and S lanes added and an
+   empty feature, in one launch) bitwise the per-feature plain version; the
+   bucketize bitwise on 28 cases (S 1, 2, 4, 8;
    U 0, 1, 3, 4097, 425 984; owners out of [0, S); every lane padding;
    every lane replicated).
 4. serve: the paper's DLRM (``configs/dlrm_criteo.CONFIG``: 26 fields, dim
@@ -44,9 +48,10 @@ Phases (any failure exits non-zero, with no result line):
    of 1-4 lanes; ``prepare`` with writeback, ``pool`` through the
    embedding-bag kernel with ``max_bag=4``, sum then mean, autograd of
    sum_f <pooled_f, g_f>, ``apply_grads``); then ``DLRM.flush``.  Checks
-   finite losses, no overflow, one threshold launch per plan, 26 bag
-   launches per bag step, the bag kernel route = the plain route (gather +
-   segment sum) in pooled output and gradient within 1e-5, one
+   finite losses, no overflow, one threshold launch per plan, one bag
+   launch per bag step (all 26 features of the slab), the pooled output bitwise the per-feature plain version of the
+   live call, the bag kernel route = the plain route (gather + segment
+   sum) in pooled output and gradient within 1e-5, one
    gather-decode launch per writeback round the plans implied plus one per
    flush round, the kernel bitwise = plain on one live writeback, and,
    after the flush, that every resident slot of the torch-decoded arena
@@ -70,9 +75,10 @@ Phases (any failure exits non-zero, with no result line):
    rows of 11 fp32 = 1.486 GB pinned, a 2 097 152-slot arena, batch 65536)
    with ``use_pallas=True``: ``ServeEngine(FMModel.serve_step)`` on
    ``FM_BATCHES`` (8) batches.  Checks finite scores, no overflow, one
-   threshold and one FM-kernel launch per batch, the cache invariant, and
-   the FM kernel = plain on one live batch's strided v.  The table is
-   unpinned and freed.
+   threshold and one FM-kernel launch per batch, the cache invariant, the
+   FM kernel = plain on one live batch's strided v, and the threshold =
+   plain (victim order = argsort) on one more plan's live key.  The table
+   is unpinned and freed.
 7. FM train: the same FM with ``use_pallas=False`` (the kernel has no
    backward): ``FM_TRAIN_STEPS`` (4) ``train_step`` calls, then ``flush``.
    Checks finite losses, no overflow, one threshold launch per plan, and
@@ -82,9 +88,15 @@ Phases (any failure exits non-zero, with no result line):
    threshold, ``F.embedding_bag`` beside the bag) by CUDA events over
    back-to-back calls, their summed device time per call from
    ``torch.profiler``, and the wrapper's host enqueue time, on the live
-   inputs of the main paths.  The bag is timed on two live features of a
-   bag step: f0 (vocab 1460) and f2 (vocab 10 131 227, the largest); the
-   ``kernels`` line carries f2.
+   inputs of the main paths.  The threshold is timed on the DLRM serve
+   plan's and FM's live keys; each call must show one device op and no
+   memset.  The bag is timed as the main path calls
+   it, once over a live bag step's 26 features (against one
+   ``F.embedding_bag`` call over the same bags; the ``kernels`` line
+   carries this call), and alone on two live features, f0 (vocab 1460) and
+   f2 (vocab 10 131 227, the largest); then the bag step's kernel route,
+   forward plus backward, in host enqueue and event ms: one many-feature
+   op against 26 single-feature ops.
 
 The bucketize is timed on the first sharded plan's live router inputs.
 
@@ -278,6 +290,29 @@ def check_threshold(key, kv, what):
     return err
 
 
+def capture_plan_key(coll, emb, fb):
+    """The int32 eviction key and kv a plan hands to victim selection:
+    ``plan_prepare`` is pure, so one batch is re-planned against the live
+    state with the selection wrapped."""
+    from repro_torch.kernels.cache_ops import ops
+
+    captured = []
+    select = ops.victim_topk_impl
+
+    def capture(key, kv):
+        captured.append((key.clone(), kv))
+        return select(key, kv)
+
+    ops.victim_topk_impl = capture
+    try:
+        coll.plan_prepare(emb, fb, writeback=False)
+    finally:
+        ops.victim_topk_impl = select
+    if len(captured) != 1:
+        raise AssertionError(f"plan_prepare selected victims {len(captured)} times, not once")
+    return captured[0]
+
+
 def device_ms(fn, iters: int = 20):
     """Mean device time per call of ``fn`` (kernels, copies and memsets summed,
     from torch.profiler) and that time by device op; (None, {}) where the
@@ -315,30 +350,40 @@ def host_ms(fn, iters: int = 10) -> float:
     return 1e3 * (t1 - t0) / iters
 
 
-def time_threshold(key, kv, max_err, launches_by_path):
-    """Times the kernel, its plain version and torch.topk on one key vector
-    of the main path: back-to-back CUDA-event time (what a caller pays on the
-    stream), summed device time per call, and the kernel wrapper's host
-    enqueue time."""
+def time_threshold(live, max_err, launches_by_path):
+    """Times the kernel, its plain version and torch.topk on the main paths'
+    live key vectors (the DLRM serve plan's and FM's): back-to-back
+    CUDA-event time (what a caller pays on the stream), summed device time
+    per call by op, and the kernel wrapper's host enqueue time.  Every
+    kernel call must show one device op and no memset.  The ``kernels``
+    line carries the DLRM key."""
     from repro_torch.kernels.cache_ops import kernel
 
-    n = key.shape[0]
-    calls = {"kernel": lambda: kernel.victim_threshold(key, kv),
-             "plain": lambda: kernel.victim_threshold_plain(key, kv),
-             "topk": lambda: torch.topk(key, kv)}
-    ev = {name: cuda_ms(fn) for name, fn in calls.items()}
-    dev, by_op = {}, {}
-    for name, fn in calls.items():
-        dev[name], by_op[name] = device_ms(fn)
-    enqueue = host_ms(calls["kernel"])
-    n_bytes = n * 4 + 8 + 4  # keys read once; t and n_gt written once
-    bound_ms = 1e3 * n_bytes / HBM_BYTES_PER_S
-    log(f"victim_threshold on the serve plan's key [{n}] kv={kv}: event-timed ms kernel "
-        f"{ev['kernel']}, plain {ev['plain']}, torch.topk {ev['topk']}; device ms per call "
-        f"kernel {dev['kernel']}, plain {dev['plain']}, torch.topk {dev['topk']}; kernel "
-        f"host enqueue {enqueue} ms per call; bound {bound_ms} ms (1 read of {n_bytes} B); "
-        f"this design reads the keys 33 times ({33 * n * 4} B)")
-    log(f"kernel device ms per call by op: {json.dumps(by_op['kernel'])}")
+    rows = {}
+    for what, (key, kv) in live.items():
+        n = key.shape[0]
+        calls = {"kernel": lambda: kernel.victim_threshold(key, kv),
+                 "plain": lambda: kernel.victim_threshold_plain(key, kv),
+                 "topk": lambda: torch.topk(key, kv)}
+        ev = {name: cuda_ms(fn) for name, fn in calls.items()}
+        dev, by_op = {}, {}
+        for name, fn in calls.items():
+            dev[name], by_op[name] = device_ms(fn)
+        enqueue = host_ms(calls["kernel"])
+        ops = by_op["kernel"]
+        if len(ops) != 1 or any("emset" in op for op in ops):
+            raise AssertionError(f"victim_threshold on the {what} key: device ops {ops}, want "
+                                 f"one kernel and no memset")
+        n_bytes = n * 4 + 8 + 4  # keys read once; t and n_gt written once
+        bound_ms = 1e3 * n_bytes / HBM_BYTES_PER_S
+        log(f"victim_threshold on the {what} plan's key [{n}] kv={kv}: event-timed ms "
+            + ", ".join(f"{name} {ms}" for name, ms in ev.items()) + "; device ms per call "
+            + ", ".join(f"{name} {ms}" for name, ms in dev.items()) + f"; kernel host enqueue "
+            f"{enqueue} ms; bound {bound_ms} ms (1 read of {n_bytes} B), below one launch's "
+            f"latency; kernel device ms per call by op {json.dumps(ops)}")
+        rows[what] = {"n": n, "kv": kv, "event_ms": ev, "device_ms": dev,
+                      "host_enqueue_ms": enqueue, "bound_ms": bound_ms}
+    main = rows["DLRM serve"]
     return {
         "name": "victim_threshold",
         "route": "cuda",
@@ -347,15 +392,16 @@ def time_threshold(key, kv, max_err, launches_by_path):
         "launches": sum(launches_by_path.values()),
         "launches_by_path": launches_by_path,
         "max_abs_err": max_err,
-        "ms": ev["kernel"],
-        "plain_ms": ev["plain"],
-        "bound_ms": bound_ms,
+        "ms": main["event_ms"]["kernel"],
+        "plain_ms": main["event_ms"]["plain"],
+        "bound_ms": main["bound_ms"],
         "bound_by": "bytes",
-        "library_ms": ev["topk"],
-        "device_ms": dev["kernel"],
-        "plain_device_ms": dev["plain"],
-        "library_device_ms": dev["topk"],
-        "host_enqueue_ms": enqueue,
+        "library_ms": main["event_ms"]["topk"],
+        "device_ms": main["device_ms"]["kernel"],
+        "plain_device_ms": main["device_ms"]["plain"],
+        "library_device_ms": main["device_ms"]["topk"],
+        "host_enqueue_ms": main["host_enqueue_ms"],
+        "by_key": rows,
     }
 
 
@@ -451,26 +497,8 @@ def serve_phase(dev, vocab_scale, n_batches):
     engine.state = st
 
     # --- the kernel on a real plan's eviction key ----------------------------
-    # plan_prepare is pure: re-plan one batch against the live state and keep
-    # the int32 key the planner hands to victim selection
-    from repro_torch.kernels.cache_ops import ops
-
-    captured = []
-    select = ops.victim_topk_impl
-
-    def capture(key, kv):
-        captured.append((key.clone(), kv))
-        return select(key, kv)
-
     b = {k: torch.from_numpy(v).to(dev) for k, v in batches[n_batches + 1].items()}
-    ops.victim_topk_impl = capture
-    try:
-        coll.plan_prepare(st["emb"], model.features(b), writeback=False)
-    finally:
-        ops.victim_topk_impl = select
-    if len(captured) != 1:
-        raise AssertionError(f"plan_prepare selected victims {len(captured)} times, not once")
-    key, kv = captured[0]
+    key, kv = capture_plan_key(coll, st["emb"], model.features(b))
     err = check_threshold(key, kv, "serve plan key")
     log(f"serve plan key [{key.shape[0]}] kv={kv}: kernel bitwise = plain, victim order = "
         f"argsort; protected {int((key == -_BIG).sum())}, empty {int((key == _BIG).sum())}, "
@@ -604,7 +632,7 @@ def train_phase(dev, vocab_scale, n_steps):
     ops.arena_gather_impl = capture
     kernel.victim_threshold.launches = 0
     kernel.gather_decode.launches = 0
-    eb_kernel.embedding_bag.launches = 0
+    eb_kernel.embedding_bag_multi.launches = 0
     try:
         step_ms, losses, per_step = [], [], []
         for i in range(n_steps):
@@ -644,7 +672,7 @@ def train_phase(dev, vocab_scale, n_steps):
         ops.arena_gather_impl = impl
     thr_launches = kernel.victim_threshold.launches
     gd_launches = kernel.gather_decode.launches
-    eb_launches = eb_kernel.embedding_bag.launches
+    eb_launches = eb_kernel.embedding_bag_multi.launches
 
     rows_per_round = min(spec.cache_config().buffer_rows,
                          min(spec.unique_size(cfg.batch_size * cfg.n_sparse), spec.capacity))
@@ -657,9 +685,9 @@ def train_phase(dev, vocab_scale, n_steps):
     if thr_launches != n_steps + len(bags):
         raise AssertionError(f"victim_threshold launched {thr_launches} times for "
                              f"{n_steps + len(bags)} plans")
-    if eb_launches != len(bags) * cfg.n_sparse:
-        raise AssertionError(f"embedding_bag launched {eb_launches} times in {len(bags)} bag "
-                             f"steps of {cfg.n_sparse} bag features")
+    if eb_launches != len(bags):
+        raise AssertionError(f"embedding_bag: {eb_launches} launches in {len(bags)} bag steps "
+                             f"of {cfg.n_sparse} bag features (want one a step)")
     if gd_launches != wb_rounds + flush_rounds or not gd_launches:
         raise AssertionError(f"gather_decode launched {gd_launches} times; the plans imply "
                              f"{wb_rounds} writeback rounds + {flush_rounds} flush rounds")
@@ -675,7 +703,9 @@ def train_phase(dev, vocab_scale, n_steps):
     log(f"bag steps ({BAGS} bags of <= {BAG_LANES} lanes x {cfg.n_sparse} features, sum then "
         f"mean; prepare with writeback, pool through the kernel, autograd, apply_grads, and "
         f"the plain-route check): ms {[b['ms'] for b in bags]}; embedding_bag launches "
-        f"{eb_launches} ({[b['launches'] for b in bags]} per step); kernel route = plain route "
+        f"{eb_launches} ({[b['launches'] for b in bags]} per step: one for the slab's "
+        f"{cfg.n_sparse} features); pooled output bitwise "
+        f"the per-feature plain version of the live call; kernel route = plain route "
         f"within 1e-5: max |diff| pooled {[b['err'] for b in bags]}, gradient |diff| / (sum "
         f"of magnitudes + 1) {[b['grad_err'] for b in bags]}; their write-back rounds are in "
         f"the gather_decode count below")
@@ -724,7 +754,8 @@ def train_phase(dev, vocab_scale, n_steps):
     profile_call("one train step", lambda: model.train_step(state, b))
     return {"launches": gd_launches, "thr_launches": thr_launches, "captured": captured[0],
             "live_err": live_err, "arena": state["emb"].slabs[SHARED_ARENA].cache.cached_rows,
-            "full": slab.full, "bag_launches": eb_launches, "bag_live": bags[0]["live"]}
+            "full": slab.full, "bag_launches": eb_launches, "bag_live": bags[0]["live"],
+            "bag_multi": bags[0]["multi"]}
 
 
 def _gd_bytes(head, tail, side, slots):
@@ -889,11 +920,47 @@ def bag_kernel_phase(dev):
             err, same = check_bag((table, ids, seg, s, combiner, mb), f"{what} {combiner}")
             errs[table.dtype] = max(errs[table.dtype], err)
             bitwise &= same
+            check_bag_multi((table, *_multi_case(ids, seg, s), s, combiner, mb),
+                            f"{what} {combiner}")
             n += 1
     log(f"embedding_bag phase: {n} cases within fp32 1e-5 / bf16 3e-2 (the reference sweep's); "
         f"max_abs_err fp32 {errs[torch.float32]}, bf16 {errs[torch.bfloat16]}; bitwise equal "
-        f"on every case: {bitwise}")
+        f"on every case: {bitwise}; the many-feature call (each case's lanes, its first "
+        f"half, itself with -1 and S lanes added, an empty feature: one launch) bitwise the "
+        f"per-feature plain version on every case")
     return errs[torch.float32]
+
+
+def _multi_case(ids, seg, s):
+    """One case's lanes as four features of unequal lane counts for the
+    many-feature call: all lanes, the first half, all lanes with a -1 lane
+    before and an S lane after them (lanes in no bag), and an empty feature;
+    returns (ids, seg, lane_offsets)."""
+    n = ids.numel()
+    edge = lambda v: torch.full((1,), v, dtype=torch.int32, device=ids.device)
+    feats = [(ids, seg), (ids[:n // 2], seg[:n // 2]),
+             (torch.cat([ids[:1], ids, ids[:1]]), torch.cat([edge(-1), seg, edge(s)])),
+             (ids[:0], seg[:0])]
+    offsets = [0]
+    for i, _ in feats:
+        offsets.append(offsets[-1] + i.numel())
+    return (torch.cat([i for i, _ in feats]).contiguous(),
+            torch.cat([g for _, g in feats]).contiguous(), offsets)
+
+
+def check_bag_multi(args, what):
+    """The many-feature call (one launch) against its plain version (the
+    plain version per feature, stacked), bitwise."""
+    from repro_torch.kernels.embedding_bag import kernel as eb_kernel
+
+    before = eb_kernel.embedding_bag_multi.launches
+    got = eb_kernel.embedding_bag_multi(*args)
+    launches = eb_kernel.embedding_bag_multi.launches - before
+    want = eb_kernel.embedding_bag_multi_plain(*args)
+    if launches != 1 or got.dtype != want.dtype or not torch.equal(got, want):
+        err = float((got.float() - want.float()).abs().max()) if got.numel() else 0.0
+        raise AssertionError(f"embedding_bag_multi {what}: {launches} launches, kernel != plain "
+                             f"(max |diff| {err})")
 
 
 def time_fm(v, max_err, launches):
@@ -932,22 +999,16 @@ def time_fm(v, max_err, launches):
     }
 
 
-def time_bag(feature, args, max_err, launches):
-    """The embedding-bag kernel, its plain version and F.embedding_bag (on
-    the same bags with the -1 lanes compacted away) on one live feature of a
-    bag step."""
-    from repro_torch.core.lanes import segment_sum, take_fill
+def time_bag(feature, args):
+    """The embedding-bag kernel called for one feature, its plain version
+    and F.embedding_bag (on the same bags with the -1 lanes compacted away)
+    on one live feature of a bag step."""
     from repro_torch.kernels.embedding_bag import kernel as eb_kernel
 
     table, ids, seg, s, combiner, mb = args
-    starts = eb_kernel.bag_starts(seg, s)
-    pos = torch.arange(ids.numel(), device=ids.device) - take_fill(starts, seg, 0)
-    kept = (ids >= 0) & (pos < mb)
-    if bool((kept & (ids >= table.shape[0])).any()):
+    lib_ids, offsets, n_rows = _library_bags(ids, seg, (0, ids.numel()), s, mb)
+    if bool((lib_ids >= table.shape[0]).any()):
         raise AssertionError("a live bag lane addresses a slot past the arena")
-    lib_ids = ids[kept].to(torch.int64)
-    counts = segment_sum(kept.to(torch.int64), seg, s)
-    offsets = torch.cumsum(counts, 0) - counts
     lib = lambda: torch.nn.functional.embedding_bag(lib_ids, table, offsets, mode=combiner)
     if not torch.allclose(lib(), eb_kernel.embedding_bag(*args), rtol=1e-5, atol=1e-5):
         raise AssertionError("F.embedding_bag disagrees with the kernel on the live bags")
@@ -956,13 +1017,12 @@ def time_bag(feature, args, max_err, launches):
     ev = {n: cuda_ms(fn) for n, fn in calls.items()}
     dv = {n: device_ms(fn)[0] for n, fn in calls.items()}
     enqueue = host_ms(calls["kernel"])
-    n_rows = int(kept.sum())
     n_distinct = int(torch.unique(lib_ids).numel())
     d = table.shape[1]
     item = table.element_size()
     # each distinct kept row read once (a repeat comes from L2), the ids and
-    # the S + 1 bag starts read once, the output written once
-    n_bytes = n_distinct * d * item + ids.numel() * 4 + (s + 1) * 4 + s * d * item
+    # segment ids read once, the output written once
+    n_bytes = n_distinct * d * item + ids.numel() * 8 + s * d * item
     n_ops = n_rows * d + (s * d if combiner == "mean" else 0)
     bytes_ms, ops_ms = 1e3 * n_bytes / HBM_BYTES_PER_S, 1e3 * n_ops / FP32_OPS_PER_S
     log(f"embedding_bag on live bag feature {feature} ({ids.numel()} lanes, {n_rows} kept of "
@@ -970,6 +1030,62 @@ def time_bag(feature, args, max_err, launches):
         f"{ev['kernel']}, plain {ev['plain']}, F.embedding_bag {ev['library']}; device ms kernel {dv['kernel']}, plain "
         f"{dv['plain']}, F.embedding_bag {dv['library']}; host enqueue {enqueue} ms; bound "
         f"{max(bytes_ms, ops_ms)} ms ({n_bytes} B: {bytes_ms} ms; {n_ops} ops: {ops_ms} ms)")
+
+
+def _library_bags(ids, seg, offsets, s, mb):
+    """The kept lanes of F features' bags as ``F.embedding_bag`` takes them:
+    the -1 lanes and the lanes past ``max_bag`` compacted away, one offset
+    per (feature, bag); built once, outside any timing."""
+    from repro_torch.core.lanes import segment_sum, take_fill
+    from repro_torch.kernels.embedding_bag import kernel as eb_kernel
+
+    lib_ids, counts = [], []
+    for lo, hi in zip(offsets[:-1], offsets[1:]):
+        i, g = ids[lo:hi], seg[lo:hi]
+        pos = torch.arange(i.numel(), device=i.device) - take_fill(eb_kernel.bag_starts(g, s), g, 0)
+        kept = (i >= 0) & (pos < mb) & (g >= 0) & (g < s)
+        lib_ids.append(i[kept].to(torch.int64))
+        counts.append(segment_sum(kept.to(torch.int64), g, s))
+    counts = torch.cat(counts)
+    return torch.cat(lib_ids), torch.cumsum(counts, 0) - counts, int(counts.sum())
+
+
+def time_bag_multi(args, max_err, launches):
+    """The many-feature call over a live bag step's 26 features (the main
+    path's one launch), its plain version, and one ``F.embedding_bag`` call
+    over the same bags; the ``kernels`` line's row for the bag kernel."""
+    from repro_torch.kernels.embedding_bag import kernel as eb_kernel
+
+    table, ids, seg, offsets, s, combiner, mb = args
+    n_feat = len(offsets) - 1
+    lib_ids, lib_off, n_rows = _library_bags(ids, seg, offsets, s, mb)
+    if bool((lib_ids >= table.shape[0]).any()):
+        raise AssertionError("a live bag lane addresses a slot past the arena")
+    lib = lambda: torch.nn.functional.embedding_bag(lib_ids, table, lib_off, mode=combiner)
+    fused = eb_kernel.embedding_bag_multi(*args)
+    if not torch.allclose(lib().reshape(fused.shape), fused, rtol=1e-5, atol=1e-5):
+        raise AssertionError("F.embedding_bag disagrees with the many-feature kernel")
+    calls = {"kernel": lambda: eb_kernel.embedding_bag_multi(*args),
+             "plain": lambda: eb_kernel.embedding_bag_multi_plain(*args), "library": lib}
+    ev = {n: cuda_ms(fn) for n, fn in calls.items()}
+    dv, by_op = {}, {}
+    for n, fn in calls.items():
+        dv[n], by_op[n] = device_ms(fn)
+    enqueue = host_ms(calls["kernel"])
+    n_distinct = int(torch.unique(lib_ids).numel())
+    d, item = table.shape[1], table.element_size()
+    # each distinct kept row read once (a repeat comes from L2), the ids and
+    # segment ids read once, the [F, S, D] output written once
+    n_bytes = n_distinct * d * item + ids.numel() * 8 + n_feat * s * d * item
+    n_ops = n_rows * d + (n_feat * s * d if combiner == "mean" else 0)
+    bytes_ms, ops_ms = 1e3 * n_bytes / HBM_BYTES_PER_S, 1e3 * n_ops / FP32_OPS_PER_S
+    log(f"embedding_bag_multi on the live bag step ({n_feat} features, {ids.numel()} lanes, "
+        f"{n_rows} kept of {n_distinct} distinct rows, {n_feat * s} bags, D {d}, {combiner}): "
+        f"event-timed ms kernel {ev['kernel']}, plain {ev['plain']}, F.embedding_bag "
+        f"{ev['library']} (one call over the same bags); device ms kernel {dv['kernel']}, "
+        f"plain {dv['plain']}, F.embedding_bag {dv['library']}; host enqueue {enqueue} ms; "
+        f"bound {max(bytes_ms, ops_ms)} ms ({n_bytes} B: {bytes_ms} ms; {n_ops} ops: {ops_ms} "
+        f"ms); kernel device ms by op {json.dumps(by_op['kernel'])}")
     return {
         "name": "embedding_bag",
         "route": "cuda",
@@ -986,11 +1102,44 @@ def time_bag(feature, args, max_err, launches):
         "plain_device_ms": dv["plain"],
         "library_device_ms": dv["library"],
         "host_enqueue_ms": enqueue,
-        "feature": feature,
+        "features": n_feat,
         "lanes": ids.numel(),
         "kept_rows": n_rows,
         "distinct_rows": n_distinct,
     }
+
+
+def time_bag_routes(args):
+    """Host ms of a bag step's kernel route, forward plus backward, with the
+    step's loss ``sum_f <pooled_f, g_f>``: one single-feature op per feature
+    against the one many-feature op that ``pool`` makes, in host enqueue
+    time and CUDA-event time, in the same run."""
+    from repro_torch.kernels.embedding_bag import ops as eb_ops
+
+    table, ids, seg, offsets, s, combiner, mb = args
+    n_feat = len(offsets) - 1
+    gen = torch.Generator(device=table.device).manual_seed(5)
+    g = torch.randn((n_feat, s, table.shape[1]), generator=gen, device=table.device) / s
+
+    def fused():
+        w = table.detach().requires_grad_()
+        pooled = torch.unbind(eb_ops.embedding_bag_multi(w, ids, seg, offsets, s, combiner, mb))
+        return torch.autograd.grad(sum(torch.sum(p * g[f]) for f, p in enumerate(pooled)), [w])
+
+    def single():
+        w = table.detach().requires_grad_()
+        pooled = [eb_ops.embedding_bag(w, ids[lo:hi], seg[lo:hi], s, combiner, mb)
+                  for lo, hi in zip(offsets[:-1], offsets[1:])]
+        return torch.autograd.grad(sum(torch.sum(p * g[f]) for f, p in enumerate(pooled)), [w])
+
+    calls = {"fused": fused, "single": single}
+    host = {n: host_ms(fn) for n, fn in calls.items()}
+    ev = {n: cuda_ms(fn, iters=10) for n, fn in calls.items()}
+    log(f"bag step kernel route, forward + backward ({n_feat} features): host enqueue ms fused "
+        f"{host['fused']} vs {n_feat} single calls {host['single']} (saves "
+        f"{host['single'] - host['fused']} ms); event ms fused {ev['fused']} vs single "
+        f"{ev['single']}")
+    return {"host_ms": host, "event_ms": ev}
 
 
 # ---------------------------------------------------------------------------
@@ -1047,12 +1196,13 @@ def bag_step(model, state, fb, combiner, gen):
         grads = torch.autograd.grad(loss, list(w.values()))
         return {f: x.detach() for f, x in pooled.items()}, dict(zip(w, grads))
 
-    before = eb_kernel.embedding_bag.launches
+    before = eb_kernel.embedding_bag_multi.launches
     pooled, grads = route(True, g)
-    step_launches = eb_kernel.embedding_bag.launches - before
-    if step_launches != len(fb.segments):
-        raise AssertionError(f"embedding_bag launched {step_launches} times for "
-                             f"{len(fb.segments)} bag features")
+    step_launches = eb_kernel.embedding_bag_multi.launches - before
+    slabs = {coll.table_slab[coll.feature_to_table[f]][0] for f in fb.segments}
+    if step_launches != len(slabs):
+        raise AssertionError(f"embedding_bag: {step_launches} launches for {len(slabs)} slabs "
+                             f"of {len(fb.segments)} bag features (want one a slab)")
     pooled_p, grads_p = route(False, g)
     # the gradient is linear in g: with |g| it is the sum of the magnitudes added
     _, magnitude = route(False, {f: x.abs() for f, x in g.items()})
@@ -1066,14 +1216,25 @@ def bag_step(model, state, fb, combiner, gen):
         raise AssertionError(f"bag step ({combiner}): kernel route != plain route on {bad}: "
                              f"max |diff| pooled {err_out}, gradient relative to its summed "
                              f"magnitudes {err_grad}")
-    # the kernel's live arguments on the first feature and the largest-vocab one
+    # the kernel's live arguments: the step's one many-feature call (as pool
+    # builds it), then the first feature and the largest-vocab one alone
     vocab = dict(zip(model.feature_names, model.cfg.vocab_sizes))
-    live = {f: (base[coll.table_slab[coll.feature_to_table[f]][0]].detach(),
-                addr[f].reshape(-1), fb.segments[f], BAGS, combiner, BAG_LANES)
+    table = base[coll.table_slab[coll.feature_to_table[model.feature_names[0]]][0]].detach()
+    flat = [addr[f].reshape(-1) for f in fb.segments]
+    offsets = [0]
+    for x in flat:
+        offsets.append(offsets[-1] + x.numel())
+    multi = (table, torch.cat(flat), torch.cat(list(fb.segments.values())), offsets, BAGS,
+             combiner, BAG_LANES)
+    fused = torch.stack([pooled[f] for f in fb.segments])
+    if len(slabs) != 1 or not torch.equal(fused, eb_kernel.embedding_bag_multi_plain(*multi)):
+        raise AssertionError(f"bag step ({combiner}): the pooled output is not bitwise the "
+                             f"per-feature plain version of the live call")
+    live = {f: (table, addr[f].reshape(-1), fb.segments[f], BAGS, combiner, BAG_LANES)
             for f in (model.feature_names[0], max(fb.segments, key=vocab.get))}
     emb = coll.apply_grads(emb, grads, model.cfg.lr)
     return dict(state, emb=emb), {"launches": step_launches, "err": err_out,
-                                  "grad_err": err_grad, "live": live}
+                                  "grad_err": err_grad, "live": live, "multi": multi}
 
 
 # ---------------------------------------------------------------------------
@@ -1493,11 +1654,15 @@ def fm_serve_phase(dev, vocab_scale, n_batches):
         f"{TOL_ATOL}); kernel = plain on the live v {tuple(v.shape)} strides {v.stride()} "
         f"(max |diff| {live_err})")
     engine.state = dict(engine.state, emb=emb)
+    key, kv = capture_plan_key(model.collection, engine.state["emb"], model.features(b))
+    thr_err = check_threshold(key, kv, "FM serve plan key")
+    log(f"FM serve plan key [{key.shape[0]}] kv={kv}: kernel bitwise = plain, victim order = "
+        f"argsort; protected {int((key == -_BIG).sum())}, empty {int((key == _BIG).sum())}")
     profile_call("one FM score call", lambda: engine.score(batches[n_batches + 1]),
                  skip=set(engine.tracer.stage_summary()))
     slab.full.close()
     return {"fm_launches": fm_launches, "thr_launches": thr_launches, "v": v,
-            "live_err": live_err}
+            "live_err": live_err, "key": key, "kv": kv, "thr_err": thr_err}
 
 
 def fm_train_phase(dev, vocab_scale, n_steps):
@@ -2113,8 +2278,11 @@ def main():
                             train["launches"])
     live_bag_err = max(check_bag(a, f"live bag feature {f}")[0]
                        for f, a in train["bag_live"].items())
-    for f, a in train["bag_live"].items():  # f0, then the largest-vocab feature: its row
-        bag = time_bag(f, a, max(bag_err, live_bag_err), train["bag_launches"])
+    check_bag_multi(train["bag_multi"], "the live bag step")
+    for f, a in train["bag_live"].items():  # f0, then the largest-vocab feature
+        time_bag(f, a)
+    bag = time_bag_multi(train["bag_multi"], max(bag_err, live_bag_err), train["bag_launches"])
+    bag["step_routes"] = time_bag_routes(train["bag_multi"])
     train["full"].close()
     train_thr = train["thr_launches"]
     del train
@@ -2130,7 +2298,8 @@ def main():
     fm_train = fm_train_phase(dev, args.vocab_scale, FM_TRAIN_STEPS)
     gc.collect()
     fmk = time_fm(fm_serve["v"], max(fm_err, fm_serve["live_err"]), fm_serve["fm_launches"])
-    thr = time_threshold(key, kv, max(max_err, err),
+    thr = time_threshold({"DLRM serve": (key, kv), "FM serve": (fm_serve["key"], fm_serve["kv"])},
+                         max(max_err, err, fm_serve["thr_err"]),
                          {"serve": serve_launches, "train": train_thr,
                           "sharded": sharded["thr_launches"],
                           "fm_serve": fm_serve["thr_launches"],

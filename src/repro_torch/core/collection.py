@@ -563,21 +563,34 @@ class EmbeddingCollection:
         step), bag features skip the per-lane ``rows``: the embedding-bag
         kernel gathers and pools straight off the fast-tier weights, with
         the cache slots as its ids (-1 lanes are padding), one launch per
-        bag feature; differentiable w.r.t. ``weights``.  The segment-sum
-        route below is the reference for it."""
+        slab for all of the slab's bag features (the reference loops over
+        the features; the result is the same); differentiable w.r.t.
+        ``weights``, with one backward per slab.  The segment-sum route
+        below is the reference for it."""
         out = dict(rows)
         if use_pallas and (weights is None or addresses is None):
             raise ValueError("use_pallas pooling needs weights= and addresses=")
-        for f, seg in fb.segments.items():
-            if use_pallas:
-                from repro_torch.kernels.embedding_bag import ops as eb_ops
+        if use_pallas:
+            from repro_torch.kernels.embedding_bag import ops as eb_ops
 
-                sname = self.table_slab[self.feature_to_table[f]][0]
-                out[f] = eb_ops.embedding_bag(
-                    weights[sname], addresses[f].reshape(-1), seg, fb.num_segments,
-                    combiner=combiner, max_bag=max_bag,
+            by_slab: Dict[str, List[str]] = {}
+            for f in fb.segments:
+                by_slab.setdefault(self.table_slab[self.feature_to_table[f]][0], []).append(f)
+            pooled = {}
+            for sname, feats in by_slab.items():
+                flat = [addresses[f].reshape(-1) for f in feats]
+                offsets = [0]
+                for x in flat:
+                    offsets.append(offsets[-1] + x.shape[0])
+                stacked = eb_ops.embedding_bag_multi(
+                    weights[sname], torch.cat(flat), torch.cat([fb.segments[f] for f in feats]),
+                    offsets, fb.num_segments, combiner=combiner, max_bag=max_bag,
                 )
-                continue
+                pooled.update(zip(feats, torch.unbind(stacked)))
+            for f in fb.segments:  # in the batch's feature order
+                out[f] = pooled[f]
+            return out
+        for f, seg in fb.segments.items():
             pooled = segment_sum(rows[f], seg, fb.num_segments)
             if combiner == "mean":
                 cnt = segment_sum((fb.ids[f] >= 0).to(pooled.dtype), seg, fb.num_segments)

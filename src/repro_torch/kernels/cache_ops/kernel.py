@@ -13,9 +13,11 @@ the tensor's device; nothing syncs the host.
   33 rounds (32 bit rounds of "count keys >= candidate", then one count of
   keys > t) as torch ops.
 * :func:`victim_threshold` — on a CUDA tensor it launches the hand-written
-  kernel in ``csrc/victim_threshold.cu`` (bound by bytes: 33 reads of the
-  keys; see the note there) or raises; on a CPU tensor it takes the plain
-  version.  ``victim_threshold.launches`` counts kernel launches.
+  kernel in ``csrc/victim_threshold.cu`` (one launch: a radix select of 4
+  8-bit digit passes over the keys held in shared memory, the CTAs'
+  histograms merged across a cooperative grid; see the note there) or
+  raises; on a CPU tensor it takes the plain version.
+  ``victim_threshold.launches`` counts kernel launches.
 
 **Tiered-arena gather + decode** — replaces
 ``repro/kernels/cache_ops/kernel.py::gather_decode_pallas``.  Given the fp32
@@ -85,9 +87,14 @@ def victim_threshold_plain(key: torch.Tensor, kv: int) -> Tuple[torch.Tensor, to
     return t, (u > t).sum().to(torch.int32)
 
 
+_THRESHOLD_SCRATCH = 2 + 512  # int64 words: t, n_gt, then 4 x 256 uint32 histograms
+_threshold_entry = None
+
+
 def victim_threshold(key: torch.Tensor, kv: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(t, n_gt) of the int32 keys: the CUDA kernel on a CUDA tensor, the
-    plain version on a CPU tensor."""
+    """(t, n_gt) of the int32 keys: the CUDA kernel on a CUDA tensor (one
+    launch), the plain version on a CPU tensor."""
+    global _threshold_entry
     kv = int(kv)
     if key.device.type == "cpu":
         return victim_threshold_plain(key, kv)
@@ -100,21 +107,23 @@ def victim_threshold(key: torch.Tensor, kv: int) -> Tuple[torch.Tensor, torch.Te
     n = key.shape[0]
     if not 1 <= kv <= n:
         raise ValueError(f"victim_threshold: kv={kv} outside [1, {n}]")
-    t = torch.empty((1,), dtype=torch.int64, device=key.device)
-    n_gt = torch.empty((1,), dtype=torch.int32, device=key.device)
-    scratch = torch.empty((4,), dtype=torch.int32, device=key.device)
-    launch = build.entry(SOURCE, "victim_threshold", [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
-    with torch.cuda.device(key.device):
-        stream = torch.cuda.current_stream(key.device).cuda_stream
-        err = launch(
-            key.data_ptr(), n, kv, t.data_ptr(), n_gt.data_ptr(), scratch.data_ptr(), stream
-        )
+    if _threshold_entry is None:
+        _threshold_entry = build.entry(SOURCE, "victim_threshold", [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p])
+    # one allocation: t, n_gt and the kernel's scratch are views of it
+    buf = torch.empty((_THRESHOLD_SCRATCH,), dtype=torch.int64, device=key.device)
+    ptr = buf.data_ptr()
+    args = (key.data_ptr(), n, kv, ptr, ptr + 8, ptr + 16)
+    if key.device.index == torch.cuda.current_device():
+        err = _threshold_entry(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(key.device):
+            err = _threshold_entry(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"victim_threshold kernel launch failed: CUDA error {err}")
     victim_threshold.launches += 1
-    return t[0], n_gt[0]
+    return buf[0], buf[1:2].view(torch.int32)[0]
 
 
 victim_threshold.launches = 0

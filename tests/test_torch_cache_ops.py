@@ -183,3 +183,67 @@ def test_shard_bucketize_matches_reference(s, rep_k):
         for w, g, name in zip(want, got, ("uniq", "pos", "owner_u", "local_u", "rows_sh")):
             w = np.asarray(w)
             assert w.dtype == g.numpy().dtype and np.array_equal(w, g.numpy()), (s, lanes, name)
+
+
+def _radix_select(key, kv, parts):
+    """``csrc/victim_threshold.cu``'s radix select in numpy, pass by pass:
+    the keys cut into ``parts`` slices as the CTAs hold them; each pass
+    histograms, per slice, the 8-bit digit of the keys whose higher digits
+    equal the prefix, sums the slices' histograms (the cross-CTA merge),
+    picks the digit where the count from the top reaches the remaining kv,
+    and adds the bins above it to n_gt.  Returns (t, n_gt)."""
+    u = key.astype(np.int64) + 2**31  # key ^ 0x80000000 as uint32
+    per = -(-len(u) // parts)
+    slices = [u[p * per:(p + 1) * per] for p in range(parts)]
+    prefix, rem, n_gt = 0, kv, 0
+    for p in range(4):
+        shift = 24 - 8 * p
+        hist = np.zeros(256, np.int64)
+        for sl in slices:
+            match = sl if p == 0 else sl[(sl >> (shift + 8)) == prefix]
+            hist += np.bincount((match >> shift) & 255, minlength=256)
+        assert hist.sum() >= rem  # the prefix's keys hold the remaining kv
+        suffix = np.cumsum(hist[::-1])[::-1]  # keys of this prefix with a digit >= b
+        above = suffix - hist
+        (digit,) = np.nonzero((above < rem) & (rem <= suffix))
+        assert digit.size == 1, p  # exactly one bin
+        d = int(digit[0])
+        prefix, rem, n_gt = (prefix << 8) | d, rem - int(above[d]), n_gt + int(above[d])
+        # n_gt counts every key above the prefix at this digit's resolution
+        assert n_gt == int(((u >> shift) > prefix).sum()), p
+    return prefix, n_gt
+
+
+def _threshold_case(name):
+    rng = np.random.default_rng(len(name))
+    lo, hi = -(2**31), 2**31 - 1
+    if name == "tie_heavy":
+        key = _tie_heavy_keys(rng, 300)
+        return key, int(rng.integers(1, 301))
+    if name == "kv_1":
+        return rng.integers(-1000, 1000, size=257).astype(np.int32), 1
+    if name == "kv_n":
+        return _tie_heavy_keys(rng, 257), 257
+    if name == "all_equal":
+        return np.full(100, -7, np.int32), 37
+    if name == "int32_extremes":
+        key = rng.choice(np.array([lo, lo + 1, -1, 0, hi - 1, hi]), size=200).astype(np.int32)
+        return key, int(rng.integers(1, 201))
+    if name == "n_1":
+        return np.array([hi], np.int32), 1
+    raise ValueError(name)
+
+
+@pytest.mark.parametrize("name", ["tie_heavy", "kv_1", "kv_n", "all_equal", "int32_extremes",
+                                  "n_1"])
+def test_radix_select_emulation_matches_plain_and_pallas(name):
+    """The kernel's radix digit select, emulated with the DLRM's and FM's
+    cross-CTA cuts (one CTA, a 16-CTA cluster, a 132-CTA cooperative grid),
+    equals the plain threshold and the Pallas kernel in interpret mode."""
+    key, kv = _threshold_case(name)
+    t, n_gt = kernel.victim_threshold_plain(torch.from_numpy(key), kv)
+    u = jref.ordered_u32(jnp.asarray(key))
+    t_want, n_want = jkernel.victim_threshold_pallas(u, kv, tile_rows=64, interpret=True)
+    assert (int(t), int(n_gt)) == (int(np.asarray(t_want)), int(np.asarray(n_want)))
+    for parts in (1, 16, 132):
+        assert _radix_select(key, kv, parts) == (int(t), int(n_gt)), parts

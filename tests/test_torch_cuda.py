@@ -1,11 +1,12 @@
 """Card-only paths of the port against their CPU versions, on the card:
-the CUDA kernels (victim threshold, tiered-arena gather + decode, FM
-interaction, embedding bag, bucketize, flash attention's bf16 tensor-core
-and fp32 SIMT kernels) against their plain PyTorch versions (bitwise; the FM
-kernel within the reference's sweep tolerances, flash attention within the
-card smoke's |o|-scaled bound), the pinned
-host-tier transmitter (staging ring, async copies, fp32 and tiered arenas)
-against the CPU move, and a 4-shard collection's lookups against its dense
+the CUDA kernels (victim threshold, one launch and no memset per call;
+tiered-arena gather + decode, FM interaction, embedding bag for one
+feature and for many in one launch, bucketize, flash attention's bf16
+tensor-core and fp32 SIMT kernels) against their plain PyTorch versions
+(bitwise; the FM kernel within the reference's sweep tolerances, flash
+attention within the card smoke's |o|-scaled bound), the pinned host-tier
+transmitter (staging ring, async copies, fp32 and tiered arenas) against
+the CPU move, and a 4-shard collection's lookups against its dense
 reference.
 
 Imports neither JAX nor the JAX package, so the machine with the card runs
@@ -64,6 +65,44 @@ def test_threshold_kernel_rejects_bad_input(cuda):
         kernel.victim_threshold(torch.zeros(8, dtype=torch.int64, device=cuda), 2)
     with pytest.raises(ValueError):
         kernel.victim_threshold(torch.zeros(8, dtype=torch.int32, device=cuda), 9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 37, 4096, 70001, 506_438, 2_097_152])
+def test_threshold_kernel_matches_plain_full_range(cuda, c):
+    """The one-launch radix select, bitwise the plain version: tie-heavy
+    keys with the planner's sentinels and keys over the whole int32 range,
+    kv = n first (FM's plans: 2 097 152 keys)."""
+    rng = np.random.default_rng(c + 1)
+    for trial in range(3 if c > 100_000 else 8):
+        kv = c if trial == 0 else int(rng.integers(1, c + 1))
+        if trial % 2:
+            key = rng.integers(-(2**31), 2**31, size=c, dtype=np.int64).astype(np.int32)
+        else:
+            key = _tie_heavy_keys(rng, c)
+        key = torch.from_numpy(key).to(cuda)
+        before = kernel.victim_threshold.launches
+        t, n_gt = kernel.victim_threshold(key, kv)
+        assert kernel.victim_threshold.launches == before + 1
+        t_p, n_p = kernel.victim_threshold_plain(key, kv)
+        assert t.dtype == torch.int64 and n_gt.dtype == torch.int32 and t.dim() == n_gt.dim() == 0
+        assert int(t) == int(t_p) and int(n_gt) == int(n_p), (trial, kv)
+
+
+@pytest.mark.cuda
+def test_threshold_call_is_one_kernel_and_no_memset(cuda):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(3)
+    key = torch.from_numpy(_tie_heavy_keys(rng, 506_438)).to(cuda)
+    kernel.victim_threshold(key, 425_984)  # built and loaded
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        kernel.victim_threshold(key, 425_984)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(names) == 1 and "threshold" in names[0], names
 
 
 @pytest.mark.cuda
@@ -234,9 +273,9 @@ def test_embedding_bag_kernel_matches_plain(cuda, v, d, n, s, dtype, combiner):
     ids, seg, mb = _bags(rng, v, n, s, 6)
     table = torch.from_numpy(rng.normal(size=(v, d)).astype(np.float32)).to(cuda, dtype)
     args = (table, ids.to(cuda), seg.to(cuda), s, combiner, mb)
-    before = eb_kernel.embedding_bag.launches
+    before = eb_kernel.embedding_bag_multi.launches
     got = eb_kernel.embedding_bag(*args)
-    assert eb_kernel.embedding_bag.launches == before + 1
+    assert eb_kernel.embedding_bag_multi.launches == before + 1
     want = eb_kernel.embedding_bag_plain(*args)
     assert got.dtype == dtype and torch.equal(got, want)
     assert torch.equal(want.cpu(), eb_kernel.embedding_bag_plain(
@@ -260,6 +299,82 @@ def test_embedding_bag_op_grad_on_the_card(cuda):
             (gw,) = torch.autograd.grad(torch.sum(out * g.to(dev)), [w])
             grads.append(gw.cpu())
         torch.testing.assert_close(grads[1], grads[0], rtol=1e-5, atol=1e-6)
+
+
+def _multi_bags(rng, v, s, spec):
+    """F features of unequal lane counts (lanes, low, high): sorted segment
+    ids in [low, high), so low < 0 and high > s give lanes in no bag; some
+    ids >= V."""
+    segs = [np.sort(rng.integers(lo, hi, n)).astype(np.int32) for n, lo, hi in spec]
+    ids = [rng.integers(-1, v + v // 10, len(x)).astype(np.int32) for x in segs]
+    offsets = np.concatenate([[0], np.cumsum([len(x) for x in segs])]).astype(int).tolist()
+    return (torch.from_numpy(np.concatenate(ids)), torch.from_numpy(np.concatenate(segs)),
+            offsets)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [128, 37])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+@pytest.mark.parametrize("max_bag", [0, 3])
+def test_embedding_bag_multi_kernel_matches_plain(cuda, d, dtype, combiner, max_bag):
+    """One launch for F features (unequal lane counts, an empty feature,
+    lanes at -1 and at S), bitwise the per-feature plain version."""
+    rng = np.random.default_rng(d + max_bag)
+    s, v = 300, 5000
+    ids, seg, offsets = _multi_bags(rng, v, s, [(4000, -2, s + 2), (0, 0, 1), (1500, 0, s),
+                                                (17, 5, 6), (16384, -1, s + 1)])
+    table = torch.from_numpy(rng.normal(size=(v, d)).astype(np.float32)).to(cuda, dtype)
+    args = (table, ids.to(cuda), seg.to(cuda), offsets, s, combiner, max_bag)
+    before = eb_kernel.embedding_bag_multi.launches
+    got = eb_kernel.embedding_bag_multi(*args)
+    assert eb_kernel.embedding_bag_multi.launches == before + 1
+    want = eb_kernel.embedding_bag_multi_plain(*args)
+    assert got.dtype == dtype and got.shape == (5, s, d) and torch.equal(got, want)
+    assert torch.equal(want.cpu(), eb_kernel.embedding_bag_multi_plain(
+        table.cpu(), ids, seg, offsets, s, combiner, max_bag))
+
+
+@pytest.mark.cuda
+def test_embedding_bag_multi_kernel_splits_many_features(cuda):
+    """More features than one launch's parameters hold (256): two launches,
+    still bitwise the plain version."""
+    rng = np.random.default_rng(9)
+    ids, seg, offsets = _multi_bags(rng, 100, 6, [(int(n), -1, 7) for n in
+                                                  rng.integers(0, 12, 300)])
+    table = torch.from_numpy(rng.normal(size=(100, 8)).astype(np.float32)).to(cuda)
+    args = (table, ids.to(cuda), seg.to(cuda), offsets, 6, "mean", 4)
+    before = eb_kernel.embedding_bag_multi.launches
+    got = eb_kernel.embedding_bag_multi(*args)
+    assert eb_kernel.embedding_bag_multi.launches == before + 2
+    assert torch.equal(got, eb_kernel.embedding_bag_multi_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+def test_embedding_bag_multi_op_grad_on_the_card(cuda, combiner):
+    """The one backward over all lanes against the per-feature op's
+    backward, relative to the summed magnitudes (both sum with atomics)."""
+    rng = np.random.default_rng(4)
+    s = 64
+    ids, seg, offsets = _multi_bags(rng, 200, s, [(900, -1, s + 1), (300, 0, s), (0, 0, 1)])
+    ids, seg = ids.to(cuda), seg.to(cuda)
+    table = torch.from_numpy(rng.normal(size=(200, 16)).astype(np.float32)).to(cuda)
+    g = torch.from_numpy(rng.normal(size=(3, s, 16)).astype(np.float32)).to(cuda)
+
+    def grads(cot, fused):
+        w = table.clone().requires_grad_()
+        if fused:
+            out = eb_ops.embedding_bag_multi(w, ids, seg, offsets, s, combiner, max_bag=5)
+        else:
+            out = torch.stack([eb_ops.embedding_bag(w, ids[lo:hi], seg[lo:hi], s, combiner,
+                                                    max_bag=5)
+                               for lo, hi in zip(offsets[:-1], offsets[1:])])
+        return torch.autograd.grad(torch.sum(out * cot), [w])[0]
+
+    magnitude = grads(g.abs(), False)
+    err = ((grads(g, True) - grads(g, False)).abs() / (magnitude + 1)).max()
+    assert float(err) <= 1e-5
 
 
 @pytest.mark.cuda

@@ -192,3 +192,152 @@ def test_pool_matches_reference_forward_and_grads():
             np.testing.assert_allclose(got_g.numpy(), np.asarray(want_g), rtol=1e-5)
     with pytest.raises(ValueError, match="weights= and addresses="):
         tc.pool({}, tfb, use_pallas=True)
+
+
+# ----- the kernel's many-feature route: its search, its plain version, pool ---
+
+def _lower_bound_warp(seg, lo, hi, key):
+    """``csrc/embedding_bag.cu``'s ``lower_bound_warp`` in numpy: 32 lanes
+    probe evenly spaced positions, a ballot keeps the sub-range holding the
+    first index of [lo, hi) whose segment id is >= key (hi if none)."""
+    lanes = np.arange(32)
+    while hi - lo > 32:
+        step = (hi - lo + 31) >> 5
+        p = lo + (lanes + 1) * step - 1
+        ge = (p >= hi) | (seg[np.minimum(p, len(seg) - 1)] >= key)
+        j = int(np.argmax(ge)) if ge.any() else 32
+        next_hi = min(lo + (j + 1) * step - 1, hi) if j < 32 else hi
+        lo, hi = lo + j * step, next_hi
+    p = lo + lanes
+    ge = (p >= hi) | (seg[np.minimum(p, len(seg) - 1)] >= key)
+    return lo + int(np.argmax(ge)) if ge.any() else hi
+
+
+def _lower_bound_near(seg, lo, hi, key):
+    p = lo + np.arange(32)
+    ge = (p >= hi) | (seg[np.minimum(p, len(seg) - 1)] >= key)
+    return lo + int(np.argmax(ge)) if ge.any() else _lower_bound_warp(seg, lo + 32, hi, key)
+
+
+def _features(rng, s, spec):
+    """Concatenated segment ids of features given as (lanes, low, high):
+    segment ids drawn in [low, high) and sorted; lanes 0 is an empty
+    feature, low < 0 and high > s give lanes that belong to no bag."""
+    segs = [np.sort(rng.integers(lo, hi, n)).astype(np.int32) for n, lo, hi in spec]
+    offsets = np.concatenate([[0], np.cumsum([len(x) for x in segs])]).astype(np.int64)
+    return segs, offsets
+
+
+@pytest.mark.parametrize("s,spec", [
+    (9, [(30, -2, 11), (0, 0, 9), (12, 0, 3), (5, 9, 12)]),  # -1 and S lanes, an empty feature
+    (50, [(40, 0, 50), (7, -1, 1)]),  # many empty bags; a feature of -1 and bag-0 lanes only
+    (4, [(3000, -1, 5), (70, 1, 2)]),  # 3 search rounds; bags longer than 32 lanes
+    (4096, [(16384, 0, 4096), (16384, -1, 4097), (1, 4095, 4096)]),  # the DLRM's bag shape
+])
+def test_kernel_bag_search_matches_bag_starts(s, spec):
+    """The kernel finds bag s of feature f as lanes [lower_bound(s),
+    lower_bound(s + 1)) of the feature's own lane range; the emulated
+    32-way search equals ``bag_starts`` on each feature's segment ids."""
+    rng = np.random.default_rng(s + len(spec))
+    segs, offsets = _features(rng, s, spec)
+    flat = np.concatenate(segs)
+    for f, seg in enumerate(segs):
+        lo, hi = int(offsets[f]), int(offsets[f + 1])
+        want = kernel.bag_starts(torch.from_numpy(seg), s).numpy() + lo
+        starts = [_lower_bound_warp(flat, lo, hi, b) for b in range(s)]
+        ends = [_lower_bound_near(flat, st, hi, b + 1) for b, st in enumerate(starts)]
+        assert starts == want[:-1].tolist(), f
+        assert ends == want[1:].tolist(), f
+
+
+def _multi_inputs(rng, v, d, s, spec, dtype):
+    segs, offsets = _features(rng, s, spec)
+    ids = [rng.integers(-1, v + 2, len(x)).astype(np.int32) for x in segs]  # some ids >= V
+    table = torch.from_numpy(rng.normal(size=(v, d)).astype(np.float32)).to(dtype)
+    return (table, torch.from_numpy(np.concatenate(ids)), torch.from_numpy(np.concatenate(segs)),
+            offsets.tolist())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+@pytest.mark.parametrize("max_bag", [0, 2])
+def test_multi_feature_bag_matches_per_feature(dtype, combiner, max_bag):
+    """The many-feature op over features of unequal lane counts (with -1
+    and S lanes and an empty feature) is bitwise the single-feature op per
+    feature, forward; its one backward is within 1e-5 of the per-feature
+    backward's sum (the index_add_ order differs)."""
+    rng = np.random.default_rng(3)
+    s = 11
+    table, ids, seg, offsets = _multi_inputs(
+        rng, 40, 12, s, [(60, -1, 12), (0, 0, 1), (25, 0, 11), (9, 5, 6)], dtype)
+    plain = kernel.embedding_bag_multi_plain(table, ids, seg, offsets, s, combiner, max_bag)
+    assert plain.shape == (4, s, 12) and plain.dtype == dtype
+    assert torch.equal(kernel.embedding_bag_multi(table, ids, seg, offsets, s, combiner, max_bag),
+                       plain)
+    g = torch.from_numpy(rng.normal(size=(4, s, 12)).astype(np.float32)).to(dtype)
+    w = table.clone().requires_grad_()
+    out = ops.embedding_bag_multi(w, ids, seg, offsets, s, combiner, max_bag)
+    (got_g,) = torch.autograd.grad(torch.sum(out * g), [w])
+    w1 = table.clone().requires_grad_()
+    per = [ops.embedding_bag(w1, ids[lo:hi], seg[lo:hi], s, combiner, max_bag)
+           for lo, hi in zip(offsets[:-1], offsets[1:])]
+    for f, x in enumerate(per):
+        assert torch.equal(out[f].detach(), x.detach()), f
+    (want_g,) = torch.autograd.grad(sum(torch.sum(x * g[f]) for f, x in enumerate(per)), [w1])
+    tol = 1e-5 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got_g.float(), want_g.float(), rtol=tol, atol=tol)
+
+
+def test_pool_many_features_matches_reference_and_per_feature(monkeypatch):
+    """``pool(use_pallas=True)`` over three bag features of unequal lane
+    counts in the shared arena makes one many-feature call, equals the
+    per-feature route bitwise and the reference's fused ``pool`` within
+    rtol 1e-6 (forward) and 1e-5 (gradients)."""
+    tables = [("a", 60, 30), ("b", 40, 20), ("c", 30, 14)]
+    jc = jcol.EmbeddingCollection.create(
+        [jcol.TableConfig(n, vocab=v, dim=4, ids_per_step=k, cache_ratio=0.5)
+         for n, v, k in tables], cache_ratio=0.5)
+    jstate = jc.init(jax.random.PRNGKey(1))
+    tc = col.EmbeddingCollection.create(
+        [col.TableConfig(n, vocab=v, dim=4, ids_per_step=k) for n, v, k in tables],
+        cache_ratio=0.5)
+    tstate = convert.collection_state_from_numpy(jax_to_numpy(jstate), device="cpu")
+    rng = np.random.default_rng(4)
+    s = 5
+    bags = {}
+    for (n, v, k), lanes in zip(tables, (13, 7, 10)):
+        ids = rng.integers(-1, v, lanes).astype(np.int32)
+        bags[n] = (ids, np.sort(rng.integers(0, s, lanes)).astype(np.int32))
+    jfb = jcol.FeatureBatch.from_bags({n: (jnp.asarray(i), jnp.asarray(g))
+                                       for n, (i, g) in bags.items()}, num_segments=s)
+    tfb = col.FeatureBatch.from_bags({n: (torch.from_numpy(i), torch.from_numpy(g))
+                                      for n, (i, g) in bags.items()}, num_segments=s)
+    jstate, jaddr = jc.prepare(jstate, jfb)
+    tstate, taddr = tc.prepare(tstate, tfb)
+    for n in bags:
+        assert np.array_equal(taddr[n].numpy(), np.asarray(jaddr[n]))
+    jw, tw = jc.weights(jstate), tc.weights(tstate)
+    calls = []
+    multi = ops.embedding_bag_multi
+    monkeypatch.setattr(ops, "embedding_bag_multi",
+                        lambda *a, **k: calls.append(len(a[3]) - 1) or multi(*a, **k))
+    for combiner in ("sum", "mean"):
+        def jloss(w, combiner=combiner):
+            out = jc.pool({}, jfb, combiner, weights=w, addresses=jaddr, use_pallas=True)
+            return sum(jnp.sum(out[n] ** 2) for n in bags)
+
+        want = jc.pool({}, jfb, combiner, weights=jw, addresses=jaddr, use_pallas=True)
+        want_g = jax.grad(jloss)(jw)[col.SHARED_ARENA]
+        w = {k: x.detach().requires_grad_() for k, x in tw.items()}
+        calls.clear()
+        got = tc.pool({}, tfb, combiner, weights=w, addresses=taddr, use_pallas=True)
+        assert calls == [3]  # one call per pool call for the slab's three features
+        assert list(got) == list(tfb.segments)
+        (got_g,) = torch.autograd.grad(sum(torch.sum(got[n] ** 2) for n in bags),
+                                       [w[col.SHARED_ARENA]])
+        for n in bags:
+            np.testing.assert_allclose(got[n].detach().numpy(), np.asarray(want[n]), rtol=1e-6)
+            single = ops.embedding_bag(tw[col.SHARED_ARENA], taddr[n].reshape(-1),
+                                       tfb.segments[n], s, combiner)
+            assert torch.equal(got[n].detach(), single.detach()), n
+        np.testing.assert_allclose(got_g.numpy(), np.asarray(want_g), rtol=1e-5, atol=1e-7)
