@@ -71,6 +71,23 @@ Phases (any failure exits non-zero, with no result line):
    exchange id / row bytes, ``shard_imbalance``, a synced stage breakdown
    and a profiled step.  Then, at vocab scale 0.02, 4 steps sharded and 4
    unsharded from one seed: losses within rtol 1e-5.
+5c. budget mode: the same DLRM with ``device_budget_bytes=1 << 30``,
+   ``host_precision="int8"`` and ``arena_precision="int8"``: the planner
+   makes 21 tables DEVICE (569 296 rows on the card) and caches f2, f3,
+   f11, f15 and f20 (33 193 281 rows) each in its own arena at ratio 0.015
+   with an int8 tail, their int8 host tier (136 B a row, 0.266x fp32)
+   drawn in device chunks, encoded on the card and pinned.  Warm-up,
+   ``ServeEngine`` on ``--batches`` batches, ``--train-steps`` train steps,
+   one bag step over the mixed plan (one embedding-bag launch per slab, 26
+   in all) and ``flush``, each with the launch counts at 0 before it and
+   read after it.  Checks the plan, ``device_total`` within the budget, 5
+   threshold launches a plan, wire bytes = (loaded + written-back lanes,
+   counted off the plans) x 136 B from the exact counters, cached logits =
+   logits from ``full_lookup`` rows (rtol 1e-5 / atol 1e-6), the pooled
+   output bitwise the per-slab plain version, and after the flush every
+   resident row's host payload and sideband bitwise the port's int8 encode
+   of its arena row.  Prints serve and train p50 / p99, the wire bytes a
+   step, the launches a plan and a profiled step's idle share.
 6. FM serve: ``configs/fm.CONFIG`` at full width (40 fields, 33 764 352
    rows of 11 fp32 = 1.486 GB pinned, a 2 097 152-slot arena, batch 65536)
    with ``use_pallas=True``: ``ServeEngine(FMModel.serve_step)`` on
@@ -1216,25 +1233,36 @@ def bag_step(model, state, fb, combiner, gen):
         raise AssertionError(f"bag step ({combiner}): kernel route != plain route on {bad}: "
                              f"max |diff| pooled {err_out}, gradient relative to its summed "
                              f"magnitudes {err_grad}")
-    # the kernel's live arguments: the step's one many-feature call (as pool
+    # the kernel's live arguments: each slab's one many-feature call (as pool
     # builds it), then the first feature and the largest-vocab one alone
     vocab = dict(zip(model.feature_names, model.cfg.vocab_sizes))
-    table = base[coll.table_slab[coll.feature_to_table[model.feature_names[0]]][0]].detach()
-    flat = [addr[f].reshape(-1) for f in fb.segments]
-    offsets = [0]
-    for x in flat:
-        offsets.append(offsets[-1] + x.numel())
-    multi = (table, torch.cat(flat), torch.cat(list(fb.segments.values())), offsets, BAGS,
-             combiner, BAG_LANES)
-    fused = torch.stack([pooled[f] for f in fb.segments])
-    if len(slabs) != 1 or not torch.equal(fused, eb_kernel.embedding_bag_multi_plain(*multi)):
-        raise AssertionError(f"bag step ({combiner}): the pooled output is not bitwise the "
-                             f"per-feature plain version of the live call")
-    live = {f: (table, addr[f].reshape(-1), fb.segments[f], BAGS, combiner, BAG_LANES)
+
+    def slab_of(f):
+        return coll.table_slab[coll.feature_to_table[f]][0]
+
+    by_slab = {}
+    for f in fb.segments:
+        by_slab.setdefault(slab_of(f), []).append(f)
+    multis = {}
+    for sname, feats in by_slab.items():
+        flat = [addr[f].reshape(-1) for f in feats]
+        offsets = [0]
+        for x in flat:
+            offsets.append(offsets[-1] + x.numel())
+        multis[sname] = (base[sname].detach(), torch.cat(flat),
+                         torch.cat([fb.segments[f] for f in feats]), offsets, BAGS, combiner,
+                         BAG_LANES)
+        fused = torch.stack([pooled[f] for f in feats])
+        if not torch.equal(fused, eb_kernel.embedding_bag_multi_plain(*multis[sname])):
+            raise AssertionError(f"bag step ({combiner}): slab {sname}'s pooled output is not "
+                                 f"bitwise the per-feature plain version of the live call")
+    live = {f: (base[slab_of(f)].detach(), addr[f].reshape(-1), fb.segments[f], BAGS, combiner,
+                BAG_LANES)
             for f in (model.feature_names[0], max(fb.segments, key=vocab.get))}
     emb = coll.apply_grads(emb, grads, model.cfg.lr)
     return dict(state, emb=emb), {"launches": step_launches, "err": err_out,
-                                  "grad_err": err_grad, "live": live, "multi": multi}
+                                  "grad_err": err_grad, "live": live,
+                                  "multi": next(iter(multis.values())), "slabs": len(multis)}
 
 
 # ---------------------------------------------------------------------------
@@ -1539,6 +1567,283 @@ def time_bucketize(live, max_err, launches):
         "lanes": u,
         "shards": s,
     }
+
+
+# ---------------------------------------------------------------------------
+# phase 5c: the paper's device-budget mode (DEVICE + per-table CACHED slabs,
+# int8 host tier)
+# ---------------------------------------------------------------------------
+
+BUDGET_BYTES = 1 << 30  # the budget phase's device budget at full width
+BUDGET_CACHED = ("f2", "f3", "f11", "f15", "f20")  # what the planner caches at 1 GiB
+INT8_ROW_BYTES = 128 + 8  # an int8 host row of dim 128: payload + (scale, zp)
+
+
+def _budget_cfg(vocab_scale):
+    """The Criteo DLRM under a 1 GiB device budget with int8 host and arena
+    codecs.  A cut vocabulary gets the budget that holds the other 21
+    tables whole and the five at their own ratio, so the cut keeps the
+    full-width placements."""
+    from repro_torch.core.collection import PlacementPlanner
+    from repro_torch.models.dlrm import DLRM
+
+    cfg = dataclasses.replace(_scaled(vocab_scale), device_budget_bytes=BUDGET_BYTES,
+                              host_precision="int8", arena_precision="int8")
+    if vocab_scale != 1.0:  # the planner's own prices; no table is built
+        price = PlacementPlanner(0, arena_precision="int8")
+        budget = sum(price._fast_bytes(t, t.cache_ratio) if t.name in BUDGET_CACHED
+                     else t.full_bytes for t in DLRM(cfg).collection.tables.values())
+        cfg = dataclasses.replace(cfg, device_budget_bytes=budget)
+        log(f"CUT: device budget {budget} B for the cut vocabularies")
+    return cfg
+
+
+class _MoveCounter:
+    """Counts the lanes each ``cache.apply_plan`` moves (loads, and
+    write-backs when the plan writes back), from the plans themselves: an
+    independent check of the metrics' wire bytes."""
+
+    def __init__(self):
+        from repro_torch.core import cache as cache_lib
+
+        self.lib, self.apply = cache_lib, cache_lib.apply_plan
+        self.loaded = self.written = 0
+
+    def __enter__(self):
+        def counted(cfg, full, state, plan):
+            self.loaded += int(plan.load_active.sum())
+            if cfg.writeback:
+                self.written += int(plan.evict_active.sum())
+            return self.apply(cfg, full, state, plan)
+
+        self.lib.apply_plan = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.lib.apply_plan = self.apply
+
+
+def _exact_wire(m):
+    return sum(int(m["host_moved_rows"][k]) * int(m["host_row_bytes"][k])
+               for k in m["host_moved_rows"])
+
+
+def budget_phase(dev, vocab_scale, n_batches, n_steps):
+    """The paper's production mode at full Criteo width: 21 small tables
+    DEVICE, the 5 large ones each in its own frequency-aware cache at ratio
+    0.015 with an int8 tail, their host tier int8 (136 B a row) and pinned.
+    Warm-up, ``--batches`` served batches, ``--train-steps`` train steps,
+    one bag step over the mixed plan, flush; each path with the launch
+    counts at 0 before it and read after it."""
+    from repro_torch.core import collection as col
+    from repro_torch.data import synth
+    from repro_torch.kernels.cache_ops import kernel
+    from repro_torch.kernels.embedding_bag import kernel as eb_kernel
+    from repro_torch.models.dlrm import DLRM
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.store.codec import get_codec
+
+    cfg = _budget_cfg(vocab_scale)
+    model = DLRM(cfg)
+    coll = model.collection
+    plan = coll.plan
+    cached = sorted(coll.cached_slabs, key=lambda n: int(n[1:]))
+    log(f"budget plan ({cfg.device_budget_bytes} B): {len(coll.device_slabs)} DEVICE "
+        f"({sum(t.vocab for t in coll.device_slabs.values())} rows), {len(cached)} CACHED "
+        f"{cached} ({sum(coll.cached_slabs[n].vocab for n in cached)} rows); placements "
+        f"{json.dumps(plan.summary())}; ratios "
+        f"{ {n: plan.placements[n].cache_ratio for n in cached} }")
+    if not coll.device_slabs or not cached or col.SHARED_ARENA in coll.cached_slabs:
+        raise AssertionError(f"want DEVICE and CACHED slabs only, got {plan.summary()}")
+    if vocab_scale == 1.0 and (tuple(cached) != BUDGET_CACHED or len(coll.device_slabs) != 21
+                               or {plan.placements[n].cache_ratio for n in cached} != {0.015}):
+        raise AssertionError(f"the 1 GiB plan is not 21 DEVICE + {BUDGET_CACHED} at 0.015: "
+                             f"{plan.summary()}")
+    db = coll.device_bytes()
+    log(f"budget device_bytes {json.dumps(db)}")
+    if db["device_total"] > cfg.device_budget_bytes:
+        raise AssertionError(f"device_total {db['device_total']} over the budget")
+
+    t0 = time.perf_counter()
+    state = model.init(0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    slabs = state["emb"].slabs
+    host = sum(slabs[n].full.host_bytes() for n in cached)
+    fp32 = sum(slabs[n].full.fp32_equiv_bytes() for n in cached)
+    rows = {slabs[n].full.row_wire_bytes() for n in cached}
+    log(f"budget init+warmup {init_s} s: int8 host tier {host} B pinned="
+        f"{all(slabs[n].full.pinned for n in cached)} against {fp32} B fp32 "
+        f"({host / fp32}x), {rows} B a row; card memory allocated "
+        f"{torch.cuda.memory_allocated() / 1e9} GB; host RSS {rss_gb()} GB")
+    if rows != {INT8_ROW_BYTES} or host * 512 != fp32 * INT8_ROW_BYTES:
+        raise AssertionError(f"int8 host tier: {rows} B a row, {host} of {fp32} B")
+    if dev.type == "cuda" and not all(slabs[n].full.pinned for n in cached):
+        raise AssertionError("the int8 host tier is not pinned")
+
+    bspec = synth.ZipfSparseSpec(vocab_sizes=cfg.vocab_sizes, n_dense=cfg.n_dense)
+    serve_b = [synth.sparse_batch(bspec, cfg.batch_size, 0, i) for i in range(n_batches + 2)]
+    train_b = [synth.sparse_batch(bspec, cfg.batch_size, 1, i) for i in range(n_steps + 4)]
+
+    def dev_batch(b):
+        return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+
+    def counts_zero():
+        kernel.victim_threshold.launches = 0
+        kernel.gather_decode.launches = 0
+        eb_kernel.embedding_bag_multi.launches = 0
+
+    def counts():
+        return (kernel.victim_threshold.launches, kernel.gather_decode.launches,
+                eb_kernel.embedding_bag_multi.launches)
+
+    # --- serve: read-only plans, one threshold launch per CACHED slab -------
+    pad = {"dense": np.zeros((cfg.n_dense,), np.float32),
+           "sparse": np.zeros((cfg.n_sparse,), np.int32), "label": np.zeros((), np.float32)}
+    engine = ServeEngine(model.serve_step, state, batch_size=cfg.batch_size, pad_example=pad,
+                         device=dev,
+                         state_stats_fn=lambda st: coll.metrics(st["emb"], writeback=False))
+    engine.score(serve_b[n_batches + 1])  # first call: allocator, cuBLAS
+    engine.stats = type(engine.stats)()
+    m0 = coll.metrics(engine.state["emb"], writeback=False)
+    counts_zero()
+    lat = []
+    with _MoveCounter() as moved:
+        for b in serve_b[:n_batches]:
+            t0 = time.perf_counter()
+            scores = engine.score(b)
+            lat.append(1e3 * (time.perf_counter() - t0))
+            if scores.shape != (cfg.batch_size,) or not np.isfinite(scores).all():
+                raise AssertionError(f"budget serve scores: {scores.shape}, non-finite")
+    serve_thr, serve_gd, _ = counts()
+    m1 = coll.metrics(engine.state["emb"], writeback=False)
+    serve_wire = _exact_wire(m1) - _exact_wire(m0)
+    summary = engine.summary()
+    if serve_thr != len(cached) * n_batches:
+        raise AssertionError(f"budget serve: {serve_thr} threshold launches for {n_batches} "
+                             f"plans of {len(cached)} CACHED slabs")
+    if serve_wire != (moved.loaded + moved.written) * INT8_ROW_BYTES or moved.written:
+        raise AssertionError(f"budget serve wire bytes {serve_wire} != ({moved.loaded} + "
+                             f"{moved.written}) lanes x {INT8_ROW_BYTES} B")
+    if int(m1["uniq_overflows"]):
+        raise AssertionError("budget serve: unique-buffer overflow")
+    log(f"budget serve: {n_batches} batches of {cfg.batch_size}; per-batch ms {lat}; p50 "
+        f"{summary['p50_ms']} ms, p99 {summary['p99_ms']} ms (histogram bounds); threshold "
+        f"launches {serve_thr} ({serve_thr / n_batches} a plan), gather_decode {serve_gd}; "
+        f"wire bytes {serve_wire} = {moved.loaded} loaded lanes x {INT8_ROW_BYTES} B "
+        f"({serve_wire / n_batches} a batch); hit rate {float(m1['hit_rate'])}")
+
+    # --- the cache invariant: cached logits == logits from full_lookup rows --
+    b = dev_batch(serve_b[n_batches])
+    logits, emb = model.serve_step(engine.state, b)
+    fb = model.features(b)
+    ref_rows = {f: coll.full_lookup(emb, coll.feature_to_table[f], fb.ids[f])
+                for f in fb.features}
+    ref_logits = model.fwd(engine.state["params"], ref_rows, b)
+    diff = float((logits - ref_logits).abs().max())
+    if not torch.allclose(logits, ref_logits, rtol=TOL_RTOL, atol=TOL_ATOL):
+        raise AssertionError(f"budget: cached vs full_lookup logits differ by {diff}")
+    log(f"budget cache invariant: max |cached - full_lookup| logit = {diff} (rtol {TOL_RTOL} "
+        f"atol {TOL_ATOL})")
+    state = dict(engine.state, emb=emb)
+    for i in range(2):  # where a served batch's time goes, stage by stage with syncs
+        b = dev_batch(serve_b[i])
+        fb, _ = sync_ms(lambda: model.features(b))
+        plan, t_plan = sync_ms(lambda: coll.plan_prepare(state["emb"], fb, writeback=False))
+        emb, t_apply = sync_ms(lambda: coll.apply_plan(state["emb"], plan))
+        rows, t_gather = sync_ms(lambda: coll.gather(coll.weights(emb), plan.addresses, fb))
+        _, t_dense = sync_ms(lambda: model.fwd(state["params"], rows, b))
+        state = dict(state, emb=emb)
+        log(f"budget serve breakdown ms (synced): plan_prepare ({len(cached)} plans) {t_plan}, "
+            f"apply_plan ({len(cached)} loads) {t_apply}, gather (26 slabs) {t_gather}, dense "
+            f"{t_dense}")
+
+    # --- train: write-backs encode on the card; then one bag step and flush --
+    state, m = model.train_step(state, dev_batch(train_b[n_steps + 1]))  # warm-up
+    float(m["loss"])
+    m0 = m
+    counts_zero()
+    step_ms, losses = [], []
+    with _MoveCounter() as moved:
+        for i in range(n_steps):
+            t0 = time.perf_counter()
+            state, m = model.train_step(state, dev_batch(train_b[i]))
+            losses.append(float(m["loss"]))
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+    train_thr, train_gd, _ = counts()
+    train_wire = _exact_wire(m) - _exact_wire(m0)
+    ev = int(m["cache_evictions"]) - int(m0["cache_evictions"])
+    if not np.isfinite(losses).all() or int(m["uniq_overflows"]):
+        raise AssertionError(f"budget train: losses {losses}, overflows {int(m['uniq_overflows'])}")
+    if train_thr != len(cached) * n_steps:
+        raise AssertionError(f"budget train: {train_thr} threshold launches for {n_steps} "
+                             f"plans of {len(cached)} CACHED slabs")
+    if train_wire != (moved.loaded + moved.written) * INT8_ROW_BYTES or moved.written != ev:
+        raise AssertionError(f"budget train wire bytes {train_wire} != ({moved.loaded} + "
+                             f"{moved.written}) lanes x {INT8_ROW_BYTES} B ({ev} evictions)")
+    if ev and not train_gd:
+        raise AssertionError("budget train: write-backs ran no gather_decode launch")
+    log(f"budget train: {n_steps} steps; losses {losses}; step ms {step_ms}; p50 "
+        f"{np.percentile(step_ms, 50)} ms, p99 {np.percentile(step_ms, 99)} ms (numpy "
+        f"percentiles); threshold launches {train_thr} ({train_thr / n_steps} a plan), "
+        f"gather_decode {train_gd} ({train_gd / n_steps} a plan: one a write-back round of a "
+        f"slab); wire bytes {train_wire} = ({moved.loaded} loaded + {moved.written} written "
+        f"back) lanes x {INT8_ROW_BYTES} B ({train_wire / n_steps} a step)")
+
+    counts_zero()
+    fb = bag_batch(model, dev, 0, np.random.default_rng(3))
+    t0 = time.perf_counter()
+    state, bag = bag_step(model, state, fb, "sum", torch.Generator(device=dev).manual_seed(3))
+    torch.cuda.synchronize()
+    bag_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    state = model.flush(state)
+    torch.cuda.synchronize()
+    flush_ms = 1e3 * (time.perf_counter() - t0)
+    bag_thr, bag_gd, bag_eb = counts()
+    if bag_eb != bag["slabs"] or bag["slabs"] != len(coll.device_slabs) + len(cached):
+        raise AssertionError(f"budget bag step: {bag_eb} embedding_bag launches for "
+                             f"{bag['slabs']} slabs")
+    log(f"budget bag step + flush: bag {bag_ms} ms ({bag_eb} embedding_bag launches, one per "
+        f"slab; pooled output bitwise the per-slab plain version; kernel route = plain route "
+        f"within 1e-5: pooled {bag['err']}, gradient {bag['grad_err']}), flush {flush_ms} ms; "
+        f"threshold {bag_thr}, gather_decode {bag_gd} launches")
+
+    # --- after the flush: each resident row's host payload and sideband are
+    # the port's encode of the arena row, bitwise ---------------------------
+    weights = coll.weights(state["emb"])
+    int8 = get_codec("int8")
+    resident_rows = 0
+    for n in cached:
+        slab = state["emb"].slabs[n]
+        slots = torch.nonzero(slab.cache.slot_to_row >= 0)[:, 0]
+        rows_idx = slab.cache.slot_to_row[slots].cpu().to(torch.int64)
+        payload, side = int8.encode(weights[n][slots])
+        if not (torch.equal(payload.cpu(), slab.full.data["weight"][rows_idx])
+                and torch.equal(side.cpu(), slab.full.sideband["weight"][rows_idx])):
+            raise AssertionError(f"budget post-flush: slab {n}'s host payload / sideband != "
+                                 f"the encode of its arena rows")
+        resident_rows += slots.numel()
+    log(f"budget post-flush: all {resident_rows} resident rows of {len(cached)} CACHED slabs: "
+        f"host payload and sideband bitwise the port's int8 encode of the arena row")
+
+    for i in (n_steps + 2, n_steps + 3):  # where a train step's time goes
+        b = dev_batch(train_b[i])
+        plan, t_plan = sync_ms(lambda: model.plan_step(state, b))
+        state, t_apply = sync_ms(lambda: model.apply_step(state, plan))
+        (state, m), t_compute = sync_ms(lambda: model.compute_step(state, b, plan.addresses))
+        log(f"budget train breakdown ms (synced, step {i}): plan_prepare ({len(cached)} plans) "
+            f"{t_plan}, apply_plan ({len(cached)} write-backs + {len(cached)} loads) {t_apply}, "
+            f"fwd+bwd+SGD+apply_grads {t_compute}; loss {float(m['loss'])}")
+    stats = {}
+    b = dev_batch(train_b[n_steps])
+    profile_call("one budget train step", lambda: model.train_step(state, b), stats=stats)
+    idle = 1 - stats["busy"] / stats["wall"] if stats else None
+    log(f"budget idle share of one profiled train step: {idle}")
+    for n in cached:
+        state["emb"].slabs[n].full.close()
+    return {"thr_launches": serve_thr + train_thr + bag_thr, "gd_launches": train_gd + bag_gd,
+            "bag_launches": bag_eb}
 
 
 # ---------------------------------------------------------------------------
@@ -2293,6 +2598,13 @@ def main():
     log(f"host RSS after sharded (table unpinned and freed) {rss_gb()} GB")
     sharded_crosscheck(dev)
     gc.collect()
+    budget = timed("5c (budget mode)", budget_phase, dev, args.vocab_scale, args.batches,
+                   args.train_steps)
+    gc.collect()
+    log(f"host RSS after budget (tables unpinned and freed) {rss_gb()} GB")
+    for row, path in ((gd, "gd_launches"), (bag, "bag_launches")):
+        row["launches_by_path"] = {"train": row["launches"], "budget": budget[path]}
+        row["launches"] = sum(row["launches_by_path"].values())
     fm_serve = fm_serve_phase(dev, args.vocab_scale, FM_BATCHES)
     gc.collect()
     fm_train = fm_train_phase(dev, args.vocab_scale, FM_TRAIN_STEPS)
@@ -2302,11 +2614,12 @@ def main():
                          max(max_err, err, fm_serve["thr_err"]),
                          {"serve": serve_launches, "train": train_thr,
                           "sharded": sharded["thr_launches"],
+                          "budget": budget["thr_launches"],
                           "fm_serve": fm_serve["thr_launches"],
                           "fm_train": fm_train["thr_launches"]})
     bz = time_bucketize(sharded["captured"], max(bz_err, sharded["live_err"]),
                         sharded["launches"])
-    del sharded, fm_serve, fm_train
+    del sharded, budget, fm_serve, fm_train
     gc.collect()
     torch.cuda.empty_cache()
     log(f"phases 1-8: {time.perf_counter() - t0} s since the build began")

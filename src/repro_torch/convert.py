@@ -15,14 +15,17 @@ names (a dataclass becomes a dict of its fields), e.g.::
 
 where a tiered arena's ``cached_rows`` is an ``ArenaStore`` dict
 ``{"head": {...}, "tail": {...}, "sideband": {...}, "raw": {...},
-"codec": "int8", "out_dtype": "float32"}``.  A sharded slab (``model_shards``
+"codec": "int8", "out_dtype": "float32"}``, an encoded host tier's ``full``
+holds the payload in its codec's dtype and a non-empty ``sideband`` (int8's
+``[vocab, 2]`` (scale, zp)), and a DEVICE table's slab is ``{"weight":
+[vocab, dim]}``.  A sharded slab (``model_shards``
 > 0) adds ``rank_owner``, ``rank_local``, ``routed_lanes`` and ``rep`` (the
 replicated arena's fields), and its ``full`` and ``cache`` leaves lead with
 the shard dim.
 
 :func:`state_from_numpy` builds the port's state from that (params,
 the optimizer state — empty for SGD without momentum — the ``HostStore``
-weight, every ``CacheState`` field with its fp32 dict or ``ArenaStore``
+payload and sideband, each DEVICE table, every ``CacheState`` field with its fp32 dict or ``ArenaStore``
 arena, the ``FreqTracker`` and ``idx_map``); :func:`lm_params_from_numpy`
 builds an LM's parameter tree (``embed`` / ``groups`` / ``rem`` /
 ``final_norm`` / ``head``, copied leaf for leaf); :func:`to_numpy` turns a
@@ -37,20 +40,25 @@ arrays, which the caller views as ``ml_dtypes.bfloat16``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.core.cache import CacheState
-from repro_torch.core.collection import CachedSlab, CollectionState
+from repro_torch.core.collection import (
+    CachedSlab,
+    CollectionState,
+    DeviceSlab,
+    EmbeddingCollection,
+)
 from repro_torch.core.freq import FreqTracker
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.store.arena import ArenaStore
 from repro_torch.store.host_store import HostStore
 
-__all__ = ["collection_state_from_numpy", "lm_params_from_numpy", "state_from_numpy",
-           "to_numpy"]
+__all__ = ["adopt_codecs", "collection_state_from_numpy", "lm_params_from_numpy",
+           "state_from_numpy", "to_numpy"]
 
 
 def _t(x: Any, device: torch.device) -> torch.Tensor:
@@ -86,16 +94,25 @@ def _cache_state(d: Mapping[str, Any], device: torch.device) -> CacheState:
 
 
 def _host_store(d: Mapping[str, Any], pin: bool) -> HostStore:
-    if d.get("sideband"):
-        raise NotImplementedError("only fp32 host stores are ported so far")
-    data = {k: torch.from_numpy(np.array(v)) for k, v in d["data"].items()}
-    return HostStore.create(data, codec=d.get("codec", "fp32"), pin=pin)
+    """The host tier as stored: payload leaves in the codec's dtype and the
+    sideband (int8's ``[vocab, 2]`` (scale, zp)), pinned on request."""
+    store = HostStore(
+        data={k: torch.from_numpy(np.array(v)) for k, v in d["data"].items()},
+        sideband={k: torch.from_numpy(np.array(v)) for k, v in d.get("sideband", {}).items()},
+        codec=d.get("codec", "fp32"), out_dtype=d.get("out_dtype", "float32"),
+    )
+    if pin:
+        store.pin()
+    return store
 
 
 def _slab(s: Mapping[str, Any], dev: torch.device):
-    """A ``CachedSlab``, or a ``ShardedSlab`` (its stacked ``[S, ...]``
-    host table pinned whole, every cache leaf stacked, the routing maps,
-    the routed-lane counts and the replicated arena)."""
+    """A ``DeviceSlab`` (a ``weight`` alone), a ``CachedSlab``, or a
+    ``ShardedSlab`` (its stacked ``[S, ...]`` host table pinned whole, every
+    cache leaf stacked, the routing maps, the routed-lane counts and the
+    replicated arena)."""
+    if "full" not in s:
+        return DeviceSlab(weight=_t(s["weight"], dev))
     full = _host_store(s["full"], pin=dev.type == "cuda")
     cache = _cache_state(s["cache"], dev)
     if "rank_owner" not in s:
@@ -109,22 +126,46 @@ def _slab(s: Mapping[str, Any], dev: torch.device):
     )
 
 
-def collection_state_from_numpy(tree: Mapping[str, Any], device: DeviceLike = None
-                                ) -> CollectionState:
+def adopt_codecs(collection: EmbeddingCollection, state: CollectionState) -> None:
+    """Record each cached slab's codecs as ``state`` holds them (the
+    reference's ``init`` resolved any "auto") in ``collection``: its
+    ``host_precision`` / ``arena_precision`` and the slab's arena config,
+    so that every later cache config builds the state's arena container."""
+    for sname, spec in collection.cached_slabs.items():
+        slab = state.slabs[sname]
+        arena = slab.cache.cached_rows
+        arena_codec = arena.codec if isinstance(arena, ArenaStore) else "fp32"
+        collection.host_precision[sname] = slab.full.codec
+        collection.arena_precision[sname] = arena_codec
+        collection.cached_slabs[sname] = dataclasses.replace(spec, arena=dataclasses.replace(
+            spec.arena, host_precision=slab.full.codec, arena_precision=arena_codec))
+
+
+def collection_state_from_numpy(
+    tree: Mapping[str, Any], device: DeviceLike = None,
+    collection: Optional[EmbeddingCollection] = None,
+) -> CollectionState:
     """The port's ``CollectionState`` from a JAX one's numpy tree (``emb``),
-    sharded or not."""
+    sharded or not; with ``collection``, its per-slab codecs are set to the
+    state's (:func:`adopt_codecs`)."""
     dev = resolve_device(device)
-    return CollectionState(slabs={name: _slab(s, dev) for name, s in tree["slabs"].items()})
+    state = CollectionState(slabs={name: _slab(s, dev) for name, s in tree["slabs"].items()})
+    if collection is not None:
+        adopt_codecs(collection, state)
+    return state
 
 
-def state_from_numpy(tree: Mapping[str, Any], device: DeviceLike = None) -> Dict[str, Any]:
+def state_from_numpy(tree: Mapping[str, Any], device: DeviceLike = None,
+                     collection: Optional[EmbeddingCollection] = None) -> Dict[str, Any]:
     """The port's model state from the JAX state's numpy tree: any model
     whose state is ``params`` / ``opt`` / ``emb`` / ``step`` (DLRM, FM).  A
-    serve state has no ``opt``; SGD without momentum has an empty one."""
+    serve state has no ``opt``; SGD without momentum has an empty one.
+    Pass the model's ``collection`` to carry codecs that the reference
+    resolved from "auto"."""
     dev = resolve_device(device)
     state = {
         "params": _tree(tree["params"], dev),
-        "emb": collection_state_from_numpy(tree["emb"], dev),
+        "emb": collection_state_from_numpy(tree["emb"], dev, collection),
         "step": _t(tree["step"], dev),
     }
     if "opt" in tree:

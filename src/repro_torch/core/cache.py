@@ -70,13 +70,11 @@ class CacheConfig:
                 f"cache capacity {self.capacity} must hold one batch's unique rows "
                 f"(<= {self.unique_size})"
             )
-        if self.arena_precision == "auto":
-            raise NotImplementedError(
-                "arena_precision='auto' needs the PrecisionPolicy, which arrives with "
-                "the port's host-precision slice"
-            )
         if self.arena_precision not in ("fp32", "fp16", "int8"):
-            raise ValueError(f"arena_precision must be fp32/fp16/int8, got {self.arena_precision!r}")
+            raise ValueError(
+                f"arena_precision must be fp32/fp16/int8 at the cache level (auto resolves "
+                f"above, in EmbeddingCollection.init), got {self.arena_precision!r}"
+            )
         if not 0.0 < self.arena_head_ratio <= 1.0:
             raise ValueError(f"arena_head_ratio must be in (0, 1], got {self.arena_head_ratio}")
 

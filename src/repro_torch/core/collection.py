@@ -1,26 +1,35 @@
-"""Keyed-feature embeddings over the frequency-aware cache: the single-arena
-subset of ``repro.core.collection``.
+"""Keyed-feature embeddings under a placement plan (port of the unsharded
+``repro.core.collection``).
 
 The paper manages ONE concatenated, frequency-ordered table through one
-software cache.  The port has exactly that layout (every table GROUPED into
-the shared arena, ``PlacementPlan.single_arena``) with its serving and
-training surface: ``init`` / ``plan_prepare`` / ``apply_plan`` /
-``prepare`` / ``weights`` / ``gather`` / ``pool`` / ``lookup`` /
-``apply_grads`` / ``flush`` / ``metrics`` / ``device_bytes``.  The arena is fp32, or
-frequency-tiered (``arena_precision`` fp16 / int8: an fp32 head over the
-hottest slots, an encoded tail).  DEVICE and CACHED placements, the
-planner, lookahead and refresh come with later slices.
+software cache: every table GROUPED into the shared arena
+(``PlacementPlan.single_arena``, what ``create`` builds without a budget).
+Its device-budget mode (``create(budget_bytes=)``, the
+:class:`PlacementPlanner`) places each table on one of three tiers:
 
-On a CUDA device the host tier (``CachedSlab.full``) is a pinned
-:class:`HostStore` in host memory; the arena, the index maps and
-``idx_map`` live on the card.
+* DEVICE — the whole table resident on the card, no cache bookkeeping;
+* CACHED — the table's own two-tier cache (its own ratio, policy and
+  codecs), the planner scaling the ratios down to fit the budget;
+* GROUPED — small tables sharing the one cache arena.
+
+Each cached slab's host tier is a :class:`HostStore` encoded by its
+``host_precision`` (fp32 / fp16 / int8, or "auto": ``PrecisionPolicy``
+picks from the frequency counts at ``init``); its arena is fp32 or
+frequency-tiered (``arena_precision`` fp16 / int8 / "auto").  The surface:
+``init`` / ``plan_prepare`` / ``apply_plan`` / ``prepare`` / ``weights`` /
+``gather`` / ``pool`` / ``lookup`` / ``apply_grads`` / ``flush`` /
+``full_lookup`` / ``dense_reference`` / ``metrics`` / ``device_bytes``.
+Lookahead and refresh come with later slices.
+
+On a CUDA device a cached slab's host tier is pinned in host memory; the
+arena, the index maps, ``idx_map`` and every DEVICE table live on the card.
 """
 from __future__ import annotations
 
 import dataclasses
 import enum
 import heapq
-from typing import Dict, List, Mapping, Optional, Sequence, Tuple
+from typing import Dict, Iterator, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -31,7 +40,9 @@ from repro_torch.core.lanes import i32, segment_sum, take_fill
 from repro_torch.core.policies import Policy
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.store.arena import ArenaStore, tiered_arena_bytes
+from repro_torch.store.codec import get_codec
 from repro_torch.store.host_store import HostStore
+from repro_torch.store.policy import PrecisionPolicy, SlabGeometry
 
 __all__ = [
     "Placement",
@@ -43,6 +54,7 @@ __all__ = [
     "PlacementPlanner",
     "ShardAssignment",
     "EmbeddingCollection",
+    "DeviceSlab",
     "CachedSlab",
     "CollectionState",
     "CollectionPlan",
@@ -50,31 +62,54 @@ __all__ = [
 ]
 
 SHARED_ARENA = "__shared__"
-_INIT_CHUNK_ROWS = 1 << 20  # host-table init: rows drawn per device chunk
+_INIT_CHUNK_ROWS = 1 << 20  # table init: rows drawn per device chunk
 
 
 class Placement(enum.Enum):
-    """This slice has the paper's placement only; DEVICE and CACHED tables
-    come with the planner in a later slice."""
-
+    DEVICE = "device"  # the whole table resident on the card, no cache bookkeeping
+    CACHED = "cached"  # the paper's two-tier cache, the table's own ratio and policy
     GROUPED = "grouped"  # shares the collection-wide cache arena (the paper)
 
 
 @dataclasses.dataclass(frozen=True)
 class TableConfig:
-    """One logical embedding table.  In the shared arena the cache knobs,
-    ``arena_precision`` among them, are the arena's (``ArenaConfig``)."""
+    """One logical embedding table.  ``ids_per_step`` (the id lanes its
+    features bring a step) sizes the unique buffer and the minimum cache
+    capacity.  The cache knobs apply when the table is CACHED; GROUPED
+    tables use the shared arena's (``ArenaConfig``), DEVICE tables have
+    none.  ``host_precision`` / ``arena_precision`` None defer to the
+    planner or the collection-wide setting."""
 
     name: str
     vocab: int
     dim: int
     ids_per_step: int
     feature_names: Tuple[str, ...] = ()
+    cache_ratio: float = 0.015  # the paper's 1.5 %
+    policy: Policy = Policy.FREQ_LFU
+    buffer_rows: int = 65536
+    max_unique_per_step: int = 0
+    protect_via_inverse: bool = True
     dtype: torch.dtype = torch.float32
+    placement: Optional[Placement] = None  # planner override
+    host_precision: Optional[str] = None  # fp32 / fp16 / int8 / auto
+    arena_precision: Optional[str] = None  # fp32 / fp16 / int8 / auto
+    freq_half_life: int = 1024
+    use_pallas_plan: bool = False
 
     @property
     def features(self) -> Tuple[str, ...]:
         return self.feature_names or (self.name,)
+
+    @property
+    def full_bytes(self) -> int:
+        return self.vocab * self.dim * self.dtype.itemsize
+
+    def unique_size(self, ids_per_step: Optional[int] = None) -> int:
+        k = min(ids_per_step or self.ids_per_step, self.vocab)
+        if self.max_unique_per_step:
+            k = min(k, self.max_unique_per_step)
+        return k
 
 
 @dataclasses.dataclass
@@ -118,11 +153,17 @@ class FeatureBatch:
 @dataclasses.dataclass(frozen=True)
 class TablePlacement:
     placement: Placement
+    # effective ratio of a CACHED / GROUPED table (None: the table's own);
+    # 0.0 is meaningful: the planner shrank it to the one-batch floor
+    cache_ratio: Optional[float] = None
+    host_precision: Optional[str] = None  # host-tier codec; None: the table's own / fp32
+    arena_precision: Optional[str] = None  # arena tail codec; None: the table's own / fp32
 
 
 @dataclasses.dataclass(frozen=True)
 class ArenaConfig:
-    """Knobs of the shared GROUPED cache arena."""
+    """Knobs of one cache arena: the shared GROUPED arena's, or (built from
+    a ``TableConfig`` and its placement) a CACHED table's own."""
 
     cache_ratio: float = 0.015
     policy: Policy = Policy.FREQ_LFU
@@ -131,7 +172,8 @@ class ArenaConfig:
     protect_via_inverse: bool = True
     freq_half_life: int = 1024
     use_pallas_plan: bool = False
-    arena_precision: str = "fp32"  # the arena's device-tail codec (fp32/fp16/int8)
+    host_precision: str = "fp32"  # the host tier's codec (fp32/fp16/int8/auto)
+    arena_precision: str = "fp32"  # the arena's device-tail codec (fp32/fp16/int8/auto)
     arena_head_ratio: float = 0.25  # fp32 head fraction when the arena is tiered
 
 
@@ -139,15 +181,37 @@ class ArenaConfig:
 class PlacementPlan:
     placements: Dict[str, TablePlacement]
     arena: ArenaConfig = ArenaConfig()
+    budget_bytes: Optional[int] = None
 
     @classmethod
     def single_arena(cls, tables: Sequence[TableConfig], **arena_kw) -> "PlacementPlan":
         """The paper's layout: every table GROUPED into one shared cache."""
         arena = ArenaConfig(**arena_kw)
         return cls(
-            placements={t.name: TablePlacement(Placement.GROUPED) for t in tables},
+            placements={
+                t.name: TablePlacement(Placement.GROUPED, arena.cache_ratio,
+                                       host_precision=arena.host_precision,
+                                       arena_precision=arena.arena_precision)
+                for t in tables
+            },
             arena=arena,
         )
+
+    def summary(self) -> Dict[str, str]:
+        """table -> ``placement[@ratio][:host codec][/arena:codec]``."""
+        out = {}
+        for n, p in self.placements.items():
+            s = p.placement.value
+            if p.placement is not Placement.DEVICE:
+                s += f"@{p.cache_ratio:.4f}" if p.cache_ratio is not None else ""
+                hp = p.host_precision or "fp32"
+                if hp != "fp32":
+                    s += f":{hp}"
+                ap = p.arena_precision or "fp32"
+                if ap != "fp32":
+                    s += f"/arena:{ap}"
+            out[n] = s
+        return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -177,9 +241,148 @@ class ShardAssignment:
 
 
 class PlacementPlanner:
-    """The planner's static device-assignment pass (``assign_devices``).
-    The budget-driven ``plan`` with DEVICE and CACHED placements arrives with
-    a later slice."""
+    """Assign each table a memory tier under a device-byte budget
+    (deterministic, as in the reference):
+
+    1. explicit ``TableConfig.placement`` overrides hold;
+    2. tables below ``group_below_rows`` rows share the GROUPED arena;
+    3. the rest are promoted to DEVICE hottest-per-byte first (access
+       counts per byte with counts, smallest first without), each only if
+       the rest of the plan still fits with every remaining cached table at
+       its one-batch floor;
+    4. everything else is CACHED at its own ratio, all ratios scaled down
+       uniformly when the fast tiers overflow what is left, floored at one
+       batch's unique rows (an infeasible floor raises).
+
+    It also stamps each cached table's codecs: the table's own
+    ``host_precision`` / ``arena_precision`` win, then the planner-wide
+    ones; "auto" is priced at ``PrecisionPolicy().no_stats`` and resolved
+    by ``EmbeddingCollection.init``.  ``assign_devices`` is the sharded
+    collection's per-slab device-assignment pass."""
+
+    def __init__(
+        self,
+        budget_bytes: int,
+        group_below_rows: int = 0,
+        arena: Optional[ArenaConfig] = None,
+        host_precision: Optional[str] = None,
+        arena_precision: Optional[str] = None,
+        arena_head_ratio: float = 0.25,
+    ):
+        self.budget_bytes = int(budget_bytes)
+        self.group_below_rows = int(group_below_rows)
+        self.arena = arena if arena is not None else ArenaConfig()
+        self.host_precision = host_precision
+        self.arena_precision = arena_precision
+        self.arena_head_ratio = float(arena_head_ratio)
+
+    @staticmethod
+    def _tiered_weight_bytes(
+        capacity: int, dim: int, dtype: torch.dtype, arena_precision: Optional[str],
+        head_ratio: float,
+    ) -> int:
+        """Weight bytes of one arena at ``arena_precision``: fp32 head +
+        encoded tail payload + tail sideband ("auto" at the no-stats pick)."""
+        ap = arena_precision or "fp32"
+        if ap == "auto":
+            ap = PrecisionPolicy().no_stats
+        if ap == "fp32":
+            head = capacity
+        else:
+            head = min(capacity, max(1, int(round(head_ratio * capacity))))
+        return tiered_arena_bytes(capacity, head, dim, dtype, ap)
+
+    def _table_arena_precision(self, t: TableConfig) -> Optional[str]:
+        return t.arena_precision or self.arena_precision
+
+    def _fast_bytes(self, t: TableConfig, ratio: float) -> int:
+        """Device bytes of one CACHED table at ``ratio``: the arena, three
+        int32 per slot (slot_to_row, last_used, use_count) and four per row
+        (row_to_slot, idx_map, the tracker's score and last_touch)."""
+        cap = min(max(int(ratio * t.vocab), t.unique_size()), t.vocab)
+        w = self._tiered_weight_bytes(cap, t.dim, t.dtype, self._table_arena_precision(t),
+                                      self.arena_head_ratio)
+        return w + cap * 4 * 3 + t.vocab * 4 * 4
+
+    def _arena_bytes(self, grouped: Sequence[TableConfig]) -> int:
+        if not grouped:
+            return 0
+        gvocab = sum(t.vocab for t in grouped)
+        gids = sum(t.ids_per_step for t in grouped)
+        gcap = min(max(int(self.arena.cache_ratio * gvocab), min(gids, gvocab)), gvocab)
+        w = self._tiered_weight_bytes(
+            gcap, grouped[0].dim, grouped[0].dtype,
+            self.arena_precision or self.arena.arena_precision, self.arena.arena_head_ratio,
+        )
+        return w + gcap * 4 * 3 + gvocab * 4 * 4
+
+    def plan(
+        self, tables: Sequence[TableConfig], counts: Optional[Mapping[str, np.ndarray]] = None
+    ) -> PlacementPlan:
+        placements: Dict[str, TablePlacement] = {}
+        device_bytes = 0
+        undecided: List[TableConfig] = []
+        grouped: List[TableConfig] = []
+        solo: List[TableConfig] = []
+        for t in tables:
+            if t.placement is Placement.DEVICE:
+                placements[t.name] = TablePlacement(Placement.DEVICE)
+                device_bytes += t.full_bytes
+            elif t.placement is Placement.GROUPED:
+                grouped.append(t)
+            elif t.placement is Placement.CACHED:
+                solo.append(t)
+            elif t.vocab < self.group_below_rows:
+                grouped.append(t)
+            else:
+                undecided.append(t)
+
+        def heat_per_byte(t: TableConfig) -> float:
+            if counts is not None and t.name in counts:
+                return float(np.sum(counts[t.name])) / max(t.full_bytes, 1)
+            return 1.0 / max(t.full_bytes, 1)
+
+        undecided.sort(key=lambda t: (-heat_per_byte(t), t.name))
+        for i, t in enumerate(undecided):
+            rest = undecided[i + 1 :] + solo
+            floor_rest = sum(self._fast_bytes(r, 0.0) for r in rest)
+            cost = device_bytes + t.full_bytes + floor_rest + self._arena_bytes(grouped)
+            if cost <= self.budget_bytes:
+                placements[t.name] = TablePlacement(Placement.DEVICE)
+                device_bytes += t.full_bytes
+            else:
+                solo.append(t)
+
+        # the planner-wide codecs govern the shared arena too
+        arena = dataclasses.replace(
+            self.arena,
+            host_precision=self.host_precision or self.arena.host_precision,
+            arena_precision=self.arena_precision or self.arena.arena_precision,
+        )
+        for t in grouped:
+            placements[t.name] = TablePlacement(Placement.GROUPED, arena.cache_ratio,
+                                                host_precision=arena.host_precision,
+                                                arena_precision=arena.arena_precision)
+
+        remaining = self.budget_bytes - device_bytes - self._arena_bytes(grouped)
+        want = sum(self._fast_bytes(t, t.cache_ratio) for t in solo)
+        scale = 1.0
+        if solo and want > remaining:
+            floor = sum(self._fast_bytes(t, 0.0) for t in solo)
+            if floor > remaining:
+                raise ValueError(
+                    f"budget {self.budget_bytes} cannot hold even one batch's unique rows "
+                    f"per cached table (need >= {self.budget_bytes - remaining + floor})"
+                )
+            # weight bytes scale ~linearly with the ratio: solve for the shrink
+            scale = max(0.0, (remaining - floor) / max(want - floor, 1))
+        for t in solo:
+            placements[t.name] = TablePlacement(
+                Placement.CACHED, t.cache_ratio * scale,
+                host_precision=t.host_precision or self.host_precision,
+                arena_precision=self._table_arena_precision(t),
+            )
+        return PlacementPlan(placements=placements, arena=arena, budget_bytes=self.budget_bytes)
 
     @staticmethod
     def assign_devices(
@@ -244,8 +447,16 @@ class PlacementPlanner:
 
 
 @dataclasses.dataclass
+class DeviceSlab:
+    """A fully resident table: the weight alone, no cache bookkeeping."""
+
+    weight: torch.Tensor  # [vocab, dim] on the device
+
+
+@dataclasses.dataclass
 class CachedSlab:
-    """A two-tier cached arena: host table, cache state, raw id -> rank map."""
+    """A two-tier cached arena (one CACHED table, or the GROUPED group): host
+    table, cache state, raw id -> rank map."""
 
     full: HostStore
     cache: cache_lib.CacheState
@@ -254,13 +465,13 @@ class CachedSlab:
 
 @dataclasses.dataclass
 class CollectionState:
-    slabs: Dict[str, CachedSlab]
+    slabs: Dict[str, Union[DeviceSlab, CachedSlab]]
 
 
 @dataclasses.dataclass
 class CollectionPlan:
     slab_plans: Dict[str, cache_lib.CachePlan]
-    addresses: Dict[str, torch.Tensor]  # feature -> slots (-1 pad)
+    addresses: Dict[str, torch.Tensor]  # feature -> slots, or a DEVICE table's rows (-1 pad)
     writeback: bool = True
 
 
@@ -270,29 +481,43 @@ def cached_slab_flush(ccfg: cache_lib.CacheConfig, slab: CachedSlab) -> CachedSl
     return dataclasses.replace(slab, full=full, cache=cache_state)
 
 
-def draw_table(seed: int, spec: "_CachedSlabSpec", device: torch.device):
-    """The initial table of a slab, rank by rank: ``(first_rank, rows)``
-    chunks of uniform(+-1/sqrt(dim)) host rows, drawn on ``device`` from
-    ``seed``.  The sharded collection draws the same chunks, so the two
-    start from one logical table."""
-    scale = 1.0 / np.sqrt(spec.dim)
+def draw_chunks(seed: int, vocab: int, dim: int, dtype: torch.dtype, device: torch.device
+                ) -> Iterator[Tuple[int, torch.Tensor]]:
+    """A table's initial rows, rank by rank: ``(first_rank, rows)`` chunks of
+    uniform(+-1/sqrt(dim)) rows drawn on ``device`` from ``seed``."""
+    scale = 1.0 / np.sqrt(dim)
     gen = torch.Generator(device=device).manual_seed(int(seed))
-    for r0 in range(0, spec.vocab, _INIT_CHUNK_ROWS):
-        n = min(_INIT_CHUNK_ROWS, spec.vocab - r0)
-        chunk = torch.rand((n, spec.dim), generator=gen, dtype=spec.dtype, device=device)
-        yield r0, (chunk * (2 * scale) - scale).cpu()
+    for r0 in range(0, vocab, _INIT_CHUNK_ROWS):
+        n = min(_INIT_CHUNK_ROWS, vocab - r0)
+        chunk = torch.rand((n, dim), generator=gen, dtype=dtype, device=device)
+        yield r0, chunk * (2 * scale) - scale
+
+
+def draw_table(seed: int, spec: "_CachedSlabSpec", device: torch.device):
+    """A cached slab's initial table as host chunks (see :func:`draw_chunks`).
+    The sharded collection draws the same chunks, so the two start from one
+    logical table."""
+    for r0, chunk in draw_chunks(seed, spec.vocab, spec.dim, spec.dtype, device):
+        yield r0, chunk.cpu()
+
+
+def slab_counts(spec: "_CachedSlabSpec", counts: Optional[Mapping[str, np.ndarray]]
+                ) -> Optional[np.ndarray]:
+    """The slab's concatenated per-table counts (None without counts)."""
+    if counts is None:
+        return None
+    return np.concatenate(
+        [np.asarray(counts.get(t.name, np.zeros((t.vocab,), np.int64)), np.int64)
+         for t in spec.tables]
+    )
 
 
 def slab_freq_stats(
     spec: "_CachedSlabSpec", counts: Optional[Mapping[str, np.ndarray]]
 ) -> Optional[freq_lib.FreqStats]:
     """The slab's frequency ranking from per-table counts (None without)."""
-    if counts is None:
-        return None
-    return freq_lib.build_freq_stats(np.concatenate(
-        [np.asarray(counts.get(t.name, np.zeros((t.vocab,), np.int64)), np.int64)
-         for t in spec.tables]
-    ))
+    c = slab_counts(spec, counts)
+    return None if c is None else freq_lib.build_freq_stats(c)
 
 
 def _translate(slab: CachedSlab, raw_ids: torch.Tensor) -> torch.Tensor:
@@ -304,7 +529,8 @@ def _translate(slab: CachedSlab, raw_ids: torch.Tensor) -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class _CachedSlabSpec:
-    """Static geometry of the shared arena."""
+    """Static geometry of one cached slab (a CACHED table or the shared
+    arena) and its arena knobs."""
 
     tables: Tuple[TableConfig, ...]
     arena: ArenaConfig
@@ -358,21 +584,24 @@ class _CachedSlabSpec:
             protect_via_inverse=a.protect_via_inverse,
             freq_half_life=a.freq_half_life,
             use_pallas_plan=a.use_pallas_plan,
-            arena_precision=a.arena_precision,
+            # an unresolved "auto" structures like the policy's no-stats pick;
+            # init replaces it with the resolved codec before any state exists
+            arena_precision=(PrecisionPolicy().no_stats if a.arena_precision == "auto"
+                             else a.arena_precision),
             arena_head_ratio=a.arena_head_ratio,
         )
 
 
 class EmbeddingCollection:
-    """N tables in one shared cache arena, behind one keyed-feature surface."""
+    """N tables under one placement plan, behind one keyed-feature surface."""
 
     def __init__(self, tables: Sequence[TableConfig], plan: PlacementPlan):
         names = [t.name for t in tables]
         if len(set(names)) != len(names):
             raise ValueError(f"duplicate table names: {names}")
-        dims = {(t.dim, t.dtype) for t in tables}
-        if len(dims) != 1:
-            raise ValueError(f"GROUPED tables must share (dim, dtype); got {dims}")
+        missing = [n for n in names if n not in plan.placements]
+        if missing:
+            raise ValueError(f"plan is missing placements for tables: {missing}")
         self.tables: Dict[str, TableConfig] = {t.name: t for t in tables}
         self.plan = plan
         self.feature_to_table: Dict[str, str] = {}
@@ -381,20 +610,69 @@ class EmbeddingCollection:
                 if f in self.feature_to_table:
                     raise ValueError(f"feature {f!r} claimed by two tables")
                 self.feature_to_table[f] = t.name
-        spec = _CachedSlabSpec(tables=tuple(tables), arena=plan.arena)
-        self.cached_slabs: Dict[str, _CachedSlabSpec] = {SHARED_ARENA: spec}
-        self.table_slab: Dict[str, Tuple[str, int]] = {
-            t.name: (SHARED_ARENA, int(off)) for t, off in zip(spec.tables, spec.offsets)
-        }
+        # DEVICE and CACHED tables are a slab each; GROUPED tables share one
+        self.device_slabs: Dict[str, TableConfig] = {}
+        self.cached_slabs: Dict[str, _CachedSlabSpec] = {}
+        grouped: List[TableConfig] = []
+        for t in tables:
+            p = plan.placements[t.name]
+            if p.placement is Placement.DEVICE:
+                self.device_slabs[t.name] = t
+            elif p.placement is Placement.CACHED:
+                self.cached_slabs[t.name] = _CachedSlabSpec(tables=(t,), arena=ArenaConfig(
+                    cache_ratio=t.cache_ratio if p.cache_ratio is None else p.cache_ratio,
+                    policy=t.policy,
+                    buffer_rows=t.buffer_rows,
+                    max_unique_per_step=t.max_unique_per_step,
+                    protect_via_inverse=t.protect_via_inverse,
+                    freq_half_life=t.freq_half_life,
+                    use_pallas_plan=t.use_pallas_plan,
+                    host_precision=p.host_precision or t.host_precision or "fp32",
+                    arena_precision=p.arena_precision or t.arena_precision or "fp32",
+                ))
+            else:
+                grouped.append(t)
+        if grouped:
+            dims = {(t.dim, t.dtype) for t in grouped}
+            if len(dims) != 1:
+                raise ValueError(f"GROUPED tables must share (dim, dtype); got {dims}")
+            self.cached_slabs[SHARED_ARENA] = _CachedSlabSpec(tables=tuple(grouped),
+                                                              arena=plan.arena)
+        # each cached slab's host and arena codec ("auto" until init resolves it)
+        self.host_precision: Dict[str, str] = {
+            s: spec.arena.host_precision for s, spec in self.cached_slabs.items()}
+        self.arena_precision: Dict[str, str] = {
+            s: spec.arena.arena_precision for s, spec in self.cached_slabs.items()}
+        self.precision_policy = PrecisionPolicy()
+        # table -> (slab, offset of the table in the slab's concatenated vocab)
+        self.table_slab: Dict[str, Tuple[str, int]] = {n: (n, 0) for n in self.device_slabs}
+        for sname, spec in self.cached_slabs.items():
+            for t, off in zip(spec.tables, spec.offsets):
+                self.table_slab[t.name] = (sname, int(off))
 
     @classmethod
     def create(
-        cls, tables: Sequence[TableConfig], budget_bytes: Optional[int] = None, **arena_kw
+        cls,
+        tables: Sequence[TableConfig],
+        budget_bytes: Optional[int] = None,
+        counts: Optional[Mapping[str, np.ndarray]] = None,
+        planner: Optional[PlacementPlanner] = None,
+        **arena_kw,
     ) -> "EmbeddingCollection":
-        """The paper's layout: one shared cache arena over all tables."""
-        if budget_bytes is not None:
-            raise NotImplementedError("the placement planner arrives with a later slice")
-        return cls(tables, PlacementPlan.single_arena(tables, **arena_kw))
+        """Plan and build.  Without a budget (or planner), the paper's layout:
+        one shared cache arena over all tables.  With one, the planner's
+        DEVICE / CACHED / GROUPED plan; ``arena_kw`` (``ArenaConfig``'s
+        fields) sets the shared arena and the planner-wide codecs."""
+        if planner is None and budget_bytes is None:
+            return cls(tables, PlacementPlan.single_arena(tables, **arena_kw))
+        planner = planner or PlacementPlanner(
+            budget_bytes,
+            arena=ArenaConfig(**arena_kw),
+            host_precision=arena_kw.get("host_precision"),
+            arena_precision=arena_kw.get("arena_precision"),
+            arena_head_ratio=arena_kw.get("arena_head_ratio", 0.25),
+        )
+        return cls(tables, planner.plan(tables, counts=counts))
 
     # ----- init -------------------------------------------------------------
 
@@ -415,27 +693,63 @@ class EmbeddingCollection:
         counts: Optional[Mapping[str, np.ndarray]] = None,
         warm: bool = True,
         device: DeviceLike = None,
+        host_precision: Optional[str] = None,
+        arena_precision: Optional[str] = None,
     ) -> CollectionState:
-        """Build the state: a host table of uniform(+-1/sqrt(dim)) rows drawn
-        from ``seed``, an empty (or warmed) arena on ``device``.  On a CUDA
-        device the rows are drawn on the card in chunks and land in a
-        pinned host table.  A tiered ``arena_precision`` (fp16 / int8)
-        builds the arena as an :class:`ArenaStore`."""
+        """Build the state: every table uniform(+-1/sqrt(dim)), drawn on
+        ``device`` in chunks from ``seed + j`` for the j-th slab (DEVICE
+        slabs first, then cached ones in plan order).  A DEVICE table stays
+        on ``device``; a cached slab's rows are encoded by its host codec
+        where they were drawn and land in its host table (pinned on a CUDA
+        device), under an empty (or warmed) arena.
+
+        ``host_precision`` / ``arena_precision`` override every cached
+        slab's codecs for this state; "auto" asks ``PrecisionPolicy`` per
+        slab from the counts (its no-stats pick without them).  The resolved
+        codecs are recorded in ``self.host_precision`` /
+        ``self.arena_precision`` (and the arena's in the slab spec, so every
+        later cache config agrees with the state)."""
         dev = resolve_device(device)
-        slabs = {}
-        for sname, spec in self.cached_slabs.items():
-            weight = torch.empty((spec.vocab, spec.dim), dtype=spec.dtype)
-            for r0, chunk in draw_table(seed, spec, dev):
+        slabs: Dict[str, Union[DeviceSlab, CachedSlab]] = {}
+        j = 0
+        for name, t in self.device_slabs.items():
+            weight = torch.empty((t.vocab, t.dim), dtype=t.dtype, device=dev)
+            for r0, chunk in draw_chunks(seed + j, t.vocab, t.dim, t.dtype, dev):
                 weight[r0 : r0 + chunk.shape[0]] = chunk
-            stats = slab_freq_stats(spec, counts)
-            idx_map = (torch.from_numpy(stats.idx_map) if stats is not None
+            slabs[name] = DeviceSlab(weight=weight)
+            j += 1
+        for sname, spec in list(self.cached_slabs.items()):
+            c = slab_counts(spec, counts)
+            geom = SlabGeometry(name=sname, vocab=spec.vocab, dim=spec.dim,
+                                capacity=spec.capacity, dtype_itemsize=spec.dtype.itemsize)
+            codec = host_precision or spec.arena.host_precision
+            if codec == "auto":
+                codec = self.precision_policy.choose(geom, counts=c)
+            get_codec(codec)  # fail fast on typos
+            self.host_precision[sname] = codec
+            arena_codec = arena_precision or spec.arena.arena_precision
+            if arena_codec == "auto":
+                arena_codec = self.precision_policy.choose_arena(geom, spec.head_capacity,
+                                                                 counts=c)
+            get_codec(arena_codec)
+            if arena_codec != spec.arena.arena_precision:
+                spec = dataclasses.replace(
+                    spec, arena=dataclasses.replace(spec.arena, arena_precision=arena_codec))
+                self.cached_slabs[sname] = spec
+            self.arena_precision[sname] = arena_codec
+            full = HostStore.allocate({"weight": ((spec.vocab, spec.dim), spec.dtype)}, codec)
+            for r0, chunk in draw_chunks(seed + j, spec.vocab, spec.dim, spec.dtype, dev):
+                full.write_rows(r0, {"weight": chunk})
+            if dev.type == "cuda":
+                full.pin()
+            j += 1
+            idx_map = (torch.from_numpy(freq_lib.build_freq_stats(c).idx_map) if c is not None
                        else torch.arange(spec.vocab, dtype=torch.int32))
             ccfg = spec.cache_config()
             slab = CachedSlab(
-                full=HostStore.create({"weight": weight}, pin=dev.type == "cuda"),
+                full=full,
                 cache=cache_lib.init_cache(
-                    ccfg, {"weight": torch.zeros((spec.dim,), dtype=spec.dtype)}, dev
-                ),
+                    ccfg, {"weight": torch.zeros((spec.dim,), dtype=spec.dtype)}, dev),
                 idx_map=idx_map.to(dev),
             )
             if warm:
@@ -467,11 +781,15 @@ class EmbeddingCollection:
     def plan_prepare(
         self, state: CollectionState, fb: FeatureBatch, writeback: bool = True
     ) -> CollectionPlan:
-        """Planning half of ``prepare``: per-slab cache plans plus addresses."""
+        """Planning half of ``prepare``: a DEVICE feature's address is its
+        row id; each cached slab gets one cache plan over all its lanes."""
         for f in fb.features:
             if f not in self.feature_to_table:
                 raise KeyError(f"unknown feature {f!r}; known: {sorted(self.feature_to_table)}")
-        addresses: Dict[str, torch.Tensor] = {}
+        addresses: Dict[str, torch.Tensor] = {
+            f: fb.ids[f].to(torch.int32) for f in fb.features
+            if self.feature_to_table[f] in self.device_slabs
+        }
         slab_plans: Dict[str, cache_lib.CachePlan] = {}
         for sname, spec in self.cached_slabs.items():
             raw = self._slab_raw(fb, sname)
@@ -502,7 +820,8 @@ class EmbeddingCollection:
     def prepare(
         self, state: CollectionState, fb: FeatureBatch, writeback: bool = True
     ) -> Tuple[CollectionState, Dict[str, torch.Tensor]]:
-        """Make every requested row resident; return per-feature slots."""
+        """Make every requested row resident; return per-feature addresses
+        (cache slots; a DEVICE table's row ids)."""
         p = self.plan_prepare(state, fb, writeback=writeback)
         return self.apply_plan(state, p), p.addresses
 
@@ -511,9 +830,10 @@ class EmbeddingCollection:
     def weights(self, state: CollectionState) -> Dict[str, torch.Tensor]:
         """The trainable fast-tier weights, keyed by slab: differentiate the
         loss w.r.t. this dict and feed the grads to ``apply_grads``.  A
-        tiered arena returns its full decoded ``[capacity, dim]`` view (the
-        straight-through scheme of arXiv 2010.11305)."""
-        out = {}
+        DEVICE slab gives its table; a tiered arena its full decoded
+        ``[capacity, dim]`` view (the straight-through scheme of arXiv
+        2010.11305)."""
+        out = {name: state.slabs[name].weight for name in self.device_slabs}
         for sname in self.cached_slabs:
             cached = state.slabs[sname].cache.cached_rows
             out[sname] = (cached.decode_leaf("weight") if isinstance(cached, ArenaStore)
@@ -529,9 +849,9 @@ class EmbeddingCollection:
         """feature -> rows of shape ``ids.shape + (dim,)``; -1 lanes are zero.
 
         One ``take_fill`` per slab over all its features' lanes: the
-        backward builds ONE dense ``[capacity, dim]`` gradient (not one per
-        feature) and accumulates duplicate ids with ``index_add_``, which
-        the card does with atomics (so its summation order is not fixed)."""
+        backward builds ONE dense gradient per slab (not one per feature)
+        and accumulates duplicate ids with ``index_add_``, which the card
+        does with atomics (so its summation order is not fixed)."""
         by_slab: Dict[str, List[str]] = {}
         for f in fb.features:
             by_slab.setdefault(self.table_slab[self.feature_to_table[f]][0], []).append(f)
@@ -610,9 +930,11 @@ class EmbeddingCollection:
     ) -> CollectionState:
         """Synchronous SGD on the fast tier (paper §2.2.3: resident rows are
         authoritative; the host tier catches up at eviction or flush), in
-        place.  A tiered arena steps on its decoded view, then stores the
-        head raw and re-encodes the tail (rows with a zero gradient
-        re-encode to the identical payload)."""
+        place; a DEVICE table steps as a whole.  A tiered arena steps on its
+        decoded view, then stores the head raw and re-encodes the tail (rows
+        with a zero gradient re-encode to the identical payload)."""
+        for name in self.device_slabs:
+            state.slabs[name].weight.sub_(lr * grads[name])
         for sname in self.cached_slabs:
             cached = state.slabs[sname].cache.cached_rows
             if isinstance(cached, ArenaStore):
@@ -624,68 +946,93 @@ class EmbeddingCollection:
 
     def flush(self, state: CollectionState) -> CollectionState:
         """Checkpoint barrier: every cached slab writes its residents back."""
-        return CollectionState(slabs={
-            sname: cached_slab_flush(spec.cache_config(), state.slabs[sname])
-            for sname, spec in self.cached_slabs.items()
-        })
+        slabs = dict(state.slabs)
+        for sname, spec in self.cached_slabs.items():
+            slabs[sname] = cached_slab_flush(spec.cache_config(), slabs[sname])
+        return CollectionState(slabs=slabs)
 
-    def dense_reference(self, state: CollectionState, fb: FeatureBatch) -> Dict[str, torch.Tensor]:
-        """Rows read straight out of the host table through ``idx_map``: the
-        uncached oracle (exact for a read-only cache, or after a flush)."""
-        out = {}
-        for f in fb.features:
-            sname, off = self.table_slab[self.feature_to_table[f]]
-            slab = state.slabs[sname]
-            ids = fb.ids[f].reshape(-1)
-            raw = torch.where(ids >= 0, ids + off, -1)
-            rows = _translate(slab, raw).cpu()
-            full = slab.full.decode_rows(rows)["weight"]
-            out[f] = full.reshape(fb.ids[f].shape + (full.shape[-1],))
-        return out
+    def collect_counts_stream(self, stream, max_batches: Optional[int] = None
+                              ) -> Dict[str, np.ndarray]:
+        """Per-table counts off a ``Prefetcher`` / ``FeatureBatch`` stream,
+        with this collection's feature -> table routing, for
+        ``init(counts=...)``."""
+        return freq_lib.collect_counts_stream(
+            stream, self.feature_to_table, {t.name: t.vocab for t in self.tables.values()},
+            max_batches=max_batches,
+        )
+
+    # ----- oracles / bulk reads ---------------------------------------------
 
     def full_lookup(self, state: CollectionState, table: str, local_ids: torch.Tensor
                     ) -> torch.Tensor:
-        """Rows of ``table``'s local ids read straight out of the host table
-        (-1 lanes give zero rows), on the host."""
+        """Rows of ``table``'s local ids (any shape, -1 lanes zero) from its
+        authoritative tier, past the cache bookkeeping (retrieval's
+        candidate scan): a DEVICE table, or a cached slab's host table
+        (decoded) through ``idx_map``; on the device of ``local_ids``."""
         sname, off = self.table_slab[table]
         slab = state.slabs[sname]
-        raw = torch.where(local_ids >= 0, local_ids + off, -1)
-        return slab.full.decode_rows(_translate(slab, raw).cpu())["weight"]
+        if sname in self.device_slabs:
+            return take_fill(slab.weight, local_ids.to(slab.weight.device), 0).to(local_ids.device)
+        ids = local_ids.to(slab.idx_map.device)
+        rows = _translate(slab, torch.where(ids >= 0, ids + off, -1)).cpu()
+        return slab.full.decode_rows(rows)["weight"].to(local_ids.device)
+
+    def dense_reference(self, state: CollectionState, fb: FeatureBatch) -> Dict[str, torch.Tensor]:
+        """Rows read straight out of the authoritative tiers: the uncached
+        oracle (exact for a read-only cache, or after a flush; with an
+        encoded host tier it decodes what was flushed)."""
+        return {f: self.full_lookup(state, self.feature_to_table[f], fb.ids[f])
+                for f in fb.features}
 
     # ----- telemetry ----------------------------------------------------------
 
+    def _slab_codec(self, sname: str) -> str:
+        """Resolved host codec of a cached slab ("auto" before init: the
+        policy's no-stats pick)."""
+        name = self.host_precision[sname]
+        return self.precision_policy.no_stats if name == "auto" else name
+
+    def _slab_arena_codec(self, sname: str) -> str:
+        """Resolved arena tail codec (the same "auto" fallback)."""
+        name = self.arena_precision[sname]
+        return self.precision_policy.no_stats if name == "auto" else name
+
     def device_bytes(self) -> Dict[str, object]:
-        """Device-resident vs host-tier footprint of the single arena: the
-        arena's weight bytes (fp32 head + encoded tail + sideband when
-        tiered), its index maps and tracker, and the fp32 host table."""
-        per_slab: Dict[str, int] = {}
-        slow = fast_fp32 = fast_actual = 0
+        """Device-resident vs host-tier footprint under the plan: per slab,
+        a DEVICE table whole, a cached slab's arena (fp32 head + encoded
+        tail + sideband when tiered), its index maps and tracker; the host
+        tier at its encoded size, and what the codecs saved on each side.
+        The planner's budget bounds ``device_total``."""
+        per_slab: Dict[str, int] = {n: t.full_bytes for n, t in self.device_slabs.items()}
+        slow = slow_fp32 = fast_fp32 = fast_actual = 0
         for sname, spec in self.cached_slabs.items():
             item = spec.dtype.itemsize
-            w = tiered_arena_bytes(spec.capacity, spec.head_capacity, spec.dim, spec.dtype,
-                                   spec.arena.arena_precision)
+            arena_codec = self._slab_arena_codec(sname)
+            head = spec.capacity if arena_codec == "fp32" else spec.head_capacity
+            w = tiered_arena_bytes(spec.capacity, head, spec.dim, spec.dtype, arena_codec)
             # slot_to_row, last_used, use_count; row_to_slot, idx_map, tracker (2)
             per_slab[sname] = w + spec.capacity * 4 * 3 + spec.vocab * 4 * 4
             fast_actual += w
             fast_fp32 += spec.capacity * spec.dim * item
-            slow += spec.vocab * spec.dim * item
+            slow += spec.vocab * get_codec(self._slab_codec(sname)).row_bytes((spec.dim,),
+                                                                              spec.dtype)
+            slow_fp32 += spec.vocab * spec.dim * item
         return {
             "device_total": sum(per_slab.values()),
             "slow_tier_bytes": slow,
-            "host_bytes_saved": 0,
+            "host_bytes_saved": slow_fp32 - slow,
             "arena_bytes_saved": fast_fp32 - fast_actual,
             "per_slab": per_slab,
-            "budget_bytes": None,
+            "budget_bytes": self.plan.budget_bytes,
         }
 
     def metrics(self, state: CollectionState, writeback: bool = True) -> Dict[str, object]:
         """Cache telemetry over the cached slabs, as in the reference: int32
         cumulative counters per slab (reconstructed exactly by the obs hub),
         plus the float32 convenience scalars."""
-        hits = misses = evictions = overflows = 0
-        win_h = win_m = 0.0
-        ref_swaps = ref_rows = 0
-        wire = 0.0
+        zero = torch.zeros((), dtype=torch.int32)  # 0-dim: joins device counters
+        hits = misses = evictions = overflows = ref_swaps = ref_rows = zero
+        win_h = win_m = wire = torch.zeros(())
         per = {k: {} for k in (
             "host_moved_rows", "host_row_bytes", "slab_hits", "slab_misses",
             "slab_refresh_swaps", "slab_refresh_rows", "slab_tier_promotions",

@@ -10,7 +10,7 @@ device tensors; decay is lazy (a row's score is exact as of its
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Dict, Iterable, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -22,6 +22,7 @@ __all__ = [
     "FreqTracker",
     "build_freq_stats",
     "concat_table_offsets",
+    "collect_counts_stream",
     "init_tracker",
     "tracker_touch",
     "tracker_observe",
@@ -54,6 +55,32 @@ def concat_table_offsets(vocab_sizes: Sequence[int]) -> np.ndarray:
     return np.concatenate([[0], np.cumsum(np.asarray(vocab_sizes, dtype=np.int64))[:-1]]).astype(
         np.int64
     )
+
+
+def collect_counts_stream(
+    stream: Iterable,
+    feature_to_table: Mapping[str, str],
+    vocab_sizes: Mapping[str, int],
+    max_batches: Optional[int] = None,
+) -> Dict[str, np.ndarray]:
+    """Per-table id counts straight off a stream of keyed batches: a
+    ``Prefetcher`` (``(step, batch)`` pairs), ``FeatureBatch``-like objects
+    (an ``.ids`` mapping) or ``{feature: ids}`` dicts, host or device
+    tensors or arrays.  Features without a table are skipped, negative ids
+    (padding) ignored; ``max_batches`` bounds the scan."""
+    counts = {t: np.zeros((v,), np.int64) for t, v in vocab_sizes.items()}
+    for n, item in enumerate(stream):
+        if max_batches is not None and n >= max_batches:
+            break
+        batch = item[1] if isinstance(item, tuple) else item
+        for f, arr in getattr(batch, "ids", batch).items():
+            table = feature_to_table.get(f)
+            if table is None:
+                continue
+            a = arr.cpu().numpy() if isinstance(arr, torch.Tensor) else np.asarray(arr)
+            a = a.reshape(-1).astype(np.int64)
+            np.add.at(counts[table], a[a >= 0], 1)
+    return counts
 
 
 @dataclasses.dataclass

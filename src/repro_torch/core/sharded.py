@@ -29,9 +29,10 @@ on the device.  The port keeps that layout on one card:
 * ``replicate_top_k`` keeps the K hottest ranks in a replicated ``RepArena``
   (arena addresses ``S * capacity + rank``), outside the exchange.
 
-The one-process-per-GPU placement over NCCL, ``refresh`` / rebalance and
-lookahead (``fb_future``) come with later slices; ``shard_specs`` (JAX
-PartitionSpecs) has no counterpart here.
+The one-process-per-GPU placement over NCCL, the budget mode with per-shard
+host codecs, ``refresh`` / rebalance and lookahead (``fb_future``) come
+with later slices; ``shard_specs`` (JAX PartitionSpecs) has no counterpart
+here.
 """
 from __future__ import annotations
 
@@ -201,6 +202,11 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
         max_routed_per_shard: int = 0,
     ):
         super().__init__(tables, plan)
+        if plan.arena.host_precision != "fp32" or plan.arena.arena_precision == "auto":
+            raise NotImplementedError(
+                "a sharded collection keeps an fp32 host tier and an explicit arena codec: "
+                "per-shard host codecs and 'auto' arrive with the sharded budget mode "
+                "(ROADMAP item 17)")
         if num_shards < 1:
             raise ValueError(f"num_shards must be >= 1, got {num_shards}")
         self.num_shards = int(num_shards)
@@ -228,7 +234,8 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
     ) -> "ShardedEmbeddingCollection":
         """The paper's single arena, split over ``num_shards`` shards."""
         if budget_bytes is not None:
-            raise NotImplementedError("the placement planner arrives with a later slice")
+            raise NotImplementedError("the sharded budget mode (per-shard placement planning) "
+                                      "arrives with ROADMAP item 17")
         return cls(tables, PlacementPlan.single_arena(tables, **arena_kw), num_shards,
                    replicate_top_k, exchange_codec, max_routed_per_shard)
 

@@ -14,10 +14,13 @@ mask to the host (one device-to-host sync per move: the host has to know
 which rows to pack out of its table) and moves only the active lanes.  The
 result is the same, bit for bit; inactive lanes never cross the link.
 
-Either side may also be a tiered :class:`ArenaStore`: as the source it
+A :class:`HostStore` side moves encoded (fp16, or int8 with its ``[n, 2]``
+sideband): the staging block that crosses the link is the payload and the
+sideband, decoded (load) or encoded (write-back) on the card by eager torch
+ops.  Either side may also be a tiered :class:`ArenaStore`: as the source it
 packs with ``gather_slots`` (the gather-decode kernel on the card), as the
 destination it unpacks with ``scatter_slots`` (tail lanes encode on the
-device).
+device, or take an encoded host block of their own codec verbatim).
 
 Unlike the functional reference, ``move_rows`` updates the destination tree
 in place (the host table is tens of GB) and returns it.
@@ -90,19 +93,6 @@ def _leaves(tree: Side) -> Tree:
     return tree.head if isinstance(tree, ArenaStore) else tree
 
 
-def _gather(tree: Side, idx: torch.Tensor, out: Optional[Tree] = None) -> Tree:
-    if isinstance(tree, ArenaStore):
-        return tree.gather_slots(idx.to(torch.int32))
-    return gather_rows(_leaves(tree), idx, out=out)
-
-
-def _scatter(tree: Side, idx: torch.Tensor, block: Tree) -> None:
-    if isinstance(tree, ArenaStore):
-        tree.scatter_slots(idx, block)
-    else:
-        scatter_rows(_leaves(tree), idx, block)
-
-
 def move_rows(
     src_tree: Side,
     dst_tree: Side,
@@ -115,10 +105,16 @@ def move_rows(
     """Move rows ``src_idx`` of ``src_tree`` to rows ``dst_idx`` of
     ``dst_tree`` on the ``active`` lanes, in rounds of ``buffer_rows``.
 
-    Either side may be a :class:`HostStore` or an :class:`ArenaStore`.
-    Source lanes out of range give zero rows; destination lanes out of range
-    are dropped.  Active destination lanes must be unique.  Returns
-    ``dst_tree``, updated in place."""
+    Either side may be a :class:`HostStore` or an :class:`ArenaStore`.  A
+    host store's rows cross the link encoded: a load packs payload and
+    sideband on the host and decodes them on the destination's device; a
+    write-back encodes on the source's device and scatters payload and
+    sideband on the host.  When an encoded host store loads into a tiered
+    arena of the same codec, the arena's tail lanes take the host payload
+    and sideband verbatim (head lanes decode).  Source lanes out of range
+    give zero rows; destination lanes out of range are dropped.  Active
+    destination lanes must be unique.  Returns ``dst_tree``, updated in
+    place."""
     src_dev = next(iter(_leaves(src_tree).values())).device
     dst_dev = next(iter(_leaves(dst_tree).values())).device
     s_all, d_all = _active_lanes(src_idx, dst_idx, active)
@@ -126,24 +122,55 @@ def move_rows(
     load = isinstance(src_tree, HostStore) and src_tree.pinned and dst_dev.type == "cuda"
     save = isinstance(dst_tree, HostStore) and dst_tree.pinned and src_dev.type == "cuda"
     ring = src_tree.staging(step) if load else dst_tree.staging(step) if save else None
+    verbatim = (isinstance(src_tree, HostStore) and isinstance(dst_tree, ArenaStore)
+                and src_tree.codec == dst_tree.codec)
     for r in range(num_rounds(int(s_all.numel()), step)):
         s = s_all[r * step : (r + 1) * step]
         d = d_all[r * step : (r + 1) * step]
         n = int(s.numel())
-        if load:  # pack into pinned staging, async H2D
-            i, stage = ring.acquire()
-            block = gather_rows(src_tree.data, s, out={k: b[:n] for k, b in stage.items()})
-            block = {k: v.to(dst_dev, non_blocking=True) for k, v in block.items()}
-            ring.release_after_copy(i)
-        elif save:  # pack (and decode) on the card, D2H into pinned staging
-            packed = _gather(src_tree, s.to(src_dev))
-            _, stage = ring.acquire()
-            block = {k: stage[k][:n].copy_(v, non_blocking=True) for k, v in packed.items()}
-            torch.cuda.current_stream(src_dev).synchronize()  # block lands before the host scatter
+        enc = side = None
+        if isinstance(src_tree, HostStore):  # pack the encoded rows on the host
+            if load:  # into pinned staging, async H2D
+                i, (stage, stage_side) = ring.acquire()
+                enc = gather_rows(src_tree.data, s, out={k: b[:n] for k, b in stage.items()})
+                side = gather_rows(src_tree.sideband, s,
+                                   out={k: b[:n] for k, b in stage_side.items()})
+                enc = {k: v.to(dst_dev, non_blocking=True) for k, v in enc.items()}
+                side = {k: v.to(dst_dev, non_blocking=True) for k, v in side.items()}
+                ring.release_after_copy(i)
+            else:
+                enc = {k: v.to(dst_dev) for k, v in gather_rows(src_tree.data, s).items()}
+                side = {k: v.to(dst_dev) for k, v in gather_rows(src_tree.sideband, s).items()}
+            block = src_tree.decode_block(enc, side)  # decoded on the destination's device
+        elif isinstance(src_tree, ArenaStore):
+            block = src_tree.gather_slots(s.to(src_dev, torch.int32))
         else:
-            block = _gather(src_tree, s.to(src_dev))
-            block = {k: v.to(dst_dev) for k, v in block.items()}
-        _scatter(dst_tree, d.to(dst_dev), block)
+            block = gather_rows(src_tree, s.to(src_dev))
+        if isinstance(dst_tree, HostStore):  # encode on the source's device
+            data_blk, side_blk = dst_tree.encode_block(block)
+            if save:  # D2H into pinned staging
+                _, (stage, stage_side) = ring.acquire()
+                data_blk = {k: stage[k][:n].copy_(v, non_blocking=True)
+                            for k, v in data_blk.items()}
+                side_blk = {k: stage_side[k][:n].copy_(v, non_blocking=True)
+                            for k, v in side_blk.items()}
+                torch.cuda.current_stream(src_dev).synchronize()  # lands before the scatter
+            else:
+                data_blk = {k: v.to(dst_dev) for k, v in data_blk.items()}
+                side_blk = {k: v.to(dst_dev) for k, v in side_blk.items()}
+            scatter_rows(dst_tree.data, d, data_blk)  # the lanes are on the host already
+            if side_blk:
+                scatter_rows(dst_tree.sideband, d, side_blk)
+        elif isinstance(dst_tree, ArenaStore):
+            payload_blk = side_blk = None
+            if verbatim:  # tail lanes take the host tier's exact bits
+                payload_blk = {k: enc[k] for k in dst_tree.tail
+                               if k in enc and src_tree.is_encoded(k)}
+                side_blk = {k: side[k] for k in dst_tree.sideband if k in side}
+            dst_tree.scatter_slots(d.to(dst_dev), {k: v.to(dst_dev) for k, v in block.items()},
+                                   payload_block=payload_blk, side_block=side_blk)
+        else:
+            scatter_rows(dst_tree, d.to(dst_dev), {k: v.to(dst_dev) for k, v in block.items()})
     return dst_tree
 
 

@@ -1,7 +1,7 @@
 """Training launcher: the serial trainer on synthetic Zipf batches.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-criteo --steps 50 --arena-precision int8
-  PYTHONPATH=src python -m repro_torch.launch.train --arch fm --steps 50
+  PYTHONPATH=src python -m repro_torch.launch.train --arch fm --steps 50 --host-precision int8
   PYTHONPATH=src python -m repro_torch.launch.train --model-shards 4 --replicate-top-k 64
 
 Runs on the CUDA card; ``--device cpu`` runs it on the CPU.  DIN, DIEN and
@@ -19,7 +19,8 @@ from repro_torch.train.trainer import Trainer, TrainerConfig
 
 
 def build(arch: str, batch: int, arena_precision: str, model_shards: int = 0,
-          replicate_top_k: int = 0, exchange_codec: str = "fp32", max_routed_per_shard: int = 0):
+          replicate_top_k: int = 0, exchange_codec: str = "fp32", max_routed_per_shard: int = 0,
+          host_precision: str = "fp32"):
     """The reference launcher's config of ``arch``: (model, batch spec).
     Victim selection always goes through the bounded top-K route, whose
     threshold is the CUDA kernel on the card (bit-identical to the full
@@ -34,14 +35,15 @@ def build(arch: str, batch: int, arena_precision: str, model_shards: int = 0,
     if arch == "dlrm-criteo":
         cfg = DLRMConfig(vocab_sizes=(100_000, 50_000, 20_000), embed_dim=32, batch_size=batch,
                          cache_ratio=0.02, lr=0.3, bottom_mlp=(64, 32), top_mlp=(64,),
-                         arena_precision=arena_precision, use_pallas_plan=True,
-                         model_shards=model_shards, replicate_top_k=replicate_top_k,
+                         host_precision=host_precision, arena_precision=arena_precision,
+                         use_pallas_plan=True, model_shards=model_shards, replicate_top_k=replicate_top_k,
                          exchange_codec=exchange_codec,
                          max_routed_per_shard=max_routed_per_shard)
         return DLRM(cfg), synth.ZipfSparseSpec(vocab_sizes=cfg.vocab_sizes, n_dense=13)
     # fm trains through the sum-square torch ops: the FM kernel has no backward
     cfg = FMConfig(vocab_sizes=(100_000,) * 6, embed_dim=10, batch_size=batch, cache_ratio=0.02,
-                   arena_precision=arena_precision, use_pallas_plan=True)
+                   host_precision=host_precision, arena_precision=arena_precision,
+                   use_pallas_plan=True)
     return FMModel(cfg), synth.ZipfSparseSpec(vocab_sizes=cfg.vocab_sizes)
 
 
@@ -53,9 +55,14 @@ def main(argv=None):
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--obs-dir", default=None,
                     help="stream per-step JSONL and a Chrome trace to this directory")
-    ap.add_argument("--arena-precision", default="fp32", choices=["fp32", "fp16", "int8"],
+    ap.add_argument("--host-precision", default="fp32", choices=["fp32", "fp16", "int8", "auto"],
+                    help="host-tier codec: fp32 = bit-exact; fp16/int8 shrink host bytes and "
+                         "host<->device traffic; auto = PrecisionPolicy from frequency stats")
+    ap.add_argument("--arena-precision", default="fp32",
+                    choices=["fp32", "fp16", "int8", "auto"],
                     help="device-arena codec: fp32 = raw arena; fp16/int8 tier it (the hot "
-                         "head stays fp32, the cold resident tail is stored encoded)")
+                         "head stays fp32, the cold resident tail is stored encoded); auto = "
+                         "PrecisionPolicy from head coverage")
     ap.add_argument("--model-shards", type=int, default=0,
                     help="0 = one collection; S >= 1 = hybrid parallel: the cached slab is "
                          "split over S shards, each with its own arena and host-table slice "
@@ -72,7 +79,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     model, spec = build(args.arch, args.batch, args.arena_precision, args.model_shards,
-                        args.replicate_top_k, args.exchange_codec, args.max_routed_per_shard)
+                        args.replicate_top_k, args.exchange_codec, args.max_routed_per_shard,
+                        args.host_precision)
     tc = TrainerConfig(max_steps=args.steps, ckpt_dir=args.ckpt_dir, ckpt_every=25,
                        obs_dir=args.obs_dir)
     trainer = Trainer(
@@ -92,7 +100,8 @@ def main(argv=None):
           f"loss {h[0]['loss']:.4f} -> {h[-1]['loss']:.4f}")
     print(f"cache hit rate: {h[-1]['hit_rate']:.1%}")
     db = model.collection.device_bytes()
-    print(f"host tier (fp32): {db['slow_tier_bytes'] / 1e6:.1f} MB")
+    print(f"host tier ({args.host_precision}): {db['slow_tier_bytes'] / 1e6:.1f} MB "
+          f"(saved {db['host_bytes_saved'] / 1e6:.1f} MB vs fp32)")
     if args.arena_precision != "fp32":
         print(f"arena tier ({args.arena_precision}): saved "
               f"{db['arena_bytes_saved'] / 1e6:.2f} MB HBM vs fp32")

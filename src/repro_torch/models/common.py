@@ -5,10 +5,11 @@ step (plan -> apply -> differentiable gather -> synchronous row update).
 ``CollectionTrainStep`` is the reference's step: a ``FeatureBatch`` goes
 through ``EmbeddingCollection.plan_prepare`` / ``apply_plan`` outside the
 gradient, the loss is differentiated with ``torch.autograd`` w.r.t. the
-dense parameters and ``collection.weights`` (the fast tier, marked as
-autograd leaves), the optimizer steps the dense parameters, and
-``apply_grads`` performs the synchronous row update with the dense
-``[capacity, dim]`` gradient.  The arena and the host table are updated in
+dense parameters and ``collection.weights`` (the fast tier: each cached
+slab's arena and each DEVICE table, marked as autograd leaves), the
+optimizer steps the dense parameters, and ``apply_grads`` performs the
+synchronous row update with each slab's dense gradient (``[capacity, dim]``
+for an arena, ``[vocab, dim]`` for a DEVICE table).  The arena and the host table are updated in
 place, so a state passed to a step must not be used again.
 """
 from __future__ import annotations

@@ -4,13 +4,19 @@ served through the frequency-aware cache (port of the single-arena part of
 
 Paper §5.1 configuration: embedding dim 128 for every table, bottom MLP
 512-256-128 over 13 dense features, dot-product feature interaction, top MLP
-1024-1024-512-256-1, SGD with a constant learning rate.  Every sparse field
-is GROUPED into one shared cache arena (the paper's one-big-table layout),
-fp32 or frequency-tiered (``arena_precision`` fp16 / int8); with
+1024-1024-512-256-1, SGD with a constant learning rate.
+
+Placement: with ``device_budget_bytes=None`` every sparse field is GROUPED
+into one shared cache arena (the paper's one-big-table layout); with
 ``model_shards`` > 0 that arena is split over shards (hybrid parallel,
-``core.sharded``).  The model
-computes in fp32; float32 matmuls run in full fp32 (``allow_tf32`` stays
-False).  ``train_step`` / ``plan_step`` / ``apply_step`` / ``compute_step``
+``core.sharded``).  With a budget, the ``PlacementPlanner`` makes the
+small tables DEVICE and gives each large one its own CACHED slab.  The
+arena is fp32 or frequency-tiered (``arena_precision`` fp16 / int8 /
+auto), the host tier fp32 or encoded (``host_precision`` fp16 / int8 /
+auto).  ``use_pallas_plan`` reaches every cached slab (the reference sets
+it on the shared arena only; the route is bit-identical either way).  The
+model computes in fp32; float32 matmuls run in full fp32 (``allow_tf32``
+stays False).  ``train_step`` / ``plan_step`` / ``apply_step`` / ``compute_step``
 come from :class:`~repro_torch.models.common.CollectionModelMixin`.
 """
 from __future__ import annotations
@@ -46,8 +52,13 @@ class DLRMConfig:
     policy: Optional[Policy] = None  # None -> FREQ_LFU
     dtypes: Dtypes = Dtypes(param=torch.float32, compute=torch.float32)
     use_pallas_plan: bool = False  # bounded top-K victim selection (the kernel)
+    device_budget_bytes: Optional[int] = None  # None: the paper's single arena
+    # host-tier codec of the cached slabs: fp32 (bit-exact), fp16, int8
+    # (row-wise scale / zero point) or auto (PrecisionPolicy from the counts)
+    host_precision: str = "fp32"
     # device-arena codec: fp32 keeps the raw arena; fp16/int8 tier it (the
-    # hot head stays fp32, the cold resident tail is stored encoded)
+    # hot head stays fp32, the cold resident tail is stored encoded); auto
+    # lets PrecisionPolicy pick from the head's coverage
     arena_precision: str = "fp32"
     arena_head_ratio: float = 0.25  # fp32 head share of a tiered arena
     # 0: one collection; S >= 1: hybrid parallel, the cached slab split over
@@ -74,11 +85,15 @@ class DLRM(common.CollectionModelMixin):
         tables = [
             col.TableConfig(
                 name=n, vocab=v, dim=cfg.embed_dim, ids_per_step=cfg.batch_size,
-                dtype=cfg.dtypes.param,
+                cache_ratio=cfg.cache_ratio, policy=policy, buffer_rows=cfg.buffer_rows,
+                max_unique_per_step=cfg.max_unique_per_step, dtype=cfg.dtypes.param,
+                use_pallas_plan=cfg.use_pallas_plan,
             )
             for n, v in zip(self.feature_names, cfg.vocab_sizes)
         ]
         arena_kw = dict(
+            budget_bytes=cfg.device_budget_bytes,
+            host_precision=cfg.host_precision,
             cache_ratio=cfg.cache_ratio,
             policy=policy,
             buffer_rows=cfg.buffer_rows,

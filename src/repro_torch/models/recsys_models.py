@@ -1,6 +1,7 @@
 """Recsys models served and trained through the frequency-aware cache (port
 of the FM part of ``repro.models.recsys_models``; DIN, DIEN and MIND come in
-a later slice).
+a later slice).  ``FMModel.retrieval_score`` scores one user against a set
+of candidates of the last field.
 
 FM (Rendle ICDM'10): one table per field, every table GROUPED into one
 shared cache arena (the paper's concatenated-table layout).  A table row
@@ -44,7 +45,8 @@ class FMConfig:
     emb_dtype: torch.dtype = torch.float32
     protect_via_inverse: bool = True
     buffer_rows: int = 65536
-    arena_precision: str = "fp32"  # device-arena tail codec (fp32 / fp16 / int8)
+    host_precision: str = "fp32"  # host-tier codec (fp32 / fp16 / int8 / auto)
+    arena_precision: str = "fp32"  # device-arena tail codec (fp32 / fp16 / int8 / auto)
     arena_head_ratio: float = 0.25  # fp32 head share of a tiered arena
     use_pallas_plan: bool = False  # bounded top-K victim selection (the kernel)
     policy: Optional[Policy] = None  # None -> FREQ_LFU
@@ -66,6 +68,7 @@ class FMModel(common.CollectionModelMixin):
             max_unique_per_step=cfg.max_unique_per_step,
             protect_via_inverse=cfg.protect_via_inverse,
             buffer_rows=cfg.buffer_rows,
+            host_precision=cfg.host_precision,
             arena_precision=cfg.arena_precision,
             arena_head_ratio=cfg.arena_head_ratio,
             use_pallas_plan=cfg.use_pallas_plan,
@@ -109,15 +112,36 @@ class FMModel(common.CollectionModelMixin):
         return self.fwd(state["params"], rows, batch), emb_state
 
     def retrieval_score(self, state, batch):
-        raise NotImplementedError(
-            "FM retrieval scans the host tier through collection.full_lookup, which "
-            "arrives with the rest of core/collection.py (ROADMAP item 4)"
-        )
+        """One user's context fields (``sparse [1, fields - 1]``) against
+        ``candidates [n]`` local ids of the last field: the context rows
+        through the cache (read-only), the candidates' rows straight from
+        their authoritative tier (``full_lookup``, a bulk scan past the
+        cache bookkeeping), then the FM terms that involve the candidate
+        plus the context-only terms, in torch ops.  Returns ``(scores [n],
+        emb_state)``."""
+        c = self.cfg
+        ctx = batch["sparse"]
+        emb_state, _, rows = self.collection.lookup(state["emb"], self.features(batch),
+                                                    writeback=False)
+        ctx_rows = torch.stack([rows[n][0] for n in self.feature_names[: ctx.shape[1]]])
+        vc, wc = ctx_rows[:, : c.embed_dim], ctx_rows[:, c.embed_dim]
+        cand = self.collection.full_lookup(emb_state, self.feature_names[-1], batch["candidates"])
+        vk, wk = cand[:, : c.embed_dim], cand[:, c.embed_dim]
+        s_ctx = vc.sum(0)
+        ctx_pair = 0.5 * ((s_ctx * s_ctx).sum() - (vc * vc).sum())
+        scores = state["params"]["bias"] + wc.sum() + ctx_pair + wk + vk @ s_ctx
+        return scores, emb_state
 
-    def input_specs(self, batch_size: int) -> Dict[str, torch.Tensor]:
-        """Shape and dtype of each batch field, as ``meta`` tensors (the
-        retrieval batch waits for ``retrieval_score``, ROADMAP item 4)."""
+    def input_specs(self, batch_size: int, n_candidates: int = 0) -> Dict[str, torch.Tensor]:
+        """Shape and dtype of each batch field, as ``meta`` tensors; with
+        ``n_candidates``, the retrieval batch (one user's context fields and
+        the candidates of the last field)."""
         n = len(self.cfg.vocab_sizes)
+        if n_candidates:
+            return {
+                "sparse": torch.empty((1, n - 1), dtype=torch.int32, device="meta"),
+                "candidates": torch.empty((n_candidates,), dtype=torch.int32, device="meta"),
+            }
         return {
             "sparse": torch.empty((batch_size, n), dtype=torch.int32, device="meta"),
             "label": torch.empty((batch_size,), dtype=torch.float32, device="meta"),

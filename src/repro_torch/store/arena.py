@@ -132,10 +132,15 @@ class ArenaStore:
         slots: torch.Tensor,
         block: Dict[str, torch.Tensor],
         active: Optional[torch.Tensor] = None,
+        payload_block: Optional[Dict[str, torch.Tensor]] = None,
+        side_block: Optional[Dict[str, torch.Tensor]] = None,
     ) -> "ArenaStore":
         """In place: full-precision ``block`` rows land at ``slots`` where
         ``active`` holds (unique slots there): head lanes raw, tail lanes
-        encoded on the device first.  OOB lanes are dropped."""
+        encoded on the device first.  OOB lanes are dropped.  When the rows
+        came from a host store of this codec, ``payload_block`` /
+        ``side_block`` carry them still encoded and the tail lanes take
+        those bits verbatim."""
         ok = (slots >= 0) & (slots < self.capacity)
         if active is not None:
             ok = ok & active
@@ -144,7 +149,10 @@ class ArenaStore:
         c = self._codec
         for k, hleaf in self.head.items():
             scatter_rows_([hleaf], slots, [block[k].to(hleaf.dtype)], ok & ~in_tail)
-            payload, side = c.encode(block[k])
+            if payload_block is not None and k in payload_block:
+                payload, side = payload_block[k], (side_block or {}).get(k)
+            else:
+                payload, side = c.encode(block[k])
             leaves, blocks = [self.tail[k]], [payload.to(self.tail[k].dtype)]
             if k in self.sideband:
                 leaves.append(self.sideband[k])

@@ -14,9 +14,9 @@ applied here is bitwise the reference's applied eagerly, on the CPU and on
 the card alike.  The decode ``q * scale + zp`` is two roundings, never a
 fused multiply-add.
 
-The device arena (:mod:`repro_torch.store.arena`) uses all three; the host
-tier (:class:`~repro_torch.store.host_store.HostStore`) stays fp32 until
-the port's host-precision slice.
+The device arena (:mod:`repro_torch.store.arena`) and the host tier
+(:class:`~repro_torch.store.host_store.HostStore`) use all three; on the
+card the transmitter encodes and decodes the host tier's rows with them.
 """
 from __future__ import annotations
 

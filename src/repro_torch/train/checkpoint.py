@@ -18,7 +18,9 @@ flag) and private fields are structure, not leaves.
   manifest is fsynced; a crash mid-save leaves the previous checkpoint.
 * validation — ``restore`` checks every leaf's shape and dtype against the
   template and refuses missing or surplus leaves: a tiered-arena checkpoint
-  restored into an fp32 template (or the reverse) fails loudly.
+  restored into an fp32 template (or the reverse), or an encoded host tier
+  (int8 payload and sideband, fp16 payload) into a template of another
+  host codec, fails loudly.
 * in place — ``restore`` copies the loaded values into the template's own
   tensors (so a pinned host table stays pinned and the arena stays on the
   card) and returns the template.
@@ -132,7 +134,8 @@ def restore(
         if e is None:
             raise ValueError(
                 f"checkpoint {d} has no leaf {key!r}: the on-disk state was saved with a "
-                f"different structure than the restore template (e.g. another arena_precision)"
+                f"different structure than the restore template (e.g. another host_precision "
+                f"or arena_precision)"
             )
         shape, dtype = tuple(like.shape), _numpy_dtype(like)
         disk_shape, disk_dtype = tuple(e["shape"]), np.dtype(e["dtype"])
@@ -142,6 +145,10 @@ def restore(
                 hint = ("  The leaf belongs to a tiered device arena: the checkpoint was saved "
                         "under a different arena_precision (or arena_head_ratio) than the "
                         "restore template expects.")
+            elif ".full." in key:
+                hint = ("  The leaf belongs to a host store: the checkpoint was saved under a "
+                        "different host-precision codec than the restore template expects; "
+                        "restore into a template built with the saved host_precision.")
             raise ValueError(
                 f"checkpoint leaf {key!r} mismatch: on disk {disk_shape}/{disk_dtype}, "
                 f"template expects {shape}/{dtype}." + hint

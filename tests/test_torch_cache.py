@@ -125,7 +125,7 @@ def test_prepare_then_lookup_is_the_uncached_table():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="host-precision slice"):
+    with pytest.raises(ValueError, match="auto resolves above"):  # as the reference's
         cache.CacheConfig(vocab=8, capacity=4, ids_per_step=4, arena_precision="auto")
     with pytest.raises(ValueError):
         cache.CacheConfig(vocab=8, capacity=4, ids_per_step=4, arena_precision="bf16")

@@ -6,8 +6,9 @@ tensor-core and fp32 SIMT kernels) against their plain PyTorch versions
 (bitwise; the FM kernel within the reference's sweep tolerances, flash
 attention within the card smoke's |o|-scaled bound), the pinned host-tier
 transmitter (staging ring, async copies, fp32 and tiered arenas) against
-the CPU move, and a 4-shard collection's lookups against its dense
-reference.
+the CPU move (fp32, fp16 and int8 host tiers; fp32 and tiered arenas; the
+verbatim host -> tail path), and a 4-shard collection's lookups against its
+dense reference.
 
 Imports neither JAX nor the JAX package, so the machine with the card runs
 it as is:  ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
@@ -217,6 +218,63 @@ def test_pinned_move_rows_with_a_tiered_arena_matches_cpu_move(cuda, codec, dire
             assert torch.equal(got_store["w"], want_store["w"])
     finally:
         got_store.close()
+
+
+def _store_leaves(store):
+    return {**{f"data.{k}": v for k, v in store.data.items()},
+            **{f"sideband.{k}": v for k, v in store.sideband.items()}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arena_codec", ["fp32", "fp16", "int8"])
+@pytest.mark.parametrize("host", ["fp16", "int8"])
+@pytest.mark.parametrize("direction", ["load", "writeback"])
+def test_pinned_encoded_host_store_moves_match_cpu_move(cuda, host, arena_codec, direction):
+    """An encoded host tier pinned on the host, against the same move on
+    the CPU, bitwise: a load stages payload and sideband, copies them
+    encoded and decodes on the card (the tail of an arena of the host's
+    codec takes them verbatim); a write-back encodes on the card and copies
+    payload and sideband back."""
+    rng = np.random.default_rng(7)
+    vocab, cap, dim, k = 1000, 300, 16, 256
+    table = torch.from_numpy(rng.normal(size=(vocab, dim)).astype(np.float32) * 2)
+    arena = torch.from_numpy(rng.normal(size=(cap, dim)).astype(np.float32))
+    n_src, n_dst = (vocab, cap) if direction == "load" else (cap, vocab)
+    src = torch.from_numpy(rng.integers(-1, n_src, size=k).astype(np.int32))
+    dst = torch.from_numpy(rng.permutation(n_dst)[:k].astype(np.int32))
+    active = torch.from_numpy(rng.random(k) < 0.8)
+
+    def make_arena(w):
+        return {"w": w} if arena_codec == "fp32" else ArenaStore.create({"w": w}, 75, arena_codec)
+
+    want_store = HostStore.create({"w": table.clone()}, host)
+    got_store = HostStore.create({"w": table.clone()}, host, pin=True)
+    want_arena, got_arena = make_arena(arena.clone()), make_arena(arena.to(cuda))
+    lanes = (src.to(cuda), dst.to(cuda), active.to(cuda))
+    try:
+        assert got_store.pinned and set(got_store.sideband) == set(want_store.sideband)
+        if direction == "load":
+            transmitter.move_rows(want_store, want_arena, src, dst, active, buffer_rows=7)
+            transmitter.move_rows(got_store, got_arena, *lanes, buffer_rows=7)
+            torch.cuda.synchronize()
+            if arena_codec == "fp32":
+                assert torch.equal(got_arena["w"].cpu(), want_arena["w"])
+            else:
+                for part in ("head", "tail", "sideband"):
+                    for name, t in getattr(want_arena, part).items():
+                        assert torch.equal(getattr(got_arena, part)[name].cpu(), t), part
+                if arena_codec == host:  # the verbatim host -> tail path
+                    ok = (active & (dst >= 75) & (src >= 0)).numpy()
+                    got_tail = got_arena.tail["w"].cpu()[dst.numpy()[ok] - 75]
+                    assert torch.equal(got_tail, got_store.data["w"][src.numpy()[ok]])
+        else:
+            transmitter.move_rows(want_arena, want_store, src, dst, active, buffer_rows=7)
+            transmitter.move_rows(got_arena, got_store, *lanes, buffer_rows=7)
+            for name, t in _store_leaves(want_store).items():
+                assert torch.equal(_store_leaves(got_store)[name], t), name
+    finally:
+        got_store.close()
+    assert not got_store.pinned
 
 
 @pytest.mark.cuda

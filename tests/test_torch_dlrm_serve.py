@@ -115,5 +115,5 @@ def test_serve_launcher_matches_reference_launcher(capsys, monkeypatch):
 
 
 def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError):
-        DLRM(DLRMConfig(**SHAPE)).collection.create([], budget_bytes=1)
+    with pytest.raises(NotImplementedError):  # the sharded budget mode (ROADMAP item 17)
+        DLRM(DLRMConfig(**dict(SHAPE, model_shards=2, device_budget_bytes=1 << 20)))

@@ -29,6 +29,7 @@ from repro.models.dlrm import DLRM as JDLRM
 from repro.models.dlrm import DLRMConfig as JDLRMConfig
 from repro_torch import convert
 from repro_torch.core import cache as tcache
+from repro_torch.core import collection as col
 from repro_torch.core.collection import SHARED_ARENA
 from repro_torch.data import synth
 from repro_torch.models.dlrm import DLRM, DLRMConfig
@@ -234,8 +235,8 @@ def test_unported_trainer_options_raise():
     model, state = _tiered()
     with pytest.raises(NotImplementedError):
         model.refresh(state)
-    with pytest.raises(NotImplementedError):
-        DLRM(DLRMConfig(**dict(SHAPE, arena_precision="auto"))).init(0, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 17"):  # the sharded budget mode
+        DLRM(DLRMConfig(**dict(SHAPE, model_shards=2, device_budget_bytes=1 << 20)))
 
 
 def test_train_launcher_matches_reference_launcher(capsys, monkeypatch):
@@ -276,3 +277,126 @@ def test_train_launcher_matches_reference_launcher(capsys, monkeypatch):
     assert got.history[-1]["cache_misses"] > 0 and got.history[-1]["host_wire_bytes"] > 0
     for pattern in (r"cache hit rate: .*", r"host<->device traffic: .*", r"arena tier .*"):
         assert re.search(pattern, got_out).group(0) == re.search(pattern, want_out).group(0)
+
+
+BUDGET = 24_000  # VOCABS at dim 16: f0 and f1 DEVICE, f2 CACHED
+
+
+def _codes_close(want, got, path):
+    """Encoded host payloads within one code (an ulp apart before the
+    encode may round to the neighbouring code), at most 1 % of them."""
+    dq = np.abs(_codes(want) - _codes(got))
+    assert dq.max(initial=0) <= 1 and int((dq > 0).sum()) <= 0.01 * dq.size, path
+
+
+@pytest.mark.parametrize("host", ["fp32", "int8"])
+def test_budget_mode_train_step_matches_reference(host):
+    """The device-budget DLRM (DEVICE and CACHED slabs, an encoded host
+    tier) against the jitted reference from the converted state: losses
+    within rtol 1e-5, index state and counters bitwise, DEVICE tables and
+    arenas within the fp32 tolerance, the host payload within one int8 code
+    and its sideband within rtol 1e-5 / atol 1e-7."""
+    cfg = dict(SHAPE, device_budget_bytes=BUDGET, host_precision=host,
+               arena_precision="int8" if host == "int8" else "fp32")
+    jmodel, tmodel = JDLRM(JDLRMConfig(**cfg)), DLRM(DLRMConfig(**cfg))
+    assert tmodel.collection.plan.summary() == jmodel.collection.plan.summary()
+    assert set(tmodel.collection.device_slabs) == {"f0", "f1"}
+    assert set(tmodel.collection.cached_slabs) == {"f2"}
+    jstate = jmodel.init(jax.random.PRNGKey(0))
+    tstate = convert.state_from_numpy(jax_to_numpy(jstate), device="cpu",
+                                      collection=tmodel.collection)
+    jstep = jax.jit(jmodel.train_step)
+    for step in range(5):
+        b = _batch(step)
+        jstate, jm = jstep(jstate, {k: jnp.asarray(v) for k, v in b.items()})
+        tstate, tm = tmodel.train_step(tstate, _tt(b))
+        np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]), rtol=RTOL, atol=0)
+        for key in ("cache_misses", "cache_evictions", "uniq_overflows"):
+            assert int(tm[key]) == int(jm[key]), key
+        for key in ("host_moved_rows", "host_row_bytes", "slab_hits"):
+            assert {k: int(v) for k, v in tm[key].items()} == \
+                {k: int(v) for k, v in jm[key].items()}, key
+    assert int(tm["cache_evictions"]) > 0
+    want, got = jax_to_numpy(jmodel.flush(jstate)), convert.to_numpy(tmodel.flush(tstate))
+    _close(want["params"], got["params"], "params")
+    for name in ("f0", "f1"):
+        _close(want["emb"]["slabs"][name], got["emb"]["slabs"][name], name)
+    jslab, tslab = want["emb"]["slabs"]["f2"], got["emb"]["slabs"]["f2"]
+    assert_tree_equal(jslab["cache"], tslab["cache"], "cache", skip=("cached_rows",))
+    _assert_arena_close(jslab["cache"]["cached_rows"], tslab["cache"]["cached_rows"], "arena")
+    assert tslab["full"]["codec"] == jslab["full"]["codec"] == host
+    if host == "fp32":
+        _close(jslab["full"]["data"], tslab["full"]["data"], "host table")
+    else:
+        _codes_close(jslab["full"]["data"]["weight"], tslab["full"]["data"]["weight"], "payload")
+        _close(jslab["full"]["sideband"], tslab["full"]["sideband"], "sideband", atol=1e-7)
+
+
+@pytest.mark.parametrize("host", ["fp32", "int8"])
+def test_mixed_plan_trains_and_serves_end_to_end(host):
+    """Trainer then ServeEngine over a budget plan; the trained resident
+    rows equal the flushed host tier's (bitwise for fp32, within one int8
+    quantization step for int8)."""
+    from repro_torch.serve.engine import ServeEngine
+
+    model = DLRM(DLRMConfig(**dict(SHAPE, device_budget_bytes=BUDGET, host_precision=host)))
+    placements = {p.placement for p in model.collection.plan.placements.values()}
+    assert {col.Placement.DEVICE, col.Placement.CACHED} <= placements
+    assert model.collection.device_bytes()["device_total"] <= BUDGET
+    trainer = Trainer(TrainerConfig(max_steps=5), init_fn=lambda: model.init(0, device="cpu"),
+                      step_fn=model.train_step, make_batch=_batch, flush_fn=model.flush,
+                      device="cpu")
+    state = trainer.run()
+    assert trainer.history and np.isfinite(trainer.history[-1]["loss"])
+    assert trainer.history[-1]["host_wire_bytes"] > 0
+    fb = model.features(_tt(_batch(99)))
+    emb, _, rows = model.collection.lookup(state["emb"], fb, writeback=False)
+    ref = model.collection.dense_reference(model.collection.flush(emb), fb)
+    for f in fb.features:
+        if host == "fp32" or f in model.collection.device_slabs:
+            assert torch.equal(rows[f], ref[f]), f
+        else:
+            torch.testing.assert_close(rows[f], ref[f], rtol=0, atol=0.01)
+    pad = {"dense": np.zeros((13,), np.float32), "sparse": np.zeros((3,), np.int32),
+           "label": np.zeros((), np.float32)}
+    eng = ServeEngine(model.serve_step, dict(state, emb=emb), batch_size=16, pad_example=pad,
+                      device="cpu")
+    scores = eng.score(_batch(1, batch=7))
+    assert scores.shape == (7,) and np.isfinite(scores).all()
+
+
+def test_train_launcher_host_precision_matches_reference_launcher(capsys, monkeypatch):
+    """``launch/train.py --host-precision int8`` holds the reference
+    launcher's counters: the same hits, misses and (int8-row) host wire
+    bytes per step, losses within rtol 1e-5."""
+    from repro.launch import train as jtrain
+    from repro_torch.launch import train
+
+    runs = []
+
+    class Recorded(jtrain.Trainer):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            runs.append(self)
+
+    monkeypatch.setattr(jtrain, "Trainer", Recorded)
+    argv = ["--arch", "dlrm-criteo", "--steps", "3", "--batch", "16", "--host-precision", "int8"]
+    monkeypatch.setattr("sys.argv", ["train", *argv, "--use-pallas-plan"])
+    jtrain.main()
+    want_out = capsys.readouterr().out
+    jcfg = JDLRMConfig(vocab_sizes=(100_000, 50_000, 20_000), embed_dim=32, batch_size=16,
+                       cache_ratio=0.02, lr=0.3, bottom_mlp=(64, 32), top_mlp=(64,),
+                       host_precision="int8", use_pallas_plan=True)
+    init = jax_to_numpy(JDLRM(jcfg).init(jax.random.PRNGKey(0)))
+    monkeypatch.setattr(DLRM, "init", lambda self, seed, counts=None, device=None:
+                        convert.state_from_numpy(init, device=device))
+    got = train.main(["--device", "cpu", *argv])
+    got_out = capsys.readouterr().out
+    want = runs[0].history
+    for g, w in zip(got.history, want):
+        for key in ("cache_hits", "cache_misses", "host_wire_bytes"):
+            assert g[key] == w[key], key
+        np.testing.assert_allclose(g["loss"], w["loss"], rtol=RTOL, atol=0)
+    assert len(got.history) == len(want) == 3
+    pattern = r"host tier \(int8\): .*"
+    assert re.search(pattern, got_out).group(0) == re.search(pattern, want_out).group(0)

@@ -170,8 +170,8 @@ def test_fm_config_and_unported_surfaces():
     model = FMModel(FMConfig(**SHAPE))
     specs = model.input_specs(8)
     assert specs["sparse"].shape == (8, 6) and specs["label"].dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="full_lookup"):
-        model.retrieval_score(None, None)
+    specs = model.input_specs(1, n_candidates=32)  # the retrieval batch
+    assert specs["sparse"].shape == (1, 5) and specs["candidates"].shape == (32,)
 
 
 def test_fm_train_launcher_matches_reference_launcher(capsys, monkeypatch):
@@ -207,3 +207,27 @@ def test_fm_train_launcher_matches_reference_launcher(capsys, monkeypatch):
             assert g[key] == w[key], key
         np.testing.assert_allclose(g["loss"], w["loss"], rtol=RTOL, atol=0)
     assert got.history[-1]["cache_misses"] > 0
+
+
+@pytest.mark.parametrize("host", ["fp32", "int8"])
+def test_retrieval_score_matches_reference(host):
+    """One user's five context fields against 40 candidates of the last
+    field (some of them -1 padding): the context rows through the cache,
+    the candidates straight from the host tier (decoded for int8), scores
+    within rtol 1e-5 / atol 1e-6 of the reference's, run eagerly as its
+    own serving path runs."""
+    (jmodel, jstate), (tmodel, tstate) = _pair(host_precision=host)
+    rng = np.random.default_rng(4)
+    for trial in range(3):
+        cands = rng.integers(-1, 64, 40).astype(np.int32)
+        batch = {"sparse": _batch(trial)["sparse"][:1, :5], "candidates": cands}
+        want, jemb = jmodel.retrieval_score(jstate, _jj(batch))
+        got, temb = tmodel.retrieval_score(tstate, _tt(batch))
+        jstate, tstate = dict(jstate, emb=jemb), dict(tstate, emb=temb)
+        assert got.shape == (40,)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
+    assert_tree_equal(jax_to_numpy(jemb)["slabs"][SHARED_ARENA]["cache"],
+                      convert.to_numpy(temb)["slabs"][SHARED_ARENA]["cache"], "cache")
+    specs = tmodel.input_specs(8, n_candidates=40)
+    assert {k: tuple(v.shape) for k, v in specs.items()} == {
+        k: tuple(v.shape) for k, v in jmodel.input_specs(8, n_candidates=40).items()}

@@ -77,3 +77,74 @@ def test_gather_and_scatter_rows_mask_lanes():
     tx.scatter_rows(t, torch.from_numpy(dst_idx), {"w": torch.from_numpy(block)},
                     torch.zeros(5, dtype=torch.bool))
     assert np.array_equal(t["w"].numpy(), w)
+
+
+@pytest.mark.parametrize("codec", ["fp16", "int8"])
+@pytest.mark.parametrize("direction", ["load", "writeback"])
+def test_encoded_host_store_moves_match_reference(codec, direction):
+    """An encoded host store on either side, one round (the eager
+    reference's bitwise regime): a load gathers payload and sideband and
+    decodes them on arrival; a write-back encodes and scatters both."""
+    rng = np.random.default_rng(11)
+    vocab, cap, dim, k = 96, 24, 8, 20
+    table = rng.normal(size=(vocab, dim)).astype(np.float32) * 2
+    arena = rng.normal(size=(cap, dim)).astype(np.float32)
+    j_store = JHostStore.create({"weight": jnp.asarray(table)}, codec)
+    t_store = HostStore.create({"weight": torch.from_numpy(table.copy())}, codec)
+    j_arena = {"weight": jnp.asarray(arena)}
+    t_arena = {"weight": torch.from_numpy(arena.copy())}
+    if direction == "load":
+        src, dst, active = _lanes(rng, k, vocab, cap)
+        want = jtx.move_rows(j_store, j_arena, jnp.asarray(src), jnp.asarray(dst),
+                             jnp.asarray(active), buffer_rows=64)["weight"]
+        got = tx.move_rows(t_store, t_arena, torch.from_numpy(src), torch.from_numpy(dst),
+                           torch.from_numpy(active), buffer_rows=64)["weight"]
+        assert np.array_equal(np.asarray(want), got.numpy())
+        return
+    src, dst, active = _lanes(rng, k, cap, vocab)
+    want = jtx.move_rows(j_arena, j_store, jnp.asarray(src), jnp.asarray(dst),
+                         jnp.asarray(active), buffer_rows=64)
+    got = tx.move_rows(t_arena, t_store, torch.from_numpy(src), torch.from_numpy(dst),
+                       torch.from_numpy(active), buffer_rows=64)
+    assert got is t_store
+    assert np.array_equal(np.asarray(want.data["weight"]), got.data["weight"].numpy())
+    for key in want.sideband:
+        assert np.array_equal(np.asarray(want.sideband[key]), got.sideband[key].numpy())
+    assert set(want.sideband) == set(got.sideband) == ({"weight"} if codec == "int8" else set())
+
+
+@pytest.mark.parametrize("host,arena", [("int8", "int8"), ("fp16", "fp16"), ("int8", "fp16"),
+                                        ("fp32", "int8")])
+def test_host_to_tiered_arena_load_matches_reference(host, arena):
+    """A host store into a tiered arena: where the codecs match, the tail
+    lanes take the host payload and sideband verbatim (no decode and
+    re-encode) and the head lanes decode; otherwise every lane decodes and
+    the tail re-encodes.  Payload, sideband and head bitwise."""
+    from repro.store.arena import ArenaStore as JArenaStore
+    from repro_torch import convert
+    from repro_torch.store.arena import ArenaStore
+
+    rng = np.random.default_rng(5)
+    vocab, cap, head, dim, k = 96, 24, 6, 8, 20
+    table = rng.normal(size=(vocab, dim)).astype(np.float32) * 3
+    start = rng.normal(size=(cap, dim)).astype(np.float32)
+    j_store = JHostStore.create({"weight": jnp.asarray(table)}, host)
+    t_store = HostStore.create({"weight": torch.from_numpy(table.copy())}, host)
+    j_arena = JArenaStore.create({"weight": jnp.asarray(start)}, head, arena)
+    t_arena = ArenaStore.create({"weight": torch.from_numpy(start.copy())}, head, arena)
+    src, dst, active = _lanes(rng, k, vocab, cap)
+    want = jtx.move_rows(j_store, j_arena, jnp.asarray(src), jnp.asarray(dst),
+                         jnp.asarray(active), buffer_rows=64)
+    got = tx.move_rows(t_store, t_arena, torch.from_numpy(src), torch.from_numpy(dst),
+                       torch.from_numpy(active), buffer_rows=64)
+    assert got is t_arena
+    w, g = convert.to_numpy(got), {f: np.asarray(getattr(want, f)["weight"])
+                                   for f in ("head", "tail")}
+    assert np.array_equal(g["head"], w["head"]["weight"])
+    assert np.array_equal(g["tail"], w["tail"]["weight"])
+    if arena == "int8":
+        assert np.array_equal(np.asarray(want.sideband["weight"]), w["sideband"]["weight"])
+    if host == arena:  # the tail holds the host tier's exact bits
+        tail = (dst >= head) & active & (src >= 0)
+        assert np.array_equal(w["tail"]["weight"][dst[tail] - head],
+                              t_store.data["weight"].numpy()[src[tail]])
