@@ -70,7 +70,10 @@ Phases (any failure exits non-zero, with no result line):
    equal to its host row bitwise.  Prints per-step routed lanes per shard,
    exchange id / row bytes, ``shard_imbalance``, a synced stage breakdown
    and a profiled step.  Then, at vocab scale 0.02, 4 steps sharded and 4
-   unsharded from one seed: losses within rtol 1e-5.
+      unsharded from one seed: losses within rtol 1e-5; and 6 sharded steps
+   by the serial ``Trainer`` and by the ``PipelinedTrainer`` at depth 2
+   (both under torch's deterministic algorithms): losses bitwise equal, two bucketize launches a plan with a window, the
+   kernel bitwise = plain on a captured window image.
 5c. budget mode: the same DLRM with ``device_budget_bytes=1 << 30``,
    ``host_precision="int8"`` and ``arena_precision="int8"``: the planner
    makes 21 tables DEVICE (569 296 rows on the card) and caches f2, f3,
@@ -88,6 +91,32 @@ Phases (any failure exits non-zero, with no result line):
    resident row's host payload and sideband bitwise the port's int8 encode
    of its arena row.  Prints serve and train p50 / p99, the wire bytes a
    step, the launches a plan and a profiled step's idle share.
+5d. pipelined training: the DLRM with an fp32 host tier and arena trained
+   ``PIPE_STEPS`` (9) steps by the serial ``Trainer`` (its step split into
+   plan / apply / compute under spans: bitwise ``train_step``), then by
+   the ``PipelinedTrainer`` at depths 1 and 3, each run from ``init(0)``
+   under torch's deterministic algorithms (the card's ``index_add_`` sums
+   duplicate lanes with atomics in no fixed order), the counts at 0 before
+   each run and read after it, then 9 more steps of the same schedule in
+   the default mode for its times; each 17.3 GB pinned table freed before
+   the next.  Checks losses and AUCs bitwise equal across the checked
+   runs, ``future_unresident`` 0, one threshold launch a plan (9 / 9 / 3),
+   the depth-3 run's first lookahead key (kv = 506 438: the protected,
+   pinned, policy and empty tiers) through the kernel bitwise = plain and
+   the victim order = a stable argsort, and after the depth-3 schedule's
+   flush every resident arena row bitwise its host row.  Prints each timed
+   run's step p50 / p99, the host ms of plan, apply and compute a step,
+   the plans a group and a profiled group's idle share.
+5e. the sharded budget mode: phase 5c's plan (1 GiB a device, int8 host
+   tier and arena) with every CACHED slab split over 4 shards (the card
+   holds all four shards' arenas; the int8 sideband stacked [S, vs, 2]):
+   ``--batches`` served, ``--train-steps`` trained, flush, the counts at 0
+   before each and read after.  Checks the plan, ``device_per_shard``
+   within the budget, 20 threshold and 5 bucketize launches a plan,
+   gather-decode in the write-backs, cached = ``dense_reference`` logits
+   (rtol 1e-5 / atol 1e-6), and after the flush every resident row's host
+   payload and sideband bitwise the int8 encode of its arena row, shard by
+   shard.
 6. FM serve: ``configs/fm.CONFIG`` at full width (40 fields, 33 764 352
    rows of 11 fp32 = 1.486 GB pinned, a 2 097 152-slot arena, batch 65536)
    with ``use_pallas=True``: ``ServeEngine(FMModel.serve_step)`` on
@@ -101,13 +130,23 @@ Phases (any failure exits non-zero, with no result line):
    Checks finite losses, no overflow, one threshold launch per plan, and
    that after the flush every resident arena row equals its host row
    bitwise.
+7b. FM chunked staging: phase 7 again from the same seed, at row
+   granularity and with ``chunk_rows=64`` (which divides FM's 33 764 352
+   rows), ``FM_CHECK_STEPS`` (2) steps each under torch's deterministic
+   algorithms, then ``FM_TRAIN_STEPS`` (4) chunked steps in the default
+   mode for their times: every load
+   packs whole 64-row chunks into the staging block, sized by the round's
+   unique chunks, and picks the rows out on the card; every write-back
+   read-modify-writes the touched chunks on the host.  Checks losses
+   bitwise phase 7's, every move chunked (the transmitter's counter) and
+   the post-flush rows; prints the largest staging block's bytes.
 8. timing: each kernel, its plain version (and ``torch.topk`` beside the
    threshold, ``F.embedding_bag`` beside the bag) by CUDA events over
    back-to-back calls, their summed device time per call from
    ``torch.profiler``, and the wrapper's host enqueue time, on the live
    inputs of the main paths.  The threshold is timed on the DLRM serve
-   plan's and FM's live keys; each call must show one device op and no
-   memset.  The bag is timed as the main path calls
+   plan's, FM's and phase 5d's depth-3 lookahead keys; each call must show
+   one device op and no memset.  The bag is timed as the main path calls
    it, once over a live bag step's 26 features (against one
    ``F.embedding_bag`` call over the same bags; the ``kernels`` line
    carries this call), and alone on two live features, f0 (vocab 1460) and
@@ -189,6 +228,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores (NVIDIA data sheet)
 TOL_RTOL, TOL_ATOL = 1e-5, 1e-6  # cached vs uncached logits (fp32)
 FM_BATCHES, FM_TRAIN_STEPS = 8, 4  # FM serve batches and train steps
+FM_CHUNK_ROWS = 64  # phase 7b's chunk: divides FM's 33 764 352 rows (2^10 . 3 . 29 . 379)
+FM_CHECK_STEPS = 2  # 7b's deterministic pair (the sort-based sums take ~2 s a step there)
 
 
 def log(*a):
@@ -1847,6 +1888,425 @@ def budget_phase(dev, vocab_scale, n_batches, n_steps):
 
 
 # ---------------------------------------------------------------------------
+# phase 5d: lookahead-pipelined training (PipelinedTrainer) at full width
+# ---------------------------------------------------------------------------
+
+PIPE_STEPS, PIPE_DEPTHS = 9, (1, 3)  # steps a run; the pipelined runs' depths
+
+
+def _group_profile(model, state, now, ahead, depth):
+    """One steady-state group under the profiler: the next group's plan,
+    the group's computes (each loss fetched, as the trainer's), then the
+    next plan's apply.  ``now`` are the group's batches (planned and applied
+    before the profile), ``ahead`` the next group's.  Depth 0 profiles one
+    serial step: plan, apply, compute.  Returns the idle share."""
+    stats = {}
+    if depth == 0:
+        def fn():
+            plan = model.plan_step(state, now[0])
+            st = model.apply_step(state, plan)
+            return float(model.compute_step(st, now[0], plan.addresses)[1]["loss"])
+    else:
+        cur = model.plan_step(state, now[0], tuple(now[1:]))
+        st0 = model.apply_step(state, cur)
+        addrs = (cur.addresses,) + tuple(cur.future_addresses)
+
+        def fn():
+            nxt = model.plan_step(st0, ahead[0], tuple(ahead[1:]))
+            st = st0
+            for j, b in enumerate(now):
+                st, m = model.compute_step(st, b, addrs[j])
+                float(m["loss"])
+            return model.apply_step(st, nxt)
+    profile_call(f"one {'serial step' if depth == 0 else f'depth-{depth} group'}", fn,
+                 stats=stats)
+    return 1 - stats["busy"] / stats["wall"] if stats else None
+
+
+def _train_run(model, depth, init_fn, make_batch, n_steps, dev, tracer, plans):
+    """One training run of ``n_steps``: the serial ``Trainer`` (depth 0; its
+    step split into the three stages under spans, bitwise ``train_step``)
+    or the ``PipelinedTrainer`` at ``depth``.  ``plans`` receives each plan's
+    ``future_unresident`` and window length.  Returns (state, history)."""
+    from repro_torch.train.trainer import PipelinedTrainer, Trainer, TrainerConfig
+
+    def plan_fn(state, batch, future=()):
+        plan = model.plan_step(state, batch, future)
+        plans.append((plan.future_unresident, 1 + len(future)))
+        return plan
+
+    def step_fn(state, batch):
+        with tracer.span("plan"):
+            plan = plan_fn(state, batch)
+        with tracer.span("apply"):
+            state = model.apply_step(state, plan)
+        with tracer.span("compute"):
+            return model.compute_step(state, batch, plan.addresses)
+
+    kw = dict(init_fn=init_fn, make_batch=make_batch, device=dev)
+    if depth == 0:
+        trainer = Trainer(TrainerConfig(max_steps=n_steps), step_fn=step_fn, **kw)
+    else:
+        trainer = PipelinedTrainer(TrainerConfig(max_steps=n_steps, pipeline_depth=depth),
+                                   plan_fn=plan_fn, compute_fn=model.compute_step,
+                                   apply_fn=model.apply_step, **kw)
+    trainer.tracer = tracer
+    return trainer.run(), trainer.history
+
+
+def pipeline_phase(dev, vocab_scale, n_steps):
+    """The paper's DLRM (fp32 host tier and arena, ``use_pallas_plan``)
+    trained by the serial ``Trainer`` and by the ``PipelinedTrainer`` at each
+    depth of ``PIPE_DEPTHS``.  Each schedule first runs ``n_steps`` from
+    ``init(0)`` under ``deterministic()`` (the counts at 0 before it and
+    read after): losses and AUCs bitwise equal across the schedules,
+    ``future_unresident`` 0, one threshold launch a plan; then continues
+    ``n_steps`` more in the default mode, which gives its step times, the
+    host ms of its stages and a profiled group's idle share (the
+    deterministic sums take the card's slow sort-based path).  The
+    depth-3 run's first lookahead key (kv = capacity) is held to the plain
+    version and a stable argsort; after that schedule's flush every
+    resident arena row is bitwise its host row.  Each table is freed
+    before the next schedule."""
+    from repro_torch.core.collection import SHARED_ARENA
+    from repro_torch.data import synth
+    from repro_torch.kernels.cache_ops import kernel, ops
+    from repro_torch.models.dlrm import DLRM
+    from repro_torch.obs import Tracer
+
+    cfg = _scaled(vocab_scale)  # fp32 host tier and arena: pipelined = serial, bitwise
+    model = DLRM(cfg)
+    coll = model.collection
+    spec = coll.cached_slabs[SHARED_ARENA]
+    bspec = synth.ZipfSparseSpec(vocab_sizes=cfg.vocab_sizes, n_dense=cfg.n_dense)
+    d_max = max(PIPE_DEPTHS)
+    batches = [synth.sparse_batch(bspec, cfg.batch_size, 2, i)
+               for i in range(2 * n_steps + 2 * d_max)]
+
+    def dev_batch(i):
+        return {k: torch.from_numpy(v).to(dev) for k, v in batches[i].items()}
+
+    select = ops.victim_topk_impl
+    captured = []
+
+    def capture(key, kv):  # the first plan whose window lifts kv to the capacity
+        if kv == spec.capacity and not captured:
+            captured.append((key.clone(), kv))
+        return select(key, kv)
+
+    runs = {}
+    for depth in (0, *PIPE_DEPTHS):
+        name = "serial" if depth == 0 else f"depth {depth}"
+        plans = []
+        if depth == d_max:
+            ops.victim_topk_impl = capture
+        # --- main path: counts at 0, the checked run (init, warm-up, n_steps), counts read
+        kernel.victim_threshold.launches = 0
+        t0 = time.perf_counter()
+        try:
+            with deterministic():
+                state, h = _train_run(model, depth, lambda: model.init(0, device=dev),
+                                      lambda s: batches[s], n_steps, dev, Tracer(), plans)
+        finally:
+            ops.victim_topk_impl = select
+        run_s = time.perf_counter() - t0
+        thr = kernel.victim_threshold.launches
+        unresident = int(torch.stack([u.to(dev) for u, _ in plans]).sum())
+        if len(h) != n_steps or not np.isfinite([r["loss"] for r in h]).all():
+            raise AssertionError(f"pipelined {name}: {len(h)} steps, losses "
+                                 f"{[r['loss'] for r in h]}")
+        if unresident:
+            raise AssertionError(f"pipelined {name}: future_unresident {unresident}")
+        if thr != len(plans) or len(plans) != -(-n_steps // max(depth, 1)):
+            raise AssertionError(f"pipelined {name}: {thr} threshold launches for "
+                                 f"{len(plans)} plans of {n_steps} steps")
+        det_ms = [1e3 * r["time_s"] for r in h]
+        # --- the same schedule, n_steps more from that state, default mode: its times
+        tracer, timed_plans = Tracer(), []
+        kernel.victim_threshold.launches = 0
+        state, ht = _train_run(model, depth, lambda: state, lambda s: batches[n_steps + s],
+                               n_steps, dev, tracer, timed_plans)
+        thr_t = kernel.victim_threshold.launches
+        if thr_t != len(timed_plans) or not np.isfinite([r["loss"] for r in ht]).all():
+            raise AssertionError(f"pipelined {name} (timed): {thr_t} threshold launches for "
+                                 f"{len(timed_plans)} plans; losses {[r['loss'] for r in ht]}")
+        step_ms = [1e3 * r["time_s"] for r in ht]
+        stages = tracer.stage_summary()
+        g = max(depth, 1)
+        idle = _group_profile(model, state, [dev_batch(2 * n_steps + j) for j in range(g)],
+                              [dev_batch(2 * n_steps + g + j) for j in range(g)], depth)
+        runs[name] = {"losses": [r["loss"] for r in h], "aucs": [r["auc"] for r in h],
+                      "thr": thr + thr_t, "idle": idle,
+                      "stage_ms": {k: 1e3 * v["total_s"] / n_steps for k, v in stages.items()
+                                   if k in ("plan", "apply", "compute")}}
+        log(f"pipelined {name}: checked run ({n_steps} steps from init(0), deterministic) "
+            f"{run_s} s with the {spec.vocab} x {spec.dim} fp32 table's init; losses "
+            f"{runs[name]['losses']}; its step ms {det_ms}; plans {len(plans)} (window lengths "
+            f"{[n for _, n in plans]}: one a group), threshold launches {thr}, "
+            f"future_unresident 0.  Timed run ({n_steps} more steps, default mode): step ms "
+            f"{step_ms}; p50 {np.percentile(step_ms, 50)} ms, p99 {np.percentile(step_ms, 99)} "
+            f"ms, mean {np.mean(step_ms)} ms (numpy, of {n_steps}); host ms a step by stage "
+            f"{json.dumps(runs[name]['stage_ms'])} (span counts "
+            f"{json.dumps({k: v['count'] for k, v in stages.items()})}); threshold launches "
+            f"{thr_t}; idle share of one profiled group {idle}")
+        if depth == d_max:
+            t0 = time.perf_counter()
+            state = model.flush(state)
+            torch.cuda.synchronize()
+            log(f"pipelined {name} flush {1e3 * (time.perf_counter() - t0)} ms")
+            emb = state["emb"]
+            check_resident(coll.weights(emb)[SHARED_ARENA],
+                           emb.slabs[SHARED_ARENA].cache.slot_to_row,
+                           emb.slabs[SHARED_ARENA].full, f"pipelined {name}")
+        state["emb"].slabs[SHARED_ARENA].full.close()
+        del state
+        gc.collect()
+    base = runs["serial"]
+    for name, r in runs.items():
+        if r["losses"] != base["losses"] or r["aucs"] != base["aucs"]:
+            raise AssertionError(f"pipelined {name} != serial: losses {r['losses']} vs "
+                                 f"{base['losses']}, aucs {r['aucs']} vs {base['aucs']}")
+    if not captured:
+        raise AssertionError(f"no depth-{d_max} plan selected kv = {spec.capacity}")
+    key, kv = captured[0]
+    err = check_threshold(key, kv, f"depth-{d_max} lookahead plan key")
+    tiers = {"protected": int((key == -_BIG).sum()), "pinned": int((key == -(_BIG // 2)).sum()),
+             "empty": int((key == _BIG).sum())}
+    tiers["policy"] = key.numel() - sum(tiers.values())
+    log(f"pipelined: losses and AUCs of the serial run and depths {list(PIPE_DEPTHS)} bitwise "
+        f"equal; the depth-{d_max} lookahead key [{key.numel()}] at kv={kv}: kernel bitwise = "
+        f"plain, victim order = stable argsort; key tiers {json.dumps(tiers)}")
+    return {"thr_launches": {n: r["thr"] for n, r in runs.items()}, "key": key, "kv": kv,
+            "thr_err": err}
+
+
+# ---------------------------------------------------------------------------
+# phase 5e: the sharded budget mode (per-device budget, int8 host tiers)
+# ---------------------------------------------------------------------------
+
+
+def sharded_budget_phase(dev, vocab_scale, n_batches, n_steps):
+    """Phase 5c's plan (1 GiB a device, int8 host and arena) with every
+    CACHED slab split over ``SHARDS`` shards (the card holds all four
+    shards' arenas): serve ``n_batches``, train ``n_steps``, flush, each
+    path with the counts at 0 before it and read after it.  Cached logits
+    = ``dense_reference`` logits within the sharded bound; after the flush
+    every resident row's host payload and sideband bitwise the int8 encode
+    of its arena row, shard by shard."""
+    from repro_torch.core import collection as col
+    from repro_torch.data import synth
+    from repro_torch.kernels.cache_ops import kernel
+    from repro_torch.models.dlrm import DLRM
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.store.codec import get_codec
+
+    cfg = dataclasses.replace(_budget_cfg(vocab_scale), model_shards=SHARDS)
+    model = DLRM(cfg)
+    coll = model.collection
+    cached = sorted(coll.cached_slabs, key=lambda n: int(n[1:]))
+    log(f"sharded budget plan ({cfg.device_budget_bytes} B a device, {SHARDS} shards): "
+        f"{len(coll.device_slabs)} DEVICE {sorted(coll.device_slabs, key=lambda n: int(n[1:]))}, "
+        f"{len(cached)} CACHED {cached}; placements {json.dumps(coll.plan.summary())}; shard "
+        f"capacity {({n: coll.shard_capacity(coll.cached_slabs[n]) for n in cached})}")
+    if not coll.device_slabs or not cached or col.SHARED_ARENA in coll.cached_slabs:
+        raise AssertionError(f"want DEVICE and CACHED slabs only, got {coll.plan.summary()}")
+    if vocab_scale == 1.0 and (tuple(cached) != BUDGET_CACHED or len(coll.device_slabs) != 21):
+        raise AssertionError(f"the 1 GiB plan is not 21 DEVICE + {BUDGET_CACHED}")
+    db = coll.device_bytes()
+    log(f"sharded budget device_bytes {json.dumps(db)}")
+    if db["device_per_shard"] > cfg.device_budget_bytes:
+        raise AssertionError(f"device_per_shard {db['device_per_shard']} over the budget")
+    t0 = time.perf_counter()
+    state = model.init(0, device=dev)
+    torch.cuda.synchronize()
+    slabs = state["emb"].slabs
+    host = sum(slabs[n].full.host_bytes() for n in cached)
+    log(f"sharded budget init+warmup {time.perf_counter() - t0} s: int8 host tiers {host} B "
+        f"(payload [S, vs, 128] + sideband [S, vs, 2]) pinned="
+        f"{all(slabs[n].full.pinned for n in cached)}; card memory allocated "
+        f"{torch.cuda.memory_allocated() / 1e9} GB; host RSS {rss_gb()} GB")
+    if {slabs[n].full.sideband["weight"].shape[2] for n in cached} != {2}:
+        raise AssertionError("the int8 sideband is not stacked [S, vs, 2]")
+
+    bspec = synth.ZipfSparseSpec(vocab_sizes=cfg.vocab_sizes, n_dense=cfg.n_dense)
+    serve_b = [synth.sparse_batch(bspec, cfg.batch_size, 0, i) for i in range(n_batches + 2)]
+    train_b = [synth.sparse_batch(bspec, cfg.batch_size, 1, i) for i in range(n_steps + 2)]
+
+    def dev_batch(b):
+        return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+
+    def counts_zero():
+        kernel.victim_threshold.launches = kernel.bucketize.launches = 0
+        kernel.gather_decode.launches = 0
+
+    def counts():
+        return (kernel.victim_threshold.launches, kernel.bucketize.launches,
+                kernel.gather_decode.launches)
+
+    per_plan = (SHARDS * len(cached), len(cached))  # threshold, bucketize
+    pad = {"dense": np.zeros((cfg.n_dense,), np.float32),
+           "sparse": np.zeros((cfg.n_sparse,), np.int32), "label": np.zeros((), np.float32)}
+    engine = ServeEngine(model.serve_step, state, batch_size=cfg.batch_size, pad_example=pad,
+                         device=dev,
+                         state_stats_fn=lambda st: coll.metrics(st["emb"], writeback=False))
+    engine.score(serve_b[n_batches + 1])  # first call: allocator, cuBLAS
+    engine.stats = type(engine.stats)()
+    # --- main path 1: serve --------------------------------------------------
+    counts_zero()
+    lat = []
+    for b in serve_b[:n_batches]:
+        t0 = time.perf_counter()
+        scores = engine.score(b)
+        lat.append(1e3 * (time.perf_counter() - t0))
+        if scores.shape != (cfg.batch_size,) or not np.isfinite(scores).all():
+            raise AssertionError(f"sharded budget serve scores: {scores.shape}, non-finite")
+    serve_thr, serve_bz, serve_gd = counts()
+    if (serve_thr, serve_bz) != (per_plan[0] * n_batches, per_plan[1] * n_batches):
+        raise AssertionError(f"sharded budget serve: threshold {serve_thr}, bucketize "
+                             f"{serve_bz} for {n_batches} plans of {len(cached)} slabs x "
+                             f"{SHARDS} shards")
+    log(f"sharded budget serve: {n_batches} batches; per-batch ms {lat}; p50 "
+        f"{np.percentile(lat, 50)} ms, p99 {np.percentile(lat, 99)} ms (numpy percentiles); "
+        f"launches: threshold {serve_thr} ({serve_thr // n_batches} a plan), bucketize "
+        f"{serve_bz} ({serve_bz // n_batches} a plan), gather_decode {serve_gd}")
+    b = dev_batch(serve_b[n_batches])
+    logits, emb = model.serve_step(engine.state, b)
+    ref_logits = model.fwd(engine.state["params"], coll.dense_reference(emb, model.features(b)), b)
+    diff = float((logits - ref_logits).abs().max())
+    if not torch.allclose(logits, ref_logits, rtol=TOL_RTOL, atol=TOL_ATOL):
+        raise AssertionError(f"sharded budget: cached vs dense_reference logits differ by {diff}")
+    log(f"sharded budget cache invariant: max |cached - dense_reference| logit = {diff} (rtol "
+        f"{TOL_RTOL} atol {TOL_ATOL})")
+    state = dict(engine.state, emb=emb)
+
+    # --- main path 2: train (write-backs through the gather-decode kernel) ---
+    state, m = model.train_step(state, dev_batch(train_b[n_steps]))  # warm-up
+    float(m["loss"])
+    counts_zero()
+    step_ms, losses = [], []
+    for i in range(n_steps):
+        t0 = time.perf_counter()
+        state, m = model.train_step(state, dev_batch(train_b[i]))
+        losses.append(float(m["loss"]))
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    train_thr, train_bz, train_gd = counts()
+    if not np.isfinite(losses).all() or int(m["uniq_overflows"]):
+        raise AssertionError(f"sharded budget train: losses {losses}, overflows "
+                             f"{int(m['uniq_overflows'])}")
+    if (train_thr, train_bz) != (per_plan[0] * n_steps, per_plan[1] * n_steps):
+        raise AssertionError(f"sharded budget train: threshold {train_thr}, bucketize "
+                             f"{train_bz} for {n_steps} plans")
+    if int(m["cache_evictions"]) and not train_gd:
+        raise AssertionError("sharded budget train: write-backs ran no gather_decode launch")
+    log(f"sharded budget train: {n_steps} steps; losses {losses}; step ms {step_ms}; p50 "
+        f"{np.percentile(step_ms, 50)} ms, p99 {np.percentile(step_ms, 99)} ms; launches: "
+        f"threshold {train_thr}, bucketize {train_bz}, gather_decode {train_gd}; host wire "
+        f"bytes {_exact_wire(m)} since init; exchange bytes {float(m['exchange_bytes'])}")
+    stats = {}
+    profile_call("one sharded budget train step",
+                 lambda: model.train_step(state, dev_batch(train_b[n_steps + 1])), stats=stats)
+    log(f"sharded budget idle share of one profiled train step: "
+        f"{1 - stats['busy'] / stats['wall'] if stats else None}")
+
+    # --- flush, then each resident row's host payload and sideband = the
+    # int8 encode of its arena row, shard by shard ---------------------------
+    counts_zero()
+    t0 = time.perf_counter()
+    state = model.flush(state)
+    torch.cuda.synchronize()
+    flush_ms = 1e3 * (time.perf_counter() - t0)
+    _, _, flush_gd = counts()
+    weights = coll.weights(state["emb"])
+    int8 = get_codec("int8")
+    resident = 0
+    for n in cached:
+        slab = state["emb"].slabs[n]
+        for s in range(SHARDS):
+            rows = slab.cache.slot_to_row[s]
+            slots = torch.nonzero(rows >= 0)[:, 0]
+            idx = rows[slots].cpu().to(torch.int64)
+            payload, side = int8.encode(weights[n][s][slots])
+            shard = slab.full.shard(s)
+            if not (torch.equal(payload.cpu(), shard.data["weight"][idx])
+                    and torch.equal(side.cpu(), shard.sideband["weight"][idx])):
+                raise AssertionError(f"sharded budget post-flush: slab {n} shard {s}: host "
+                                     f"payload / sideband != the encode of its arena rows")
+            resident += slots.numel()
+    log(f"sharded budget flush {flush_ms} ms ({flush_gd} gather_decode launches); post-flush: "
+        f"all {resident} resident rows of {len(cached)} slabs x {SHARDS} shards: host payload "
+        f"and sideband bitwise the int8 encode of the arena row")
+    for n in cached:
+        state["emb"].slabs[n].full.close()
+    return {"thr_launches": serve_thr + train_thr, "bz_launches": serve_bz + train_bz,
+            "gd_launches": serve_gd + train_gd + flush_gd}
+
+
+def sharded_pipelined_crosscheck(dev, vocab_scale=0.02, n_steps=6, depth=2):
+    """The sharded DLRM (phase 5b's shape at ``vocab_scale``) trained by the
+    serial ``Trainer`` and by the ``PipelinedTrainer`` at ``depth`` from one
+    seed: losses bitwise equal; the bucketize kernel held bitwise to its
+    plain version on a captured window image (a plan's second bucketize)."""
+    from repro_torch.kernels.cache_ops import kernel, ops
+    from repro_torch.data import synth
+    from repro_torch.models.dlrm import DLRM
+    from repro_torch.train.trainer import PipelinedTrainer, Trainer, TrainerConfig
+
+    cfg = _sharded_cfg(vocab_scale)
+    model = DLRM(cfg)
+    bspec = synth.ZipfSparseSpec(vocab_sizes=cfg.vocab_sizes, n_dense=cfg.n_dense)
+    batches = [synth.sparse_batch(bspec, cfg.batch_size, 1, i) for i in range(n_steps + depth)]
+    impl, calls, window = ops.bucketize_impl, [], []
+
+    def capture(owner, local, s):
+        calls.append((owner.clone(), local.clone(), s))
+        return impl(owner, local, s)
+
+    def plan_fn(state, batch, future=()):
+        calls.clear()
+        plan = model.plan_step(state, batch, future)
+        if future and not window:
+            window.append(calls[1])  # the batch's image first, then the window's
+        return plan
+
+    kw = dict(init_fn=lambda: model.init(0, device=dev), make_batch=lambda s: batches[s],
+              device=dev)
+    runs = {}
+    for name in ("serial", "pipelined"):
+        if name == "serial":
+            trainer = Trainer(TrainerConfig(max_steps=n_steps), step_fn=model.train_step, **kw)
+        else:
+            trainer = PipelinedTrainer(TrainerConfig(max_steps=n_steps, pipeline_depth=depth),
+                                       plan_fn=plan_fn, compute_fn=model.compute_step,
+                                       apply_fn=model.apply_step, **kw)
+        ops.bucketize_impl = capture
+        kernel.bucketize.launches = kernel.victim_threshold.launches = 0
+        try:
+            state = trainer.run()
+        finally:
+            ops.bucketize_impl = impl
+        runs[name] = {"losses": [h["loss"] for h in trainer.history],
+                      "bz": kernel.bucketize.launches, "thr": kernel.victim_threshold.launches}
+        for slab in state["emb"].slabs.values():
+            slab.full.close()
+        del state
+    if runs["serial"]["losses"] != runs["pipelined"]["losses"]:
+        raise AssertionError(f"sharded pipelined != serial: {runs}")
+    n_plans = -(-n_steps // depth)
+    if runs["pipelined"]["bz"] != 2 * n_plans - (n_steps % depth == 1):
+        raise AssertionError(f"sharded pipelined: {runs['pipelined']['bz']} bucketize launches "
+                             f"for {n_plans} plans with a window")
+    err = check_bucketize(*window[0], "captured window image")
+    log(f"sharded pipelined cross-check (vocab scale {vocab_scale}, depth {depth}, {n_steps} "
+        f"steps): losses bitwise equal to the serial run {runs['serial']['losses']}; launches "
+        f"serial bucketize {runs['serial']['bz']} / threshold {runs['serial']['thr']}, "
+        f"pipelined {runs['pipelined']['bz']} / {runs['pipelined']['thr']} ({n_plans} plans, "
+        f"two bucketize a plan with a window); bucketize bitwise = plain on the window image "
+        f"[{window[0][0].numel()} lanes, {int((window[0][1] >= 0).sum())} routed]")
+    return {"bz_launches": runs["pipelined"]["bz"], "thr_launches": runs["pipelined"]["thr"],
+            "err": err}
+
+
+# ---------------------------------------------------------------------------
 # phases 6-7: FM at full width, served through its kernel and trained
 # ---------------------------------------------------------------------------
 
@@ -1970,7 +2430,25 @@ def fm_serve_phase(dev, vocab_scale, n_batches):
             "live_err": live_err, "key": key, "kv": kv, "thr_err": thr_err}
 
 
-def fm_train_phase(dev, vocab_scale, n_steps):
+def _fm_chunk(vocab_scale):
+    """``FM_CHUNK_ROWS``, which divides the full FM table's 33 764 352 rows;
+    a cut table takes the largest power of two <= it that divides its rows."""
+    from repro_torch.models.recsys_models import FMModel
+
+    vocab = FMModel(_fm_scaled(vocab_scale)).collection.cached_slabs["__shared__"].vocab
+    chunk = FM_CHUNK_ROWS
+    while vocab % chunk:
+        chunk //= 2
+    if chunk != FM_CHUNK_ROWS:
+        log(f"CUT: chunk_rows {chunk} divides the cut FM table's {vocab} rows")
+    return chunk
+
+
+def fm_train_phase(dev, vocab_scale, n_steps, chunk_rows=0):
+    """FM trained ``n_steps`` steps and flushed; with ``chunk_rows`` the host
+    side of every move stages whole chunks (phase 7b), whose losses must be
+    bitwise phase 7's."""
+    from repro_torch.core import transmitter
     from repro_torch.core.collection import SHARED_ARENA
     from repro_torch.data import synth
     from repro_torch.kernels.cache_ops import kernel
@@ -1978,9 +2456,11 @@ def fm_train_phase(dev, vocab_scale, n_steps):
     from repro_torch.models.recsys_models import FMModel
     from repro_torch.obs.hub import fetch_ints
 
-    cfg = _fm_scaled(vocab_scale, use_pallas=False)  # the FM kernel has no backward
+    # the FM kernel has no backward
+    cfg = _fm_scaled(vocab_scale, use_pallas=False, chunk_rows=chunk_rows)
     model = FMModel(cfg)
-    state, slab = _fm_init(model, dev, "train")
+    what = f"train, chunk_rows {chunk_rows}" if chunk_rows else "train"
+    state, slab = _fm_init(model, dev, what)
     bspec = synth.ZipfSparseSpec(vocab_sizes=cfg.vocab_sizes)
     batches = [synth.sparse_batch(bspec, cfg.batch_size, 1, i) for i in range(n_steps + 2)]
 
@@ -1995,6 +2475,7 @@ def fm_train_phase(dev, vocab_scale, n_steps):
     # --- the main path: counts at 0, n_steps train steps + flush, counts read
     kernel.victim_threshold.launches = 0
     fm_kernel.fm_interaction.launches = 0
+    transmitter.moves.update(rows=0, chunked=0, chunk_block_bytes=0)
     step_ms, losses, per_step = [], [], []
     for i in range(n_steps):
         b = dev_batch(i)
@@ -2013,25 +2494,31 @@ def fm_train_phase(dev, vocab_scale, n_steps):
     flush_ms = 1e3 * (time.perf_counter() - t0)
     thr_launches = kernel.victim_threshold.launches
     fm_launches = fm_kernel.fm_interaction.launches
+    moves = dict(transmitter.moves)
 
     if not all(np.isfinite(losses)):
         raise AssertionError(f"FM non-finite training loss: {losses}")
+    if chunk_rows and (not moves["chunked"] or moves["rows"]):
+        raise AssertionError(f"FM chunk_rows {chunk_rows}: moves {moves} (want chunked only)")
     if any(p["uniq_overflows"] for p in per_step):
         raise AssertionError(f"FM unique-buffer overflow: {per_step}")
     if thr_launches != n_steps or fm_launches != 0:
         raise AssertionError(f"FM train: victim_threshold launched {thr_launches} times for "
                              f"{n_steps} plans, fm_interaction {fm_launches} (want 0)")
-    log(f"FM train: {n_steps} steps of {cfg.batch_size}; losses {losses}; step ms {step_ms}; "
+    log(f"FM {what}: {n_steps} steps of {cfg.batch_size}; losses {losses}; step ms {step_ms}; "
         f"p50 {np.percentile(step_ms, 50)} ms, p99 {np.percentile(step_ms, 99)} ms (numpy "
-        f"percentiles of {n_steps}); flush {flush_ms} ms; per step {json.dumps(per_step)}")
+        f"percentiles of {n_steps}); flush {flush_ms} ms; per step {json.dumps(per_step)}; "
+        f"transmitter moves {json.dumps(moves)} (chunk_block_bytes: the largest staging block "
+        f"a chunked load filled; row granularity stages at most {cfg.buffer_rows} rows x "
+        f"{slab.full.row_wire_bytes()} B = {cfg.buffer_rows * slab.full.row_wire_bytes()} B)")
 
     # --- after the flush: every resident arena row == its host row, bitwise
     cache = state["emb"].slabs[SHARED_ARENA].cache
-    check_resident(cache.cached_rows["weight"], cache.slot_to_row, slab.full, "FM train")
+    check_resident(cache.cached_rows["weight"], cache.slot_to_row, slab.full, f"FM {what}")
     b = dev_batch(n_steps)
-    profile_call("one FM train step", lambda: model.train_step(state, b))
+    profile_call(f"one FM {what} step", lambda: model.train_step(state, b))
     slab.full.close()
-    return {"thr_launches": thr_launches}
+    return {"thr_launches": thr_launches, "losses": losses, "moves": moves}
 
 
 # ---------------------------------------------------------------------------
@@ -2513,6 +3000,25 @@ def profile_call(what, fn, skip=(), stats=None):
     return out
 
 
+@contextlib.contextmanager
+def deterministic():
+    """torch's deterministic algorithms, for comparisons of two runs bit
+    for bit: on the card ``index_add_`` (the gather's backward) sums a
+    row's duplicate lanes with atomics in no fixed order, and the mode
+    sums them in a fixed one.  Uninitialised memory is left unfilled (the
+    port writes every tensor it allocates)."""
+    import torch.utils.deterministic as det
+
+    fill = det.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    det.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        det.fill_uninitialized_memory = fill
+
+
 def timed(what, fn, *args):
     """``fn(*args)``, logging the phase's seconds."""
     t0 = time.perf_counter()
@@ -2598,28 +3104,64 @@ def main():
     log(f"host RSS after sharded (table unpinned and freed) {rss_gb()} GB")
     sharded_crosscheck(dev)
     gc.collect()
+    with deterministic():
+        sh_pipe = timed("5b (sharded pipelined cross-check)", sharded_pipelined_crosscheck, dev)
+    gc.collect()
     budget = timed("5c (budget mode)", budget_phase, dev, args.vocab_scale, args.batches,
                    args.train_steps)
     gc.collect()
     log(f"host RSS after budget (tables unpinned and freed) {rss_gb()} GB")
-    for row, path in ((gd, "gd_launches"), (bag, "bag_launches")):
-        row["launches_by_path"] = {"train": row["launches"], "budget": budget[path]}
+    pipe = timed("5d (pipelined training)", pipeline_phase, dev, args.vocab_scale, PIPE_STEPS)
+    gc.collect()
+    log(f"host RSS after pipelined (tables unpinned and freed) {rss_gb()} GB")
+    sh_budget = timed("5e (sharded budget mode)", sharded_budget_phase, dev, args.vocab_scale,
+                      args.batches, args.train_steps)
+    gc.collect()
+    log(f"host RSS after sharded budget (tables unpinned and freed) {rss_gb()} GB")
+    gd["launches_by_path"] = {"train": gd["launches"], "budget": budget["gd_launches"],
+                              "sharded_budget": sh_budget["gd_launches"]}
+    bag["launches_by_path"] = {"train": bag["launches"], "budget": budget["bag_launches"]}
+    for row in (gd, bag):
         row["launches"] = sum(row["launches_by_path"].values())
     fm_serve = fm_serve_phase(dev, args.vocab_scale, FM_BATCHES)
     gc.collect()
     fm_train = fm_train_phase(dev, args.vocab_scale, FM_TRAIN_STEPS)
     gc.collect()
+    with deterministic():  # phase 7 again, then chunked: bitwise the same
+        fm_rows = timed("7b (FM rows, deterministic)", fm_train_phase, dev, args.vocab_scale,
+                        FM_CHECK_STEPS)
+        gc.collect()
+        fm_chunk = timed("7b (FM chunked staging)", fm_train_phase, dev, args.vocab_scale,
+                         FM_CHECK_STEPS, _fm_chunk(args.vocab_scale))
+    gc.collect()
+    fm_chunk_t = timed("7b (FM chunked staging, default mode: its times)", fm_train_phase, dev,
+                       args.vocab_scale, FM_TRAIN_STEPS, _fm_chunk(args.vocab_scale))
+    gc.collect()
+    if fm_chunk["losses"] != fm_rows["losses"]:
+        raise AssertionError(f"FM chunked losses {fm_chunk['losses']} != row-granular "
+                             f"{fm_rows['losses']}")
+    log(f"FM chunked staging: losses bitwise the row-granular run's {fm_chunk['losses']} "
+        f"(both deterministic); chunked moves {fm_chunk['moves']['chunked']}, row moves "
+        f"{fm_chunk['moves']['rows']}, largest staging block "
+        f"{fm_chunk['moves']['chunk_block_bytes']} B")
     fmk = time_fm(fm_serve["v"], max(fm_err, fm_serve["live_err"]), fm_serve["fm_launches"])
-    thr = time_threshold({"DLRM serve": (key, kv), "FM serve": (fm_serve["key"], fm_serve["kv"])},
-                         max(max_err, err, fm_serve["thr_err"]),
+    thr = time_threshold({"DLRM serve": (key, kv), "FM serve": (fm_serve["key"], fm_serve["kv"]),
+                          "DLRM depth-3 lookahead": (pipe["key"], pipe["kv"])},
+                         max(max_err, err, fm_serve["thr_err"], pipe["thr_err"]),
                          {"serve": serve_launches, "train": train_thr,
                           "sharded": sharded["thr_launches"],
+                          "sharded_pipelined": sh_pipe["thr_launches"],
                           "budget": budget["thr_launches"],
+                          **{f"pipelined {k}": v for k, v in pipe["thr_launches"].items()},
+                          "sharded_budget": sh_budget["thr_launches"],
                           "fm_serve": fm_serve["thr_launches"],
-                          "fm_train": fm_train["thr_launches"]})
-    bz = time_bucketize(sharded["captured"], max(bz_err, sharded["live_err"]),
-                        sharded["launches"])
-    del sharded, budget, fm_serve, fm_train
+                          "fm_train": fm_train["thr_launches"],
+                          "fm_7b": (fm_rows["thr_launches"] + fm_chunk["thr_launches"]
+                                    + fm_chunk_t["thr_launches"])})
+    bz = time_bucketize(sharded["captured"], max(bz_err, sharded["live_err"], sh_pipe["err"]),
+                        {**sharded["launches"], "sharded_pipelined": sh_pipe["bz_launches"],
+                         "sharded_budget": sh_budget["bz_launches"]})
+    del sharded, budget, fm_serve, fm_train, fm_rows, fm_chunk, fm_chunk_t, pipe, sh_budget
     gc.collect()
     torch.cuda.empty_cache()
     log(f"phases 1-8: {time.perf_counter() - t0} s since the build began")

@@ -15,8 +15,10 @@ the state untouched.  ``apply_plan`` moves rows through the transmitter,
 which updates the arena (and, with writeback, the host table) IN PLACE: the
 state passed to it must not be used again.
 
-Not ported yet: lookahead (``future_rows``, the pipelining slice) and
-chunked staging.
+Lookahead: ``plan_prepare(future_rows=)`` merges a window of future
+batches' rows into the admission decision (they load now and are pinned
+against eviction), as the pipelined trainer needs.  ``chunk_rows`` stages
+the host side of every move in whole chunks (bitwise the row path).
 """
 from __future__ import annotations
 
@@ -63,6 +65,7 @@ class CacheConfig:
     arena_head_ratio: float = 0.25  # fraction of capacity kept fp32 when tiered
     freq_half_life: int = 1024  # plan calls for a tracker count to halve
     use_pallas_plan: bool = False  # bounded top-K + fused dedup route
+    chunk_rows: int = 0  # host-side staging granularity (0 = rows); bitwise either way
 
     def __post_init__(self):
         if self.capacity < self.unique_size:
@@ -77,6 +80,8 @@ class CacheConfig:
             )
         if not 0.0 < self.arena_head_ratio <= 1.0:
             raise ValueError(f"arena_head_ratio must be in (0, 1], got {self.arena_head_ratio}")
+        if self.chunk_rows < 0:
+            raise ValueError(f"chunk_rows must be >= 0, got {self.chunk_rows}")
 
     @property
     def unique_size(self) -> int:
@@ -155,7 +160,7 @@ def init_cache(
 class CachePlan:
     """A movement program plus the post-apply index image (see reference)."""
 
-    miss_rows: torch.Tensor  # int32 [kv] freq-ranked rows to load (-1 inactive)
+    miss_rows: torch.Tensor  # int32 [kv] rows to load (-1 inactive); kv = k (+ lookahead uniques)
     victim_slots: torch.Tensor  # int32 [kv] destination slots
     victim_rows: torch.Tensor  # int32 [kv] rows being displaced (-1 = empty)
     load_active: torch.Tensor  # bool [kv]
@@ -190,11 +195,19 @@ def plan_prepare(
     future_rows: Optional[torch.Tensor] = None,
 ) -> CachePlan:
     """Planning half of ``prepare``: dedup, victim selection, movement plan
-    and index bookkeeping, from the index state and ids alone."""
-    if future_rows is not None and future_rows.shape[0] > 0:
-        raise NotImplementedError("lookahead planning arrives with the port's pipelining slice")
+    and index bookkeeping, from the index state and ids alone.
+
+    ``future_rows`` (int32 ``[F]``, -1 padding) is a lookahead window: its
+    unique rows not needed now are scheduled to load after the current
+    misses, as many as fit, and the slots already holding them are pinned
+    one tier above the policy key (evicted only if the current batch needs
+    the room).  The pin lives in this call only.  ``misses`` counts demand
+    misses; prefetched rows are stamped ``last_used = step``."""
+    if future_rows is not None and future_rows.shape[0] == 0:
+        future_rows = None
     k = cfg.unique_size
     capacity = state.slot_to_row.shape[0]
+    vocab = state.row_to_slot.shape[0]
     valid = rows >= 0
 
     pre_slots = take_fill(state.row_to_slot, torch.where(valid, rows, 0), -1)
@@ -203,13 +216,13 @@ def plan_prepare(
     big_rows = torch.where(valid, rows, INT_MAX)
     if cfg.use_pallas_plan:
         img = cache_ops.plan_image_impl(big_rows, state.row_to_slot, k)
-        uniq, uniq_valid = img.uniq, img.uniq_valid
+        uniq, uniq_valid, uniq_sorted = img.uniq, img.uniq_valid, img.uniq_sorted
         overflow = i32(img.n_distinct > k)
         uniq_slots, miss, n_miss = img.uniq_slots, img.miss, img.n_miss
     else:
-        uniq = unique_fixed(big_rows, k, INT_MAX)
-        uniq_valid = uniq != INT_MAX
-        uniq = torch.where(uniq_valid, uniq, -1)
+        uniq_sorted = unique_fixed(big_rows, k, INT_MAX)
+        uniq_valid = uniq_sorted != INT_MAX
+        uniq = torch.where(uniq_valid, uniq_sorted, -1)
         srt = torch.sort(big_rows).values
         n_distinct = ((srt[1:] != srt[:-1]) & (srt[1:] != INT_MAX)).sum() + (srt[0] != INT_MAX)
         overflow = i32(n_distinct > k)
@@ -217,35 +230,84 @@ def plan_prepare(
         miss = (uniq_slots < 0) & uniq_valid
         n_miss = i32(miss.sum())
 
+    # the lookahead window: its unique rows that the current batch does not need
+    kf = 0
+    if future_rows is not None:
+        kf = min(int(future_rows.shape[0]), vocab)
+        fbig = torch.where(future_rows >= 0, future_rows, INT_MAX)
+        if cfg.use_pallas_plan:
+            fut_uniq, _ = cache_ops.dedup_impl(fbig, kf, INT_MAX)
+        else:
+            fut_uniq = unique_fixed(fbig, kf, INT_MAX)
+        pos = torch.clamp(torch.searchsorted(uniq_sorted, fut_uniq), 0, k - 1)
+        in_now = uniq_sorted[pos] == fut_uniq
+        fut_valid = (fut_uniq != INT_MAX) & ~in_now
+        fut_uniq = torch.where(fut_valid, fut_uniq, -1)
+        fut_slots = take_fill(state.row_to_slot, torch.where(fut_valid, fut_uniq, 0), -1)
+        fut_miss = (fut_slots < 0) & fut_valid
+        n_fut_miss = i32(fut_miss.sum())
+
     # online frequency tracking (no planning decision below reads it)
     step = state.step + 1
     tracker = freq_lib.tracker_touch(state.tracker, uniq, uniq_valid, step, cfg.freq_half_life)
+    if kf:
+        tracker = freq_lib.tracker_touch(tracker, fut_uniq, fut_valid, step, cfg.freq_half_life)
     tracker = freq_lib.tracker_observe(tracker, id_hits, n_miss, cfg.freq_half_life)
 
-    # victim selection (Algorithm 1 lines 15-26): needed-now slots evict last
+    # victim selection (Algorithm 1 lines 15-26): needed-now slots evict
+    # last, slots holding window rows just above them
+    no_slots = torch.zeros((capacity,), dtype=torch.bool, device=rows.device)
     if cfg.protect_via_inverse:
         hit = (uniq_slots >= 0) & uniq_valid
-        protected = scatter_drop(
-            torch.zeros((capacity,), dtype=torch.bool, device=rows.device), uniq_slots, True, hit
-        )
+        protected = scatter_drop(no_slots, uniq_slots, True, hit)
     else:
         needed = torch.where(uniq_valid, uniq, -7)
         protected = torch.isin(state.slot_to_row, needed) & (state.slot_to_row >= 0)
     key = eviction_key(cfg.policy, state.slot_to_row, state.last_used, state.use_count)
     key = torch.where(state.slot_to_row < 0, _BIG, key)  # empty slots evict first
+    if kf:
+        if cfg.protect_via_inverse:
+            pinned = scatter_drop(no_slots, fut_slots, True, (fut_slots >= 0) & fut_valid)
+        else:
+            pinned = (torch.isin(state.slot_to_row, torch.where(fut_valid, fut_uniq, -7))
+                      & (state.slot_to_row >= 0))
+        key = torch.where(pinned, -(_BIG // 2), key)  # soon needed: evict late
     key = torch.where(protected, -_BIG, key).to(torch.int32)
-    kv = min(k, capacity)
+    kv = min(k + kf, capacity)  # a step never loads more rows than there are slots
     if cfg.use_pallas_plan:
         victim_slots = cache_ops.victim_topk_impl(key, kv)
     else:
         victim_slots = i32(torch.argsort(key, descending=True, stable=True)[:kv])
 
-    active = torch.arange(kv, device=rows.device) < n_miss  # one victim per miss
-    if cfg.use_pallas_plan:
-        miss_rows = torch.where(active, img.miss_rows[:kv], -1)
+    lane = torch.arange(kv, device=rows.device)
+    if kf:
+        # the current misses first, then as many window misses as fit
+        # without reclaiming a pinned or protected slot
+        n_prot = i32(protected.sum() + (pinned & ~protected).sum())
+        n_fut_load = torch.minimum(torch.clamp_min(capacity - n_prot - n_miss, 0), n_fut_miss)
+        active = lane < n_miss + n_fut_load
+        if cfg.use_pallas_plan:
+            fut_c = cache_ops.compact_front_impl(fut_miss, fut_uniq, kf)
+            cand = cache_ops.merge_candidates_impl(img.miss_rows, n_miss, fut_c, kv)
+            miss_rows = torch.where(active, cand, -1)
+        else:
+            perm_now = torch.argsort(torch.where(miss, 0, 1), stable=True)
+            perm_fut = torch.argsort(torch.where(fut_miss, 0, 1), stable=True)
+            cand_rows = torch.cat([uniq[perm_now], fut_uniq[perm_fut]])
+            dev = rows.device
+            cand_pri = torch.cat([
+                torch.where(torch.arange(k, device=dev) < n_miss, 0, 2),
+                torch.where(torch.arange(kf, device=dev) < n_fut_miss, 1, 2),
+            ])
+            perm = torch.argsort(cand_pri, stable=True)
+            miss_rows = torch.where(active, cand_rows[perm][:kv], -1)
     else:
-        perm = torch.argsort(torch.where(miss, 0, 1), stable=True)
-        miss_rows = torch.where(active, uniq[perm][:kv], -1)
+        active = lane < n_miss  # one victim per miss
+        if cfg.use_pallas_plan:
+            miss_rows = torch.where(active, img.miss_rows[:kv], -1)
+        else:
+            perm = torch.argsort(torch.where(miss, 0, 1), stable=True)
+            miss_rows = torch.where(active, uniq[perm][:kv], -1)
 
     victim_rows = state.slot_to_row[victim_slots]
     evict_active = active & (victim_rows >= 0)
@@ -273,6 +335,8 @@ def plan_prepare(
         state.use_count, touched, take_fill(state.use_count, touched, 0) + 1, uniq_valid
     )
     use_count = scatter_drop(use_count, victim_slots, 1, active)  # loaded rows start fresh
+    if kf:  # prefetched rows count as just arrived
+        last_used = scatter_drop(last_used, victim_slots, step, active)
 
     slots = torch.where(valid, take_fill(row_to_slot, torch.where(valid, rows, 0), -1), -1)
     return CachePlan(
@@ -311,11 +375,11 @@ def apply_plan(cfg: CacheConfig, full_rows, state: CacheState, plan: CachePlan) 
     if cfg.writeback:
         full_rows = transmitter.move_rows(
             state.cached_rows, full_rows, plan.victim_slots, plan.victim_rows,
-            plan.evict_active, buffer_rows=cfg.buffer_rows,
+            plan.evict_active, buffer_rows=cfg.buffer_rows, dst_chunk_rows=cfg.chunk_rows,
         )
     cached_rows = transmitter.move_rows(
         full_rows, state.cached_rows, plan.miss_rows, plan.victim_slots,
-        plan.load_active, buffer_rows=cfg.buffer_rows,
+        plan.load_active, buffer_rows=cfg.buffer_rows, src_chunk_rows=cfg.chunk_rows,
     )
     new_state = CacheState(
         cached_rows=cached_rows, **{f: getattr(plan, f) for f in INDEX_FIELDS}
@@ -323,10 +387,12 @@ def apply_plan(cfg: CacheConfig, full_rows, state: CacheState, plan: CachePlan) 
     return full_rows, new_state
 
 
-def prepare(cfg: CacheConfig, full_rows, state: CacheState, rows: torch.Tensor):
-    """Algorithm 1 ``PrepareCache``: make every row of ``rows`` resident.
-    Returns ``(full_rows', state', slots)``."""
-    plan = plan_prepare(cfg, state, rows)
+def prepare(cfg: CacheConfig, full_rows, state: CacheState, rows: torch.Tensor,
+            future_rows: Optional[torch.Tensor] = None):
+    """Algorithm 1 ``PrepareCache``: make every row of ``rows`` resident
+    (and prefetch ``future_rows``, see :func:`plan_prepare`).  Returns
+    ``(full_rows', state', slots)``."""
+    plan = plan_prepare(cfg, state, rows, future_rows=future_rows)
     full_rows, new_state = apply_plan(cfg, full_rows, state, plan)
     return full_rows, new_state, plan.slots
 
@@ -347,7 +413,8 @@ def flush(cfg: CacheConfig, full_rows, state: CacheState) -> Tuple:
     slots = torch.arange(capacity, dtype=torch.int32, device=state.slot_to_row.device)
     rows = state.slot_to_row
     full_rows = transmitter.move_rows(
-        state.cached_rows, full_rows, slots, rows, rows >= 0, buffer_rows=cfg.buffer_rows
+        state.cached_rows, full_rows, slots, rows, rows >= 0, buffer_rows=cfg.buffer_rows,
+        dst_chunk_rows=cfg.chunk_rows,
     )
     return full_rows, state
 
@@ -361,7 +428,8 @@ def warmup(cfg: CacheConfig, full_rows, state: CacheState) -> Tuple:
     active = slots < min(capacity, vocab)
     rows = torch.where(active, slots, -1)
     cached_rows = transmitter.move_rows(
-        full_rows, state.cached_rows, rows, slots, active, buffer_rows=cfg.buffer_rows
+        full_rows, state.cached_rows, rows, slots, active, buffer_rows=cfg.buffer_rows,
+        src_chunk_rows=cfg.chunk_rows,
     )
     return full_rows, dataclasses.replace(
         state,

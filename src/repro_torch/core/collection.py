@@ -18,8 +18,11 @@ picks from the frequency counts at ``init``); its arena is fp32 or
 frequency-tiered (``arena_precision`` fp16 / int8 / "auto").  The surface:
 ``init`` / ``plan_prepare`` / ``apply_plan`` / ``prepare`` / ``weights`` /
 ``gather`` / ``pool`` / ``lookup`` / ``apply_grads`` / ``flush`` /
-``full_lookup`` / ``dense_reference`` / ``metrics`` / ``device_bytes``.
-Lookahead and refresh come with later slices.
+``full_lookup`` / ``dense_reference`` / ``metrics`` / ``device_bytes``,
+and the lookahead window of the pipelined trainer (``plan_prepare(
+fb_future=)``, ``prepare_lookahead``).  ``chunk_rows`` (per table, or the
+shared arena's) stages a slab's host side in whole chunks.  Refresh comes
+with a later slice.
 
 On a CUDA device a cached slab's host tier is pinned in host memory; the
 arena, the index maps, ``idx_map`` and every DEVICE table live on the card.
@@ -96,6 +99,7 @@ class TableConfig:
     arena_precision: Optional[str] = None  # fp32 / fp16 / int8 / auto
     freq_half_life: int = 1024
     use_pallas_plan: bool = False
+    chunk_rows: int = 0  # host-side staging in whole chunks (0 = rows)
 
     @property
     def features(self) -> Tuple[str, ...]:
@@ -175,6 +179,7 @@ class ArenaConfig:
     host_precision: str = "fp32"  # the host tier's codec (fp32/fp16/int8/auto)
     arena_precision: str = "fp32"  # the arena's device-tail codec (fp32/fp16/int8/auto)
     arena_head_ratio: float = 0.25  # fp32 head fraction when the arena is tiered
+    chunk_rows: int = 0  # host-side staging in whole chunks (0 = rows)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -470,8 +475,18 @@ class CollectionState:
 
 @dataclasses.dataclass
 class CollectionPlan:
+    """Per-slab cache plans and per-feature addresses.  With a lookahead
+    window, ``future_addresses[j]`` are the addresses of ``fb_future[j]``'s
+    lanes under the post-apply index image and ``future_unresident``
+    counts the window lanes whose row will not be resident (dropped under
+    capacity pressure, or in a slab only the window touches): a trainer
+    that runs a whole group off one plan needs it at 0."""
+
     slab_plans: Dict[str, cache_lib.CachePlan]
     addresses: Dict[str, torch.Tensor]  # feature -> slots, or a DEVICE table's rows (-1 pad)
+    future_addresses: Tuple[Dict[str, torch.Tensor], ...] = ()
+    future_unresident: torch.Tensor = dataclasses.field(
+        default_factory=lambda: torch.zeros((), dtype=torch.int32))
     writeback: bool = True
 
 
@@ -493,14 +508,6 @@ def draw_chunks(seed: int, vocab: int, dim: int, dtype: torch.dtype, device: tor
         yield r0, chunk * (2 * scale) - scale
 
 
-def draw_table(seed: int, spec: "_CachedSlabSpec", device: torch.device):
-    """A cached slab's initial table as host chunks (see :func:`draw_chunks`).
-    The sharded collection draws the same chunks, so the two start from one
-    logical table."""
-    for r0, chunk in draw_chunks(seed, spec.vocab, spec.dim, spec.dtype, device):
-        yield r0, chunk.cpu()
-
-
 def slab_counts(spec: "_CachedSlabSpec", counts: Optional[Mapping[str, np.ndarray]]
                 ) -> Optional[np.ndarray]:
     """The slab's concatenated per-table counts (None without counts)."""
@@ -510,14 +517,6 @@ def slab_counts(spec: "_CachedSlabSpec", counts: Optional[Mapping[str, np.ndarra
         [np.asarray(counts.get(t.name, np.zeros((t.vocab,), np.int64)), np.int64)
          for t in spec.tables]
     )
-
-
-def slab_freq_stats(
-    spec: "_CachedSlabSpec", counts: Optional[Mapping[str, np.ndarray]]
-) -> Optional[freq_lib.FreqStats]:
-    """The slab's frequency ranking from per-table counts (None without)."""
-    c = slab_counts(spec, counts)
-    return None if c is None else freq_lib.build_freq_stats(c)
 
 
 def _translate(slab: CachedSlab, raw_ids: torch.Tensor) -> torch.Tensor:
@@ -584,6 +583,7 @@ class _CachedSlabSpec:
             protect_via_inverse=a.protect_via_inverse,
             freq_half_life=a.freq_half_life,
             use_pallas_plan=a.use_pallas_plan,
+            chunk_rows=a.chunk_rows,
             # an unresolved "auto" structures like the policy's no-stats pick;
             # init replaces it with the resolved codec before any state exists
             arena_precision=(PrecisionPolicy().no_stats if a.arena_precision == "auto"
@@ -627,6 +627,7 @@ class EmbeddingCollection:
                     protect_via_inverse=t.protect_via_inverse,
                     freq_half_life=t.freq_half_life,
                     use_pallas_plan=t.use_pallas_plan,
+                    chunk_rows=t.chunk_rows,
                     host_precision=p.host_precision or t.host_precision or "fp32",
                     arena_precision=p.arena_precision or t.arena_precision or "fp32",
                 ))
@@ -710,33 +711,12 @@ class EmbeddingCollection:
         ``self.arena_precision`` (and the arena's in the slab spec, so every
         later cache config agrees with the state)."""
         dev = resolve_device(device)
-        slabs: Dict[str, Union[DeviceSlab, CachedSlab]] = {}
-        j = 0
-        for name, t in self.device_slabs.items():
-            weight = torch.empty((t.vocab, t.dim), dtype=t.dtype, device=dev)
-            for r0, chunk in draw_chunks(seed + j, t.vocab, t.dim, t.dtype, dev):
-                weight[r0 : r0 + chunk.shape[0]] = chunk
-            slabs[name] = DeviceSlab(weight=weight)
-            j += 1
+        slabs: Dict[str, Union[DeviceSlab, CachedSlab]] = self._init_device_slabs(seed, dev)
+        j = len(slabs)
         for sname, spec in list(self.cached_slabs.items()):
             c = slab_counts(spec, counts)
-            geom = SlabGeometry(name=sname, vocab=spec.vocab, dim=spec.dim,
-                                capacity=spec.capacity, dtype_itemsize=spec.dtype.itemsize)
-            codec = host_precision or spec.arena.host_precision
-            if codec == "auto":
-                codec = self.precision_policy.choose(geom, counts=c)
-            get_codec(codec)  # fail fast on typos
-            self.host_precision[sname] = codec
-            arena_codec = arena_precision or spec.arena.arena_precision
-            if arena_codec == "auto":
-                arena_codec = self.precision_policy.choose_arena(geom, spec.head_capacity,
-                                                                 counts=c)
-            get_codec(arena_codec)
-            if arena_codec != spec.arena.arena_precision:
-                spec = dataclasses.replace(
-                    spec, arena=dataclasses.replace(spec.arena, arena_precision=arena_codec))
-                self.cached_slabs[sname] = spec
-            self.arena_precision[sname] = arena_codec
+            spec, codec = self._resolve_codecs(sname, c, spec.capacity, spec.head_capacity,
+                                               host_precision, arena_precision)
             full = HostStore.allocate({"weight": ((spec.vocab, spec.dim), spec.dtype)}, codec)
             for r0, chunk in draw_chunks(seed + j, spec.vocab, spec.dim, spec.dtype, dev):
                 full.write_rows(r0, {"weight": chunk})
@@ -758,6 +738,43 @@ class EmbeddingCollection:
             slabs[sname] = slab
         return CollectionState(slabs=slabs)
 
+    def _init_device_slabs(self, seed: int, dev: torch.device) -> Dict[str, DeviceSlab]:
+        """Each DEVICE table drawn whole on ``dev``, the j-th from ``seed + j``."""
+        slabs = {}
+        for j, (name, t) in enumerate(self.device_slabs.items()):
+            weight = torch.empty((t.vocab, t.dim), dtype=t.dtype, device=dev)
+            for r0, chunk in draw_chunks(seed + j, t.vocab, t.dim, t.dtype, dev):
+                weight[r0 : r0 + chunk.shape[0]] = chunk
+            slabs[name] = DeviceSlab(weight=weight)
+        return slabs
+
+    def _resolve_codecs(
+        self, sname: str, counts: Optional[np.ndarray], capacity: int, head_capacity: int,
+        host_precision: Optional[str], arena_precision: Optional[str],
+    ) -> Tuple["_CachedSlabSpec", str]:
+        """Slab ``sname``'s host and arena codecs ("auto": ``PrecisionPolicy``
+        on the slab's vocab and the given resident ``capacity`` / fp32
+        ``head_capacity``), recorded in ``self.host_precision`` /
+        ``self.arena_precision`` and the slab spec.  Returns (spec, host codec)."""
+        spec = self.cached_slabs[sname]
+        geom = SlabGeometry(name=sname, vocab=spec.vocab, dim=spec.dim, capacity=capacity,
+                            dtype_itemsize=spec.dtype.itemsize)
+        codec = host_precision or spec.arena.host_precision
+        if codec == "auto":
+            codec = self.precision_policy.choose(geom, counts=counts)
+        get_codec(codec)  # fail fast on typos
+        self.host_precision[sname] = codec
+        arena_codec = arena_precision or spec.arena.arena_precision
+        if arena_codec == "auto":
+            arena_codec = self.precision_policy.choose_arena(geom, head_capacity, counts=counts)
+        get_codec(arena_codec)
+        if arena_codec != spec.arena.arena_precision:
+            spec = dataclasses.replace(
+                spec, arena=dataclasses.replace(spec.arena, arena_precision=arena_codec))
+            self.cached_slabs[sname] = spec
+        self.arena_precision[sname] = arena_codec
+        return spec, codec
+
     # ----- the non-diff bookkeeping pass ------------------------------------
 
     def _slab_lanes(self, fb: FeatureBatch, sname: str) -> List[Tuple[str, int]]:
@@ -778,32 +795,70 @@ class EmbeddingCollection:
             return None
         return torch.cat(parts) if len(parts) > 1 else parts[0]
 
+    def _check_features(self, *fbs: FeatureBatch) -> None:
+        for b in fbs:
+            for f in b.features:
+                if f not in self.feature_to_table:
+                    raise KeyError(f"unknown feature {f!r}; known: {sorted(self.feature_to_table)}")
+
+    def _device_addresses(self, fbs: Sequence[FeatureBatch]) -> List[Dict[str, torch.Tensor]]:
+        """A DEVICE feature's address is its row id, for each batch."""
+        return [{f: b.ids[f].to(torch.int32) for f in b.features
+                 if self.feature_to_table[f] in self.device_slabs} for b in fbs]
+
     def plan_prepare(
-        self, state: CollectionState, fb: FeatureBatch, writeback: bool = True
+        self,
+        state: CollectionState,
+        fb: FeatureBatch,
+        fb_future: Sequence[FeatureBatch] = (),
+        writeback: bool = True,
     ) -> CollectionPlan:
         """Planning half of ``prepare``: a DEVICE feature's address is its
-        row id; each cached slab gets one cache plan over all its lanes."""
-        for f in fb.features:
-            if f not in self.feature_to_table:
-                raise KeyError(f"unknown feature {f!r}; known: {sorted(self.feature_to_table)}")
-        addresses: Dict[str, torch.Tensor] = {
-            f: fb.ids[f].to(torch.int32) for f in fb.features
-            if self.feature_to_table[f] in self.device_slabs
-        }
+        row id; each cached slab gets one cache plan over all its lanes.
+        Reads ids and index state only, never weights.
+
+        ``fb_future`` is a lookahead window of later batches: their rows are
+        merged into each slab's plan (loaded now, pinned against eviction;
+        see ``cache.plan_prepare``), and the plan carries their addresses
+        and ``future_unresident``.  A slab that only the window touches is
+        not prefetched: its window lanes count as unresident."""
+        self._check_features(fb, *fb_future)
+        addresses, *future_addresses = self._device_addresses((fb, *fb_future))
+        unresident = []
         slab_plans: Dict[str, cache_lib.CachePlan] = {}
         for sname, spec in self.cached_slabs.items():
             raw = self._slab_raw(fb, sname)
+            fut_raws = [self._slab_raw(b, sname) for b in fb_future]
             if raw is None:
+                unresident += [(r >= 0).sum() for r in fut_raws if r is not None]
                 continue
             slab = state.slabs[sname]
+            rows_fut = [None if r is None else _translate(slab, r) for r in fut_raws]
+            fut_parts = [r for r in rows_fut if r is not None]
+            future_rows = torch.cat(fut_parts) if fut_parts else None
             ccfg = spec.cache_config(ids_per_step=int(raw.shape[0]), writeback=writeback)
-            plan = cache_lib.plan_prepare(ccfg, slab.cache, _translate(slab, raw))
+            plan = cache_lib.plan_prepare(ccfg, slab.cache, _translate(slab, raw),
+                                          future_rows=future_rows)
             slab_plans[sname] = plan
             pos = 0
             for f, n in self._slab_lanes(fb, sname):
                 addresses[f] = plan.slots[pos : pos + n].reshape(fb.ids[f].shape)
                 pos += n
-        return CollectionPlan(slab_plans=slab_plans, addresses=addresses, writeback=writeback)
+            for j, (b, rows_j) in enumerate(zip(fb_future, rows_fut)):
+                if rows_j is None:
+                    continue
+                slots_j = take_fill(plan.row_to_slot, torch.where(rows_j >= 0, rows_j, 0), -1)
+                slots_j = torch.where(rows_j >= 0, slots_j, -1)
+                unresident.append(((rows_j >= 0) & (slots_j < 0)).sum())
+                pos = 0
+                for f, n in self._slab_lanes(b, sname):
+                    future_addresses[j][f] = slots_j[pos : pos + n].reshape(b.ids[f].shape)
+                    pos += n
+        plan = CollectionPlan(slab_plans=slab_plans, addresses=addresses,
+                              future_addresses=tuple(future_addresses), writeback=writeback)
+        if unresident:
+            plan.future_unresident = i32(torch.stack(unresident).sum())
+        return plan
 
     def apply_plan(self, state: CollectionState, plan: CollectionPlan) -> CollectionState:
         """Apply half: execute each slab's row movement (in place on the
@@ -823,6 +878,19 @@ class EmbeddingCollection:
         """Make every requested row resident; return per-feature addresses
         (cache slots; a DEVICE table's row ids)."""
         p = self.plan_prepare(state, fb, writeback=writeback)
+        return self.apply_plan(state, p), p.addresses
+
+    def prepare_lookahead(
+        self,
+        state: CollectionState,
+        fb_now: FeatureBatch,
+        fb_future: Sequence[FeatureBatch],
+        writeback: bool = True,
+    ) -> Tuple[CollectionState, Dict[str, torch.Tensor]]:
+        """``prepare`` with a lookahead window: ``fb_future``'s rows load
+        before they miss and stay pinned until their step; ``fb_now`` is
+        exact whatever the window (future loads are dropped first)."""
+        p = self.plan_prepare(state, fb_now, fb_future=tuple(fb_future), writeback=writeback)
         return self.apply_plan(state, p), p.addresses
 
     # ----- read path --------------------------------------------------------

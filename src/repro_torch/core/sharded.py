@@ -28,11 +28,21 @@ on the device.  The port keeps that layout on one card:
   straight-through gradient.
 * ``replicate_top_k`` keeps the K hottest ranks in a replicated ``RepArena``
   (arena addresses ``S * capacity + rank``), outside the exchange.
+* The budget mode (``create(budget_bytes=)``, a per-device budget): the
+  planner's DEVICE tables stay whole (replicated in the reference's mesh;
+  here one copy on the card) and only the CACHED / GROUPED slabs shard.
+  Each slab's host tier takes its own codec (fp32 / fp16 / int8 / "auto",
+  resolved from the slab's global geometry), its int8 sideband stacked
+  ``[S, rows_per_shard, 2]`` with the payload.  The card holds all S
+  shards' arenas, so it holds S times the per-device arena bytes that
+  ``device_bytes()["device_per_shard"]`` prices.
+* ``plan_prepare(fb_future=)`` merges a lookahead window per shard: one
+  dedup'd image of the window, routed (a second bucketize per plan) and
+  handed to each shard's plan as its ``future_rows``.
 
-The one-process-per-GPU placement over NCCL, the budget mode with per-shard
-host codecs, ``refresh`` / rebalance and lookahead (``fb_future``) come
-with later slices; ``shard_specs`` (JAX PartitionSpecs) has no counterpart
-here.
+The one-process-per-GPU placement over NCCL and ``refresh`` / rebalance
+come with later slices; ``shard_specs`` (JAX PartitionSpecs) has no
+counterpart here.
 """
 from __future__ import annotations
 
@@ -46,6 +56,7 @@ from repro_torch.core import cache as cache_lib
 from repro_torch.core import freq as freq_lib
 from repro_torch.core import transmitter
 from repro_torch.core.collection import (
+    ArenaConfig,
     CollectionState,
     EmbeddingCollection,
     FeatureBatch,
@@ -53,8 +64,8 @@ from repro_torch.core.collection import (
     PlacementPlanner,
     TableConfig,
     _CachedSlabSpec,
-    draw_table,
-    slab_freq_stats,
+    draw_chunks,
+    slab_counts,
 )
 from repro_torch.core.lanes import i32, scatter_drop, take_fill
 from repro_torch.device import DeviceLike, resolve_device
@@ -63,6 +74,7 @@ from repro_torch.kernels.cache_ops import ref as cache_ref
 from repro_torch.store.arena import tiered_arena_bytes
 from repro_torch.store.codec import get_codec
 from repro_torch.store.host_store import HostStore
+from repro_torch.store.policy import PrecisionPolicy
 
 __all__ = [
     "RepArena",
@@ -184,6 +196,11 @@ class ShardedCollectionPlan:
     routed: Dict[str, torch.Tensor]
     addresses: Dict[str, torch.Tensor]
     uniq_ranks: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+    # the lookahead window's addresses and unresident lanes, summed over
+    # the shards (``CollectionPlan``'s fields)
+    future_addresses: Tuple[Dict[str, torch.Tensor], ...] = ()
+    future_unresident: torch.Tensor = dataclasses.field(
+        default_factory=lambda: torch.zeros((), dtype=torch.int32))
     writeback: bool = True
 
 
@@ -202,11 +219,6 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
         max_routed_per_shard: int = 0,
     ):
         super().__init__(tables, plan)
-        if plan.arena.host_precision != "fp32" or plan.arena.arena_precision == "auto":
-            raise NotImplementedError(
-                "a sharded collection keeps an fp32 host tier and an explicit arena codec: "
-                "per-shard host codecs and 'auto' arrive with the sharded budget mode "
-                "(ROADMAP item 17)")
         if num_shards < 1:
             raise ValueError(f"num_shards must be >= 1, got {num_shards}")
         self.num_shards = int(num_shards)
@@ -230,14 +242,28 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
         replicate_top_k: int = 0,
         exchange_codec: Optional[str] = None,
         max_routed_per_shard: int = 0,
+        counts: Optional[Mapping[str, np.ndarray]] = None,
+        planner: Optional[PlacementPlanner] = None,
         **arena_kw,
     ) -> "ShardedEmbeddingCollection":
-        """The paper's single arena, split over ``num_shards`` shards."""
-        if budget_bytes is not None:
-            raise NotImplementedError("the sharded budget mode (per-shard placement planning) "
-                                      "arrives with ROADMAP item 17")
-        return cls(tables, PlacementPlan.single_arena(tables, **arena_kw), num_shards,
-                   replicate_top_k, exchange_codec, max_routed_per_shard)
+        """Plan and build, like ``EmbeddingCollection.create`` plus the
+        shard count: without a budget the paper's single arena split over
+        ``num_shards`` shards; with ``budget_bytes`` (the PER-DEVICE budget)
+        or a ``planner``, its DEVICE / CACHED / GROUPED plan, the cached
+        slabs sharded."""
+        if planner is None and budget_bytes is None:
+            plan = PlacementPlan.single_arena(tables, **arena_kw)
+        else:
+            planner = planner or PlacementPlanner(
+                budget_bytes,
+                arena=ArenaConfig(**arena_kw),
+                host_precision=arena_kw.get("host_precision"),
+                arena_precision=arena_kw.get("arena_precision"),
+                arena_head_ratio=arena_kw.get("arena_head_ratio", 0.25),
+            )
+            plan = planner.plan(tables, counts=counts)
+        return cls(tables, plan, num_shards, replicate_top_k, exchange_codec,
+                   max_routed_per_shard)
 
     # ----- per-shard geometry ----------------------------------------------
 
@@ -274,7 +300,10 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
             protect_via_inverse=a.protect_via_inverse,
             freq_half_life=a.freq_half_life,
             use_pallas_plan=a.use_pallas_plan,
-            arena_precision=a.arena_precision,
+            chunk_rows=a.chunk_rows,
+            # an unresolved "auto" structures like the policy's no-stats pick
+            arena_precision=(PrecisionPolicy().no_stats if a.arena_precision == "auto"
+                             else a.arena_precision),
             arena_head_ratio=a.arena_head_ratio,
         )
 
@@ -286,34 +315,53 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
         counts: Optional[Mapping[str, np.ndarray]] = None,
         warm: bool = True,
         device: DeviceLike = None,
+        host_precision: Optional[str] = None,
+        arena_precision: Optional[str] = None,
     ) -> CollectionState:
-        """The sharded state.  The table is drawn chunk by chunk exactly as
-        the unsharded ``init`` draws it (one logical table from one seed),
-        and each chunk lands straight at its ranks' homes ``owner * vs +
-        local`` in the one stacked host table; pad rows stay zero."""
+        """The sharded state, drawn chunk by chunk exactly as the unsharded
+        ``init`` draws it (DEVICE tables first, then the cached slabs, the
+        j-th from ``seed + j``: one logical table from one seed).  A DEVICE
+        table stays whole on ``device``.  Each cached chunk is encoded by
+        the slab's host codec where it was drawn and lands at its ranks'
+        homes ``owner * vs + local`` of the one stacked host table (pinned
+        whole on a CUDA device); pad rows hold the encoded zero row.
+
+        ``host_precision`` / ``arena_precision`` override every cached
+        slab's codecs; "auto" asks ``PrecisionPolicy`` from the counts, on
+        the slab's global geometry (``S`` x the shard capacity and head)."""
         dev = resolve_device(device)
         S = self.num_shards
-        slabs: Dict[str, Any] = {}
-        for sname, spec in self.cached_slabs.items():
+        slabs: Dict[str, Any] = self._init_device_slabs(seed, dev)
+        j = len(slabs)
+        for sname, spec in list(self.cached_slabs.items()):
             vs = self.rows_per_shard(spec)
-            stats = slab_freq_stats(spec, counts)
+            c = slab_counts(spec, counts)
+            stats = None if c is None else freq_lib.build_freq_stats(c)
             counts_ranked = stats.counts[stats.inv_map] if stats is not None else None
             K = min(self.replicate_top_k, spec.vocab)
             assign = PlacementPlanner.assign_devices(spec.vocab, S, counts_ranked,
                                                      replicate_top_k=K)
-            home = assign.owner.astype(np.int64) * vs + assign.local.astype(np.int64)
-            flat = torch.empty((S * vs, spec.dim), dtype=spec.dtype)
-            pad = np.ones((S * vs,), bool)
+            cap_s = self.shard_capacity(spec)
+            head_s = min(cap_s, max(1, int(round(spec.arena.arena_head_ratio * cap_s))))
+            spec, codec = self._resolve_codecs(sname, c, S * cap_s, S * head_s,
+                                               host_precision, arena_precision)
+            home = torch.from_numpy(assign.owner.astype(np.int64) * vs
+                                    + assign.local.astype(np.int64))
+            flat = HostStore.allocate({"weight": ((S * vs, spec.dim), spec.dtype)}, codec)
+            pad = torch.ones((S * vs,), dtype=torch.bool)
             pad[home] = False
-            flat[torch.from_numpy(pad)] = 0
-            home_t = torch.from_numpy(home)
-            rep_rows = torch.empty((K, spec.dim), dtype=spec.dtype)
-            for r0, chunk in draw_table(seed, spec, dev):
-                flat.index_copy_(0, home_t[r0 : r0 + chunk.shape[0]], chunk)
+            pad_rows = torch.nonzero(pad).reshape(-1)
+            flat.write_at(pad_rows, {"weight": torch.zeros((pad_rows.numel(), spec.dim),
+                                                           dtype=spec.dtype, device=dev)})
+            rep_rows = torch.empty((K, spec.dim), dtype=spec.dtype, device=dev)
+            for r0, chunk in draw_chunks(seed + j, spec.vocab, spec.dim, spec.dtype, dev):
+                flat.write_at(home[r0 : r0 + chunk.shape[0]], {"weight": chunk})
                 if r0 < K:
                     rep_rows[r0 : r0 + chunk.shape[0]] = chunk[: K - r0]
-            full = _stack_store(HostStore.create({"weight": flat}, pin=dev.type == "cuda"),
-                                S, vs)
+            j += 1
+            if dev.type == "cuda":
+                flat.pin()
+            full = _stack_store(flat, S, vs)
             ccfg = self.shard_cache_config(spec)
             cache = _stack([
                 cache_lib.init_cache(ccfg, {"weight": torch.zeros((spec.dim,), dtype=spec.dtype)},
@@ -334,7 +382,7 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
                 rank_local=torch.from_numpy(assign.local).to(dev),
                 routed_lanes=torch.zeros((S,), dtype=torch.int32, device=dev),
                 rep=RepArena(
-                    rows=rep_rows.to(dev),
+                    rows=rep_rows,
                     score=torch.zeros((K,), dtype=torch.float32, device=dev),
                     last_touch=torch.zeros((K,), dtype=torch.int32, device=dev),
                     step=torch.zeros((), dtype=torch.int32, device=dev),
@@ -407,6 +455,17 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
         w = self.max_routed_per_shard
         return None if w <= 0 or w >= u else w
 
+    def _lookup_combined(self, row_to_slot: torch.Tensor, owner: torch.Tensor,
+                         local: torch.Tensor, cap: int) -> torch.Tensor:
+        """Combined address of each (owner, local) lane under the stacked
+        ``[S, vs]`` index image (-1 when not resident on its owner, or a
+        padding / replicated lane)."""
+        enc = torch.zeros(owner.shape, dtype=torch.int32, device=owner.device)
+        for s in range(self.num_shards):
+            slot = take_fill(row_to_slot[s], torch.where(owner == s, local, 0), -1)
+            enc = enc + torch.where((owner == s) & (slot >= 0), s * cap + slot + 1, 0)
+        return i32(enc - 1)
+
     @staticmethod
     def _combine_slots(per_shard_slots: torch.Tensor, cap: int) -> torch.Tensor:
         """[S, U] per-shard slots (-1 off-shard) -> [U] combined addresses
@@ -427,20 +486,25 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
         writeback: bool = True,
     ) -> ShardedCollectionPlan:
         """Translate ids, dedup and route them, build the per-shard image,
-        and plan each shard against its slice of the stacked state."""
-        if fb_future:
-            raise NotImplementedError("lookahead planning arrives with the port's pipelining slice")
-        for f in fb.features:
-            if f not in self.feature_to_table:
-                raise KeyError(f"unknown feature {f!r}; known: {sorted(self.feature_to_table)}")
+        and plan each shard against its slice of the stacked state.
+
+        A lookahead window ``fb_future`` merges into ONE dedup'd image per
+        slab, routed and bucketized (or compacted) like the batch, whose
+        row ``s`` is shard ``s``'s ``future_rows``.  The window's addresses
+        come from the planned index images (replicated lanes always
+        resident), and ``future_unresident`` sums over the shards."""
+        self._check_features(fb, *fb_future)
         S = self.num_shards
-        addresses: Dict[str, torch.Tensor] = {}
+        addresses, *future_addresses = self._device_addresses((fb, *fb_future))
+        unresident = []
         slab_plans: Dict[str, cache_lib.CachePlan] = {}
         routed: Dict[str, torch.Tensor] = {}
         uniq_ranks: Dict[str, torch.Tensor] = {}
         for sname, spec in self.cached_slabs.items():
             raw = self._slab_raw(fb, sname)
-            if raw is None:
+            fut_raws = [self._slab_raw(b, sname) for b in fb_future]
+            if raw is None:  # touched by the window only: not prefetched
+                unresident += [(r >= 0).sum() for r in fut_raws if r is not None]
                 continue
             slab = state.slabs[sname]
             cap = self.shard_capacity(spec)
@@ -455,10 +519,22 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
                 rows_sh = self._bucketize(owner_u, local_u, fused=fused)  # [S, U]
             else:
                 rows_sh, src_sh, lane_over = self._compact_lanes(owner_u, local_u, width)
+            fut_ranks = [None if r is None else self._rank_ids(slab, r) for r in fut_raws]
+            fut_parts = [r for r in fut_ranks if r is not None]
+            fut_sh = None
+            if fut_parts:  # the window's one dedup'd image
+                fuq, _ = self._dedup(torch.cat(fut_parts), spec.vocab, fused=fused)
+                fo, fl = self._route(slab, fuq)
+                if width is None:
+                    fut_sh = self._bucketize(fo, fl, fused=fused)
+                else:  # a dropped window lane loses its pin; the guard still counts it
+                    fut_sh = self._compact_lanes(fo, fl, width)[0]
             ccfg = self.shard_cache_config(spec, ids_per_step=int(rows_sh.shape[1]),
                                            writeback=writeback)
-            plan = _stack([cache_lib.plan_prepare(ccfg, _shard(slab.cache, s), rows_sh[s])
-                           for s in range(S)])
+            plan = _stack([
+                cache_lib.plan_prepare(ccfg, _shard(slab.cache, s), rows_sh[s],
+                                       future_rows=None if fut_sh is None else fut_sh[s])
+                for s in range(S)])
             if width is not None:  # a dropped lane would gather a zero row
                 plan.uniq_overflows = plan.uniq_overflows + lane_over
             slab_plans[sname] = plan
@@ -481,8 +557,26 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
             for f, n in self._slab_lanes(fb, sname):
                 addresses[f] = lane_addr[off : off + n].reshape(fb.ids[f].shape)
                 off += n
-        return ShardedCollectionPlan(slab_plans=slab_plans, routed=routed, addresses=addresses,
-                                     uniq_ranks=uniq_ranks, writeback=writeback)
+            for j, (b, rank_j) in enumerate(zip(fb_future, fut_ranks)):
+                if rank_j is None:
+                    continue
+                o_j, l_j = self._route(slab, rank_j)
+                slots_j = self._lookup_combined(plan.row_to_slot, o_j, l_j, cap)
+                if K:
+                    slots_j = torch.where((rank_j >= 0) & (rank_j < K), ncomb + rank_j, slots_j)
+                # a replicated lane has l_j = -1: never unresident
+                unresident.append(((l_j >= 0) & (slots_j < 0)).sum())
+                off = 0
+                for f, n in self._slab_lanes(b, sname):
+                    future_addresses[j][f] = slots_j[off : off + n].reshape(b.ids[f].shape)
+                    off += n
+        plan = ShardedCollectionPlan(slab_plans=slab_plans, routed=routed, addresses=addresses,
+                                     uniq_ranks=uniq_ranks,
+                                     future_addresses=tuple(future_addresses),
+                                     writeback=writeback)
+        if unresident:
+            plan.future_unresident = i32(torch.stack(unresident).sum())
+        return plan
 
     def apply_plan(self, state: CollectionState, plan: ShardedCollectionPlan
                    ) -> CollectionState:
@@ -547,6 +641,10 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
         out = {}
         for sname, feats in by_slab.items():
             w = weights[sname]
+            if sname not in self.cached_slabs:  # a DEVICE table: row ids
+                out.update(super().gather(weights, addresses,
+                                          FeatureBatch(ids={f: fb.ids[f] for f in feats})))
+                continue
             ncomb = w.shape[0] * w.shape[1]
             w_flat = w.reshape(ncomb, w.shape[-1])
             flat = torch.cat([addresses[f].reshape(-1) for f in feats])
@@ -642,6 +740,8 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
     def full_lookup(self, state: CollectionState, table: str, local_ids: torch.Tensor
                     ) -> torch.Tensor:
         sname, off = self.table_slab[table]
+        if sname in self.device_slabs:
+            return super().full_lookup(state, table, local_ids)
         slab = state.slabs[sname]
         raw = torch.where(local_ids >= 0, local_ids + off, -1)
         return self._rank_rows(slab, self._rank_ids(slab, raw))
@@ -692,6 +792,8 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
             tr = slab.cache.tracker
             live = live + freq_lib.decay_to(tr.score, tr.last_touch, slab.cache.step[:, None],
                                             spec.arena.freq_half_life).sum(1)
+        if not self.cached_slabs:  # every table DEVICE: no exchange
+            per_shard, live = torch.zeros((S,), dtype=torch.int32), torch.zeros((S,))
         tot = i32(per_shard.sum())
         mean = tot.to(torch.float32) / S
         tot_live = live.sum()
@@ -711,13 +813,16 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
 
     def device_bytes(self) -> Dict[str, Any]:
         """Footprint of the sharded layout: ``device_total`` counts the
-        stacked arrays, the routing maps once and the replicated arena S
-        times (each GPU of a multi-GPU layout holds a copy);
-        ``device_per_shard`` is one GPU's share."""
+        DEVICE tables and the routing maps once, the stacked arrays, and
+        the replicated arena S times (each GPU of a multi-GPU layout holds
+        a copy); ``device_per_shard`` is one GPU's share, the number the
+        per-device budget bounds.  The host tier is priced at each slab's
+        codec."""
         S = self.num_shards
-        per_slab: Dict[str, int] = {}
-        replicated = stacked = rep_arenas = 0
-        slow = fast_fp32 = fast_actual = 0
+        per_slab: Dict[str, int] = {n: t.full_bytes for n, t in self.device_slabs.items()}
+        replicated = sum(per_slab.values())
+        stacked = rep_arenas = 0
+        slow = slow_fp32 = fast_fp32 = fast_actual = 0
         for sname, spec in self.cached_slabs.items():
             item = spec.dtype.itemsize
             vs = self.rows_per_shard(spec)
@@ -736,13 +841,14 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
             stacked += stack
             replicated += rep
             rep_arenas += rep_arena
-            slow += S * vs * spec.dim * item
+            slow += S * vs * get_codec(self._slab_codec(sname)).row_bytes((spec.dim,), spec.dtype)
+            slow_fp32 += S * vs * spec.dim * item
         return {
             "device_total": replicated + stacked + S * rep_arenas,
             "device_per_shard": replicated + rep_arenas + stacked // S,
             "slow_tier_bytes": slow,
-            "host_bytes_saved": 0,
+            "host_bytes_saved": slow_fp32 - slow,
             "arena_bytes_saved": fast_fp32 - fast_actual,
             "per_slab": per_slab,
-            "budget_bytes": None,
+            "budget_bytes": self.plan.budget_bytes,
         }

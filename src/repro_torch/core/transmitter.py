@@ -1,5 +1,4 @@
-"""The data transmitter (paper §4.3), row path (port of
-``repro.core.transmitter``).
+"""The data transmitter (paper §4.3), port of ``repro.core.transmitter``.
 
 Rows move in rounds of at most ``buffer_rows`` through a staging block:
 pack (gather) on the source side, one copy across the link, scatter on the
@@ -22,6 +21,18 @@ packs with ``gather_slots`` (the gather-decode kernel on the card), as the
 destination it unpacks with ``scatter_slots`` (tail lanes encode on the
 device, or take an encoded host block of their own codec verbatim).
 
+Chunked staging (``src_chunk_rows`` / ``dst_chunk_rows``, the paper's
+chunk-based manager): a side whose every leaf's row count divides by the
+chunk size moves whole contiguous chunks.  A load packs the round's unique
+chunks of the source (payload and sideband of a host store) into the
+staging block, which crosses the link in one copy and is sized by those
+chunks; the rows are picked out of it on the destination's device.  A
+write-back read-modify-writes the touched chunks of the destination on its
+own side.  Values are bitwise those of the row path; a side whose rows do
+not divide falls back to rows, as in the reference.  ``moves`` counts the
+calls that moved chunks and those that moved rows, and the largest chunked
+staging block in bytes.
+
 Unlike the functional reference, ``move_rows`` updates the destination tree
 in place (the host table is tens of GB) and returns it.
 """
@@ -31,14 +42,18 @@ from typing import Dict, Optional, Tuple, Union
 
 import torch
 
-from repro_torch.core.lanes import scatter_rows_
+from repro_torch.core.lanes import scatter_rows_, take_fill
 from repro_torch.store.arena import ArenaStore
 from repro_torch.store.host_store import HostStore
 
-__all__ = ["move_rows", "write_rows", "gather_rows", "scatter_rows", "num_rounds"]
+__all__ = ["move_rows", "write_rows", "gather_rows", "scatter_rows", "num_rounds", "moves"]
 
 Tree = Dict[str, torch.Tensor]
 Side = Union[HostStore, ArenaStore, Tree]
+
+# one count per move_rows call, by the path its host side took; plus the
+# largest staging block (bytes) a chunked load has filled
+moves = {"rows": 0, "chunked": 0, "chunk_block_bytes": 0}
 
 
 def num_rounds(k: int, buffer_rows: int) -> int:
@@ -76,6 +91,66 @@ def scatter_rows(
     return tree
 
 
+def _chunkable(leaves: Tree, chunk: int) -> bool:
+    """Chunking needs every leaf's row count to divide by ``chunk``;
+    otherwise the side moves rows."""
+    return chunk > 0 and bool(leaves) and all(v.shape[0] % chunk == 0 for v in leaves.values())
+
+
+def _chunk_plan(idx: torch.Tensor, chunk: int, n: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A round's chunk schedule: the ascending unique chunk ids of its
+    in-range lanes, and each lane's flat row ``pos * chunk + idx % chunk``
+    in the staged ``[n_chunks * chunk, ...]`` block (-1 out of range)."""
+    ok = (idx >= 0) & (idx < n)
+    cid = torch.where(ok, idx // chunk, 0)
+    uniq = torch.unique(cid[ok], sorted=True)
+    pos = torch.searchsorted(uniq, cid)
+    return uniq, torch.where(ok, pos * chunk + idx % chunk, -1)
+
+
+def _chunks(tree: Tree, uniq: torch.Tensor, chunk: int, out: Optional[Tree] = None) -> Tree:
+    """Whole chunks ``uniq`` of every leaf, as ``[len(uniq) * chunk, ...]``
+    rows (into ``out``'s leading rows if given)."""
+    res = {}
+    m = int(uniq.numel())
+    for k, leaf in tree.items():
+        rest = tuple(leaf.shape[1:])
+        view = leaf.view((leaf.shape[0] // chunk, chunk) + rest)
+        dst = out[k][: m * chunk].view((m, chunk) + rest) if out else None
+        res[k] = torch.index_select(view, 0, uniq.to(leaf.device), out=dst).view((m * chunk,) + rest)
+    return res
+
+
+def _scatter_chunked(tree: Tree, idx: torch.Tensor, block: Tree, chunk: int) -> Tree:
+    """Chunked unpack in place: gather the chunks the in-range lanes touch,
+    overwrite those rows, write the chunks back.  The other rows of a
+    touched chunk keep their bits, so this is the row scatter's result."""
+    n = next(iter(tree.values())).shape[0]
+    ok = (idx >= 0) & (idx < n)
+    uniq, flat = _chunk_plan(idx, chunk, n)
+    keep = flat[ok]
+    for k, leaf in tree.items():
+        rest = tuple(leaf.shape[1:])
+        view = leaf.view((n // chunk, chunk) + rest)
+        u = uniq.to(leaf.device)
+        staged = view.index_select(0, u)
+        rows = staged.view((-1,) + rest)
+        rows.index_copy_(0, keep.to(leaf.device), block[k][ok.to(block[k].device)].to(leaf.device))
+        view.index_copy_(0, u, staged)
+    return tree
+
+
+def _pack(tree: Tree, lanes: torch.Tensor, uniq: Optional[torch.Tensor], chunk: int,
+          out: Optional[Tree] = None) -> Tree:
+    """A source side's staging block: the chunks ``uniq`` when chunked, else
+    the rows ``lanes``."""
+    return _chunks(tree, uniq, chunk, out) if chunk else gather_rows(tree, lanes, out)
+
+
+def _row_bytes(leaves: Tree) -> int:
+    return sum(v[:1].numel() * v.element_size() for v in leaves.values())
+
+
 def _active_lanes(
     src_idx: torch.Tensor, dst_idx: torch.Tensor, active: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -101,6 +176,8 @@ def move_rows(
     active: torch.Tensor,
     *,
     buffer_rows: int,
+    src_chunk_rows: int = 0,
+    dst_chunk_rows: int = 0,
 ) -> Side:
     """Move rows ``src_idx`` of ``src_tree`` to rows ``dst_idx`` of
     ``dst_tree`` on the ``active`` lanes, in rounds of ``buffer_rows``.
@@ -113,37 +190,68 @@ def move_rows(
     arena of the same codec, the arena's tail lanes take the host payload
     and sideband verbatim (head lanes decode).  Source lanes out of range
     give zero rows; destination lanes out of range are dropped.  Active
-    destination lanes must be unique.  Returns ``dst_tree``, updated in
-    place."""
+    destination lanes must be unique.  ``src_chunk_rows`` /
+    ``dst_chunk_rows`` (0 = off) stage the named side in whole chunks (a
+    tiered arena never chunks); a side whose rows do not divide moves
+    rows.  A chunked load from a host store into a tiered arena of its
+    codec still hands the tail the picked host bits verbatim (the
+    reference re-encodes there).  Returns ``dst_tree``, updated in place."""
     src_dev = next(iter(_leaves(src_tree).values())).device
     dst_dev = next(iter(_leaves(dst_tree).values())).device
     s_all, d_all = _active_lanes(src_idx, dst_idx, active)
     step = max(1, min(buffer_rows, int(src_idx.shape[0])))
+    chunk_src = (src_chunk_rows if not isinstance(src_tree, ArenaStore)
+                 and _chunkable(_leaves(src_tree), src_chunk_rows) else 0)
+    chunk_dst = (dst_chunk_rows if not isinstance(dst_tree, ArenaStore)
+                 and _chunkable(_leaves(dst_tree), dst_chunk_rows) else 0)
+    moves["chunked" if chunk_src or chunk_dst else "rows"] += 1
+    rounds = [(s_all[a : a + step], d_all[a : a + step])
+              for a in range(0, num_rounds(int(s_all.numel()), step) * step, step)]
+    plans = []
+    stage_rows = step
+    if chunk_src:  # the staging block holds the largest round's unique chunks
+        n_src = next(iter(_leaves(src_tree).values())).shape[0]
+        plans = [_chunk_plan(s, chunk_src, n_src) for s, _ in rounds]
+        stage_rows = max([1] + [int(u.numel()) * chunk_src for u, _ in plans])
+        row_bytes = (_row_bytes(src_tree.data) + _row_bytes(src_tree.sideband)
+                     if isinstance(src_tree, HostStore) else _row_bytes(src_tree))
+        moves["chunk_block_bytes"] = max(moves["chunk_block_bytes"],
+                                         (stage_rows if plans else 0) * row_bytes)
     load = isinstance(src_tree, HostStore) and src_tree.pinned and dst_dev.type == "cuda"
     save = isinstance(dst_tree, HostStore) and dst_tree.pinned and src_dev.type == "cuda"
-    ring = src_tree.staging(step) if load else dst_tree.staging(step) if save else None
+    ring = src_tree.staging(stage_rows) if load else dst_tree.staging(step) if save else None
     verbatim = (isinstance(src_tree, HostStore) and isinstance(dst_tree, ArenaStore)
                 and src_tree.codec == dst_tree.codec)
-    for r in range(num_rounds(int(s_all.numel()), step)):
-        s = s_all[r * step : (r + 1) * step]
-        d = d_all[r * step : (r + 1) * step]
+    unpack = (lambda t, d, b: _scatter_chunked(t, d, b, chunk_dst)) if chunk_dst else scatter_rows
+    for r, (s, d) in enumerate(rounds):
         n = int(s.numel())
+        m = int(plans[r][0].numel()) * chunk_src if chunk_src else n
         enc = side = None
-        if isinstance(src_tree, HostStore):  # pack the encoded rows on the host
+        uniq = plans[r][0] if chunk_src else None
+        if isinstance(src_tree, HostStore):  # pack the encoded rows (or chunks) on the host
             if load:  # into pinned staging, async H2D
                 i, (stage, stage_side) = ring.acquire()
-                enc = gather_rows(src_tree.data, s, out={k: b[:n] for k, b in stage.items()})
-                side = gather_rows(src_tree.sideband, s,
-                                   out={k: b[:n] for k, b in stage_side.items()})
+                enc = _pack(src_tree.data, s, uniq, chunk_src, {k: b[:m] for k, b in stage.items()})
+                side = _pack(src_tree.sideband, s, uniq, chunk_src,
+                             {k: b[:m] for k, b in stage_side.items()})
                 enc = {k: v.to(dst_dev, non_blocking=True) for k, v in enc.items()}
                 side = {k: v.to(dst_dev, non_blocking=True) for k, v in side.items()}
                 ring.release_after_copy(i)
             else:
-                enc = {k: v.to(dst_dev) for k, v in gather_rows(src_tree.data, s).items()}
-                side = {k: v.to(dst_dev) for k, v in gather_rows(src_tree.sideband, s).items()}
+                enc = {k: v.to(dst_dev) for k, v in _pack(src_tree.data, s, uniq, chunk_src).items()}
+                side = {k: v.to(dst_dev)
+                        for k, v in _pack(src_tree.sideband, s, uniq, chunk_src).items()}
+            if chunk_src:  # pick the rows out of the staged chunks on the device
+                flat = plans[r][1].to(dst_dev)
+                enc = {k: take_fill(v, flat, 0) for k, v in enc.items()}
+                side = {k: take_fill(v, flat, 0) for k, v in side.items()}
             block = src_tree.decode_block(enc, side)  # decoded on the destination's device
         elif isinstance(src_tree, ArenaStore):
             block = src_tree.gather_slots(s.to(src_dev, torch.int32))
+        elif chunk_src:
+            staged = _chunks(src_tree, uniq, chunk_src)
+            flat = plans[r][1].to(dst_dev)
+            block = {k: take_fill(v.to(dst_dev), flat, 0) for k, v in staged.items()}
         else:
             block = gather_rows(src_tree, s.to(src_dev))
         if isinstance(dst_tree, HostStore):  # encode on the source's device
@@ -158,9 +266,9 @@ def move_rows(
             else:
                 data_blk = {k: v.to(dst_dev) for k, v in data_blk.items()}
                 side_blk = {k: v.to(dst_dev) for k, v in side_blk.items()}
-            scatter_rows(dst_tree.data, d, data_blk)  # the lanes are on the host already
+            unpack(dst_tree.data, d, data_blk)  # the lanes are on the host already
             if side_blk:
-                scatter_rows(dst_tree.sideband, d, side_blk)
+                unpack(dst_tree.sideband, d, side_blk)
         elif isinstance(dst_tree, ArenaStore):
             payload_blk = side_blk = None
             if verbatim:  # tail lanes take the host tier's exact bits
@@ -170,16 +278,18 @@ def move_rows(
             dst_tree.scatter_slots(d.to(dst_dev), {k: v.to(dst_dev) for k, v in block.items()},
                                    payload_block=payload_blk, side_block=side_blk)
         else:
-            scatter_rows(dst_tree, d.to(dst_dev), {k: v.to(dst_dev) for k, v in block.items()})
+            unpack(dst_tree, d.to(dst_dev), {k: v.to(dst_dev) for k, v in block.items()})
     return dst_tree
 
 
 def write_rows(
-    rows: Tree, dst_tree: Side, dst_idx: torch.Tensor, active: torch.Tensor, *, buffer_rows: int
+    rows: Tree, dst_tree: Side, dst_idx: torch.Tensor, active: torch.Tensor, *,
+    buffer_rows: int, dst_chunk_rows: int = 0,
 ) -> Side:
     """Scatter an explicit block (row ``i`` -> ``dst_idx[i]``) into
     ``dst_tree`` through the same staging rounds as :func:`move_rows`.  The
     sharded collection pushes its replicated arena back to the rows' host
     homes with it."""
     src_idx = torch.arange(dst_idx.shape[0], dtype=dst_idx.dtype, device=dst_idx.device)
-    return move_rows(rows, dst_tree, src_idx, dst_idx, active, buffer_rows=buffer_rows)
+    return move_rows(rows, dst_tree, src_idx, dst_idx, active, buffer_rows=buffer_rows,
+                     dst_chunk_rows=dst_chunk_rows)

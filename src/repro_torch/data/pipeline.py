@@ -4,14 +4,18 @@ prefetch with exact checkpoint-resume.
 Batches are pure functions of (seed, step), so resuming at step N replays
 the identical stream.  A worker thread prefetches ``depth`` batches ahead so
 host-side generation (and the host-to-device copy, when ``make_batch``
-makes one) overlaps the step on the card.  Lookahead and finite streams
-come with the port's pipelining slice, which reads them.
+makes one) overlaps the step on the card.  Because batches are made ahead
+anyway, the ids of future batches are known before their step runs (the
+BagPipe observation, arXiv 2202.12429): ``lookahead(k)`` shows the next k
+batches without consuming them, which is how the pipelined trainer plans a
+group's cache movement ahead.  ``make_batch`` may end a finite stream by
+raising ``StopIteration``.
 """
 from __future__ import annotations
 
 import collections
 import threading
-from typing import Callable, Dict, Iterator, Tuple
+from typing import Callable, Dict, Iterator, List, Tuple
 
 __all__ = ["Prefetcher"]
 
@@ -19,11 +23,16 @@ __all__ = ["Prefetcher"]
 class Prefetcher:
     """Wrap ``make_batch(step) -> dict`` with background prefetch from ``start_step``.
 
-    Iteration yields ``(step, batch)`` in order.  An exception in
-    ``make_batch`` re-raises in the consumer, in stream order.  ``close()``
-    stops and *joins* the worker (a drain-only shutdown races with a worker
-    that refills after the drain, leaking a blocked daemon thread per
-    trainer run).
+    Iteration yields ``(step, batch)`` in order; ``lookahead(k)`` peeks the
+    batches the next k ``__next__`` calls would return.  ``close()`` stops
+    and *joins* the worker (a drain-only shutdown races with a worker that
+    refills after the drain, leaking a blocked daemon thread per trainer
+    run).
+
+    End of stream: ``make_batch`` raising ``StopIteration`` ends a finite
+    stream cleanly; the buffered batches stay consumable, then iteration
+    stops and ``lookahead`` returns what remains.  Any other exception
+    re-raises in the consumer, in stream order.
     """
 
     def __init__(self, make_batch: Callable[[int], Dict], start_step: int = 0, depth: int = 2):
@@ -32,6 +41,7 @@ class Prefetcher:
         self._buf: "collections.deque" = collections.deque()
         self._cv = threading.Condition()
         self._err: Exception | None = None
+        self._done = False  # the producer ended the stream (StopIteration)
         self._stop = False
         self._start = start_step
         self._thread = threading.Thread(target=self._worker, daemon=True)
@@ -47,6 +57,11 @@ class Prefetcher:
                     return
             try:
                 batch = self.make_batch(step)
+            except StopIteration:  # the clean end of a finite stream
+                with self._cv:
+                    self._done = True
+                    self._cv.notify_all()
+                return
             except Exception as e:  # surface in consumer, in stream order
                 with self._cv:
                     self._err = e
@@ -59,12 +74,19 @@ class Prefetcher:
                 self._cv.notify_all()
             step += 1
 
+    @property
+    def exhausted(self) -> bool:
+        """True once the producer has ended the stream (batches may still
+        be buffered)."""
+        with self._cv:
+            return self._done
+
     def __iter__(self) -> Iterator:
         return self
 
     def __next__(self) -> Tuple[int, Dict]:
         with self._cv:
-            while not self._buf and self._err is None and not self._stop:
+            while not self._buf and self._err is None and not self._done and not self._stop:
                 self._cv.wait()
             if self._buf:
                 item = self._buf.popleft()
@@ -72,7 +94,29 @@ class Prefetcher:
                 return item
             if self._err is not None:
                 raise self._err
-            raise StopIteration  # prefetcher closed
+            raise StopIteration  # stream ended or prefetcher closed
+
+    def lookahead(self, k: int) -> List[Tuple[int, Dict]]:
+        """The next ``k`` (step, batch) pairs, not consumed.
+
+        A batch not made yet blocks the call; a list shorter than ``k``
+        always means the stream ended (possibly empty); a producer error
+        raises here once fewer than ``k`` batches remain; peeking a closed
+        prefetcher whose stream had not ended raises ``RuntimeError``.
+        Needs ``k <= depth``."""
+        if k <= 0:
+            return []
+        if k > self.depth:
+            raise ValueError(f"lookahead({k}) exceeds prefetch depth {self.depth}")
+        with self._cv:
+            while len(self._buf) < k and self._err is None and not self._done and not self._stop:
+                self._cv.wait()
+            if len(self._buf) < k:
+                if self._err is not None:
+                    raise self._err
+                if self._stop and not self._done:
+                    raise RuntimeError("lookahead on a closed Prefetcher")
+            return [self._buf[i] for i in range(min(k, len(self._buf)))]
 
     def close(self):
         with self._cv:

@@ -19,7 +19,9 @@ __all__ = [
     "PlanImage",
     "arena_gather_impl",
     "bucketize_impl",
+    "compact_front_impl",
     "dedup_impl",
+    "merge_candidates_impl",
     "plan_image_impl",
     "shard_bucketize",
     "victim_topk_impl",
@@ -37,6 +39,15 @@ def victim_topk_impl(key: torch.Tensor, kv: int) -> torch.Tensor:
 
 def dedup_impl(rows: torch.Tensor, k: int, fill: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return _ref.dedup(rows, k, fill)
+
+
+def compact_front_impl(mask: torch.Tensor, values: torch.Tensor, out_len: int) -> torch.Tensor:
+    return _ref.compact_front(mask, values, out_len)
+
+
+def merge_candidates_impl(now: torch.Tensor, n_now: torch.Tensor, fut: torch.Tensor, kv: int
+                          ) -> torch.Tensor:
+    return _ref.merge_candidates(now, n_now, fut, kv)
 
 
 def bucketize_impl(owner: torch.Tensor, local: torch.Tensor, num_shards: int) -> torch.Tensor:

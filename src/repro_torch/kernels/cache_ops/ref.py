@@ -8,6 +8,8 @@
   sort.
 * ``compact_front`` — masked values compacted to the front, as a cumsum
   scatter.
+* ``merge_candidates`` — the lookahead plan's load list: the current
+  misses, then the window's, as a lane select.
 * ``plan_image`` — fused dedup -> residency probe -> miss compaction.
 * ``arena_gather`` — decode-on-read gather over one tiered arena leaf.
 * ``bucketize`` — the sharded router's ``[S, U]`` per-shard routing image
@@ -33,6 +35,7 @@ __all__ = [
     "bucketize",
     "compact_front",
     "dedup",
+    "merge_candidates",
     "ordered_u32",
     "plan_image",
     "topk_select",
@@ -93,6 +96,17 @@ def compact_front(mask: torch.Tensor, values: torch.Tensor, out_len: int) -> tor
     pos = torch.cumsum(mask.to(torch.int32), 0) - 1
     empty = torch.full((int(out_len),), -1, dtype=values.dtype, device=values.device)
     return scatter_drop(empty, pos, values, mask)
+
+
+def merge_candidates(now: torch.Tensor, n_now: torch.Tensor, fut: torch.Tensor, kv: int
+                     ) -> torch.Tensor:
+    """Lane ``j`` of the merged load list: ``now[j]`` while ``j < n_now``,
+    then ``fut[j - n_now]`` (indices clamped into each run; the caller's
+    ``active`` mask hides the lanes past both runs)."""
+    j = torch.arange(int(kv), dtype=torch.int64, device=now.device)
+    now_v = now[torch.clamp(j, 0, now.shape[0] - 1)]
+    fut_v = fut[torch.clamp(j - n_now, 0, fut.shape[0] - 1)]
+    return torch.where(j < n_now, now_v, fut_v)
 
 
 @dataclasses.dataclass

@@ -1,8 +1,10 @@
-"""Training launcher: the serial trainer on synthetic Zipf batches.
+"""Training launcher: the serial or pipelined trainer on synthetic Zipf
+batches.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-criteo --steps 50 --arena-precision int8
   PYTHONPATH=src python -m repro_torch.launch.train --arch fm --steps 50 --host-precision int8
   PYTHONPATH=src python -m repro_torch.launch.train --model-shards 4 --replicate-top-k 64
+  PYTHONPATH=src python -m repro_torch.launch.train --pipeline-depth 2 --chunk-rows 8
 
 Runs on the CUDA card; ``--device cpu`` runs it on the CPU.  DIN, DIEN and
 MIND, the reference launcher's other architectures, come with their models
@@ -15,12 +17,12 @@ import argparse
 from repro_torch.data import synth
 from repro_torch.models.dlrm import DLRM, DLRMConfig
 from repro_torch.models.recsys_models import FMConfig, FMModel
-from repro_torch.train.trainer import Trainer, TrainerConfig
+from repro_torch.train.trainer import PipelinedTrainer, Trainer, TrainerConfig
 
 
 def build(arch: str, batch: int, arena_precision: str, model_shards: int = 0,
           replicate_top_k: int = 0, exchange_codec: str = "fp32", max_routed_per_shard: int = 0,
-          host_precision: str = "fp32"):
+          host_precision: str = "fp32", chunk_rows: int = 0):
     """The reference launcher's config of ``arch``: (model, batch spec).
     Victim selection always goes through the bounded top-K route, whose
     threshold is the CUDA kernel on the card (bit-identical to the full
@@ -36,14 +38,15 @@ def build(arch: str, batch: int, arena_precision: str, model_shards: int = 0,
         cfg = DLRMConfig(vocab_sizes=(100_000, 50_000, 20_000), embed_dim=32, batch_size=batch,
                          cache_ratio=0.02, lr=0.3, bottom_mlp=(64, 32), top_mlp=(64,),
                          host_precision=host_precision, arena_precision=arena_precision,
-                         use_pallas_plan=True, model_shards=model_shards, replicate_top_k=replicate_top_k,
+                         use_pallas_plan=True, chunk_rows=chunk_rows, model_shards=model_shards,
+                         replicate_top_k=replicate_top_k,
                          exchange_codec=exchange_codec,
                          max_routed_per_shard=max_routed_per_shard)
         return DLRM(cfg), synth.ZipfSparseSpec(vocab_sizes=cfg.vocab_sizes, n_dense=13)
     # fm trains through the sum-square torch ops: the FM kernel has no backward
     cfg = FMConfig(vocab_sizes=(100_000,) * 6, embed_dim=10, batch_size=batch, cache_ratio=0.02,
                    host_precision=host_precision, arena_precision=arena_precision,
-                   use_pallas_plan=True)
+                   use_pallas_plan=True, chunk_rows=chunk_rows)
     return FMModel(cfg), synth.ZipfSparseSpec(vocab_sizes=cfg.vocab_sizes)
 
 
@@ -75,23 +78,32 @@ def main(argv=None):
     ap.add_argument("--max-routed-per-shard", type=int, default=0,
                     help="sharded: per-shard plan width bound (0 = full width); lanes past "
                          "it raise through the overflow guard")
+    ap.add_argument("--pipeline-depth", type=int, default=0,
+                    help="0 = serial; k >= 1 = pipelined groups of k steps off one merged "
+                         "cache plan, the next group planned ahead")
+    ap.add_argument("--chunk-rows", type=int, default=0,
+                    help="0 = host staging in rows; N = in contiguous N-row chunks (bitwise "
+                         "the same; a table whose rows do not divide by N moves rows)")
     ap.add_argument("--device", default=None, help="default: the CUDA card")
     args = ap.parse_args(argv)
 
     model, spec = build(args.arch, args.batch, args.arena_precision, args.model_shards,
                         args.replicate_top_k, args.exchange_codec, args.max_routed_per_shard,
-                        args.host_precision)
+                        args.host_precision, args.chunk_rows)
     tc = TrainerConfig(max_steps=args.steps, ckpt_dir=args.ckpt_dir, ckpt_every=25,
-                       obs_dir=args.obs_dir)
-    trainer = Trainer(
-        tc,
+                       obs_dir=args.obs_dir, pipeline_depth=args.pipeline_depth)
+    kw = dict(
         init_fn=lambda: model.init(0, device=args.device),
-        step_fn=model.train_step,
         make_batch=lambda s: synth.sparse_batch(spec, args.batch, 0, s),
         flush_fn=model.flush,
         on_straggler=lambda s, dt: print(f"[straggler] step {s}: {dt * 1e3:.0f} ms"),
         device=args.device,
     )
+    if args.pipeline_depth > 0:  # both archs are collection-backed (split plan/compute)
+        trainer = PipelinedTrainer(tc, plan_fn=model.plan_step, compute_fn=model.compute_step,
+                                   apply_fn=model.apply_step, **kw)
+    else:
+        trainer = Trainer(tc, step_fn=model.train_step, **kw)
     state = trainer.run()
     for slab in state["emb"].slabs.values():
         slab.full.close()

@@ -2,7 +2,8 @@
 ``repro.models.common``): losses, metrics, and the cached-embedding train
 step (plan -> apply -> differentiable gather -> synchronous row update).
 
-``CollectionTrainStep`` is the reference's step: a ``FeatureBatch`` goes
+``CollectionTrainStep`` is the reference's step, fused (``__call__``) and
+split into the pipelined trainer's three stages: a ``FeatureBatch`` goes
 through ``EmbeddingCollection.plan_prepare`` / ``apply_plan`` outside the
 gradient, the loss is differentiated with ``torch.autograd`` w.r.t. the
 dense parameters and ``collection.weights`` (the fast tier: each cached
@@ -15,7 +16,7 @@ place, so a state passed to a step must not be used again.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List
+from typing import Any, Callable, Dict, List, Tuple
 
 import torch
 
@@ -77,9 +78,18 @@ class CollectionTrainStep:
     loss: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] = bce_with_logits
     emb_lr: float = 0.05
 
-    def plan_step(self, state: Dict[str, Any], batch: Dict[str, torch.Tensor]) -> CollectionPlan:
-        """Weight-free planning half: dedup, slot assignment, movement plan."""
-        return self.collection.plan_prepare(state["emb"], self.features(batch))
+    def plan_step(
+        self,
+        state: Dict[str, Any],
+        batch: Dict[str, torch.Tensor],
+        future_batches: Tuple[Dict[str, torch.Tensor], ...] = (),
+    ) -> CollectionPlan:
+        """Weight-free planning half: dedup, slot assignment, movement plan
+        for ``batch``, with ``future_batches``' ids merged as a lookahead
+        window (their rows load now and stay pinned; see
+        ``EmbeddingCollection.plan_prepare``)."""
+        fut = tuple(self.features(b) for b in future_batches)
+        return self.collection.plan_prepare(state["emb"], self.features(batch), fb_future=fut)
 
     def apply_step(self, state: Dict[str, Any], plan: CollectionPlan) -> Dict[str, Any]:
         """Execute a plan's row movement (writeback first, then loads)."""
@@ -147,8 +157,8 @@ class CollectionModelMixin:
     def train_step(self, state, batch):
         return self._train_step()(state, batch)
 
-    def plan_step(self, state, batch):
-        return self._train_step().plan_step(state, batch)
+    def plan_step(self, state, batch, future_batches=()):
+        return self._train_step().plan_step(state, batch, future_batches)
 
     def apply_step(self, state, plan):
         return self._train_step().apply_step(state, plan)
@@ -158,4 +168,4 @@ class CollectionModelMixin:
 
     def refresh(self, state, cfg=None, writeback: bool = True):
         raise NotImplementedError("the adaptive frequency refresh arrives with the port's "
-                                  "refresh slice")
+                                  "refresh slice (ROADMAP item 11)")

@@ -13,8 +13,9 @@ into one shared cache arena (the paper's one-big-table layout); with
 small tables DEVICE and gives each large one its own CACHED slab.  The
 arena is fp32 or frequency-tiered (``arena_precision`` fp16 / int8 /
 auto), the host tier fp32 or encoded (``host_precision`` fp16 / int8 /
-auto).  ``use_pallas_plan`` reaches every cached slab (the reference sets
-it on the shared arena only; the route is bit-identical either way).  The
+auto).  ``use_pallas_plan`` and ``chunk_rows`` reach every cached slab
+(the reference sets them on the shared arena only; each is bit-identical
+either way).  The
 model computes in fp32; float32 matmuls run in full fp32 (``allow_tf32``
 stays False).  ``train_step`` / ``plan_step`` / ``apply_step`` / ``compute_step``
 come from :class:`~repro_torch.models.common.CollectionModelMixin`.
@@ -52,6 +53,7 @@ class DLRMConfig:
     policy: Optional[Policy] = None  # None -> FREQ_LFU
     dtypes: Dtypes = Dtypes(param=torch.float32, compute=torch.float32)
     use_pallas_plan: bool = False  # bounded top-K victim selection (the kernel)
+    chunk_rows: int = 0  # host-side staging in whole chunks (0 = rows)
     device_budget_bytes: Optional[int] = None  # None: the paper's single arena
     # host-tier codec of the cached slabs: fp32 (bit-exact), fp16, int8
     # (row-wise scale / zero point) or auto (PrecisionPolicy from the counts)
@@ -87,7 +89,7 @@ class DLRM(common.CollectionModelMixin):
                 name=n, vocab=v, dim=cfg.embed_dim, ids_per_step=cfg.batch_size,
                 cache_ratio=cfg.cache_ratio, policy=policy, buffer_rows=cfg.buffer_rows,
                 max_unique_per_step=cfg.max_unique_per_step, dtype=cfg.dtypes.param,
-                use_pallas_plan=cfg.use_pallas_plan,
+                use_pallas_plan=cfg.use_pallas_plan, chunk_rows=cfg.chunk_rows,
             )
             for n, v in zip(self.feature_names, cfg.vocab_sizes)
         ]
@@ -99,6 +101,7 @@ class DLRM(common.CollectionModelMixin):
             buffer_rows=cfg.buffer_rows,
             max_unique_per_step=cfg.max_unique_per_step,
             use_pallas_plan=cfg.use_pallas_plan,
+            chunk_rows=cfg.chunk_rows,
             arena_precision=cfg.arena_precision,
             arena_head_ratio=cfg.arena_head_ratio,
         )

@@ -49,6 +49,7 @@ class FMConfig:
     arena_precision: str = "fp32"  # device-arena tail codec (fp32 / fp16 / int8 / auto)
     arena_head_ratio: float = 0.25  # fp32 head share of a tiered arena
     use_pallas_plan: bool = False  # bounded top-K victim selection (the kernel)
+    chunk_rows: int = 0  # host-side staging in whole chunks (0 = rows)
     policy: Optional[Policy] = None  # None -> FREQ_LFU
 
 
@@ -72,6 +73,7 @@ class FMModel(common.CollectionModelMixin):
             arena_precision=cfg.arena_precision,
             arena_head_ratio=cfg.arena_head_ratio,
             use_pallas_plan=cfg.use_pallas_plan,
+            chunk_rows=cfg.chunk_rows,
             policy=cfg.policy or Policy.FREQ_LFU,
         )
 

@@ -165,6 +165,16 @@ class HostStore:
         for k, v in side.items():
             self.sideband[k][r0 : r0 + v.shape[0]].copy_(v)
 
+    def write_at(self, idx: torch.Tensor, block: Tree) -> None:
+        """Store full-precision rows at the host rows ``idx`` (int64,
+        unique), encoded where ``block`` lives, then copied to the host
+        leaves."""
+        data, side = self.encode_block(block)
+        for k, v in data.items():
+            self.data[k].index_copy_(0, idx, v.cpu())
+        for k, v in side.items():
+            self.sideband[k].index_copy_(0, idx, v.cpu())
+
     def pin(self) -> None:
         """Page-lock every payload and sideband leaf in place."""
         if not self.pinned:
@@ -202,11 +212,11 @@ class HostStore:
         self._ring = None
 
     def staging(self, rows: int) -> StagingRing:
-        """The store's staging ring of ``rows``-row blocks (built on first
-        use), shared by the owner's views; blocks take this store's row
-        shape, sideband included."""
+        """The store's staging ring of blocks of at least ``rows`` rows
+        (built on first use, rebuilt only to grow), shared by the owner's
+        views; blocks take this store's row shape, sideband included."""
         home = self._owner or self
-        if home._ring is None or home._ring.rows != rows:
+        if home._ring is None or home._ring.rows < rows:
             home._ring = StagingRing(self.data, self.sideband, rows)
         return home._ring
 

@@ -1,4 +1,5 @@
-"""Serial training loop (port of ``repro.train.trainer``'s ``Trainer``):
+"""Training loops (port of ``repro.train.trainer``): the serial ``Trainer``
+and the lookahead-pipelined ``PipelinedTrainer``.
 
 * checkpoint / restart — async atomic checkpoints every N steps, the cache
   flushed first (``flush_fn``) so the host table is authoritative; on start
@@ -11,9 +12,11 @@
   plus the unique-buffer overflow guard and one batched fetch each of the
   float telemetry and the exact int32 counters (rebuilt by ``MetricsHub``).
 
-The pipelined trainer (``pipeline_depth > 0``) and the adaptive refresh
-(``refresh_interval``) arrive with their slices of the port.  The trainer
-runs on the CUDA card unless given ``device="cpu"``.
+``PipelinedTrainer`` (``pipeline_depth`` k > 0) runs the model's split step
+in groups of k off one merged cache plan, planning the next group before
+the host blocks on any loss of this one.  The adaptive refresh
+(``refresh_interval``, ROADMAP item 11) arrives with its slice of the port.
+The trainers run on the CUDA card unless given ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -30,7 +33,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.obs import NULL_TRACER, FixedHistogram, MetricsHub, Tracer
 from repro_torch.train import checkpoint as ckpt_lib
 
-__all__ = ["TrainerConfig", "Trainer", "StragglerDetector"]
+__all__ = ["TrainerConfig", "Trainer", "PipelinedTrainer", "StragglerDetector"]
 
 
 @dataclasses.dataclass
@@ -66,7 +69,9 @@ class TrainerConfig:
     straggler_factor: float = 3.0
     prefetch_depth: int = 2
     assert_no_uniq_overflow: bool = True
-    pipeline_depth: int = 0  # > 0: the port's pipelining slice
+    # 0: serial, one fused step_fn a step.  k >= 1: PipelinedTrainer, groups
+    # of k steps off one merged plan, the next group planned ahead
+    pipeline_depth: int = 0
     refresh_interval: Optional[int] = None  # set: the port's refresh slice
     # None: exact counters accumulate, nothing is written, spans are off.
     # A directory: per-step JSONL, span aggregate, step-time histogram and a
@@ -77,12 +82,9 @@ class TrainerConfig:
     history_limit: Optional[int] = None  # keep only the last N records in memory
 
     def __post_init__(self):
-        if self.pipeline_depth > 0:
-            raise NotImplementedError("pipeline_depth > 0: the pipelined trainer arrives "
-                                      "with the port's pipelining slice")
         if self.refresh_interval:
             raise NotImplementedError("refresh_interval: the adaptive frequency refresh "
-                                      "arrives with the port's refresh slice")
+                                      "arrives with the port's refresh slice (ROADMAP item 11)")
 
 
 def _to_device(batch: Dict[str, Any], device: torch.device) -> Dict[str, torch.Tensor]:
@@ -196,6 +198,130 @@ class Trainer:
                 with self.tracer.span("step"):
                     state, metrics = self.step_fn(state, batch)
                 state = self._post_step(step_i, state, metrics, t0)
+            if self.checkpointer:
+                self.checkpointer.wait()
+        finally:
+            prefetch.close()
+            self._finish_obs()
+        return state
+
+
+class PipelinedTrainer(Trainer):
+    """Lookahead-pipelined training over the model's three stages:
+
+    * ``plan_fn(state, batch, future_batches) -> plan``: weight-free dedup,
+      slot assignment and movement plan, with the window's ids merged in
+      (their rows load early and stay pinned until used);
+    * ``compute_fn(state, batch, addresses) -> (state, metrics)``: the dense
+      forward and backward, the optimizer and the row update;
+    * ``apply_fn(state, plan) -> state``: the planned row movement.
+
+    Steps run in groups of ``pipeline_depth``: one merged plan admits the
+    whole group's rows, so the plan and its movement are paid once a group.
+    The next group's plan is made at the group's first compute, before the
+    host blocks on any loss: planning reads only ids and the index tensors,
+    which compute leaves alone (the arena and host table, which compute
+    and apply update in place, are never read by it).  Its movement is
+    applied after the group's last compute, so evictions write back fresh
+    rows.  On the port's one CUDA stream the overlap is on the host: the
+    plan's enqueue leaves the loss-to-loss path.
+
+    With an fp32 host tier and arena, any depth gives the serial
+    ``Trainer``'s losses bit for bit; with a quantized tier or arena the
+    pins change which rows are requantized, so they agree to codec noise.
+    A group runs off one plan only if every member's rows made residency:
+    the plan's ``future_unresident`` is fetched once a group and a non-zero
+    count raises with the remedy.  Cache hit and miss counters are recorded
+    by the plans, so under grouping they sample the group leaders only, as
+    in the reference."""
+
+    def __init__(
+        self,
+        cfg: TrainerConfig,
+        init_fn: Callable[[], Any],
+        plan_fn: Callable[[Any, Dict, tuple], Any],  # (state, batch, window) -> plan
+        compute_fn: Callable[[Any, Dict, Any], Any],  # (state, batch, addresses)
+        apply_fn: Callable[[Any, Any], Any],  # (state, plan) -> state
+        make_batch: Callable[[int], Dict],
+        flush_fn: Optional[Callable[[Any], Any]] = None,
+        on_straggler: Optional[Callable[[int, float], None]] = None,
+        device: DeviceLike = None,
+    ):
+        super().__init__(cfg, init_fn, step_fn=None, make_batch=make_batch, flush_fn=flush_fn,
+                         on_straggler=on_straggler, device=device)
+        self.plan_fn = plan_fn
+        self.compute_fn = compute_fn
+        self.apply_fn = apply_fn
+
+    @staticmethod
+    def _take(prefetch: Prefetcher, n: int) -> list:
+        """Up to ``n`` (step, batch) pairs; a short list means the stream ended."""
+        out = []
+        for _ in range(n):
+            try:
+                out.append(next(prefetch))
+            except StopIteration:
+                break
+        return out
+
+    def _check_window(self, plan, group) -> None:
+        """A group runs off one merged plan only if every member's rows
+        made residency (the group's one fetch)."""
+        if len(group) <= 1:
+            return
+        n = int(plan.future_unresident)
+        if n:
+            raise RuntimeError(
+                f"pipelined group of {len(group)} steps needs all its unique rows resident at "
+                f"once, but {n} lookahead lanes were dropped under capacity pressure: raise "
+                f"the cache ratio or lower TrainerConfig.pipeline_depth"
+            )
+
+    def _plan(self, state, peek):
+        with self.tracer.span("plan"):
+            return self.plan_fn(state, peek[0][1], tuple(b for _, b in peek[1:]))
+
+    def run(self) -> Any:
+        cfg = self.cfg
+        depth = max(1, cfg.pipeline_depth)
+        state, start = self._bootstrap()
+        if start >= cfg.max_steps:
+            self._finish_obs()
+            return state
+        prefetch = Prefetcher(lambda s: _to_device(self.make_batch(s), self.device),
+                              start_step=start, depth=max(cfg.prefetch_depth, depth))
+        try:
+            group = self._take(prefetch, min(depth, cfg.max_steps - start))
+            if not group:  # the stream ended before the first step
+                return state
+            plan = self._plan(state, group)  # the prologue: no shadow to plan under
+            self._check_window(plan, group)
+            with self.tracer.span("apply"):
+                state = self.apply_fn(state, plan)
+            while group:
+                addrs = (plan.addresses,) + tuple(plan.future_addresses)
+                plan = None
+                n_next = min(depth, cfg.max_steps - (group[-1][0] + 1))
+                for j, (step_i, batch) in enumerate(group):
+                    t0 = time.perf_counter()
+                    if j == 0 and n_next > 0:
+                        # the next group's plan, before blocking on any loss of
+                        # this one; a short peek means the stream ended
+                        peek = prefetch.lookahead(n_next)
+                        n_next = len(peek)
+                        if peek:
+                            plan = self._plan(state, peek)
+                    with self.tracer.span("compute"):
+                        state, metrics = self.compute_fn(state, batch, addrs[j])
+                    if j == len(group) - 1 and plan is not None:
+                        # after the group's last row update: evictions write back fresh rows
+                        with self.tracer.span("apply"):
+                            state = self.apply_fn(state, plan)
+                    state = self._post_step(step_i, state, metrics, t0)
+                if plan is None:
+                    break
+                group = self._take(prefetch, n_next)
+                self._check_window(plan, group)
             if self.checkpointer:
                 self.checkpointer.wait()
         finally:

@@ -129,8 +129,5 @@ def test_unported_options_raise():
         cache.CacheConfig(vocab=8, capacity=4, ids_per_step=4, arena_precision="auto")
     with pytest.raises(ValueError):
         cache.CacheConfig(vocab=8, capacity=4, ids_per_step=4, arena_precision="bf16")
-    cfg = cache.CacheConfig(vocab=8, capacity=4, ids_per_step=4)
-    st = cache.init_cache(cfg, {"weight": torch.zeros((2,))}, CPU)
-    with pytest.raises(NotImplementedError):
-        cache.plan_prepare(cfg, st, torch.zeros(4, dtype=torch.int32),
-                           future_rows=torch.zeros(4, dtype=torch.int32))
+    with pytest.raises(ValueError, match="chunk_rows"):  # as the reference's
+        cache.CacheConfig(vocab=8, capacity=4, ids_per_step=4, chunk_rows=-1)

@@ -7,8 +7,9 @@ tensor-core and fp32 SIMT kernels) against their plain PyTorch versions
 attention within the card smoke's |o|-scaled bound), the pinned host-tier
 transmitter (staging ring, async copies, fp32 and tiered arenas) against
 the CPU move (fp32, fp16 and int8 host tiers; fp32 and tiered arenas; the
-verbatim host -> tail path), and a 4-shard collection's lookups against its
-dense reference.
+verbatim host -> tail path; chunked staging), a lookahead plan's eviction
+key through the threshold kernel at ``kv == capacity``, and a 4-shard
+collection's lookups against its dense reference.
 
 Imports neither JAX nor the JAX package, so the machine with the card runs
 it as is:  ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
@@ -135,6 +136,97 @@ def test_pinned_move_rows_matches_cpu_move(cuda, direction):
             assert torch.equal(got_store["w"], want_store["w"])
     finally:
         got_store.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["fp32", "int8"])
+@pytest.mark.parametrize("direction", ["load", "writeback"])
+def test_pinned_chunked_move_matches_cpu_row_move(cuda, codec, direction):
+    """Chunked staging through the pinned ring: the load's staged chunks
+    cross in one copy and the rows are picked out on the card; the
+    write-back's chunks are read-modified-written on the host.  Bitwise the
+    CPU row move, and the move counter says which path ran."""
+    rng = np.random.default_rng(9)
+    vocab, cap, dim, k = 1024, 300, 16, 256
+    table = torch.from_numpy(rng.normal(size=(vocab, dim)).astype(np.float32))
+    arena = torch.from_numpy(rng.normal(size=(cap, dim)).astype(np.float32))
+    n_src, n_dst = (vocab, cap) if direction == "load" else (cap, vocab)
+    src = torch.from_numpy(rng.integers(-1, n_src, size=k).astype(np.int32))
+    dst = torch.from_numpy(rng.permutation(n_dst)[:k].astype(np.int32))
+    active = torch.from_numpy(rng.random(k) < 0.8)
+    want_store = HostStore.create({"w": table.clone()}, codec)
+    want_arena = {"w": arena.clone()}
+    got_store = HostStore.create({"w": table.clone()}, codec, pin=True)
+    got_arena = {"w": arena.to(cuda)}
+    chunk = {"src_chunk_rows": 64} if direction == "load" else {"dst_chunk_rows": 64}
+    lanes = (src.to(cuda), dst.to(cuda), active.to(cuda))
+    before = transmitter.moves["chunked"]
+    try:
+        if direction == "load":
+            transmitter.move_rows(want_store, want_arena, src, dst, active, buffer_rows=100)
+            transmitter.move_rows(got_store, got_arena, *lanes, buffer_rows=100, **chunk)
+            torch.cuda.synchronize()
+            assert torch.equal(got_arena["w"].cpu(), want_arena["w"])
+        else:
+            transmitter.move_rows(want_arena, want_store, src, dst, active, buffer_rows=100)
+            transmitter.move_rows(got_arena, got_store, *lanes, buffer_rows=100, **chunk)
+            for leaves, want in ((got_store.data, want_store.data),
+                                 (got_store.sideband, want_store.sideband)):
+                for key in want:
+                    assert torch.equal(leaves[key], want[key]), key
+        assert transmitter.moves["chunked"] == before + 1
+    finally:
+        got_store.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pallas", [False, True])
+def test_lookahead_plan_on_the_card_matches_cpu(cuda, pallas):
+    """A lookahead plan whose window lifts ``kv`` to the capacity: on the
+    card (the threshold kernel, with ``use_pallas_plan``) bitwise the CPU
+    plan, and its eviction key's victims through the kernel bitwise a
+    stable argsort (the key's four tiers: protected, pinned, policy,
+    empty)."""
+    from repro_torch.convert import to_numpy
+    from repro_torch.core import cache
+
+    cfg = cache.CacheConfig(vocab=4096, capacity=600, ids_per_step=256, buffer_rows=1024,
+                            use_pallas_plan=pallas)
+    rng = np.random.default_rng(2)
+    table = rng.normal(size=(4096, 8)).astype(np.float32)
+    states = []
+    for dev in (torch.device("cpu"), cuda):
+        st = cache.init_cache(cfg, {"weight": torch.zeros((8,))}, dev)
+        full = HostStore.create({"weight": torch.from_numpy(table.copy())}, pin=dev.type == "cuda")
+        full, st = cache.warmup(cfg, full, st)
+        states.append([full, st, dev])
+    try:
+        for step in range(4):
+            rows = np.minimum(rng.zipf(1.2, size=256) - 1, 4095).astype(np.int32)
+            fut = rng.integers(-1, 4096, size=512).astype(np.int32)
+            plans = []
+            for pair in states:
+                full, st, dev = pair
+                before = kernel.victim_threshold.launches
+                plan = cache.plan_prepare(cfg, st, torch.from_numpy(rows).to(dev),
+                                          future_rows=torch.from_numpy(fut).to(dev))
+                if dev.type == "cuda" and pallas:
+                    assert kernel.victim_threshold.launches == before + 1
+                assert plan.victim_slots.shape == (600,)  # kv = min(256 + 512, 600)
+                plans.append(to_numpy(plan))
+                pair[0], pair[1] = cache.apply_plan(cfg, full, st, plan)
+            for key in plans[0]:
+                if key != "tracker":
+                    assert np.array_equal(plans[0][key], plans[1][key]), (step, key)
+        # the last lookahead key, captured through the planner's own pieces
+        st = states[1][1]
+        key = torch.where(st.slot_to_row < 0, _BIG, st.slot_to_row).to(torch.int32)
+        key[:100] = -(_BIG // 2)
+        key[100:150] = -_BIG
+        want = torch.argsort(key, descending=True, stable=True).to(torch.int32)
+        assert torch.equal(ops.victim_topk_impl(key, 600), want)
+    finally:
+        states[1][0].close()
 
 
 def _tiered_args(rng, codec, h, t, d, k):

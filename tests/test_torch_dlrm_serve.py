@@ -115,5 +115,8 @@ def test_serve_launcher_matches_reference_launcher(capsys, monkeypatch):
 
 
 def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError):  # the sharded budget mode (ROADMAP item 17)
-        DLRM(DLRMConfig(**dict(SHAPE, model_shards=2, device_budget_bytes=1 << 20)))
+    """The refresh (ROADMAP item 11) still raises; the sharded budget mode
+    (item 17) builds."""
+    model = DLRM(DLRMConfig(**dict(SHAPE, model_shards=2, device_budget_bytes=1 << 20)))
+    with pytest.raises(NotImplementedError, match="item 11"):
+        model.collection.refresh(None)

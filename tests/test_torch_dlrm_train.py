@@ -228,15 +228,14 @@ def test_trainer_raises_on_unique_buffer_overflow():
 
 
 def test_unported_trainer_options_raise():
-    with pytest.raises(NotImplementedError, match="pipelin"):
-        TrainerConfig(max_steps=1, pipeline_depth=2)
-    with pytest.raises(NotImplementedError, match="refresh"):
+    """The refresh (ROADMAP item 11) still raises, in the trainer and the
+    model; ``pipeline_depth`` (item 9) is accepted."""
+    assert TrainerConfig(max_steps=1, pipeline_depth=2).pipeline_depth == 2
+    with pytest.raises(NotImplementedError, match="item 11"):
         TrainerConfig(max_steps=1, refresh_interval=5)
     model, state = _tiered()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 11"):
         model.refresh(state)
-    with pytest.raises(NotImplementedError, match="item 17"):  # the sharded budget mode
-        DLRM(DLRMConfig(**dict(SHAPE, model_shards=2, device_budget_bytes=1 << 20)))
 
 
 def test_train_launcher_matches_reference_launcher(capsys, monkeypatch):

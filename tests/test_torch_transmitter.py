@@ -1,14 +1,19 @@
 """repro_torch.core.transmitter.move_rows against repro.core.transmitter:
 both directions (host store -> arena, arena -> host store), a staging buffer
-smaller than K, inactive lanes and -1 source lanes.  fp32 rows move
-bit-exactly, so every comparison is bitwise."""
+smaller than K, inactive lanes and -1 source lanes, and chunked staging
+(``src_chunk_rows`` / ``dst_chunk_rows``) on raw trees and fp32 / fp16 /
+int8 host stores.  Every comparison is bitwise; encoded moves are held
+against the eager reference in one round (its multi-round ``fori_loop`` is
+compiled, and XLA may move an int8 code by an ulp there)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_parity import assert_tree_equal
 
 from repro.core import transmitter as jtx
 from repro.store.host_store import HostStore as JHostStore
+from repro_torch.convert import to_numpy
 from repro_torch.core import transmitter as tx
 from repro_torch.store.host_store import HostStore
 
@@ -148,3 +153,146 @@ def test_host_to_tiered_arena_load_matches_reference(host, arena):
         tail = (dst >= head) & active & (src >= 0)
         assert np.array_equal(w["tail"]["weight"][dst[tail] - head],
                               t_store.data["weight"].numpy()[src[tail]])
+
+
+# --------------------------------------------------------------------------
+# chunked staging: bitwise the row path and the reference's chunked move
+# --------------------------------------------------------------------------
+
+
+def _chunk_lanes(rng, n_src, n_dst, k=24):
+    si = rng.integers(-1, n_src, size=k).astype(np.int32)
+    di = rng.permutation(n_dst)[:k].astype(np.int32)
+    ac = rng.integers(0, 2, size=k).astype(bool)
+    return si, di, ac
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.array(a)) for a in arrays]
+
+
+@pytest.mark.parametrize("scr,dcr", [(8, 0), (0, 8), (8, 8), (16, 4), (5, 3)])
+def test_chunked_move_bit_identical(scr, dcr):
+    """Raw trees on either side: the chunked move equals the port's row
+    move in three rounds and the reference's chunked move in one; (5, 3)
+    divide neither side and fall back to rows."""
+    rng = np.random.default_rng(11)
+    src = rng.normal(size=(64, 4)).astype(np.float32)
+    dst = rng.normal(size=(32, 4)).astype(np.float32)
+    si, di, ac = _chunk_lanes(rng, 64, 32)
+    want = jtx.move_rows({"w": jnp.asarray(src)}, {"w": jnp.asarray(dst)}, jnp.asarray(si),
+                         jnp.asarray(di), jnp.asarray(ac), buffer_rows=24,
+                         src_chunk_rows=scr, dst_chunk_rows=dcr)["w"]
+    rows = tx.move_rows({"w": torch.from_numpy(src)}, {"w": torch.from_numpy(dst.copy())},
+                        *_t(si, di, ac), buffer_rows=8)["w"]
+    before = dict(tx.moves)
+    got = tx.move_rows({"w": torch.from_numpy(src)}, {"w": torch.from_numpy(dst.copy())},
+                       *_t(si, di, ac), buffer_rows=8, src_chunk_rows=scr, dst_chunk_rows=dcr)["w"]
+    assert torch.equal(rows, got) and np.array_equal(np.asarray(want), got.numpy())
+    path = "rows" if (scr, dcr) == (5, 3) else "chunked"
+    assert tx.moves[path] == before[path] + 1
+
+
+@pytest.mark.parametrize("codec", ["fp32", "fp16", "int8"])
+def test_chunked_move_hoststore_bit_identical(codec):
+    """An encoded host store chunked on the load (payload and sideband
+    move as chunks) and on the write-back (read-modify-write of the touched
+    chunks): bitwise the row path (three rounds) and the reference's
+    chunked move (one round, its bitwise regime)."""
+    rng = np.random.default_rng(12)
+    table = rng.normal(size=(64, 4)).astype(np.float32)
+    jhs = JHostStore.create({"w": jnp.asarray(table)}, codec)
+
+    def store():
+        return HostStore.create({"w": torch.from_numpy(table.copy())}, codec)
+
+    dst = rng.normal(size=(32, 4)).astype(np.float32)
+    si, di, ac = _chunk_lanes(rng, 64, 32)
+    want = jtx.move_rows(jhs, {"w": jnp.asarray(dst)}, *map(jnp.asarray, (si, di, ac)),
+                         buffer_rows=24, src_chunk_rows=8)["w"]
+    rows = tx.move_rows(store(), {"w": torch.from_numpy(dst.copy())}, *_t(si, di, ac),
+                        buffer_rows=8)["w"]
+    got = tx.move_rows(store(), {"w": torch.from_numpy(dst.copy())}, *_t(si, di, ac),
+                       buffer_rows=8, src_chunk_rows=8)["w"]
+    assert torch.equal(rows, got) and np.array_equal(np.asarray(want), got.numpy())
+    src = rng.normal(size=(32, 4)).astype(np.float32)
+    di2 = rng.permutation(64)[:24].astype(np.int32)
+    want = jtx.move_rows({"w": jnp.asarray(src)}, jhs, *map(jnp.asarray, (di, di2, ac)),
+                         buffer_rows=24, dst_chunk_rows=8)
+    rows = tx.move_rows({"w": torch.from_numpy(src)}, store(), *_t(di, di2, ac), buffer_rows=8)
+    got = tx.move_rows({"w": torch.from_numpy(src)}, store(), *_t(di, di2, ac), buffer_rows=8,
+                       dst_chunk_rows=8)
+    for leaves, jleaves in ((got.data, want.data), (got.sideband, want.sideband)):
+        assert set(leaves) == set(jleaves)
+        for k in leaves:
+            assert np.array_equal(np.asarray(jleaves[k]), leaves[k].numpy()), k
+    assert torch.equal(rows.data["w"], got.data["w"])
+
+
+def test_chunked_load_into_tiered_arena_keeps_the_host_bits():
+    """A chunked int8 load into an int8-tiered arena hands the tail the
+    picked host payload and sideband verbatim: bitwise the row path."""
+    from repro_torch.store.arena import ArenaStore
+
+    rng = np.random.default_rng(5)
+    table = rng.normal(size=(96, 8)).astype(np.float32) * 3
+    start = rng.normal(size=(24, 8)).astype(np.float32)
+    store = HostStore.create({"weight": torch.from_numpy(table)}, "int8")
+    src, dst, active = _lanes(rng, 20, 96, 24)
+    arenas = []
+    for chunk in (0, 16):
+        arena = ArenaStore.create({"weight": torch.from_numpy(start.copy())}, 6, "int8")
+        tx.move_rows(store, arena, *_t(src, dst, active), buffer_rows=7, src_chunk_rows=chunk)
+        arenas.append(to_numpy(arena))
+    assert_tree_equal(arenas[0], arenas[1])
+
+
+def test_chunked_staging_block_sized_by_unique_chunks():
+    """One round's staging block holds its unique chunks, not
+    ``buffer_rows`` x ``chunk_rows`` rows: 3 lanes in 2 chunks of 16 rows
+    of an int8 row (8 payload bytes + 8 sideband bytes) is 2 x 16 x 16 B."""
+    table = np.arange(64 * 8, dtype=np.float32).reshape(64, 8)
+    store = HostStore.create({"w": torch.from_numpy(table)}, "int8")
+    arena = {"w": torch.zeros((8, 8))}
+    tx.moves["chunk_block_bytes"] = 0
+    src, dst = np.array([1, 5, 40], np.int32), np.array([0, 1, 2], np.int32)
+    tx.move_rows(store, arena, *_t(src, dst, np.ones(3, bool)), buffer_rows=65536,
+                 src_chunk_rows=16)
+    assert tx.moves["chunk_block_bytes"] == 2 * 16 * (8 + 8)
+    want = store.decode_rows(torch.from_numpy(src.astype(np.int64)))["w"]
+    assert torch.equal(arena["w"][:3], want)
+
+
+def test_chunked_cache_pipeline_bit_identical():
+    """``chunk_rows`` through ``warmup`` / ``prepare`` / ``flush``: slots, the
+    host table and the arena bitwise the row path's and the reference's."""
+    from repro.core import cache as jcache
+    from repro_torch.core import cache
+
+    rng = np.random.default_rng(13)
+    kw = dict(vocab=128, capacity=32, ids_per_step=16, buffer_rows=16)
+    table = rng.normal(size=(128, 8)).astype(np.float32)
+    jcfg = jcache.CacheConfig(**kw, chunk_rows=8, use_pallas_plan=True)
+    jst = jcache.init_cache(jcfg, {"weight": jnp.zeros((8,), jnp.float32)})
+    jfull, jst = jcache.warmup(jcfg, {"weight": jnp.asarray(table)}, jst)
+    runs = []
+    for chunk in (0, 8):
+        cfg = cache.CacheConfig(**kw, chunk_rows=chunk, use_pallas_plan=True)
+        st = cache.init_cache(cfg, {"weight": torch.zeros((8,))}, torch.device("cpu"))
+        full, st = cache.warmup(cfg, {"weight": torch.from_numpy(table.copy())}, st)
+        runs.append((cfg, full, st))
+    for _ in range(4):
+        rows = rng.integers(-1, 128, size=16).astype(np.int32)
+        jfull, jst, jsl = jcache.prepare(jcfg, jfull, jst, jnp.asarray(rows))
+        out = []
+        for cfg, full, st in runs:
+            full, st, sl = cache.prepare(cfg, full, st, torch.from_numpy(rows))
+            out.append((cfg, full, st))
+            assert np.array_equal(np.asarray(jsl), sl.numpy())
+            assert np.array_equal(np.asarray(jfull["weight"]), full["weight"].numpy())
+        runs = out
+    jfull, jst = jcache.flush(jcfg, jfull, jst)
+    for cfg, full, st in runs:
+        full, st = cache.flush(cfg, full, st)
+        assert np.array_equal(np.asarray(jfull["weight"]), full["weight"].numpy())
+        assert np.array_equal(np.asarray(jst.cached_rows["weight"]), st.cached_rows["weight"].numpy())
