@@ -117,6 +117,41 @@ Phases (any failure exits non-zero, with no result line):
    (rtol 1e-5 / atol 1e-6), and after the flush every resident row's host
    payload and sideband bitwise the int8 encode of its arena row, shard by
    shard.
+5f. the adaptive refresh, unsharded, on a drifting Zipf stream (the hot
+   set moves every 3 steps): phase 5d's DLRM (fp32 tiers) served by a
+   ``ServeEngine`` with ``refresh_every`` 2 and by one without (8 batches,
+   scores bitwise batch by batch); trained ``REFRESH_STEPS`` (9) steps by
+   the serial ``Trainer`` without a refresh, with ``refresh_interval`` 4,
+   and by the depth-3 ``PipelinedTrainer`` with it, each from ``init(0)``
+   under torch's deterministic algorithms (losses bitwise equal); the
+   serial run with the refresh then goes on 9 steps in the default mode
+   for its step times and each pass's planning and surgery ms.  Then the
+   int8 host tier and arena trained 9 steps with the interval (the dirty
+   passes' write-backs through the gather-decode kernel), flushed (host
+   payload and sideband = the int8 encode of each resident arena row),
+   and a refresh of the clean state (``dense_reference`` bitwise).
+5g. the sharded refresh: phase 5b's fp32 4-shard DLRM trained 4 steps on
+   the drifting stream and flushed, one pass at ``max_swaps`` 4096 with
+   ``exchange_budget`` 1024 (``dense_reference`` after a flush bitwise
+   before and after; cross-shard rows within the budget; swaps + deferred
+   = the unbudgeted plan's swaps), two steps over the swapped homes; then
+   phase 5e's sharded budget mode trained and flushed, and a re-homing
+   pass with the median slab's live imbalance as ``rebalance_threshold``
+   (the slabs above it re-homed, their imbalance lowered, the others
+   untouched; ``dense_reference`` bitwise; served logits over the new
+   homes = ``dense_reference`` logits; the host RSS peak), two steps over
+   the new homes.
+5h. ``benchmarks/bench_drift.py``'s run in the port (vocab 400 000, dim 32,
+   batch 8192, the hot set moving every 150 steps, 450 steps, a refresh
+   every 5 steps at ``max_swaps`` 4096 and ``min_gain`` 0.25), with and
+   without the refresh from the same init, the plans through the
+   threshold kernel: hit and miss counts, hit rates, swaps and rows moved
+   equal to the JAX package's on the CPU (``scripts/drift_reference.py``).
+   Each new path runs with the launch counts at 0 before it and read
+   after it; the ``kernels`` line counts them by path.  Phases 5f-5h run
+   last, after phase 13: they profile nothing, and late in a long process
+   the profiler has seen no launch of the port's own kernels, so the
+   profiled measurements keep their place.
 6. FM serve: ``configs/fm.CONFIG`` at full width (40 fields, 33 764 352
    rows of 11 fp32 = 1.486 GB pinned, a 2 097 152-slot arena, batch 65536)
    with ``use_pallas=True``: ``ServeEngine(FMModel.serve_step)`` on
@@ -2307,6 +2342,573 @@ def sharded_pipelined_crosscheck(dev, vocab_scale=0.02, n_steps=6, depth=2):
 
 
 # ---------------------------------------------------------------------------
+# phases 5f-5h: the adaptive frequency refresh
+# ---------------------------------------------------------------------------
+
+REFRESH_STEPS, REFRESH_INTERVAL = 9, 4  # 5f: steps a training run, the trainers' cadence
+REFRESH_SERVE_BATCHES, REFRESH_EVERY = 8, 2  # 5f: served batches, the engine's cadence
+REFRESH_DRIFT = 3  # 5f / 5g: steps per popularity phase of the drifting stream
+SHARDED_SWAPS, EXCHANGE_BUDGET = 4096, 1024  # 5g: pairs a pass, cross-shard rows a pass
+# 5h: benchmarks/bench_drift.py's shapes (vocab, dim, batch, drift_every,
+# cache ratio, refresh every, max_swaps), and the JAX package's numbers
+# for them on the CPU (scripts/drift_reference.py)
+DRIFT_SHAPES = {"full": (400_000, 32, 8192, 150, 0.02, 5, 4096),
+                "smoke": (20_000, 8, 512, 40, 0.04, 2, 512)}
+DRIFT_REF = {
+    "full": {"no_refresh": {"hit_pre": 0.9032432965687743, "hit_post": 0.8094591769303321,
+                            "trough": 0.003651300775901415, "hits": 3050500, "misses": 579934,
+                            "swaps": 0, "rows_moved": 0},
+             "refresh": {"hit_pre": 0.8975456657322511, "hit_post": 0.8593567810784758,
+                         "trough": 0.003227293683725219, "hits": 3138743, "misses": 507590,
+                         "swaps": 20018, "rows_moved": 40036}},
+    "smoke": {"no_refresh": {"hit_pre": 0.8636899273671534, "hit_post": 0.6959720375601564,
+                             "trough": 0.004672897196261682, "hits": 44924, "misses": 14752,
+                             "swaps": 0, "rows_moved": 0},
+              "refresh": {"hit_pre": 0.8443856434828937, "hit_post": 0.7601471792967242,
+                          "trough": 0.004672897196261682, "hits": 45994, "misses": 13762,
+                          "swaps": 1472, "rows_moved": 2944}},
+}
+
+
+class _RefreshClock:
+    """Synced host ms of the refresh's parts, by patching the functions it
+    calls: ``plan`` (the tracker to the host, the numpy plan), ``surgery``
+    (the write-back, invalidation, host-row permutation and remap),
+    ``assign`` (``assign_devices`` on the live scores), ``rebalance`` (the
+    re-homing surgery) and ``rewarm`` (each shard's cache warm-up)."""
+
+    def __init__(self):
+        from repro_torch.core import cache as cache_lib
+        from repro_torch.core import refresh as refresh_lib
+        from repro_torch.core.collection import PlacementPlanner
+
+        self.targets = [(refresh_lib, n, p) for n, p in (
+            ("plan_cached", "plan"), ("plan_sharded", "plan"), ("apply_swaps", "surgery"),
+            ("apply_swaps_sharded", "surgery"), ("apply_rebalance", "rebalance"))]
+        self.targets += [(PlacementPlanner, "assign_devices", "assign"),
+                         (cache_lib, "warmup", "rewarm")]
+        self.orig = [owner.__dict__[name] for owner, name, _ in self.targets]
+        self.ms = {p: 0.0 for _, _, p in self.targets}
+
+    def __enter__(self):
+        for (owner, name, part), fn in zip(self.targets, self.orig):
+            timed = self._timed(getattr(owner, name), part)
+            setattr(owner, name, staticmethod(timed) if isinstance(fn, staticmethod) else timed)
+        return self
+
+    def _timed(self, fn, part):
+        def timed(*a, **k):
+            out, ms = sync_ms(lambda: fn(*a, **k))
+            self.ms[part] += ms
+            return out
+        return timed
+
+    def __exit__(self, *exc):
+        for (owner, name, _), fn in zip(self.targets, self.orig):
+            setattr(owner, name, fn)
+
+
+class _PeakRSS:
+    """The process's resident host memory, sampled every 5 ms by a thread
+    while the block runs: its peak, GB."""
+
+    def __enter__(self):
+        import threading
+
+        self.peak, self.stop = rss_gb(), threading.Event()
+
+        def sample():
+            while not self.stop.wait(0.005):
+                self.peak = max(self.peak, rss_gb())
+
+        self.thread = threading.Thread(target=sample, daemon=True)
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.stop.set()
+        self.thread.join(timeout=10)
+        self.peak = max(self.peak, rss_gb())
+
+
+def _timed_refresh(coll, passes, **kw):
+    """A trainer's / engine's ``refresh_fn`` over ``coll`` that logs each
+    pass: swaps, rows moved, and its synced host ms split into planning and
+    surgery."""
+    def run(state):
+        clock = _RefreshClock()
+        with clock:
+            (emb, rep), ms = sync_ms(lambda: coll.refresh(state["emb"], **kw))
+        passes.append({"swaps": rep.total_swaps, "rows_moved": rep.total_rows_moved, "ms": ms,
+                       "plan_ms": clock.ms["plan"], "surgery_ms": clock.ms["surgery"]})
+        return dict(state, emb=emb)
+
+    return run
+
+
+def _drift_batches(cfg, n, seed):
+    from repro_torch.data import synth
+
+    spec = synth.DriftingZipfSpec(
+        base=synth.ZipfSparseSpec(vocab_sizes=cfg.vocab_sizes, n_dense=cfg.n_dense),
+        drift_every=REFRESH_DRIFT)
+    return [synth.drifting_sparse_batch(spec, cfg.batch_size, seed, i) for i in range(n)]
+
+
+def _close(state):
+    for slab in state["emb"].slabs.values():
+        if hasattr(slab, "full"):
+            slab.full.close()
+
+
+def _check_int8_flushed(coll, emb, slabs, what):
+    """After a flush: every resident row's host payload and sideband are
+    bitwise the int8 encode of its arena row (shard by shard when
+    sharded).  Returns the rows checked."""
+    from repro_torch.store.codec import get_codec
+
+    int8 = get_codec("int8")
+    weights = coll.weights(emb)
+    n = 0
+    for name in slabs:
+        slab = emb.slabs[name]
+        stacked = slab.cache.slot_to_row.dim() == 2
+        for s in range(slab.cache.slot_to_row.shape[0] if stacked else 1):
+            rows = slab.cache.slot_to_row[s] if stacked else slab.cache.slot_to_row
+            arena = weights[name][s] if stacked else weights[name]
+            host = slab.full.shard(s) if stacked else slab.full
+            slots = torch.nonzero(rows >= 0)[:, 0]
+            idx = rows[slots].cpu().to(torch.int64)
+            payload, side = int8.encode(arena[slots])
+            if not (torch.equal(payload.cpu(), host.data["weight"][idx])
+                    and torch.equal(side.cpu(), host.sideband["weight"][idx])):
+                raise AssertionError(f"{what}: slab {name}: host payload / sideband != the int8 "
+                                     f"encode of its arena rows")
+            n += slots.numel()
+    if not n:
+        raise AssertionError(f"{what}: no resident row to check")
+    return n
+
+
+def refresh_phase(dev, vocab_scale, n_steps=REFRESH_STEPS, n_serve=REFRESH_SERVE_BATCHES):
+    """5f: the unsharded refresh at full width, on a drifting stream.
+    Serving: an engine with ``refresh_every`` 2 against one without, scores
+    bitwise batch by batch.  Training (fp32 host tier and arena, phase
+    5d's DLRM): ``refresh_interval`` 4 against none, and the depth-3
+    ``PipelinedTrainer`` with the interval against the serial run with it,
+    each from ``init(0)`` under ``deterministic()``: losses bitwise; then
+    the serial run with the interval goes on in the default mode for its
+    step times and each pass's planning and surgery ms.  Last the int8
+    host tier and arena: training with the interval (dirty refreshes,
+    their write-backs through the gather-decode kernel), a flush (host
+    payload and sideband = the int8 encode of each resident arena row),
+    then a refresh of the clean state (``dense_reference`` bitwise)."""
+    from repro_torch.core.collection import SHARED_ARENA
+    from repro_torch.kernels.cache_ops import kernel
+    from repro_torch.models.dlrm import DLRM
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.train.trainer import PipelinedTrainer, Trainer, TrainerConfig
+
+    cfg = _scaled(vocab_scale)
+    model = DLRM(cfg)
+    coll = model.collection
+    batches = _drift_batches(cfg, 2 * n_steps + n_serve, 3)
+    pad = {"dense": np.zeros((cfg.n_dense,), np.float32),
+           "sparse": np.zeros((cfg.n_sparse,), np.int32), "label": np.zeros((), np.float32)}
+    launches = {}
+
+    # --- serving: refresh_every 2 against no refresh, batch by batch -------
+    served = {}
+    for every in (None, REFRESH_EVERY):
+        passes = []
+        state = model.init(0, device=dev)
+        engine = ServeEngine(
+            model.serve_step, state, batch_size=cfg.batch_size, pad_example=pad, device=dev,
+            state_stats_fn=lambda s: coll.metrics(s["emb"], writeback=False),
+            refresh_fn=_timed_refresh(coll, passes, writeback=False) if every else None,
+            refresh_every=every)
+        kernel.victim_threshold.launches = 0
+        scores, lat = [], []
+        for b in batches[:n_serve]:
+            t0 = time.perf_counter()
+            scores.append(engine.score(b))
+            lat.append(1e3 * (time.perf_counter() - t0))
+        thr = kernel.victim_threshold.launches
+        summary = engine.summary()
+        _close(engine.state)
+        del state, engine
+        gc.collect()
+        if thr != n_serve or not all(np.isfinite(s).all() for s in scores):
+            raise AssertionError(f"refresh serve (every {every}): {thr} threshold launches for "
+                                 f"{n_serve} plans, or non-finite scores")
+        served[every] = scores
+        if every:
+            launches["serve"] = thr
+            if len(passes) != n_serve // every or summary["refresh_swaps"] <= 0:
+                raise AssertionError(f"refresh serve: {len(passes)} passes, swaps "
+                                     f"{summary['refresh_swaps']}")
+            log(f"refresh serve (refresh_every {every}, writeback=False): per-batch ms {lat} "
+                f"(score calls; the refresh runs after the call returns); passes {passes}; "
+                f"hit rate {summary['hit_rate']}, refresh swaps {summary['refresh_swaps']}, "
+                f"rows moved {summary['refresh_rows_moved']}; threshold launches {thr}")
+        else:
+            log(f"refresh serve (no refresh): per-batch ms {lat}; hit rate {summary['hit_rate']}")
+    for i, (a, b) in enumerate(zip(served[None], served[REFRESH_EVERY])):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"refresh serve: batch {i} scores differ (max |diff| "
+                                 f"{np.abs(a - b).max()})")
+    log(f"refresh serve: scores of all {n_serve} batches bitwise equal with and without the "
+        f"refresh")
+
+    # --- training: deterministic runs, losses bitwise -------------------------
+    def train(depth, interval, passes, init_fn, offset, steps):
+        kw = dict(init_fn=init_fn, make_batch=lambda s: batches[offset + s], device=dev,
+                  refresh_fn=_timed_refresh(coll, passes) if interval else None)
+        tc = TrainerConfig(max_steps=steps, pipeline_depth=depth, refresh_interval=interval)
+        if depth:
+            tr = PipelinedTrainer(tc, plan_fn=model.plan_step, compute_fn=model.compute_step,
+                                  apply_fn=model.apply_step, **kw)
+        else:
+            tr = Trainer(tc, step_fn=model.train_step, **kw)
+        return tr.run(), tr.history
+
+    runs = {}
+    for name, depth, interval in (("serial", 0, None), ("serial+refresh", 0, REFRESH_INTERVAL),
+                                  ("depth 3+refresh", 3, REFRESH_INTERVAL)):
+        passes = []
+        kernel.victim_threshold.launches = 0
+        t0 = time.perf_counter()
+        with deterministic():
+            state, h = train(depth, interval, passes, lambda: model.init(0, device=dev), 0,
+                             n_steps)
+        thr = kernel.victim_threshold.launches
+        runs[name] = [r["loss"] for r in h]
+        if len(h) != n_steps or not np.isfinite(runs[name]).all():
+            raise AssertionError(f"refresh train {name}: losses {runs[name]}")
+        if interval and (not passes or h[-1]["refresh_swaps"] <= 0):
+            raise AssertionError(f"refresh train {name}: passes {passes}")
+        if interval:
+            launches["train" if not depth else "pipelined"] = thr
+        if not thr:
+            raise AssertionError(f"refresh train {name}: no threshold launch")
+        log(f"refresh train {name} ({n_steps} steps from init(0), deterministic, "
+            f"{time.perf_counter() - t0} s with the init): losses {runs[name]}; passes {passes}; "
+            f"threshold launches {thr}")
+        if name == "serial+refresh":  # n_steps more in the default mode: the times
+            passes = []
+            kernel.victim_threshold.launches = 0
+            state, ht = train(0, REFRESH_INTERVAL, passes, lambda: state, n_steps, n_steps)
+            launches["train_timed"] = kernel.victim_threshold.launches
+            step_ms = [1e3 * r["time_s"] for r in ht]
+            log(f"refresh train timed (default mode, {n_steps} more steps, refresh_interval "
+                f"{REFRESH_INTERVAL}): step ms {step_ms}; p50 {np.percentile(step_ms, 50)} ms, "
+                f"p99 {np.percentile(step_ms, 99)} ms (numpy, of {n_steps}; a pass runs between "
+                f"steps, outside the step clock); passes (swaps, rows moved, host ms = plan + "
+                f"surgery): {passes}; threshold launches {launches['train_timed']}")
+        _close(state)
+        del state
+        gc.collect()
+    if runs["serial+refresh"] != runs["serial"]:
+        raise AssertionError(f"refresh train: losses with the refresh {runs['serial+refresh']} "
+                             f"!= without {runs['serial']}")
+    if runs["depth 3+refresh"] != runs["serial+refresh"]:
+        raise AssertionError(f"refresh train: depth-3 losses {runs['depth 3+refresh']} != "
+                             f"serial {runs['serial+refresh']}")
+    log("refresh train: losses with refresh_interval 4 bitwise those without, and the depth-3 "
+        "pipelined run's bitwise the serial run's (deterministic)")
+
+    # --- the int8 host tier and arena: dirty refreshes, flush, clean refresh
+    cfg8 = dataclasses.replace(cfg, host_precision="int8", arena_precision="int8")
+    model8 = DLRM(cfg8)
+    coll8 = model8.collection
+    passes = []
+    kernel.victim_threshold.launches = kernel.gather_decode.launches = 0
+    tr = Trainer(TrainerConfig(max_steps=n_steps, refresh_interval=REFRESH_INTERVAL),
+                 init_fn=lambda: model8.init(0, device=dev), step_fn=model8.train_step,
+                 make_batch=lambda s: batches[s], device=dev,
+                 refresh_fn=_timed_refresh(coll8, passes))
+    state = tr.run()
+    losses = [r["loss"] for r in tr.history]
+    state = model8.flush(state)
+    torch.cuda.synchronize()
+    n_checked = _check_int8_flushed(coll8, state["emb"], [SHARED_ARENA], "refresh int8")
+    probe = model8.features({k: torch.from_numpy(v).to(dev)
+                             for k, v in batches[n_steps + 1].items()})
+    before = coll8.dense_reference(state["emb"], probe)
+    clock = _RefreshClock()
+    with clock:
+        emb, rep = coll8.refresh(state["emb"])
+    emb = coll8.flush(emb)
+    after = coll8.dense_reference(emb, probe)
+    launches["int8_thr"] = kernel.victim_threshold.launches
+    launches["int8_gd"] = kernel.gather_decode.launches
+    if not np.isfinite(losses).all() or not passes or rep.total_swaps <= 0:
+        raise AssertionError(f"refresh int8: losses {losses}, passes {passes}, clean pass "
+                             f"{rep.total_swaps} swaps")
+    if not all(torch.equal(before[f], after[f]) for f in before):
+        raise AssertionError("refresh int8: dense_reference changed across a clean refresh")
+    if not launches["int8_gd"]:
+        raise AssertionError("refresh int8: the write-backs ran no gather_decode launch")
+    log(f"refresh int8 (int8 host tier and arena, refresh_interval {REFRESH_INTERVAL}, "
+        f"{n_steps} steps, default mode): losses {losses}; dirty passes {passes}; after the "
+        f"flush all {n_checked} resident rows' host payload and sideband bitwise the int8 "
+        f"encode of the arena row; a clean refresh ({rep.total_swaps} swaps, plan "
+        f"{clock.ms['plan']} ms, surgery {clock.ms['surgery']} ms) leaves dense_reference "
+        f"bitwise; launches threshold {launches['int8_thr']}, gather_decode "
+        f"{launches['int8_gd']}")
+    _close(dict(state, emb=emb))
+    del state, emb
+    gc.collect()
+    return launches
+
+
+def sharded_refresh_phase(dev, vocab_scale, n_steps=4):
+    """5g: phase 5b's fp32 4-shard DLRM trained on the drifting stream, a
+    refresh with ``exchange_budget`` (``dense_reference`` after a flush
+    bitwise before and after; cross-shard rows within the budget; swaps +
+    deferred = the unbudgeted plan's swaps), then two steps planned over
+    the swapped homes.  Then phase 5e's sharded budget mode (int8 host and
+    arena) trained on it and flushed, and a re-homing pass (no swaps) with
+    ``rebalance_threshold`` the median slab's live imbalance: the live
+    imbalance before and after, the
+    moves, the host RSS peak; ``dense_reference`` bitwise before and after,
+    served logits over the new homes = ``dense_reference`` logits; then two
+    steps over the new homes."""
+    from repro_torch.core import refresh as refresh_lib
+    from repro_torch.core.collection import SHARED_ARENA
+    from repro_torch.kernels.cache_ops import kernel
+    from repro_torch.models.dlrm import DLRM
+
+    def counts_zero():
+        kernel.victim_threshold.launches = kernel.bucketize.launches = 0
+        kernel.gather_decode.launches = 0
+
+    def counts():
+        return {"thr": kernel.victim_threshold.launches, "bz": kernel.bucketize.launches,
+                "gd": kernel.gather_decode.launches}
+
+    def dev_batch(b):
+        return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+
+    def steps(model, state, bs):
+        losses = []
+        for b in bs:
+            state, m = model.train_step(state, dev_batch(b))
+            losses.append(float(m["loss"]))
+        if not np.isfinite(losses).all() or int(m["uniq_overflows"]):
+            raise AssertionError(f"sharded refresh: losses {losses}")
+        return state, losses
+
+    out = {}
+    # --- the fp32 4-shard DLRM: a budgeted exchange ---------------------------
+    cfg = _sharded_cfg(vocab_scale)
+    model = DLRM(cfg)
+    coll = model.collection
+    spec = coll.cached_slabs[SHARED_ARENA]
+    batches = _drift_batches(cfg, n_steps + 3, 4)
+    counts_zero()
+    state = model.init(0, device=dev)
+    state, losses = steps(model, state, batches[:n_steps])
+    state = model.flush(state)
+    probe = model.features(dev_batch(batches[n_steps + 2]))
+    before = coll.dense_reference(state["emb"], probe)
+    ccfg = coll.shard_cache_config(spec)
+    slab = state["emb"].slabs[SHARED_ARENA]
+    unb = refresh_lib.plan_sharded(ccfg, slab, refresh_lib.RefreshConfig(max_swaps=SHARDED_SWAPS),
+                                   *refresh_lib.homes(slab))[0].size
+    del slab
+    clock = _RefreshClock()
+    with clock:
+        (emb, rep), ms = sync_ms(lambda: coll.refresh(state["emb"], refresh_lib.RefreshConfig(
+            max_swaps=SHARDED_SWAPS, exchange_budget=EXCHANGE_BUDGET)))
+    emb = coll.flush(emb)
+    after = coll.dense_reference(emb, probe)
+    swaps, deferred = rep.swaps[SHARED_ARENA], rep.deferred_swaps[SHARED_ARENA]
+    cross = rep.cross_shard_rows[SHARED_ARENA]
+    if not all(torch.equal(before[f], after[f]) for f in before):
+        raise AssertionError("sharded refresh: dense_reference changed across the refresh")
+    if cross > EXCHANGE_BUDGET or swaps + deferred != unb or not swaps:
+        raise AssertionError(f"sharded refresh: {swaps} swaps + {deferred} deferred vs {unb} "
+                             f"unbudgeted; cross-shard rows {cross} of {EXCHANGE_BUDGET}")
+    state, after_losses = steps(model, dict(state, emb=emb), batches[n_steps:n_steps + 2])
+    out["sharded"] = counts()
+    if not (out["sharded"]["thr"] and out["sharded"]["bz"]):
+        raise AssertionError(f"sharded refresh: launches {out['sharded']}")
+    log(f"sharded refresh (fp32, {SHARDS} shards, replicate_top_k {REP_K}): {n_steps} train "
+        f"steps on the drifting stream (losses {losses}), flush, one pass at max_swaps "
+        f"{SHARDED_SWAPS} with exchange_budget {EXCHANGE_BUDGET}: {swaps} swaps ({deferred} "
+        f"deferred; the unbudgeted plan {unb}), {rep.rows_moved[SHARED_ARENA]} rows moved, "
+        f"{cross} cross-shard rows; {ms} ms (plan {clock.ms['plan']}, surgery "
+        f"{clock.ms['surgery']}); dense_reference bitwise before and after; 2 steps after it "
+        f"(losses {after_losses}); launches {out['sharded']}")
+    _close(state)
+    del state, emb
+    gc.collect()
+
+    # --- the sharded budget mode: rebalance -------------------------------------
+    cfg = dataclasses.replace(_budget_cfg(vocab_scale), model_shards=SHARDS)
+    model = DLRM(cfg)
+    coll = model.collection
+    cached = sorted(coll.cached_slabs, key=lambda n: int(n[1:]))
+    batches = _drift_batches(cfg, n_steps + 4, 5)
+    counts_zero()
+    state = model.init(0, device=dev)
+    state, losses = steps(model, state, batches[:n_steps])
+    state = model.flush(state)
+    n_checked = _check_int8_flushed(coll, state["emb"], cached, "rebalance pre-flush")
+    b = dev_batch(batches[n_steps + 3])
+    fb = model.features(b)
+    before = coll.dense_reference(state["emb"], fb)
+    imb0 = {n: _live_imbalance(coll, state["emb"], n) for n in cached}
+    # the threshold: the median slab's live imbalance, so the slabs above it
+    # are re-homed and the others are not
+    threshold = float(np.median(list(imb0.values())))
+    owners0 = {n: state["emb"].slabs[n].rank_owner.clone() for n in cached}
+    rss0 = rss_gb()
+    clock = _RefreshClock()
+    with clock, _PeakRSS() as rss:
+        (emb, rep), ms = sync_ms(lambda: coll.refresh(state["emb"], refresh_lib.RefreshConfig(
+            max_swaps=0, rebalance_threshold=threshold)))
+    imb1 = {n: _live_imbalance(coll, emb, n) for n in cached}
+    after = coll.dense_reference(emb, fb)
+    logits, emb = model.serve_step(dict(state, emb=emb), b)
+    ref_logits = model.fwd(state["params"], after, b)
+    diff = float((logits - ref_logits).abs().max())
+    moved = {n: rep.rebalance_moves[n] for n in cached}
+    over = [n for n in cached if imb0[n] > threshold]
+    if rep.rebalance_imbalance != imb0:
+        raise AssertionError(f"rebalance measured {rep.rebalance_imbalance}, not {imb0}")
+    if not over or any(not moved[n] for n in over) or any(moved[n] for n in cached
+                                                          if n not in over):
+        raise AssertionError(f"rebalance: imbalance {rep.rebalance_imbalance}, moves {moved}")
+    if any(torch.equal(owners0[n], emb.slabs[n].rank_owner) or imb1[n] >= imb0[n]
+           for n in over):
+        raise AssertionError(f"rebalance: homes or imbalance unchanged: {imb0} -> {imb1}")
+    if not all(torch.equal(before[f], after[f]) for f in before):
+        raise AssertionError("rebalance: dense_reference changed across the re-homing")
+    if not torch.allclose(logits, ref_logits, rtol=TOL_RTOL, atol=TOL_ATOL):
+        raise AssertionError(f"rebalance: cached vs dense_reference logits differ by {diff}")
+    state, after_losses = steps(model, dict(state, emb=emb), batches[n_steps:n_steps + 2])
+    out["rebalance"] = counts()
+    if not all(out["rebalance"].values()):
+        raise AssertionError(f"rebalance: launches {out['rebalance']}")
+    log(f"rebalance (sharded budget mode, int8 host and arena, {SHARDS} shards, "
+        f"{len(cached)} CACHED slabs, threshold {threshold}, the median slab's): {n_steps} train "
+        f"steps "
+        f"(losses {losses}), flush ({n_checked} resident rows' host payload and sideband = the "
+        f"int8 encode); per-slab live imbalance {rep.rebalance_imbalance}, moves {moved}, "
+        f"live imbalance by slab {imb0} -> {imb1}; {ms} ms (swap plan {clock.ms['plan']}, "
+        f"assign_devices {clock.ms['assign']}, re-homing surgery {clock.ms['rebalance']}, "
+        f"re-warm {clock.ms['rewarm']}); host RSS {rss0} GB before, peak {rss.peak} GB during "
+        f"(sampled every 5 ms); dense_reference bitwise before and "
+        f"after; served logits over the new homes = dense_reference logits (max |diff| "
+        f"{diff}); 2 steps after it (losses {after_losses}); launches "
+        f"{out['rebalance']}")
+    _close(state)
+    del state, emb
+    gc.collect()
+    return out
+
+
+def _live_imbalance(coll, emb, name):
+    """A sharded slab's live routed imbalance as the rebalance measures it:
+    max / mean of the shards' decayed tracker mass, replicated ranks out."""
+    from repro_torch.core import refresh as refresh_lib
+
+    slab = emb.slabs[name]
+    K = slab.rep.rows.shape[0]
+    owner, local = refresh_lib.homes(slab)
+    scores = refresh_lib.sharded_scores(slab, coll.cached_slabs[name].arena.freq_half_life,
+                                        owner, local)
+    load = np.zeros((coll.num_shards,), np.float64)
+    np.add.at(load, owner[K:], scores[K:])
+    return float(load.max() / load.mean()) if load.mean() > 0 else 1.0
+
+
+def drift_phase(dev, shape="full"):
+    """5h: ``benchmarks/bench_drift.py``'s run in the port: a drifting Zipf
+    stream through one cached table, with and without a refresh every few
+    steps, each from the same init; the plans take the threshold kernel
+    (``use_pallas_plan``, bitwise the argsort route).  Hit and miss counts,
+    swaps, rows moved and the hit rates equal the JAX package's on the CPU
+    (``DRIFT_REF``)."""
+    from repro_torch.core import collection as col
+    from repro_torch.core.refresh import RefreshConfig
+    from repro_torch.data import synth
+    from repro_torch.kernels.cache_ops import kernel
+
+    vocab, dim, batch, drift_every, ratio, every, max_swaps = DRIFT_SHAPES[shape]
+    spec = synth.DriftingZipfSpec(base=synth.ZipfSparseSpec(vocab_sizes=(vocab,)),
+                                  drift_every=drift_every)
+    table = col.TableConfig("items", vocab, dim, ids_per_step=batch, cache_ratio=ratio,
+                            freq_half_life=max(drift_every // 8, 1))
+    ids = [synth.drifting_sparse_batch(spec, batch, 0, s)["sparse"] for s in range(3 * drift_every)]
+    counts = np.zeros((vocab,), np.int64)
+    for s in range(drift_every):
+        np.add.at(counts, ids[s].reshape(-1), 1)
+    res, launches = {}, {}
+    for mode in ("no_refresh", "refresh"):
+        coll = col.EmbeddingCollection.create([table], cache_ratio=ratio, use_pallas_plan=True)
+        state = coll.init(0, counts={"items": counts}, device=dev)
+        kernel.victim_threshold.launches = 0
+        hits, misses, step_ms, refresh_ms = [], [], [], []
+        for s in range(3 * drift_every):
+            fb = col.FeatureBatch.from_onehot(("items",), torch.from_numpy(ids[s]).to(dev))
+            t0 = time.perf_counter()
+            state, _ = coll.prepare(state, fb)
+            c = state.slabs[col.SHARED_ARENA].cache
+            h, m = (int(x) for x in torch.stack([c.hits, c.misses]).cpu())
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            hits.append(h)
+            misses.append(m)
+            if mode == "refresh" and (s + 1) % every == 0:
+                (state, _), ms = sync_ms(lambda: coll.refresh(
+                    state, RefreshConfig(max_swaps=max_swaps, min_gain=0.25)))
+                refresh_ms.append(ms)
+        launches[mode] = kernel.victim_threshold.launches
+        met = coll.metrics(state)
+        res[mode] = {**_drift_summary(hits, misses, drift_every),
+                     "swaps": int(met["refresh_swaps"]),
+                     "rows_moved": int(met["refresh_rows_moved"])}
+        state.slabs[col.SHARED_ARENA].full.close()
+        log(f"drift {mode}: {json.dumps(res[mode])}; prepare ms p50 {np.percentile(step_ms, 50)} "
+            f"(median of {len(step_ms)}, to the counters' fetch); refresh ms "
+            f"{'p50 ' + str(np.percentile(refresh_ms, 50)) if refresh_ms else 'none'} "
+            f"({len(refresh_ms)} passes); threshold launches {launches[mode]}")
+        if launches[mode] != 3 * drift_every and dev.type == "cuda":
+            raise AssertionError(f"drift {mode}: {launches[mode]} threshold launches")
+    want = DRIFT_REF[shape]
+    if res != want:
+        raise AssertionError(f"drift: the port's counts {res} != the JAX package's {want}")
+    log(f"drift ({shape}: vocab {vocab}, dim {dim}, batch {batch}, drift_every {drift_every}, "
+        f"{3 * drift_every} steps, refresh every {every}, max_swaps {max_swaps}, min_gain 0.25): "
+        f"hit counts, hit rates, swaps and rows moved equal to the JAX package's on the CPU; "
+        f"hit_post {res['refresh']['hit_post']} with the refresh against "
+        f"{res['no_refresh']['hit_post']} without")
+    return sum(launches.values())
+
+
+def _drift_summary(hits, misses, drift_every):
+    """bench_drift's windows over the per-step hit rates (as
+    ``scripts/drift_reference.py`` computes them)."""
+    rates, ph, pm = [], 0, 0
+    for h, m in zip(hits, misses):
+        dh, dm = h - ph, m - pm
+        ph, pm = h, m
+        rates.append(dh / (dh + dm) if dh + dm else None)
+
+    def steady(lo, hi):
+        window = [r for r in rates[lo:hi] if r is not None]
+        return float(np.mean(window)) if window else 0.0
+
+    steps = len(rates)
+    return {"hit_pre": steady(drift_every - drift_every // 3, drift_every),
+            "hit_post": steady(steps - drift_every // 2, steps),
+            "trough": min(r for r in rates[drift_every:] if r is not None),
+            "hits": hits[-1], "misses": misses[-1]}
+
+
+# ---------------------------------------------------------------------------
 # phases 6-7: FM at full width, served through its kernel and trained
 # ---------------------------------------------------------------------------
 
@@ -3180,6 +3782,31 @@ def main():
     gemma = timed("12 (Gemma-3-27B one group)", gemma_phase, dev,
                   dataclasses.replace(gemma3_27b.CONFIG, n_layers=6, use_pallas=True))
     fa = timed("13 (flash timing)", time_flash, smol, gemma, fp32_lm, fa_errs, ptxas)
+    del smol, gemma, fp32_lm
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the refresh phases run last: they profile nothing, and with them run
+    # before phase 8 the profiler saw no launch of the port's own kernels
+    # there (the threshold's one-op check failed), so the profiled
+    # measurements above keep the order they had
+    rf = timed("5f (refresh)", refresh_phase, dev, args.vocab_scale)
+    gc.collect()
+    sh_rf = timed("5g (sharded refresh and rebalance)", sharded_refresh_phase, dev,
+                  args.vocab_scale)
+    gc.collect()
+    log(f"host RSS after the refresh phases (tables unpinned and freed) {rss_gb()} GB")
+    drift_thr = timed("5h (drift)", drift_phase, dev)
+    for row, paths in (
+        (thr, {"refresh_serve": rf["serve"], "refresh_train": rf["train"] + rf["train_timed"],
+               "refresh_pipelined": rf["pipelined"], "refresh_int8": rf["int8_thr"],
+               "refresh_sharded": sh_rf["sharded"]["thr"], "rebalance": sh_rf["rebalance"]["thr"],
+               "drift": drift_thr}),
+        (gd, {"refresh_int8": rf["int8_gd"], "rebalance": sh_rf["rebalance"]["gd"]}),
+        (bz, {"refresh_sharded": sh_rf["sharded"]["bz"], "rebalance": sh_rf["rebalance"]["bz"]}),
+    ):
+        row["launches_by_path"].update(paths)
+        row["launches"] = sum(row["launches_by_path"].values())
 
     log(json.dumps({"kernels": [thr, gd, fmk, bag, bz, *fa]}))
     log(card)

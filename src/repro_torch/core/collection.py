@@ -21,8 +21,9 @@ frequency-tiered (``arena_precision`` fp16 / int8 / "auto").  The surface:
 ``full_lookup`` / ``dense_reference`` / ``metrics`` / ``device_bytes``,
 and the lookahead window of the pipelined trainer (``plan_prepare(
 fb_future=)``, ``prepare_lookahead``).  ``chunk_rows`` (per table, or the
-shared arena's) stages a slab's host side in whole chunks.  Refresh comes
-with a later slice.
+shared arena's) stages a slab's host side in whole chunks.  ``refresh``
+re-ranks every cached slab from its online decayed counters
+(``core.refresh``).
 
 On a CUDA device a cached slab's host tier is pinned in host memory; the
 arena, the index maps, ``idx_map`` and every DEVICE table live on the card.
@@ -39,6 +40,7 @@ import torch
 
 from repro_torch.core import cache as cache_lib
 from repro_torch.core import freq as freq_lib
+from repro_torch.core import refresh as refresh_lib
 from repro_torch.core.lanes import i32, segment_sum, take_fill
 from repro_torch.core.policies import Policy
 from repro_torch.device import DeviceLike, resolve_device
@@ -1018,6 +1020,38 @@ class EmbeddingCollection:
         for sname, spec in self.cached_slabs.items():
             slabs[sname] = cached_slab_flush(spec.cache_config(), slabs[sname])
         return CollectionState(slabs=slabs)
+
+    # ----- adaptive frequency refresh ---------------------------------------
+
+    def refresh(
+        self,
+        state: CollectionState,
+        cfg: Optional[refresh_lib.RefreshConfig] = None,
+        writeback: bool = True,
+    ) -> Tuple[CollectionState, refresh_lib.RefreshReport]:
+        """Re-rank every cached slab (a CACHED table, or the GROUPED arena)
+        from its online decayed counters and apply the bounded incremental
+        permutation (``core.refresh``).
+
+        Host-side, between steps: run it only when no planned addresses are
+        outstanding (the trainers call it between steps or pipeline groups,
+        the serve engine between batches).  Pure reindexing:
+        ``full_lookup`` / ``dense_reference`` / ``lookup`` give bitwise the
+        same values just before and after the call with an fp32 host tier
+        (an fp16 / int8 tier's swapped dirty rows pay one encode).  Pass
+        ``writeback=False`` for read-only serve states.  The arena and the
+        host tables are updated in place, so ``state`` must not be used
+        again.  Returns the state and a ``RefreshReport``; the same counts
+        accumulate in the state (``metrics()``: ``refresh_swaps`` /
+        ``refresh_rows_moved``)."""
+        cfg = cfg or refresh_lib.RefreshConfig()
+        slabs = dict(state.slabs)
+        report = refresh_lib.RefreshReport()
+        for sname, spec in self.cached_slabs.items():
+            slabs[sname], stats = refresh_lib.refresh_cached_slab(
+                spec.cache_config(writeback=writeback), slabs[sname], cfg, writeback=writeback)
+            report.add(sname, stats)
+        return CollectionState(slabs=slabs), report
 
     def collect_counts_stream(self, stream, max_batches: Optional[int] = None
                               ) -> Dict[str, np.ndarray]:

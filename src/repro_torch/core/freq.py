@@ -27,6 +27,8 @@ __all__ = [
     "tracker_touch",
     "tracker_observe",
     "decay_to",
+    "decay_factor",
+    "decay_bump",
     "decayed_scores",
 ]
 
@@ -108,6 +110,65 @@ def init_tracker(vocab: int, device: torch.device) -> FreqTracker:
     )
 
 
+# Cephes's float32 exp: the polynomial and the range reduction that XLA's CPU
+# backend lowers ``exp`` to, each step a fused multiply-add
+_EXP_LOG2E = np.float32(1.44269504088896341)
+_EXP_C1 = np.float32(0.693359375)  # ln 2 = C1 - C2, split for the reduction
+_EXP_C2 = np.float32(-2.12194440e-4)
+_EXP_P = tuple(np.float32(c) for c in (1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3,
+                                        4.1665795894e-2, 1.6666665459e-1, 5.0000001201e-1))
+_EXP_LO = -88.3762626647949  # below it the result is subnormal, and flushed to 0
+_F32_TINY = float(np.finfo(np.float32).tiny)
+
+
+def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
+    """float32 ``a * b + c`` with one rounding: the float64 product of two
+    float32 values is exact, so only the sum rounds (to float64, then to
+    float32)."""
+    f64 = lambda v: v.to(torch.float64) if isinstance(v, torch.Tensor) else float(v)
+    return (f64(a) * f64(b) + f64(c)).to(torch.float32)
+
+
+def _exp_f32(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``exp(x)`` for ``x <= 0``, bit for bit what XLA computes on
+    the CPU: ``exp(x) = 2^n * p(r)`` with ``n = floor(x log2(e) + 1/2)``,
+    ``r = x - n ln 2`` and Cephes's degree-7 polynomial, each multiply-add
+    fused; subnormal results flush to 0.  Float64 and float32 arithmetic is
+    IEEE on the CPU and the card alike, so the result does not depend on
+    the device."""
+    x = torch.clamp(x, min=_EXP_LO)
+    n = torch.floor(_fma(x, _EXP_LOG2E, 0.5))
+    r = _fma(n, -_EXP_C1, x)
+    r = _fma(n, -_EXP_C2, r)
+    z = r * r
+    y = torch.full_like(r, float(_EXP_P[0]))
+    for c in _EXP_P[1:]:
+        y = _fma(y, r, c)
+    y = _fma(y, z, r) + 1.0
+    # 2^n from its exponent bits (n >= -127; -127 gives +0): an exact scaling
+    two_n = torch.bitwise_left_shift(n.to(torch.int32) + 127, 23).view(torch.float32)
+    out = y * two_n
+    return torch.where(out < _F32_TINY, 0.0, out)
+
+
+def decay_factor(dt: torch.Tensor, half_life: int) -> torch.Tensor:
+    """float32 ``exp2(-dt / half_life)`` for ``dt >= 0`` as the reference
+    computes it under ``jit`` on the CPU: XLA folds the divide and ``exp2``'s
+    ``ln 2`` into one constant ``fl(fl(1 / half_life) * fl(ln 2))`` and
+    lowers ``exp`` to Cephes's polynomial (:func:`_exp_f32`).  torch's own
+    ``exp2`` differs from it in the last ulp on some inputs (and the card's
+    from the CPU's), which is enough to reorder two near-tied rows of a
+    refresh plan."""
+    c = np.float32(np.float32(1.0 / half_life) * np.float32(np.log(2.0)))
+    return _exp_f32(-dt.to(torch.float32) * torch.tensor(c, device=dt.device))
+
+
+def decay_bump(score: torch.Tensor, dt: torch.Tensor, half_life: int) -> torch.Tensor:
+    """``score * decay_factor(dt) + 1`` with one rounding: XLA fuses the
+    reference's multiply and add."""
+    return _fma(score, decay_factor(dt, half_life), 1.0)
+
+
 def tracker_touch(
     tracker: FreqTracker,
     rows: torch.Tensor,
@@ -115,16 +176,14 @@ def tracker_touch(
     step: torch.Tensor,
     half_life: int,
 ) -> FreqTracker:
-    """Decay each touched row from its ``last_touch`` to ``step``, add 1.
+    """Decay each touched row from its ``last_touch`` to ``step``, add 1
+    (:func:`decay_bump`: bitwise the reference on the CPU).
 
-    ``rows`` must be unique among its valid lanes (the dedup output).  The
-    ``exp2`` is fp32; torch and XLA may differ in its last ulp.
-    """
+    ``rows`` must be unique among its valid lanes (the dedup output)."""
     safe = torch.where(valid, rows, 0)
     prev = tracker.score[safe]
     last = tracker.last_touch[safe]
-    dt = torch.clamp(step - last, min=0).to(torch.float32)
-    bumped = prev * torch.exp2(-dt / half_life) + 1.0
+    bumped = decay_bump(prev, torch.clamp(step - last, min=0), half_life)
     return dataclasses.replace(
         tracker,
         score=scatter_drop(tracker.score, rows, bumped, valid),
@@ -150,8 +209,7 @@ def decay_to(
     """float32 decayed masses normalised to a common ``step`` (broadcasts:
     pass ``step[:, None]`` for a stacked per-shard tracker).  The live
     ``shard_imbalance`` metric and the replicated arena's tracker use it."""
-    dt = torch.clamp(step - last_touch, min=0).to(torch.float32)
-    return score * torch.exp2(-dt / half_life)
+    return score * decay_factor(torch.clamp(step - last_touch, min=0), half_life)
 
 
 def decayed_scores(score, last_touch, step, half_life: int) -> np.ndarray:

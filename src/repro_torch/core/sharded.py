@@ -40,9 +40,13 @@ on the device.  The port keeps that layout on one card:
   dedup'd image of the window, routed (a second bucketize per plan) and
   handed to each shard's plan as its ``future_rows``.
 
-The one-process-per-GPU placement over NCCL and ``refresh`` / rebalance
-come with later slices; ``shard_specs`` (JAX PartitionSpecs) has no
-counterpart here.
+* ``refresh`` plans the re-ranking globally and exchanges row content
+  between the swapped ranks' fixed homes (``core.refresh``); with
+  ``rebalance_threshold`` it re-homes every rank of a slab whose live
+  traffic has drifted out of balance.
+
+The one-process-per-GPU placement over NCCL comes with a later slice;
+``shard_specs`` (JAX PartitionSpecs) has no counterpart here.
 """
 from __future__ import annotations
 
@@ -54,6 +58,7 @@ import torch
 
 from repro_torch.core import cache as cache_lib
 from repro_torch.core import freq as freq_lib
+from repro_torch.core import refresh as refresh_lib
 from repro_torch.core import transmitter
 from repro_torch.core.collection import (
     ArenaConfig,
@@ -62,6 +67,7 @@ from repro_torch.core.collection import (
     FeatureBatch,
     PlacementPlan,
     PlacementPlanner,
+    ShardAssignment,
     TableConfig,
     _CachedSlabSpec,
     draw_chunks,
@@ -232,6 +238,9 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
         else:
             get_codec(exchange_codec)  # fail fast on typos
             self.exchange_codec = exchange_codec
+        # each cached slab's rank -> (shard, row) placement, from init or the
+        # last rebalance
+        self.assignments: Dict[str, ShardAssignment] = {}
 
     @classmethod
     def create(
@@ -341,6 +350,7 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
             K = min(self.replicate_top_k, spec.vocab)
             assign = PlacementPlanner.assign_devices(spec.vocab, S, counts_ranked,
                                                      replicate_top_k=K)
+            self.assignments[sname] = assign
             cap_s = self.shard_capacity(spec)
             head_s = min(cap_s, max(1, int(round(spec.arena.arena_head_ratio * cap_s))))
             spec, codec = self._resolve_codecs(sname, c, S * cap_s, S * head_s,
@@ -601,8 +611,9 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
                 u = u[: min(K, u.shape[0])]
                 m = (u >= 0) & (u < K)
                 safe = torch.where(m, u, 0)
-                bumped = freq_lib.decay_to(rep.score[safe], rep.last_touch[safe], step,
-                                           spec.arena.freq_half_life) + 1.0
+                bumped = freq_lib.decay_bump(rep.score[safe],
+                                             torch.clamp(step - rep.last_touch[safe], min=0),
+                                             spec.arena.freq_half_life)
                 rep = RepArena(rows=rep.rows, score=scatter_drop(rep.score, u, bumped, m),
                                last_touch=scatter_drop(rep.last_touch, u, step, m), step=step)
             else:
@@ -714,9 +725,86 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
                 )
         return CollectionState(slabs=dict(state.slabs))
 
-    def refresh(self, state, cfg=None, writeback: bool = True):
-        raise NotImplementedError("the sharded refresh and rebalance arrive with the adaptive "
-                                  "refresh slice (ROADMAP item 11)")
+    # ----- adaptive frequency refresh ---------------------------------------
+
+    def refresh(
+        self,
+        state: CollectionState,
+        cfg: Optional[refresh_lib.RefreshConfig] = None,
+        writeback: bool = True,
+    ) -> Tuple[CollectionState, refresh_lib.RefreshReport]:
+        """Sharded re-ranking refresh (see ``EmbeddingCollection.refresh``).
+
+        The permutation is planned globally from the merged per-shard
+        counters, then applied as content exchanges between the swapped
+        ranks' fixed ``(owner, local)`` homes; cross-shard exchanges are
+        metered by ``cfg.exchange_budget`` (excess pairs defer to the next
+        pass).  With ``cfg.rebalance_threshold``, a slab whose live
+        imbalance exceeds it is re-homed after the swap pass.  With one
+        shard the pass is bitwise the unsharded refresh."""
+        cfg = cfg or refresh_lib.RefreshConfig()
+        slabs = dict(state.slabs)
+        report = refresh_lib.RefreshReport()
+        for sname, spec in self.cached_slabs.items():
+            slabs[sname], stats = refresh_lib.refresh_sharded_slab(
+                self.shard_cache_config(spec, writeback=writeback), slabs[sname], cfg,
+                writeback=writeback)
+            if cfg.rebalance_threshold is not None:
+                slabs[sname], rstats = self._maybe_rebalance(sname, spec, slabs[sname], cfg,
+                                                             writeback)
+                stats = {**stats, **rstats}
+            report.add(sname, stats)
+        return CollectionState(slabs=slabs), report
+
+    def _maybe_rebalance(
+        self,
+        sname: str,
+        spec: _CachedSlabSpec,
+        slab: ShardedSlab,
+        cfg: refresh_lib.RefreshConfig,
+        writeback: bool,
+    ) -> Tuple[ShardedSlab, Dict[str, Any]]:
+        """Traffic-aware re-homing: the live routed imbalance (max / mean of
+        the shards' decayed tracker mass, the replicated ranks counting
+        none); above ``cfg.rebalance_threshold``, ``assign_devices`` on the
+        live scores gives every rank a new home, the slab's rows and
+        trackers move there (``refresh.apply_rebalance``), each shard's
+        cache is re-warmed and the new ``rank_owner`` / ``rank_local`` are
+        installed.  Pure data movement: lookups give the same values."""
+        S = self.num_shards
+        vs = self.rows_per_shard(spec)
+        K = int(slab.rep.rows.shape[0])
+        owner, local = refresh_lib.homes(slab)
+        scores = refresh_lib.sharded_scores(slab, spec.arena.freq_half_life, owner, local)
+        scores[:K] = 0.0  # replicated ranks carry no routed traffic
+        load = np.zeros((S,), np.float64)
+        np.add.at(load, owner[K:], scores[K:])
+        mean = float(load.mean())
+        imb = float(load.max() / mean) if mean > 0 else 1.0
+        stats: Dict[str, Any] = {"rebalance_moves": 0, "rebalance_imbalance": imb}
+        if imb <= float(cfg.rebalance_threshold):
+            return slab, stats
+        assign = PlacementPlanner.assign_devices(spec.vocab, S, scores, replicate_top_k=K)
+        new_flat = assign.owner.astype(np.int64) * vs + assign.local.astype(np.int64)
+        old_flat = owner * vs + local
+        moved = int(np.sum(new_flat != old_flat))
+        if not moved:
+            return slab, stats
+        src_for_dest = np.arange(S * vs, dtype=np.int64)  # new flat home -> old flat home
+        src_for_dest[new_flat] = old_flat
+        full, cache = refresh_lib.apply_rebalance(slab.full, slab.cache, src_for_dest,
+                                                  buffer_rows=spec.arena.buffer_rows,
+                                                  writeback=writeback)
+        ccfg = self.shard_cache_config(spec, writeback=writeback)
+        warmed = [cache_lib.warmup(ccfg, full.shard(s), _shard(cache, s))[1] for s in range(S)]
+        self.assignments[sname] = assign
+        stats["rebalance_moves"] = moved
+        dev = slab.rank_owner.device
+        return dataclasses.replace(
+            slab, full=full, cache=_with_index(cache, warmed),
+            rank_owner=torch.from_numpy(assign.owner).to(dev),
+            rank_local=torch.from_numpy(assign.local).to(dev),
+        ), stats
 
     # ----- oracles / bulk reads ---------------------------------------------
 

@@ -1,8 +1,9 @@
 """Synthetic batches (the ``ZipfSparseSpec`` / ``sparse_batch`` /
-``seq_batch`` part of ``repro.data.synth``, copied so that the same (seed,
-step) gives bit-identical batches in both packages): Criteo-like sparse
-batches with the paper's access skew, and LM token streams.  Batch ``i`` is
-a pure function of (seed, i)."""
+``DriftingZipfSpec`` / ``drifting_sparse_batch`` / ``seq_batch`` part of
+``repro.data.synth``, copied so that the same (seed, step) gives
+bit-identical batches in both packages): Criteo-like sparse batches with
+the paper's access skew, the same stream under hot-set drift, and LM token
+streams.  Batch ``i`` is a pure function of (seed, i)."""
 from __future__ import annotations
 
 import dataclasses
@@ -10,7 +11,8 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-__all__ = ["ZipfSparseSpec", "seq_batch", "sparse_batch"]
+__all__ = ["DriftingZipfSpec", "ZipfSparseSpec", "drifting_sparse_batch", "seq_batch",
+           "sparse_batch"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,6 +62,34 @@ def sparse_batch(
     noise = rng.normal(scale=0.3, size=batch)
     out["label"] = ((h + noise) > 0.5).astype(np.float32)
     return out
+
+
+@dataclasses.dataclass(frozen=True)
+class DriftingZipfSpec:
+    """A Zipf sparse stream whose hot set moves: every ``drift_every`` steps
+    the popularity ranking rotates by ``shift_fraction`` of each vocab (phase
+    ``p`` maps sampled popularity rank ``r`` to id ``(r + p * shift) % vocab``).
+    The skew is the same in every phase; only which ids are hot changes, so
+    a frequency rank collected in phase 0 goes stale at each phase change."""
+
+    base: ZipfSparseSpec
+    drift_every: int = 200  # steps per popularity phase
+    shift_fraction: float = 0.37  # hot-set rotation per phase (per vocab)
+
+    def shifts(self, step: int) -> np.ndarray:
+        """Per-field id rotation of the phase containing ``step``."""
+        phase = step // self.drift_every
+        vocabs = np.asarray(self.base.vocab_sizes, dtype=np.int64)
+        per_phase = np.maximum((self.shift_fraction * vocabs).astype(np.int64), 1)
+        return (phase * per_phase) % vocabs
+
+
+def drifting_sparse_batch(
+    spec: DriftingZipfSpec, batch: int, seed: int, step: int
+) -> Dict[str, np.ndarray]:
+    """``sparse_batch`` under hot-set drift; phase 0 (``step < drift_every``)
+    is the undrifted stream, bit for bit."""
+    return sparse_batch(spec.base, batch, seed, step, id_shift=spec.shifts(step))
 
 
 def seq_batch(vocab: int, batch: int, seq: int, seed: int, step: int) -> Dict[str, np.ndarray]:

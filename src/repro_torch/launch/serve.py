@@ -1,6 +1,7 @@
 """Serving launcher: batched DLRM scoring with the cache in read-only mode.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch dlrm-criteo --requests 2000
+  PYTHONPATH=src python -m repro_torch.launch.serve --refresh-interval 4
 
 Runs on the CUDA card; ``--device cpu`` runs it on the CPU.  MIND and DIN
 come with their models in a later slice of the port.
@@ -26,6 +27,9 @@ def main(argv=None):
                     help="cache eviction policy; default = the model's (freq_lfu)")
     ap.add_argument("--obs-dir", default=None,
                     help="stream per-batch JSONL and a Chrome trace to this directory")
+    ap.add_argument("--refresh-interval", type=int, default=0,
+                    help="0 = the static rank; N = re-rank the read-only cache from its "
+                         "online decayed counters every N scored batches (scores unchanged)")
     ap.add_argument("--device", default=None, help="default: the CUDA card")
     args = ap.parse_args(argv)
     policy = Policy(args.cache_policy) if args.cache_policy else None
@@ -46,6 +50,10 @@ def main(argv=None):
         model.serve_step, state, batch_size=args.batch, pad_example=pad,
         state_stats_fn=lambda s: model.collection.metrics(s["emb"], writeback=False),
         obs_dir=args.obs_dir, device=args.device,
+        # read-only cache: resident rows are clean, the re-rank skips write-backs
+        refresh_fn=(lambda s: model.refresh(s, writeback=False)) if args.refresh_interval
+        else None,
+        refresh_every=args.refresh_interval or None,
     )
     n = step = 0
     while n < args.requests:

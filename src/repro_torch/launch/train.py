@@ -5,6 +5,7 @@ batches.
   PYTHONPATH=src python -m repro_torch.launch.train --arch fm --steps 50 --host-precision int8
   PYTHONPATH=src python -m repro_torch.launch.train --model-shards 4 --replicate-top-k 64
   PYTHONPATH=src python -m repro_torch.launch.train --pipeline-depth 2 --chunk-rows 8
+  PYTHONPATH=src python -m repro_torch.launch.train --refresh-interval 5 --model-shards 4
 
 Runs on the CUDA card; ``--device cpu`` runs it on the CPU.  DIN, DIEN and
 MIND, the reference launcher's other architectures, come with their models
@@ -84,6 +85,10 @@ def main(argv=None):
     ap.add_argument("--chunk-rows", type=int, default=0,
                     help="0 = host staging in rows; N = in contiguous N-row chunks (bitwise "
                          "the same; a table whose rows do not divide by N moves rows)")
+    ap.add_argument("--refresh-interval", type=int, default=0,
+                    help="0 = the static frequency rank (the paper); N = re-rank the cached "
+                         "slabs from their online decayed counters every N steps (pipelined "
+                         "runs refresh at group boundaries); fp32 losses are bitwise the same")
     ap.add_argument("--device", default=None, help="default: the CUDA card")
     args = ap.parse_args(argv)
 
@@ -91,11 +96,13 @@ def main(argv=None):
                         args.replicate_top_k, args.exchange_codec, args.max_routed_per_shard,
                         args.host_precision, args.chunk_rows)
     tc = TrainerConfig(max_steps=args.steps, ckpt_dir=args.ckpt_dir, ckpt_every=25,
-                       obs_dir=args.obs_dir, pipeline_depth=args.pipeline_depth)
+                       obs_dir=args.obs_dir, pipeline_depth=args.pipeline_depth,
+                       refresh_interval=args.refresh_interval or None)
     kw = dict(
         init_fn=lambda: model.init(0, device=args.device),
         make_batch=lambda s: synth.sparse_batch(spec, args.batch, 0, s),
         flush_fn=model.flush,
+        refresh_fn=model.refresh if args.refresh_interval else None,
         on_straggler=lambda s, dt: print(f"[straggler] step {s}: {dt * 1e3:.0f} ms"),
         device=args.device,
     )
@@ -111,6 +118,10 @@ def main(argv=None):
     print(f"\narch={args.arch} steps={h[-1]['step'] + 1} "
           f"loss {h[0]['loss']:.4f} -> {h[-1]['loss']:.4f}")
     print(f"cache hit rate: {h[-1]['hit_rate']:.1%}")
+    if args.refresh_interval:
+        print(f"adaptive refresh: {h[-1]['refresh_swaps']:.0f} rank swaps, "
+              f"{h[-1]['refresh_rows_moved']:.0f} host rows moved, "
+              f"window hit rate {h[-1]['window_hit_rate']:.1%}")
     db = model.collection.device_bytes()
     print(f"host tier ({args.host_precision}): {db['slow_tier_bytes'] / 1e6:.1f} MB "
           f"(saved {db['host_bytes_saved'] / 1e6:.1f} MB vs fp32)")

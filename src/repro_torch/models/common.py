@@ -167,5 +167,10 @@ class CollectionModelMixin:
         return self._train_step().compute_step(state, batch, addresses)
 
     def refresh(self, state, cfg=None, writeback: bool = True):
-        raise NotImplementedError("the adaptive frequency refresh arrives with the port's "
-                                  "refresh slice (ROADMAP item 11)")
+        """Adaptive frequency refresh: re-rank the collection's cached slabs
+        from their online decayed counters (``EmbeddingCollection.refresh``).
+        Host-side pure reindexing, between steps: the trainers wire it as
+        ``refresh_fn`` under ``TrainerConfig.refresh_interval``; serving
+        passes ``writeback=False`` for its read-only cache states."""
+        new_emb, _ = self.collection.refresh(state["emb"], cfg, writeback=writeback)
+        return dict(state, emb=new_emb)

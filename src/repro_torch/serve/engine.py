@@ -7,6 +7,9 @@ a plain call of the score function (PyTorch runs eagerly; there is no
 ``jit``).  Copying the scores back to the host is the one deliberate sync
 of a request: it IS the response.  Latency lands in the deterministic
 fixed-bucket histogram and cache counters go through the exact-int hub.
+With ``refresh_fn`` / ``refresh_every`` the engine re-ranks its cache
+every N scored batches, between batches and never inside ``score``'s
+span: scores are unchanged (pure reindexing), only hit rates move.
 """
 from __future__ import annotations
 
@@ -67,12 +70,20 @@ class ServeEngine:
         obs_run: str = "serve",
         obs_annotate: bool = False,
         device: DeviceLike = None,
+        refresh_fn: Optional[Callable[[Any], Any]] = None,
+        refresh_every: Optional[int] = None,
+        # ^ every ``refresh_every`` scored batches, ``refresh_fn`` (usually
+        #   ``lambda s: model.refresh(s, writeback=False)``: a read-only
+        #   cache's rows are clean) re-ranks the live state
     ):
         self.score_fn = score_fn
         self.state = state
         self.batch_size = batch_size
         self.pad_example = pad_example
         self.state_stats_fn = state_stats_fn
+        self.refresh_fn = refresh_fn
+        self.refresh_every = refresh_every
+        self._batches_since_refresh = 0
         self.device = resolve_device(device)
         self.stats = ServeStats()
         self.obs_dir = obs_dir
@@ -141,4 +152,10 @@ class ServeEngine:
             {"batch": self.stats.batches, "rows": n, "requests": self.stats.requests},
             wall={"latency_s": dt},
         )
+        if self.refresh_fn is not None and self.refresh_every:
+            self._batches_since_refresh += 1
+            if self._batches_since_refresh >= self.refresh_every:
+                with self.tracer.span("refresh"):
+                    self.state = self.refresh_fn(self.state)
+                self._batches_since_refresh = 0
         return scores

@@ -14,8 +14,12 @@ and the lookahead-pipelined ``PipelinedTrainer``.
 
 ``PipelinedTrainer`` (``pipeline_depth`` k > 0) runs the model's split step
 in groups of k off one merged cache plan, planning the next group before
-the host blocks on any loss of this one.  The adaptive refresh
-(``refresh_interval``, ROADMAP item 11) arrives with its slice of the port.
+the host blocks on any loss of this one.
+* adaptive refresh — with ``refresh_interval`` N, ``refresh_fn`` (usually
+  ``model.refresh``) re-ranks the cached slabs every N steps: the serial
+  trainer after every N-th step, the pipelined one at the first group
+  boundary at or past each multiple of N.  It is pure reindexing, so fp32
+  losses are bitwise those of a run without it.
 The trainers run on the CUDA card unless given ``device="cpu"``.
 """
 from __future__ import annotations
@@ -72,7 +76,10 @@ class TrainerConfig:
     # 0: serial, one fused step_fn a step.  k >= 1: PipelinedTrainer, groups
     # of k steps off one merged plan, the next group planned ahead
     pipeline_depth: int = 0
-    refresh_interval: Optional[int] = None  # set: the port's refresh slice
+    # None: the static frequency rank (the paper).  N: ``refresh_fn`` every
+    # N steps (pipelined: at the first group boundary at or past each
+    # multiple of N, so a merged plan never straddles a refresh)
+    refresh_interval: Optional[int] = None
     # None: exact counters accumulate, nothing is written, spans are off.
     # A directory: per-step JSONL, span aggregate, step-time histogram and a
     # Chrome trace land there.
@@ -80,11 +87,6 @@ class TrainerConfig:
     obs_run: str = "train"
     obs_annotate: bool = False  # spans also label the torch.profiler timeline
     history_limit: Optional[int] = None  # keep only the last N records in memory
-
-    def __post_init__(self):
-        if self.refresh_interval:
-            raise NotImplementedError("refresh_interval: the adaptive frequency refresh "
-                                      "arrives with the port's refresh slice (ROADMAP item 11)")
 
 
 def _to_device(batch: Dict[str, Any], device: torch.device) -> Dict[str, torch.Tensor]:
@@ -102,6 +104,7 @@ class Trainer:
         flush_fn: Optional[Callable[[Any], Any]] = None,  # cache barrier before a checkpoint
         on_straggler: Optional[Callable[[int, float], None]] = None,
         device: DeviceLike = None,
+        refresh_fn: Optional[Callable[[Any], Any]] = None,  # host-side re-rank between steps
     ):
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -110,6 +113,7 @@ class Trainer:
         self.make_batch = make_batch
         self.flush_fn = flush_fn
         self.on_straggler = on_straggler
+        self.refresh_fn = refresh_fn
         self.detector = StragglerDetector(factor=cfg.straggler_factor)
         self.checkpointer = (
             ckpt_lib.Checkpointer(cfg.ckpt_dir, keep=cfg.ckpt_keep) if cfg.ckpt_dir else None
@@ -198,6 +202,11 @@ class Trainer:
                 with self.tracer.span("step"):
                     state, metrics = self.step_fn(state, batch)
                 state = self._post_step(step_i, state, metrics, t0)
+                if (self.refresh_fn is not None and cfg.refresh_interval
+                        and (step_i + 1) % cfg.refresh_interval == 0
+                        and step_i + 1 < cfg.max_steps):
+                    with self.tracer.span("refresh"):
+                        state = self.refresh_fn(state)
             if self.checkpointer:
                 self.checkpointer.wait()
         finally:
@@ -233,7 +242,14 @@ class PipelinedTrainer(Trainer):
     the plan's ``future_unresident`` is fetched once a group and a non-zero
     count raises with the remedy.  Cache hit and miss counters are recorded
     by the plans, so under grouping they sample the group leaders only, as
-    in the reference."""
+    in the reference.
+
+    A refresh runs only at a group boundary (a merged plan's addresses
+    belong to one index image): at the first boundary at or past each
+    multiple of ``refresh_interval``, counted in absolute steps so that a
+    restore resumes the cadence.  When one falls due after a group, the
+    next group's plan is not made at the group's first compute: it is made
+    after the refresh, from the refreshed index state."""
 
     def __init__(
         self,
@@ -246,9 +262,10 @@ class PipelinedTrainer(Trainer):
         flush_fn: Optional[Callable[[Any], Any]] = None,
         on_straggler: Optional[Callable[[int, float], None]] = None,
         device: DeviceLike = None,
+        refresh_fn: Optional[Callable[[Any], Any]] = None,
     ):
         super().__init__(cfg, init_fn, step_fn=None, make_batch=make_batch, flush_fn=flush_fn,
-                         on_straggler=on_straggler, device=device)
+                         on_straggler=on_straggler, device=device, refresh_fn=refresh_fn)
         self.plan_fn = plan_fn
         self.compute_fn = compute_fn
         self.apply_fn = apply_fn
@@ -298,13 +315,17 @@ class PipelinedTrainer(Trainer):
             self._check_window(plan, group)
             with self.tracer.span("apply"):
                 state = self.apply_fn(state, plan)
+            every = cfg.refresh_interval if self.refresh_fn is not None else None
+            next_refresh_at = (start // every + 1) * every if every else None
             while group:
                 addrs = (plan.addresses,) + tuple(plan.future_addresses)
                 plan = None
-                n_next = min(depth, cfg.max_steps - (group[-1][0] + 1))
+                last = group[-1][0]
+                n_next = min(depth, cfg.max_steps - (last + 1))
+                refresh_now = bool(every) and last + 1 >= next_refresh_at and n_next > 0
                 for j, (step_i, batch) in enumerate(group):
                     t0 = time.perf_counter()
-                    if j == 0 and n_next > 0:
+                    if j == 0 and n_next > 0 and not refresh_now:
                         # the next group's plan, before blocking on any loss of
                         # this one; a short peek means the stream ended
                         peek = prefetch.lookahead(n_next)
@@ -318,6 +339,16 @@ class PipelinedTrainer(Trainer):
                         with self.tracer.span("apply"):
                             state = self.apply_fn(state, plan)
                     state = self._post_step(step_i, state, metrics, t0)
+                if refresh_now:  # then the next group is planned on the refreshed state
+                    with self.tracer.span("refresh"):
+                        state = self.refresh_fn(state)
+                    next_refresh_at = ((last + 1) // every + 1) * every
+                    peek = prefetch.lookahead(n_next)
+                    n_next = len(peek)
+                    if peek:
+                        plan = self._plan(state, peek)
+                        with self.tracer.span("apply"):
+                            state = self.apply_fn(state, plan)
                 if plan is None:
                     break
                 group = self._take(prefetch, n_next)

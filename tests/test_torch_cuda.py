@@ -708,3 +708,87 @@ def test_flash_kernel_rejects_bad_input(cuda):
         fa_kernel.flash_attention(torch.ones((1, 2, 64, 264), device=cuda),
                                   torch.ones((1, 1, 64, 264), device=cuda),
                                   torch.ones((1, 1, 64, 264), device=cuda))
+
+
+def _tree_equal(want, got, path=""):
+    """Two ``convert.to_numpy`` trees, leaf by leaf, bitwise."""
+    if isinstance(want, dict):
+        assert set(want) == set(got), path
+        for k in want:
+            _tree_equal(want[k], got[k], f"{path}/{k}")
+    elif isinstance(want, np.ndarray):
+        assert want.dtype == got.dtype and np.array_equal(want, got), path
+    else:
+        assert want == got, path
+
+
+def _refresh_states(coll, cuda, steps=12):
+    """A dirty CPU state (lookups, then an SGD step on the arena) and its
+    copies on the CPU and on the card (host tier pinned)."""
+    from repro_torch import convert
+    from repro_torch.core.collection import FeatureBatch
+
+    rng = np.random.default_rng(0)
+    counts = {t.name: rng.integers(0, 50, t.vocab) for t in coll.tables.values()}
+    state = coll.init(0, counts=counts, device="cpu")
+    for i in range(steps):
+        ids = {t.name: torch.from_numpy(rng.integers(-1, t.vocab, 16).astype(np.int32))
+               for t in coll.tables.values()}
+        state, _, _ = coll.lookup(state, FeatureBatch(ids=ids))
+    grads = {k: torch.ones_like(v) for k, v in coll.weights(state).items()}
+    tree = convert.to_numpy(coll.apply_grads(state, grads, 0.1))
+    return (convert.collection_state_from_numpy(tree, device="cpu", collection=coll),
+            convert.collection_state_from_numpy(tree, device=cuda, collection=coll))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shards", [0, 4])
+def test_refresh_on_the_card_matches_cpu(cuda, shards):
+    """A refresh of a dirty state with an int8 host tier and an int8-tiered
+    arena (the write-back gathers through the gather-decode kernel), and
+    sharded a budgeted exchange with a replicated head then a re-homing:
+    the report and every state leaf bitwise the CPU's."""
+    from repro_torch import convert
+    from repro_torch.core.collection import EmbeddingCollection, TableConfig
+    from repro_torch.core.refresh import RefreshConfig
+    from repro_torch.core.sharded import ShardedEmbeddingCollection
+
+    tables = [TableConfig("big", vocab=4096, dim=16, ids_per_step=16, cache_ratio=0.1),
+              TableConfig("small", vocab=96, dim=16, ids_per_step=16, cache_ratio=0.3)]
+    kw = dict(cache_ratio=0.1, host_precision="int8", arena_precision="int8")
+    if shards:
+        coll = ShardedEmbeddingCollection.create(tables, num_shards=shards, replicate_top_k=8,
+                                                 **kw)
+        cfgs = [RefreshConfig(max_swaps=64, exchange_budget=16),
+                RefreshConfig(max_swaps=0, rebalance_threshold=1.0)]
+    else:
+        coll = EmbeddingCollection.create(tables, **kw)
+        cfgs = [RefreshConfig(max_swaps=64)]
+    cpu, card = _refresh_states(coll, cuda)
+    before = kernel.gather_decode.launches
+    for cfg in cfgs:
+        cpu, want = coll.refresh(cpu, cfg)
+        card, got = coll.refresh(card, cfg)
+        assert got == want and want.total_swaps + sum(want.rebalance_moves.values()) > 0
+    assert kernel.gather_decode.launches > before
+    _tree_equal(convert.to_numpy(cpu), convert.to_numpy(card))
+    for slab in card.slabs.values():
+        assert slab.full.pinned
+        slab.full.close()
+
+
+@pytest.mark.cuda
+def test_tracker_decay_on_the_card_matches_cpu(cuda):
+    """The tracker's decay (Cephes exp with float64-emulated fused
+    multiply-adds) gives the CPU's float32 bits on the card."""
+    from repro_torch.core import freq
+
+    dt = torch.arange(0, 300_000, dtype=torch.int32)
+    score = torch.from_numpy(np.random.default_rng(1).gamma(1.5, 20.0, dt.numel())
+                             .astype(np.float32))
+    for half_life in (1024, 18, 5, 7):
+        want = freq.decay_bump(score, dt, half_life)
+        got = freq.decay_bump(score.to(cuda), dt.to(cuda), half_life).cpu()
+        assert torch.equal(got, want), half_life
+        assert torch.equal(freq.decay_factor(dt.to(cuda), half_life).cpu(),
+                           freq.decay_factor(dt, half_life)), half_life

@@ -10,7 +10,6 @@ host wire bytes exactly equal.
 """
 import jax
 import numpy as np
-import pytest
 import torch
 from torch_parity import assert_tree_equal, jax_to_numpy
 
@@ -115,8 +114,14 @@ def test_serve_launcher_matches_reference_launcher(capsys, monkeypatch):
 
 
 def test_unported_paths_raise():
-    """The refresh (ROADMAP item 11) still raises; the sharded budget mode
-    (item 17) builds."""
+    """Nothing of the serving slice raises any more: the sharded budget
+    mode (ROADMAP item 17) builds, and its read-only refresh (item 11)
+    runs over every cached slab and leaves the scores as they were."""
     model = DLRM(DLRMConfig(**dict(SHAPE, model_shards=2, device_budget_bytes=1 << 20)))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        model.collection.refresh(None)
+    state = model.init(0, device="cpu")
+    b = {k: torch.from_numpy(v) for k, v in synth.sparse_batch(
+        synth.ZipfSparseSpec(vocab_sizes=VOCABS, n_dense=13), 16, 0, 0).items()}
+    logits, emb = model.serve_step(state, b)
+    emb, report = model.collection.refresh(emb, writeback=False)
+    assert set(report.swaps) == set(model.collection.cached_slabs)
+    assert torch.equal(model.serve_step(dict(state, emb=emb), b)[0], logits)

@@ -228,14 +228,17 @@ def test_trainer_raises_on_unique_buffer_overflow():
 
 
 def test_unported_trainer_options_raise():
-    """The refresh (ROADMAP item 11) still raises, in the trainer and the
-    model; ``pipeline_depth`` (item 9) is accepted."""
+    """No trainer option raises any more: ``pipeline_depth`` (ROADMAP item
+    9) and ``refresh_interval`` (item 11) are accepted, and the model's
+    refresh runs on a trained, tiered state."""
     assert TrainerConfig(max_steps=1, pipeline_depth=2).pipeline_depth == 2
-    with pytest.raises(NotImplementedError, match="item 11"):
-        TrainerConfig(max_steps=1, refresh_interval=5)
+    assert TrainerConfig(max_steps=1, refresh_interval=5).refresh_interval == 5
     model, state = _tiered()
-    with pytest.raises(NotImplementedError, match="item 11"):
-        model.refresh(state)
+    for step in range(3):
+        state, _ = model.train_step(state, _tt(_batch(step)))
+    state = model.refresh(state)
+    assert set(state) == {"params", "opt", "emb", "step"}
+    assert int(model.collection.metrics(state["emb"])["refresh_swaps"]) >= 0
 
 
 def test_train_launcher_matches_reference_launcher(capsys, monkeypatch):

@@ -872,13 +872,14 @@ def test_exchange_bytes_match_bench_pr7(S):
 
 
 def test_unported_sharded_surfaces_raise():
-    """What the port still lacks raises, naming its ROADMAP item; the
-    budget mode and the lookahead window (item 17 and 9) no longer do."""
+    """Invalid shard counts and exchange codecs raise; the refresh (ROADMAP
+    item 11), the budget mode and the lookahead window (items 17 and 9) no
+    longer do."""
     tables = small_tables()
     sc = ShardedEmbeddingCollection.create(tables, num_shards=2, cache_ratio=0.2)
     state = sc.init(0, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        sc.refresh(state)
+    state, report = sc.refresh(state)
+    assert set(report.swaps) == set(sc.cached_slabs)
     with pytest.raises(ValueError):
         ShardedEmbeddingCollection.create(tables, num_shards=0)
     with pytest.raises(ValueError):
