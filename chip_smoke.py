@@ -149,9 +149,7 @@ Phases (any failure exits non-zero, with no result line):
    equal to the JAX package's on the CPU (``scripts/drift_reference.py``).
    Each new path runs with the launch counts at 0 before it and read
    after it; the ``kernels`` line counts them by path.  Phases 5f-5h run
-   last, after phase 13: they profile nothing, and late in a long process
-   the profiler has seen no launch of the port's own kernels, so the
-   profiled measurements keep their place.
+   after phase 13 and before phase 8.
 6. FM serve: ``configs/fm.CONFIG`` at full width (40 fields, 33 764 352
    rows of 11 fp32 = 1.486 GB pinned, a 2 097 152-slot arena, batch 65536)
    with ``use_pallas=True``: ``ServeEngine(FMModel.serve_step)`` on
@@ -175,13 +173,38 @@ Phases (any failure exits non-zero, with no result line):
    read-modify-writes the touched chunks on the host.  Checks losses
    bitwise phase 7's, every move chunked (the transmitter's counter) and
    the post-flush rows; prints the largest staging block's bytes.
-8. timing: each kernel, its plain version (and ``torch.topk`` beside the
+14a. the paper's single-table ``core.cached_embedding`` at full Criteo
+   width: the 26 fields concatenated into one 33 762 577-row fp32 table of
+   dim 128 (17.29 GB pinned), 506 438 slots, ``ids_per_step`` 16 384 x 26,
+   ``use_pallas_plan``.  ``CE_SERVE`` (8) batches through ``embed_onehot``
+   with write-back off (the rows bitwise ``dense_reference_lookup``), the
+   threshold bitwise its plain version on one more plan's live key, then
+   ``CE_TRAIN`` (4) ``EmbTrainStep`` steps (the Criteo DLRM's bottom MLP,
+   dot interaction and top MLP, SGD), ``flush_state`` (every resident slot
+   = its host row, bitwise); the table is freed and a second one with
+   ``rowwise_adagrad`` trains ``CE_ADAGRAD`` (2) steps and flushes (rows,
+   and each resident row's accumulator = the host's, bitwise).  Prints the
+   hit rate, the step p50 and the host RSS.
+14b. the paper's Avazu DLRM (``configs/dlrm_avazu.CONFIG``: 13 fields,
+   9 445 823 rows of dim 128 = 4.84 GB pinned, 8 dense features, batch
+   65 536, 851 968 slots, ``use_pallas_plan``): ``ServeEngine`` on
+   ``AVAZU_SERVE`` (8) batches (cached = ``dense_reference`` logits), the
+   threshold bitwise plain on the live key, then the ``Trainer``'s
+   ``AVAZU_TRAIN`` (4) steps and a flush (every resident slot = its host
+   row, bitwise).  Prints serve and train p50, a profiled step's idle
+   share and the host wire bytes.  Both phases run with the launch counts
+   at 0 before each run and read after it.
+8. timing, last, in a fresh child process of this script, which loads the
+   live inputs from a file under ``build/`` (``torch.profiler`` drops the
+   device events of short windows around the port's kernels late in a long
+   process, see ``scripts/profiler_probe.py``; a window whose events are
+   not all there is taken again): each kernel, its plain version (and ``torch.topk`` beside the
    threshold, ``F.embedding_bag`` beside the bag) by CUDA events over
    back-to-back calls, their summed device time per call from
    ``torch.profiler``, and the wrapper's host enqueue time, on the live
    inputs of the main paths.  The threshold is timed on the DLRM serve
-   plan's, FM's and phase 5d's depth-3 lookahead keys; each call must show
-   one device op and no memset.  The bag is timed as the main path calls
+   plan's, FM's, phase 5d's depth-3 lookahead, 14a's and 14b's keys; each
+   call must show one device op and no memset.  The bag is timed as the main path calls
    it, once over a live bag step's 26 features (against one
    ``F.embedding_bag`` call over the same bags; the ``kernels`` line
    carries this call), and alone on two live features, f0 (vocab 1460) and
@@ -237,7 +260,8 @@ The bucketize is timed on the first sharded plan's live router inputs.
    plain version and SDPA on phase 11's live fp32 inputs, bound at 67
    TFLOP/s fp32.
 
-Each phase's seconds are printed.  The last three lines are the
+They run in the order 1-5e, 6-7b, 14a-14b, 9-13, 5f-5h, 8.  Each phase's
+seconds are printed.  The last three lines are the
 ``kernels`` JSON, the card's name and power limit, and ``{"ok": true,
 "device": {...}}``.  ``--vocab-scale`` < 1 cuts only the vocabularies
 (never dim, widths, fields or batch) and says so.
@@ -383,9 +407,9 @@ def check_threshold(key, kv, what):
     return err
 
 
-def capture_plan_key(coll, emb, fb):
+def capture_plan_key(plan):
     """The int32 eviction key and kv a plan hands to victim selection:
-    ``plan_prepare`` is pure, so one batch is re-planned against the live
+    planning is pure, so ``plan()`` re-plans one batch against the live
     state with the selection wrapped."""
     from repro_torch.kernels.cache_ops import ops
 
@@ -398,7 +422,7 @@ def capture_plan_key(coll, emb, fb):
 
     ops.victim_topk_impl = capture
     try:
-        coll.plan_prepare(emb, fb, writeback=False)
+        plan()
     finally:
         ops.victim_topk_impl = select
     if len(captured) != 1:
@@ -406,30 +430,61 @@ def capture_plan_key(coll, emb, fb):
     return captured[0]
 
 
-def device_ms(fn, iters: int = 20):
-    """Mean device time per call of ``fn`` (kernels, copies and memsets summed,
-    from torch.profiler) and that time by device op; (None, {}) where the
-    profiler cannot trace the card."""
-    from torch.autograd import DeviceType
+GUARD_LAUNCHES = 32  # spin-kernel launches at both ends of a profiled window (F2)
+GUARD_CYCLES = 1000  # each a ~1 us spin
+GUARD_KERNEL = "spin_kernel"  # torch.cuda._sleep's kernel, left out of every sum
+
+
+@contextlib.contextmanager
+def profiled():
+    """A ``torch.profiler`` window over the card whose body is fenced by
+    ``GUARD_LAUNCHES`` tiny spin kernels on each side.  The profiler drops
+    a few device events of each window, more the older the process (F2,
+    ``scripts/profiler_probe.py``); the guards are the events it drops.
+    Readers leave ``GUARD_KERNEL`` out."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
 
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(GUARD_LAUNCHES):
+            torch.cuda._sleep(GUARD_CYCLES)
+        yield prof
+        for _ in range(GUARD_LAUNCHES):
+            torch.cuda._sleep(GUARD_CYCLES)
+        torch.cuda.synchronize()
+
+
+def device_ms(fn, iters: int = 20, tries: int = 5):
+    """Mean device time per call of ``fn`` (kernels, copies and memsets summed,
+    from torch.profiler) and that time by device op; (None, {}) where the
+    profiler cannot trace the card.  A window in which an op's event count
+    is not a multiple of ``iters`` lost events (F2): it is taken again, up
+    to ``tries`` times, and (None, {}) if none is whole."""
+    from torch.autograd import DeviceType
+
     fn()
     torch.cuda.synchronize()
-    try:
-        with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-    except RuntimeError as e:
-        log(f"profiler: not measured ({e})")
-        return None, {}
-    by_op = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-            by_op[e.key[:60]] = by_op.get(e.key[:60], 0.0) + us / 1e3 / iters
-    return (sum(by_op.values()) if by_op else None), by_op
+    for attempt in range(tries):
+        try:
+            with profiled() as prof:
+                for _ in range(iters):
+                    fn()
+        except RuntimeError as e:
+            log(f"profiler: not measured ({e})")
+            return None, {}
+        by_op, counts = {}, {}
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA and GUARD_KERNEL not in e.key:
+                us = (getattr(e, "self_device_time_total", None)
+                      or getattr(e, "self_cuda_time_total", 0))
+                by_op[e.key[:60]] = by_op.get(e.key[:60], 0.0) + us / 1e3 / iters
+                counts[e.key[:60]] = counts.get(e.key[:60], 0) + e.count
+        if by_op and all(c % iters == 0 for c in counts.values()):
+            if attempt:
+                log(f"profiler: a whole window on try {attempt + 1} of {tries}")
+            return sum(by_op.values()), by_op
+    log(f"profiler: device events lost in all {tries} windows (last counts {counts})")
+    return None, {}
 
 
 def host_ms(fn, iters: int = 10) -> float:
@@ -445,7 +500,8 @@ def host_ms(fn, iters: int = 10) -> float:
 
 def time_threshold(live, max_err, launches_by_path):
     """Times the kernel, its plain version and torch.topk on the main paths'
-    live key vectors (the DLRM serve plan's and FM's): back-to-back
+    live key vectors (the DLRM serve plan's, FM's, the depth-3 lookahead's,
+    the single table's and the Avazu DLRM's): back-to-back
     CUDA-event time (what a caller pays on the stream), summed device time
     per call by op, and the kernel wrapper's host enqueue time.  Every
     kernel call must show one device op and no memset.  The ``kernels``
@@ -591,7 +647,8 @@ def serve_phase(dev, vocab_scale, n_batches):
 
     # --- the kernel on a real plan's eviction key ----------------------------
     b = {k: torch.from_numpy(v).to(dev) for k, v in batches[n_batches + 1].items()}
-    key, kv = capture_plan_key(coll, st["emb"], model.features(b))
+    key, kv = capture_plan_key(lambda: coll.plan_prepare(st["emb"], model.features(b),
+                                                         writeback=False))
     err = check_threshold(key, kv, "serve plan key")
     log(f"serve plan key [{key.shape[0]}] kv={kv}: kernel bitwise = plain, victim order = "
         f"argsort; protected {int((key == -_BIG).sum())}, empty {int((key == _BIG).sum())}, "
@@ -864,21 +921,21 @@ def _gd_bytes(head, tail, side, slots):
     return k * 4 + n_head * d * head.element_size() + n_tail * tail_row + k * d * 4
 
 
-def time_gather_decode(live, arena, max_err, launches):
+def time_gather_decode(live, tiers, max_err, launches):
     """Times the kernel and its plain version by CUDA events and profiler
     device time, and the wrapper's host enqueue, on the live writeback's
     arguments (the main path's call), on one all-tail flush-size round and on
-    a whole-arena gather of the trained arena."""
+    a whole-arena gather of the trained arena (``tiers``: its fp32 head,
+    int8 tail and sideband)."""
     from repro_torch.kernels.cache_ops import kernel
 
-    h = arena.head_capacity
-    t = arena.capacity - h
-    args = (arena.head["weight"], arena.tail["weight"], arena.sideband["weight"])
+    args = tuple(tiers)
+    h, t = args[0].shape[0], args[1].shape[0]
     dev = args[0].device
     g = torch.Generator(device=dev).manual_seed(1)
     k = min(PAPER_K, t)
     tail_round = h + torch.randperm(t, generator=g, device=dev)[:k].to(torch.int32)
-    whole = torch.arange(arena.capacity, dtype=torch.int32, device=dev)
+    whole = torch.arange(h + t, dtype=torch.int32, device=dev)
     out = {}
     for what, inp in (("live writeback", live),
                       ("all-tail round", args + (tail_round,)),
@@ -2909,6 +2966,275 @@ def _drift_summary(hits, misses, drift_every):
 
 
 # ---------------------------------------------------------------------------
+# phases 14a-14b: the paper's single table; the Avazu DLRM
+# ---------------------------------------------------------------------------
+
+CE_SERVE, CE_TRAIN, CE_ADAGRAD = 8, 4, 2  # 14a: served batches, SGD steps, Adagrad steps
+AVAZU_SERVE, AVAZU_TRAIN = 8, 4  # 14b: served batches, train steps
+
+
+def _ce_train(ecfg, model, est, params, batches, dev):
+    """``EmbTrainStep`` over ``batches`` (the DLRM's dense part as ``fwd``,
+    SGD at the DLRM's lr); returns (state, losses, step ms, threshold
+    launches), each step timed to its loss fetch."""
+    from repro_torch.core import cached_embedding as ce
+    from repro_torch.kernels.cache_ops import kernel
+    from repro_torch.models.common import EmbTrainStep
+    from repro_torch.optim import optimizers as opt_lib
+
+    cfg = model.cfg
+    b_sz, f = cfg.batch_size, cfg.n_sparse
+
+    def fwd(p, rows, batch):
+        emb = rows.reshape(b_sz, f, cfg.embed_dim)
+        return model.fwd(p, {n: emb[:, i] for i, n in enumerate(model.feature_names)}, batch), {}
+
+    offsets = est.offsets
+    step = EmbTrainStep(emb_cfg=ecfg, optimizer=opt_lib.sgd(cfg.lr), fwd=fwd, emb_lr=cfg.lr,
+                        collect_ids=lambda batch: (batch["sparse"] + offsets).reshape(-1))
+    state = {"params": params, "opt": (), "emb": est,
+             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    losses, ms = [], []
+    kernel.victim_threshold.launches = 0
+    for b in batches:
+        b = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+        ms.append(1e3 * (time.perf_counter() - t0))
+        if int(m["uniq_overflows"]):
+            raise AssertionError("cached embedding: unique-buffer overflow")
+    launches = kernel.victim_threshold.launches
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"cached embedding: losses {losses}")
+    if launches != len(batches):
+        raise AssertionError(f"cached embedding: {launches} threshold launches for "
+                             f"{len(batches)} plans")
+    return ce.flush_state(ecfg, state["emb"]), state["params"], losses, ms, launches
+
+
+def cached_embedding_phase(dev, vocab_scale, n_serve=CE_SERVE, n_train=CE_TRAIN,
+                           n_adagrad=CE_ADAGRAD):
+    """14a: the paper's single-table ``CachedEmbedding`` at full Criteo width
+    (26 fields concatenated into one 33 762 577-row frequency-ordered fp32
+    table of dim 128, pinned; 506 438 slots; ``use_pallas_plan``), its ids
+    ranked as phase 4's (no counts: a Zipf id is its rank).  Serves
+    ``n_serve`` batches of 16 384 through ``embed_onehot`` with write-back
+    off (rows bitwise ``dense_reference_lookup``), trains ``n_train``
+    ``EmbTrainStep`` steps (the DLRM's dense part, SGD), flushes (every
+    resident slot's row = its host row, bitwise); then a second table with
+    ``rowwise_adagrad`` trains ``n_adagrad`` steps and flushes (rows and
+    each resident row's accumulator = the host's, bitwise).  The counts
+    are at 0 before each run and read after it.  Returns the live key, its
+    kv, the kernel's error on it and the launches by run."""
+    from repro_torch.core import cached_embedding as ce
+    from repro_torch.core import collection as col
+    from repro_torch.data import synth
+    from repro_torch.kernels.cache_ops import kernel
+    from repro_torch.models.dlrm import DLRM
+    from repro_torch.nn.layers import mlp_init
+
+    cfg = _scaled(vocab_scale)
+    model = DLRM(cfg)
+    ecfg = ce.CachedEmbeddingConfig(vocab_sizes=cfg.vocab_sizes, dim=cfg.embed_dim,
+                                    ids_per_step=cfg.batch_size * cfg.n_sparse,
+                                    cache_ratio=cfg.cache_ratio, use_pallas_plan=True)
+    serve_cfg = dataclasses.replace(ecfg, writeback=False)
+    t0 = time.perf_counter()
+    est = ce.init_state(ecfg, 0, device=dev)
+    torch.cuda.synchronize()
+    log(f"cached embedding init+warmup {time.perf_counter() - t0} s: one table {ecfg.vocab} x "
+        f"{ecfg.dim} fp32 = {est.full.host_bytes() / 1e9} GB pinned={est.full.pinned}; arena "
+        f"{ecfg.capacity} slots (unique bound {ecfg.unique_size}); device_bytes "
+        f"{json.dumps(ce.device_bytes(ecfg))}; host RSS {rss_gb()} GB")
+    bspec = synth.ZipfSparseSpec(vocab_sizes=cfg.vocab_sizes, n_dense=cfg.n_dense)
+    batches = [synth.sparse_batch(bspec, cfg.batch_size, 4, i)
+               for i in range(n_serve + n_train + n_adagrad + 1)]
+
+    # --- serve: counts at 0, n_serve embed_onehot calls, counts read --------
+    kernel.victim_threshold.launches = 0
+    lat, hits0, misses0 = [], int(est.cache.hits), int(est.cache.misses)
+    for b in batches[:n_serve]:
+        ids = torch.from_numpy(b["sparse"]).to(dev)
+        t0 = time.perf_counter()
+        est, _, rows = ce.embed_onehot(serve_cfg, est, ids)
+        torch.cuda.synchronize()
+        lat.append(1e3 * (time.perf_counter() - t0))
+        want = ce.dense_reference_lookup(est, ids)
+        if not torch.equal(rows, want):
+            raise AssertionError(f"cached embedding serve: rows != dense_reference_lookup "
+                                 f"(max |diff| {float((rows - want).abs().max())})")
+    serve_launches = kernel.victim_threshold.launches
+    if serve_launches != n_serve:
+        raise AssertionError(f"cached embedding serve: {serve_launches} threshold launches")
+    hits, misses = int(est.cache.hits) - hits0, int(est.cache.misses) - misses0
+    log(f"cached embedding serve: {n_serve} batches of {cfg.batch_size} x {cfg.n_sparse} ids, "
+        f"rows bitwise dense_reference_lookup; per-batch ms {lat} (p50 "
+        f"{np.percentile(lat, 50)}); hit rate {hits / max(hits + misses, 1)} ({hits} id hits, "
+        f"{misses} row misses); threshold launches {serve_launches}")
+
+    # --- the kernel on the live key of one more plan -------------------------
+    gids = ce.globalize(est, torch.from_numpy(batches[-1]["sparse"]).to(dev)).reshape(-1)
+    key, kv = capture_plan_key(lambda: col.cached_slab_plan(serve_cfg.cache_config(),
+                                                            est.slab(), gids))
+    err = check_threshold(key, kv, "cached embedding plan key")
+    log(f"cached embedding plan key [{key.shape[0]}] kv={kv}: kernel bitwise = plain, victim "
+        f"order = argsort")
+
+    # --- train (SGD), flush, resident rows = host rows -----------------------
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = {"bottom": mlp_init(gen, (cfg.n_dense,) + cfg.bottom_mlp, cfg.dtypes, dev),
+              "top": mlp_init(gen, (model.top_in,) + cfg.top_mlp + (1,), cfg.dtypes, dev)}
+    est, params, losses, ms, train_launches = _ce_train(
+        ecfg, model, est, params, batches[n_serve:n_serve + n_train], dev)
+    check_resident(est.cache.cached_rows["weight"], est.cache.slot_to_row, est.full,
+                   "cached embedding (SGD)")
+    hit_rate = float(est.cache.hit_rate())
+    log(f"cached embedding train (EmbTrainStep, the DLRM's dense part, SGD lr {cfg.lr}): "
+        f"losses {losses}; step ms {ms} (p50 {np.percentile(ms, 50)}, to the loss fetch); "
+        f"cumulative hit rate {hit_rate}; threshold launches {train_launches}; host RSS "
+        f"{rss_gb()} GB")
+    est.full.close()
+    del est
+    gc.collect()
+
+    # --- row-wise Adagrad: the accumulators travel with their rows -----------
+    acfg = dataclasses.replace(ecfg, rowwise_adagrad=True)
+    est = ce.init_state(acfg, 1, device=dev)
+    est, _, a_losses, a_ms, a_launches = _ce_train(
+        acfg, model, est, params, batches[n_serve + n_train:n_serve + n_train + n_adagrad], dev)
+    check_resident(est.cache.cached_rows["weight"], est.cache.slot_to_row, est.full,
+                   "cached embedding (row-wise Adagrad)")
+    resident = torch.nonzero(est.cache.slot_to_row >= 0)[:, 0]
+    arena_acc = est.cache.cached_rows["accum"][resident].cpu()
+    host_acc = est.full.data["accum"][est.cache.slot_to_row[resident].cpu().to(torch.int64)]
+    if not torch.equal(arena_acc, host_acc) or not bool((arena_acc > 0).any()):
+        raise AssertionError("cached embedding (row-wise Adagrad): host accumulators != arena's")
+    log(f"cached embedding row-wise Adagrad: losses {a_losses}; step ms {a_ms}; after the flush "
+        f"all {resident.numel()} resident accumulators equal their host rows' bitwise "
+        f"({int((arena_acc > 0).sum())} touched); threshold launches {a_launches}; host RSS "
+        f"{rss_gb()} GB")
+    est.full.close()
+    del est
+    gc.collect()
+    log(f"host RSS after the cached embedding phase (tables unpinned and freed) {rss_gb()} GB")
+    return {"key": key, "kv": kv, "err": err,
+            "launches": serve_launches + train_launches + a_launches}
+
+
+def avazu_phase(dev, vocab_scale, n_serve=AVAZU_SERVE, n_train=AVAZU_TRAIN):
+    """14b: the paper's Avazu DLRM (``configs/dlrm_avazu.CONFIG``: 13 fields,
+    9 445 823 rows of dim 128 pinned, batch 65 536, 851 968 slots, 8 dense
+    features; ``use_pallas_plan``).  ``ServeEngine`` scores ``n_serve``
+    batches (cached logits = ``dense_reference`` logits), then the
+    ``Trainer`` takes ``n_train`` steps and flushes (every resident slot =
+    its host row, bitwise); the counts at 0 before each and read after.
+    Returns the live key, its kv, the kernel's error on it and the
+    launches."""
+    from repro_torch.configs.dlrm_avazu import CONFIG
+    from repro_torch.core.collection import SHARED_ARENA
+    from repro_torch.data import synth
+    from repro_torch.kernels.cache_ops import kernel
+    from repro_torch.models.dlrm import DLRM
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    vocabs = CONFIG.vocab_sizes
+    if vocab_scale != 1.0:
+        vocabs = tuple(max(1, int(v * vocab_scale)) for v in vocabs)
+        log(f"CUT: Avazu vocabularies scaled by {vocab_scale} (total {sum(vocabs)} rows)")
+    cfg = dataclasses.replace(CONFIG, vocab_sizes=vocabs, use_pallas_plan=True)
+    model = DLRM(cfg)
+    coll = model.collection
+    spec = coll.cached_slabs[SHARED_ARENA]
+    t0 = time.perf_counter()
+    state = model.init(0, device=dev)
+    torch.cuda.synchronize()
+    slab = state["emb"].slabs[SHARED_ARENA]
+    log(f"avazu init+warmup {time.perf_counter() - t0} s: host table {spec.vocab} x {spec.dim} "
+        f"fp32 = {slab.full.host_bytes() / 1e9} GB pinned={slab.full.pinned}; arena "
+        f"{spec.capacity} slots (unique bound {spec.unique_size()}) = "
+        f"{spec.capacity * spec.dim * 4 / 1e6} MB; host RSS {rss_gb()} GB")
+    bspec = synth.ZipfSparseSpec(vocab_sizes=cfg.vocab_sizes, n_dense=cfg.n_dense)
+    batches = [synth.sparse_batch(bspec, cfg.batch_size, 5, i) for i in range(n_serve + 3)]
+    pad = {"dense": np.zeros((cfg.n_dense,), np.float32),
+           "sparse": np.zeros((cfg.n_sparse,), np.int32), "label": np.zeros((), np.float32)}
+    engine = ServeEngine(
+        model.serve_step, state, batch_size=cfg.batch_size, pad_example=pad, device=dev,
+        state_stats_fn=lambda s: coll.metrics(s["emb"], writeback=False))
+    engine.score(batches[n_serve + 2])  # first call: library handles, allocator, cuBLAS
+    engine.stats = type(engine.stats)()
+    base = engine.summary()
+
+    # --- serve: counts at 0, n_serve batches, counts read --------------------
+    kernel.victim_threshold.launches = 0
+    lat = []
+    for b in batches[:n_serve]:
+        t0 = time.perf_counter()
+        scores = engine.score(b)
+        lat.append(1e3 * (time.perf_counter() - t0))
+        if scores.shape != (cfg.batch_size,) or not np.isfinite(scores).all():
+            raise AssertionError(f"avazu scores: shape {scores.shape}")
+    serve_launches = kernel.victim_threshold.launches
+    summary = engine.summary()
+    if serve_launches != n_serve or summary["uniq_overflows"]:
+        raise AssertionError(f"avazu serve: {serve_launches} threshold launches, overflows "
+                             f"{summary['uniq_overflows']}")
+    hits = summary["cache_hits"] - base["cache_hits"]
+    misses = summary["cache_misses"] - base["cache_misses"]
+    wire = summary["host_wire_bytes"] - base["host_wire_bytes"]
+    b = {k: torch.from_numpy(v).to(dev) for k, v in batches[n_serve].items()}
+    logits, emb = model.serve_step(engine.state, b)
+    ref_rows = coll.dense_reference(emb, model.features(b))
+    ref_logits = model.fwd(engine.state["params"], ref_rows, b)
+    if not torch.allclose(logits, ref_logits, rtol=TOL_RTOL, atol=TOL_ATOL):
+        raise AssertionError(f"avazu: cached vs uncached logits differ by "
+                             f"{float((logits - ref_logits).abs().max())}")
+    log(f"avazu serve: {n_serve} batches of {cfg.batch_size}; per-batch ms {lat} (p50 "
+        f"{np.percentile(lat, 50)}); hit rate {hits / max(hits + misses, 1)} ({hits} id hits, "
+        f"{misses} row misses); host wire bytes {wire}; cached logits = uncached within rtol "
+        f"{TOL_RTOL} / atol {TOL_ATOL} (max |diff| {float((logits - ref_logits).abs().max())}); "
+        f"threshold launches {serve_launches}")
+    b = {k: torch.from_numpy(v).to(dev) for k, v in batches[n_serve + 1].items()}
+    key, kv = capture_plan_key(lambda: coll.plan_prepare(emb, model.features(b),
+                                                         writeback=False))
+    err = check_threshold(key, kv, "avazu plan key")
+    log(f"avazu plan key [{key.shape[0]}] kv={kv}: kernel bitwise = plain, victim order = "
+        f"argsort")
+
+    # --- train: counts at 0, the Trainer's n_train steps + flush, counts read
+    serve_state = dict(engine.state, emb=emb)
+    del engine
+    kernel.victim_threshold.launches = 0
+    trainer = Trainer(TrainerConfig(max_steps=n_train), init_fn=lambda: serve_state,
+                      step_fn=model.train_step,
+                      make_batch=lambda s: synth.sparse_batch(bspec, cfg.batch_size, 6, s),
+                      device=dev)
+    state = model.flush(trainer.run())
+    train_launches = kernel.victim_threshold.launches
+    h = trainer.history
+    losses = [r["loss"] for r in h]
+    if not np.isfinite(losses).all() or train_launches != n_train:
+        raise AssertionError(f"avazu train: losses {losses}, {train_launches} threshold launches")
+    slab = state["emb"].slabs[SHARED_ARENA]
+    check_resident(slab.cache.cached_rows["weight"], slab.cache.slot_to_row, slab.full,
+                   "avazu")
+    ms = [1e3 * r["time_s"] for r in h]
+    stats = {}
+    b = {k: torch.from_numpy(v).to(dev) for k, v in batches[n_serve + 2].items()}
+    profile_call("one avazu train step", lambda: float(model.train_step(state, b)[1]["loss"]),
+                 stats=stats)
+    idle = 1 - stats["busy"] / stats["wall"] if stats else None
+    log(f"avazu train ({n_train} Trainer steps of {cfg.batch_size}, lr {cfg.lr}): losses "
+        f"{losses}; step ms {ms} (p50 {np.percentile(ms, 50)}); host wire bytes "
+        f"{h[-1]['host_wire_bytes']} in all ({h[-1]['host_wire_bytes'] / n_train} a step); "
+        f"hit rate {h[-1]['hit_rate']}; idle share of one profiled step {idle}; threshold "
+        f"launches {train_launches}; host RSS {rss_gb()} GB")
+    slab.full.close()
+    return {"key": key, "kv": kv, "err": err, "launches": serve_launches + train_launches}
+
+
+# ---------------------------------------------------------------------------
 # phases 6-7: FM at full width, served through its kernel and trained
 # ---------------------------------------------------------------------------
 
@@ -3021,7 +3347,8 @@ def fm_serve_phase(dev, vocab_scale, n_batches):
         f"{TOL_ATOL}); kernel = plain on the live v {tuple(v.shape)} strides {v.stride()} "
         f"(max |diff| {live_err})")
     engine.state = dict(engine.state, emb=emb)
-    key, kv = capture_plan_key(model.collection, engine.state["emb"], model.features(b))
+    key, kv = capture_plan_key(lambda: model.collection.plan_prepare(
+        engine.state["emb"], model.features(b), writeback=False))
     thr_err = check_threshold(key, kv, "FM serve plan key")
     log(f"FM serve plan key [{key.shape[0]}] kv={kv}: kernel bitwise = plain, victim order = "
         f"argsort; protected {int((key == -_BIG).sum())}, empty {int((key == _BIG).sum())}")
@@ -3568,11 +3895,9 @@ def profile_call(what, fn, skip=(), stats=None):
     measured.  ``skip`` names span annotations to leave out; a ``stats``
     dict receives the wall and busy ms and the device ms by kernel."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as tprofile
 
     try:
-        with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profiled() as prof:
             t0 = time.perf_counter()
             out = fn()
             torch.cuda.synchronize()
@@ -3587,8 +3912,8 @@ def profile_call(what, fn, skip=(), stats=None):
     # device-side events only (kernels and copies): CPU ops would count their
     # kernels twice, and span annotations cover whole calls
     events = prof.key_averages()
-    rows = sorted((e for e in events if e.device_type == DeviceType.CUDA and e.key not in skip),
-                  key=lambda e: -dev_us(e))
+    rows = sorted((e for e in events if e.device_type == DeviceType.CUDA and e.key not in skip
+                   and GUARD_KERNEL not in e.key), key=lambda e: -dev_us(e))
     busy = sum(dev_us(e) for e in rows) / 1e3
     top = [(e.key[:60], e.count, dev_us(e) / 1e3) for e in rows[:12]]
     host = sorted((e for e in events if e.device_type == DeviceType.CPU and e.key not in skip),
@@ -3600,6 +3925,43 @@ def profile_call(what, fn, skip=(), stats=None):
         f"times; idle share {1 - busy / wall}); top device (name, calls, ms): {top}; "
         f"top host ops by self time (name, calls, ms): {top_host}")
     return out
+
+
+def time_in_fresh_process(jobs):
+    """Phase 8 (the kernel timings on their live inputs: gather-decode, the
+    bag, FM, the threshold, the bucketize) run by a child process of this
+    script, which loads ``jobs``
+    from a file, times them on the same card and writes back their
+    ``kernels`` rows.  Late in a long process ``torch.profiler`` drops the
+    device events of short windows around the port's kernels, whatever ran
+    before (``scripts/profiler_probe.py``: lost after 150-300 s of age in
+    an idle process too); a fresh process records them."""
+    path = os.path.join(ROOT, "build", f"phase8-{os.getpid()}.pt")
+    torch.save(jobs, path)
+    try:
+        subprocess.run([sys.executable, os.path.abspath(__file__), "--time-kernels", path],
+                       check=True, timeout=900)
+        with open(path + ".json") as f:
+            return json.load(f)
+    finally:
+        for name in (path, path + ".json"):
+            if os.path.exists(name):
+                os.remove(name)
+
+
+def time_kernels(path):
+    """The child's side of :func:`time_in_fresh_process`."""
+    jobs = torch.load(path, weights_only=True)
+    rows = {"gather_decode": time_gather_decode(*jobs["gather_decode"])}
+    live, multi, bag_err, bag_launches = jobs["bag"]
+    for f, a in live.items():  # f0, then the largest-vocab feature
+        time_bag(f, a)
+    rows["bag"] = time_bag_multi(multi, bag_err, bag_launches)
+    rows["bag"]["step_routes"] = time_bag_routes(multi)
+    rows.update(fm=time_fm(*jobs["fm"]), threshold=time_threshold(*jobs["threshold"]),
+                bucketize=time_bucketize(*jobs["bucketize"]))
+    with open(path + ".json", "w") as f:
+        json.dump(rows, f)
 
 
 @contextlib.contextmanager
@@ -3634,10 +3996,14 @@ def main():
     ap.add_argument("--vocab-scale", type=float, default=1.0)
     ap.add_argument("--batches", type=int, default=8)
     ap.add_argument("--train-steps", type=int, default=8)
+    ap.add_argument("--time-kernels", default=None, help=argparse.SUPPRESS)  # phase 8's child
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device available")
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    if args.time_kernels:
+        time_kernels(args.time_kernels)
+        return
     from repro_torch.kernels import build
     from repro_torch.kernels.cache_ops import kernel
     from repro_torch.kernels.embedding_bag import kernel as eb_kernel
@@ -3687,15 +4053,17 @@ def main():
     gc.collect()
     log(f"host RSS after serve (table unpinned and freed) {rss_gb()} GB")
     train = train_phase(dev, args.vocab_scale, args.train_steps)
-    gd = time_gather_decode(train["captured"], train["arena"], max(gd_err, train["live_err"]),
-                            train["launches"])
     live_bag_err = max(check_bag(a, f"live bag feature {f}")[0]
                        for f, a in train["bag_live"].items())
     check_bag_multi(train["bag_multi"], "the live bag step")
-    for f, a in train["bag_live"].items():  # f0, then the largest-vocab feature
-        time_bag(f, a)
-    bag = time_bag_multi(train["bag_multi"], max(bag_err, live_bag_err), train["bag_launches"])
-    bag["step_routes"] = time_bag_routes(train["bag_multi"])
+    arena = train["arena"]
+    # phase 8's live inputs of this path, timed at the end (time_in_fresh_process)
+    jobs = {"gather_decode": (train["captured"], (arena.head["weight"], arena.tail["weight"],
+                                                  arena.sideband["weight"]),
+                              max(gd_err, train["live_err"]), train["launches"]),
+            "bag": (train["bag_live"], train["bag_multi"], max(bag_err, live_bag_err),
+                    train["bag_launches"])}
+    gd_launches, bag_launches = train["launches"], train["bag_launches"]
     train["full"].close()
     train_thr = train["thr_launches"]
     del train
@@ -3720,11 +4088,9 @@ def main():
                       args.batches, args.train_steps)
     gc.collect()
     log(f"host RSS after sharded budget (tables unpinned and freed) {rss_gb()} GB")
-    gd["launches_by_path"] = {"train": gd["launches"], "budget": budget["gd_launches"],
-                              "sharded_budget": sh_budget["gd_launches"]}
-    bag["launches_by_path"] = {"train": bag["launches"], "budget": budget["bag_launches"]}
-    for row in (gd, bag):
-        row["launches"] = sum(row["launches_by_path"].values())
+    gd_paths = {"train": gd_launches, "budget": budget["gd_launches"],
+                "sharded_budget": sh_budget["gd_launches"]}
+    bag_paths = {"train": bag_launches, "budget": budget["bag_launches"]}
     fm_serve = fm_serve_phase(dev, args.vocab_scale, FM_BATCHES)
     gc.collect()
     fm_train = fm_train_phase(dev, args.vocab_scale, FM_TRAIN_STEPS)
@@ -3746,27 +4112,43 @@ def main():
         f"(both deterministic); chunked moves {fm_chunk['moves']['chunked']}, row moves "
         f"{fm_chunk['moves']['rows']}, largest staging block "
         f"{fm_chunk['moves']['chunk_block_bytes']} B")
-    fmk = time_fm(fm_serve["v"], max(fm_err, fm_serve["live_err"]), fm_serve["fm_launches"])
-    thr = time_threshold({"DLRM serve": (key, kv), "FM serve": (fm_serve["key"], fm_serve["kv"]),
-                          "DLRM depth-3 lookahead": (pipe["key"], pipe["kv"])},
-                         max(max_err, err, fm_serve["thr_err"], pipe["thr_err"]),
-                         {"serve": serve_launches, "train": train_thr,
-                          "sharded": sharded["thr_launches"],
-                          "sharded_pipelined": sh_pipe["thr_launches"],
-                          "budget": budget["thr_launches"],
-                          **{f"pipelined {k}": v for k, v in pipe["thr_launches"].items()},
-                          "sharded_budget": sh_budget["thr_launches"],
-                          "fm_serve": fm_serve["thr_launches"],
-                          "fm_train": fm_train["thr_launches"],
-                          "fm_7b": (fm_rows["thr_launches"] + fm_chunk["thr_launches"]
-                                    + fm_chunk_t["thr_launches"])})
-    bz = time_bucketize(sharded["captured"], max(bz_err, sharded["live_err"], sh_pipe["err"]),
-                        {**sharded["launches"], "sharded_pipelined": sh_pipe["bz_launches"],
-                         "sharded_budget": sh_budget["bz_launches"]})
+    ce_run = timed("14a (the single-table CachedEmbedding)", cached_embedding_phase, dev,
+                   args.vocab_scale)
+    gc.collect()
+    avazu = timed("14b (the Avazu DLRM)", avazu_phase, dev, args.vocab_scale)
+    gc.collect()
+    log(f"host RSS after 14a-14b (tables unpinned and freed) {rss_gb()} GB")
+    # phase 8's live inputs, timed last in a fresh process (see
+    # time_in_fresh_process); the refresh phases add their launches below
+    jobs.update({
+        "fm": (fm_serve["v"], max(fm_err, fm_serve["live_err"]), fm_serve["fm_launches"]),
+        "threshold": ({"DLRM serve": (key, kv), "FM serve": (fm_serve["key"], fm_serve["kv"]),
+                       "DLRM depth-3 lookahead": (pipe["key"], pipe["kv"]),
+                       "cached_embedding": (ce_run["key"], ce_run["kv"]),
+                       "avazu": (avazu["key"], avazu["kv"])},
+                      max(max_err, err, fm_serve["thr_err"], pipe["thr_err"], ce_run["err"],
+                          avazu["err"]),
+                      {"serve": serve_launches, "train": train_thr,
+                       "sharded": sharded["thr_launches"],
+                       "sharded_pipelined": sh_pipe["thr_launches"],
+                       "budget": budget["thr_launches"],
+                       **{f"pipelined {k}": v for k, v in pipe["thr_launches"].items()},
+                       "sharded_budget": sh_budget["thr_launches"],
+                       "fm_serve": fm_serve["thr_launches"],
+                       "fm_train": fm_train["thr_launches"],
+                       "fm_7b": (fm_rows["thr_launches"] + fm_chunk["thr_launches"]
+                                 + fm_chunk_t["thr_launches"]),
+                       "cached_embedding": ce_run["launches"],
+                       "avazu": avazu["launches"]}),
+        "bucketize": (sharded["captured"], max(bz_err, sharded["live_err"], sh_pipe["err"]),
+                      {**sharded["launches"], "sharded_pipelined": sh_pipe["bz_launches"],
+                       "sharded_budget": sh_budget["bz_launches"]}),
+    })
     del sharded, budget, fm_serve, fm_train, fm_rows, fm_chunk, fm_chunk_t, pipe, sh_budget
+    del ce_run, avazu
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"phases 1-8: {time.perf_counter() - t0} s since the build began")
+    log(f"phases 3-7b, 14a-14b: {time.perf_counter() - t0} s since the build began")
 
     from repro_torch.configs import gemma3_27b, smollm_360m
     from repro_torch.nn.layers import Dtypes
@@ -3786,10 +4168,6 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
 
-    # the refresh phases run last: they profile nothing, and with them run
-    # before phase 8 the profiler saw no launch of the port's own kernels
-    # there (the threshold's one-op check failed), so the profiled
-    # measurements above keep the order they had
     rf = timed("5f (refresh)", refresh_phase, dev, args.vocab_scale)
     gc.collect()
     sh_rf = timed("5g (sharded refresh and rebalance)", sharded_refresh_phase, dev,
@@ -3797,17 +4175,25 @@ def main():
     gc.collect()
     log(f"host RSS after the refresh phases (tables unpinned and freed) {rss_gb()} GB")
     drift_thr = timed("5h (drift)", drift_phase, dev)
-    for row, paths in (
-        (thr, {"refresh_serve": rf["serve"], "refresh_train": rf["train"] + rf["train_timed"],
-               "refresh_pipelined": rf["pipelined"], "refresh_int8": rf["int8_thr"],
-               "refresh_sharded": sh_rf["sharded"]["thr"], "rebalance": sh_rf["rebalance"]["thr"],
-               "drift": drift_thr}),
-        (gd, {"refresh_int8": rf["int8_gd"], "rebalance": sh_rf["rebalance"]["gd"]}),
-        (bz, {"refresh_sharded": sh_rf["sharded"]["bz"], "rebalance": sh_rf["rebalance"]["bz"]}),
-    ):
-        row["launches_by_path"].update(paths)
-        row["launches"] = sum(row["launches_by_path"].values())
+    gc.collect()
+    torch.cuda.empty_cache()
 
+    jobs["threshold"][2].update({
+        "refresh_serve": rf["serve"], "refresh_train": rf["train"] + rf["train_timed"],
+        "refresh_pipelined": rf["pipelined"], "refresh_int8": rf["int8_thr"],
+        "refresh_sharded": sh_rf["sharded"]["thr"], "rebalance": sh_rf["rebalance"]["thr"],
+        "drift": drift_thr})
+    jobs["bucketize"][2].update({"refresh_sharded": sh_rf["sharded"]["bz"],
+                                 "rebalance": sh_rf["rebalance"]["bz"]})
+    rows = timed("8 (kernel timing, in a fresh process)", time_in_fresh_process, jobs)
+    fmk, thr, bz, gd, bag = (rows[k] for k in ("fm", "threshold", "bucketize",
+                                               "gather_decode", "bag"))
+    gd_paths.update({"refresh_int8": rf["int8_gd"], "rebalance": sh_rf["rebalance"]["gd"]})
+    for row, paths in ((gd, gd_paths), (bag, bag_paths)):
+        row["launches_by_path"] = paths
+        row["launches"] = sum(paths.values())
+
+    log(f"all phases: {time.perf_counter() - t0} s since the build began")
     log(json.dumps({"kernels": [thr, gd, fmk, bag, bz, *fa]}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -16,6 +16,12 @@ CRITEO_VOCABS = (
     286181, 105, 142572,
 )
 
+# Avazu-like 13-field split; last field adjusted so the total matches the
+# paper's Table 1 (9,445,823 rows)
+_AVAZU_BASE = (241, 8, 8, 3697, 4614, 25, 6_500_000, 2_500_000, 26, 8, 10, 432, 0)
+AVAZU_VOCABS = _AVAZU_BASE[:-1] + (9_445_823 - sum(_AVAZU_BASE[:-1]),)
+assert sum(AVAZU_VOCABS) == 9_445_823
+
 # FM (criteo-full featurization): 26 categorical + 13 bucketized-dense fields
 # of 100 rows, plus a padding field that rounds the total up to a multiple of
 # 512 (33,764,352 rows in 40 fields)

@@ -1,5 +1,6 @@
-"""Carry a model state (serve or train: DLRM, FM; LM parameters) between the
-JAX package and the port.
+"""Carry a model state (serve or train: DLRM, FM; the single-table
+``CachedEmbeddingState``; LM parameters) between the JAX package and the
+port.
 
 The JAX side is given as nested dicts of numpy arrays under the JAX field
 names (a dataclass becomes a dict of its fields), e.g.::
@@ -25,12 +26,14 @@ the shard dim.
 
 :func:`state_from_numpy` builds the port's state from that (params,
 the optimizer state — empty for SGD without momentum — the ``HostStore``
-payload and sideband, each DEVICE table, every ``CacheState`` field with its fp32 dict or ``ArenaStore``
-arena, the ``FreqTracker`` and ``idx_map``); :func:`lm_params_from_numpy`
-builds an LM's parameter tree (``embed`` / ``groups`` / ``rem`` /
-``final_norm`` / ``head``, copied leaf for leaf); :func:`to_numpy` turns a
-port state back into the same layout so the two can be compared leaf by
-leaf.
+payload and sideband, each DEVICE table, every ``CacheState`` field with
+its fp32 dict or ``ArenaStore`` arena, the ``FreqTracker`` and
+``idx_map``); :func:`cached_embedding_state_from_numpy` builds the
+single-table adapter's state (its host store, cache state, ``idx_map``
+and ``offsets``); :func:`lm_params_from_numpy` builds an LM's parameter
+tree (``embed`` / ``groups`` / ``rem`` / ``final_norm`` / ``head``, copied
+leaf for leaf); :func:`to_numpy` turns a port state back into the same
+layout so the two can be compared leaf by leaf.
 
 bf16 leaves (``ml_dtypes.bfloat16`` on the JAX side, which
 ``torch.from_numpy`` cannot read) cross as their 16 raw bits: into the port
@@ -46,6 +49,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.cache import CacheState
+from repro_torch.core.cached_embedding import CachedEmbeddingState
 from repro_torch.core.collection import (
     CachedSlab,
     CollectionState,
@@ -57,8 +61,8 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.store.arena import ArenaStore
 from repro_torch.store.host_store import HostStore
 
-__all__ = ["adopt_codecs", "collection_state_from_numpy", "lm_params_from_numpy",
-           "state_from_numpy", "to_numpy"]
+__all__ = ["adopt_codecs", "cached_embedding_state_from_numpy", "collection_state_from_numpy",
+           "lm_params_from_numpy", "state_from_numpy", "to_numpy"]
 
 
 def _t(x: Any, device: torch.device) -> torch.Tensor:
@@ -153,6 +157,20 @@ def collection_state_from_numpy(
     if collection is not None:
         adopt_codecs(collection, state)
     return state
+
+
+def cached_embedding_state_from_numpy(tree: Mapping[str, Any], device: DeviceLike = None
+                                      ) -> CachedEmbeddingState:
+    """The port's ``CachedEmbeddingState`` from a JAX one's numpy tree
+    (``full`` / ``cache`` / ``idx_map`` / ``offsets``): the host table
+    (pinned on a CUDA device), the cache state and both maps on ``device``."""
+    dev = resolve_device(device)
+    return CachedEmbeddingState(
+        full=_host_store(tree["full"], pin=dev.type == "cuda"),
+        cache=_cache_state(tree["cache"], dev),
+        idx_map=_t(tree["idx_map"], dev),
+        offsets=_t(tree["offsets"], dev),
+    )
 
 
 def state_from_numpy(tree: Mapping[str, Any], device: DeviceLike = None,

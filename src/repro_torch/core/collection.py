@@ -63,7 +63,12 @@ __all__ = [
     "CachedSlab",
     "CollectionState",
     "CollectionPlan",
+    "cached_slab_apply",
     "cached_slab_flush",
+    "cached_slab_gather",
+    "cached_slab_plan",
+    "cached_slab_prepare",
+    "cached_slab_warmup",
 ]
 
 SHARED_ARENA = "__shared__"
@@ -492,18 +497,14 @@ class CollectionPlan:
     writeback: bool = True
 
 
-def cached_slab_flush(ccfg: cache_lib.CacheConfig, slab: CachedSlab) -> CachedSlab:
-    """Write every resident row back to the slab's host table (in place)."""
-    full, cache_state = cache_lib.flush(ccfg, slab.full, slab.cache)
-    return dataclasses.replace(slab, full=full, cache=cache_state)
-
-
-def draw_chunks(seed: int, vocab: int, dim: int, dtype: torch.dtype, device: torch.device
-                ) -> Iterator[Tuple[int, torch.Tensor]]:
+def draw_chunks(seed: Union[int, torch.Generator], vocab: int, dim: int, dtype: torch.dtype,
+                device: torch.device) -> Iterator[Tuple[int, torch.Tensor]]:
     """A table's initial rows, rank by rank: ``(first_rank, rows)`` chunks of
-    uniform(+-1/sqrt(dim)) rows drawn on ``device`` from ``seed``."""
+    uniform(+-1/sqrt(dim)) rows drawn on ``device`` from ``seed`` (an int,
+    or a generator on ``device``)."""
     scale = 1.0 / np.sqrt(dim)
-    gen = torch.Generator(device=device).manual_seed(int(seed))
+    gen = (seed if isinstance(seed, torch.Generator)
+           else torch.Generator(device=device).manual_seed(int(seed)))
     for r0 in range(0, vocab, _INIT_CHUNK_ROWS):
         n = min(_INIT_CHUNK_ROWS, vocab - r0)
         chunk = torch.rand((n, dim), generator=gen, dtype=dtype, device=device)
@@ -521,11 +522,73 @@ def slab_counts(spec: "_CachedSlabSpec", counts: Optional[Mapping[str, np.ndarra
     )
 
 
+# --- slab-level ops (the single-arena core; ``core.cached_embedding``
+#     adapts its one-big-table API onto exactly these) ---------------------
+
+
 def _translate(slab: CachedSlab, raw_ids: torch.Tensor) -> torch.Tensor:
     """Slab-global raw ids (-1 pad) -> freq-ranked rows (-1 pad)."""
     valid = raw_ids >= 0
     rows = take_fill(slab.idx_map, torch.where(valid, raw_ids, 0), -1)
     return torch.where(valid, rows, -1)
+
+
+def _read_full_rows(full: Union[HostStore, Dict[str, torch.Tensor]], rows: torch.Tensor
+                    ) -> torch.Tensor:
+    """Weight rows of a host tier, decoded when it is a :class:`HostStore`,
+    raw otherwise; negative lanes give zero rows (the oracle's bulk read).
+    On the device of ``rows``."""
+    if isinstance(full, HostStore):
+        return full.decode_rows(rows.cpu())["weight"].to(rows.device)
+    w = full["weight"]
+    return take_fill(w, rows.to(w.device), 0).to(rows.device)
+
+
+def cached_slab_plan(
+    ccfg: cache_lib.CacheConfig,
+    slab: CachedSlab,
+    raw_ids: torch.Tensor,
+    raw_future: Optional[torch.Tensor] = None,
+) -> cache_lib.CachePlan:
+    """Planning half of :func:`cached_slab_prepare`: ids in, movement plan
+    out, no weights touched (see ``cache.plan_prepare``)."""
+    fut = None if raw_future is None else _translate(slab, raw_future)
+    return cache_lib.plan_prepare(ccfg, slab.cache, _translate(slab, raw_ids), future_rows=fut)
+
+
+def cached_slab_apply(
+    ccfg: cache_lib.CacheConfig, slab: CachedSlab, plan: cache_lib.CachePlan
+) -> CachedSlab:
+    """Apply half: the planned row movement on this slab's weights (in
+    place: ``slab`` must not be used again)."""
+    full, cache_state = cache_lib.apply_plan(ccfg, slab.full, slab.cache, plan)
+    return dataclasses.replace(slab, full=full, cache=cache_state)
+
+
+def cached_slab_prepare(
+    ccfg: cache_lib.CacheConfig, slab: CachedSlab, raw_ids: torch.Tensor
+) -> Tuple[CachedSlab, torch.Tensor]:
+    """Make every row of ``raw_ids`` (slab-global, -1 pad) resident;
+    returns the slab and each lane's slot."""
+    plan = cached_slab_plan(ccfg, slab, raw_ids)
+    return cached_slab_apply(ccfg, slab, plan), plan.slots
+
+
+def cached_slab_gather(slab: CachedSlab, slots: torch.Tensor) -> torch.Tensor:
+    """Differentiable gather from the cached weight (padding -> zero rows)."""
+    return cache_lib.lookup_slots(slab.cache, slots, leaf="weight")
+
+
+def cached_slab_flush(ccfg: cache_lib.CacheConfig, slab: CachedSlab) -> CachedSlab:
+    """Write every resident row back to the slab's host table (in place)."""
+    full, cache_state = cache_lib.flush(ccfg, slab.full, slab.cache)
+    return dataclasses.replace(slab, full=full, cache=cache_state)
+
+
+def cached_slab_warmup(ccfg: cache_lib.CacheConfig, slab: CachedSlab) -> CachedSlab:
+    """Fill the arena with the hottest (lowest-rank) rows (paper §4.3)."""
+    full, cache_state = cache_lib.warmup(ccfg, slab.full, slab.cache)
+    return dataclasses.replace(slab, full=full, cache=cache_state)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -735,8 +798,7 @@ class EmbeddingCollection:
                 idx_map=idx_map.to(dev),
             )
             if warm:
-                full, cache_state = cache_lib.warmup(ccfg, slab.full, slab.cache)
-                slab = dataclasses.replace(slab, full=full, cache=cache_state)
+                slab = cached_slab_warmup(ccfg, slab)
             slabs[sname] = slab
         return CollectionState(slabs=slabs)
 

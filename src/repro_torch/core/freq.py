@@ -22,7 +22,9 @@ __all__ = [
     "FreqTracker",
     "build_freq_stats",
     "concat_table_offsets",
+    "collect_counts_sampled",
     "collect_counts_stream",
+    "coverage",
     "init_tracker",
     "tracker_touch",
     "tracker_observe",
@@ -42,6 +44,19 @@ class FreqStats:
     counts: np.ndarray
     vocab: int
 
+    def reorder_rows(self, weight: np.ndarray) -> np.ndarray:
+        """A [vocab, dim] table reordered so row r holds the r-th most frequent id."""
+        if weight.shape[0] != self.vocab:
+            raise ValueError(f"weight has {weight.shape[0]} rows, the stats {self.vocab}")
+        return weight[self.inv_map]
+
+    def top_fraction_coverage(self, frac: float) -> float:
+        """Share of all accesses that go to the top-``frac`` hottest ids."""
+        k = max(1, int(round(frac * self.vocab)))
+        sorted_counts = self.counts[self.inv_map]  # descending
+        tot = sorted_counts.sum()
+        return float(sorted_counts[:k].sum() / max(tot, 1))
+
 
 def build_freq_stats(counts: np.ndarray) -> FreqStats:
     """Reorder permutation by descending count, stable (ties keep raw order)."""
@@ -50,6 +65,32 @@ def build_freq_stats(counts: np.ndarray) -> FreqStats:
     idx_map = np.empty_like(inv_map)
     idx_map[inv_map] = np.arange(vocab, dtype=np.int32)
     return FreqStats(idx_map=idx_map, inv_map=inv_map, counts=counts.astype(np.int64), vocab=vocab)
+
+
+def collect_counts_sampled(
+    id_batches: Iterable[np.ndarray],
+    vocab: int,
+    sample_rate: float,
+    seed: int = 0,
+    rng: Optional[np.random.Generator] = None,
+) -> np.ndarray:
+    """Counts over a sample of the batches, each kept with probability
+    ``sample_rate`` (one ``rng.random()`` draw a batch, from ``rng`` or
+    ``seed``): unbiased up to scale, so the ranking is kept in expectation,
+    and the same on every host for one seed."""
+    if rng is None:
+        rng = np.random.default_rng(seed)
+    counts = np.zeros((vocab,), dtype=np.int64)
+    for ids in id_batches:
+        if rng.random() <= sample_rate:
+            np.add.at(counts, ids.reshape(-1).astype(np.int64), 1)
+    return counts
+
+
+def coverage(counts: np.ndarray, top_fracs: Sequence[float]) -> dict:
+    """The paper's Fig. 2 statistic: each top fraction's share of accesses."""
+    stats = build_freq_stats(counts)
+    return {f: stats.top_fraction_coverage(f) for f in top_fracs}
 
 
 def concat_table_offsets(vocab_sizes: Sequence[int]) -> np.ndarray:

@@ -19,7 +19,8 @@ sideband, decoded (load) or encoded (write-back) on the card by eager torch
 ops.  Either side may also be a tiered :class:`ArenaStore`: as the source it
 packs with ``gather_slots`` (the gather-decode kernel on the card), as the
 destination it unpacks with ``scatter_slots`` (tail lanes encode on the
-device, or take an encoded host block of their own codec verbatim).
+device, or, on a row-granular load, take an encoded host block of their
+own codec verbatim).
 
 Chunked staging (``src_chunk_rows`` / ``dst_chunk_rows``, the paper's
 chunk-based manager): a side whose every leaf's row count divides by the
@@ -193,9 +194,10 @@ def move_rows(
     destination lanes must be unique.  ``src_chunk_rows`` /
     ``dst_chunk_rows`` (0 = off) stage the named side in whole chunks (a
     tiered arena never chunks); a side whose rows do not divide moves
-    rows.  A chunked load from a host store into a tiered arena of its
-    codec still hands the tail the picked host bits verbatim (the
-    reference re-encodes there).  Returns ``dst_tree``, updated in place."""
+    rows.  The verbatim host -> tail path is row-granular: under a chunked
+    source the staged chunks are decoded on the device and the tail
+    re-encodes them, as in the reference.  Returns ``dst_tree``, updated
+    in place."""
     src_dev = next(iter(_leaves(src_tree).values())).device
     dst_dev = next(iter(_leaves(dst_tree).values())).device
     s_all, d_all = _active_lanes(src_idx, dst_idx, active)
@@ -221,7 +223,7 @@ def move_rows(
     save = isinstance(dst_tree, HostStore) and dst_tree.pinned and src_dev.type == "cuda"
     ring = src_tree.staging(stage_rows) if load else dst_tree.staging(step) if save else None
     verbatim = (isinstance(src_tree, HostStore) and isinstance(dst_tree, ArenaStore)
-                and src_tree.codec == dst_tree.codec)
+                and src_tree.codec == dst_tree.codec and not chunk_src)
     unpack = (lambda t, d, b: _scatter_chunked(t, d, b, chunk_dst)) if chunk_dst else scatter_rows
     for r, (s, d) in enumerate(rounds):
         n = int(s.numel())

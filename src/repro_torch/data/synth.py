@@ -1,9 +1,10 @@
 """Synthetic batches (the ``ZipfSparseSpec`` / ``sparse_batch`` /
-``DriftingZipfSpec`` / ``drifting_sparse_batch`` / ``seq_batch`` part of
-``repro.data.synth``, copied so that the same (seed, step) gives
-bit-identical batches in both packages): Criteo-like sparse batches with
-the paper's access skew, the same stream under hot-set drift, and LM token
-streams.  Batch ``i`` is a pure function of (seed, i)."""
+``DriftingZipfSpec`` / ``drifting_sparse_batch`` / ``seq_batch`` /
+``count_stream`` part of ``repro.data.synth``, copied so that the same
+(seed, step) gives bit-identical batches in both packages): Criteo-like
+sparse batches with the paper's access skew, the same stream under hot-set
+drift, the flat id stream of a frequency scan, and LM token streams.
+Batch ``i`` is a pure function of (seed, i)."""
 from __future__ import annotations
 
 import dataclasses
@@ -11,8 +12,8 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-__all__ = ["DriftingZipfSpec", "ZipfSparseSpec", "drifting_sparse_batch", "seq_batch",
-           "sparse_batch"]
+__all__ = ["DriftingZipfSpec", "ZipfSparseSpec", "count_stream", "drifting_sparse_batch",
+           "seq_batch", "sparse_batch"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,3 +102,12 @@ def seq_batch(vocab: int, batch: int, seq: int, seed: int, step: int) -> Dict[st
         m = rng.random(batch) < 0.7
         toks[m, t] = (toks[m, t - 1] * 7 + 3) % vocab
     return {"tokens": toks[:, :-1].astype(np.int32), "labels": toks[:, 1:].astype(np.int32)}
+
+
+def count_stream(spec: ZipfSparseSpec, batch: int, n_steps: int, seed: int):
+    """The flat global ids of ``n_steps`` batches, one int64 array a batch
+    (the paper's §4.2 scan for frequency collection)."""
+    offsets = np.concatenate([[0], np.cumsum(spec.vocab_sizes)[:-1]])
+    for i in range(n_steps):
+        b = sparse_batch(spec, batch, seed, i)
+        yield (b["sparse"].astype(np.int64) + offsets).reshape(-1)

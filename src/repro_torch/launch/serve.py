@@ -2,6 +2,7 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch dlrm-criteo --requests 2000
   PYTHONPATH=src python -m repro_torch.launch.serve --refresh-interval 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arena-precision int8
 
 Runs on the CUDA card; ``--device cpu`` runs it on the CPU.  MIND and DIN
 come with their models in a later slice of the port.
@@ -23,10 +24,16 @@ def main(argv=None):
     ap.add_argument("--arch", default="dlrm-criteo", choices=["dlrm-criteo"])
     ap.add_argument("--requests", type=int, default=2000)
     ap.add_argument("--batch", type=int, default=256)
+    ap.add_argument("--arena-precision", default="fp32",
+                    choices=["fp32", "fp16", "int8", "auto"],
+                    help="device-arena codec: fp32 = raw arena; fp16/int8 tier it (the hot "
+                         "head stays fp32, the cold resident tail is stored encoded); auto = "
+                         "PrecisionPolicy from head coverage")
     ap.add_argument("--cache-policy", default=None, choices=[p.value for p in Policy],
                     help="cache eviction policy; default = the model's (freq_lfu)")
     ap.add_argument("--obs-dir", default=None,
-                    help="stream per-batch JSONL and a Chrome trace to this directory")
+                    help="stream per-batch JSONL and a Chrome trace to this directory; render "
+                         "with `python -m repro_torch.obs.report <dir>/serve.jsonl`")
     ap.add_argument("--refresh-interval", type=int, default=0,
                     help="0 = the static rank; N = re-rank the read-only cache from its "
                          "online decayed counters every N scored batches (scores unchanged)")
@@ -39,7 +46,7 @@ def main(argv=None):
     # kernel on the card (bit-identical to the full argsort route)
     cfg = DLRMConfig(vocab_sizes=(100_000, 50_000), embed_dim=32, batch_size=args.batch,
                      cache_ratio=0.05, bottom_mlp=(64, 32), top_mlp=(64,), policy=policy,
-                     use_pallas_plan=True)
+                     arena_precision=args.arena_precision, use_pallas_plan=True)
     model = DLRM(cfg)
     pad = {"dense": np.zeros((13,), np.float32), "sparse": np.zeros((2,), np.int32),
            "label": np.zeros((), np.float32)}

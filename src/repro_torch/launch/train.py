@@ -6,15 +6,20 @@ batches.
   PYTHONPATH=src python -m repro_torch.launch.train --model-shards 4 --replicate-top-k 64
   PYTHONPATH=src python -m repro_torch.launch.train --pipeline-depth 2 --chunk-rows 8
   PYTHONPATH=src python -m repro_torch.launch.train --refresh-interval 5 --model-shards 4
+  PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-avazu --cache-policy lru
+  PYTHONPATH=src python -m repro_torch.launch.train --obs-dir /tmp/obs --history-limit 10
 
-Runs on the CUDA card; ``--device cpu`` runs it on the CPU.  DIN, DIEN and
-MIND, the reference launcher's other architectures, come with their models
-in a later slice of the port.
+Runs on the CUDA card; ``--device cpu`` runs it on the CPU.  Every
+``dlrm*`` arch builds the reference launcher's CPU-scale DLRM.  DIN, DIEN
+and MIND, the reference launcher's other architectures, come with their
+models in a later slice of the port.
 """
 from __future__ import annotations
 
 import argparse
+from typing import Optional
 
+from repro_torch.core.policies import Policy
 from repro_torch.data import synth
 from repro_torch.models.dlrm import DLRM, DLRMConfig
 from repro_torch.models.recsys_models import FMConfig, FMModel
@@ -23,22 +28,23 @@ from repro_torch.train.trainer import PipelinedTrainer, Trainer, TrainerConfig
 
 def build(arch: str, batch: int, arena_precision: str, model_shards: int = 0,
           replicate_top_k: int = 0, exchange_codec: str = "fp32", max_routed_per_shard: int = 0,
-          host_precision: str = "fp32", chunk_rows: int = 0):
+          host_precision: str = "fp32", chunk_rows: int = 0, policy: Optional[Policy] = None):
     """The reference launcher's config of ``arch``: (model, batch spec).
     Victim selection always goes through the bounded top-K route, whose
     threshold is the CUDA kernel on the card (bit-identical to the full
     argsort route); a sharded DLRM's router builds its per-shard image with
     the bucketize kernel there."""
-    if model_shards and arch != "dlrm-criteo":
+    if model_shards and not arch.startswith("dlrm"):
         raise SystemExit(f"--model-shards is wired for dlrm archs; {arch} builds an "
                          f"unsharded collection")
     if (replicate_top_k or exchange_codec != "fp32" or max_routed_per_shard) and not model_shards:
         raise SystemExit("--replicate-top-k / --exchange-codec / --max-routed-per-shard shape "
                          "the sharded exchange; they need --model-shards >= 1")
-    if arch == "dlrm-criteo":
+    if arch.startswith("dlrm"):
         cfg = DLRMConfig(vocab_sizes=(100_000, 50_000, 20_000), embed_dim=32, batch_size=batch,
                          cache_ratio=0.02, lr=0.3, bottom_mlp=(64, 32), top_mlp=(64,),
                          host_precision=host_precision, arena_precision=arena_precision,
+                         policy=policy,
                          use_pallas_plan=True, chunk_rows=chunk_rows, model_shards=model_shards,
                          replicate_top_k=replicate_top_k,
                          exchange_codec=exchange_codec,
@@ -47,18 +53,25 @@ def build(arch: str, batch: int, arena_precision: str, model_shards: int = 0,
     # fm trains through the sum-square torch ops: the FM kernel has no backward
     cfg = FMConfig(vocab_sizes=(100_000,) * 6, embed_dim=10, batch_size=batch, cache_ratio=0.02,
                    host_precision=host_precision, arena_precision=arena_precision,
-                   use_pallas_plan=True, chunk_rows=chunk_rows)
+                   policy=policy, use_pallas_plan=True, chunk_rows=chunk_rows)
     return FMModel(cfg), synth.ZipfSparseSpec(vocab_sizes=cfg.vocab_sizes)
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="dlrm-criteo", choices=["dlrm-criteo", "fm"])
+    ap.add_argument("--arch", default="dlrm-criteo", choices=["dlrm-criteo", "dlrm-avazu", "fm"])
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=512)
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--obs-dir", default=None,
-                    help="stream per-step JSONL and a Chrome trace to this directory")
+                    help="stream per-step JSONL and a Chrome trace to this directory; render "
+                         "with `python -m repro_torch.obs.report <dir>/train.jsonl`")
+    ap.add_argument("--obs-annotate", action="store_true",
+                    help="also enter torch.profiler.record_function per stage span, so "
+                         "profiler captures carry the same stage names")
+    ap.add_argument("--history-limit", type=int, default=0,
+                    help="0 = keep the whole step history in memory; N = keep the last N "
+                         "step records (the full stream is on disk with --obs-dir)")
     ap.add_argument("--host-precision", default="fp32", choices=["fp32", "fp16", "int8", "auto"],
                     help="host-tier codec: fp32 = bit-exact; fp16/int8 shrink host bytes and "
                          "host<->device traffic; auto = PrecisionPolicy from frequency stats")
@@ -70,7 +83,7 @@ def main(argv=None):
     ap.add_argument("--model-shards", type=int, default=0,
                     help="0 = one collection; S >= 1 = hybrid parallel: the cached slab is "
                          "split over S shards, each with its own arena and host-table slice "
-                         "(dlrm-criteo; on one card, the stacked layout)")
+                         "(dlrm archs; on one card, the stacked layout)")
     ap.add_argument("--replicate-top-k", type=int, default=0,
                     help="sharded: the K hottest ranks live in a replicated arena and never "
                          "enter the exchange")
@@ -89,14 +102,20 @@ def main(argv=None):
                     help="0 = the static frequency rank (the paper); N = re-rank the cached "
                          "slabs from their online decayed counters every N steps (pipelined "
                          "runs refresh at group boundaries); fp32 losses are bitwise the same")
+    ap.add_argument("--cache-policy", default=None, choices=[p.value for p in Policy],
+                    help="cache eviction policy: freq_lfu = the paper's static frequency rank "
+                         "(default), lru / uvm_row = recency, runtime_lfu = online counters")
     ap.add_argument("--device", default=None, help="default: the CUDA card")
     args = ap.parse_args(argv)
 
     model, spec = build(args.arch, args.batch, args.arena_precision, args.model_shards,
                         args.replicate_top_k, args.exchange_codec, args.max_routed_per_shard,
-                        args.host_precision, args.chunk_rows)
+                        args.host_precision, args.chunk_rows,
+                        Policy(args.cache_policy) if args.cache_policy else None)
     tc = TrainerConfig(max_steps=args.steps, ckpt_dir=args.ckpt_dir, ckpt_every=25,
-                       obs_dir=args.obs_dir, pipeline_depth=args.pipeline_depth,
+                       obs_dir=args.obs_dir, obs_annotate=args.obs_annotate,
+                       history_limit=args.history_limit or None,
+                       pipeline_depth=args.pipeline_depth,
                        refresh_interval=args.refresh_interval or None)
     kw = dict(
         init_fn=lambda: model.init(0, device=args.device),
@@ -137,7 +156,9 @@ def main(argv=None):
               f"top-{args.replicate_top_k} replicated), live imbalance "
               f"{h[-1]['shard_imbalance']:.2f}x")
     if args.obs_dir:
-        print(f"observability: {trainer.hub.jsonl_path} | chrome trace: {trainer.trace_path}")
+        print(f"observability: {trainer.hub.jsonl_path} (render: python -m "
+              f"repro_torch.obs.report {trainer.hub.jsonl_path}) | chrome trace: "
+              f"{trainer.trace_path}")
     return trainer
 
 

@@ -2,6 +2,11 @@
 ``repro.models.common``): losses, metrics, and the cached-embedding train
 step (plan -> apply -> differentiable gather -> synchronous row update).
 
+``EmbTrainStep`` is the single-arena step of the ``core.cached_embedding``
+adapter: prepare outside the gradient, a gather of the cached weight
+(padding lanes give zero rows), gradients to the dense parameters and the
+cached weight, the optimizer, then ``apply_row_grads``.
+
 ``CollectionTrainStep`` is the reference's step, fused (``__call__``) and
 split into the pipelined trainer's three stages: a ``FeatureBatch`` goes
 through ``EmbeddingCollection.plan_prepare`` / ``apply_plan`` outside the
@@ -20,13 +25,16 @@ from typing import Any, Callable, Dict, List, Tuple
 
 import torch
 
+from repro_torch.core import cached_embedding as ce
 from repro_torch.core.collection import CollectionPlan, EmbeddingCollection, FeatureBatch
+from repro_torch.core.lanes import take_fill
 from repro_torch.optim.optimizers import Optimizer, tree_map
 
 __all__ = [
     "bce_with_logits",
     "auc_proxy",
     "flush_embeddings",
+    "EmbTrainStep",
     "CollectionTrainStep",
     "CollectionModelMixin",
 ]
@@ -61,6 +69,54 @@ def _leaves(tree: Any) -> List[torch.Tensor]:
     out: List[torch.Tensor] = []
     tree_map(out.append, tree)
     return out
+
+
+def _grads(loss: torch.Tensor, params: Any, extra: List[torch.Tensor]):
+    """Gradients of ``loss`` as (a tree like ``params``, one per ``extra``)."""
+    p_leaves = _leaves(params)
+    grads = torch.autograd.grad(loss, p_leaves + extra)
+    it = iter(grads[: len(p_leaves)])
+    return tree_map(lambda _: next(it), params), list(grads[len(p_leaves):])
+
+
+@dataclasses.dataclass(frozen=True)
+class EmbTrainStep:
+    """The cached-embedding train step of the single-table adapter.
+
+    ``collect_ids(batch)`` gives the flat int32 global ids (-1 pad);
+    ``fwd(dense_params, emb_rows, batch) -> (logits, aux)`` gets the rows
+    gathered from the cached weight, so gradients reach the cached rows."""
+
+    emb_cfg: ce.CachedEmbeddingConfig
+    optimizer: Optimizer
+    collect_ids: Callable[[Dict[str, torch.Tensor]], torch.Tensor]
+    fwd: Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
+    loss: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] = bce_with_logits
+    emb_lr: float = 0.05
+
+    def __call__(self, state: Dict[str, Any], batch: Dict[str, torch.Tensor]):
+        emb_state, slots = ce.prepare_ids(self.emb_cfg, state["emb"], self.collect_ids(batch))
+        params = tree_map(lambda p: p.detach().requires_grad_(), state["params"])
+        cached_w = emb_state.cache.cached_rows["weight"].detach().requires_grad_()
+        logits, aux = self.fwd(params, take_fill(cached_w, slots, 0), batch)
+        loss = self.loss(logits, batch["label"])
+        p_grads, (w_grad,) = _grads(loss, params, [cached_w])
+        new_params, opt_state = self.optimizer.update(
+            p_grads, state["opt"], state["params"], state["step"]
+        )
+        emb_state = ce.apply_row_grads(self.emb_cfg, emb_state, w_grad, self.emb_lr)
+        cache = emb_state.cache
+        metrics = {
+            "loss": loss.detach(),
+            "auc": auc_proxy(logits, batch["label"]),
+            "hit_rate": cache.hit_rate(),
+            "cache_misses": cache.misses,
+            "uniq_overflows": cache.uniq_overflows,
+            **aux,
+        }
+        new_state = dict(state, params=new_params, opt=opt_state, emb=emb_state,
+                         step=state["step"] + 1)
+        return new_state, metrics
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,11 +167,8 @@ class CollectionTrainStep:
         rows = self.collection.gather(weights, addresses, fb)
         logits = self.fwd(params, rows, batch)
         loss = self.loss(logits, batch["label"])
-        p_leaves = _leaves(params)
-        grads = torch.autograd.grad(loss, p_leaves + list(weights.values()))
-        it = iter(grads[: len(p_leaves)])
-        p_grads = tree_map(lambda _: next(it), params)
-        w_grads = dict(zip(weights, grads[len(p_leaves):]))
+        p_grads, w_list = _grads(loss, params, list(weights.values()))
+        w_grads = dict(zip(weights, w_list))
         new_params, opt_state = self.optimizer.update(
             p_grads, state["opt"], state["params"], state["step"]
         )

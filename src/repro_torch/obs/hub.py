@@ -1,5 +1,6 @@
-"""Structured metrics hub (port of ``repro.obs.hub``): exact-int
-accumulation of the cumulative int32 device counters, and a JSONL sink.
+"""Structured metrics hub (port of ``repro.obs.hub``): typed instruments
+(exact-int counters over the cumulative int32 device counters, last-value
+gauges, fixed-bucket histograms) and a JSONL sink.
 
 The cache's counters (hits, misses, host rows moved) are cumulative int32
 device state that wraps past 2^31; :class:`ExactCounter` rebuilds exact
@@ -10,7 +11,7 @@ counter leaves is ONE batched ``.cpu()`` copy.
 
 Records are written with sorted keys and every wall-clock-dependent field
 under the reserved ``"wall"`` key, so identical runs emit identical files
-modulo that subtree.
+modulo that subtree.  ``python -m repro_torch.obs.report`` renders them.
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ import torch
 
 from repro_torch.obs.hist import FixedHistogram
 
-__all__ = ["ExactCounter", "MetricsHub", "fetch_ints"]
+__all__ = ["ExactCounter", "Gauge", "MetricsHub", "fetch_ints"]
 
 _WRAP = 1 << 32
 
@@ -73,6 +74,11 @@ class ExactCounter:
         self._prev: Dict[str, int] = {}
         self._total = 0
 
+    def add(self, n: int) -> int:
+        """A direct host-side increment (already an exact int)."""
+        self._total += int(n)
+        return self._total
+
     def observe(
         self, cumulative: Any, unit: Optional[Union[int, Mapping[str, Any]]] = None
     ) -> int:
@@ -89,6 +95,18 @@ class ExactCounter:
     @property
     def value(self) -> int:
         return self._total
+
+
+class Gauge:
+    """Last-value instrument (floats: hit rate, imbalance, loss)."""
+
+    def __init__(self, name: str = ""):
+        self.name = name
+        self.value: float = 0.0
+
+    def set(self, v: float) -> float:
+        self.value = float(v)
+        return self.value
 
 
 # (record_key, counts_key, unit_key): per-slab cumulative int32 counts,
@@ -110,8 +128,12 @@ _CUMULATIVE_FAMILIES = (
 
 
 class MetricsHub:
-    """Exact-counter registry plus a per-run JSONL sink
-    (``run_dir=None``: no sink, instruments still accumulate)."""
+    """Counter / gauge / histogram registry plus a per-run JSONL sink
+    (``run_dir=None``: no sink, instruments still accumulate).
+
+    :meth:`snapshot` captures every instrument's value; :meth:`delta`
+    subtracts an earlier snapshot's counters (per-interval rates off one
+    hub).  As a context manager the hub closes its sink on exit."""
 
     def __init__(self, run_dir: Optional[str] = None, run: str = "run", timestamps: bool = True):
         self.run = run
@@ -119,6 +141,8 @@ class MetricsHub:
         self.jsonl_path: Optional[str] = None
         self._sink: Optional[IO[str]] = None
         self._counters: Dict[str, ExactCounter] = {}
+        self._gauges: Dict[str, Gauge] = {}
+        self._hists: Dict[str, FixedHistogram] = {}
         if run_dir is not None:
             os.makedirs(run_dir, exist_ok=True)
             self.jsonl_path = os.path.join(run_dir, f"{run}.jsonl")
@@ -129,6 +153,19 @@ class MetricsHub:
         if name not in self._counters:
             self._counters[name] = ExactCounter(name)
         return self._counters[name]
+
+    def gauge(self, name: str) -> Gauge:
+        if name not in self._gauges:
+            self._gauges[name] = Gauge(name)
+        return self._gauges[name]
+
+    def histogram(self, name: str, bounds: Optional[tuple] = None) -> FixedHistogram:
+        """The named histogram, built on first use with ``bounds`` (the
+        latency buckets by default)."""
+        if name not in self._hists:
+            self._hists[name] = (FixedHistogram(bounds=bounds) if bounds is not None
+                                 else FixedHistogram.latency())
+        return self._hists[name]
 
     def observe_embedding_metrics(self, metrics: Mapping[str, Any]) -> Dict[str, int]:
         """Feed one observation of a ``collection.metrics`` dict; returns the
@@ -164,8 +201,14 @@ class MetricsHub:
         self._sink.write(json.dumps(rec, sort_keys=True) + "\n")
         self._sink.flush()
 
-    def log_hist(self, name: str, hist: FixedHistogram) -> None:
-        self.log("hist", {"name": name}, wall={"hist": hist.to_dict()})
+    def log_hist(self, name: str, hist: Optional[FixedHistogram] = None) -> None:
+        """A named histogram record (``hist``, else the registry's; none:
+        no record).  Its counts are wall-clock, so all of it sits under
+        ``wall``."""
+        h = hist if hist is not None else self._hists.get(name)
+        if h is None:
+            return
+        self.log("hist", {"name": name}, wall={"hist": h.to_dict()})
 
     def log_spans(self, tracer) -> None:
         summary = tracer.stage_summary()
@@ -175,9 +218,26 @@ class MetricsHub:
             wall={"stages": summary},
         )
 
+    def snapshot(self) -> Dict[str, Any]:
+        return {
+            "counters": {k: c.value for k, c in sorted(self._counters.items())},
+            "gauges": {k: g.value for k, g in sorted(self._gauges.items())},
+            "hists": {k: h.to_dict() for k, h in sorted(self._hists.items())},
+        }
+
+    def delta(self, prev: Mapping[str, Any]) -> Dict[str, int]:
+        """Counter movement since an earlier :meth:`snapshot`."""
+        base = prev.get("counters", {})
+        return {k: c.value - int(base.get(k, 0)) for k, c in sorted(self._counters.items())}
+
     def close(self) -> None:
         if self._sink is not None:
-            counters = {k: c.value for k, c in sorted(self._counters.items())}
-            self.log("summary", {"counters": counters})
+            self.log("summary", {"counters": self.snapshot()["counters"]})
             self._sink.close()
             self._sink = None
+
+    def __enter__(self) -> "MetricsHub":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

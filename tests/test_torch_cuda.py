@@ -7,9 +7,10 @@ tensor-core and fp32 SIMT kernels) against their plain PyTorch versions
 attention within the card smoke's |o|-scaled bound), the pinned host-tier
 transmitter (staging ring, async copies, fp32 and tiered arenas) against
 the CPU move (fp32, fp16 and int8 host tiers; fp32 and tiered arenas; the
-verbatim host -> tail path; chunked staging), a lookahead plan's eviction
-key through the threshold kernel at ``kv == capacity``, and a 4-shard
-collection's lookups against its dense reference.
+verbatim host -> tail path; chunked staging, into a tiered arena too), a
+lookahead plan's eviction key through the threshold kernel at ``kv ==
+capacity``, and a 4-shard collection's lookups against its dense
+reference.
 
 Imports neither JAX nor the JAX package, so the machine with the card runs
 it as is:  ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
@@ -367,6 +368,41 @@ def test_pinned_encoded_host_store_moves_match_cpu_move(cuda, host, arena_codec,
     finally:
         got_store.close()
     assert not got_store.pinned
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arena_codec", ["fp16", "int8"])
+@pytest.mark.parametrize("host", ["fp16", "int8"])
+def test_pinned_chunked_load_into_tiered_arena_matches_cpu(cuda, host, arena_codec):
+    """A chunked load of an encoded, pinned host tier into a tiered arena
+    on the card: the staged chunks are decoded on the card and the tail
+    re-encodes them (no verbatim host bits under a chunked source, as in
+    the reference); head, tail payload and sideband bitwise the CPU port's
+    chunked move on the same inputs."""
+    rng = np.random.default_rng(21)
+    vocab, cap, head, dim, k = 1024, 300, 75, 16, 256
+    table = torch.from_numpy(rng.normal(size=(vocab, dim)).astype(np.float32) * 3)
+    arena = torch.from_numpy(rng.normal(size=(cap, dim)).astype(np.float32))
+    src = torch.from_numpy(rng.integers(-1, vocab, size=k).astype(np.int32))
+    dst = torch.from_numpy(rng.permutation(cap)[:k].astype(np.int32))
+    active = torch.from_numpy(rng.random(k) < 0.8)
+    want_store = HostStore.create({"w": table.clone()}, host)
+    got_store = HostStore.create({"w": table.clone()}, host, pin=True)
+    want_arena = ArenaStore.create({"w": arena.clone()}, head, arena_codec)
+    got_arena = ArenaStore.create({"w": arena.to(cuda)}, head, arena_codec)
+    before = transmitter.moves["chunked"]
+    try:
+        transmitter.move_rows(want_store, want_arena, src, dst, active, buffer_rows=100,
+                              src_chunk_rows=64)
+        transmitter.move_rows(got_store, got_arena, src.to(cuda), dst.to(cuda),
+                              active.to(cuda), buffer_rows=100, src_chunk_rows=64)
+        torch.cuda.synchronize()
+        for part in ("head", "tail", "sideband"):
+            for name, t in getattr(want_arena, part).items():
+                assert torch.equal(getattr(got_arena, part)[name].cpu(), t), part
+        assert transmitter.moves["chunked"] == before + 2
+    finally:
+        got_store.close()
 
 
 @pytest.mark.cuda

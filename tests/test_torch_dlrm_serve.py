@@ -10,6 +10,7 @@ host wire bytes exactly equal.
 """
 import jax
 import numpy as np
+import pytest
 import torch
 from torch_parity import assert_tree_equal, jax_to_numpy
 
@@ -125,3 +126,36 @@ def test_unported_paths_raise():
     emb, report = model.collection.refresh(emb, writeback=False)
     assert set(report.swaps) == set(model.collection.cached_slabs)
     assert torch.equal(model.serve_step(dict(state, emb=emb), b)[0], logits)
+
+
+@pytest.mark.parametrize("arena", ["fp16", "int8"])
+def test_serve_launcher_arena_precision_matches_reference_launcher(arena, capsys, monkeypatch):
+    """``launch/serve.py --arena-precision`` tiers the served arena as the
+    reference launcher's flag does: the same hit and miss counts and host
+    wire bytes, and the engine's state holds an arena of that codec."""
+    import re
+
+    from repro.launch import serve as jserve
+    from repro_torch.launch import serve
+    from repro_torch.store.arena import ArenaStore
+
+    engines = []
+    real = serve.ServeEngine
+
+    class Recorded(real):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            engines.append(self)
+
+    monkeypatch.setattr(serve, "ServeEngine", Recorded)
+    argv = ["--arch", "dlrm-criteo", "--requests", "32", "--batch", "16",
+            "--arena-precision", arena]
+    got = serve.main(["--device", "cpu", *argv])
+    capsys.readouterr()
+    monkeypatch.setattr("sys.argv", ["serve", *argv])
+    jserve.main()
+    out = capsys.readouterr().out.strip().splitlines()
+    for key in ("requests", "cache_hits", "cache_misses", "host_wire_bytes"):
+        assert got[key] == int(re.search(rf"'{key}': (\d+)", out[-2]).group(1)), key
+    arena_store = engines[0].state["emb"].slabs["__shared__"].cache.cached_rows
+    assert isinstance(arena_store, ArenaStore) and arena_store.codec == arena

@@ -402,3 +402,101 @@ def test_train_launcher_host_precision_matches_reference_launcher(capsys, monkey
     assert len(got.history) == len(want) == 3
     pattern = r"host tier \(int8\): .*"
     assert re.search(pattern, got_out).group(0) == re.search(pattern, want_out).group(0)
+
+
+@pytest.mark.parametrize("flags", [
+    ("--arch", "dlrm-avazu"),
+    ("--cache-policy", "lru"),
+    ("--cache-policy", "runtime_lfu", "--arch", "fm"),
+    ("--obs-annotate", "--history-limit", "2", "--obs-dir"),
+])
+def test_train_launcher_flags_match_reference_launcher(flags, capsys, monkeypatch, tmp_path):
+    """``--arch dlrm-avazu``, ``--cache-policy``, ``--obs-annotate`` and
+    ``--history-limit`` parse as the reference launcher's do: each run's
+    trainer config and model config equal the reference's, field by field
+    (the policy by name), and the per-step hits, misses and host wire bytes
+    equal, losses within rtol 1e-5, from the reference's initial state."""
+    from repro.launch import train as jtrain
+    from repro.models.recsys_models import FMModel as JFMModel
+    from repro_torch.launch import train
+    from repro_torch.models.recsys_models import FMModel
+
+    argv = ["--steps", "3", "--batch", "16", *flags]
+    if argv[-1] == "--obs-dir":
+        argv.append(str(tmp_path))
+    runs = []
+
+    class Recorded(jtrain.Trainer):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            runs.append(self)
+
+    monkeypatch.setattr(jtrain, "Trainer", Recorded)
+    monkeypatch.setattr("sys.argv", ["train", *(argv if "--arch" in argv else
+                                                ["--arch", "dlrm-criteo", *argv]),
+                                     "--use-pallas-plan"])
+    jtrain.main()
+    capsys.readouterr()
+    want = runs[0]
+    jmodel = want.step_fn.__wrapped__.__self__  # the reference's jitted bound train_step
+    init = jax_to_numpy(jmodel.init(jax.random.PRNGKey(0)))
+    tmodel = FMModel if isinstance(jmodel, JFMModel) else DLRM
+    models = []
+    orig_init = tmodel.init
+
+    def converted_init(self, seed, counts=None, device=None):
+        models.append(self)
+        return convert.state_from_numpy(init, device=device)
+
+    monkeypatch.setattr(tmodel, "init", converted_init)
+    got = train.main(["--device", "cpu", *argv])
+    monkeypatch.setattr(tmodel, "init", orig_init)
+    for field in ("max_steps", "obs_annotate", "history_limit", "pipeline_depth"):
+        assert getattr(got.cfg, field) == getattr(want.cfg, field), field
+    tcfg, jcfg = models[0].cfg, jmodel.cfg
+    for field in ("vocab_sizes", "embed_dim", "batch_size", "cache_ratio", "lr"):
+        assert getattr(tcfg, field) == getattr(jcfg, field), field
+    assert (tcfg.policy and tcfg.policy.value) == (jcfg.policy and jcfg.policy.value)
+    assert len(got.history) == len(want.history)
+    for g, w in zip(got.history, want.history):
+        for key in ("cache_hits", "cache_misses", "host_wire_bytes"):
+            assert g[key] == w[key], key
+        np.testing.assert_allclose(g["loss"], w["loss"], rtol=RTOL, atol=0)
+    if "--obs-dir" in argv:
+        from repro_torch.obs import report
+
+        steps = [r for r in report.load_records(got.hub.jsonl_path) if r.get("kind") == "step"]
+        assert len(steps) == 3 and got.tracer.annotate
+
+
+def test_avazu_configs_match_reference():
+    """``configs/dlrm_avazu``: the paper's Avazu shape (13 fields, 9 445 823
+    rows, batch 65 536: the single arena holds one batch's 851 968 unique
+    rows) with the reference's sizes, and the SMOKE config's one training
+    step within rtol 1e-5 of the reference's ``smoke()`` loss."""
+    from repro.configs import dlrm_avazu as jav
+    from repro.configs import shapes as jshapes
+    from repro_torch.configs import dlrm_avazu as av
+    from repro_torch.configs import shapes
+
+    assert shapes.AVAZU_VOCABS == jshapes.AVAZU_VOCABS and sum(shapes.AVAZU_VOCABS) == 9_445_823
+    assert shapes._AVAZU_BASE == jshapes._AVAZU_BASE
+    for field in ("vocab_sizes", "n_dense", "embed_dim", "batch_size", "cache_ratio", "lr",
+                  "max_unique_per_step", "arena_precision", "bottom_mlp", "top_mlp"):
+        assert getattr(av.CONFIG, field) == getattr(jav.CONFIG, field), field
+    spec = DLRM(av.CONFIG).collection.cached_slabs[SHARED_ARENA]
+    assert (spec.vocab, spec.capacity, spec.unique_size()) == (9_445_823, 851_968, 851_968)
+    assert JDLRM(jav.CONFIG).collection.cached_slabs[SHARED_ARENA].capacity == spec.capacity
+
+    want = jav.smoke()
+    smoke = {f: getattr(av.SMOKE, f) for f in ("vocab_sizes", "n_dense", "embed_dim",
+                                                "batch_size", "cache_ratio", "lr",
+                                                "bottom_mlp", "top_mlp")}
+    init = jax_to_numpy(JDLRM(JDLRMConfig(**smoke)).init(jax.random.PRNGKey(0)))
+    model = DLRM(av.SMOKE)
+    state = convert.state_from_numpy(init, device="cpu")
+    b = synth.sparse_batch(synth.ZipfSparseSpec(vocab_sizes=av.SMOKE.vocab_sizes, n_dense=8),
+                           8, 0, 0)
+    _, m = model.train_step(state, _tt(b))
+    assert want["finite"] and np.isfinite(float(m["loss"]))
+    np.testing.assert_allclose(float(m["loss"]), want["loss"], rtol=RTOL, atol=0)

@@ -44,7 +44,8 @@ def test_port_imports_no_jax_and_no_reference_package():
                      "kernels.flash_attention.ops", "kernels.flash_attention.kernel",
                      "kernels.flash_attention.ref", "nn.layers", "nn.moe", "nn.transformer",
                      "models.lm", "configs.lm_common", "configs.smollm_360m",
-                     "configs.gemma3_27b", "configs.internlm2_20b"):
+                     "configs.gemma3_27b", "configs.internlm2_20b",
+                     "core.cached_embedding", "configs.dlrm_avazu", "obs.report"):
             assert "repro_torch." + need in names, need
         print(len(names))
         """

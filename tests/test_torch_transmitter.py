@@ -9,7 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity import assert_tree_equal
+from torch_parity import assert_tree_equal, jax_to_numpy
 
 from repro.core import transmitter as jtx
 from repro.store.host_store import HostStore as JHostStore
@@ -229,22 +229,40 @@ def test_chunked_move_hoststore_bit_identical(codec):
     assert torch.equal(rows.data["w"], got.data["w"])
 
 
-def test_chunked_load_into_tiered_arena_keeps_the_host_bits():
-    """A chunked int8 load into an int8-tiered arena hands the tail the
-    picked host payload and sideband verbatim: bitwise the row path."""
+@pytest.mark.parametrize("chunk", [0, 16])
+@pytest.mark.parametrize("arena", ["fp32", "fp16", "int8"])
+@pytest.mark.parametrize("host", ["fp32", "fp16", "int8"])
+def test_chunked_load_into_arena_matches_reference(host, arena, chunk):
+    """A host store loaded into an fp32 or tiered arena, by rows and in
+    chunks of 16: the arena's head, payload, sideband and decoded rows
+    bitwise the eager reference's ``move_rows`` in one round.  Under a
+    chunked source both decode the staged chunks and the tail re-encodes
+    them; by rows, a tail of the host's codec takes the host bits."""
+    from repro.store.arena import ArenaStore as JArenaStore
     from repro_torch.store.arena import ArenaStore
 
     rng = np.random.default_rng(5)
     table = rng.normal(size=(96, 8)).astype(np.float32) * 3
     start = rng.normal(size=(24, 8)).astype(np.float32)
-    store = HostStore.create({"weight": torch.from_numpy(table)}, "int8")
+    j_store = JHostStore.create({"weight": jnp.asarray(table)}, host)
+    t_store = HostStore.create({"weight": torch.from_numpy(table.copy())}, host)
+    if arena == "fp32":
+        j_arena = {"weight": jnp.asarray(start)}
+        t_arena = {"weight": torch.from_numpy(start.copy())}
+    else:
+        j_arena = JArenaStore.create({"weight": jnp.asarray(start)}, 6, arena)
+        t_arena = ArenaStore.create({"weight": torch.from_numpy(start.copy())}, 6, arena)
     src, dst, active = _lanes(rng, 20, 96, 24)
-    arenas = []
-    for chunk in (0, 16):
-        arena = ArenaStore.create({"weight": torch.from_numpy(start.copy())}, 6, "int8")
-        tx.move_rows(store, arena, *_t(src, dst, active), buffer_rows=7, src_chunk_rows=chunk)
-        arenas.append(to_numpy(arena))
-    assert_tree_equal(arenas[0], arenas[1])
+    want = jtx.move_rows(j_store, j_arena, *map(jnp.asarray, (src, dst, active)),
+                         buffer_rows=64, src_chunk_rows=chunk)
+    got = tx.move_rows(t_store, t_arena, *_t(src, dst, active), buffer_rows=64,
+                       src_chunk_rows=chunk)
+    assert got is t_arena
+    assert_tree_equal(jax_to_numpy(want), to_numpy(got))
+    if arena != "fp32":
+        slots = torch.arange(24, dtype=torch.int32)
+        assert np.array_equal(np.asarray(want.gather_slots(jnp.asarray(slots.numpy()))["weight"]),
+                              got.gather_slots(slots)["weight"].numpy())
 
 
 def test_chunked_staging_block_sized_by_unique_chunks():
