@@ -7,10 +7,11 @@ Phases (any failure exits non-zero, with no result line):
 1. the card: ``nvidia-smi`` name and power limit; exits when CUDA is absent.
 2. build: every CUDA source of the port's paths (victim threshold,
    gather-decode, FM interaction, embedding bag, bucketize, flash
-   attention's fp32 SIMT and bf16 tensor-core kernels), from this checkout,
-   in one ``build_all`` call (one ``nvcc`` per source, all started
-   together); prints the tensor-core kernel's ptxas registers and spills
-   for each instantiation, and fails on a spill.
+   attention's bf16 tensor-core, fp32 3xTF32 tensor-core and fp32 SIMT
+   kernels), from this checkout, in one ``build_all`` call (one ``nvcc``
+   per source, all started together); prints the two tensor-core kernels'
+   ptxas registers and spills for each instantiation, and fails on a
+   spill, or on a serialised wgmma pipeline in the 3xTF32 kernel.
 3. kernels, each held against its plain PyTorch version on the card: the
    victim threshold (one launch: a radix select over a cooperative grid)
    bitwise on >= 20 seeded tie-heavy trials with the
@@ -217,8 +218,9 @@ The bucketize is timed on the first sharded plan's live router inputs.
 9. flash kernels: the flash-attention kernels against their plain version
    on ``test_kernels.py``'s sweep, head dims 16 and 20 (the SMOKE
    configs'), 15 query heads over 5 KV heads, a length of 96, a window
-   wider than S and d 256, fp32 (the SIMT kernel) and bf16 (the
-   tensor-core kernel), each launch counted on its dtype's route, within
+   wider than S and d 256, fp32 (the 3xTF32 tensor-core kernel up to d
+   128, the SIMT kernel at d 256) and bf16 (the bf16 tensor-core kernel),
+   each launch counted on the route its dtype and head width select, within
    2e-5 * (1 + |o|) per element (the reference's fp32 tolerance), plus one
    bf16 ulp of o in bf16; then the autograd backward (kernel forward, plain
    recompute) against the plain version's autograd, q/k/v grads within
@@ -241,11 +243,14 @@ The bucketize is timed on the first sharded plan's live router inputs.
    decode step; every prefill launch takes the tensor-core route, and the
    profiled prefill must show the tensor-core kernel's symbol and not the
    SIMT kernel's.
-11. LM fp32: the same model in fp32 (TF32 off), B 2 x S 4096: last logits
-   of the kernel route and the chunked route, and 64 teacher-forced
-   ``decode_step`` calls against ``forward``'s logits at positions 0-63,
-   within rtol 1e-4, atol 1e-4 * max|logit|; 32 launches, all on the SIMT
-   route; the kernel against plain on layer 0's live fp32 q/k/v.
+11. LM fp32: the same model in fp32 (TF32 off for torch's matmuls), B 2 x
+   S 4096: last logits of the kernel route and the chunked route, and 64
+   teacher-forced ``decode_step`` calls against ``forward``'s logits at
+   positions 0-63, within rtol 1e-4, atol 1e-4 * max|logit|; 32 launches,
+   all on the 3xTF32 route (d 64); the kernel against plain on layer 0's
+   live fp32 q/k/v; a timed ``prefill_step`` (wall ms printed) and a
+   profiled one, which must show the 3xTF32 kernel's symbol and not the
+   SIMT kernel's.
 12. Gemma: ``configs/gemma3_27b.CONFIG`` at published width (d_model 5376,
    32/16 heads of 128, d_ff 21504, vocab 262144, window 1024, bf16), depth
    cut to one pattern group of 6 (5 local, 1 global; printed): a prefill
@@ -256,9 +261,13 @@ The bucketize is timed on the first sharded plan's live router inputs.
    ``F.scaled_dot_product_attention`` (the yardstick; the port never calls
    it), with the bound from the live (q, k) pairs at 989 TFLOP/s bf16 and
    the bytes at 3.35 TB/s; the same kernel on Gemma's live windowed
-   layer-0 inputs (d 128) beside their bound; and the SIMT kernel, its
-   plain version and SDPA on phase 11's live fp32 inputs, bound at 67
-   TFLOP/s fp32.
+   layer-0 inputs (d 128) beside their bound; and on phase 11's live fp32
+   inputs the 3xTF32 kernel and the SIMT kernel (called straight through
+   its C entry, uncounted, as the before figure) in turns (SIMT, 3xTF32,
+   3xTF32, SIMT), the 3xTF32 kernel's device time from guarded profiler
+   windows and its host enqueue, the plain version and SDPA, bound at 67
+   TFLOP/s fp32, with the three TF32 products' floor at 495 TFLOP/s beside
+   it.
 
 They run in the order 1-5e, 6-7b, 14a-14b, 9-13, 5f-5h, 8.  Each phase's
 seconds are printed.  The last three lines are the
@@ -270,9 +279,11 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import dataclasses
 import gc
 import json
+import math
 import os
 import re
 import subprocess
@@ -3455,13 +3466,16 @@ def fm_train_phase(dev, vocab_scale, n_steps, chunk_rows=0):
 # ---------------------------------------------------------------------------
 
 BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores (NVIDIA data sheet)
+TF32_OPS_PER_S = 495e12  # H100 SXM dense TF32 tensor cores (NVIDIA data sheet)
 FLASH_TOL = 2e-5  # the reference's fp32 flash sweep: rtol and atol
 LM_RTOL = 1e-4  # fp32 routes: rtol and atol 1e-4 * max|logit|; read: 3e-6 relative
 LM_PREFILLS, LM_B, LM_S = 3, 8, 4096  # prefill requests of B 8 x S 4096 (train_4k's length)
 LM_LONG_S = 32768  # one B 1 request at prefill_32k's length
 LM_PROMPT, LM_NEW, LM_MAX_LEN = 64, 64, 4096  # decode: prompt, greedy tokens, cache length
 GEMMA_S = 8192
-WGMMA_SYMBOL, SIMT_SYMBOL = "flash_wgmma_kernel", "flash_fwd_kernel"  # bf16, fp32 kernels
+# the flash kernels' symbols: bf16 tensor cores, fp32 tensor cores (3xTF32), fp32 SIMT
+WGMMA_SYMBOL, TF32_SYMBOL = "flash_wgmma_kernel", "flash_tf32x3_kernel"
+SIMT_SYMBOL = "flash_fwd_kernel"
 
 
 def _bf16_ulp(x):
@@ -3470,9 +3484,11 @@ def _bf16_ulp(x):
     return torch.where(x == 0, 0.0, torch.ldexp(torch.ones_like(m), e - 8))
 
 
-def _route(dtype):
-    """The flash kernel a dtype launches: bf16 the tensor cores, fp32 SIMT."""
-    return "wgmma" if dtype == torch.bfloat16 else "simt"
+def _route(dtype, d):
+    """The flash kernel a dtype and head width launch (``kernel.route``)."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+
+    return fa_kernel.route(dtype, d)
 
 
 def check_flash(q, k, v, causal, window, what, show=False):
@@ -3485,11 +3501,12 @@ def check_flash(q, k, v, causal, window, what, show=False):
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
 
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    route = _route(q.dtype)
+    route = _route(q.dtype, q.shape[-1])
     before = fa_kernel.flash_attention.route_launches[route]
     got = fa_kernel.flash_attention(qt, kt, vt, causal, window)
     if fa_kernel.flash_attention.route_launches[route] != before + 1:
-        raise AssertionError(f"flash_attention {what}: {q.dtype} did not launch the {route} kernel")
+        raise AssertionError(f"flash_attention {what}: {q.dtype} d {q.shape[-1]} did not launch "
+                             f"the {route} kernel")
     want = fa_kernel.flash_attention_plain(qt, kt, vt, causal, window)
     if got.dtype != q.dtype or got.shape != qt.shape:
         raise AssertionError(f"flash_attention {what}: got {got.dtype} {tuple(got.shape)}")
@@ -3502,7 +3519,8 @@ def check_flash(q, k, v, causal, window, what, show=False):
         raise AssertionError(f"flash_attention {what}: kernel != plain (max |diff| {err}, "
                              f"worst excess over the bound {float((diff - bound).max())})")
     if show:
-        log(f"flash_attention {what}: {q.dtype} max |diff| {err}, max |o| {float(o.max())}, "
+        log(f"flash_attention {what}: {q.dtype} ({route}) max |diff| {err}, max |o| "
+            f"{float(o.max())}, "
             f"mean |o| {float(o.mean())}; bound per element "
             + ("2e-5 (1 + |o|)" + ("" if q.dtype == torch.float32 else " + one bf16 ulp of o")))
     return err
@@ -3521,13 +3539,16 @@ def flash_kernel_phase(dev):
              (1, 15, 5, 512, 64, True, None), (2, 4, 2, 96, 64, True, None),
              (1, 4, 2, 512, 64, True, 4096), (1, 2, 1, 256, 256, False, 100)]
     g = torch.Generator(device=dev).manual_seed(0)
-    errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    errs = {"wgmma": 0.0, "tf32x3": 0.0, "simt": 0.0}  # max_abs_err by route
+    before = dict(fa_kernel.flash_attention.route_launches)
     for b, hq, hkv, s, d, causal, window in cases:
-        for dtype in errs:
+        for dtype in (torch.float32, torch.bfloat16):
             q, k, v = (torch.randn((b, s, h, d), generator=g, device=dev).to(dtype)
                        for h in (hq, hkv, hkv))
-            errs[dtype] = max(errs[dtype], check_flash(q, k, v, causal, window,
+            route = _route(dtype, d)
+            errs[route] = max(errs[route], check_flash(q, k, v, causal, window,
                                                        f"{(b, hq, hkv, s, d, causal, window)}"))
+    by_route = {r: n - before[r] for r, n in fa_kernel.flash_attention.route_launches.items()}
     want = [torch.randn((1, 256, h, 32), generator=g, device=dev) for h in (4, 2, 2)]
     got = [t.clone().requires_grad_() for t in want]
     want = [t.requires_grad_() for t in want]
@@ -3539,10 +3560,11 @@ def flash_kernel_phase(dev):
     if grad_err > 1e-4:
         raise AssertionError(f"flash_attention backward: q/k/v grads off the plain "
                              f"version's autograd by {grad_err} > 1e-4")
-    log(f"flash_attention phase: {len(cases)} shapes x fp32 (SIMT kernel) / bf16 (tensor-core "
-        f"kernel) within 2e-5 (1 + |o|), bf16 plus one bf16 ulp of o; max_abs_err fp32 "
-        f"{errs[torch.float32]}, bf16 {errs[torch.bfloat16]}; autograd (kernel forward, plain "
-        f"recompute backward) q/k/v grads within {grad_err} of the plain version's (<= 1e-4)")
+    log(f"flash_attention phase: {len(cases)} shapes x fp32 (3xTF32 kernel up to d 128, SIMT "
+        f"kernel at d 256) / bf16 (bf16 tensor-core kernel) within 2e-5 (1 + |o|), bf16 plus one "
+        f"bf16 ulp of o; launches by route {by_route}; max_abs_err by route {errs}; autograd "
+        f"(kernel forward, plain recompute backward) q/k/v grads within {grad_err} of the plain "
+        f"version's (<= 1e-4)")
     return errs
 
 
@@ -3573,7 +3595,7 @@ def _prefill(model, params, batch, what):
     ms, the launches and layer 0's live kernel inputs."""
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
 
-    route = _route(model.cfg.dtypes.compute)
+    route = _route(model.cfg.dtypes.compute, model.cfg.head_dim)
     fa_kernel.flash_attention.launches = 0
     before = fa_kernel.flash_attention.route_launches[route]
     with layer0_inputs() as seen:
@@ -3701,13 +3723,23 @@ def lm_fp32_phase(dev, cfg, b=2, s=LM_S, steps=LM_PROMPT):
     model = LMModel(cfg)
     params = model.init(torch.Generator(device=dev).manual_seed(1), dev)["params"]
     toks = torch.from_numpy(synth.seq_batch(cfg.vocab, b, s, 1, 0)["tokens"]).to(dev)
-    fa_kernel.flash_attention.launches = 0
-    simt_before = fa_kernel.flash_attention.route_launches["simt"]
+    route = _route(cfg.dtypes.compute, cfg.head_dim)
+    counts = {}
+
+    def counted(what, fn):  # one layer pass, its launches counted from 0
+        fa_kernel.flash_attention.launches = 0
+        before = fa_kernel.flash_attention.route_launches[route]
+        out = fn()
+        n = fa_kernel.flash_attention.launches
+        if n != cfg.n_layers or fa_kernel.flash_attention.route_launches[route] - before != n:
+            raise AssertionError(f"lm fp32 {what}: {n} flash launches, want {cfg.n_layers}, all "
+                                 f"on the {route} route")
+        counts[what] = n
+        return out
+
     with torch.no_grad(), layer0_inputs() as seen:
-        logits, _ = T.forward(params, cfg, toks)
-    if fa_kernel.flash_attention.route_launches["simt"] - simt_before != cfg.n_layers:
-        raise AssertionError("lm fp32: the prefill's flash launches are not all on the SIMT route")
-    n = fa_kernel.flash_attention.launches
+        logits, _ = counted("forward", lambda: T.forward(params, cfg, toks))
+    n = counts["forward"]
     live = seen[0]
     live_err = check_flash(*live, f"fp32 live layer-0 q/k/v at B {b} x S {s}", show=True)
     del seen
@@ -3732,10 +3764,29 @@ def lm_fp32_phase(dev, cfg, b=2, s=LM_S, steps=LM_PROMPT):
         f"{d_route / scale}); {steps} teacher-forced decode steps vs forward's logits at "
         f"positions 0-{steps - 1}: max |diff| {d_dec}; tolerance rtol {LM_RTOL}, atol "
         f"{LM_RTOL} * max|logit|")
-    if n != cfg.n_layers or not (ok_route and ok_dec):
-        raise AssertionError(f"lm fp32: launches {n}, routes agree {ok_route}, decode agrees "
-                             f"{ok_dec}")
-    return {"live": live, "err": live_err, "launches": n}
+    if not (ok_route and ok_dec):
+        raise AssertionError(f"lm fp32: routes agree {ok_route}, decode agrees {ok_dec}")
+
+    batch = {"tokens": toks}
+    counted("warm-up prefill_step", lambda: model.prefill_step(params, batch))
+    _, prefill_ms = counted("timed prefill_step",
+                            lambda: sync_ms(lambda: model.prefill_step(params, batch)))
+    stats = {}
+    profile_call(f"one fp32 prefill B {b} x S {s}", lambda: model.prefill_step(params, batch),
+                 stats=stats)
+    by_kernel = stats.get("by_kernel", {})
+    fa = sum(ms for name, ms in by_kernel.items() if TF32_SYMBOL in name)
+    simt = [name for name in by_kernel if SIMT_SYMBOL in name]
+    if fa <= 0 or simt:
+        raise AssertionError(f"lm fp32 profiled prefill: {fa} ms of {TF32_SYMBOL}, SIMT kernels "
+                             f"{simt}: want the 3xTF32 kernel alone")
+    log(f"lm fp32 prefill_step B {b} x S {s}: {prefill_ms} ms wall ({b * s / prefill_ms * 1e3} "
+        f"tokens/s); profiled: flash kernel ({TF32_SYMBOL}) {fa} ms of {stats['busy']} ms device "
+        f"busy (share {fa / stats['busy']}, {fa / cfg.n_layers} ms a launch); launches by call "
+        f"{counts}, all on the {route} route")
+    return {"live": live, "err": live_err, "launches": sum(counts.values()),
+            "launches_by_call": counts, "prefill_ms": prefill_ms,
+            "prefill_device_ms": fa / cfg.n_layers}
 
 
 def gemma_phase(dev, cfg, s=GEMMA_S):
@@ -3786,14 +3837,44 @@ def _flash_work(q, k, window, ops_per_s):
     return flops, n_bytes, ops_ms, bytes_ms
 
 
+def _simt_call(q, k, v, causal, window):
+    """The SIMT kernel straight through its C entry (no launch counted): the
+    fp32 route's before figure, on [B, H, S, D] views, as the wrapper
+    would launch it."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    launch = build.entry(fa_kernel.SOURCE, "flash_attention_fwd",
+                         fa_kernel.ARGTYPES + (ctypes.c_void_p,))
+    w = 0 if window is None else max(-sk, min(window, sq))
+
+    def call():
+        err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hkv, sq, sk,
+                     d, *q.stride(), *k.stride(), *v.stride(), *out.stride(), 1.0 / math.sqrt(d),
+                     int(causal), int(window is not None), w,
+                     torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"SIMT flash kernel launch failed: CUDA error {err}")
+        return out
+
+    return call
+
+
 def time_flash(smol, gemma, fp32, errs, ptxas):
-    """The tensor-core kernel, its plain version and
+    """The bf16 tensor-core kernel, its plain version and
     F.scaled_dot_product_attention on the live layer-0 inputs of a SmolLM
     prefill, the same kernel on Gemma's live windowed layer-0 inputs, and
-    the SIMT kernel, plain and SDPA on phase 11's live fp32 inputs.  The
-    tensor-core kernel's device time a launch comes from phase 10's profiled
-    prefill: on an H100, a profile of back-to-back calls here, late in the
-    process, lost most of a kernel's events (2.2 ms reported for 11.2 ms)."""
+    on phase 11's live fp32 inputs the 3xTF32 kernel, the SIMT kernel
+    (called straight, the before figure) in turns (SIMT, 3xTF32, 3xTF32,
+    SIMT), plain and SDPA.  The bf16 kernel's device time a launch comes
+    from phase 10's profiled prefill: on an H100, a profile of back-to-back
+    calls here, late in the process, lost most of a kernel's events (2.2 ms
+    reported for 11.2 ms); the 3xTF32 kernel's from guarded windows that
+    are retaken until whole (``device_ms``), beside phase 11's profiled
+    prefill."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
@@ -3805,15 +3886,23 @@ def time_flash(smol, gemma, fp32, errs, ptxas):
     for name, source, live, window, ops_per_s, launches_by_path, err in (
             ("flash_attention", fa_kernel.SM90_SOURCE, smol["live"], None, BF16_OPS_PER_S,
              {"smollm_prefill": smol["launches"], "gemma_prefill": gemma["launches"]},
-             max(errs[torch.bfloat16], smol["err"], gemma["err"])),
-            ("flash_attention_fp32", fa_kernel.SOURCE, fp32["live"], None, FP32_OPS_PER_S,
-             {"smollm_fp32_prefill": fp32["launches"]}, max(errs[torch.float32], fp32["err"]))):
+             max(errs["wgmma"], smol["err"], gemma["err"])),
+            ("flash_attention_fp32", fa_kernel.TF32_SOURCE, fp32["live"], None, FP32_OPS_PER_S,
+             {f"smollm_fp32 {call}": n for call, n in fp32["launches_by_call"].items()},
+             max(errs["tf32x3"], fp32["err"]))):
         q, k, v = views(live)
         calls = {"kernel": lambda: fa_kernel.flash_attention(q, k, v, True, window),
                  "plain": lambda: fa_kernel.flash_attention_plain(q, k, v, True, window),
                  "sdpa": lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                                                 enable_gqa=True)}
-        ev = {n: cuda_ms(fn, iters=10) for n, fn in calls.items()}
+        tf32 = source == fa_kernel.TF32_SOURCE
+        if tf32:  # the SIMT kernel's before figure, in turns with the kernel
+            simt = _simt_call(q, k, v, True, window)
+            turns = [cuda_ms(fn, iters=10) for fn in (simt, calls["kernel"], calls["kernel"], simt)]
+            ev = {"kernel": (turns[1] + turns[2]) / 2, "simt": (turns[0] + turns[3]) / 2}
+            ev.update({n: cuda_ms(calls[n], iters=10) for n in ("plain", "sdpa")})
+        else:
+            ev = {n: cuda_ms(fn, iters=10) for n, fn in calls.items()}
         enqueue = host_ms(calls["kernel"])
         flops, n_bytes, ops_ms, bytes_ms = _flash_work(q, k, window, ops_per_s)
         log(f"{name} on live layer-0 q/k/v {tuple(q.shape)} / {tuple(k.shape)} {q.dtype}: "
@@ -3839,9 +3928,26 @@ def time_flash(smol, gemma, fp32, errs, ptxas):
             "flops": flops,
             "bytes": n_bytes,
         })
+        if tf32:
+            dev_ms, by_op = device_ms(calls["kernel"], iters=10)
+            tc_floor = 1e3 * 3 * flops / TF32_OPS_PER_S  # three TF32 products an fp32 one
+            entries[-1].update({
+                "device_ms": dev_ms, "device_ms_by_op": by_op,
+                "prefill_device_ms": fp32["prefill_device_ms"],
+                "tf32x3_bound_ms": tc_floor, "before_ms": ev["simt"],
+                "before": {"kernel": "flash_attention.cu (SIMT)", "turns_ms": turns},
+                "prefill_ms": fp32["prefill_ms"], "ptxas": ptxas["tf32x3"]})
+            log(f"{name}: 3xTF32 kernel {ev['kernel']} ms (turns {turns[1]}, {turns[2]}) against "
+                f"the SIMT kernel's {ev['simt']} ms (turns {turns[0]}, {turns[3]}) in the same "
+                f"call, {ev['simt'] / ev['kernel']}x; device ms a call "
+                f"{'not measured' if dev_ms is None else dev_ms} (by op {json.dumps(by_op)}; "
+                f"{fp32['prefill_device_ms']} a launch in phase 11's profiled prefill); its "
+                f"three TF32 products' floor {tc_floor} ms ({3 * flops} FLOP at "
+                f"{TF32_OPS_PER_S / 1e12} TFLOP/s); fraction of the fp32 bound "
+                f"{max(ops_ms, bytes_ms) / ev['kernel']}")
     tc = entries[0]
     tc["device_ms"] = smol["device_ms"]
-    tc["ptxas"] = ptxas
+    tc["ptxas"] = ptxas["wgmma"]
     q, k, v = views(gemma["live"])
     window = gemma["live"][4]
     g_ms = cuda_ms(lambda: fa_kernel.flash_attention(q, k, v, True, window), iters=10)
@@ -3854,21 +3960,27 @@ def time_flash(smol, gemma, fp32, errs, ptxas):
     return entries
 
 
-def ptxas_usage(report):
-    """Registers and spill bytes of each instantiation of the tensor-core
-    flash kernel in an ``nvcc -Xptxas -v`` report, named by its template
-    arguments: <64-column atoms of the head, copy bytes>."""
+def ptxas_usage(report, symbol):
+    """Registers and spill bytes of each instantiation of the kernel
+    ``symbol`` in an ``nvcc -Xptxas -v`` report, named by its template
+    arguments (the bf16 kernel's <64-column atoms of the head, copy bytes>,
+    the 3xTF32 kernel's <64-column atoms>), and whether ptxas serialised
+    its wgmma pipeline (warning C7518)."""
     rows, name, spills = [], None, None
+    serialised = {m.group(1) for m in re.finditer(
+        r"C7518\).*?" + symbol + r"I((?:Li\d+E)+)E", report)}
     for line in report.splitlines():
-        m = re.search(WGMMA_SYMBOL + r"ILi(\d+)ELi(\d+)E", line)
+        m = re.search(symbol + r"I((?:Li\d+E)+)E", line)
         if m and "Function properties" in line:
-            name = f"<{m.group(1)}, {m.group(2)}>"
+            name = m.group(1)
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
             spills = int(m.group(1)) + int(m.group(2))
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            rows.append({"kernel": name, "registers": int(m.group(1)), "spill_bytes": spills})
+            rows.append({"kernel": "<" + ", ".join(re.findall(r"\d+", name)) + ">",
+                         "registers": int(m.group(1)), "spill_bytes": spills,
+                         "serialised": name in serialised})
             name = None
     return rows
 
@@ -4019,14 +4131,21 @@ def main():
     t0 = time.perf_counter()
     reports = build.build_all([kernel.SOURCE, kernel.GATHER_DECODE_SOURCE, fm_kernel.SOURCE,
                                eb_kernel.SOURCE, kernel.BUCKETIZE_SOURCE, fa_kernel.SOURCE,
-                               fa_kernel.SM90_SOURCE])
+                               fa_kernel.SM90_SOURCE, fa_kernel.TF32_SOURCE])
     log(f"build {time.perf_counter() - t0} s: " + " | ".join(
         f"{src.name}: {' '.join(r.split())}" for src, r in reports.items()))
-    ptxas = ptxas_usage(reports.get(fa_kernel.SM90_SOURCE, ""))
-    log(f"{fa_kernel.SM90_SOURCE.name} ptxas (kernel<head atoms of 64, copy bytes>: registers, "
-        f"spill bytes): {[(r['kernel'], r['registers'], r['spill_bytes']) for r in ptxas]}")
-    if not ptxas or any(r["spill_bytes"] for r in ptxas):
-        raise AssertionError(f"{fa_kernel.SM90_SOURCE.name}: no ptxas report, or spills: {ptxas}")
+    ptxas = {}
+    for route, source, symbol, params in (
+            ("wgmma", fa_kernel.SM90_SOURCE, WGMMA_SYMBOL, "head atoms of 64, copy bytes"),
+            ("tf32x3", fa_kernel.TF32_SOURCE, TF32_SYMBOL, "head atoms of 64")):
+        rows = ptxas[route] = ptxas_usage(reports.get(source, ""), symbol)
+        log(f"{source.name} ptxas (kernel<{params}>: registers, spill bytes, wgmma serialised): "
+            f"{[(r['kernel'], r['registers'], r['spill_bytes'], r['serialised']) for r in rows]}")
+        if not rows or any(r["spill_bytes"] for r in rows):
+            raise AssertionError(f"{source.name}: no ptxas report, or spills: {rows}")
+    if any(r["serialised"] for r in ptxas["tf32x3"]):
+        raise AssertionError(f"{fa_kernel.TF32_SOURCE.name}: ptxas serialised the wgmma "
+                             f"pipeline: {ptxas['tf32x3']}")
 
     from repro_torch.configs import fm
     from repro_torch.configs.dlrm_criteo import CONFIG

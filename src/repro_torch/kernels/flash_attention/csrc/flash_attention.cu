@@ -1,6 +1,8 @@
 // Flash attention forward in fp32 on the SIMT units, CUDA C++ for sm_90a.
-// The fp32 route of the port's flash attention; bf16 inputs take the
-// tensor-core kernel in flash_attention_sm90.cu.
+// The fp32 route of the port's flash attention for heads of 129 to 256
+// columns (the wrapper's route "simt"); fp32 heads of up to 128 columns take
+// the tensor-core kernel in flash_attention_tf32.cu (three TF32 products for
+// each fp32 one), and bf16 inputs the kernel in flash_attention_sm90.cu.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention/kernel.py::
 // flash_attention_pallas (body _kernel).  For each batch b and query head h
@@ -12,10 +14,14 @@
 // the finite sentinel -1e30 (not -inf), the running max starts at -1e30, and
 // the output is acc / max(l, 1e-30), stored in fp32.
 //
-// What bounds it on an H100: operations.  At the fp32 SmolLM-360M's prefill
-// (B 2, S 4096, 15 query heads, d 64, causal) one launch does 6.4e10 FLOP,
-// 0.96 ms at the SIMT units' 67 TFLOP/s fp32.  fp32 inputs cannot take the
-// tensor cores: TF32's 10-bit mantissa misses the port's 2e-5 bound.
+// What bounds it on an H100: operations, at the SIMT units' 67 TFLOP/s fp32
+// (at the fp32 SmolLM-360M's prefill, B 2, S 4096, 15 query heads, d 64,
+// causal: 6.4e10 FLOP, 0.96 ms; chip_smoke.py timed that layer at ~3.1 ms
+// on an H100 at 700 W).  One TF32
+// rounding of the operands misses the port's 2e-5 bound, but a hi + lo
+// split of each operand into three TF32 products meets it: that is the
+// tensor-core route of flash_attention_tf32.cu, whose shared-memory plan
+// stops at d 128.  Wider fp32 heads (no model of the repo has one) stay here.
 //
 // Design.  The Pallas grid (B, Hq, nq, nk) walks the KV blocks in order on
 // one core, carrying m, l and acc in VMEM scratch.  Here one CTA of 256

@@ -1,6 +1,7 @@
 // Flash attention forward in bf16 on Hopper's tensor cores, CUDA C++ for
 // sm_90a.  The bf16 route of the port's flash attention; fp32 inputs take the
-// SIMT kernel in flash_attention.cu.
+// 3xTF32 kernel in flash_attention_tf32.cu, or past d 128 the SIMT kernel in
+// flash_attention.cu.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention/kernel.py::
 // flash_attention_pallas (body _kernel).  For each batch b and query head h

@@ -2,7 +2,8 @@
 the CUDA kernels (victim threshold, one launch and no memset per call;
 tiered-arena gather + decode, FM interaction, embedding bag for one
 feature and for many in one launch, bucketize, flash attention's bf16
-tensor-core and fp32 SIMT kernels) against their plain PyTorch versions
+tensor-core, fp32 3xTF32 tensor-core and fp32 SIMT kernels) against their
+plain PyTorch versions
 (bitwise; the FM kernel within the reference's sweep tolerances, flash
 attention within the card smoke's |o|-scaled bound), the pinned host-tier
 transmitter (staging ring, async copies, fp32 and tiered arenas) against
@@ -703,16 +704,38 @@ def test_flash_kernel_grad_matches_plain_autograd(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "wgmma"), (torch.float32, "simt")])
-def test_flash_kernel_route_by_dtype(cuda, dtype, route):
-    """bf16 launches the tensor-core kernel, fp32 the SIMT kernel."""
-    q = torch.randn((1, 2, 128, 64), device=cuda).to(dtype)
-    kv = torch.randn((1, 1, 128, 64), device=cuda).to(dtype)
+@pytest.mark.parametrize("dtype,d,route", [(torch.bfloat16, 64, "wgmma"),
+                                           (torch.float32, 64, "tf32x3"),
+                                           (torch.float32, 128, "tf32x3"),
+                                           (torch.float32, 256, "simt")])
+def test_flash_kernel_route_by_dtype(cuda, dtype, d, route):
+    """bf16 launches the bf16 tensor-core kernel; fp32 the 3xTF32
+    tensor-core kernel up to d 128 and the SIMT kernel past it."""
+    q = torch.randn((1, 2, 128, d), device=cuda).to(dtype)
+    kv = torch.randn((1, 1, 128, d), device=cuda).to(dtype)
     before = dict(fa_kernel.flash_attention.route_launches)
     fa_kernel.flash_attention(q, kv, kv)
     after = fa_kernel.flash_attention.route_launches
     assert {r: after[r] - before[r] for r in after} == {
         r: int(r == route) for r in after}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 100, 256])
+def test_flash_fp32_kernels_read_a_strided_head_dim(cuda, d):
+    """The fp32 kernels (3xTF32 at d 64 and 100, SIMT at 256) read q, k and
+    v with a head-dim stride other than 1 in place, within the card
+    smoke's bound of the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(d)
+    q, k, v = (torch.randn((1, h, 256, d), generator=g, device=cuda).transpose(2, 3)
+               .contiguous().transpose(2, 3) for h in (4, 2, 2))  # d-stride 256
+    assert q.stride(3) == 256
+    before = fa_kernel.flash_attention.launches
+    got = fa_kernel.flash_attention(q, k, v, True, 100)
+    assert fa_kernel.flash_attention.launches == before + 1
+    want = fa_kernel.flash_attention_plain(q, k, v, True, 100)
+    over = (got - want).abs() - 2e-5 * (1 + want.abs())
+    assert float(over.max()) <= 0, f"{int((over > 0).sum())} elements over, worst {over.max()}"
 
 
 @pytest.mark.cuda
