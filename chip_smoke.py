@@ -19,7 +19,12 @@ Phases (any failure exits non-zero, with no result line):
    425 984) and at FM's (capacity = kv = 2 097 152); the tiered-arena
    gather-decode bitwise on 24 seeded fp16 / int8 cases (D 8, 16, 36, 128;
    slots at -1, H-1, H, H+T-1, H+T and far out of range) and at the paper
-   shape (H 126 610, T 379 828, D 128, K 65 536); the FM interaction on 24
+   shape (H 126 610, T 379 828, D 128, K 65 536), and its fused host
+   encode (``gather_decode_encode``, fp16 / int8 tails into fp16 / int8
+   hosts) payload and sideband bitwise on 24 cases (constant rows, D 5
+   and 37 on the scalar path, the paper shape) and on 6 rows with
+   signed-zero extremes (zp by value there; torch's own amin / amax sign
+   bits printed: they depend on its reduction order); the FM interaction on 24
    cases (``test_kernels.py``'s shapes, B 4097, FM's (65536, 40, 10); fp32
    and bf16; contiguous and the strided ``[..., :D]`` view of [B, F, D+1])
    within the reference's rtol 1e-3 / atol 1e-5 * (max|ref| + 1) (bf16 rtol
@@ -31,7 +36,11 @@ Phases (any failure exits non-zero, with no result line):
    empty feature, in one launch) bitwise the per-feature plain version; the
    bucketize bitwise on 28 cases (S 1, 2, 4, 8;
    U 0, 1, 3, 4097, 425 984; owners out of [0, S); every lane padding;
-   every lane replicated).
+   every lane replicated), and the route + image entry
+   (``route_bucketize``: owner, local and image, and ``route_image``, the
+   image alone as the sharded plan calls it) on 88 cases (rep_k 0 and
+   2048, uniq aligned and one lane off, padding and past-the-table ranks,
+   every lane padding, every lane replicated).
 4. serve: the paper's DLRM (``configs/dlrm_criteo.CONFIG``: 26 fields, dim
    128, MLPs 512-256-128 / 1024-1024-512-256-1, batch 16384) with
    ``use_pallas_plan=True``: a 33 762 577-row fp32 host table pinned in host
@@ -63,10 +72,13 @@ Phases (any failure exits non-zero, with no result line):
    full-width plans: 4 x 425 984 slots, one 17.3 GB table pinned whole):
    ``ServeEngine`` on ``--batches`` batches, then a warm-up and
    ``--train-steps`` ``train_step`` calls, each run with the launch counts
-   at 0 before it and read after it (one bucketize and 4 threshold
-   launches per plan).  Checks finite scores and losses, no overflow,
-   cached logits = ``dense_reference`` logits (rtol 1e-5 / atol 1e-6), the
-   kernel bitwise = plain on the first plan's live router inputs, and after
+   at 0 before it and read after it (one bucketize launch, the route +
+   image entry, and 4 threshold launches per plan).  Checks finite scores
+   and losses, no overflow, cached logits = ``dense_reference`` logits
+   (rtol 1e-5 / atol 1e-6), ``route_bucketize`` and ``bucketize`` bitwise
+   = plain on the first plan's live router inputs, one profiled plan's
+   device ops through ``route_bucketize`` and with the composition it
+   replaced patched in (>= 15 fewer a routed image), and after
    ``flush`` every resident slot of every shard and every replicated row
    equal to its host row bitwise.  Prints per-step routed lanes per shard,
    exchange id / row bytes, ``shard_imbalance``, a synced stage breakdown
@@ -85,7 +97,9 @@ Phases (any failure exits non-zero, with no result line):
    one bag step over the mixed plan (one embedding-bag launch per slab, 26
    in all) and ``flush``, each with the launch counts at 0 before it and
    read after it.  Checks the plan, ``device_total`` within the budget, 5
-   threshold launches a plan, wire bytes = (loaded + written-back lanes,
+   threshold launches a plan, every write-back's gather-decode launch the
+   fused ``gather_decode_encode`` into the int8 host (the first live one
+   bitwise its plain version), wire bytes = (loaded + written-back lanes,
    counted off the plans) x 136 B from the exact counters, cached logits =
    logits from ``full_lookup`` rows (rtol 1e-5 / atol 1e-6), the pooled
    output bitwise the per-slab plain version, and after the flush every
@@ -113,8 +127,9 @@ Phases (any failure exits non-zero, with no result line):
    holds all four shards' arenas; the int8 sideband stacked [S, vs, 2]):
    ``--batches`` served, ``--train-steps`` trained, flush, the counts at 0
    before each and read after.  Checks the plan, ``device_per_shard``
-   within the budget, 20 threshold and 5 bucketize launches a plan,
-   gather-decode in the write-backs, cached = ``dense_reference`` logits
+   within the budget, 20 threshold and 5 bucketize launches a plan (all
+   ``route_bucketize``), gather-decode in the write-backs (all
+   ``gather_decode_encode``), cached = ``dense_reference`` logits
    (rtol 1e-5 / atol 1e-6), and after the flush every resident row's host
    payload and sideband bitwise the int8 encode of its arena row, shard by
    shard.
@@ -202,18 +217,30 @@ Phases (any failure exits non-zero, with no result line):
    not all there is taken again): each kernel, its plain version (and ``torch.topk`` beside the
    threshold, ``F.embedding_bag`` beside the bag) by CUDA events over
    back-to-back calls, their summed device time per call from
-   ``torch.profiler``, and the wrapper's host enqueue time, on the live
-   inputs of the main paths.  The threshold is timed on the DLRM serve
-   plan's, FM's, phase 5d's depth-3 lookahead, 14a's and 14b's keys; each
-   call must show one device op and no memset.  The bag is timed as the main path calls
+   ``torch.profiler``, and the wrapper's host enqueue time (the median of
+   5 warmed windows of 100 calls), on the live inputs of the main paths.
+   First the launch floor: an empty kernel (``scripts/empty_launch.cu``,
+   built with the port's sources) through ``build.Kernel``, its
+   enqueue read in windows alternating with each enqueue of rows 2 and 3.
+   ``gather_decode`` on the live fp32 write-back;
+   ``gather_decode_encode`` on phase 5c's first live int8 write-back, one
+   device op a call, beside the composition it replaced (the gather-decode
+   kernel, then ``Int8Codec.encode``) and one profiled write-back round
+   both ways (>= 12 device ops fewer); ``route_bucketize`` on the first
+   sharded plan's live router inputs as the plan calls it (``route_image``),
+   one device op a call, beside the composition it replaced (the route's
+   torch ops, then the bucketize kernel) and the entry that also writes
+   owner and local, and ``bucketize`` alone on that route's owner and
+   local.  The
+   threshold is timed on the DLRM serve plan's, FM's, phase 5d's depth-3
+   lookahead, 14a's and 14b's keys; each call must show one device op and
+   no memset.  The bag is timed as the main path calls
    it, once over a live bag step's 26 features (against one
    ``F.embedding_bag`` call over the same bags; the ``kernels`` line
    carries this call), and alone on two live features, f0 (vocab 1460) and
    f2 (vocab 10 131 227, the largest); then the bag step's kernel route,
    forward plus backward, in host enqueue and event ms: one many-feature
    op against 26 single-feature ops.
-
-The bucketize is timed on the first sharded plan's live router inputs.
 
 9. flash kernels: the flash-attention kernels against their plain version
    on ``test_kernels.py``'s sweep, head dims 16 and 20 (the SMOKE
@@ -289,6 +316,7 @@ import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -498,15 +526,51 @@ def device_ms(fn, iters: int = 20, tries: int = 5):
     return None, {}
 
 
-def host_ms(fn, iters: int = 10) -> float:
-    """Mean host time to enqueue one call of ``fn`` (no sync inside)."""
+def host_ms(fn, iters: int = 100, windows: int = 5, warmup: int = 10, against=None):
+    """Host time to enqueue one call of ``fn`` (no sync inside): the median
+    over ``windows`` warmed windows of the mean of ``iters`` back-to-back
+    calls, the card synchronised between windows.  With ``against`` (the
+    launch floor's call) its windows alternate with ``fn``'s and the result
+    is the pair of medians, ``fn``'s then its: the host's noise on a shared
+    machine moves both alike."""
+    fns = [fn] if against is None else [fn, against]
+    for f in fns:
+        for _ in range(warmup):
+            f()
+    per = [[] for _ in fns]
+    for _ in range(windows):
+        for f, p in zip(fns, per):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                f()
+            p.append(1e3 * (time.perf_counter() - t0) / iters)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    t1 = time.perf_counter()
+    med = [float(np.median(p)) for p in per]
+    return med[0] if against is None else tuple(med)
+
+
+def device_ops(fn, iters: int = 5):
+    """Device ops per call of ``fn``: the profiler's device events (kernels,
+    copies, memsets; the guard kernels left out) over ``iters`` calls in a
+    guarded window, per call, by op and in all; None where the profiler
+    cannot trace the card."""
+    from torch.autograd import DeviceType
+
+    fn()
     torch.cuda.synchronize()
-    return 1e3 * (t1 - t0) / iters
+    try:
+        with profiled() as prof:
+            for _ in range(iters):
+                fn()
+    except RuntimeError as e:
+        log(f"profiler: not measured ({e})")
+        return None, {}
+    by_op = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and GUARD_KERNEL not in e.key:
+            by_op[e.key[:60]] = by_op.get(e.key[:60], 0) + e.count / iters
+    return sum(by_op.values()), by_op
 
 
 def time_threshold(live, max_err, launches_by_path):
@@ -705,10 +769,72 @@ def check_gather_decode(args, codec, what):
     return err
 
 
+def _bits(x):
+    """A tensor's bit pattern (so that +0 and -0 differ)."""
+    return x.view({1: torch.int8, 2: torch.int16, 4: torch.int32}[x.element_size()])
+
+
+def check_gather_decode_encode(args, codec, host, what, zp_by_value=False):
+    """The fused gather + decode + host encode against its plain version on
+    one input: payload and sideband bitwise (``zp_by_value``: the
+    sideband's zero points by value, for rows whose extremes are zeros of
+    both signs); returns max_abs_err."""
+    from repro_torch.kernels.cache_ops import kernel
+
+    got = kernel.gather_decode_encode(*args, codec, host)
+    want = kernel.gather_decode_encode_plain(*args, codec, host)
+    ok = torch.equal(_bits(got[0]), _bits(want[0]))
+    if host == "int8":
+        ok = ok and torch.equal(_bits(got[1][:, 0]), _bits(want[1][:, 0]))
+        ok = ok and (torch.equal(got[1][:, 1], want[1][:, 1]) if zp_by_value else
+                     torch.equal(_bits(got[1][:, 1]), _bits(want[1][:, 1])))
+    if not ok:
+        err = float((got[0].float() - want[0].float()).abs().max())
+        raise AssertionError(f"gather_decode_encode {what}: kernel != plain (payload max |diff| "
+                             f"{err})")
+    return 0.0
+
+
+def _gd_fused_inputs(rng, dev, codec, h, t, d, k):
+    """``_gd_inputs`` with constant rows (mx = mn): head row 0 at 0.75, head
+    row 1 zeros, tail row 0 decoding to one value; slots 0 and 1 added."""
+    head, tail, side, slots = _gd_inputs(rng, dev, codec, h, t, d, k)
+    head[0] = 0.75
+    if h > 1:
+        head[1] = 0.0
+    if codec == "int8":
+        tail[0] = 0  # decodes to zp
+    else:
+        tail[0] = 1.5
+    extra = torch.tensor([0, 1], dtype=torch.int32, device=dev)
+    return head, tail, side, torch.cat([slots, extra])
+
+
+def _signed_zero_rows(dev, d):
+    """Head rows whose extremes are zeros of both signs (+-0 patterns, each
+    sign first, all -0, and a -0 minimum under a positive maximum), for the
+    fused int8 encode; returns the gather-decode arguments and torch's own
+    amin / amax sign bits on the rows (1 = -0)."""
+    rows = torch.zeros((6, d), device=dev)
+    rows[0, 1::2] = -0.0  # +0 first
+    rows[1] = -0.0
+    rows[1, 1::2] = 0.0  # -0 first
+    rows[2] = -0.0  # all -0
+    rows[3, ::3] = -0.0  # mostly +0
+    rows[4, 0] = -0.0
+    rows[4, 1] = 2.0  # min a signed-zero tie, max 2
+    rows[5] = torch.linspace(-1, 1, d, device=dev)
+    tail = torch.zeros((1, d), dtype=torch.int8, device=dev)
+    side = torch.ones((1, 2), device=dev)
+    slots = torch.arange(6, dtype=torch.int32, device=dev)
+    signs = [torch.signbit(f(rows, 1)).int().tolist() for f in (torch.amin, torch.amax)]
+    return (rows, tail, side, slots), signs
+
+
 def gather_decode_phase(dev):
     rng = torch.Generator(device=dev).manual_seed(0)
     sizes = np.random.default_rng(0)
-    cases = 0
+    cases = fused = 0
     max_err = 0.0
     for codec in ("fp16", "int8"):
         for d in (8, 16, 36, 128):
@@ -717,11 +843,38 @@ def gather_decode_phase(dev):
                 args = _gd_inputs(rng, dev, codec, h, t, d, k + 8)
                 max_err = max(max_err, check_gather_decode(args, codec, f"{codec} D={d}"))
                 cases += 1
+            h, t, k = (int(x) for x in sizes.integers(2, 5000, size=3))
+            args = _gd_fused_inputs(rng, dev, codec, h, t, d, k + 8)
+            for host in ("fp16", "int8"):
+                check_gather_decode_encode(args, codec, host, f"{codec} -> {host} D={d}")
+                fused += 1
         args = _gd_inputs(rng, dev, codec, PAPER_H, PAPER_T, 128, PAPER_K)
         max_err = max(max_err, check_gather_decode(args, codec, f"{codec} paper shape"))
         cases += 1
+        for host in ("fp16", "int8"):
+            check_gather_decode_encode(args, codec, host, f"{codec} -> {host} paper shape")
+            fused += 1
+    for d in (5, 37):  # the scalar path: D % 4 != 0
+        args = _gd_fused_inputs(rng, dev, "int8", 300, 700, d, 500)
+        for host in ("fp16", "int8"):
+            check_gather_decode_encode(args, "int8", host, f"int8 -> {host} D={d}")
+            fused += 1
+    zero_args, signs = _signed_zero_rows(dev, 128)
+    check_gather_decode_encode(zero_args, "int8", "fp16", "signed-zero rows -> fp16")
+    check_gather_decode_encode(zero_args, "int8", "int8", "signed-zero rows -> int8",
+                               zp_by_value=True)
+    from repro_torch.kernels.cache_ops import kernel
+
+    zp_k = kernel.gather_decode_encode(*zero_args, "int8", "int8")[1][:, 1]
+    zp_p = kernel.gather_decode_encode_plain(*zero_args, "int8", "int8")[1][:, 1]
     log(f"gather_decode phase: {cases} cases bitwise equal (max_abs_err {max_err}), incl. the "
-        f"paper shape H={PAPER_H} T={PAPER_T} D=128 K={PAPER_K} for fp16 and int8")
+        f"paper shape H={PAPER_H} T={PAPER_T} D=128 K={PAPER_K} for fp16 and int8; "
+        f"gather_decode_encode: {fused} cases (fp16 / int8 tails into fp16 / int8 hosts, D 5, "
+        f"8, 16, 36, 37, 128, constant rows, the paper shape) payload and sideband bitwise the "
+        f"plain version; 6 rows with signed-zero extremes: payload and scale bitwise, zp equal "
+        f"by value (sign bits, 1 = -0: kernel {torch.signbit(zp_k).int().tolist()}, plain "
+        f"{torch.signbit(zp_p).int().tolist()}; sign bits of torch's amin {signs[0]}, amax "
+        f"{signs[1]}: rows 0 and 1 hold the same zeros in two orders)")
     return max_err
 
 
@@ -792,7 +945,7 @@ def train_phase(dev, vocab_scale, n_steps):
     # (sum, mean) and the flush, counts read
     ops.arena_gather_impl = capture
     kernel.victim_threshold.launches = 0
-    kernel.gather_decode.launches = 0
+    kernel.gather_decode.launches = kernel.gather_decode.fused_launches = 0
     eb_kernel.embedding_bag_multi.launches = 0
     try:
         step_ms, losses, per_step = [], [], []
@@ -852,6 +1005,9 @@ def train_phase(dev, vocab_scale, n_steps):
     if gd_launches != wb_rounds + flush_rounds or not gd_launches:
         raise AssertionError(f"gather_decode launched {gd_launches} times; the plans imply "
                              f"{wb_rounds} writeback rounds + {flush_rounds} flush rounds")
+    if kernel.gather_decode.fused_launches:  # an fp32 host tier takes the fp32 rows
+        raise AssertionError(f"gather_decode_encode launched "
+                             f"{kernel.gather_decode.fused_launches} times into an fp32 host")
     if not captured:
         raise AssertionError("no live writeback went through arena_gather_impl")
     live_err = check_gather_decode(captured[0], "int8", "live writeback")
@@ -919,25 +1075,63 @@ def train_phase(dev, vocab_scale, n_steps):
             "bag_multi": bags[0]["multi"]}
 
 
-def _gd_bytes(head, tail, side, slots):
+FUSED_EVENT_ITERS = 200  # back-to-back calls a CUDA-event time of rows 2 and 3
+
+
+EMPTY_SOURCE = Path(ROOT) / "scripts" / "empty_launch.cu"  # the floor's empty kernel
+
+
+def time_launch_floor():
+    """The floor of a launch through the port's binding: an empty kernel
+    (one pointer argument, nothing allocated) launched by ``build.Kernel``,
+    the wrappers' lean path; its host enqueue and back-to-back event ms,
+    and the call itself (``host_ms``'s ``against``)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.cache_ops import kernel
+
+    empty = build.Kernel(EMPTY_SOURCE, "empty_launch", 1)
+    x = torch.empty((1,), device="cuda")
+    ptr, card = x.data_ptr(), x.get_device()
+
+    def call():
+        empty(card, ptr)
+
+    r = {"host_enqueue_ms": host_ms(call), "ms": cuda_ms(call, iters=FUSED_EVENT_ITERS)}
+    log(f"launch floor (an empty kernel through build.Kernel): host enqueue "
+        f"{r['host_enqueue_ms']} ms, event-timed {r['ms']} ms a launch back to back")
+    return r, call
+
+
+def _gd_bytes(head, tail, side, slots, out_row_bytes=None):
     """Bytes the gather-decode must move for these slots: each slot read,
     each lane's head row or tail payload (+ sideband) read, each output row
-    written (out-of-range lanes read no row)."""
+    written (fp32, or ``out_row_bytes`` a row; out-of-range lanes read no
+    row)."""
     h, d = head.shape
     t = tail.shape[0]
     n_head = int(((slots >= 0) & (slots < h)).sum())
     n_tail = int(((slots >= h) & (slots < h + t)).sum())
     tail_row = d * tail.element_size() + (0 if side is None else 2 * side.element_size())
     k = slots.numel()
-    return k * 4 + n_head * d * head.element_size() + n_tail * tail_row + k * d * 4
+    out_row = d * 4 if out_row_bytes is None else out_row_bytes
+    return k * 4 + n_head * d * head.element_size() + n_tail * tail_row + k * out_row
 
 
-def time_gather_decode(live, tiers, max_err, launches):
+def _enqueue(fn, floor):
+    """``fn``'s host enqueue ms and, with the floor's call, the floor's ms
+    read in alternating windows beside it (None without)."""
+    if floor is None:
+        return host_ms(fn, windows=9), None
+    return host_ms(fn, windows=9, against=floor)
+
+
+def time_gather_decode(live, tiers, max_err, launches, floor=None):
     """Times the kernel and its plain version by CUDA events and profiler
     device time, and the wrapper's host enqueue, on the live writeback's
-    arguments (the main path's call), on one all-tail flush-size round and on
-    a whole-arena gather of the trained arena (``tiers``: its fp32 head,
-    int8 tail and sideband)."""
+    arguments (the main path's call), on one all-tail flush-size round and
+    on a whole-arena gather of the trained arena (``tiers``: its fp32 head,
+    int8 tail and sideband).  ``floor``, the launch floor's call, is read in
+    windows alternating with the enqueue's."""
     from repro_torch.kernels.cache_ops import kernel
 
     args = tuple(tiers)
@@ -954,18 +1148,22 @@ def time_gather_decode(live, tiers, max_err, launches):
         check_gather_decode(inp, "int8", what)
         calls = {"kernel": lambda inp=inp: kernel.gather_decode(*inp, "int8"),
                  "plain": lambda inp=inp: kernel.gather_decode_plain(*inp, "int8")}
-        ev = {n: cuda_ms(fn) for n, fn in calls.items()}
+        enqueue, floor_ms = _enqueue(calls["kernel"], floor)  # before any profiler window
+        ev = {"kernel": cuda_ms(calls["kernel"], iters=FUSED_EVENT_ITERS),
+              "plain": cuda_ms(calls["plain"])}
         dv = {n: device_ms(fn)[0] for n, fn in calls.items()}
         n_bytes = _gd_bytes(*inp)
         r = {"lanes": inp[3].numel(), "ms": ev["kernel"], "plain_ms": ev["plain"],
              "device_ms": dv["kernel"], "plain_device_ms": dv["plain"],
-             "host_enqueue_ms": host_ms(calls["kernel"]), "bytes": n_bytes,
-             "bound_ms": 1e3 * n_bytes / HBM_BYTES_PER_S}
+             "host_enqueue_ms": enqueue, "floor_enqueue_ms": floor_ms, "bytes": n_bytes,
+             "bound_ms": 1e3 * n_bytes / HBM_BYTES_PER_S,
+             "enqueue_over_floor_ms": None if floor_ms is None else enqueue - floor_ms}
         out[what] = r
         log(f"gather_decode on the {what} [{r['lanes']} lanes]: event-timed ms kernel "
             f"{r['ms']}, plain {r['plain_ms']}; device ms kernel {r['device_ms']}, plain "
-            f"{r['plain_device_ms']}; host enqueue {r['host_enqueue_ms']} ms; bound "
-            f"{r['bound_ms']} ms ({n_bytes} B at {HBM_BYTES_PER_S / 1e12} TB/s)")
+            f"{r['plain_device_ms']}; host enqueue {r['host_enqueue_ms']} ms (the launch floor "
+            f"{floor_ms} ms in alternating windows: {r['enqueue_over_floor_ms']} ms over it); "
+            f"bound {r['bound_ms']} ms ({n_bytes} B at {HBM_BYTES_PER_S / 1e12} TB/s)")
     live_r = out["live writeback"]
     return {
         "name": "gather_decode",
@@ -982,9 +1180,122 @@ def time_gather_decode(live, tiers, max_err, launches):
         "device_ms": live_r["device_ms"],
         "plain_device_ms": live_r["plain_device_ms"],
         "host_enqueue_ms": live_r["host_enqueue_ms"],
+        "floor_enqueue_ms": live_r["floor_enqueue_ms"],
+        "enqueue_over_floor_ms": live_r["enqueue_over_floor_ms"],
         "lanes": live_r["lanes"],
         "all_tail_round": out["all-tail round"],
         "whole_arena": out["whole arena"],
+    }
+
+
+def _encode_composition(head, tail, sideband, slots, codec, host_codec):
+    """What one gather_decode_encode launch replaced: the gather-decode
+    kernel's fp32 rows, then the host codec's eager encode."""
+    from repro_torch.kernels.cache_ops import kernel
+    from repro_torch.store.codec import get_codec
+
+    return get_codec(host_codec).encode(kernel.gather_decode(head, tail, sideband, slots, codec))
+
+
+def _writeback_round_ops(live):
+    """Device ops of one profiled write-back round into an int8 host tier on
+    the live write-back's lanes: ``transmitter.move_rows`` from the live
+    arena tiers into a pinned int8 host store of as many rows, through the
+    fused entry and with the composition it replaced patched in."""
+    from repro_torch.core import transmitter
+    from repro_torch.kernels.cache_ops import ops
+    from repro_torch.store.arena import ArenaStore
+    from repro_torch.store.host_store import HostStore
+
+    head, tail, side, slots, codec, host_codec = live
+    k, d = slots.numel(), head.shape[1]
+    arena = ArenaStore(head={"weight": head}, tail={"weight": tail},
+                       sideband={} if side is None else {"weight": side}, raw={}, codec=codec)
+    host = HostStore.create({"weight": torch.zeros((k, d))}, host_codec, pin=head.is_cuda)
+    dst = torch.arange(k, dtype=torch.int32, device=head.device)
+    active = torch.ones((k,), dtype=torch.bool, device=head.device)
+    impl, out = ops.arena_gather_encode_impl, {}
+    try:
+        for name, fn in (("fused", impl), ("composition", _encode_composition)):
+            ops.arena_gather_encode_impl = fn
+            try:
+                out[name] = device_ops(lambda: transmitter.move_rows(
+                    arena, host, slots, dst, active, buffer_rows=k), iters=1)
+            finally:
+                ops.arena_gather_encode_impl = impl
+    finally:
+        host.close()
+    return out
+
+
+def time_gather_decode_encode(live, max_err, launches, floor=None):
+    """The fused gather + decode + host encode on the first live int8
+    write-back (phase 5c's): CUDA-event, profiler device and host enqueue
+    ms of the kernel, one device op a call, its bound, and in the same
+    process the composition it replaced (the gather-decode kernel, then
+    ``Int8Codec.encode``) with its device ops, and its plain version; then
+    the device ops of one profiled write-back round both ways.  ``floor``
+    as in :func:`time_gather_decode`."""
+    from repro_torch.kernels.cache_ops import kernel
+
+    args, (codec, host) = live[:4], live[4:]
+    check_gather_decode_encode(args, codec, host, "the live int8 write-back")
+    calls = {"kernel": lambda: kernel.gather_decode_encode(*args, codec, host),
+             "composition": lambda: _encode_composition(*args, codec, host),
+             "plain": lambda: kernel.gather_decode_encode_plain(*args, codec, host)}
+    enq, floor_ms = _enqueue(calls["kernel"], floor)  # before any profiler window
+    enq = {"kernel": enq, "composition": host_ms(calls["composition"])}
+    ev = {n: cuda_ms(fn, iters=FUSED_EVENT_ITERS if n == "kernel" else 20)
+          for n, fn in calls.items()}
+    dv = {n: device_ms(fn)[0] for n, fn in calls.items() if n != "plain"}
+    ops_k, by_k = device_ops(calls["kernel"])
+    ops_c, by_c = device_ops(calls["composition"])
+    if ops_k is not None and (ops_k != 1 or any("emset" in op or "elementwise" in op.lower()
+                                                for op in by_k)):
+        raise AssertionError(f"gather_decode_encode: device ops {by_k}, want one kernel")
+    d = args[0].shape[1]
+    out_row = d * (1 if host == "int8" else 2) + (8 if host == "int8" else 0)
+    n_bytes = _gd_bytes(*args, out_row_bytes=out_row)
+    bound = 1e3 * n_bytes / HBM_BYTES_PER_S
+    rnd = _writeback_round_ops(live)
+    (rf, rbf), (rc, rbc) = rnd["fused"], rnd["composition"]
+    log(f"gather_decode_encode ({codec} tail -> {host} host) on the live write-back "
+        f"[{args[3].numel()} lanes]: event-timed ms kernel {ev['kernel']}, composition "
+        f"(gather_decode + encode) {ev['composition']}, plain {ev['plain']}; device ms kernel "
+        f"{dv['kernel']}, composition {dv['composition']}; host enqueue kernel {enq['kernel']} "
+        f"ms (the launch floor {floor_ms} ms in alternating windows), composition "
+        f"{enq['composition']} ms; device ops a call kernel {ops_k} ({json.dumps(by_k)}), "
+        f"composition {ops_c} ({json.dumps(by_c)}); bound {bound} ms ({n_bytes} B at "
+        f"{HBM_BYTES_PER_S / 1e12} TB/s: slots, rows read, {out_row} B host rows written)")
+    log(f"one profiled int8 write-back round ({args[3].numel()} lanes, move_rows into a pinned "
+        f"int8 host store): {rf} device ops fused, {rc} with the composition (1 encoded leaf: "
+        f"{None if rf is None else rc - rf} fewer); by op fused {json.dumps(rbf)}, composition "
+        f"{json.dumps(rbc)}")
+    if rf is not None and rc - rf < 12:
+        raise AssertionError(f"int8 write-back round: {rc - rf} fewer device ops, want >= 12")
+    return {
+        "name": "gather_decode_encode",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/cache_ops/csrc/gather_decode.cu",
+        "replaces": "src/repro/kernels/cache_ops/kernel.py:178",
+        "launches": sum(launches.values()),
+        "launches_by_path": launches,
+        "max_abs_err": max_err,
+        "ms": ev["kernel"],
+        "plain_ms": ev["plain"],
+        "bound_ms": bound,
+        "bound_by": "bytes",
+        "library_ms": None,  # no single PyTorch call gathers, decodes and encodes
+        "device_ms": dv["kernel"],
+        "host_enqueue_ms": enq["kernel"],
+        "floor_enqueue_ms": floor_ms,
+        "enqueue_over_floor_ms": None if floor_ms is None else enq["kernel"] - floor_ms,
+        "device_ops": ops_k,
+        "composition": {"ms": ev["composition"], "device_ms": dv["composition"],
+                        "host_enqueue_ms": enq["composition"], "device_ops": ops_c},
+        "writeback_round_ops": {"fused": rf, "composition": rc},
+        "lanes": args[3].numel(),
+        "bytes": n_bytes,
     }
 
 
@@ -1428,9 +1739,27 @@ def check_bucketize(owner, local, s, what):
     return 0
 
 
+def check_route_bucketize(uniq, rank_owner, rank_local, rep_k, s, what):
+    """The route + bucketize kernel against its plain version, by both
+    entries: owner, local and the image, and the image alone (the sharded
+    plan's call), bitwise; returns max_abs_err."""
+    from repro_torch.kernels.cache_ops import kernel
+
+    got = kernel.route_bucketize(uniq, rank_owner, rank_local, rep_k, s)
+    want = kernel.route_bucketize_plain(uniq, rank_owner, rank_local, rep_k, s)
+    got += (kernel.route_image(uniq, rank_owner, rank_local, rep_k, s),)
+    for g, w, part in zip(got, want + want[2:], ("owner", "local", "image", "image alone")):
+        if g.shape != w.shape or not torch.equal(g, w):
+            raise AssertionError(f"route_bucketize {what}: kernel {part} != plain")
+    return 0
+
+
 def bucketize_kernel_phase(dev):
+    from repro_torch.kernels.cache_ops.ops import PAD_RANK
+
     rng = np.random.default_rng(0)
-    n = 0
+    n = fused = 0
+    n_rank = 1 << 20
     for s in (1, 2, 4, 8):
         for u in (0, 1, 3, 4097, 425_984):
             owner = torch.from_numpy(rng.integers(-2, s + 2, u).astype(np.int32)).to(dev)
@@ -1442,8 +1771,30 @@ def bucketize_kernel_phase(dev):
         rep = torch.zeros_like(pad)
         check_bucketize(rep, pad, s, f"S={s} every lane replicated")
         n += 2
+        r_owner = torch.from_numpy(rng.integers(0, s, n_rank).astype(np.int32)).to(dev)
+        r_local = torch.from_numpy(rng.integers(-1, n_rank // s, n_rank).astype(np.int32)).to(dev)
+        for rep_k in (0, 2048):
+            for u in (0, 1, 3, 4097, 425_984):
+                ranks = rng.integers(-2, n_rank + 2, u).astype(np.int32)
+                ranks[rng.random(u) < 0.05] = PAD_RANK
+                uniq = torch.from_numpy(ranks).to(dev)
+                check_route_bucketize(uniq, r_owner, r_local, rep_k, s,
+                                      f"S={s} U={u} rep_k={rep_k}")
+                # a view one lane in: uniq off its 16 B boundary (scalar loads)
+                check_route_bucketize(torch.cat([uniq[:1], uniq])[1:], r_owner, r_local, rep_k,
+                                      s, f"S={s} U={u} rep_k={rep_k} unaligned")
+                fused += 2
+        for what, lanes in (("every lane padding", torch.full((4097,), PAD_RANK)),
+                            ("every lane replicated", torch.arange(4097) % 2048)):
+            check_route_bucketize(lanes.to(torch.int32).to(dev), r_owner, r_local, 2048, s,
+                                  f"S={s} {what}")
+            fused += 1
     log(f"bucketize phase: {n} cases bitwise equal (S 1, 2, 4, 8; U 0, 1, 3, 4097, 425984, "
-        f"owners in [-2, S + 2); every lane padding; every lane replicated)")
+        f"owners in [-2, S + 2); every lane padding; every lane replicated); route_bucketize: "
+        f"{fused} cases, owner, local and image bitwise the plain version (S 1, 2, 4, 8; rep_k "
+        f"0 and 2048; U 0, 1, 3, 4097, 425984, uniq aligned and one lane off; ranks in [-2, "
+        f"{n_rank} + 2) of {n_rank}-entry tables, 5 % padding; every lane padding; every lane "
+        f"replicated)")
     return 0
 
 
@@ -1502,25 +1853,27 @@ def sharded_phase(dev, vocab_scale, n_batches, n_steps):
     engine.score(serve_b[n_batches + 1])  # first call: allocator, cuBLAS
     engine.stats = type(engine.stats)()
     captured = []
-    impl = ops.bucketize_impl
+    impl = ops.route_image_impl
 
-    def capture(owner, local, s):  # the first plan's live router inputs
+    def capture(uniq, rank_owner, rank_local, rep_k, s):  # the first plan's live router inputs
         if not captured:
-            captured.append((owner.clone(), local.clone(), s))
-        return impl(owner, local, s)
+            captured.append((uniq.clone(), rank_owner, rank_local, rep_k, s))
+        return impl(uniq, rank_owner, rank_local, rep_k, s)
 
     # --- main path 1: serve, counts at 0 before and read after --------------
-    ops.bucketize_impl = capture
+    ops.route_image_impl = capture
     try:
         kernel.bucketize.launches = kernel.victim_threshold.launches = 0
+        kernel.bucketize.fused_launches = 0
         lat, scores = [], []
         for b in serve_b[:n_batches]:
             t0 = time.perf_counter()
             scores.append(engine.score(b))
             lat.append(1e3 * (time.perf_counter() - t0))
         serve_bz, serve_thr = kernel.bucketize.launches, kernel.victim_threshold.launches
+        serve_fused = kernel.bucketize.fused_launches
     finally:
-        ops.bucketize_impl = impl
+        ops.route_image_impl = impl
     summary = engine.summary()
     scores = np.concatenate(scores)
     if scores.shape != (n_batches * cfg.batch_size,) or not np.isfinite(scores).all():
@@ -1528,9 +1881,10 @@ def sharded_phase(dev, vocab_scale, n_batches, n_steps):
                              f"{np.isfinite(scores).all()}")
     if summary["uniq_overflows"] != 0:
         raise AssertionError(f"sharded serve uniq_overflows = {summary['uniq_overflows']}")
-    if serve_bz != n_batches or serve_thr != S * n_batches:
-        raise AssertionError(f"sharded serve: bucketize launched {serve_bz}, threshold "
-                             f"{serve_thr} times for {n_batches} plans of {S} shards")
+    if serve_bz != n_batches or serve_thr != S * n_batches or serve_fused != serve_bz:
+        raise AssertionError(f"sharded serve: bucketize launched {serve_bz} ({serve_fused} "
+                             f"route + image), threshold {serve_thr} times for {n_batches} "
+                             f"plans of {S} shards")
     log(f"sharded serve: {n_batches} batches of {cfg.batch_size}; per-batch ms {lat}; p50 "
         f"{np.percentile(lat, 50)} ms, p99 {np.percentile(lat, 99)} ms (numpy percentiles of "
         f"{n_batches}); requests/s {summary['requests'] / (sum(lat) / 1e3)}; hit rate "
@@ -1548,6 +1902,7 @@ def sharded_phase(dev, vocab_scale, n_batches, n_steps):
 
     # --- main path 2: train, counts at 0 before and read after --------------
     kernel.bucketize.launches = kernel.victim_threshold.launches = 0
+    kernel.bucketize.fused_launches = 0
     step_ms, losses, per_step = [], [], []
     prev = None
     for i in range(n_steps + 1):  # step 0 warms the allocator and autograd up
@@ -1565,13 +1920,15 @@ def sharded_phase(dev, vocab_scale, n_batches, n_steps):
                 "shard_imbalance": float(m["shard_imbalance"]), "hit_rate": float(m["hit_rate"])})
         prev = cur
     train_bz, train_thr = kernel.bucketize.launches, kernel.victim_threshold.launches
+    train_fused = kernel.bucketize.fused_launches
     if not all(np.isfinite(losses)):
         raise AssertionError(f"sharded non-finite loss: {losses}")
     if prev["overflows"]:
         raise AssertionError(f"sharded train uniq_overflows = {prev['overflows']}")
-    if train_bz != n_steps + 1 or train_thr != S * (n_steps + 1):
-        raise AssertionError(f"sharded train: bucketize launched {train_bz}, threshold "
-                             f"{train_thr} times for {n_steps + 1} plans of {S} shards")
+    if train_bz != n_steps + 1 or train_thr != S * (n_steps + 1) or train_fused != train_bz:
+        raise AssertionError(f"sharded train: bucketize launched {train_bz} ({train_fused} "
+                             f"route + image), threshold {train_thr} times for {n_steps + 1} "
+                             f"plans of {S} shards")
     log(f"sharded train: {n_steps} steps of {cfg.batch_size} after a warm-up step; losses "
         f"{losses}; step ms {step_ms}; p50 {np.percentile(step_ms, 50)} ms, p99 "
         f"{np.percentile(step_ms, 99)} ms (numpy percentiles of {n_steps}); launches: "
@@ -1606,6 +1963,7 @@ def sharded_phase(dev, vocab_scale, n_batches, n_steps):
         del coll.apply_grads
     b = dev_batch(train_b[n_steps + 3])
     profile_call("one sharded train step", lambda: model.train_step(state, b))
+    plan_ops = sharded_plan_ops(model, state, b)
 
     # --- flush: every shard's residents and the replicated head on the host
     t0 = time.perf_counter()
@@ -1632,13 +1990,50 @@ def sharded_phase(dev, vocab_scale, n_batches, n_steps):
     if not torch.equal(slab.rep.rows.cpu(), host):
         raise AssertionError("sharded post-flush: replicated rows != their host homes")
     log(f"sharded post-flush: all {K} replicated rows equal their host homes bitwise")
-    live_err = check_bucketize(*captured[0], "live router inputs of the first plan")
-    log(f"bucketize on the first plan's live router inputs [{captured[0][0].numel()} lanes, "
-        f"{int((captured[0][1] >= 0).sum())} routed]: kernel bitwise = plain")
+    live_err = check_route_bucketize(*captured[0], "live router inputs of the first plan")
+    owner, local, _ = kernel.route_bucketize_plain(*captured[0])
+    live_err = max(live_err, check_bucketize(owner, local, S, "the first plan's live route"))
+    log(f"route_bucketize and bucketize on the first plan's live router inputs "
+        f"[{captured[0][0].numel()} lanes, {int((local >= 0).sum())} routed]: kernels bitwise "
+        f"= plain")
     slab.full.close()
     return {"launches": {"serve": serve_bz, "train": train_bz},
+            "fused_launches": {"serve": serve_fused, "train": train_fused},
             "thr_launches": serve_thr + train_thr, "captured": captured[0],
-            "live_err": live_err}
+            "live_err": live_err, "plan_ops": plan_ops}
+
+
+def sharded_plan_ops(model, state, batch):
+    """Device ops of one profiled sharded plan (``plan_step``: planning
+    only, the state untouched), through the route + bucketize kernel and
+    again with the composition it replaced (the route's torch ops, then
+    the bucketize kernel) patched in: the ops a plan saves."""
+    from repro_torch.kernels.cache_ops import kernel, ops
+
+    impl = ops.route_image_impl
+    images = []
+
+    def counted(*a):
+        images.append(1)
+        return impl(*a)
+
+    out = {}
+    for name, fn in (("fused", counted), ("composition", _route_composition)):
+        ops.route_image_impl = fn
+        try:
+            out[name] = device_ops(lambda: model.plan_step(state, batch), iters=1)
+        finally:
+            ops.route_image_impl = impl
+    n_img = len(images) // 2  # device_ops calls fn twice (a warm call, the window)
+    (fused, by_f), (comp, by_c) = out["fused"], out["composition"]
+    log(f"one profiled sharded plan: {fused} device ops through route_bucketize, {comp} with "
+        f"the composition it replaced ({n_img} routed image a plan): "
+        f"{None if fused is None else (comp - fused) / n_img} fewer ops a routed image; by op "
+        f"fused {json.dumps(by_f)}, composition {json.dumps(by_c)}")
+    if fused is not None and comp - fused < 15 * n_img:
+        raise AssertionError(f"sharded plan: {comp - fused} fewer device ops for {n_img} routed "
+                             f"images, want >= 15 each")
+    return {"fused": fused, "composition": comp, "images": n_img}
 
 
 def sharded_crosscheck(dev, vocab_scale=0.02, n_steps=4):
@@ -1672,33 +2067,80 @@ def sharded_crosscheck(dev, vocab_scale=0.02, n_steps=4):
     return diff
 
 
-def time_bucketize(live, max_err, launches):
-    """The bucketize kernel and its plain version on the first sharded
-    plan's live router inputs."""
+def _route_composition(uniq, rank_owner, rank_local, rep_k, s):
+    """What the sharded plan's one route_bucketize launch (``route_image``)
+    replaced: the route's torch ops, then the bucketize kernel; the image."""
     from repro_torch.kernels.cache_ops import kernel
 
-    owner, local, s = live
-    calls = {"kernel": lambda: kernel.bucketize(owner, local, s),
+    return kernel.bucketize(*kernel.route_plain(uniq, rank_owner, rank_local, rep_k), s)
+
+
+def time_bucketize(live, max_err, launches, fused_launches, floor=None):
+    """On the first sharded plan's live router inputs: the route + bucketize
+    kernel as the plan calls it (``route_image``, the image alone: CUDA-event,
+    profiler device and host enqueue ms, one device op a call), its bound,
+    its plain version and, in the same process, the composition it replaced
+    (the route's torch ops, then the bucketize kernel) with its device ops,
+    and the entry that also writes owner and local (event and enqueue ms);
+    and the image-only bucketize kernel and its plain version on the live
+    route's owner and local.  ``floor`` as in :func:`time_gather_decode`."""
+    from repro_torch.kernels.cache_ops import kernel
+
+    uniq, r_owner, r_local, rep_k, s = live
+    owner, local, _ = kernel.route_bucketize_plain(*live)
+    calls = {"route": lambda: kernel.route_image(*live),
+             "composition": lambda: _route_composition(*live),
+             "route_plain": lambda: kernel.route_image_plain(*live),
+             "route_three": lambda: kernel.route_bucketize(*live),
+             "kernel": lambda: kernel.bucketize(owner, local, s),
              "plain": lambda: kernel.bucketize_plain(owner, local, s)}
-    ev = {n: cuda_ms(fn) for n, fn in calls.items()}
-    dv = {n: device_ms(fn)[0] for n, fn in calls.items()}
-    enqueue = host_ms(calls["kernel"])
-    u = owner.numel()
+    enq, floors = {}, {}
+    for n in ("route", "kernel", "route_three"):  # before any profiler window
+        enq[n], floors[n] = _enqueue(calls[n], floor)
+    enq["composition"] = host_ms(calls["composition"])
+    ev = {n: cuda_ms(fn, iters=FUSED_EVENT_ITERS if n in ("route", "kernel", "route_three")
+                     else 20)
+          for n, fn in calls.items()}
+    dv = {n: device_ms(calls[n])[0] for n in ("route", "composition", "kernel", "plain")}
+    ops_r, by_r = device_ops(calls["route"])
+    ops_c, by_c = device_ops(calls["composition"])
+    if ops_r is not None and (ops_r != 1 or any("emset" in op for op in by_r)):
+        raise AssertionError(f"route_bucketize: device ops {by_r}, want one kernel")
+    u = uniq.numel()
     n_bytes = 2 * 4 * u + 4 * s * u  # owner and local read once, the image written once
     n_ops = 3 * s * u  # two compares and a select per output word
     bytes_ms, ops_ms = 1e3 * n_bytes / HBM_BYTES_PER_S, 1e3 * n_ops / FP32_OPS_PER_S
-    log(f"bucketize on the live router inputs (U {u}, S {s}): event-timed ms kernel "
+    routed = int(((uniq >= max(rep_k, 0)) & (uniq < r_owner.numel())).sum())
+    # uniq read, two 4 B table reads a routed lane, the image written
+    r_bytes = 4 * u + 8 * routed + 4 * s * u
+    r_sector = 4 * u + 2 * 32 * routed + 4 * s * u  # a 32 B sector a random read
+    r_ops = 3 * s * u + 4 * u  # the image's, and the route's range checks and selects
+    r_bound = max(1e3 * r_bytes / HBM_BYTES_PER_S, 1e3 * r_ops / FP32_OPS_PER_S)
+    log(f"route_bucketize on the live router inputs (U {u}, {routed} routed, S {s}, rep_k "
+        f"{rep_k}, tables of {r_owner.numel()}): event-timed ms kernel {ev['route']}, "
+        f"composition (route ops + bucketize) {ev['composition']}, plain {ev['route_plain']}; "
+        f"device ms kernel {dv['route']}, composition {dv['composition']}; host enqueue kernel "
+        f"{enq['route']} ms (the launch floor {floors['route']} ms in alternating windows), "
+        f"composition {enq['composition']} ms; device ops a call kernel {ops_r} "
+        f"({json.dumps(by_r)}), composition {ops_c} ({json.dumps(by_c)}); bound {r_bound} ms "
+        f"({r_bytes} B at {HBM_BYTES_PER_S / 1e12} TB/s; {1e3 * r_sector / HBM_BYTES_PER_S} ms "
+        f"if each random table read costs a 32 B sector); the entry that also writes owner and "
+        f"local: event-timed {ev['route_three']} ms, host enqueue {enq['route_three']} ms "
+        f"(floor {floors['route_three']} ms)")
+    log(f"bucketize on the live route's owner / local (U {u}, S {s}): event-timed ms kernel "
         f"{ev['kernel']}, plain {ev['plain']}; device ms kernel {dv['kernel']}, plain "
-        f"{dv['plain']}; host enqueue {enqueue} ms; bound {max(bytes_ms, ops_ms)} ms "
-        f"({n_bytes} B at {HBM_BYTES_PER_S / 1e12} TB/s: {bytes_ms} ms; {n_ops} int32 ops at "
-        f"the fp32 SIMT rate {FP32_OPS_PER_S / 1e12} T/s: {ops_ms} ms)")
-    return {
+        f"{dv['plain']}; host enqueue {enq['kernel']} ms (the launch floor {floors['kernel']} "
+        f"ms in alternating windows); bound {max(bytes_ms, ops_ms)} ms ({n_bytes} B "
+        f"at {HBM_BYTES_PER_S / 1e12} TB/s: {bytes_ms} ms; {n_ops} int32 ops at the fp32 SIMT "
+        f"rate {FP32_OPS_PER_S / 1e12} T/s: {ops_ms} ms)")
+    image = {
         "name": "bucketize",
         "route": "cuda",
         "source": "src/repro_torch/kernels/cache_ops/csrc/bucketize.cu",
         "replaces": "src/repro/kernels/cache_ops/kernel.py:131",
         "launches": sum(launches.values()),
         "launches_by_path": launches,
+        "fused_launches": sum(fused_launches.values()),
         "max_abs_err": max_err,
         "ms": ev["kernel"],
         "plain_ms": ev["plain"],
@@ -1707,10 +2149,41 @@ def time_bucketize(live, max_err, launches):
         "library_ms": None,  # no single PyTorch call builds the per-shard image
         "device_ms": dv["kernel"],
         "plain_device_ms": dv["plain"],
-        "host_enqueue_ms": enqueue,
+        "host_enqueue_ms": enq["kernel"],
+        "floor_enqueue_ms": floors["kernel"],
+        "enqueue_over_floor_ms": None if floor is None else enq["kernel"] - floors["kernel"],
         "lanes": u,
         "shards": s,
     }
+    fused = {
+        "name": "route_bucketize",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/cache_ops/csrc/bucketize.cu",
+        "replaces": "src/repro/kernels/cache_ops/kernel.py:131",
+        "launches": sum(fused_launches.values()),
+        "launches_by_path": fused_launches,
+        "max_abs_err": max_err,
+        "ms": ev["route"],
+        "plain_ms": ev["route_plain"],
+        "bound_ms": r_bound,
+        "bound_by": "bytes" if 1e3 * r_bytes / HBM_BYTES_PER_S >= 1e3 * r_ops / FP32_OPS_PER_S
+        else "operations",
+        "library_ms": None,  # no single PyTorch call routes and builds the image
+        "sector_bound_ms": 1e3 * r_sector / HBM_BYTES_PER_S,
+        "device_ms": dv["route"],
+        "host_enqueue_ms": enq["route"],
+        "floor_enqueue_ms": floors["route"],
+        "enqueue_over_floor_ms": None if floor is None else enq["route"] - floors["route"],
+        "device_ops": ops_r,
+        "composition": {"ms": ev["composition"], "device_ms": dv["composition"],
+                        "host_enqueue_ms": enq["composition"], "device_ops": ops_c},
+        "with_owner_local": {"ms": ev["route_three"], "host_enqueue_ms": enq["route_three"],
+                             "floor_enqueue_ms": floors["route_three"]},
+        "lanes": u,
+        "routed": routed,
+        "shards": s,
+    }
+    return image, fused
 
 
 # ---------------------------------------------------------------------------
@@ -1781,7 +2254,7 @@ def budget_phase(dev, vocab_scale, n_batches, n_steps):
     counts at 0 before it and read after it."""
     from repro_torch.core import collection as col
     from repro_torch.data import synth
-    from repro_torch.kernels.cache_ops import kernel
+    from repro_torch.kernels.cache_ops import kernel, ops
     from repro_torch.kernels.embedding_bag import kernel as eb_kernel
     from repro_torch.models.dlrm import DLRM
     from repro_torch.serve.engine import ServeEngine
@@ -1834,7 +2307,7 @@ def budget_phase(dev, vocab_scale, n_batches, n_steps):
 
     def counts_zero():
         kernel.victim_threshold.launches = 0
-        kernel.gather_decode.launches = 0
+        kernel.gather_decode.launches = kernel.gather_decode.fused_launches = 0
         eb_kernel.embedding_bag_multi.launches = 0
 
     def counts():
@@ -1902,19 +2375,34 @@ def budget_phase(dev, vocab_scale, n_batches, n_steps):
             f"apply_plan ({len(cached)} loads) {t_apply}, gather (26 slabs) {t_gather}, dense "
             f"{t_dense}")
 
-    # --- train: write-backs encode on the card; then one bag step and flush --
+    # --- train: write-backs encode on the card, in the gather (one
+    # gather_decode_encode launch a round); then one bag step and flush ----
     state, m = model.train_step(state, dev_batch(train_b[n_steps + 1]))  # warm-up
     float(m["loss"])
     m0 = m
+    captured = []
+    impl = ops.arena_gather_encode_impl
+
+    def capture(head, tail, sideband, slots, codec, host_codec):  # the first write-back's
+        if not captured:
+            captured.append((head.clone(), tail.clone(), sideband.clone(), slots.clone(), codec,
+                             host_codec))
+        return impl(head, tail, sideband, slots, codec, host_codec)
+
     counts_zero()
     step_ms, losses = [], []
-    with _MoveCounter() as moved:
-        for i in range(n_steps):
-            t0 = time.perf_counter()
-            state, m = model.train_step(state, dev_batch(train_b[i]))
-            losses.append(float(m["loss"]))
-            step_ms.append(1e3 * (time.perf_counter() - t0))
+    ops.arena_gather_encode_impl = capture
+    try:
+        with _MoveCounter() as moved:
+            for i in range(n_steps):
+                t0 = time.perf_counter()
+                state, m = model.train_step(state, dev_batch(train_b[i]))
+                losses.append(float(m["loss"]))
+                step_ms.append(1e3 * (time.perf_counter() - t0))
+    finally:
+        ops.arena_gather_encode_impl = impl
     train_thr, train_gd, _ = counts()
+    train_fused = kernel.gather_decode.fused_launches
     train_wire = _exact_wire(m) - _exact_wire(m0)
     ev = int(m["cache_evictions"]) - int(m0["cache_evictions"])
     if not np.isfinite(losses).all() or int(m["uniq_overflows"]):
@@ -1927,12 +2415,19 @@ def budget_phase(dev, vocab_scale, n_batches, n_steps):
                              f"{moved.written}) lanes x {INT8_ROW_BYTES} B ({ev} evictions)")
     if ev and not train_gd:
         raise AssertionError("budget train: write-backs ran no gather_decode launch")
+    if train_fused != train_gd or not captured:
+        raise AssertionError(f"budget train: {train_fused} of {train_gd} gather_decode launches "
+                             f"encoded for the int8 host (want all)")
+    live_err = check_gather_decode_encode(captured[0][:4], *captured[0][4:],
+                                          "the first live int8 write-back")
     log(f"budget train: {n_steps} steps; losses {losses}; step ms {step_ms}; p50 "
         f"{np.percentile(step_ms, 50)} ms, p99 {np.percentile(step_ms, 99)} ms (numpy "
         f"percentiles); threshold launches {train_thr} ({train_thr / n_steps} a plan), "
         f"gather_decode {train_gd} ({train_gd / n_steps} a plan: one a write-back round of a "
-        f"slab); wire bytes {train_wire} = ({moved.loaded} loaded + {moved.written} written "
-        f"back) lanes x {INT8_ROW_BYTES} B ({train_wire / n_steps} a step)")
+        f"slab; {train_fused} of them gather_decode_encode into the int8 host, the first live "
+        f"one [{captured[0][3].numel()} lanes] bitwise its plain version); wire bytes "
+        f"{train_wire} = ({moved.loaded} loaded + {moved.written} written back) lanes x "
+        f"{INT8_ROW_BYTES} B ({train_wire / n_steps} a step)")
 
     counts_zero()
     fb = bag_batch(model, dev, 0, np.random.default_rng(3))
@@ -1945,6 +2440,9 @@ def budget_phase(dev, vocab_scale, n_batches, n_steps):
     torch.cuda.synchronize()
     flush_ms = 1e3 * (time.perf_counter() - t0)
     bag_thr, bag_gd, bag_eb = counts()
+    if kernel.gather_decode.fused_launches != bag_gd:
+        raise AssertionError(f"budget bag step + flush: {kernel.gather_decode.fused_launches} of "
+                             f"{bag_gd} gather_decode launches encoded for the int8 host")
     if bag_eb != bag["slabs"] or bag["slabs"] != len(coll.device_slabs) + len(cached):
         raise AssertionError(f"budget bag step: {bag_eb} embedding_bag launches for "
                              f"{bag['slabs']} slabs")
@@ -1987,7 +2485,7 @@ def budget_phase(dev, vocab_scale, n_batches, n_steps):
     for n in cached:
         state["emb"].slabs[n].full.close()
     return {"thr_launches": serve_thr + train_thr + bag_thr, "gd_launches": train_gd + bag_gd,
-            "bag_launches": bag_eb}
+            "bag_launches": bag_eb, "captured": captured[0], "live_err": live_err}
 
 
 # ---------------------------------------------------------------------------
@@ -2241,10 +2739,17 @@ def sharded_budget_phase(dev, vocab_scale, n_batches, n_steps):
     def counts_zero():
         kernel.victim_threshold.launches = kernel.bucketize.launches = 0
         kernel.gather_decode.launches = 0
+        kernel.bucketize.fused_launches = kernel.gather_decode.fused_launches = 0
 
     def counts():
         return (kernel.victim_threshold.launches, kernel.bucketize.launches,
                 kernel.gather_decode.launches)
+
+    def fused_ok(what, bz, gd):  # every image routed in its launch, every write-back encoded
+        fused = (kernel.bucketize.fused_launches, kernel.gather_decode.fused_launches)
+        if fused != (bz, gd):
+            raise AssertionError(f"sharded budget {what}: fused launches (route_bucketize, "
+                                 f"gather_decode_encode) {fused} of {(bz, gd)}")
 
     per_plan = (SHARDS * len(cached), len(cached))  # threshold, bucketize
     pad = {"dense": np.zeros((cfg.n_dense,), np.float32),
@@ -2264,6 +2769,7 @@ def sharded_budget_phase(dev, vocab_scale, n_batches, n_steps):
         if scores.shape != (cfg.batch_size,) or not np.isfinite(scores).all():
             raise AssertionError(f"sharded budget serve scores: {scores.shape}, non-finite")
     serve_thr, serve_bz, serve_gd = counts()
+    fused_ok("serve", serve_bz, serve_gd)
     if (serve_thr, serve_bz) != (per_plan[0] * n_batches, per_plan[1] * n_batches):
         raise AssertionError(f"sharded budget serve: threshold {serve_thr}, bucketize "
                              f"{serve_bz} for {n_batches} plans of {len(cached)} slabs x "
@@ -2293,6 +2799,7 @@ def sharded_budget_phase(dev, vocab_scale, n_batches, n_steps):
         losses.append(float(m["loss"]))
         step_ms.append(1e3 * (time.perf_counter() - t0))
     train_thr, train_bz, train_gd = counts()
+    fused_ok("train", train_bz, train_gd)
     if not np.isfinite(losses).all() or int(m["uniq_overflows"]):
         raise AssertionError(f"sharded budget train: losses {losses}, overflows "
                              f"{int(m['uniq_overflows'])}")
@@ -2319,6 +2826,7 @@ def sharded_budget_phase(dev, vocab_scale, n_batches, n_steps):
     torch.cuda.synchronize()
     flush_ms = 1e3 * (time.perf_counter() - t0)
     _, _, flush_gd = counts()
+    fused_ok("flush", 0, flush_gd)
     weights = coll.weights(state["emb"])
     int8 = get_codec("int8")
     resident = 0
@@ -2335,9 +2843,10 @@ def sharded_budget_phase(dev, vocab_scale, n_batches, n_steps):
                 raise AssertionError(f"sharded budget post-flush: slab {n} shard {s}: host "
                                      f"payload / sideband != the encode of its arena rows")
             resident += slots.numel()
-    log(f"sharded budget flush {flush_ms} ms ({flush_gd} gather_decode launches); post-flush: "
-        f"all {resident} resident rows of {len(cached)} slabs x {SHARDS} shards: host payload "
-        f"and sideband bitwise the int8 encode of the arena row")
+    log(f"sharded budget flush {flush_ms} ms ({flush_gd} gather_decode launches, all "
+        f"gather_decode_encode); post-flush: all {resident} resident rows of {len(cached)} "
+        f"slabs x {SHARDS} shards: host payload and sideband bitwise the int8 encode of the "
+        f"arena row")
     for n in cached:
         state["emb"].slabs[n].full.close()
     return {"thr_launches": serve_thr + train_thr, "bz_launches": serve_bz + train_bz,
@@ -2358,11 +2867,11 @@ def sharded_pipelined_crosscheck(dev, vocab_scale=0.02, n_steps=6, depth=2):
     model = DLRM(cfg)
     bspec = synth.ZipfSparseSpec(vocab_sizes=cfg.vocab_sizes, n_dense=cfg.n_dense)
     batches = [synth.sparse_batch(bspec, cfg.batch_size, 1, i) for i in range(n_steps + depth)]
-    impl, calls, window = ops.bucketize_impl, [], []
+    impl, calls, window = ops.route_image_impl, [], []
 
-    def capture(owner, local, s):
-        calls.append((owner.clone(), local.clone(), s))
-        return impl(owner, local, s)
+    def capture(uniq, rank_owner, rank_local, rep_k, s):
+        calls.append((uniq.clone(), rank_owner, rank_local, rep_k, s))
+        return impl(uniq, rank_owner, rank_local, rep_k, s)
 
     def plan_fn(state, batch, future=()):
         calls.clear()
@@ -2381,14 +2890,16 @@ def sharded_pipelined_crosscheck(dev, vocab_scale=0.02, n_steps=6, depth=2):
             trainer = PipelinedTrainer(TrainerConfig(max_steps=n_steps, pipeline_depth=depth),
                                        plan_fn=plan_fn, compute_fn=model.compute_step,
                                        apply_fn=model.apply_step, **kw)
-        ops.bucketize_impl = capture
+        ops.route_image_impl = capture
         kernel.bucketize.launches = kernel.victim_threshold.launches = 0
+        kernel.bucketize.fused_launches = 0
         try:
             state = trainer.run()
         finally:
-            ops.bucketize_impl = impl
+            ops.route_image_impl = impl
         runs[name] = {"losses": [h["loss"] for h in trainer.history],
-                      "bz": kernel.bucketize.launches, "thr": kernel.victim_threshold.launches}
+                      "bz": kernel.bucketize.launches, "thr": kernel.victim_threshold.launches,
+                      "bz_fused": kernel.bucketize.fused_launches}
         for slab in state["emb"].slabs.values():
             slab.full.close()
         del state
@@ -2398,15 +2909,22 @@ def sharded_pipelined_crosscheck(dev, vocab_scale=0.02, n_steps=6, depth=2):
     if runs["pipelined"]["bz"] != 2 * n_plans - (n_steps % depth == 1):
         raise AssertionError(f"sharded pipelined: {runs['pipelined']['bz']} bucketize launches "
                              f"for {n_plans} plans with a window")
-    err = check_bucketize(*window[0], "captured window image")
+    for name, r in runs.items():  # every image routed in its launch
+        if r["bz_fused"] != r["bz"]:
+            raise AssertionError(f"sharded {name}: {r['bz_fused']} of {r['bz']} bucketize "
+                                 f"launches through route_bucketize")
+    err = check_route_bucketize(*window[0], "captured window image")
+    routed = int((kernel.route_bucketize_plain(*window[0])[1] >= 0).sum())
     log(f"sharded pipelined cross-check (vocab scale {vocab_scale}, depth {depth}, {n_steps} "
         f"steps): losses bitwise equal to the serial run {runs['serial']['losses']}; launches "
         f"serial bucketize {runs['serial']['bz']} / threshold {runs['serial']['thr']}, "
         f"pipelined {runs['pipelined']['bz']} / {runs['pipelined']['thr']} ({n_plans} plans, "
-        f"two bucketize a plan with a window); bucketize bitwise = plain on the window image "
-        f"[{window[0][0].numel()} lanes, {int((window[0][1] >= 0).sum())} routed]")
+        f"two route + bucketize a plan with a window; all route_bucketize, serial "
+        f"{runs['serial']['bz_fused']}, pipelined {runs['pipelined']['bz_fused']}); "
+        f"route_bucketize bitwise = plain on the window image [{window[0][0].numel()} lanes, "
+        f"{routed} routed]")
     return {"bz_launches": runs["pipelined"]["bz"], "thr_launches": runs["pipelined"]["thr"],
-            "err": err}
+            "bz_fused": runs["pipelined"]["bz_fused"], "err": err}
 
 
 # ---------------------------------------------------------------------------
@@ -2691,6 +3209,7 @@ def refresh_phase(dev, vocab_scale, n_steps=REFRESH_STEPS, n_serve=REFRESH_SERVE
     coll8 = model8.collection
     passes = []
     kernel.victim_threshold.launches = kernel.gather_decode.launches = 0
+    kernel.gather_decode.fused_launches = 0
     tr = Trainer(TrainerConfig(max_steps=n_steps, refresh_interval=REFRESH_INTERVAL),
                  init_fn=lambda: model8.init(0, device=dev), step_fn=model8.train_step,
                  make_batch=lambda s: batches[s], device=dev,
@@ -2710,6 +3229,10 @@ def refresh_phase(dev, vocab_scale, n_steps=REFRESH_STEPS, n_serve=REFRESH_SERVE
     after = coll8.dense_reference(emb, probe)
     launches["int8_thr"] = kernel.victim_threshold.launches
     launches["int8_gd"] = kernel.gather_decode.launches
+    launches["int8_gd_fused"] = kernel.gather_decode.fused_launches
+    if launches["int8_gd_fused"] != launches["int8_gd"]:
+        raise AssertionError(f"refresh int8: {launches['int8_gd_fused']} of "
+                             f"{launches['int8_gd']} write-backs encoded in the gather")
     if not np.isfinite(losses).all() or not passes or rep.total_swaps <= 0:
         raise AssertionError(f"refresh int8: losses {losses}, passes {passes}, clean pass "
                              f"{rep.total_swaps} swaps")
@@ -2723,7 +3246,7 @@ def refresh_phase(dev, vocab_scale, n_steps=REFRESH_STEPS, n_serve=REFRESH_SERVE
         f"encode of the arena row; a clean refresh ({rep.total_swaps} swaps, plan "
         f"{clock.ms['plan']} ms, surgery {clock.ms['surgery']} ms) leaves dense_reference "
         f"bitwise; launches threshold {launches['int8_thr']}, gather_decode "
-        f"{launches['int8_gd']}")
+        f"{launches['int8_gd']} (all gather_decode_encode into the int8 host)")
     _close(dict(state, emb=emb))
     del state, emb
     gc.collect()
@@ -2750,10 +3273,12 @@ def sharded_refresh_phase(dev, vocab_scale, n_steps=4):
     def counts_zero():
         kernel.victim_threshold.launches = kernel.bucketize.launches = 0
         kernel.gather_decode.launches = 0
+        kernel.bucketize.fused_launches = kernel.gather_decode.fused_launches = 0
 
     def counts():
         return {"thr": kernel.victim_threshold.launches, "bz": kernel.bucketize.launches,
-                "gd": kernel.gather_decode.launches}
+                "gd": kernel.gather_decode.launches, "bz_fused": kernel.bucketize.fused_launches,
+                "gd_fused": kernel.gather_decode.fused_launches}
 
     def dev_batch(b):
         return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
@@ -2800,7 +3325,8 @@ def sharded_refresh_phase(dev, vocab_scale, n_steps=4):
                              f"unbudgeted; cross-shard rows {cross} of {EXCHANGE_BUDGET}")
     state, after_losses = steps(model, dict(state, emb=emb), batches[n_steps:n_steps + 2])
     out["sharded"] = counts()
-    if not (out["sharded"]["thr"] and out["sharded"]["bz"]):
+    if not (out["sharded"]["thr"] and out["sharded"]["bz"]) or (
+            out["sharded"]["bz_fused"] != out["sharded"]["bz"]):
         raise AssertionError(f"sharded refresh: launches {out['sharded']}")
     log(f"sharded refresh (fp32, {SHARDS} shards, replicate_top_k {REP_K}): {n_steps} train "
         f"steps on the drifting stream (losses {losses}), flush, one pass at max_swaps "
@@ -2858,7 +3384,8 @@ def sharded_refresh_phase(dev, vocab_scale, n_steps=4):
         raise AssertionError(f"rebalance: cached vs dense_reference logits differ by {diff}")
     state, after_losses = steps(model, dict(state, emb=emb), batches[n_steps:n_steps + 2])
     out["rebalance"] = counts()
-    if not all(out["rebalance"].values()):
+    r = out["rebalance"]
+    if not all(r.values()) or (r["bz_fused"], r["gd_fused"]) != (r["bz"], r["gd"]):
         raise AssertionError(f"rebalance: launches {out['rebalance']}")
     log(f"rebalance (sharded budget mode, int8 host and arena, {SHARDS} shards, "
         f"{len(cached)} CACHED slabs, threshold {threshold}, the median slab's): {n_steps} train "
@@ -4064,14 +4591,18 @@ def time_in_fresh_process(jobs):
 def time_kernels(path):
     """The child's side of :func:`time_in_fresh_process`."""
     jobs = torch.load(path, weights_only=True)
-    rows = {"gather_decode": time_gather_decode(*jobs["gather_decode"])}
+    floor_row, floor = time_launch_floor()
+    rows = {"launch_floor": floor_row,
+            "gather_decode": time_gather_decode(*jobs["gather_decode"], floor=floor),
+            "gather_decode_encode": time_gather_decode_encode(*jobs["gather_decode_encode"],
+                                                              floor=floor)}
+    rows["bucketize"], rows["route_bucketize"] = time_bucketize(*jobs["bucketize"], floor=floor)
     live, multi, bag_err, bag_launches = jobs["bag"]
     for f, a in live.items():  # f0, then the largest-vocab feature
         time_bag(f, a)
     rows["bag"] = time_bag_multi(multi, bag_err, bag_launches)
     rows["bag"]["step_routes"] = time_bag_routes(multi)
-    rows.update(fm=time_fm(*jobs["fm"]), threshold=time_threshold(*jobs["threshold"]),
-                bucketize=time_bucketize(*jobs["bucketize"]))
+    rows.update(fm=time_fm(*jobs["fm"]), threshold=time_threshold(*jobs["threshold"]))
     with open(path + ".json", "w") as f:
         json.dump(rows, f)
 
@@ -4131,7 +4662,7 @@ def main():
     t0 = time.perf_counter()
     reports = build.build_all([kernel.SOURCE, kernel.GATHER_DECODE_SOURCE, fm_kernel.SOURCE,
                                eb_kernel.SOURCE, kernel.BUCKETIZE_SOURCE, fa_kernel.SOURCE,
-                               fa_kernel.SM90_SOURCE, fa_kernel.TF32_SOURCE])
+                               fa_kernel.SM90_SOURCE, fa_kernel.TF32_SOURCE, EMPTY_SOURCE])
     log(f"build {time.perf_counter() - t0} s: " + " | ".join(
         f"{src.name}: {' '.join(r.split())}" for src, r in reports.items()))
     ptxas = {}
@@ -4209,6 +4740,10 @@ def main():
     log(f"host RSS after sharded budget (tables unpinned and freed) {rss_gb()} GB")
     gd_paths = {"train": gd_launches, "budget": budget["gd_launches"],
                 "sharded_budget": sh_budget["gd_launches"]}
+    # every write-back of these two paths went into an int8 host: all fused
+    gde_paths = {"budget": budget["gd_launches"], "sharded_budget": sh_budget["gd_launches"]}
+    jobs["gather_decode_encode"] = (budget["captured"], max(gd_err, budget["live_err"]),
+                                    gde_paths)
     bag_paths = {"train": bag_launches, "budget": budget["bag_launches"]}
     fm_serve = fm_serve_phase(dev, args.vocab_scale, FM_BATCHES)
     gc.collect()
@@ -4259,8 +4794,11 @@ def main():
                                  + fm_chunk_t["thr_launches"]),
                        "cached_embedding": ce_run["launches"],
                        "avazu": avazu["launches"]}),
+        # every sharded plan of these paths routes in the bucketize launch: all fused
         "bucketize": (sharded["captured"], max(bz_err, sharded["live_err"], sh_pipe["err"]),
                       {**sharded["launches"], "sharded_pipelined": sh_pipe["bz_launches"],
+                       "sharded_budget": sh_budget["bz_launches"]},
+                      {**sharded["fused_launches"], "sharded_pipelined": sh_pipe["bz_fused"],
                        "sharded_budget": sh_budget["bz_launches"]}),
     })
     del sharded, budget, fm_serve, fm_train, fm_rows, fm_chunk, fm_chunk_t, pipe, sh_budget
@@ -4304,16 +4842,26 @@ def main():
         "drift": drift_thr})
     jobs["bucketize"][2].update({"refresh_sharded": sh_rf["sharded"]["bz"],
                                  "rebalance": sh_rf["rebalance"]["bz"]})
+    jobs["bucketize"][3].update({"refresh_sharded": sh_rf["sharded"]["bz_fused"],
+                                 "rebalance": sh_rf["rebalance"]["bz_fused"]})
+    jobs["gather_decode_encode"][2].update({"refresh_int8": rf["int8_gd_fused"],
+                                            "rebalance": sh_rf["rebalance"]["gd_fused"]})
     rows = timed("8 (kernel timing, in a fresh process)", time_in_fresh_process, jobs)
-    fmk, thr, bz, gd, bag = (rows[k] for k in ("fm", "threshold", "bucketize",
-                                               "gather_decode", "bag"))
+    fmk, thr, bz, rbz, gd, gde, bag = (rows[k] for k in (
+        "fm", "threshold", "bucketize", "route_bucketize", "gather_decode",
+        "gather_decode_encode", "bag"))
     gd_paths.update({"refresh_int8": rf["int8_gd"], "rebalance": sh_rf["rebalance"]["gd"]})
     for row, paths in ((gd, gd_paths), (bag, bag_paths)):
         row["launches_by_path"] = paths
         row["launches"] = sum(paths.values())
+    gd["fused_launches"] = gde["launches"]
+    log(f"launch floor {json.dumps(rows['launch_floor'])}; the fused entries' launches are "
+        f"counted in their kernels' rows too (gather_decode {gd['launches']} of which "
+        f"gather_decode_encode {gde['launches']}; bucketize {bz['launches']} of which "
+        f"route_bucketize {rbz['launches']})")
 
     log(f"all phases: {time.perf_counter() - t0} s since the build began")
-    log(json.dumps({"kernels": [thr, gd, fmk, bag, bz, *fa]}))
+    log(json.dumps({"kernels": [thr, gd, gde, fmk, bag, bz, rbz, *fa]}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -410,10 +410,7 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
     def _route(self, slab: ShardedSlab, rank: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """Ranks -> (owning shard, local row), -1 on padding and on the
         replicated ranks (``rank < K``), which never enter the exchange."""
-        ok = rank >= slab.rep.rows.shape[0]
-        safe = torch.where(ok, rank, 0)
-        return (torch.where(ok, take_fill(slab.rank_owner, safe, -1), -1),
-                torch.where(ok, take_fill(slab.rank_local, safe, -1), -1))
+        return cache_ref.route(rank, slab.rank_owner, slab.rank_local, slab.rep.rows.shape[0])
 
     @staticmethod
     def _dedup(rank: torch.Tensor, vocab: int, fused: bool = False
@@ -431,13 +428,19 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
         pos = torch.clamp_max(torch.searchsorted(uniq, key), u - 1).to(torch.int32)
         return uniq.to(torch.int32), pos
 
-    def _bucketize(self, owner: torch.Tensor, local: torch.Tensor, fused: bool = False
-                   ) -> torch.Tensor:
-        """[U] routing -> the [S, U] per-shard local-row image (-1 off-shard);
-        ``fused`` routes through the bucketize kernel on the card."""
-        if fused:
-            return cache_ops.bucketize_impl(owner, local, self.num_shards)
+    def _bucketize(self, owner: torch.Tensor, local: torch.Tensor) -> torch.Tensor:
+        """[U] routing -> the [S, U] per-shard local-row image (-1 off-shard)."""
         return cache_ref.bucketize(owner, local, self.num_shards)
+
+    def _route_image(self, slab: ShardedSlab, rank: torch.Tensor, fused: bool = False
+                     ) -> torch.Tensor:
+        """Ranks -> the [S, U] image: ``_route`` then ``_bucketize``, or with
+        ``fused`` one launch of the route + bucketize kernel on the card
+        (bitwise the same)."""
+        if fused:
+            return cache_ops.route_image_impl(rank, slab.rank_owner, slab.rank_local,
+                                              slab.rep.rows.shape[0], self.num_shards)
+        return self._bucketize(*self._route(slab, rank))
 
     def _compact_lanes(self, owner: torch.Tensor, local: torch.Tensor, width: int
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -523,22 +526,21 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
             rank = self._rank_ids(slab, raw)
             fused = spec.arena.use_pallas_plan
             uniq, pos = self._dedup(rank, spec.vocab, fused=fused)
-            owner_u, local_u = self._route(slab, uniq)
             width = self._lane_width(int(uniq.shape[0]))
             if width is None:
-                rows_sh = self._bucketize(owner_u, local_u, fused=fused)  # [S, U]
+                rows_sh = self._route_image(slab, uniq, fused=fused)  # [S, U]
             else:
-                rows_sh, src_sh, lane_over = self._compact_lanes(owner_u, local_u, width)
+                rows_sh, src_sh, lane_over = self._compact_lanes(*self._route(slab, uniq),
+                                                                 width)
             fut_ranks = [None if r is None else self._rank_ids(slab, r) for r in fut_raws]
             fut_parts = [r for r in fut_ranks if r is not None]
             fut_sh = None
             if fut_parts:  # the window's one dedup'd image
                 fuq, _ = self._dedup(torch.cat(fut_parts), spec.vocab, fused=fused)
-                fo, fl = self._route(slab, fuq)
                 if width is None:
-                    fut_sh = self._bucketize(fo, fl, fused=fused)
+                    fut_sh = self._route_image(slab, fuq, fused=fused)
                 else:  # a dropped window lane loses its pin; the guard still counts it
-                    fut_sh = self._compact_lanes(fo, fl, width)[0]
+                    fut_sh = self._compact_lanes(*self._route(slab, fuq), width)[0]
             ccfg = self.shard_cache_config(spec, ids_per_step=int(rows_sh.shape[1]),
                                            writeback=writeback)
             plan = _stack([

@@ -20,7 +20,11 @@ ops.  Either side may also be a tiered :class:`ArenaStore`: as the source it
 packs with ``gather_slots`` (the gather-decode kernel on the card), as the
 destination it unpacks with ``scatter_slots`` (tail lanes encode on the
 device, or, on a row-granular load, take an encoded host block of their
-own codec verbatim).
+own codec verbatim).  A write-back from a tiered arena into an encoded
+host tier packs with ``gather_encoded_slots``: each encoded leaf in one
+launch of the gather-decode kernel's encode entry, which writes the host
+codec's payload and sideband and no fp32 rows (bitwise ``gather_slots``
+then ``encode_block``).
 
 Chunked staging (``src_chunk_rows`` / ``dst_chunk_rows``, the paper's
 chunk-based manager): a side whose every leaf's row count divides by the
@@ -224,6 +228,9 @@ def move_rows(
     ring = src_tree.staging(stage_rows) if load else dst_tree.staging(step) if save else None
     verbatim = (isinstance(src_tree, HostStore) and isinstance(dst_tree, ArenaStore)
                 and src_tree.codec == dst_tree.codec and not chunk_src)
+    # the host tier's encode runs inside the arena's gather
+    fused = (isinstance(src_tree, ArenaStore) and isinstance(dst_tree, HostStore)
+             and dst_tree.codec != "fp32" and all(map(dst_tree.is_encoded, src_tree.head)))
     unpack = (lambda t, d, b: _scatter_chunked(t, d, b, chunk_dst)) if chunk_dst else scatter_rows
     for r, (s, d) in enumerate(rounds):
         n = int(s.numel())
@@ -248,6 +255,9 @@ def move_rows(
                 enc = {k: take_fill(v, flat, 0) for k, v in enc.items()}
                 side = {k: take_fill(v, flat, 0) for k, v in side.items()}
             block = src_tree.decode_block(enc, side)  # decoded on the destination's device
+        elif fused:
+            block, enc, side = src_tree.gather_encoded_slots(s.to(src_dev, torch.int32),
+                                                             dst_tree.codec)
         elif isinstance(src_tree, ArenaStore):
             block = src_tree.gather_slots(s.to(src_dev, torch.int32))
         elif chunk_src:
@@ -258,6 +268,9 @@ def move_rows(
             block = gather_rows(src_tree, s.to(src_dev))
         if isinstance(dst_tree, HostStore):  # encode on the source's device
             data_blk, side_blk = dst_tree.encode_block(block)
+            if fused:  # the leaves the gather encoded
+                data_blk.update(enc)
+                side_blk.update(side)
             if save:  # D2H into pinned staging
                 _, (stage, stage_side) = ring.acquire()
                 data_blk = {k: stage[k][:n].copy_(v, non_blocking=True)

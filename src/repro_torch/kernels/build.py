@@ -7,6 +7,11 @@ of their source, so an edited kernel is rebuilt and an unchanged one is
 built once.  Nothing here runs when a module is imported: the first call of
 a kernel builds it, and :func:`build_all` builds several in parallel (one
 ``nvcc`` per source, all started together).
+
+:class:`Kernel` is the lean launch path of a wrapper: the C entry bound once
+per process, its arguments packed into one struct, the current stream's
+handle taken on each launch, and the device switched only for a tensor off
+the current card.
 """
 from __future__ import annotations
 
@@ -14,11 +19,14 @@ import ctypes
 import hashlib
 import os
 import shutil
+import struct
 import subprocess
 from pathlib import Path
 from typing import Dict, Iterable, List, Sequence, Tuple
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "build_all", "entry", "load"]
+import torch
+
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "Kernel", "build_all", "entry", "load"]
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = (
@@ -94,3 +102,39 @@ def entry(source: Path, name: str, argtypes: Sequence) -> ctypes._CFuncPtr:
         fn.restype = ctypes.c_int
         _entries[key] = fn
     return _entries[key]
+
+
+class Kernel:
+    """One C entry point of a CUDA source, launched on the current stream of
+    a card: the wrappers' lean launch path.
+
+    The entry takes a pointer to its arguments, one C struct of ``fields``
+    8-byte fields (pointers and integers, in the struct's order; 0 for a
+    NULL pointer), and the stream, and returns the CUDA error of its
+    launch.  Packing the fields in one ``struct.pack`` call costs the host
+    a fraction of what ctypes takes to convert as many arguments one by
+    one.  The entry is bound on the first launch (which builds the
+    library); a launch then runs the pack, the ctypes call, the stream
+    lookup and, only for a card other than the current one, a device
+    switch.  The stream comes from ``torch._C._cuda_getCurrentRawStream``
+    (the current stream's handle, as Triton launches on it): building
+    ``torch.cuda.current_stream()``'s Python object cost the host more
+    than the launch itself."""
+
+    def __init__(self, source: Path, name: str, fields: int):
+        self.source, self.name = source, name
+        self._pack = struct.Struct(f"{int(fields)}q").pack
+        self._fn = None
+
+    def __call__(self, device: int, *fields: int) -> None:
+        """Launch on card ``device`` (its index); raises on a CUDA error."""
+        fn = self._fn
+        if fn is None:
+            fn = self._fn = entry(self.source, self.name, [ctypes.c_char_p, ctypes.c_void_p])
+        if device == torch.cuda.current_device():
+            err = fn(self._pack(*fields), torch._C._cuda_getCurrentRawStream(device))
+        else:
+            with torch.cuda.device(device):
+                err = fn(self._pack(*fields), torch._C._cuda_getCurrentRawStream(device))
+        if err:
+            raise RuntimeError(f"{self.name} kernel launch failed: CUDA error {err}")

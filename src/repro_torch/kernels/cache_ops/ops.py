@@ -9,7 +9,6 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.core.lanes import take_fill
 from repro_torch.kernels.cache_ops import kernel as _kernel
 from repro_torch.kernels.cache_ops import ref as _ref
 from repro_torch.kernels.cache_ops.ref import PlanImage
@@ -17,12 +16,15 @@ from repro_torch.kernels.cache_ops.ref import PlanImage
 __all__ = [
     "PAD_RANK",
     "PlanImage",
+    "arena_gather_encode_impl",
     "arena_gather_impl",
     "bucketize_impl",
     "compact_front_impl",
     "dedup_impl",
     "merge_candidates_impl",
     "plan_image_impl",
+    "route_bucketize_impl",
+    "route_image_impl",
     "shard_bucketize",
     "victim_topk_impl",
 ]
@@ -56,6 +58,26 @@ def bucketize_impl(owner: torch.Tensor, local: torch.Tensor, num_shards: int) ->
     return _kernel.bucketize(owner.contiguous(), local.contiguous(), num_shards)
 
 
+def route_bucketize_impl(
+    uniq: torch.Tensor, rank_owner: torch.Tensor, rank_local: torch.Tensor, rep_k: int,
+    num_shards: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The router's route and ``[S, U]`` image of the dedup'd ranks:
+    ``(owner, local, image)``, -1 on replicated and padding lanes (one
+    launch of the bucketize kernel's route entry on CUDA tensors)."""
+    return _kernel.route_bucketize(uniq.contiguous(), rank_owner, rank_local, rep_k, num_shards)
+
+
+def route_image_impl(
+    uniq: torch.Tensor, rank_owner: torch.Tensor, rank_local: torch.Tensor, rep_k: int,
+    num_shards: int,
+) -> torch.Tensor:
+    """The router's ``[S, U]`` image of the dedup'd ranks, -1 on replicated
+    and padding lanes (one launch of the bucketize kernel's route entry,
+    the image alone, on CUDA tensors)."""
+    return _kernel.route_image(uniq.contiguous(), rank_owner, rank_local, rep_k, num_shards)
+
+
 def shard_bucketize(
     rank: torch.Tensor,
     rank_owner: torch.Tensor,
@@ -73,11 +95,9 @@ def shard_bucketize(
     uniq, _ = dedup_impl(key, u, PAD_RANK)
     uniq = uniq.to(torch.int32)
     pos = torch.clamp_max(torch.searchsorted(uniq, key), u - 1).to(torch.int32)
-    ok = uniq >= rep_k  # replicated head lanes never enter the exchange
-    safe = torch.where(ok, uniq, 0)
-    owner_u = torch.where(ok, take_fill(rank_owner, safe, -1), -1)
-    local_u = torch.where(ok, take_fill(rank_local, safe, -1), -1)
-    return uniq, pos, owner_u, local_u, bucketize_impl(owner_u, local_u, num_shards)
+    # replicated head lanes never enter the exchange
+    return (uniq, pos,
+            *route_bucketize_impl(uniq, rank_owner, rank_local, rep_k, num_shards))
 
 
 def plan_image_impl(rows: torch.Tensor, row_to_slot: torch.Tensor, k: int) -> PlanImage:
@@ -94,3 +114,18 @@ def arena_gather_impl(
     """Tiered-arena gather + decode of one fp32 leaf: fp32 ``[K, D]`` rows
     of ``slots`` (fp16 / int8 tail codecs)."""
     return _kernel.gather_decode(head, tail, sideband, slots, codec)
+
+
+def arena_gather_encode_impl(
+    head: torch.Tensor,
+    tail: torch.Tensor,
+    sideband: Optional[torch.Tensor],
+    slots: torch.Tensor,
+    codec: str,
+    host_codec: str,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Tiered-arena gather + decode of one fp32 leaf, encoded for a host
+    tier of ``host_codec`` (fp16 / int8): ``(payload, sideband or None)``,
+    in one launch of the gather-decode kernel's encode entry on CUDA
+    tensors."""
+    return _kernel.gather_decode_encode(head, tail, sideband, slots, codec, host_codec)

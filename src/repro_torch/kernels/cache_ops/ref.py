@@ -14,6 +14,9 @@
 * ``arena_gather`` — decode-on-read gather over one tiered arena leaf.
 * ``bucketize`` — the sharded router's ``[S, U]`` per-shard routing image
   (``kernel.bucketize_plain``, which the CUDA kernel is held against).
+* ``route`` — the router's ranks -> (owning shard, local row)
+  (``kernel.route_plain``: the route the fused route + image kernel is held
+  against).
 
 The reference's uint32 keys are carried here as int64 values (torch's
 uint32 supports too few ops): ``ordered_u32(key) = key + 2**31``.
@@ -27,6 +30,7 @@ import torch
 
 from repro_torch.core.lanes import i32, scatter_drop, take_fill
 from repro_torch.kernels.cache_ops.kernel import bucketize_plain as bucketize
+from repro_torch.kernels.cache_ops.kernel import route_plain as route
 from repro_torch.kernels.cache_ops.kernel import victim_threshold_plain
 
 __all__ = [
@@ -38,6 +42,7 @@ __all__ = [
     "merge_candidates",
     "ordered_u32",
     "plan_image",
+    "route",
     "topk_select",
     "victim_topk",
 ]

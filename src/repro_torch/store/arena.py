@@ -19,12 +19,15 @@ Unlike the functional reference, :meth:`ArenaStore.scatter_slots` and
 :meth:`ArenaStore.replace_leaf` update the store's tensors in place (with
 no host sync) and return the store.  Row reads go through
 ``kernels.cache_ops.ops.arena_gather_impl``: the hand-written CUDA
-gather + decode on the card, its plain torch version on the CPU.
+gather + decode on the card, its plain torch version on the CPU; a
+write-back into an encoded host tier reads through
+``arena_gather_encode_impl``, the same kernel's entry that encodes for the
+host in the same launch.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -126,6 +129,24 @@ class ArenaStore:
         for k, leaf in self.raw.items():
             out[k] = take_fill(leaf, slots, 0)
         return out
+
+    def gather_encoded_slots(
+        self, slots: torch.Tensor, host_codec: str
+    ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+        """:meth:`gather_slots` for a write-back into a host tier of
+        ``host_codec`` (fp16 / int8): each head leaf comes back as that tier
+        stores it, its payload and its sideband, from one
+        gather-decode-encode launch on the card (no fp32 rows in between).
+        Returns ``(rows of the raw leaves, payload, sideband)``."""
+        payload: Dict[str, torch.Tensor] = {}
+        side: Dict[str, torch.Tensor] = {}
+        for k, hleaf in self.head.items():
+            payload[k], s = cache_ops.arena_gather_encode_impl(
+                hleaf, self.tail[k], self.sideband.get(k), slots, self.codec, host_codec)
+            if s is not None:
+                side[k] = s
+        rows = {k: take_fill(leaf, slots, 0) for k, leaf in self.raw.items()}
+        return rows, payload, side
 
     def scatter_slots(
         self,

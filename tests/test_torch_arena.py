@@ -1,5 +1,6 @@
 """The port's row codecs, tiered ``ArenaStore`` and plain gather-decode
-against the JAX package, on numpy-seeded inputs.
+(and gather + decode + host encode) against the JAX package, on
+numpy-seeded inputs.
 
 Tolerances: the codecs, the ``ArenaStore`` ops and the plain
 ``arena_gather`` run the reference's ops in its order, one eager op each,
@@ -20,6 +21,7 @@ from repro.kernels.cache_ops import ref as jref
 from repro.store.arena import ArenaStore as JArenaStore
 from repro.store.arena import tiered_arena_bytes as jtiered_arena_bytes
 from repro.store.codec import get_codec as jget_codec
+from repro.store.host_store import HostStore as JHostStore
 from repro_torch.convert import to_numpy
 from repro_torch.kernels.cache_ops import kernel, ops, ref
 from repro_torch.store.arena import ArenaStore, tiered_arena_bytes
@@ -165,3 +167,44 @@ def test_wrapper_takes_the_plain_version_on_cpu(codec):
     assert kernel.gather_decode.launches == before
     with pytest.raises(ValueError):
         kernel.gather_decode(*args, "fp32")
+
+
+def _bits_equal(want, got):
+    want, got = np.asarray(want), got.numpy()
+    assert want.dtype == got.dtype and want.shape == got.shape, (want.dtype, got.dtype)
+    assert np.array_equal(want.view(np.uint8), got.view(np.uint8))
+
+
+@pytest.mark.parametrize("d", [8, 13])
+@pytest.mark.parametrize("host", CODECS)
+@pytest.mark.parametrize("codec", CODECS)
+def test_gather_decode_encode_matches_reference(codec, host, d):
+    """The fused gather + decode + host encode (its plain version on the
+    CPU) bitwise the reference's arena ``gather_slots`` then the host
+    store's ``encode_block``: fp16 / int8 tails into fp16 / int8 hosts,
+    out-of-range slots, constant rows (mx = mn) in the head and the tail;
+    also through the ops entry and ``ArenaStore.gather_encoded_slots``."""
+    x = _rows(32, d, seed=d)
+    x[9], x[10] = -1.5, 0.0  # constant tail rows (the head holds slots 0-7)
+    ja = JArenaStore.create({"weight": jnp.asarray(x)}, 8, codec)
+    ta = ArenaStore.create({"weight": torch.from_numpy(x)}, 8, codec)
+    slots = np.concatenate([_SLOTS, [1, 10, 30]]).astype(np.int32)
+    jstore = JHostStore.create({"weight": jnp.zeros((1, d), jnp.float32)}, host)
+    want_p, want_s = jstore.encode_block(ja.gather_slots(jnp.asarray(slots)))
+    args = (ta.head["weight"], ta.tail["weight"], ta.sideband.get("weight"),
+            torch.from_numpy(slots))
+    before = (kernel.gather_decode.launches, kernel.gather_decode.fused_launches)
+    payload, side = kernel.gather_decode_encode(*args, codec, host)
+    assert (kernel.gather_decode.launches, kernel.gather_decode.fused_launches) == before
+    _bits_equal(want_p["weight"], payload)
+    if host == "int8":
+        _bits_equal(want_s["weight"], side)
+    else:
+        assert side is None and not want_s
+    p2, s2 = ops.arena_gather_encode_impl(*args, codec, host)
+    assert torch.equal(p2, payload) and (s2 is None or torch.equal(s2, side))
+    rows, p3, s3 = ta.gather_encoded_slots(torch.from_numpy(slots), host)
+    assert not rows and torch.equal(p3["weight"], payload)
+    assert set(s3) == ({"weight"} if host == "int8" else set())
+    with pytest.raises(ValueError):
+        kernel.gather_decode_encode(*args, codec, "fp32")

@@ -9,7 +9,11 @@
 * the sharded router's ``[S, U]`` bucketize image against the reference's
   ``ref.bucketize`` and ``bucketize_pallas`` in interpret mode, and the
   fused ``shard_bucketize`` front end's five outputs against the
-  reference's, bitwise.
+  reference's, bitwise;
+* the route + bucketize entry's plain route on the CPU (no launch): the
+  route's edge lanes (replicated, negative, padding and past-the-table
+  ranks), bitwise its torch composition;
+* each wrapper's packed launch against its C entry's argument struct.
 
 The CUDA kernels are held against their plain versions on the card by
 ``test_torch_cuda.py``.
@@ -185,6 +189,41 @@ def test_shard_bucketize_matches_reference(s, rep_k):
             assert w.dtype == g.numpy().dtype and np.array_equal(w, g.numpy()), (s, lanes, name)
 
 
+@pytest.mark.parametrize("rep_k", [0, 3])
+def test_route_bucketize_wrapper_takes_plain_route_on_cpu(rep_k):
+    """``route_bucketize`` on CPU tensors launches nothing and returns the
+    route's ``(owner, local)`` and the image, -1 on every lane below
+    ``rep_k``, negative, the padding rank or past the tables;
+    ``route_image`` returns that image alone."""
+    owner_map = torch.tensor([1, 0, 2, 1, 0, 2, 1], dtype=torch.int32)
+    local_map = torch.tensor([0, 0, 0, 1, 1, 1, -1], dtype=torch.int32)
+    uniq = torch.tensor([-1, 0, 2, 3, 5, 6, 7, 40, INT_MAX], dtype=torch.int32)
+    before = (kernel.bucketize.launches, kernel.bucketize.fused_launches)
+    owner, local, image = kernel.route_bucketize(uniq, owner_map, local_map, rep_k, 3)
+    assert (kernel.bucketize.launches, kernel.bucketize.fused_launches) == before
+    routed = [rep_k <= r < 7 for r in uniq.tolist()]
+    assert owner.tolist() == [owner_map[r].item() if ok else -1
+                              for r, ok in zip(uniq.tolist(), routed)]
+    assert local.tolist() == [local_map[r].item() if ok else -1
+                              for r, ok in zip(uniq.tolist(), routed)]
+    assert torch.equal(image, kernel.bucketize_plain(owner, local, 3))
+    for got, want in zip((owner, local, image), kernel.route_bucketize_plain(
+            uniq, owner_map, local_map, rep_k, 3)):
+        assert got.dtype == torch.int32 and torch.equal(got, want)
+    for got, want in zip(ops.route_bucketize_impl(uniq, owner_map, local_map, rep_k, 3),
+                         (owner, local, image)):
+        assert torch.equal(got, want)
+    for got in (kernel.route_image(uniq, owner_map, local_map, rep_k, 3),
+                kernel.route_image_plain(uniq, owner_map, local_map, rep_k, 3),
+                ops.route_image_impl(uniq, owner_map, local_map, rep_k, 3)):
+        assert got.dtype == torch.int32 and torch.equal(got, image)
+    assert (kernel.bucketize.launches, kernel.bucketize.fused_launches) == before
+    with pytest.raises(ValueError):
+        kernel.route_bucketize(uniq.to("meta"), owner_map, local_map, rep_k, 3)
+    with pytest.raises(ValueError):
+        kernel.route_image(uniq.to("meta"), owner_map, local_map, rep_k, 3)
+
+
 def _radix_select(key, kv, parts):
     """``csrc/victim_threshold.cu``'s radix select in numpy, pass by pass:
     the keys cut into ``parts`` slices as the CTAs hold them; each pass
@@ -247,3 +286,40 @@ def test_radix_select_emulation_matches_plain_and_pallas(name):
     assert (int(t), int(n_gt)) == (int(np.asarray(t_want)), int(np.asarray(n_want)))
     for parts in (1, 16, 132):
         assert _radix_select(key, kv, parts) == (int(t), int(n_gt)), parts
+
+
+def _c_struct_fields(source: str, struct: str) -> list:
+    """The fields of C ``struct`` in ``source`` as (type, name), a member
+    that is itself a struct of the source expanded into its fields."""
+    import re
+
+    body = re.search(r"struct %s \{(.*?)\};" % struct, source, re.S).group(1)
+    fields = []
+    for line in body.splitlines():
+        decl = line.split("//")[0].strip()
+        if not decl:
+            continue
+        m = re.fullmatch(r"(.+?)\s*(\w+);", decl)
+        assert m, decl
+        typ, name = m.group(1).strip(), m.group(2)
+        if re.fullmatch(r"\w+Args", typ):
+            fields += _c_struct_fields(source, typ)
+        else:
+            fields.append((typ, name))
+    return fields
+
+
+@pytest.mark.parametrize("name", ["gather_decode", "gather_decode_encode", "bucketize",
+                                  "route_bucketize"])
+def test_launch_packs_the_fields_of_its_c_struct(name):
+    """Each cache-op wrapper's ``build.Kernel`` packs as many 8-byte fields
+    as its C entry's argument struct has, each field a pointer or a
+    ``long long`` (a mismatch shows only at the first launch on a card)."""
+    import re
+
+    launcher = getattr(kernel, "_" + name)
+    source = launcher.source.read_text()
+    struct = re.search(r'extern "C" int %s\(const (\w+)\* a' % name, source).group(1)
+    fields = _c_struct_fields(source, struct)
+    assert all(t == "long long" or t.endswith("*") for t, _ in fields), fields
+    assert launcher._pack.__self__.size == 8 * len(fields), (name, fields)

@@ -1,7 +1,9 @@
 """Card-only paths of the port against their CPU versions, on the card:
 the CUDA kernels (victim threshold, one launch and no memset per call;
-tiered-arena gather + decode, FM interaction, embedding bag for one
-feature and for many in one launch, bucketize, flash attention's bf16
+tiered-arena gather + decode, and its fused host encode for fp16 / int8
+host tiers (one launch, rows with signed-zero extremes too), FM
+interaction, embedding bag for one feature and for many in one launch,
+bucketize and its fused route + image entry (one launch), flash attention's bf16
 tensor-core, fp32 3xTF32 tensor-core and fp32 SIMT kernels) against their
 plain PyTorch versions
 (bitwise; the FM kernel within the reference's sweep tolerances, flash
@@ -277,6 +279,181 @@ def test_gather_decode_kernel_rejects_bad_input(cuda):
         kernel.gather_decode(head.t(), tail, side, slots, "int8")  # not contiguous
     with pytest.raises(ValueError):
         kernel.gather_decode(head, tail, side, slots.cpu(), "int8")  # mixed devices
+
+
+def _bits(x):
+    return x.view({1: torch.int8, 2: torch.int16, 4: torch.int32}[x.element_size()])
+
+
+def _fused_args(rng, codec, d, k):
+    """``_tiered_args`` with constant rows (mx = mn): head row 0 at 0.75,
+    head row 1 zeros, tail row 0 decoding to one value; slots on them."""
+    head, tail, side, slots = _tiered_args(rng, codec, h=37, t=91, d=d, k=k)
+    head[0], head[1] = 0.75, 0.0
+    tail[0] = 0 if codec == "int8" else 1.5
+    return head, tail, side, torch.cat([slots, torch.tensor([0, 1, 37], dtype=torch.int32)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("d", [8, 16, 36, 128, 5])
+@pytest.mark.parametrize("host", ["fp16", "int8"])
+@pytest.mark.parametrize("codec", ["fp16", "int8"])
+def test_gather_decode_encode_kernel_matches_plain(cuda, codec, host, d, offset):
+    """The fused gather + decode + host encode, bitwise its plain version
+    (payload and sideband bits): out-of-range slots, constant rows, the
+    scalar path (D 5, and views off their 16 B boundary); one launch,
+    counted on both counters."""
+    rng = np.random.default_rng(d + 3 * offset)
+    args = _fused_args(rng, codec, d, 300)
+    want = kernel.gather_decode_encode_plain(*args, codec, host)
+    dev = [None if a is None else
+           torch.empty(a.numel() + offset, dtype=a.dtype, device=cuda)[offset:].view(a.shape)
+           .copy_(a) for a in args]
+    before = (kernel.gather_decode.launches, kernel.gather_decode.fused_launches)
+    got = ops.arena_gather_encode_impl(*dev, codec, host)
+    torch.cuda.synchronize()
+    assert (kernel.gather_decode.launches, kernel.gather_decode.fused_launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(_bits(got[0].cpu()), _bits(want[0]))
+    if host == "int8":
+        assert torch.equal(_bits(got[1].cpu()), _bits(want[1]))
+    else:
+        assert got[1] is None and want[1] is None
+    on_card = kernel.gather_decode_encode_plain(*dev, codec, host)
+    assert torch.equal(_bits(got[0]), _bits(on_card[0]))
+
+
+@pytest.mark.cuda
+def test_gather_decode_encode_rows_with_signed_zero_extremes(cuda):
+    """Rows whose extremes are zeros of both signs, each order, all -0, and
+    a -0 minimum under a positive maximum: payload and scale bitwise the
+    plain version on the card, zp equal by value (its sign may differ:
+    torch's min / max over +-0 ties depends on its reduction order); an
+    fp16 host bitwise."""
+    rows = torch.zeros((6, 128), device=cuda)
+    rows[0, 1::2] = -0.0
+    rows[1] = -0.0
+    rows[1, 1::2] = 0.0
+    rows[2] = -0.0
+    rows[3, ::3] = -0.0
+    rows[4, 0], rows[4, 1] = -0.0, 2.0
+    rows[5] = torch.linspace(-1, 1, 128, device=cuda)
+    args = (rows, torch.zeros((1, 128), dtype=torch.int8, device=cuda),
+            torch.ones((1, 2), device=cuda), torch.arange(6, dtype=torch.int32, device=cuda))
+    got = kernel.gather_decode_encode(*args, "int8", "int8")
+    want = kernel.gather_decode_encode_plain(*args, "int8", "int8")
+    assert torch.equal(_bits(got[0]), _bits(want[0]))
+    assert torch.equal(_bits(got[1][:, 0]), _bits(want[1][:, 0]))
+    assert torch.equal(got[1][:, 1], want[1][:, 1])
+    for r in (2, 4, 5):  # no tie of signed zeros between min and max: bitwise
+        assert torch.equal(_bits(got[1][r]), _bits(want[1][r])), r
+    g16 = kernel.gather_decode_encode(*args, "int8", "fp16")[0]
+    assert torch.equal(_bits(g16), _bits(kernel.gather_decode_encode_plain(*args, "int8",
+                                                                           "fp16")[0]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [128, 5])
+def test_gather_decode_encode_rows_with_nan_and_inf(cuda, d):
+    """Rows holding a NaN, +inf, -inf, both infinities, or only +inf (head
+    rows, so no decode hides them), among finite rows: an int8 host's
+    codes bitwise the plain version on the card (torch's amin / amax keep
+    the NaN, its clamp keeps it, its cast makes it 0), the sideband NaN
+    where the plain version's is and bitwise elsewhere; an fp16 host
+    bitwise.  Vector (D 128) and scalar (D 5) paths."""
+    rows = torch.linspace(-2, 3, 8 * d, device=cuda).reshape(8, d)
+    rows[0, d // 2] = float("nan")
+    rows[1, 1] = float("inf")
+    rows[2, d - 1] = -float("inf")
+    rows[3, 0], rows[3, 2] = float("inf"), -float("inf")
+    rows[4] = float("inf")
+    rows[5, 0], rows[5, 1] = float("nan"), float("inf")
+    args = (rows, torch.zeros((1, d), dtype=torch.int8, device=cuda),
+            torch.ones((1, 2), device=cuda), torch.arange(8, dtype=torch.int32, device=cuda))
+    got = kernel.gather_decode_encode(*args, "int8", "int8")
+    want = kernel.gather_decode_encode_plain(*args, "int8", "int8")
+    assert torch.equal(_bits(got[0]), _bits(want[0]))
+    nan = want[1].isnan()
+    assert bool(nan[0].all()) and torch.equal(got[1].isnan(), nan)
+    assert torch.equal(_bits(got[1][~nan]), _bits(want[1][~nan]))
+    for r in (6, 7):  # the finite rows as before
+        assert torch.equal(_bits(got[1][r]), _bits(want[1][r])), r
+    g16 = kernel.gather_decode_encode(*args, "int8", "fp16")[0]
+    w16 = kernel.gather_decode_encode_plain(*args, "int8", "fp16")[0]
+    assert torch.equal(g16.isnan(), w16.isnan())
+    assert torch.equal(_bits(g16[~w16.isnan()]), _bits(w16[~w16.isnan()]))
+
+
+def _one_device_op(fn):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # built and loaded
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+@pytest.mark.cuda
+def test_fused_calls_are_one_kernel_each(cuda):
+    """gather_decode_encode, route_bucketize and route_image: one device op
+    a call, no memset, no elementwise kernel."""
+    rng = np.random.default_rng(4)
+    args = [a.to(cuda) for a in _tiered_args(rng, "int8", 1000, 3000, 128, 25_000)]
+    names = _one_device_op(lambda: kernel.gather_decode_encode(*args, "int8", "int8"))
+    assert len(names) == 1 and "gather_decode_encode" in names[0], names
+    table = torch.from_numpy(rng.integers(0, 4, 1 << 20).astype(np.int32)).to(cuda)
+    uniq = torch.from_numpy(rng.integers(0, 1 << 20, 425_984).astype(np.int32)).to(cuda)
+    for fn in (kernel.route_bucketize, kernel.route_image):
+        names = _one_device_op(lambda: fn(uniq, table, table, 2048, 4))
+        assert len(names) == 1 and "bucketize" in names[0], (fn.__name__, names)
+
+
+@pytest.mark.cuda
+def test_gather_decode_encode_kernel_rejects_bad_input(cuda):
+    rng = np.random.default_rng(0)
+    head, tail, side, slots = (a.to(cuda) for a in _tiered_args(rng, "int8", 4, 6, 8, 16))
+    with pytest.raises(ValueError):
+        kernel.gather_decode_encode(head, tail, side, slots, "int8", "fp32")  # no host codec
+    with pytest.raises(ValueError):
+        kernel.gather_decode_encode(head, tail, None, slots, "int8", "int8")
+    with pytest.raises(ValueError):
+        kernel.gather_decode_encode(head, tail, side, slots.long(), "int8", "int8")
+    with pytest.raises(ValueError):
+        kernel.gather_decode_encode(head, tail, side, slots.cpu(), "int8", "int8")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("host", ["fp16", "int8"])
+def test_writeback_into_encoded_host_fuses_the_encode(cuda, host):
+    """A write-back from a tiered arena on the card into a pinned fp16 /
+    int8 host tier: one gather_decode_encode launch a round and no other
+    gather-decode launch, the host leaves bitwise the CPU move's."""
+    rng = np.random.default_rng(11)
+    vocab, cap, dim, k = 1000, 300, 16, 256
+    table = torch.from_numpy(rng.normal(size=(vocab, dim)).astype(np.float32))
+    arena = torch.from_numpy(rng.normal(size=(cap, dim)).astype(np.float32))
+    src = torch.from_numpy(rng.integers(-1, cap, size=k).astype(np.int32))
+    dst = torch.from_numpy(rng.permutation(vocab)[:k].astype(np.int32))
+    active = torch.from_numpy(rng.random(k) < 0.8)
+    want_store = HostStore.create({"w": table.clone()}, host)
+    got_store = HostStore.create({"w": table.clone()}, host, pin=True)
+    try:
+        transmitter.move_rows(ArenaStore.create({"w": arena.clone()}, 75, "int8"), want_store,
+                              src, dst, active, buffer_rows=100)
+        before = (kernel.gather_decode.launches, kernel.gather_decode.fused_launches)
+        transmitter.move_rows(ArenaStore.create({"w": arena.to(cuda)}, 75, "int8"), got_store,
+                              src.to(cuda), dst.to(cuda), active.to(cuda), buffer_rows=100)
+        rounds = -(-int(active.sum()) // 100)
+        assert (kernel.gather_decode.launches, kernel.gather_decode.fused_launches) == (
+            before[0] + rounds, before[1] + rounds)
+        for name, t in _store_leaves(want_store).items():
+            assert torch.equal(_bits(_store_leaves(got_store)[name]), _bits(t)), name
+    finally:
+        got_store.close()
 
 
 @pytest.mark.cuda
@@ -613,6 +790,62 @@ def test_bucketize_kernel_rejects_bad_input(cuda):
         kernel.bucketize(x, x, 0)
     with pytest.raises(ValueError):
         kernel.bucketize(x, x.cpu(), 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 2, 4, 8])
+def test_route_bucketize_kernel_matches_plain(cuda, s):
+    """The route + bucketize kernel's owner, local and image, and its
+    image-only entry (``route_image``, the sharded plan's call), bitwise
+    the plain version: rep_k 0 and 2048, U % 4 != 0, uniq off its 16 B
+    boundary, negative, padding and past-the-table ranks, every lane
+    padding, every lane replicated; one launch a call on both counters."""
+    from repro_torch.kernels.cache_ops.ops import PAD_RANK
+
+    rng = np.random.default_rng(20 + s)
+    n = 1 << 16
+    r_owner = torch.from_numpy(rng.integers(0, s, n).astype(np.int32)).to(cuda)
+    r_local = torch.from_numpy(rng.integers(-1, n // s, n).astype(np.int32)).to(cuda)
+    for rep_k in (0, 2048):
+        for u in (0, 1, 3, 4, 4097, 425_984):
+            ranks = rng.integers(-2, n + 2, size=u).astype(np.int32)
+            ranks[rng.random(u) < 0.05] = PAD_RANK
+            for offset in (0, 1):
+                uniq = torch.empty(u + offset, dtype=torch.int32, device=cuda)[offset:]
+                uniq.copy_(torch.from_numpy(ranks))
+                before = (kernel.bucketize.launches, kernel.bucketize.fused_launches)
+                got = kernel.route_bucketize(uniq, r_owner, r_local, rep_k, s)
+                assert (kernel.bucketize.launches, kernel.bucketize.fused_launches) == (
+                    before[0] + (1 if u else 0), before[1] + (1 if u else 0))
+                want = kernel.route_bucketize_plain(uniq, r_owner, r_local, rep_k, s)
+                for g, w, part in zip(got, want, ("owner", "local", "image")):
+                    assert torch.equal(g, w), (rep_k, u, offset, part)
+                image = kernel.route_image(uniq, r_owner, r_local, rep_k, s)
+                assert (kernel.bucketize.launches, kernel.bucketize.fused_launches) == (
+                    before[0] + (2 if u else 0), before[1] + (2 if u else 0))
+                assert torch.equal(image, want[2]), (rep_k, u, offset, "image alone")
+    for lanes in (torch.full((4097,), PAD_RANK), torch.arange(4097) % 2048):
+        lanes = lanes.to(torch.int32).to(cuda)
+        got = kernel.route_bucketize(lanes, r_owner, r_local, 2048, s)
+        got += (kernel.route_image(lanes, r_owner, r_local, 2048, s),)
+        assert all(bool((g == -1).all()) for g in got)
+
+
+@pytest.mark.cuda
+def test_route_bucketize_kernel_rejects_bad_input(cuda):
+    x = torch.zeros(8, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        kernel.route_bucketize(x.to(torch.int64), x, x, 0, 2)
+    with pytest.raises(ValueError):
+        kernel.route_bucketize(x, x, x[:4], 0, 2)  # the tables differ in length
+    with pytest.raises(ValueError):
+        kernel.route_bucketize(x, x, x, 0, 0)
+    with pytest.raises(ValueError):
+        kernel.route_bucketize(x, x.cpu(), x, 0, 2)
+    with pytest.raises(ValueError):
+        kernel.route_image(x, x, x[:4], 0, 2)
+    with pytest.raises(ValueError):
+        kernel.route_image(x, x, x, 0, 0)
 
 
 @pytest.mark.cuda

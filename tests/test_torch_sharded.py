@@ -184,8 +184,9 @@ def test_sharded_lookup_matches_reference_bitwise(S, K):
 
 @pytest.mark.parametrize("fused", [False, True])
 def test_router_pieces_match_reference(fused):
-    """``_dedup`` / ``_route`` / ``_bucketize`` / ``_compact_lanes`` /
-    ``_combine_slots`` bitwise on one live state, both dedup routes."""
+    """``_dedup`` / ``_route`` / ``_bucketize`` (and ``_route_image``) /
+    ``_compact_lanes`` / ``_combine_slots`` bitwise on one live state,
+    both dedup and image routes."""
     (jc, js), (tc, ts) = _pair(3, 8)
     jslab, tslab = js.slabs[SHARED_ARENA], ts.slabs[SHARED_ARENA]
     rng = np.random.default_rng(5)
@@ -201,7 +202,8 @@ def test_router_pieces_match_reference(fused):
     to, tl = tc._route(tslab, tu)
     _equal(jo, to)
     _equal(jl, tl)
-    _equal(jc._bucketize(jo, jl, fused=fused), tc._bucketize(to, tl, fused=fused))
+    _equal(jc._bucketize(jo, jl), tc._bucketize(to, tl))
+    _equal(jc._bucketize(jo, jl, fused=fused), tc._route_image(tslab, tu, fused=fused))
     for width in (3, 9, 40):
         for w, g in zip(jc._compact_lanes(jo, jl, width), tc._compact_lanes(to, tl, width)):
             _equal(w, g)
@@ -211,6 +213,44 @@ def test_router_pieces_match_reference(fused):
     slots[:1, 20:] = -1
     _equal(JSharded._combine_slots(jnp.asarray(slots), 20),
            ShardedEmbeddingCollection._combine_slots(torch.from_numpy(slots), 20))
+
+
+@pytest.mark.parametrize("S,K", [(1, 0), (1, 8), (2, 0), (2, 8), (4, 0), (4, 8)])
+def test_route_bucketize_matches_reference_route_and_bucketize(S, K):
+    """The router's fused route + image entry (its plain route on the CPU)
+    bitwise the reference's ``_route`` then ``_bucketize`` on converted
+    slab state: a batch's dedup'd ranks (U = 41, not a multiple of 4),
+    ranks at and past the tables' ends, every lane padding, every lane
+    replicated; the image-only entry; and ``_route_image`` by both
+    routes."""
+    from repro_torch.kernels.cache_ops import kernel
+    from repro_torch.kernels.cache_ops.ops import PAD_RANK
+
+    (jc, js), (tc, ts) = _pair(S, K)
+    jslab, tslab = js.slabs[SHARED_ARENA], ts.slabs[SHARED_ARENA]
+    n = int(tslab.rank_owner.shape[0])
+    rng = np.random.default_rng(S * 10 + K)
+    raw = rng.integers(-1, 608, 41).astype(np.int32)
+    uniq = np.array(JSharded._dedup(jc._rank_ids(jslab, jnp.asarray(raw)), 608, fused=True)[0])
+    cases = {"batch": uniq,
+             "table ends": np.array([0, K, n - 1, n, n + 5, PAD_RANK, -1], np.int32),
+             "padding": np.full((9,), PAD_RANK, np.int32)}
+    if K:
+        cases["replicated"] = np.arange(K, dtype=np.int32)
+    for name, u in cases.items():
+        jo, jl = jc._route(jslab, jnp.asarray(u))
+        want = (jo, jl, jc._bucketize(jo, jl, fused=True))
+        got = kernel.route_bucketize(torch.from_numpy(u), tslab.rank_owner, tslab.rank_local,
+                                     K, S)
+        got += (kernel.route_image(torch.from_numpy(u), tslab.rank_owner, tslab.rank_local,
+                                   K, S),)
+        for w, g, part in zip(want + want[2:], got, ("owner", "local", "image", "image alone")):
+            w = np.asarray(w)
+            assert w.dtype == g.numpy().dtype and np.array_equal(w, g.numpy()), (name, part)
+        for fused in (False, True):
+            assert torch.equal(tc._route_image(tslab, torch.from_numpy(u), fused=fused), got[2])
+        if name in ("padding", "replicated"):
+            assert bool((got[2] == -1).all()), name
 
 
 @pytest.mark.parametrize("codec", ["fp16", "int8"])

@@ -265,6 +265,45 @@ def test_chunked_load_into_arena_matches_reference(host, arena, chunk):
                               got.gather_slots(slots)["weight"].numpy())
 
 
+@pytest.mark.parametrize("host", ["fp16", "int8"])
+@pytest.mark.parametrize("arena", ["fp16", "int8"])
+def test_writeback_from_tiered_arena_into_encoded_host_matches_reference(arena, host,
+                                                                         monkeypatch):
+    """A write-back from a tiered arena into an fp16 / int8 host tier in one
+    round: the leaf packed by one gather-decode-encode call (no
+    ``encode_block`` of fp32 rows), the host payload and sideband bitwise
+    the eager reference's ``move_rows`` (``gather_slots`` then
+    ``encode_block``); a constant tail row and -1 source lanes included."""
+    from repro.store.arena import ArenaStore as JArenaStore
+    from repro_torch.kernels.cache_ops import ops
+    from repro_torch.store.arena import ArenaStore
+
+    calls = []
+    impl = ops.arena_gather_encode_impl
+
+    def counted(*args):
+        calls.append(args[-1])
+        return impl(*args)
+
+    monkeypatch.setattr(ops, "arena_gather_encode_impl", counted)
+    rng = np.random.default_rng(9)
+    table = rng.normal(size=(96, 8)).astype(np.float32) * 3
+    start = rng.normal(size=(24, 8)).astype(np.float32)
+    start[7] = 0.5  # a constant tail row (the head holds slots 0-5)
+    j_store = JHostStore.create({"weight": jnp.asarray(table)}, host)
+    t_store = HostStore.create({"weight": torch.from_numpy(table.copy())}, host)
+    j_arena = JArenaStore.create({"weight": jnp.asarray(start)}, 6, arena)
+    t_arena = ArenaStore.create({"weight": torch.from_numpy(start.copy())}, 6, arena)
+    src, dst, active = _lanes(rng, 20, 24, 96)
+    src[:2], active[:2] = 7, [True, False]  # the constant row, once active
+    want = jtx.move_rows(j_arena, j_store, *map(jnp.asarray, (src, dst, active)), buffer_rows=64)
+    got = tx.move_rows(t_arena, t_store, *_t(src, dst, active), buffer_rows=64)
+    assert got is t_store and calls == [host]
+    assert_tree_equal(jax_to_numpy(want.data), to_numpy(got.data))
+    assert_tree_equal(jax_to_numpy(want.sideband), to_numpy(got.sideband))
+    assert set(got.sideband) == ({"weight"} if host == "int8" else set())
+
+
 def test_chunked_staging_block_sized_by_unique_chunks():
     """One round's staging block holds its unique chunks, not
     ``buffer_rows`` x ``chunk_rows`` rows: 3 lanes in 2 chunks of 16 rows
