@@ -210,6 +210,34 @@ Phases (any failure exits non-zero, with no result line):
    row, bitwise).  Prints serve and train p50, a profiled step's idle
    share and the host wire bytes.  Both phases run with the launch counts
    at 0 before each run and read after it.
+15a. DIN (``configs/din.CONFIG``: items 10 000 000, categories 1 000 000,
+   users 1 000 256, dim 18, histories of 100, attention MLP 80-40, MLP
+   200-80, batch 65 536; ``use_pallas_plan``): a 12 000 256 x 18 fp32 host
+   table (864 MB) pinned, a 4 194 304-slot arena (the unique bound 2^22),
+   13 303 808 id lanes a plan (the history lanes past ``hist_len`` are
+   -1).  ``ServeEngine`` scores ``--batches`` batches (cached logits =
+   ``dense_reference`` logits within rtol 1e-5 / atol 1e-6, no overflow,
+   one threshold launch a plan), the threshold is held bitwise to its plain
+   version (victim order = argsort) on one more plan's live 4 194 304-entry
+   key, ``retrieval_score`` scores one user against 65 536 candidates
+   (finite, shape [65 536]; a CUT from ``N_CANDIDATES`` = 10^6, logged:
+   DIN's attention input alone would be 57.6 GB there), then the
+   ``Trainer`` takes ``--train-steps`` steps and flushes (every resident
+   slot = its host row, bitwise).  Prints serve p50 / p99, train p50, the
+   hit rate, peak device memory, a profiled step's idle share.  The
+   batches are built before the timed loops (``recsys_batch`` takes ~0.3 s
+   of host time at 65 536 x 100).
+15b. DIEN (``configs/dien.CONFIG``: DIN's tables, a GRU and an AUGRU of 108
+   units): the same checks, ``DIEN_SERVE`` (4) batches and ``DIEN_TRAIN``
+   (4) steps at the published batch (autograd keeps ~55 GB of the card's
+   80 at B 65 536 x T 100 x H 108), retrieval at 10^6 candidates (GRU1's
+   states only, as in the reference).
+15c. MIND (``configs/mind.CONFIG``: items 4 000 000, users 1 000 000, dim
+   64, 4 interests, 3 routing iterations): a 1.28 GB host table, a
+   4 194 304-slot arena (1.07 GB); the same checks as 15a, retrieval at
+   10^6 candidates.  Each of 15a-15c runs with the launch counts at 0
+   before each run and read after it; the ``kernels`` line counts them
+   under ``din`` / ``dien`` / ``mind``.
 8. timing, last, in a fresh child process of this script, which loads the
    live inputs from a file under ``build/`` (``torch.profiler`` drops the
    device events of short windows around the port's kernels late in a long
@@ -233,8 +261,8 @@ Phases (any failure exits non-zero, with no result line):
    owner and local, and ``bucketize`` alone on that route's owner and
    local.  The
    threshold is timed on the DLRM serve plan's, FM's, phase 5d's depth-3
-   lookahead, 14a's and 14b's keys; each call must show one device op and
-   no memset.  The bag is timed as the main path calls
+   lookahead, 14a's, 14b's, 15a's and 15c's keys (DIN's and MIND's:
+   4 194 304 entries); each call must show one device op and no memset.  The bag is timed as the main path calls
    it, once over a live bag step's 26 features (against one
    ``F.embedding_bag`` call over the same bags; the ``kernels`` line
    carries this call), and alone on two live features, f0 (vocab 1460) and
@@ -294,9 +322,11 @@ Phases (any failure exits non-zero, with no result line):
    3xTF32, SIMT), the 3xTF32 kernel's device time from guarded profiler
    windows and its host enqueue, the plain version and SDPA, bound at 67
    TFLOP/s fp32, with the three TF32 products' floor at 495 TFLOP/s beside
-   it.
+   it; and the SIMT kernel (fp32 heads of 129-256) on phase 9's d 256
+   inputs beside its plain version and SDPA with the same mask, bound by
+   the FLOP of the pairs the mask keeps at 67 TFLOP/s.
 
-They run in the order 1-5e, 6-7b, 14a-14b, 9-13, 5f-5h, 8.  Each phase's
+They run in the order 1-5e, 6-7b, 14a-14b, 15a-15c, 9-13, 5f-5h, 8.  Each phase's
 seconds are printed.  The last three lines are the
 ``kernels`` JSON, the card's name and power limit, and ``{"ok": true,
 "device": {...}}``.  ``--vocab-scale`` < 1 cuts only the vocabularies
@@ -576,7 +606,7 @@ def device_ops(fn, iters: int = 5):
 def time_threshold(live, max_err, launches_by_path):
     """Times the kernel, its plain version and torch.topk on the main paths'
     live key vectors (the DLRM serve plan's, FM's, the depth-3 lookahead's,
-    the single table's and the Avazu DLRM's): back-to-back
+    the single table's, the Avazu DLRM's, DIN's and MIND's): back-to-back
     CUDA-event time (what a caller pays on the stream), summed device time
     per call by op, and the kernel wrapper's host enqueue time.  Every
     kernel call must show one device op and no memset.  The ``kernels``
@@ -3773,6 +3803,199 @@ def avazu_phase(dev, vocab_scale, n_serve=AVAZU_SERVE, n_train=AVAZU_TRAIN):
 
 
 # ---------------------------------------------------------------------------
+# phases 15a-15c: DIN, DIEN and MIND at full published width
+# ---------------------------------------------------------------------------
+
+RECSYS_CANDIDATES = {"din": 65536, "dien": 1_000_000, "mind": 1_000_000}  # retrieval widths
+DIEN_SERVE, DIEN_TRAIN = 4, 4  # 15b: served batches, train steps (a step runs 2 x 100 GRU cells)
+
+
+def _recsys_cfg(arch, vocab_scale):
+    """The arch's published config with ``use_pallas_plan``; ``vocab_scale``
+    < 1 cuts the tables only (never dim, widths, seq or batch)."""
+    from repro_torch.configs import dien, din, mind
+    from repro_torch.models.recsys_models import DIENModel, DINModel, MINDModel
+
+    mod, cls = {"din": (din, DINModel), "dien": (dien, DIENModel),
+                "mind": (mind, MINDModel)}[arch]
+    cfg = dataclasses.replace(mod.CONFIG, use_pallas_plan=True)
+    if vocab_scale != 1.0:
+        cut = {k: max(64, int(getattr(cfg, k) * vocab_scale))
+               for k in ("n_items", "n_cates", "n_users") if hasattr(cfg, k)}
+        cfg = dataclasses.replace(cfg, **cut)
+        log(f"CUT: {arch} tables scaled by {vocab_scale} ({cut}); dim, widths, seq and batch "
+            f"unchanged")
+    return cfg, cls(cfg)
+
+
+def _recsys_unique(coll, fb):
+    """(valid lanes, unique rows) of a feature batch over the shared arena."""
+    parts = []
+    for f, ids in fb.ids.items():
+        ids = ids.reshape(-1).cpu().numpy().astype(np.int64)
+        parts.append(ids[ids >= 0] + coll.table_slab[coll.feature_to_table[f]][1])
+    ids = np.concatenate(parts)
+    return ids.size, np.unique(ids).size
+
+
+def recsys_phase(dev, arch, vocab_scale, n_serve, n_train, n_cand):
+    """15a-15c: DIN, DIEN or MIND (``configs/{din,dien,mind}.CONFIG``,
+    ``use_pallas_plan``) at full published width: the host table pinned, a
+    4 194 304-slot arena (the unique bound).  ``ServeEngine`` scores
+    ``n_serve`` batches of 65 536 (cached logits = ``dense_reference``
+    logits, no overflow, one threshold launch a plan), the threshold is held
+    bitwise to its plain version on one more plan's live key,
+    ``retrieval_score`` scores one user against ``n_cand`` candidates
+    (finite, shape ``[n_cand]``), then the ``Trainer`` takes ``n_train``
+    steps and flushes (every resident slot = its host row, bitwise).  The counts are at 0 before each run and read after it;
+    the batches are built before the timed loops.  Returns the live key,
+    its kv, the kernel's error on it and the launches by run."""
+    from repro_torch.configs.shapes import N_CANDIDATES
+    from repro_torch.core.collection import SHARED_ARENA
+    from repro_torch.data import synth
+    from repro_torch.kernels.cache_ops import kernel
+    from repro_torch.launch.serve import pad_example
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg, model = _recsys_cfg(arch, vocab_scale)
+    coll = model.collection
+    spec = coll.cached_slabs[SHARED_ARENA]
+    b_sz = cfg.batch_size
+    n_cates = None if arch == "mind" else cfg.n_cates
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = model.init(0, device=dev)
+    torch.cuda.synchronize()
+    slab = state["emb"].slabs[SHARED_ARENA]
+    log(f"{arch} init+warmup {time.perf_counter() - t0} s: host table {spec.vocab} x {spec.dim} "
+        f"fp32 = {slab.full.host_bytes() / 1e9} GB pinned={slab.full.pinned}; arena "
+        f"{spec.capacity} slots (unique bound {spec.unique_size()}) = "
+        f"{spec.capacity * spec.dim * 4 / 1e6} MB; {spec.ids_per_step} id lanes a step; host "
+        f"RSS {rss_gb()} GB")
+
+    def make(seed, step):
+        return synth.recsys_batch(cfg.n_items, cfg.n_users, cfg.seq_len, b_sz, seed, step,
+                                  n_cates=n_cates)
+
+    t0 = time.perf_counter()
+    batches = [make(7, i) for i in range(n_serve + 3)]
+    train_batches = [make(8, s) for s in range(n_train)]
+    log(f"{arch}: {len(batches) + n_train} batches built on the host in "
+        f"{time.perf_counter() - t0} s (before the timed loops)")
+    b = {k: torch.from_numpy(v).to(dev) for k, v in batches[0].items()}
+    valid, uniq = _recsys_unique(coll, model.features(b))
+    log(f"{arch} batch 0: {valid} valid id lanes of {spec.ids_per_step}, {uniq} unique rows")
+    engine = ServeEngine(
+        model.serve_step, state, batch_size=b_sz, pad_example=pad_example(cfg),
+        device=dev, state_stats_fn=lambda s: coll.metrics(s["emb"], writeback=False))
+    engine.score(batches[n_serve + 2])  # first call: library handles, allocator, cuBLAS
+    engine.stats = type(engine.stats)()
+    base = engine.summary()
+
+    # --- serve: counts at 0, n_serve batches, counts read --------------------
+    torch.cuda.reset_peak_memory_stats()
+    kernel.victim_threshold.launches = 0
+    lat = []
+    for bb in batches[:n_serve]:
+        t0 = time.perf_counter()
+        scores = engine.score(bb)
+        lat.append(1e3 * (time.perf_counter() - t0))
+        if scores.shape != (b_sz,) or not np.isfinite(scores).all():
+            raise AssertionError(f"{arch} scores: shape {scores.shape}")
+    serve_launches = kernel.victim_threshold.launches
+    serve_peak = torch.cuda.max_memory_allocated()
+    summary = engine.summary()
+    if serve_launches != n_serve or summary["uniq_overflows"]:
+        raise AssertionError(f"{arch} serve: {serve_launches} threshold launches, overflows "
+                             f"{summary['uniq_overflows']}")
+    hits = summary["cache_hits"] - base["cache_hits"]
+    misses = summary["cache_misses"] - base["cache_misses"]
+    b = {k: torch.from_numpy(v).to(dev) for k, v in batches[n_serve].items()}
+    logits, emb = model.serve_step(engine.state, b)
+    ref_logits = model.fwd(engine.state["params"], coll.dense_reference(emb, model.features(b)),
+                           b)
+    diff = float((logits - ref_logits).abs().max())
+    if not torch.allclose(logits, ref_logits, rtol=TOL_RTOL, atol=TOL_ATOL):
+        raise AssertionError(f"{arch}: cached vs uncached logits differ by {diff}")
+    log(f"{arch} serve: {n_serve} batches of {b_sz}; per-batch ms {lat} (p50 "
+        f"{np.percentile(lat, 50)}, p99 {np.percentile(lat, 99)}); hit rate "
+        f"{hits / max(hits + misses, 1)} ({hits} id hits, {misses} row misses); host wire bytes "
+        f"{summary['host_wire_bytes'] - base['host_wire_bytes']}; peak device memory "
+        f"{serve_peak / 1e9} GB; cached logits = uncached within rtol {TOL_RTOL} / atol "
+        f"{TOL_ATOL} (max |diff| {diff}); threshold launches {serve_launches}")
+    b = {k: torch.from_numpy(v).to(dev) for k, v in batches[n_serve + 1].items()}
+    key, kv = capture_plan_key(lambda: coll.plan_prepare(emb, model.features(b),
+                                                         writeback=False))
+    err = check_threshold(key, kv, f"{arch} plan key")
+    log(f"{arch} plan key [{key.shape[0]}] kv={kv}: kernel bitwise = plain, victim order = "
+        f"argsort")
+
+    # --- retrieval: one user against n_cand candidates -----------------------
+    if n_cand < N_CANDIDATES:
+        log(f"CUT: {arch} retrieval scores {n_cand} candidates, not N_CANDIDATES = "
+            f"{N_CANDIDATES}: DIN's attention input alone is [N, {cfg.seq_len}, "
+            f"{8 * cfg.embed_dim}] fp32, {N_CANDIDATES * cfg.seq_len * 8 * cfg.embed_dim * 4 / 1e9}"
+            f" GB at N = {N_CANDIDATES}")
+    rng = np.random.default_rng(11)
+    cands = rng.integers(0, cfg.n_items, n_cand).astype(np.int32)
+    user = {k: b[k][:1] for k in ("hist_items", "hist_cates", "hist_len", "user") if k in b}
+    rb = dict(user, candidates=torch.from_numpy(cands).to(dev))
+    if n_cates is not None:
+        rb["candidate_cates"] = torch.from_numpy(cands % n_cates).to(dev)
+    serve_state = dict(engine.state, emb=emb)
+    del engine
+    torch.cuda.reset_peak_memory_stats()
+    kernel.victim_threshold.launches = 0
+    ret_ms = []
+    for _ in range(2):  # the first call warms the allocator
+        t0 = time.perf_counter()
+        scores, emb = model.retrieval_score(serve_state, rb)
+        torch.cuda.synchronize()
+        ret_ms.append(1e3 * (time.perf_counter() - t0))
+        serve_state = dict(serve_state, emb=emb)
+    ret_launches = kernel.victim_threshold.launches
+    if scores.shape != (n_cand,) or not bool(torch.isfinite(scores).all()) or ret_launches != 2:
+        raise AssertionError(f"{arch} retrieval: shape {tuple(scores.shape)}, finite "
+                             f"{bool(torch.isfinite(scores).all())}, {ret_launches} launches")
+    log(f"{arch} retrieval_score: one user against {n_cand} candidates, finite, shape "
+        f"{tuple(scores.shape)}; ms {ret_ms} (the second warm); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9} GB; threshold launches {ret_launches}")
+
+    # --- train: counts at 0, the Trainer's n_train steps + flush, counts read
+    torch.cuda.reset_peak_memory_stats()
+    kernel.victim_threshold.launches = 0
+    trainer = Trainer(TrainerConfig(max_steps=n_train), init_fn=lambda: serve_state,
+                      step_fn=model.train_step,  # (the prefetcher reads past the last step)
+                      make_batch=lambda s: train_batches[min(s, n_train - 1)],
+                      device=dev)
+    state = model.flush(trainer.run())
+    train_launches = kernel.victim_threshold.launches
+    train_peak = torch.cuda.max_memory_allocated()
+    h = trainer.history
+    losses = [r["loss"] for r in h]
+    if not np.isfinite(losses).all() or train_launches != n_train:
+        raise AssertionError(f"{arch} train: losses {losses}, {train_launches} threshold "
+                             f"launches")
+    slab = state["emb"].slabs[SHARED_ARENA]
+    check_resident(slab.cache.cached_rows["weight"], slab.cache.slot_to_row, slab.full, arch)
+    ms = [1e3 * r["time_s"] for r in h]
+    stats = {}
+    b = {k: torch.from_numpy(v).to(dev) for k, v in train_batches[-1].items()}
+    profile_call(f"one {arch} train step", lambda: float(model.train_step(state, b)[1]["loss"]),
+                 stats=stats)
+    idle = 1 - stats["busy"] / stats["wall"] if stats else None
+    log(f"{arch} train ({n_train} Trainer steps of {b_sz}, lr {cfg.lr}): losses {losses}; "
+        f"step ms {ms} (p50 {np.percentile(ms, 50)}); hit rate {h[-1]['hit_rate']}; host wire "
+        f"bytes {h[-1]['host_wire_bytes'] / n_train} a step; peak device memory "
+        f"{train_peak / 1e9} GB; idle share of one profiled step {idle}; threshold launches "
+        f"{train_launches}; host RSS {rss_gb()} GB")
+    slab.full.close()
+    return {"key": key, "kv": kv, "err": err,
+            "launches": serve_launches + ret_launches + train_launches}
+
+
+# ---------------------------------------------------------------------------
 # phases 6-7: FM at full width, served through its kernel and trained
 # ---------------------------------------------------------------------------
 
@@ -4075,6 +4298,8 @@ def flash_kernel_phase(dev):
             route = _route(dtype, d)
             errs[route] = max(errs[route], check_flash(q, k, v, causal, window,
                                                        f"{(b, hq, hkv, s, d, causal, window)}"))
+            if route == "simt":  # the SIMT kernel's inputs, timed in phase 13
+                simt_live = (q, k, v, causal, window)
     by_route = {r: n - before[r] for r, n in fa_kernel.flash_attention.route_launches.items()}
     want = [torch.randn((1, 256, h, 32), generator=g, device=dev) for h in (4, 2, 2)]
     got = [t.clone().requires_grad_() for t in want]
@@ -4092,7 +4317,7 @@ def flash_kernel_phase(dev):
         f"bf16 ulp of o; launches by route {by_route}; max_abs_err by route {errs}; autograd "
         f"(kernel forward, plain recompute backward) q/k/v grads within {grad_err} of the plain "
         f"version's (<= 1e-4)")
-    return errs
+    return errs, simt_live
 
 
 @contextlib.contextmanager
@@ -4390,13 +4615,14 @@ def _simt_call(q, k, v, causal, window):
     return call
 
 
-def time_flash(smol, gemma, fp32, errs, ptxas):
+def time_flash(smol, gemma, fp32, errs, ptxas, simt_live):
     """The bf16 tensor-core kernel, its plain version and
     F.scaled_dot_product_attention on the live layer-0 inputs of a SmolLM
     prefill, the same kernel on Gemma's live windowed layer-0 inputs, and
     on phase 11's live fp32 inputs the 3xTF32 kernel, the SIMT kernel
     (called straight, the before figure) in turns (SIMT, 3xTF32, 3xTF32,
-    SIMT), plain and SDPA.  The bf16 kernel's device time a launch comes
+    SIMT), plain and SDPA; and the SIMT kernel on phase 9's d 256 inputs
+    (:func:`time_simt`).  The bf16 kernel's device time a launch comes
     from phase 10's profiled prefill: on an H100, a profile of back-to-back
     calls here, late in the process, lost most of a kernel's events (2.2 ms
     reported for 11.2 ms); the 3xTF32 kernel's from guarded windows that
@@ -4484,7 +4710,46 @@ def time_flash(smol, gemma, fp32, errs, ptxas):
     log(f"flash_attention on gemma's live layer-0 q/k/v {tuple(q.shape)} / {tuple(k.shape)} "
         f"window {window}: event-timed {g_ms} ms; bound {max(ops_ms, bytes_ms)} ms ({flops} "
         f"FLOP at {BF16_OPS_PER_S / 1e12} TFLOP/s); achieved {flops / g_ms / 1e9} TFLOP/s")
+    entries[1]["simt_d256"] = time_simt(*simt_live)
     return entries
+
+
+def time_simt(q, k, v, causal, window):
+    """The SIMT kernel (fp32 heads of 129-256) on phase 9's d 256 inputs
+    ([B, S, H, D]), through its C entry, beside its plain version and SDPA
+    with the same mask, and its bound: the FLOP of the (q, k) pairs the
+    mask keeps at 67 TFLOP/s against the bytes of q, k, v and o at 3.35
+    TB/s."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))  # [B, H, S, D] views
+    b, hq, s, d = q.shape
+    qi, ki = torch.arange(s, device=q.device)[:, None], torch.arange(s, device=q.device)[None, :]
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qi >= ki
+    if window is not None:
+        mask &= (qi - ki) < window
+    pairs = int(mask.sum())
+    flops = 4 * d * pairs * b * hq
+    n_bytes = (2 * b * hq + 2 * b * k.shape[1]) * s * d * q.element_size()
+    ops_ms, bytes_ms = 1e3 * flops / FP32_OPS_PER_S, 1e3 * n_bytes / HBM_BYTES_PER_S
+    ev = {"kernel": cuda_ms(_simt_call(q, k, v, causal, window)),
+          "plain": cuda_ms(lambda: fa_kernel.flash_attention_plain(q, k, v, causal, window)),
+          "sdpa": cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                                 enable_gqa=True))}
+    bound = max(ops_ms, bytes_ms)
+    log(f"flash_attention SIMT kernel on phase 9's fp32 d {d} inputs {tuple(q.shape)} / "
+        f"{tuple(k.shape)} (causal {causal}, window {window}; {pairs} live pairs a head): "
+        f"event-timed ms kernel {ev['kernel']}, plain {ev['plain']}, sdpa {ev['sdpa']}; bound "
+        f"{bound} ms ({flops} FLOP at {FP32_OPS_PER_S / 1e12} TFLOP/s: {ops_ms} ms; {n_bytes} B "
+        f"at {HBM_BYTES_PER_S / 1e12} TB/s: {bytes_ms} ms); fraction of the bound "
+        f"{bound / ev['kernel']}")
+    return {"ms": ev["kernel"], "plain_ms": ev["plain"], "library_ms": ev["sdpa"],
+            "bound_ms": bound, "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "flops": flops, "bytes": n_bytes, "shape": list(q.shape)}
 
 
 def ptxas_usage(report, symbol):
@@ -4772,6 +5037,15 @@ def main():
     avazu = timed("14b (the Avazu DLRM)", avazu_phase, dev, args.vocab_scale)
     gc.collect()
     log(f"host RSS after 14a-14b (tables unpinned and freed) {rss_gb()} GB")
+    recsys = {}
+    for arch, what, n_serve, n_train in (("din", "15a (DIN)", args.batches, args.train_steps),
+                                         ("dien", "15b (DIEN)", DIEN_SERVE, DIEN_TRAIN),
+                                         ("mind", "15c (MIND)", args.batches, args.train_steps)):
+        recsys[arch] = timed(what, recsys_phase, dev, arch, args.vocab_scale, n_serve, n_train,
+                             RECSYS_CANDIDATES[arch])
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"host RSS after 15a-15c (tables unpinned and freed) {rss_gb()} GB")
     # phase 8's live inputs, timed last in a fresh process (see
     # time_in_fresh_process); the refresh phases add their launches below
     jobs.update({
@@ -4779,9 +5053,11 @@ def main():
         "threshold": ({"DLRM serve": (key, kv), "FM serve": (fm_serve["key"], fm_serve["kv"]),
                        "DLRM depth-3 lookahead": (pipe["key"], pipe["kv"]),
                        "cached_embedding": (ce_run["key"], ce_run["kv"]),
-                       "avazu": (avazu["key"], avazu["kv"])},
+                       "avazu": (avazu["key"], avazu["kv"]),
+                       "DIN": (recsys["din"]["key"], recsys["din"]["kv"]),
+                       "MIND": (recsys["mind"]["key"], recsys["mind"]["kv"])},
                       max(max_err, err, fm_serve["thr_err"], pipe["thr_err"], ce_run["err"],
-                          avazu["err"]),
+                          avazu["err"], *(r["err"] for r in recsys.values())),
                       {"serve": serve_launches, "train": train_thr,
                        "sharded": sharded["thr_launches"],
                        "sharded_pipelined": sh_pipe["thr_launches"],
@@ -4793,7 +5069,8 @@ def main():
                        "fm_7b": (fm_rows["thr_launches"] + fm_chunk["thr_launches"]
                                  + fm_chunk_t["thr_launches"]),
                        "cached_embedding": ce_run["launches"],
-                       "avazu": avazu["launches"]}),
+                       "avazu": avazu["launches"],
+                       **{arch: r["launches"] for arch, r in recsys.items()}}),
         # every sharded plan of these paths routes in the bucketize launch: all fused
         "bucketize": (sharded["captured"], max(bz_err, sharded["live_err"], sh_pipe["err"]),
                       {**sharded["launches"], "sharded_pipelined": sh_pipe["bz_launches"],
@@ -4802,15 +5079,15 @@ def main():
                        "sharded_budget": sh_budget["bz_launches"]}),
     })
     del sharded, budget, fm_serve, fm_train, fm_rows, fm_chunk, fm_chunk_t, pipe, sh_budget
-    del ce_run, avazu
+    del ce_run, avazu, recsys
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"phases 3-7b, 14a-14b: {time.perf_counter() - t0} s since the build began")
+    log(f"phases 3-7b, 14a-15c: {time.perf_counter() - t0} s since the build began")
 
     from repro_torch.configs import gemma3_27b, smollm_360m
     from repro_torch.nn.layers import Dtypes
 
-    fa_errs = timed("9 (flash kernels)", flash_kernel_phase, dev)
+    fa_errs, simt_live = timed("9 (flash kernels)", flash_kernel_phase, dev)
     smol = timed("10 (SmolLM-360M serve)", lm_serve_phase, dev,
                  dataclasses.replace(smollm_360m.CONFIG, use_pallas=True))
     fp32 = Dtypes(param=torch.float32, compute=torch.float32)
@@ -4820,7 +5097,9 @@ def main():
     torch.cuda.empty_cache()
     gemma = timed("12 (Gemma-3-27B one group)", gemma_phase, dev,
                   dataclasses.replace(gemma3_27b.CONFIG, n_layers=6, use_pallas=True))
-    fa = timed("13 (flash timing)", time_flash, smol, gemma, fp32_lm, fa_errs, ptxas)
+    fa = timed("13 (flash timing)", time_flash, smol, gemma, fp32_lm, fa_errs, ptxas,
+               simt_live)
+    del simt_live
     del smol, gemma, fp32_lm
     gc.collect()
     torch.cuda.empty_cache()

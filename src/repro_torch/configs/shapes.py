@@ -8,6 +8,7 @@ RECSYS_DEFS = {
     "serve_bulk": ("serve", 262144),
     "retrieval_cand": ("retrieval", 1),  # + n_candidates=1_000_000
 }
+N_CANDIDATES = 1_000_000
 
 # Criteo Kaggle per-field cardinalities (public; sum = 33,762,577)
 CRITEO_VOCABS = (

@@ -1,11 +1,11 @@
-"""Carry a model state (serve or train: DLRM, FM; the single-table
-``CachedEmbeddingState``; LM parameters) between the JAX package and the
-port.
+"""Carry a model state (serve or train: DLRM, FM, DIN, DIEN, MIND; the
+single-table ``CachedEmbeddingState``; LM parameters) between the JAX
+package and the port.
 
 The JAX side is given as nested dicts of numpy arrays under the JAX field
 names (a dataclass becomes a dict of its fields), e.g.::
 
-    {"params": {"bottom": {"l0": {"w": ..., "b": ...}}, "top": ...},
+    {"params": {"bottom": {"l0": {"w": ..., "b": ...}}, "top": ...},  # DLRM
      "emb": {"slabs": {"__shared__": {
          "full": {"data": {"weight": ...}, "sideband": {}, "codec": "fp32", ...},
          "cache": {"cached_rows": {"weight": ...}, "slot_to_row": ..., ...,
@@ -14,7 +14,10 @@ names (a dataclass becomes a dict of its fields), e.g.::
      "opt": (),
      "step": ...}
 
-where a tiered arena's ``cached_rows`` is an ``ArenaStore`` dict
+where ``params`` is any nested dict of arrays: FM's ``{"bias"}``, DIN's
+``{"attn": {"l0": ..}, "mlp": {"l0": ..}}``, DIEN's ``{"gru1": {"wx", "wh",
+"b"}, "gru2": .., "attn_proj": {"w"}, "mlp": ..}``, MIND's ``{"s_matrix"}``;
+a tiered arena's ``cached_rows`` is an ``ArenaStore`` dict
 ``{"head": {...}, "tail": {...}, "sideband": {...}, "raw": {...},
 "codec": "int8", "out_dtype": "float32"}``, an encoded host tier's ``full``
 holds the payload in its codec's dtype and a non-empty ``sideband`` (int8's
@@ -176,7 +179,8 @@ def cached_embedding_state_from_numpy(tree: Mapping[str, Any], device: DeviceLik
 def state_from_numpy(tree: Mapping[str, Any], device: DeviceLike = None,
                      collection: Optional[EmbeddingCollection] = None) -> Dict[str, Any]:
     """The port's model state from the JAX state's numpy tree: any model
-    whose state is ``params`` / ``opt`` / ``emb`` / ``step`` (DLRM, FM).  A
+    whose state is ``params`` / ``opt`` / ``emb`` / ``step`` (DLRM, FM, DIN,
+    DIEN, MIND).  A
     serve state has no ``opt``; SGD without momentum has an empty one.
     Pass the model's ``collection`` to carry codecs that the reference
     resolved from "auto"."""

@@ -1,10 +1,11 @@
 """Synthetic batches (the ``ZipfSparseSpec`` / ``sparse_batch`` /
-``DriftingZipfSpec`` / ``drifting_sparse_batch`` / ``seq_batch`` /
-``count_stream`` part of ``repro.data.synth``, copied so that the same
-(seed, step) gives bit-identical batches in both packages): Criteo-like
-sparse batches with the paper's access skew, the same stream under hot-set
-drift, the flat id stream of a frequency scan, and LM token streams.
-Batch ``i`` is a pure function of (seed, i)."""
+``DriftingZipfSpec`` / ``drifting_sparse_batch`` / ``recsys_batch`` /
+``seq_batch`` / ``count_stream`` part of ``repro.data.synth``, copied so
+that the same (seed, step) gives bit-identical batches in both packages):
+Criteo-like sparse batches with the paper's access skew, the same stream
+under hot-set drift, DIN / DIEN / MIND behaviour batches, the flat id
+stream of a frequency scan, and LM token streams.  Batch ``i`` is a pure
+function of (seed, i)."""
 from __future__ import annotations
 
 import dataclasses
@@ -13,7 +14,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 
 __all__ = ["DriftingZipfSpec", "ZipfSparseSpec", "count_stream", "drifting_sparse_batch",
-           "seq_batch", "sparse_batch"]
+           "recsys_batch", "seq_batch", "sparse_batch"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,6 +92,36 @@ def drifting_sparse_batch(
     """``sparse_batch`` under hot-set drift; phase 0 (``step < drift_every``)
     is the undrifted stream, bit for bit."""
     return sparse_batch(spec.base, batch, seed, step, id_shift=spec.shifts(step))
+
+
+def recsys_batch(
+    n_items: int,
+    n_users: int,
+    seq_len: int,
+    batch: int,
+    seed: int,
+    step: int,
+    n_cates: Optional[int] = None,
+    zipf_a: float = 1.2,
+) -> Dict[str, np.ndarray]:
+    """DIN / DIEN / MIND behaviour batch with Zipf-popular items: a history
+    of ``seq_len`` items (the first ``hist_len`` valid, 5 to ``seq_len``), a
+    target item, a uniform user and a label that follows the target's
+    bucket (id % 17) in the history; with ``n_cates``, each item's category
+    is ``id % n_cates``."""
+    rng = np.random.default_rng(np.random.SeedSequence([seed, step]))
+    hist = _zipf_ids(rng, n_items, (batch, seq_len), zipf_a).astype(np.int32)
+    hist_len = rng.integers(5, seq_len + 1, size=batch).astype(np.int32)
+    target = _zipf_ids(rng, n_items, batch, zipf_a).astype(np.int32)
+    user = rng.integers(0, n_users, size=batch).astype(np.int32)
+    aff = (hist % 17 == (target % 17)[:, None]).mean(1)
+    label = (aff + rng.normal(scale=0.2, size=batch) > 0.12).astype(np.float32)
+    out = {"hist_items": hist, "hist_len": hist_len, "target_item": target, "user": user,
+           "label": label}
+    if n_cates is not None:
+        out["hist_cates"] = (hist % n_cates).astype(np.int32)
+        out["target_cate"] = (target % n_cates).astype(np.int32)
+    return out
 
 
 def seq_batch(vocab: int, batch: int, seq: int, seed: int, step: int) -> Dict[str, np.ndarray]:

@@ -1,11 +1,14 @@
-"""Serving launcher: batched DLRM scoring with the cache in read-only mode.
+"""Serving launcher: batched scoring with the cache in read-only mode.
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch dlrm-criteo --requests 2000
-  PYTHONPATH=src python -m repro_torch.launch.serve --refresh-interval 4
-  PYTHONPATH=src python -m repro_torch.launch.serve --arena-precision int8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mind --requests 2000
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch din --refresh-interval 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch dlrm-criteo --arena-precision int8
 
-Runs on the CUDA card; ``--device cpu`` runs it on the CPU.  MIND and DIN
-come with their models in a later slice of the port.
+Runs on the CUDA card; ``--device cpu`` runs it on the CPU.  Each arch is
+the reference launcher's config (MIND, the default, and DIN over histories
+of 50 from 200 000 items; a two-field DLRM); victim selection always goes
+through the bounded top-K route, whose threshold is the CUDA kernel on the
+card (bit-identical to the full argsort route).
 """
 from __future__ import annotations
 
@@ -16,12 +19,25 @@ import numpy as np
 from repro_torch.core.policies import Policy
 from repro_torch.data import synth
 from repro_torch.models.dlrm import DLRM, DLRMConfig
+from repro_torch.models.recsys_models import DINConfig, DINModel, MINDConfig, MINDModel
 from repro_torch.serve.engine import ServeEngine
+
+
+def pad_example(cfg) -> dict:
+    """One padding request of the DIN / DIEN (with categories) or MIND
+    schema: an empty history, item, category and user 0, label 0."""
+    pad = {"hist_items": np.zeros((cfg.seq_len,), np.int32), "hist_len": np.zeros((), np.int32),
+           "target_item": np.zeros((), np.int32), "user": np.zeros((), np.int32),
+           "label": np.zeros((), np.float32)}
+    if hasattr(cfg, "n_cates"):
+        pad.update(hist_cates=np.zeros((cfg.seq_len,), np.int32),
+                   target_cate=np.zeros((), np.int32))
+    return pad
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="dlrm-criteo", choices=["dlrm-criteo"])
+    ap.add_argument("--arch", default="mind", choices=["mind", "din", "dlrm-criteo"])
     ap.add_argument("--requests", type=int, default=2000)
     ap.add_argument("--batch", type=int, default=256)
     ap.add_argument("--arena-precision", default="fp32",
@@ -41,16 +57,36 @@ def main(argv=None):
     args = ap.parse_args(argv)
     policy = Policy(args.cache_policy) if args.cache_policy else None
 
-    # the reference launcher's dlrm-criteo config; victim selection always
-    # goes through the bounded top-K route, whose threshold is the CUDA
-    # kernel on the card (bit-identical to the full argsort route)
-    cfg = DLRMConfig(vocab_sizes=(100_000, 50_000), embed_dim=32, batch_size=args.batch,
-                     cache_ratio=0.05, bottom_mlp=(64, 32), top_mlp=(64,), policy=policy,
-                     arena_precision=args.arena_precision, use_pallas_plan=True)
-    model = DLRM(cfg)
-    pad = {"dense": np.zeros((13,), np.float32), "sparse": np.zeros((2,), np.int32),
-           "label": np.zeros((), np.float32)}
-    spec = synth.ZipfSparseSpec(vocab_sizes=cfg.vocab_sizes, n_dense=13)
+    if args.arch == "mind":
+        cfg = MINDConfig(n_items=200_000, n_users=20_000, embed_dim=32, seq_len=50,
+                         batch_size=args.batch, cache_ratio=0.05,
+                         arena_precision=args.arena_precision, policy=policy,
+                         use_pallas_plan=True)
+        model, pad = MINDModel(cfg), pad_example(cfg)
+
+        def make(s):
+            return synth.recsys_batch(cfg.n_items, cfg.n_users, cfg.seq_len, args.batch, 1, s)
+    elif args.arch == "din":
+        cfg = DINConfig(n_items=200_000, n_cates=20_000, n_users=20_000, embed_dim=18,
+                        seq_len=50, batch_size=args.batch, cache_ratio=0.05,
+                        arena_precision=args.arena_precision, policy=policy,
+                        use_pallas_plan=True)
+        model, pad = DINModel(cfg), pad_example(cfg)
+
+        def make(s):
+            return synth.recsys_batch(cfg.n_items, cfg.n_users, cfg.seq_len, args.batch, 1, s,
+                                      n_cates=cfg.n_cates)
+    else:
+        cfg = DLRMConfig(vocab_sizes=(100_000, 50_000), embed_dim=32, batch_size=args.batch,
+                         cache_ratio=0.05, bottom_mlp=(64, 32), top_mlp=(64,), policy=policy,
+                         arena_precision=args.arena_precision, use_pallas_plan=True)
+        model = DLRM(cfg)
+        pad = {"dense": np.zeros((13,), np.float32), "sparse": np.zeros((2,), np.int32),
+               "label": np.zeros((), np.float32)}
+        spec = synth.ZipfSparseSpec(vocab_sizes=cfg.vocab_sizes, n_dense=13)
+
+        def make(s):
+            return synth.sparse_batch(spec, args.batch, 1, s)
 
     state = model.init(0, device=args.device)
     engine = ServeEngine(
@@ -64,7 +100,7 @@ def main(argv=None):
     )
     n = step = 0
     while n < args.requests:
-        engine.score(synth.sparse_batch(spec, args.batch, 1, step))
+        engine.score(make(step))
         n += args.batch
         step += 1
     summary = engine.summary()

@@ -3,33 +3,38 @@ batches.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-criteo --steps 50 --arena-precision int8
   PYTHONPATH=src python -m repro_torch.launch.train --arch fm --steps 50 --host-precision int8
+  PYTHONPATH=src python -m repro_torch.launch.train --arch din --steps 20 --pipeline-depth 2
   PYTHONPATH=src python -m repro_torch.launch.train --model-shards 4 --replicate-top-k 64
   PYTHONPATH=src python -m repro_torch.launch.train --pipeline-depth 2 --chunk-rows 8
   PYTHONPATH=src python -m repro_torch.launch.train --refresh-interval 5 --model-shards 4
   PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-avazu --cache-policy lru
   PYTHONPATH=src python -m repro_torch.launch.train --obs-dir /tmp/obs --history-limit 10
 
-Runs on the CUDA card; ``--device cpu`` runs it on the CPU.  Every
-``dlrm*`` arch builds the reference launcher's CPU-scale DLRM.  DIN, DIEN
-and MIND, the reference launcher's other architectures, come with their
-models in a later slice of the port.
+Runs on the CUDA card; ``--device cpu`` runs it on the CPU.  Every arch
+builds the reference launcher's CPU-scale config: every ``dlrm*`` arch the
+same small DLRM, ``fm`` six fields of 100 000 rows, ``din`` / ``dien`` /
+``mind`` histories of 50 over 200 000 items (DIEN with 36 GRU units).
 """
 from __future__ import annotations
 
 import argparse
-from typing import Optional
+from typing import Callable, Dict, Optional, Tuple
+
+import numpy as np
 
 from repro_torch.core.policies import Policy
 from repro_torch.data import synth
 from repro_torch.models.dlrm import DLRM, DLRMConfig
-from repro_torch.models.recsys_models import FMConfig, FMModel
+from repro_torch.models.recsys_models import (DIENConfig, DIENModel, DINConfig, DINModel,
+                                               FMConfig, FMModel, MINDConfig, MINDModel)
 from repro_torch.train.trainer import PipelinedTrainer, Trainer, TrainerConfig
 
 
 def build(arch: str, batch: int, arena_precision: str, model_shards: int = 0,
           replicate_top_k: int = 0, exchange_codec: str = "fp32", max_routed_per_shard: int = 0,
-          host_precision: str = "fp32", chunk_rows: int = 0, policy: Optional[Policy] = None):
-    """The reference launcher's config of ``arch``: (model, batch spec).
+          host_precision: str = "fp32", chunk_rows: int = 0, policy: Optional[Policy] = None
+          ) -> Tuple[object, Callable[[int], Dict[str, np.ndarray]]]:
+    """The reference launcher's config of ``arch``: (model, step -> batch).
     Victim selection always goes through the bounded top-K route, whose
     threshold is the CUDA kernel on the card (bit-identical to the full
     argsort route); a sharded DLRM's router builds its per-shard image with
@@ -49,17 +54,32 @@ def build(arch: str, batch: int, arena_precision: str, model_shards: int = 0,
                          replicate_top_k=replicate_top_k,
                          exchange_codec=exchange_codec,
                          max_routed_per_shard=max_routed_per_shard)
-        return DLRM(cfg), synth.ZipfSparseSpec(vocab_sizes=cfg.vocab_sizes, n_dense=13)
-    # fm trains through the sum-square torch ops: the FM kernel has no backward
-    cfg = FMConfig(vocab_sizes=(100_000,) * 6, embed_dim=10, batch_size=batch, cache_ratio=0.02,
-                   host_precision=host_precision, arena_precision=arena_precision,
-                   policy=policy, use_pallas_plan=True, chunk_rows=chunk_rows)
-    return FMModel(cfg), synth.ZipfSparseSpec(vocab_sizes=cfg.vocab_sizes)
+        spec = synth.ZipfSparseSpec(vocab_sizes=cfg.vocab_sizes, n_dense=13)
+        return DLRM(cfg), lambda s: synth.sparse_batch(spec, batch, 0, s)
+    shared = dict(batch_size=batch, host_precision=host_precision,
+                  arena_precision=arena_precision, policy=policy, use_pallas_plan=True,
+                  chunk_rows=chunk_rows)
+    if arch == "fm":  # trains through the sum-square torch ops: the FM kernel has no backward
+        cfg = FMConfig(vocab_sizes=(100_000,) * 6, embed_dim=10, cache_ratio=0.02, **shared)
+        spec = synth.ZipfSparseSpec(vocab_sizes=cfg.vocab_sizes)
+        return FMModel(cfg), lambda s: synth.sparse_batch(spec, batch, 0, s)
+    if arch == "mind":
+        cfg = MINDConfig(n_items=200_000, n_users=20_000, embed_dim=32, seq_len=50,
+                         cache_ratio=0.05, **shared)
+        return MINDModel(cfg), lambda s: synth.recsys_batch(cfg.n_items, cfg.n_users,
+                                                            cfg.seq_len, batch, 0, s)
+    kw = dict(n_items=200_000, n_cates=20_000, n_users=20_000, embed_dim=18, seq_len=50,
+              cache_ratio=0.05, **shared)
+    cfg = DINConfig(**kw) if arch == "din" else DIENConfig(gru_dim=36, **kw)
+    model = DINModel(cfg) if arch == "din" else DIENModel(cfg)
+    return model, lambda s: synth.recsys_batch(cfg.n_items, cfg.n_users, cfg.seq_len, batch, 0,
+                                               s, n_cates=cfg.n_cates)
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="dlrm-criteo", choices=["dlrm-criteo", "dlrm-avazu", "fm"])
+    ap.add_argument("--arch", default="dlrm-criteo",
+                    choices=["dlrm-criteo", "dlrm-avazu", "fm", "din", "dien", "mind"])
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=512)
     ap.add_argument("--ckpt-dir", default=None)
@@ -108,7 +128,7 @@ def main(argv=None):
     ap.add_argument("--device", default=None, help="default: the CUDA card")
     args = ap.parse_args(argv)
 
-    model, spec = build(args.arch, args.batch, args.arena_precision, args.model_shards,
+    model, make_batch = build(args.arch, args.batch, args.arena_precision, args.model_shards,
                         args.replicate_top_k, args.exchange_codec, args.max_routed_per_shard,
                         args.host_precision, args.chunk_rows,
                         Policy(args.cache_policy) if args.cache_policy else None)
@@ -119,13 +139,13 @@ def main(argv=None):
                        refresh_interval=args.refresh_interval or None)
     kw = dict(
         init_fn=lambda: model.init(0, device=args.device),
-        make_batch=lambda s: synth.sparse_batch(spec, args.batch, 0, s),
+        make_batch=make_batch,
         flush_fn=model.flush,
         refresh_fn=model.refresh if args.refresh_interval else None,
         on_straggler=lambda s, dt: print(f"[straggler] step {s}: {dt * 1e3:.0f} ms"),
         device=args.device,
     )
-    if args.pipeline_depth > 0:  # both archs are collection-backed (split plan/compute)
+    if args.pipeline_depth > 0:  # every arch is collection-backed (split plan/compute)
         trainer = PipelinedTrainer(tc, plan_fn=model.plan_step, compute_fn=model.compute_step,
                                    apply_fn=model.apply_step, **kw)
     else:

@@ -11,7 +11,7 @@ parameter dtype; softmax and norms accumulate in fp32, as in the reference.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -54,12 +54,15 @@ def mlp_init(
     return {f"l{i}": dense_init(gen, dims[i], dims[i + 1], dt, device) for i in range(len(dims) - 1)}
 
 
-def mlp(p: Dict[str, Params], x: torch.Tensor, dt: Dtypes, final_act: bool = False) -> torch.Tensor:
+def mlp(p: Dict[str, Params], x: torch.Tensor, dt: Dtypes,
+        act: Callable[[torch.Tensor], torch.Tensor] = torch.relu,
+        final_act: bool = False) -> torch.Tensor:
+    """``act`` between the layers (and after the last with ``final_act``)."""
     n = len(p)
     for i in range(n):
         x = dense(p[f"l{i}"], x, dt)
         if i < n - 1 or final_act:
-            x = torch.relu(x)
+            x = act(x)
     return x
 
 

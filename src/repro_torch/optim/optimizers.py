@@ -1,4 +1,4 @@
-"""Optimizers (port of the SGD part of ``repro.optim.optimizers``).
+"""Optimizers (port of the SGD and Adagrad part of ``repro.optim.optimizers``).
 
 API, as in the reference: ``opt = sgd(lr=...)``; ``state = opt.init(params)``;
 ``params, state = opt.update(grads, state, params, step)``.  ``lr`` is a
@@ -14,7 +14,7 @@ from typing import Any, Callable, Union
 
 import torch
 
-__all__ = ["Optimizer", "sgd", "tree_map"]
+__all__ = ["Optimizer", "adagrad", "sgd", "tree_map"]
 
 Schedule = Union[float, Callable[[Any], Any]]
 
@@ -60,5 +60,27 @@ def sgd(lr: Schedule, momentum: float = 0.0) -> Optimizer:
             lambda p, m: (p.float() - lr_t * m).to(p.dtype), params, new_m
         )
         return new_params, new_m
+
+    return Optimizer(init, update)
+
+
+def adagrad(lr: Schedule, eps: float = 1e-10) -> Optimizer:
+    """Adagrad: an fp32 accumulator of squared gradients a leaf, the step
+    ``lr * g / (sqrt(acc) + eps)``.  The root is taken in float64 and
+    rounded: torch's vectorised CPU ``sqrt`` is not correctly rounded (the
+    reference's is), and double rounding is exact for a square root."""
+
+    def init(params):
+        return tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
+
+    def update(grads, state, params, step):
+        lr_t = _lr_at(lr, step)
+        new_acc = tree_map(lambda a, g: a + torch.square(g.float()), state, grads)
+
+        def upd(p, g, a):
+            root = torch.sqrt(a.to(torch.float64)).to(torch.float32)
+            return (p.float() - lr_t * g.float() / (root + eps)).to(p.dtype)
+
+        return tree_map(upd, params, grads, new_acc), new_acc
 
     return Optimizer(init, update)

@@ -12,8 +12,9 @@ transmitter (staging ring, async copies, fp32 and tiered arenas) against
 the CPU move (fp32, fp16 and int8 host tiers; fp32 and tiered arenas; the
 verbatim host -> tail path; chunked staging, into a tiered arena too), a
 lookahead plan's eviction key through the threshold kernel at ``kv ==
-capacity``, and a 4-shard collection's lookups against its dense
-reference.
+capacity``, a 4-shard collection's lookups against its dense
+reference, and one serve and one train step of DIN, DIEN and MIND against
+the CPU port.
 
 Imports neither JAX nor the JAX package, so the machine with the card runs
 it as is:  ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
@@ -1084,3 +1085,62 @@ def test_tracker_decay_on_the_card_matches_cpu(cuda):
         assert torch.equal(got, want), half_life
         assert torch.equal(freq.decay_factor(dt.to(cuda), half_life).cpu(),
                            freq.decay_factor(dt, half_life)), half_life
+
+
+def _close_tree(want, got, path, skip=()):
+    """Two ``convert.to_numpy`` trees: float leaves named in ``skip`` within
+    rtol 1e-5 / atol 1e-6, every other leaf bitwise."""
+    if isinstance(want, dict):
+        assert set(want) == set(got), path
+        for k in want:
+            _close_tree(want[k], got[k], f"{path}/{k}", skip)
+    elif path.rsplit("/", 1)[-1] in skip:
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6, err_msg=path)
+    elif isinstance(want, np.ndarray):
+        assert want.dtype == got.dtype and np.array_equal(want, got), path
+    else:
+        assert want == got, path
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["din", "dien", "mind"])
+def test_recsys_family_on_the_card_matches_cpu(cuda, arch):
+    """DIN, DIEN and MIND at their smoke shapes (``use_pallas_plan``), one
+    state on the CPU and its copy on the card: one serve step (logits
+    within rtol 1e-5 / atol 1e-6) and one train step (loss within rtol
+    1e-5), one threshold launch a plan on the card; the cache's index
+    state and counters bitwise the CPU's, arena rows within rtol 1e-5 /
+    atol 1e-6."""
+    import dataclasses
+
+    from repro_torch import convert
+    from repro_torch.configs import dien, din, mind
+    from repro_torch.data import synth
+    from repro_torch.models.recsys_models import DIENModel, DINModel, MINDModel
+
+    cls, smoke = {"din": (DINModel, din.SMOKE), "dien": (DIENModel, dien.SMOKE),
+                  "mind": (MINDModel, mind.SMOKE)}[arch]
+    cfg = dataclasses.replace(smoke, use_pallas_plan=True)
+    model = cls(cfg)
+    tree = convert.to_numpy(model.init(0, device="cpu"))
+    states = {d: convert.state_from_numpy(tree, device=d, collection=model.collection)
+              for d in ("cpu", cuda)}
+    out = {}
+    for d, state in states.items():
+        before = kernel.victim_threshold.launches
+        batches = [{k: torch.from_numpy(v).to(d) for k, v in synth.recsys_batch(
+            cfg.n_items, cfg.n_users, cfg.seq_len, cfg.batch_size, 0, s,
+            n_cates=None if arch == "mind" else cfg.n_cates).items()} for s in range(2)]
+        logits, emb = model.serve_step(state, batches[0])
+        state, metrics = model.train_step(dict(state, emb=emb), batches[1])
+        launches = kernel.victim_threshold.launches - before
+        out[d] = (logits.cpu(), float(metrics["loss"]), convert.to_numpy(state), launches)
+        for slab in state["emb"].slabs.values():
+            slab.full.close()
+    (w_logits, w_loss, w_state, _), (g_logits, g_loss, g_state, launches) = out.values()
+    assert launches == 2
+    torch.testing.assert_close(g_logits, w_logits, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(g_loss, w_loss, rtol=1e-5)
+    _close_tree(w_state["emb"], g_state["emb"], "emb", skip=("weight",))
+    _close_tree(w_state["params"], g_state["params"], "params", skip=("w", "b", "wx", "wh",
+                                                                      "s_matrix"))

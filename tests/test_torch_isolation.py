@@ -13,11 +13,12 @@ import torch
 from repro_torch import convert
 from repro_torch.configs import smollm_360m
 from repro_torch.device import resolve_device
-from repro_torch.launch import train
+from repro_torch.configs import dien, din, mind
+from repro_torch.launch import serve, train
 from repro_torch.models.dlrm import DLRM, DLRMConfig
 from repro_torch.models.lm import LMModel
 from repro_torch.nn import transformer
-from repro_torch.models.recsys_models import FMConfig, FMModel
+from repro_torch.models.recsys_models import DIENModel, DINModel, FMConfig, FMModel, MINDModel
 from repro_torch.train.trainer import Trainer, TrainerConfig
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
@@ -45,7 +46,9 @@ def test_port_imports_no_jax_and_no_reference_package():
                      "kernels.flash_attention.ref", "nn.layers", "nn.moe", "nn.transformer",
                      "models.lm", "configs.lm_common", "configs.smollm_360m",
                      "configs.gemma3_27b", "configs.internlm2_20b",
-                     "core.cached_embedding", "configs.dlrm_avazu", "obs.report"):
+                     "core.cached_embedding", "configs.dlrm_avazu", "obs.report",
+                     "configs.din", "configs.dien", "configs.mind", "configs.shapes",
+                     "data.synth", "launch.serve"):
             assert "repro_torch." + need in names, need
         print(len(names))
         """
@@ -97,3 +100,22 @@ def test_lm_has_no_silent_cpu_fallback():
         convert.lm_params_from_numpy({"head": {"w": np.zeros((2, 3), np.float32)}})
     with pytest.raises(RuntimeError, match="no CUDA device"):
         transformer.init_decode_caches(smollm_360m.SMOKE, 1, 4)
+
+
+@pytest.mark.parametrize("arch", ["din", "dien", "mind"])
+def test_recsys_families_have_no_silent_cpu_fallback(arch):
+    """DIN, DIEN and MIND: ``init`` and both launchers raise without a card
+    unless given ``device="cpu"``."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid here")
+    cls, smoke = {"din": (DINModel, din.SMOKE), "dien": (DIENModel, dien.SMOKE),
+                  "mind": (MINDModel, mind.SMOKE)}[arch]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cls(smoke).init(0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", arch, "--steps", "1", "--batch", "4"])
+    if arch != "dien":  # the serve launcher's archs are the reference's: mind, din, dlrm-criteo
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            serve.main(["--arch", arch, "--requests", "4", "--batch", "4"])
+    state = cls(smoke).init(0, device="cpu")
+    assert state["emb"].slabs["__shared__"].idx_map.device == torch.device("cpu")
