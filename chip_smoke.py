@@ -326,7 +326,51 @@ Phases (any failure exits non-zero, with no result line):
    inputs beside its plain version and SDPA with the same mask, bound by
    the FLOP of the pairs the mask keeps at 67 TFLOP/s.
 
-They run in the order 1-5e, 6-7b, 14a-14b, 15a-15c, 9-13, 5f-5h, 8.  Each phase's
+16a. LM training: SmolLM-360M (``configs/smollm_360m.CONFIG``, 32 layers,
+   d_model 960, 15/5 heads of 64, vocab 49152, bf16 compute, remat) with
+   ``use_pallas=True`` from ``LMModel.init`` (the reference's training
+   dtypes: fp32 matrices and AdamW moments, bf16 table and norms; checked),
+   at S 4096 and the largest batch of 8, 4, 2 that fits (cut from
+   train_4k's 256; printed): a warm-up and ``TRAIN_STEPS`` (3) timed
+   ``train_step`` calls with compressor ``none``, ``TRAIN_INT8_STEPS`` (2)
+   with ``int8``, each with 2 x 32 flash launches (forward and remat
+   recompute), all on the tensor-core route, finite loss and gradient
+   norm; layer 0's live q/k/v through kernel and plain within phase 9's
+   bound; the kernel, plain and SDPA timed on them with the bound; step
+   p50, tokens/s, peak device memory, a profiled step's idle share.
+16b. LM training in fp32 (TF32 off): the same width, depth cut to 4
+   (printed), B 2 x S 4096: one step through the 3xTF32 kernel and one
+   through the chunked route from one state and batch: loss and gradient
+   norm within rtol 1e-4, every updated parameter within rtol 1e-4 / atol
+   0.2 lr; 8 launches, all 3xTF32, 0 on the chunked route.
+16c. OLMoE-1B-7B (``configs/olmoe_1b_7b.CONFIG``: 16 layers, d_model 2048,
+   16/16 heads, 64 experts of d_ff 1024, top-8, ``moe_impl="shard_map"``)
+   served at published width and depth in bf16: prefills of B 4 x S 4096
+   (16 launches each; the pairs dropped by capacity per layer printed;
+   layer 0's live MoE input through ``moe_apply_shard_map`` and
+   ``moe_apply`` in fp32 within rtol 1e-4 / atol 1e-4 * max|out| on every
+   token without a router near tie), a greedy decode of B 8 (a 64-token
+   prompt, 32 tokens; 0 launches); then trained at published width, depth
+   cut to 4 (printed), B 2 x S 4096: 8 launches a step, peak memory.
+16d. Grok-1-314B (``configs/grok_1_314b.CONFIG``: d_model 6144, 48/8 heads
+   with ``kv_repeat=2``, 8 experts of d_ff 32768, top-2, vocab 131072,
+   bf16), depth cut to one layer (printed): one prefill of B 1 x S 8192,
+   one launch, finite logits, layer 0's live q/k/v (16 replicated KV
+   heads) through kernel and plain.
+16e. int8 KV-cache decode: SmolLM-360M with ``kv_cache_int8=True`` (phase
+   10's weights and prompt), B 8, 64 prompt tokens and 64 greedy tokens
+   into 4096-slot caches, 0 launches: on the last step's live layer-0
+   tensors, the int8 attention on the card against the same function on
+   the CPU (the query codes and q.k accumulators bitwise, the w.v
+   accumulators bitwise the exact integer dot of the card's codes, the
+   weight codes within one, the output within 1e-4 of max|o| plus the
+   effect of any code that rounds the other way); printed, not gated: ms
+   a token against phase 10's, the caches' bytes, the greedy tokens'
+   agreement.  Each of 16a-16e runs with the launch counts at 0 before
+   each call and read after it; the ``kernels`` line counts the flash
+   launches by call.
+
+They run in the order 1-5e, 6-7b, 14a-14b, 15a-15c, 9-13, 16a-16e, 5f-5h, 8.  Each phase's
 seconds are printed.  The last three lines are the
 ``kernels`` JSON, the card's name and power limit, and ``{"ok": true,
 "device": {...}}``.  ``--vocab-scale`` < 1 cuts only the vocabularies
@@ -4373,8 +4417,8 @@ def lm_serve_phase(dev, cfg, b=LM_B, s=LM_S, n_requests=LM_PREFILLS, long_s=LM_L
     from repro_torch.nn import transformer as T
 
     model = LMModel(cfg)
-    params, init_ms = sync_ms(
-        lambda: model.init(torch.Generator(device=dev).manual_seed(0), dev)["params"])
+    params, init_ms = sync_ms(  # serving's init: every leaf in dtypes.param
+        lambda: T.init_lm(torch.Generator(device=dev).manual_seed(0), cfg, dev))
     n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
     log(f"lm serve: {cfg.n_layers} layers, d_model {cfg.d_model}, heads {cfg.n_heads}/"
         f"{cfg.n_kv_heads}, d_head {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
@@ -4435,7 +4479,7 @@ def lm_serve_phase(dev, cfg, b=LM_B, s=LM_S, n_requests=LM_PREFILLS, long_s=LM_L
     caches = T.init_decode_caches(cfg, b, max_len, device=dev)
     prompt_toks = torch.from_numpy(batches[1]["tokens"][:, :prompt]).to(dev)
     pos = torch.zeros((), dtype=torch.int32, device=dev)
-    step_ms = []
+    step_ms, greedy = [], []
     for t in range(prompt + new):
         tok = prompt_toks[:, t:t + 1] if t < prompt else nxt
         (out, caches), ms = sync_ms(lambda: model.decode_fn(params, caches, tok, pos))
@@ -4443,6 +4487,7 @@ def lm_serve_phase(dev, cfg, b=LM_B, s=LM_S, n_requests=LM_PREFILLS, long_s=LM_L
         pos = pos + 1
         if t >= prompt:
             step_ms.append(ms)
+            greedy.append(nxt)
     if not bool(torch.isfinite(out).all()) or fa_kernel.flash_attention.launches != 0:
         raise AssertionError(f"lm decode: finite logits {bool(torch.isfinite(out).all())}, "
                              f"{fa_kernel.flash_attention.launches} kernel launches (want 0)")
@@ -4452,12 +4497,18 @@ def lm_serve_phase(dev, cfg, b=LM_B, s=LM_S, n_requests=LM_PREFILLS, long_s=LM_L
         f"{max_len}, then {new} greedy tokens: ms/token p50 {dec_p50} (min {min(step_ms)}, max "
         f"{max(step_ms)}), {b / dec_p50 * 1e3} tokens/s; 0 kernel launches")
     return {"live": live, "err": max(err, long_err), "launches": sum(counts) + long_n,
-            "device_ms": fa_per_launch}
+            "device_ms": fa_per_launch,
+            "decode": {"ms": dec_p50, "tokens": torch.cat(greedy, 1).cpu(),
+                       "cache_bytes": sum(t.numel() * t.element_size() for t in _leaves(caches)),
+                       "prompt": prompt_toks.cpu()}}
 
 
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, tuple):
+        for v in tree:
             yield from _leaves(v)
     else:
         yield tree
@@ -4473,7 +4524,7 @@ def lm_fp32_phase(dev, cfg, b=2, s=LM_S, steps=LM_PROMPT):
     from repro_torch.nn import transformer as T
 
     model = LMModel(cfg)
-    params = model.init(torch.Generator(device=dev).manual_seed(1), dev)["params"]
+    params = T.init_lm(torch.Generator(device=dev).manual_seed(1), cfg, dev)
     toks = torch.from_numpy(synth.seq_batch(cfg.vocab, b, s, 1, 0)["tokens"]).to(dev)
     route = _route(cfg.dtypes.compute, cfg.head_dim)
     counts = {}
@@ -4547,10 +4598,11 @@ def gemma_phase(dev, cfg, s=GEMMA_S):
     kernel, and layer 0's live windowed inputs through it."""
     from repro_torch.data import synth
     from repro_torch.models.lm import LMModel
+    from repro_torch.nn import transformer as T
 
     model = LMModel(cfg)
     params, init_ms = sync_ms(
-        lambda: model.init(torch.Generator(device=dev).manual_seed(2), dev)["params"])
+        lambda: T.init_lm(torch.Generator(device=dev).manual_seed(2), cfg, dev))
     n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
     log(f"gemma: d_model {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, d_head "
         f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, window {cfg.window}, "
@@ -4570,6 +4622,512 @@ def gemma_phase(dev, cfg, s=GEMMA_S):
         f"within {err} of plain on live layer-0 q/k/v {tuple(live[0].shape)}, window "
         f"{cfg.window}")
     return {"live": live, "err": err, "launches": n}
+
+
+# ---------------------------------------------------------------------------
+# phases 16a-16e: LM training, the MoE family (OLMoE, Grok-1) and int8 decode
+# ---------------------------------------------------------------------------
+
+TRAIN_S = 4096  # train_4k's length
+TRAIN_BATCHES = (8, 4, 2)  # 16a: the largest that fits, cut from train_4k's 256
+TRAIN_STEPS, TRAIN_INT8_STEPS = 3, 2  # 16a: timed steps with compressor none, then int8
+FP32_TRAIN_LAYERS, FP32_TRAIN_B = 4, 2  # 16b: depth cut, batch (phase 11's)
+OLMOE_B, OLMOE_PREFILLS, OLMOE_NEW = 4, 3, 32  # 16c: prefills of B x S 4096, decode tokens
+OLMOE_TRAIN_LAYERS, OLMOE_TRAIN_B, OLMOE_TRAIN_STEPS = 4, 2, 2
+GROK_S = 8192
+MOE_TIE = 1e-5  # a router gap below this between the k-th and (k+1)-th expert is a near tie
+
+
+def _paths(tree, path=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _paths(v, f"{path}/{k}")
+    else:
+        yield path, tree
+
+
+def check_train_dtypes(state, cfg, what):
+    """The reference's training state: the embedding table and the norm
+    scales in ``dtypes.param``, every other matrix, the AdamW moments and
+    the int8 error feedback fp32."""
+    def want(path):
+        return cfg.dtypes.param if path.rsplit("/", 1)[-1] in ("table", "scale") else torch.float32
+
+    bad = [(p, t.dtype) for p, t in _paths(state["params"]) if t.dtype != want(p)]
+    for part in ("opt", "comp"):
+        bad += [(part + p, t.dtype) for p, t in _paths(state.get(part, {}))
+                if t.dtype != torch.float32]
+    if bad:
+        raise AssertionError(f"{what}: state dtypes off the reference's: {bad[:8]}")
+
+
+def _train_step(model, state, batch, what, route, want):
+    """One ``train_step`` timed to its sync with the flash launches counted
+    from 0: ``want`` launches, all on ``route``; a finite loss and gradient
+    norm.  Returns (state, ms, loss, grad norm)."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+
+    fa_kernel.flash_attention.launches = 0
+    before = fa_kernel.flash_attention.route_launches[route]
+    (state, m), ms = sync_ms(lambda: model.train_step(state, batch))
+    n = fa_kernel.flash_attention.launches
+    if n != want or fa_kernel.flash_attention.route_launches[route] - before != n:
+        raise AssertionError(f"{what}: {n} flash launches, want {want}, all on the {route} route")
+    loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+    if not (math.isfinite(loss) and math.isfinite(gnorm)):
+        raise AssertionError(f"{what}: loss {loss}, grad norm {gnorm}")
+    return state, ms, loss, gnorm
+
+
+def _lm_batch(dev, vocab, b, s, step):
+    from repro_torch.data import synth
+
+    return {k: torch.from_numpy(v).to(dev) for k, v in synth.seq_batch(vocab, b, s, 0,
+                                                                         step).items()}
+
+
+def _detached(live):
+    return tuple(t.detach() if torch.is_tensor(t) else t for t in live)
+
+
+def time_live_flash(live, what):
+    """The bf16 kernel, its plain version and SDPA on live [B, S, H, D]
+    inputs by CUDA events, and the bound (:func:`_flash_work`)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+
+    q, k, v = (t.transpose(1, 2) for t in live[:3])
+    window = live[4]
+    ev = {"kernel": cuda_ms(lambda: fa_kernel.flash_attention(q, k, v, True, window), iters=10),
+          "plain": cuda_ms(lambda: fa_kernel.flash_attention_plain(q, k, v, True, window),
+                           iters=3, warmup=1),
+          "sdpa": cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                                 enable_gqa=True), iters=10)}
+    flops, n_bytes, ops_ms, bytes_ms = _flash_work(q, k, window, BF16_OPS_PER_S)
+    bound = max(ops_ms, bytes_ms)
+    log(f"flash_attention on {what} {tuple(q.shape)} / {tuple(k.shape)}: event-timed ms kernel "
+        f"{ev['kernel']}, plain {ev['plain']}, sdpa {ev['sdpa']}; bound {bound} ms ({flops} "
+        f"FLOP at {BF16_OPS_PER_S / 1e12} TFLOP/s: {ops_ms} ms; {n_bytes} B: {bytes_ms} ms); "
+        f"fraction of the bound {bound / ev['kernel']}")
+    return {"shape": list(q.shape), "ms": ev["kernel"], "plain_ms": ev["plain"],
+            "library_ms": ev["sdpa"], "bound_ms": bound,
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "flops": flops}
+
+
+def lm_train_phase(dev, cfg, s=TRAIN_S, batches=TRAIN_BATCHES, n_steps=TRAIN_STEPS,
+                   n_int8=TRAIN_INT8_STEPS):
+    """Phase 16a: SmolLM-360M trained at published width and depth (bf16
+    compute, fp32 matrices and moments, remat, the flash kernel): the
+    largest batch of ``batches`` that fits at S ``s``, ``n_steps`` timed
+    steps with compressor ``none``, ``n_int8`` with ``int8``, a profiled
+    step, layer 0's live q/k/v through kernel and plain."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.models.lm import LMModel
+
+    route = _route(cfg.dtypes.compute, cfg.head_dim)
+    want = 2 * cfg.n_layers  # each layer's forward and its remat recompute
+    model = LMModel(cfg)
+    state, init_ms = sync_ms(
+        lambda: model.init(torch.Generator(device=dev).manual_seed(3), dev))
+    check_train_dtypes(state, cfg, "lm train init")
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(state))
+    launches = {"train_none": 0, "train_int8": 0, "profiled": 0}
+    for b in batches:  # the warm-up step at each batch until one fits
+        try:
+            state, warm_ms, _, _ = _train_step(model, state, _lm_batch(dev, cfg.vocab, b, s, 0),
+                                               f"lm train warm-up B {b}", route, want)
+            launches["train_none"] += want
+            break
+        except torch.OutOfMemoryError as e:
+            log(f"lm train: B {b} x S {s} does not fit on the card ({str(e)[:120]})")
+        gc.collect()
+        torch.cuda.empty_cache()
+    else:
+        raise AssertionError(f"lm train: none of the batches {batches} fits at S {s}")
+    log(f"lm train: {cfg.n_layers} layers, d_model {cfg.d_model}, vocab {cfg.vocab}, "
+        f"{cfg.dtypes.compute} compute, remat {cfg.remat}; state {n_bytes} B (params, AdamW m "
+        f"and v), init {init_ms} ms; cut: batch {b} of train_4k's 256 at S {s} (the largest of "
+        f"{batches} that fits: the full-vocab logits and their fp32 copies); warm-up {warm_ms} ms")
+    torch.cuda.reset_peak_memory_stats()
+    lat, losses, norms = [], [], []
+    for i in range(n_steps):
+        batch = _lm_batch(dev, cfg.vocab, b, s, i + 1)
+        if i == 0:
+            with layer0_inputs() as seen:
+                state, ms, loss, gn = _train_step(model, state, batch, f"lm train step {i}",
+                                                  route, want)
+            live = _detached(seen[0])
+            del seen
+        else:
+            state, ms, loss, gn = _train_step(model, state, batch, f"lm train step {i}", route,
+                                              want)
+        launches["train_none"] += want
+        lat.append(ms)
+        losses.append(loss)
+        norms.append(gn)
+    peak = torch.cuda.max_memory_allocated()
+    p50 = float(np.percentile(lat, 50))
+    log(f"lm train B {b} x S {s}, compressor none: step ms {lat}, p50 {p50}, "
+        f"{b * s / p50 * 1e3} tokens/s; losses {losses}; grad norms {norms}; peak device "
+        f"memory {peak / 1e9} GB; {want} flash launches a step, all on the {route} route")
+
+    model8 = LMModel(cfg, compressor="int8")
+    state = dict(state, comp=model8.compressor.init(state["params"]))
+    lat8, losses8 = [], []
+    for i in range(n_int8):
+        state, ms, loss, _ = _train_step(model8, state,
+                                         _lm_batch(dev, cfg.vocab, b, s, n_steps + 1 + i),
+                                         f"lm train int8 step {i}", route, want)
+        launches["train_int8"] += want
+        lat8.append(ms)
+        losses8.append(loss)
+    check_train_dtypes(state, cfg, "lm train after the int8 steps")
+    log(f"lm train compressor int8 (error feedback): step ms {lat8}, losses {losses8}; "
+        f"wire bytes a step {model8.compressor.wire_bytes(state['params'])} B against "
+        f"{model.compressor.wire_bytes(state['params'])} B uncompressed")
+
+    err = check_flash(*live, f"16a live layer-0 q/k/v at B {b} x S {s}", show=True)
+    stats = {}
+    batch = _lm_batch(dev, cfg.vocab, b, s, n_steps + n_int8 + 1)
+    fa_kernel.flash_attention.launches = 0
+    profile_call(f"one SmolLM-360M train step B {b} x S {s}",
+                 lambda: model.train_step(state, batch), stats=stats)
+    launches["profiled"] = fa_kernel.flash_attention.launches
+    by_kernel = stats.get("by_kernel", {})
+    fa = sum(ms for name, ms in by_kernel.items() if WGMMA_SYMBOL in name)
+    if fa <= 0 or any(SIMT_SYMBOL in name for name in by_kernel):
+        raise AssertionError(f"lm train profiled step: {fa} ms of {WGMMA_SYMBOL}; want the "
+                             f"tensor-core kernel alone")
+    idle = 1 - stats["busy"] / stats["wall"]
+    log(f"lm train profiled step: flash kernel {fa} ms of {stats['busy']} ms device busy "
+        f"(share {fa / stats['busy']}, {fa / want} ms a launch: forward and recompute); idle "
+        f"share {idle}")
+    kernel = time_live_flash(live, "16a's live layer-0 training q/k/v")
+    kernel["device_ms"] = fa / want
+    return {"launches": launches, "live_err": err, "batch": b, "step_p50": p50,
+            "tokens_per_s": b * s / p50 * 1e3, "peak_gb": peak / 1e9, "idle": idle,
+            "kernel": kernel}
+
+
+def lm_fp32_train_phase(dev, cfg, b=FP32_TRAIN_B, s=TRAIN_S):
+    """Phase 16b: SmolLM-360M's width in fp32 (TF32 off), depth cut: one
+    ``train_step`` through the 3xTF32 kernel and one through the chunked
+    route from one state and one batch: loss and gradient norm within rtol
+    1e-4 (phase 11's LM tolerance), every updated parameter within rtol
+    1e-4 and atol 0.2 lr (AdamW's step has slope lr / 1e-8 at a zero
+    gradient, see ``tests/test_torch_lm_train.py``)."""
+    from repro_torch.models.lm import LMModel
+
+    route = _route(cfg.dtypes.compute, cfg.head_dim)
+    model = LMModel(cfg)
+    chunked = LMModel(dataclasses.replace(cfg, use_pallas=False))
+    state = model.init(torch.Generator(device=dev).manual_seed(4), dev)
+    check_train_dtypes(state, cfg, "lm fp32 train init")
+    batch = _lm_batch(dev, cfg.vocab, b, s, 0)
+    with layer0_inputs() as seen:
+        new_k, ms_k, loss_k, gn_k = _train_step(model, state, batch, "lm fp32 kernel route",
+                                                route, 2 * cfg.n_layers)
+    live = _detached(seen[0])
+    del seen
+    new_c, ms_c, loss_c, gn_c = _train_step(chunked, state, batch, "lm fp32 chunked route",
+                                            route, 0)
+    lr = 3e-4  # LMModel's default
+    worst, bad = 0.0, []
+    for (path, a), (_, c) in zip(_paths(new_k["params"]), _paths(new_c["params"])):
+        excess = float(((a - c).abs() - (1e-4 * c.abs() + 0.2 * lr)).max())
+        worst = max(worst, float((a - c).abs().max()))
+        if excess > 0:
+            bad.append((path, excess))
+    err = check_flash(*live, f"16b live fp32 layer-0 q/k/v at B {b} x S {s}", show=True)
+    log(f"lm fp32 train ({cfg.n_layers} layers of SmolLM's width, cut from 32; B {b} x S {s}; "
+        f"TF32 off): kernel route loss {loss_k}, grad norm {gn_k}, {ms_k} ms; chunked route "
+        f"loss {loss_c}, grad norm {gn_c}, {ms_c} ms; relative diffs "
+        f"{abs(loss_k - loss_c) / abs(loss_c)}, {abs(gn_k - gn_c) / gn_c}; updated parameters "
+        f"max |diff| {worst}; {2 * cfg.n_layers} launches on the {route} route, 0 on the "
+        f"chunked route")
+    if (abs(loss_k - loss_c) > 1e-4 * abs(loss_c) or abs(gn_k - gn_c) > 1e-4 * gn_c or bad):
+        raise AssertionError(f"lm fp32 train: kernel route != chunked route (loss {loss_k} vs "
+                             f"{loss_c}, grad norm {gn_k} vs {gn_c}, params off: {bad[:6]})")
+    return {"launches": 2 * cfg.n_layers, "live_err": err}
+
+
+@contextlib.contextmanager
+def moe_calls(capture_first=True):
+    """Watches ``moe_apply_shard_map`` (the configs' MoE route): each
+    call's (token, expert) pairs dropped by capacity, from its routing
+    recomputed (a 0-dim tensor a call, no sync), and the first call's
+    parameters and input (layer 0's)."""
+    from repro_torch.nn import moe as M
+
+    seen = {"drops": [], "first": None}
+    impl = M.moe_apply_shard_map
+
+    def watch(p, x, dt, *, top_k, capacity_factor=1.25):
+        with torch.no_grad():
+            t, e = x.shape[0] * x.shape[1], p["router"].shape[-1]
+            logits = (x.reshape(t, -1).to(dt.compute) @ p["router"].to(dt.compute)).float()
+            idx = torch.topk(torch.softmax(logits, -1), top_k, dim=-1).indices
+            over = torch.bincount(idx.reshape(-1), minlength=e) - M.moe_capacity(
+                t, e, top_k, capacity_factor)
+            seen["drops"].append(torch.clamp_min(over, 0).sum())
+        if capture_first and seen["first"] is None:
+            seen["first"] = (p, x.detach())
+        return impl(p, x, dt, top_k=top_k, capacity_factor=capacity_factor)
+
+    M.moe_apply_shard_map = watch
+    try:
+        yield seen
+    finally:
+        M.moe_apply_shard_map = impl
+
+
+def check_moe_routes(p, x, cfg, what):
+    """``moe_apply_shard_map`` against ``moe_apply`` (the "global" route)
+    in fp32 on one live layer's input: outputs within rtol 1e-4 / atol
+    1e-4 * max|out| on every token without a near tie in its router (a gap
+    under ``MOE_TIE`` between its k-th and (k+1)-th expert, where the two
+    routes' last bits may pick different experts), aux within rtol 1e-4."""
+    from repro_torch.nn import moe as M
+    from repro_torch.nn.layers import Dtypes
+
+    dt = Dtypes(param=torch.float32, compute=torch.float32)
+    p32 = {k: v.detach().float() for k, v in p.items()}
+    x32 = x.float()
+    with torch.no_grad():
+        out_s, aux_s = M.moe_apply_shard_map(p32, x32, dt, top_k=cfg.top_k,
+                                             capacity_factor=cfg.capacity_factor)
+        out_g, aux_g = M.moe_apply(p32, x32, dt, top_k=cfg.top_k,
+                                   capacity_factor=cfg.capacity_factor,
+                                   dp_groups=cfg.moe_dp_groups)
+        probs = torch.softmax(x32.reshape(-1, x32.shape[-1]) @ p32["router"], -1)
+        top = torch.topk(probs, cfg.top_k + 1, dim=-1).values
+        tie = (top[:, -2] - top[:, -1]) < MOE_TIE
+    diff = (out_s - out_g).abs().reshape(-1, x.shape[-1])
+    scale = float(out_g.abs().max())
+    ok_rows = (diff <= 1e-4 * out_g.abs().reshape(diff.shape) + 1e-4 * scale).all(-1)
+    bad = int((~ok_rows & ~tie).sum())
+    worst = float(diff[~tie].max())
+    log(f"{what}: shard_map route vs global route in fp32 on live layer-0 input "
+        f"{tuple(x.shape)}: max |diff| {worst} (max |out| {scale}) over the "
+        f"{int((~tie).sum())} tokens without a near tie ({int(tie.sum())} with one); aux "
+        f"{float(aux_s)} vs {float(aux_g)}")
+    if bad or abs(float(aux_s) - float(aux_g)) > 1e-4 * abs(float(aux_g)):
+        raise AssertionError(f"{what}: shard_map != global on {bad} tokens (max |diff| {worst}), "
+                             f"aux {float(aux_s)} vs {float(aux_g)}")
+    return worst
+
+
+def olmoe_phase(dev, cfg, b=OLMOE_B, s=LM_S, n_requests=OLMOE_PREFILLS, prompt=LM_PROMPT,
+                new=OLMOE_NEW, max_len=LM_MAX_LEN, train_layers=OLMOE_TRAIN_LAYERS,
+                train_b=OLMOE_TRAIN_B, n_train=OLMOE_TRAIN_STEPS):
+    """Phase 16c: OLMoE-1B-7B served at published width and depth in bf16
+    (prefills, the MoE routes against each other on layer 0's live input, a
+    greedy decode), then trained at published width with depth cut."""
+    from repro_torch.data import synth
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.models.lm import LMModel
+    from repro_torch.nn import transformer as T
+
+    model = LMModel(cfg)
+    params, init_ms = sync_ms(lambda: T.init_lm(torch.Generator(device=dev).manual_seed(5),
+                                                cfg, dev))
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    log(f"olmoe serve: {cfg.n_layers} layers, d_model {cfg.d_model}, heads {cfg.n_heads}/"
+        f"{cfg.n_kv_heads}, {cfg.n_experts} experts of d_ff {cfg.d_ff}, top-{cfg.top_k}, vocab "
+        f"{cfg.vocab}, moe_impl {cfg.moe_impl}, {cfg.dtypes.compute}; {n_bytes} B of weights, "
+        f"init {init_ms} ms; cut: prefill batch {b} (prefill_32k's is 32) at S {s}")
+    batches = [synth.seq_batch(cfg.vocab, b, s, 0, i) for i in range(n_requests + 1)]
+    with moe_calls() as seen:
+        _prefill(model, params, batches[0], "olmoe warm-up prefill")
+    drops = [int(d) for d in seen["drops"]]
+    route_err = check_moe_routes(*seen["first"], cfg, "olmoe")
+    del seen
+    cap = cfg.capacity_factor
+    log(f"olmoe prefill B {b} x S {s}: (token, expert) pairs dropped by capacity (factor {cap}) "
+        f"per layer {drops} of {b * s * cfg.top_k} a layer")
+    lat, counts = [], []
+    for i in range(n_requests):
+        _, ms, n, live = _prefill(model, params, batches[i + 1], f"olmoe prefill {i}")
+        lat.append(ms)
+        counts.append(n)
+    if counts != [cfg.n_layers] * n_requests:
+        raise AssertionError(f"olmoe: launches per prefill {counts}, want {cfg.n_layers}")
+    p50 = float(np.percentile(lat, 50))
+    err = check_flash(*live, f"olmoe live layer-0 q/k/v at B {b} x S {s}", show=True)
+    del live
+    log(f"olmoe prefill B {b} x S {s}: ms {lat}, p50 {p50}, {b * s / p50 * 1e3} tokens/s; "
+        f"launches {counts}")
+
+    db = LM_B
+    fa_kernel.flash_attention.launches = 0
+    caches = T.init_decode_caches(cfg, db, max_len, device=dev)
+    prompt_toks = torch.from_numpy(synth.seq_batch(cfg.vocab, db, s, 0, 1)["tokens"][:, :prompt]
+                                   ).to(dev)
+    pos = torch.zeros((), dtype=torch.int32, device=dev)
+    step_ms = []
+    for t in range(prompt + new):
+        tok = prompt_toks[:, t:t + 1] if t < prompt else nxt
+        (out, caches), ms = sync_ms(lambda: model.decode_fn(params, caches, tok, pos))
+        nxt = out.argmax(-1, keepdim=True).to(torch.int32)
+        pos = pos + 1
+        if t >= prompt:
+            step_ms.append(ms)
+    if not bool(torch.isfinite(out).all()) or fa_kernel.flash_attention.launches != 0:
+        raise AssertionError(f"olmoe decode: finite {bool(torch.isfinite(out).all())}, "
+                             f"{fa_kernel.flash_attention.launches} kernel launches (want 0)")
+    dec_p50 = float(np.percentile(step_ms, 50))
+    log(f"olmoe decode B {db}: {prompt}-token prompt, then {new} greedy tokens into caches of "
+        f"{max_len}: ms/token p50 {dec_p50} (min {min(step_ms)}, max {max(step_ms)})")
+    del params, caches, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    tcfg = dataclasses.replace(cfg, n_layers=train_layers)
+    tmodel = LMModel(tcfg)
+    state = tmodel.init(torch.Generator(device=dev).manual_seed(6), dev)
+    check_train_dtypes(state, tcfg, "olmoe train init")
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(state))
+    route = _route(cfg.dtypes.compute, cfg.head_dim)
+    want = 2 * train_layers
+    torch.cuda.reset_peak_memory_stats()
+    with moe_calls(capture_first=False) as seen:
+        state, warm_ms, _, _ = _train_step(tmodel, state, _lm_batch(dev, cfg.vocab, train_b, s,
+                                                                      0),
+                                           "olmoe train warm-up", route, want)
+    train_drops = [int(d) for d in seen["drops"][:train_layers]]
+    del seen
+    lat_t, losses = [], []
+    for i in range(n_train):
+        state, ms, loss, _ = _train_step(tmodel, state, _lm_batch(dev, cfg.vocab, train_b, s,
+                                                                    i + 1),
+                                         f"olmoe train step {i}", route, want)
+        lat_t.append(ms)
+        losses.append(loss)
+    peak = torch.cuda.max_memory_allocated()
+    t50 = float(np.percentile(lat_t, 50))
+    log(f"olmoe train: cut: depth 16 -> {train_layers} layers at published width; B {train_b} "
+        f"x S {s}; state {n_bytes} B (fp32 matrices, bf16 table and norms, fp32 moments); "
+        f"warm-up {warm_ms} ms, step ms {lat_t}, p50 {t50}, {train_b * s / t50 * 1e3} tokens/s; "
+        f"losses {losses}; peak device memory {peak / 1e9} GB; drops per layer (forward) "
+        f"{train_drops}; {want} flash launches a step")
+    del state
+    return {"launches": {"olmoe_prefill": sum(counts), "olmoe_train": want * (1 + n_train)},
+            "err": err, "route_err": route_err, "prefill_p50": p50, "decode_ms": dec_p50,
+            "train_p50": t50, "peak_gb": peak / 1e9}
+
+
+def grok_phase(dev, cfg, s=GROK_S):
+    """Phase 16d: Grok-1 at published width, depth cut to one layer: one
+    prefill of B 1 x S ``s`` through the kernel (KV heads replicated 2x),
+    layer 0's live q/k/v through kernel and plain."""
+    from repro_torch.data import synth
+    from repro_torch.models.lm import LMModel
+    from repro_torch.nn import transformer as T
+
+    model = LMModel(cfg)
+    params, init_ms = sync_ms(lambda: T.init_lm(torch.Generator(device=dev).manual_seed(7),
+                                                cfg, dev))
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    moe = params["groups"]["p0"]["moe"]
+    expert_bytes = sum(moe[k].numel() * moe[k].element_size() for k in ("gate", "up", "down"))
+    log(f"grok: d_model {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} (x{cfg.kv_repeat} "
+        f"replicated), d_head {cfg.head_dim}, {cfg.n_experts} experts of d_ff {cfg.d_ff}, "
+        f"top-{cfg.top_k}, vocab {cfg.vocab}, {cfg.dtypes.compute}; cut: depth 64 -> "
+        f"{cfg.n_layers}; {n_bytes} B of weights ({expert_bytes} B the layer's experts), init "
+        f"{init_ms} ms")
+    batch = synth.seq_batch(cfg.vocab, 1, s, 0, 0)
+    with moe_calls(capture_first=False) as seen:
+        _prefill(model, params, batch, "grok warm-up prefill")
+    drops = [int(d) for d in seen["drops"]]
+    _, ms, n, live = _prefill(model, params, batch, f"grok prefill B 1 x S {s}")
+    if n != cfg.n_layers:
+        raise AssertionError(f"grok prefill: {n} launches, want {cfg.n_layers}")
+    if live[1].shape[2] != cfg.eff_kv_heads:
+        raise AssertionError(f"grok layer 0: {live[1].shape[2]} KV heads, want the replicated "
+                             f"{cfg.eff_kv_heads}")
+    err = check_flash(*live, f"grok live layer-0 q/k/v ({cfg.n_heads}/{cfg.eff_kv_heads} heads)",
+                      show=True)
+    log(f"grok prefill B 1 x S {s}: {ms} ms, {s / ms * 1e3} tokens/s, {n} launch; pairs dropped "
+        f"by capacity {drops} of {s * cfg.top_k}")
+    return {"launches": n, "err": err, "ms": ms}
+
+
+def int8_decode_phase(dev, cfg, ref, prompt=LM_PROMPT, new=LM_NEW, max_len=LM_MAX_LEN):
+    """Phase 16e: SmolLM-360M (phase 10's weights and prompt) decoded greedily
+    into int8 KV caches; the int8 attention on the card against the same
+    function on the CPU on the last step's live layer-0 tensors.  ``ref``
+    is phase 10's bf16-cache decode (ms a token, tokens, cache bytes)."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.models.lm import LMModel
+    from repro_torch.nn import transformer as T
+
+    model = LMModel(cfg)
+    params = T.init_lm(torch.Generator(device=dev).manual_seed(0), cfg, dev)  # phase 10's
+    b = ref["prompt"].shape[0]
+    caches = T.init_decode_caches(cfg, b, max_len, device=dev)
+    cache_bytes = sum(t.numel() * t.element_size() for t in _leaves(caches))
+    prompt_toks = ref["prompt"].to(dev)
+    live, impl = [], T._decode_attention_i8
+
+    def capture(*args):  # layer 0's inputs of the step: the cache views are final after it
+        if not live:
+            live.extend(args)
+        return impl(*args)
+
+    fa_kernel.flash_attention.launches = 0
+    pos = torch.zeros((), dtype=torch.int32, device=dev)
+    step_ms, greedy = [], []
+    for t in range(prompt + new):
+        tok = prompt_toks[:, t:t + 1] if t < prompt else nxt
+        if t == prompt + new - 1:
+            T._decode_attention_i8 = capture
+        try:
+            (out, caches), ms = sync_ms(lambda: model.decode_fn(params, caches, tok, pos))
+        finally:
+            T._decode_attention_i8 = impl
+        nxt = out.argmax(-1, keepdim=True).to(torch.int32)
+        pos = pos + 1
+        if t >= prompt:
+            step_ms.append(ms)
+            greedy.append(nxt)
+    if not bool(torch.isfinite(out).all()) or fa_kernel.flash_attention.launches != 0:
+        raise AssertionError(f"int8 decode: finite {bool(torch.isfinite(out).all())}, "
+                             f"{fa_kernel.flash_attention.launches} kernel launches (want 0)")
+    tokens = torch.cat(greedy, 1).cpu()
+    same = float((tokens == ref["tokens"]).float().mean())
+    first = [int(torch.nonzero(r != w)[0]) if bool((r != w).any()) else len(r)
+             for r, w in zip(tokens, ref["tokens"])]
+
+    card = T._attention_i8_parts(*live)
+    cpu = T._attention_i8_parts(*(t.cpu() for t in live))
+    vc = live[2].cpu().to(torch.int64)
+    exact = torch.einsum("bhgs,bshd->bhgd", card["w8"].cpu().to(torch.int64), vc)
+    flips = (card["w8"].cpu().to(torch.int64) - cpu["w8"].to(torch.int64)).abs()
+    ok_int = (torch.equal(card["q8"].cpu(), cpu["q8"]) and torch.equal(card["raw"].cpu(),
+                                                                       cpu["raw"])
+              and torch.equal(card["acc"].cpu().to(torch.int64), exact))
+    out_card = card["acc"].cpu().float() * (card["wmax"].cpu() / 127.0)
+    out_cpu = cpu["acc"].float() * (cpu["wmax"] / 127.0)
+    bound = (cpu["wmax"] / 127.0) * torch.einsum("bhgs,bshd->bhgd", flips.float(),
+                                                 vc.abs().float())
+    diff = (out_card - out_cpu).abs()
+    ok_out = bool((diff <= 1e-4 * out_cpu.abs().max() + 1e-4 * out_cpu.abs() + bound).all())
+    dec_p50 = float(np.percentile(step_ms, 50))
+    log(f"int8 decode B {b}: {prompt}-token prompt, {new} greedy tokens into int8 caches of "
+        f"{max_len}: ms/token p50 {dec_p50} against the bf16 caches' {ref['ms']} (phase 10, "
+        f"printed, not gated); cache bytes {cache_bytes} against {ref['cache_bytes']}; greedy "
+        f"tokens equal to phase 10's: {same} of {tokens.numel()} (first difference per row "
+        f"{first}); last step's layer 0 (cache length {int(live[5])}): q codes and q.k "
+        f"accumulators bitwise the CPU's {torch.equal(card['raw'].cpu(), cpu['raw'])}, w.v "
+        f"accumulators bitwise the exact integer dot of the card's codes "
+        f"{torch.equal(card['acc'].cpu().to(torch.int64), exact)}; weight codes off the CPU's "
+        f"by one: {int((flips > 0).sum())} of {flips.numel()}; output max |diff| "
+        f"{float(diff.max())} (max |o| {float(out_cpu.abs().max())})")
+    if not (ok_int and ok_out and int(flips.max()) <= 1):
+        raise AssertionError(f"int8 decode attention: integers exact {ok_int}, output within "
+                             f"bound {ok_out}, max weight code diff {int(flips.max())}")
+    return {"ms": dec_p50, "agree": same, "cache_bytes": cache_bytes}
 
 
 def _live_pairs(s, window):
@@ -5099,10 +5657,50 @@ def main():
                   dataclasses.replace(gemma3_27b.CONFIG, n_layers=6, use_pallas=True))
     fa = timed("13 (flash timing)", time_flash, smol, gemma, fp32_lm, fa_errs, ptxas,
                simt_live)
+    smol_decode = smol["decode"]
     del simt_live
     del smol, gemma, fp32_lm
     gc.collect()
     torch.cuda.empty_cache()
+
+    from repro_torch.configs import grok_1_314b, olmoe_1b_7b
+
+    t16 = time.perf_counter()
+    lm_train = timed("16a (SmolLM-360M training)", lm_train_phase, dev,
+                     dataclasses.replace(smollm_360m.CONFIG, use_pallas=True))
+    gc.collect()
+    torch.cuda.empty_cache()
+    fp32_train = timed("16b (SmolLM-360M fp32 training, kernel vs chunked)",
+                       lm_fp32_train_phase, dev,
+                       dataclasses.replace(smollm_360m.CONFIG, dtypes=fp32,
+                                           n_layers=FP32_TRAIN_LAYERS, use_pallas=True))
+    gc.collect()
+    torch.cuda.empty_cache()
+    olmoe = timed("16c (OLMoE-1B-7B)", olmoe_phase, dev,
+                  dataclasses.replace(olmoe_1b_7b.CONFIG, use_pallas=True))
+    gc.collect()
+    torch.cuda.empty_cache()
+    grok = timed("16d (Grok-1-314B, one layer)", grok_phase, dev,
+                 dataclasses.replace(grok_1_314b.CONFIG, n_layers=1, use_pallas=True))
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed("16e (SmolLM-360M int8 KV-cache decode)", int8_decode_phase, dev,
+          dataclasses.replace(smollm_360m.CONFIG, use_pallas=True, kv_cache_int8=True),
+          smol_decode)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phases 16a-16e: {time.perf_counter() - t16} s")
+    bf16_row, fp32_row = fa
+    bf16_row["launches_by_path"].update({f"smollm_{k}": n for k, n in lm_train["launches"].items()})
+    bf16_row["launches_by_path"].update(olmoe["launches"], grok_prefill=grok["launches"])
+    bf16_row["max_abs_err"] = max(bf16_row["max_abs_err"], lm_train["live_err"], olmoe["err"],
+                                  grok["err"])
+    bf16_row["train_live"] = lm_train["kernel"]
+    fp32_row["launches_by_path"]["smollm_fp32_train"] = fp32_train["launches"]
+    fp32_row["max_abs_err"] = max(fp32_row["max_abs_err"], fp32_train["live_err"])
+    for row in (bf16_row, fp32_row):
+        row["launches"] = sum(row["launches_by_path"].values())
+    del lm_train, olmoe, grok
 
     rf = timed("5f (refresh)", refresh_phase, dev, args.vocab_scale)
     gc.collect()

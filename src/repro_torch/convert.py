@@ -1,6 +1,6 @@
 """Carry a model state (serve or train: DLRM, FM, DIN, DIEN, MIND; the
-single-table ``CachedEmbeddingState``; LM parameters) between the JAX
-package and the port.
+single-table ``CachedEmbeddingState``; LM parameters and train states)
+between the JAX package and the port.
 
 The JAX side is given as nested dicts of numpy arrays under the JAX field
 names (a dataclass becomes a dict of its fields), e.g.::
@@ -34,9 +34,12 @@ its fp32 dict or ``ArenaStore`` arena, the ``FreqTracker`` and
 ``idx_map``); :func:`cached_embedding_state_from_numpy` builds the
 single-table adapter's state (its host store, cache state, ``idx_map``
 and ``offsets``); :func:`lm_params_from_numpy` builds an LM's parameter
-tree (``embed`` / ``groups`` / ``rem`` / ``final_norm`` / ``head``, copied
-leaf for leaf); :func:`to_numpy` turns a port state back into the same
-layout so the two can be compared leaf by leaf.
+tree (``embed`` / ``groups`` / ``rem`` / ``final_norm`` / ``head``, dense
+or MoE layers, copied leaf for leaf); :func:`lm_state_from_numpy` an LM
+train state (those parameters, the AdamW ``m`` / ``v`` trees, ``step`` and
+the int8 ``Compressor``'s error-feedback tree ``comp``); :func:`to_numpy`
+turns a port state back into the same layout so the two can be compared
+leaf by leaf.
 
 bf16 leaves (``ml_dtypes.bfloat16`` on the JAX side, which
 ``torch.from_numpy`` cannot read) cross as their 16 raw bits: into the port
@@ -65,7 +68,7 @@ from repro_torch.store.arena import ArenaStore
 from repro_torch.store.host_store import HostStore
 
 __all__ = ["adopt_codecs", "cached_embedding_state_from_numpy", "collection_state_from_numpy",
-           "lm_params_from_numpy", "state_from_numpy", "to_numpy"]
+           "lm_params_from_numpy", "lm_state_from_numpy", "state_from_numpy", "to_numpy"]
 
 
 def _t(x: Any, device: torch.device) -> torch.Tensor:
@@ -200,6 +203,18 @@ def lm_params_from_numpy(tree: Mapping[str, Any], device: DeviceLike = None) -> 
     """The port's LM parameters from the JAX tree of numpy leaves (fp32 or
     bf16), leaf for leaf, stacked group leaves included."""
     return _tree(tree, resolve_device(device))
+
+
+def lm_state_from_numpy(tree: Mapping[str, Any], device: DeviceLike = None) -> Dict[str, Any]:
+    """The port's ``LMModel`` train state from the JAX one's numpy tree:
+    ``params``, ``opt`` (``{"m": ..., "v": ...}``), ``step`` and, for the
+    int8 compressor, ``comp``."""
+    dev = resolve_device(device)
+    state = {"params": _tree(tree["params"], dev), "opt": _tree(tree["opt"], dev),
+             "step": _t(tree["step"], dev)}
+    if "comp" in tree:
+        state["comp"] = _tree(tree["comp"], dev)
+    return state
 
 
 def to_numpy(obj: Any) -> Any:

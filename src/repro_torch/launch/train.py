@@ -9,15 +9,20 @@ batches.
   PYTHONPATH=src python -m repro_torch.launch.train --refresh-interval 5 --model-shards 4
   PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-avazu --cache-policy lru
   PYTHONPATH=src python -m repro_torch.launch.train --obs-dir /tmp/obs --history-limit 10
+  PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe-1b-7b --steps 20
 
 Runs on the CUDA card; ``--device cpu`` runs it on the CPU.  Every arch
 builds the reference launcher's CPU-scale config: every ``dlrm*`` arch the
 same small DLRM, ``fm`` six fields of 100 000 rows, ``din`` / ``dien`` /
-``mind`` histories of 50 over 200 000 items (DIEN with 36 GRU units).
+``mind`` histories of 50 over 200 000 items (DIEN with 36 GRU units), and
+each LM arch (``grok-1-314b``, ``olmoe-1b-7b``, ``gemma3-27b``,
+``smollm-360m``, ``internlm2-20b``) its SMOKE config at lr 1e-3 on token
+batches of 8 x 64.  An LM has no embedding cache: the cache flags exit.
 """
 from __future__ import annotations
 
 import argparse
+import importlib
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -25,6 +30,7 @@ import numpy as np
 from repro_torch.core.policies import Policy
 from repro_torch.data import synth
 from repro_torch.models.dlrm import DLRM, DLRMConfig
+from repro_torch.models.lm import LMModel
 from repro_torch.models.recsys_models import (DIENConfig, DIENModel, DINConfig, DINModel,
                                                FMConfig, FMModel, MINDConfig, MINDModel)
 from repro_torch.train.trainer import PipelinedTrainer, Trainer, TrainerConfig
@@ -76,10 +82,20 @@ def build(arch: str, batch: int, arena_precision: str, model_shards: int = 0,
                                                s, n_cates=cfg.n_cates)
 
 
+LM_ARCHS = ("grok-1-314b", "olmoe-1b-7b", "gemma3-27b", "smollm-360m", "internlm2-20b")
+
+
+def build_lm(arch: str) -> Tuple[LMModel, Callable[[int], Dict[str, np.ndarray]]]:
+    """The reference launcher's reduced LM: (model, step -> batch)."""
+    mod = importlib.import_module(f"repro_torch.configs.{arch.replace('-', '_')}")
+    return LMModel(mod.SMOKE, lr=1e-3), lambda s: synth.seq_batch(mod.SMOKE.vocab, 8, 64, 0, s)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="dlrm-criteo",
-                    choices=["dlrm-criteo", "dlrm-avazu", "fm", "din", "dien", "mind"])
+                    choices=["dlrm-criteo", "dlrm-avazu", "fm", "din", "dien", "mind",
+                             *LM_ARCHS])
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=512)
     ap.add_argument("--ckpt-dir", default=None)
@@ -128,6 +144,8 @@ def main(argv=None):
     ap.add_argument("--device", default=None, help="default: the CUDA card")
     args = ap.parse_args(argv)
 
+    if args.arch in LM_ARCHS:
+        return _train_lm(args)
     model, make_batch = build(args.arch, args.batch, args.arena_precision, args.model_shards,
                         args.replicate_top_k, args.exchange_codec, args.max_routed_per_shard,
                         args.host_precision, args.chunk_rows,
@@ -175,6 +193,37 @@ def main(argv=None):
               f"{h[-1]['exchange_row_bytes'] / 1e6:.1f} MB [{args.exchange_codec}], "
               f"top-{args.replicate_top_k} replicated), live imbalance "
               f"{h[-1]['shard_imbalance']:.2f}x")
+    if args.obs_dir:
+        print(f"observability: {trainer.hub.jsonl_path} (render: python -m "
+              f"repro_torch.obs.report {trainer.hub.jsonl_path}) | chrome trace: "
+              f"{trainer.trace_path}")
+    return trainer
+
+
+def _train_lm(args):
+    """An LM arch through the serial ``Trainer``; the cache flags exit with
+    the reference launcher's messages."""
+    if args.cache_policy:
+        raise SystemExit(f"--cache-policy needs a collection-backed arch; "
+                         f"{args.arch} has no embedding cache")
+    if args.refresh_interval:
+        raise SystemExit(f"--refresh-interval needs a collection-backed arch; "
+                         f"{args.arch} has no cached slabs to re-rank")
+    if args.pipeline_depth > 0:
+        raise SystemExit(f"--pipeline-depth needs a collection-backed arch; "
+                         f"{args.arch} has no split plan/compute step")
+    model, make_batch = build_lm(args.arch)
+    tc = TrainerConfig(max_steps=args.steps, ckpt_dir=args.ckpt_dir, ckpt_every=25,
+                       obs_dir=args.obs_dir, obs_annotate=args.obs_annotate,
+                       history_limit=args.history_limit or None)
+    trainer = Trainer(tc, step_fn=model.train_step, init_fn=lambda: model.init(0, args.device),
+                      make_batch=make_batch,
+                      on_straggler=lambda s, dt: print(f"[straggler] step {s}: {dt * 1e3:.0f} ms"),
+                      device=args.device)
+    trainer.run()
+    h = trainer.history
+    print(f"\narch={args.arch} steps={h[-1]['step'] + 1} "
+          f"loss {h[0]['loss']:.4f} -> {h[-1]['loss']:.4f}")
     if args.obs_dir:
         print(f"observability: {trainer.hub.jsonl_path} (render: python -m "
               f"repro_torch.obs.report {trainer.hub.jsonl_path}) | chrome trace: "

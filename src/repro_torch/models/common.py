@@ -32,6 +32,7 @@ from repro_torch.optim.optimizers import Optimizer, tree_map
 
 __all__ = [
     "bce_with_logits",
+    "softmax_xent",
     "auc_proxy",
     "flush_embeddings",
     "EmbTrainStep",
@@ -50,6 +51,14 @@ def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     z = logits.to(torch.float32)
     y = labels.to(torch.float32)
     return torch.mean(torch.clamp_min(z, 0) - z * y + torch.log1p(torch.exp(-torch.abs(z))))
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean softmax cross-entropy of ``logits`` [..., V] (in fp32) against
+    integer ``labels`` [...]."""
+    z = logits.to(torch.float32)
+    ll = torch.gather(z, -1, labels[..., None].to(torch.int64))[..., 0]
+    return torch.mean(torch.logsumexp(z, dim=-1) - ll)
 
 
 def auc_proxy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -13,8 +13,10 @@ the CPU move (fp32, fp16 and int8 host tiers; fp32 and tiered arenas; the
 verbatim host -> tail path; chunked staging, into a tiered arena too), a
 lookahead plan's eviction key through the threshold kernel at ``kv ==
 capacity``, a 4-shard collection's lookups against its dense
-reference, and one serve and one train step of DIN, DIEN and MIND against
-the CPU port.
+reference, one serve and one train step of DIN, DIEN and MIND against
+the CPU port, and the LM family's training step (the flash kernel in the
+forward and the remat recompute), MoE layers and int8 KV-cache attention
+(its integer dots exact) against the CPU port.
 
 Imports neither JAX nor the JAX package, so the machine with the card runs
 it as is:  ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
@@ -1144,3 +1146,126 @@ def test_recsys_family_on_the_card_matches_cpu(cuda, arch):
     _close_tree(w_state["emb"], g_state["emb"], "emb", skip=("weight",))
     _close_tree(w_state["params"], g_state["params"], "params", skip=("w", "b", "wx", "wh",
                                                                       "s_matrix"))
+
+
+def _lm_tree_close(want, got, rtol, atol, path=""):
+    if isinstance(want, dict):
+        for k in want:
+            _lm_tree_close(want[k], got[k], rtol, atol, f"{path}/{k}")
+        return
+    assert want.dtype == got.dtype and want.shape == got.shape, path
+    torch.testing.assert_close(got.cpu(), want, rtol=rtol, atol=atol, msg=path)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,compressor", [("smollm", "none"), ("olmoe", "int8"),
+                                             ("grok", "bf16")])
+def test_lm_train_step_on_the_card_matches_cpu(cuda, arch, compressor):
+    """One ``LMModel.train_step`` of a SMOKE config with ``use_pallas`` (the
+    flash kernel in the forward and in the remat recompute: 2 launches a
+    group layer) from one state on the CPU and its copy on the card, TF32
+    off: loss and gradient norm within rtol 1e-5, the new state within the
+    CPU parity test's tolerances (``tests/test_torch_lm_train.py``)."""
+    import dataclasses
+
+    from repro_torch import convert
+    from repro_torch.configs import grok_1_314b, olmoe_1b_7b, smollm_360m
+    from repro_torch.data import synth
+    from repro_torch.models.lm import LMModel
+
+    smoke = {"smollm": smollm_360m, "olmoe": olmoe_1b_7b, "grok": grok_1_314b}[arch].SMOKE
+    cfg = dataclasses.replace(smoke, use_pallas=True)
+    model = LMModel(cfg, lr=1e-3, compressor=compressor)
+    tree = convert.to_numpy(model.init(0, device="cpu"))
+    batch = synth.seq_batch(cfg.vocab, 2, 32, 0, 0)
+    out = {}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for d in ("cpu", cuda):
+            state = convert.lm_state_from_numpy(tree, d)
+            before = fa_kernel.flash_attention.launches
+            state, m = model.train_step(state, {k: torch.from_numpy(v).to(d)
+                                                for k, v in batch.items()})
+            out[d] = (float(m["loss"]), float(m["grad_norm"]), state,
+                      fa_kernel.flash_attention.launches - before)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (w_loss, w_norm, w_state, _), (g_loss, g_norm, g_state, launches) = out.values()
+    assert launches == 2 * cfg.n_layers
+    np.testing.assert_allclose([g_loss, g_norm], [w_loss, w_norm], rtol=1e-5)
+    _lm_tree_close(w_state["params"], g_state["params"], 1e-5, 2e-4, "params")
+    for k, atol in (("m", 1e-4), ("v", 1e-7)):
+        _lm_tree_close(w_state["opt"][k], g_state["opt"][k], 1e-4, atol, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s_cache", [40, 4096])
+def test_int8_decode_attention_on_the_card_is_exact(cuda, s_cache):
+    """The int8 KV-cache attention on the card: the query's codes and the
+    score dots (``raw``) bitwise the CPU's, the value dots (``acc``)
+    bitwise the exact integer dot of the card's own codes (fp32 chunks of
+    1024 positions), TF32 on or off; the output within rtol 1e-4 / atol
+    1e-4 * max|o| of the CPU's plus the effect of any weight code that
+    rounds the other way."""
+    from repro_torch.nn import transformer as T
+
+    rng = np.random.default_rng(s_cache)
+    b, hkv, g, hd = 2, 5, 3, 64
+    args = [rng.normal(size=(b, 1, hkv * g, hd)).astype(np.float32)]
+    args += [rng.integers(-127, 128, size=(b, s_cache, hkv, hd)).astype(np.int8)
+             for _ in range(2)]
+    args += [rng.uniform(0.01, 0.05, size=(b, s_cache, hkv)).astype(np.float32)
+             for _ in range(2)]
+    cpu = T._attention_i8_parts(*(torch.from_numpy(a) for a in args), torch.tensor(s_cache - 3))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    for allow in (False, True):
+        torch.backends.cuda.matmul.allow_tf32 = allow
+        try:
+            card = T._attention_i8_parts(*(torch.from_numpy(a).to(cuda) for a in args),
+                                         torch.tensor(s_cache - 3, device=cuda))
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        assert torch.equal(card["q8"].cpu(), cpu["q8"]) and torch.equal(card["raw"].cpu(),
+                                                                        cpu["raw"])
+        w8, vc = card["w8"].cpu().to(torch.int64), torch.from_numpy(args[2]).to(torch.int64)
+        assert torch.equal(card["acc"].cpu().to(torch.int64),
+                           torch.einsum("bhgs,bshd->bhgd", w8, vc))
+        flips = (card["w8"].cpu().to(torch.int64) - cpu["w8"].to(torch.int64)).abs()
+        assert int(flips.max()) <= 1
+        bound = (card["wmax"].cpu() / 127.0) * torch.einsum("bhgs,bshd->bhgd", flips.float(),
+                                                           vc.abs().float())
+        diff = (card["out"].cpu() - cpu["out"]).abs().reshape(bound.shape)
+        o = cpu["out"].abs().max()
+        assert bool((diff <= 1e-4 * o + 1e-4 * cpu["out"].abs().reshape(bound.shape)
+                     + bound).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["global", "shard_map"])
+def test_moe_on_the_card_matches_cpu(cuda, impl):
+    """``moe_apply`` (2 dispatch groups) and ``moe_apply_shard_map`` at
+    olmoe SMOKE's widths with drops (capacity factor 0.5), TF32 off:
+    output and aux within rtol / atol 1e-5 of the CPU's."""
+    from repro_torch.nn import moe as M
+    from repro_torch.nn.layers import Dtypes
+
+    dt = Dtypes(param=torch.float32, compute=torch.float32)
+    p = M.moe_init(torch.Generator().manual_seed(0), 64, 32, 8, dt, torch.device("cpu"))
+    x = torch.from_numpy(np.random.default_rng(1).normal(size=(2, 32, 64)).astype(np.float32))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = []
+        for d in ("cpu", cuda):
+            pd = {k: v.to(d) for k, v in p.items()}
+            if impl == "global":
+                out.append(M.moe_apply(pd, x.to(d), dt, top_k=4, capacity_factor=0.5,
+                                       dp_groups=2))
+            else:
+                out.append(M.moe_apply_shard_map(pd, x.to(d), dt, top_k=4, capacity_factor=0.5))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (w_out, w_aux), (g_out, g_aux) = out
+    torch.testing.assert_close(g_out.cpu(), w_out, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(g_aux.cpu(), w_aux, rtol=1e-5, atol=1e-5)

@@ -48,7 +48,8 @@ def test_port_imports_no_jax_and_no_reference_package():
                      "configs.gemma3_27b", "configs.internlm2_20b",
                      "core.cached_embedding", "configs.dlrm_avazu", "obs.report",
                      "configs.din", "configs.dien", "configs.mind", "configs.shapes",
-                     "data.synth", "launch.serve"):
+                     "data.synth", "launch.serve", "optim.compression", "optim.schedules",
+                     "configs.olmoe_1b_7b", "configs.grok_1_314b"):
             assert "repro_torch." + need in names, need
         print(len(names))
         """
@@ -100,6 +101,10 @@ def test_lm_has_no_silent_cpu_fallback():
         convert.lm_params_from_numpy({"head": {"w": np.zeros((2, 3), np.float32)}})
     with pytest.raises(RuntimeError, match="no CUDA device"):
         transformer.init_decode_caches(smollm_360m.SMOKE, 1, 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.lm_state_from_numpy({"params": {}, "opt": {}, "step": np.int32(0)})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "olmoe-1b-7b", "--steps", "1"])
 
 
 @pytest.mark.parametrize("arch", ["din", "dien", "mind"])

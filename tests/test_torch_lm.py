@@ -266,20 +266,6 @@ def test_decode_steps_and_caches_match_jax(name):
             _close(gv, wv, err_msg=f"{part}/{layer}/v")
 
 
-def test_unported_options_raise_naming_their_roadmap_item():
-    for over in ({"ffn": "moe"}, {"kv_cache_int8": True}):
-        cfg = dataclasses.replace(smollm_360m.SMOKE, **over)
-        with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-            LMModel(cfg).init(0, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-            T.init_decode_caches(cfg, 1, 4, device="cpu")
-    model = LMModel(smollm_360m.SMOKE)
-    with pytest.raises(NotImplementedError, match="training"):
-        model.train_step({}, {})
-    with pytest.raises(NotImplementedError, match="training"):
-        model.loss_fn({}, {})
-
-
 def test_specs_are_meta_tensors_of_the_reference_shapes():
     cfg, jcfg = gemma3_27b.SMOKE, j_gemma.SMOKE
     want = JLMModel(jcfg).decode_specs(3, 20)
