@@ -370,8 +370,36 @@ Phases (any failure exits non-zero, with no result line):
    each call and read after it; the ``kernels`` line counts the flash
    launches by call.
 
-They run in the order 1-5e, 6-7b, 14a-14b, 15a-15c, 9-13, 16a-16e, 5f-5h, 8.  Each phase's
-seconds are printed.  The last three lines are the
+17a. GatedGCN (``models/gatedgcn.py``) at the published width of
+   ``configs/gatedgcn.SHAPE_CFG`` (16 layers, d_hidden 70, fp32, TF32
+   off), full_graph_sm: Cora padded to 512 (N 3 072, E 10 752, 1 433
+   features, 7 classes).  The card's logits against the same model's
+   forward on the CPU at this shape (rtol 1e-4, atol 1e-5 * max|logit|;
+   printed), one train step's loss and new state against the CPU's (the
+   tolerances of ``tests/test_torch_gnn.py``), two runs of 2 train steps
+   under torch's deterministic algorithms bitwise equal (the card's
+   ``index_add_`` sums in no fixed order outside that mode); then
+   ``GNN_SERVE`` (8) ``serve_step`` and ``GNN_TRAIN`` (8) ``train_step``
+   calls: p50 / p99, nodes/s, peak device memory, a profiled train step's
+   idle share and device ops, the host seconds a batch.
+17b. minibatch_lg: a fresh ``sampled_batch`` a step (1 024 seeds, fanouts
+   15 and 10: N 169 984, E 168 960; 602 features, 41 classes) from a
+   random graph of Reddit's 232 965 nodes and 11 606 919 edges: serve and
+   train as 17a, losses finite.
+17c. molecule: 128 graphs of up to 30 nodes and 64 edges (16 features,
+   graph regression): serve and train as 17a, losses finite, every graph
+   pooling at least one node.
+17d. ogb_products: N 2 449 408 at 100 features and 47 classes,
+   ``serve_step`` only: the forward at the full 61 859 328 edges, then
+   every 2nd, 4th, ... edge until it fits (the cut printed as ``reduced``
+   beside its peak); timed and profiled serves; then one train step at
+   that cut, which is expected not to fit (no remat or edge sharding, as
+   in the reference).  17a-17d launch no kernel of the port: every
+   wrapper's count is the same before and after them.
+
+They run in the order 1-5e, 6-7b, 14a-14b, 15a-15c, 9-13, 16a-16e,
+17a-17d, 5f-5h, 8.  Each phase's seconds are printed.  The last three
+lines are the
 ``kernels`` JSON, the card's name and power limit, and ``{"ok": true,
 "device": {...}}``.  ``--vocab-scale`` < 1 cuts only the vocabularies
 (never dim, widths, fields or batch) and says so.
@@ -5130,6 +5158,328 @@ def int8_decode_phase(dev, cfg, ref, prompt=LM_PROMPT, new=LM_NEW, max_len=LM_MA
     return {"ms": dec_p50, "agree": same, "cache_bytes": cache_bytes}
 
 
+# ---------------------------------------------------------------------------
+# phases 17a-17d: GatedGCN at published width (no kernel of the port)
+# ---------------------------------------------------------------------------
+
+GNN_SERVE, GNN_TRAIN = 8, 8  # 17a-17c: timed serve calls and train steps
+OGB_SERVE = 3  # 17d: timed serve calls
+REDDIT_NODES, REDDIT_EDGES = 232_965, 11_606_919  # GraphSAGE's Reddit graph (17b)
+GNN_SEEDS, GNN_FANOUTS = 1024, (15, 10)  # 17b: minibatch_lg's block
+GNN_LOGIT_RTOL = 1e-4  # 17a: card vs CPU logits, rtol and atol 1e-5 * max|logit|
+GNN_STATE_TOL = {"params": (1e-5, 2e-4), "m": (1e-4, 1e-6), "v": (1e-4, 1e-9)}
+GNN_NEAR_ZERO = 1e-5  # tests/test_torch_gnn.py: a gradient below this of max|g| is near zero
+
+
+def _gnn(shape):
+    """(model, n_nodes, n_edges, extras) of ``configs.gatedgcn.SHAPE_CFG[shape]`` at
+    the published 16 layers and d_hidden 70."""
+    from repro_torch.configs.gatedgcn import SHAPE_CFG
+    from repro_torch.models.gatedgcn import GatedGCNConfig, GatedGCNModel
+
+    _, n, e, d_feat, n_classes, task, extra = SHAPE_CFG[shape]
+    return GatedGCNModel(GatedGCNConfig(d_feat=d_feat, n_classes=n_classes, task=task)), n, e, \
+        extra
+
+
+def _gnn_batch(batch, dev):
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in batch.items()}
+
+
+def _gnn_state_to(state, dev):
+    from repro_torch.optim.optimizers import tree_map
+
+    return tree_map(lambda x: x.to(dev), state)
+
+
+def _kernel_launches():
+    """Every kernel wrapper's launch count (none lies on the GNN path)."""
+    from repro_torch.kernels.cache_ops import kernel
+    from repro_torch.kernels.embedding_bag import kernel as eb_kernel
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.fm_interaction import kernel as fm_kernel
+
+    return [kernel.victim_threshold.launches, kernel.gather_decode.launches,
+            kernel.bucketize.launches, fm_kernel.fm_interaction.launches,
+            eb_kernel.embedding_bag_multi.launches, fa_kernel.flash_attention.launches]
+
+
+def gnn_run(model, state, batches, what, n_serve=GNN_SERVE, n_train=GNN_TRAIN):
+    """``serve_step`` on ``n_serve`` batches, then ``n_train`` train steps
+    (batch ``i`` of ``batches`` at call ``i``), after one untimed call of
+    each; each call synced.  Prints p50 / p99, nodes/s, peak device memory
+    and a profiled train step's idle share and device ops."""
+    n_nodes = batches[0]["feat"].shape[0]
+    model.serve_step(state, batches[0])
+    state, _ = model.train_step(state, batches[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    serve_ms = []
+    for i in range(n_serve):
+        logits, ms = sync_ms(lambda i=i: model.serve_step(state, batches[i % len(batches)])[0])
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{what} serve: non-finite logits")
+        serve_ms.append(ms)
+    serve_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    train_ms, losses = [], []
+    for i in range(n_train):
+        t0 = time.perf_counter()
+        state, m = model.train_step(state, batches[i % len(batches)])
+        losses.append(float(m["loss"]))  # the step's one sync
+        train_ms.append(1e3 * (time.perf_counter() - t0))
+    train_peak = torch.cuda.max_memory_allocated()
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{what} train: losses {losses}")
+    stats = {}
+    b = batches[n_train % len(batches)]
+    profile_call(f"one {what} train step", lambda: float(model.train_step(state, b)[1]["loss"]),
+                 stats=stats)
+    idle = 1 - stats["busy"] / stats["wall"] if stats else None
+    out = {"serve_p50": float(np.percentile(serve_ms, 50)),
+           "serve_p99": float(np.percentile(serve_ms, 99)),
+           "train_p50": float(np.percentile(train_ms, 50)),
+           "train_p99": float(np.percentile(train_ms, 99)),
+           "serve_peak_gb": serve_peak / 1e9, "train_peak_gb": train_peak / 1e9,
+           "idle": idle, "ops": stats.get("ops"), "losses": losses}
+    out["nodes_per_s"] = n_nodes / out["train_p50"] * 1e3
+    log(f"{what} ({model.cfg.n_layers} layers, d_hidden {model.cfg.d_hidden}, N {n_nodes}, E "
+        f"{batches[0]['src'].shape[0]}): serve ms {serve_ms} (p50 {out['serve_p50']}, p99 "
+        f"{out['serve_p99']}, {n_nodes / out['serve_p50'] * 1e3} nodes/s), peak "
+        f"{out['serve_peak_gb']} GB; train step ms {train_ms} (p50 {out['train_p50']}, p99 "
+        f"{out['train_p99']}, {out['nodes_per_s']} nodes/s), losses {losses}, peak "
+        f"{out['train_peak_gb']} GB; a profiled train step: idle share {idle}, "
+        f"{out['ops']} device ops")
+    return out
+
+
+def _flat_leaves(tree):
+    return {path: x.detach().cpu() for path, x in _paths(tree)}
+
+
+def check_gnn_step(want, got, what, lr):
+    """One train step from one state on the CPU (``want``) and the card:
+    parameters and Adam's moments at ``tests/test_torch_gnn.py``'s
+    tolerances; an element whose gradient (``m / (1 - b1)`` after the
+    first step) is nonzero but below ``GNN_NEAR_ZERO`` of its tensor's max
+    (a layer's, in the stacked leaves) is held to 2.01 lr (Adam's first
+    step is ``lr * sign(g)``).  Returns (max |param diff| elsewhere,
+    near-zero elements)."""
+    params = (_flat_leaves(want["params"]), _flat_leaves(got["params"]))
+    ms = (_flat_leaves(want["opt"]["m"]), _flat_leaves(got["opt"]["m"]))
+    vs = (_flat_leaves(want["opt"]["v"]), _flat_leaves(got["opt"]["v"]))
+    worst, n_near = 0.0, 0
+    for path, w in params[0].items():
+        g = params[1][path]
+        grad = ms[0][path].double().abs() / 0.1
+        # a stacked [L, ...] leaf is L tensors: each layer's own max
+        top = grad.flatten(1).amax(1).view(-1, *[1] * (grad.dim() - 1)) if \
+            path.startswith("/layers/") else grad.max()
+        near = (grad != 0) & (grad < GNN_NEAR_ZERO * top)
+        n_near += int(near.sum())
+        keep = ~near
+        rtol, atol = GNN_STATE_TOL["params"]
+        if not torch.allclose(g[keep], w[keep], rtol=rtol, atol=atol) or (
+                near.any() and float((g[near] - w[near]).abs().max()) > 2.01 * lr):
+            raise AssertionError(f"{what} {path}: params differ by "
+                                 f"{float((g - w).abs().max())}")
+        worst = max(worst, float((g[keep] - w[keep]).abs().max()) if keep.any() else 0.0)
+        for part, (a, b) in (("m", ms), ("v", vs)):
+            rtol, atol = GNN_STATE_TOL[part]
+            if not torch.allclose(b[path], a[path], rtol=rtol, atol=atol):
+                raise AssertionError(f"{what} {path} {part}: differ by "
+                                     f"{float((b[path] - a[path]).abs().max())}")
+    return worst, n_near
+
+
+def _gnn_run_steps(model, state, batches):
+    losses = []
+    for b in batches:
+        state, m = model.train_step(state, b)
+        losses.append(m["loss"])
+    return [float(x) for x in losses], _flat_leaves(state)
+
+
+def gnn_full_graph_phase(dev, n_serve=GNN_SERVE, n_train=GNN_TRAIN):
+    """Phase 17a, full_graph_sm: Cora padded (N 3 072, E 10 752, 1 433
+    features, 7 classes), TF32 off.  The card's logits against the same
+    model's forward on the CPU (rtol 1e-4, atol 1e-5 * max|logit|); one
+    train step's loss and state against the CPU's; two deterministic runs
+    of 2 steps bitwise equal; then the timed serve and train calls."""
+    from repro_torch.data import graphs
+
+    model, n, e, _ = _gnn("full_graph_sm")
+    cfg = model.cfg
+    t0 = time.perf_counter()
+    nbs = [graphs.full_graph_batch(n, e, cfg.d_feat, cfg.n_classes, s) for s in range(3)]
+    host_s = (time.perf_counter() - t0) / len(nbs)
+    log(f"17a full_graph_sm: N {n} and E {e} (Cora's 2 708 / 10 556 padded to 512), "
+        f"{cfg.d_feat} features, {cfg.n_classes} classes; {host_s} s a batch on the host")
+    cpu_state = model.init(0, device="cpu")
+    state = _gnn_state_to(cpu_state, dev)
+    cb, batches = _gnn_batch(nbs[0], "cpu"), [_gnn_batch(b, dev) for b in nbs]
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        want = model.serve_step(cpu_state, cb)[0]
+        got = model.serve_step(state, batches[0])[0].cpu()
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        if not torch.allclose(got, want, rtol=GNN_LOGIT_RTOL, atol=1e-5 * scale):
+            raise AssertionError(f"17a logits: card vs CPU max |diff| {err} (max|logit| {scale})")
+        log(f"17a logits [{n}, {cfg.n_classes}]: card = CPU within rtol {GNN_LOGIT_RTOL}, atol "
+            f"1e-5 * max|logit| (max |diff| {err}, {err / scale} of max|logit| {scale})")
+        w_state, w_m = model.train_step(cpu_state, cb)
+        g_state, g_m = model.train_step(state, batches[0])
+        w_loss, g_loss = float(w_m["loss"]), float(g_m["loss"])
+        if not np.isclose(g_loss, w_loss, rtol=1e-5, atol=1e-6):
+            raise AssertionError(f"17a train step loss: card {g_loss}, CPU {w_loss}")
+        worst, n_near = check_gnn_step(w_state, g_state, "17a train step", cfg.lr)
+        log(f"17a one train step: loss card {g_loss} CPU {w_loss}; parameters within rtol 1e-5 / "
+            f"atol 2e-4 (max |diff| {worst}), {n_near} near-zero gradient elements held to 2.01 "
+            f"lr, m and v within tests/test_torch_gnn.py's tolerances")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    with deterministic():
+        runs = [_gnn_run_steps(model, _gnn_state_to(cpu_state, dev), batches[:2])
+                for _ in range(2)]
+    (l0, s0), (l1, s1) = runs
+    if l0 != l1 or any(not torch.equal(s0[k], s1[k]) for k in s0):
+        raise AssertionError(f"17a deterministic runs differ: losses {l0} vs {l1}")
+    log(f"17a: two runs of 2 train steps under deterministic algorithms bitwise equal (losses "
+        f"{l0}, every state leaf)")
+    out = gnn_run(model, state, batches, "17a full_graph_sm", n_serve, n_train)
+    return dict(out, host_s=host_s, logit_err=err / scale)
+
+
+def gnn_minibatch_phase(dev, n_serve=GNN_SERVE, n_train=GNN_TRAIN):
+    """Phase 17b, minibatch_lg: a fresh ``sampled_batch`` (1 024 seeds,
+    fanouts 15 and 10: N 169 984, E 168 960) a step from a random graph of
+    Reddit's node and edge count, 602 features, 41 classes."""
+    from repro_torch.data import graphs
+
+    model, n, e, _ = _gnn("minibatch_lg")
+    cfg = model.cfg
+    t0 = time.perf_counter()
+    indptr, indices, _ = graphs.random_graph_csr(REDDIT_NODES, REDDIT_EDGES, 0)
+    csr_s = time.perf_counter() - t0
+    rng = np.random.default_rng(1)
+    feats = rng.normal(size=(REDDIT_NODES, cfg.d_feat)).astype(np.float32)
+    labels = rng.integers(0, cfg.n_classes, REDDIT_NODES).astype(np.int32)
+    t0 = time.perf_counter()
+    nbs = [graphs.sampled_batch(indptr, indices, feats, labels, GNN_SEEDS, GNN_FANOUTS, 0, s)
+           for s in range(max(n_serve, n_train) + 1)]
+    host_s = (time.perf_counter() - t0) / len(nbs)
+    if nbs[0]["feat"].shape[0] != n or nbs[0]["src"].shape[0] != e:
+        raise AssertionError(f"17b block: N {nbs[0]['feat'].shape[0]}, E "
+                             f"{nbs[0]['src'].shape[0]}; want {n}, {e}")
+    pad = float(np.mean([(b["src"] < 0).mean() for b in nbs]))
+    log(f"17b minibatch_lg: graph of {REDDIT_NODES} nodes and {REDDIT_EDGES} edges in {csr_s} s "
+        f"on the host; blocks of {GNN_SEEDS} seeds, fanouts {GNN_FANOUTS}: N {n}, E {e} "
+        f"({pad} of the edges padding), {host_s} s a block on the host")
+    del feats
+    batches = [_gnn_batch(b, dev) for b in nbs]
+    del nbs
+    state = model.init(0, device=dev)
+    out = gnn_run(model, state, batches, "17b minibatch_lg", n_serve, n_train)
+    return dict(out, host_s=host_s, csr_s=csr_s)
+
+
+def gnn_molecule_phase(dev, n_serve=GNN_SERVE, n_train=GNN_TRAIN):
+    """Phase 17c, molecule: 128 graphs of up to 30 nodes and 64 edges, 16
+    features, graph regression; checks every graph pools at least one node."""
+    from repro_torch.core.lanes import segment_sum
+    from repro_torch.data import graphs
+
+    model, n, e, extra = _gnn("molecule")
+    cfg = model.cfg
+    g = extra["n_graphs"]
+    t0 = time.perf_counter()
+    nbs = [graphs.molecule_batch(g, n // g, e // g, cfg.d_feat, 0, s)
+           for s in range(max(n_serve, n_train) + 1)]
+    host_s = (time.perf_counter() - t0) / len(nbs)
+    batches = [_gnn_batch(b, dev) for b in nbs]
+    counts = [segment_sum((b["node_mask"] > 0).float()[:, None], b["graph_id"], g)
+              for b in batches]
+    least = min(float(c.min()) for c in counts)
+    if least < 1:
+        raise AssertionError(f"17c: a graph pools {least} nodes")
+    log(f"17c molecule: {g} graphs, N {n}, E {e}, {cfg.d_feat} features, graph regression; "
+        f"{host_s} s a batch on the host; every graph pools >= 1 node (least {least})")
+    state = model.init(0, device=dev)
+    out = gnn_run(model, state, batches, "17c molecule", n_serve, n_train)
+    return dict(out, host_s=host_s)
+
+
+def gnn_ogb_phase(dev, n_serve=OGB_SERVE):
+    """Phase 17d, ogb_products at published width (N 2 449 408, 100
+    features, 47 classes): ``serve_step`` only.  The edges are halved (a
+    uniform 1/k sample of the graph's 61 859 328) until the forward fits;
+    then one train step at that cut, which is expected not to fit."""
+    from repro_torch.data import graphs
+
+    model, n, e, _ = _gnn("ogb_products")
+    cfg = model.cfg
+    t0 = time.perf_counter()
+    nb = graphs.full_graph_batch(n, e, cfg.d_feat, cfg.n_classes, 0)
+    host_s = time.perf_counter() - t0
+    log(f"17d ogb_products: N {n}, E {e}, {cfg.d_feat} features, {cfg.n_classes} classes; "
+        f"{host_s} s to build the batch on the host; one edge tensor [E, {cfg.d_hidden}] fp32 "
+        f"= {e * cfg.d_hidden * 4 / 1e9} GB")
+    state = model.init(0, device=dev)
+    feat = torch.from_numpy(nb["feat"]).to(dev)
+    for k in (1, 2, 4, 8):
+        b = {"feat": feat, "src": torch.from_numpy(nb["src"][::k].copy()).to(dev),
+             "dst": torch.from_numpy(nb["dst"][::k].copy()).to(dev)}
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            logits, ms = sync_ms(lambda b=b: model.serve_step(state, b)[0])
+            break
+        except torch.OutOfMemoryError as err:
+            log(f"17d: the forward at E {b['src'].shape[0]} ({1 / k} of {e}) does not fit: "
+                f"peak {torch.cuda.max_memory_allocated() / 1e9} GB before the failed "
+                f"allocation ({str(err)[:160]})")
+        del b
+        gc.collect()
+        torch.cuda.empty_cache()
+    else:
+        raise AssertionError("17d: no edge cut down to 1/8 fits the forward")
+    first_peak = torch.cuda.max_memory_allocated()
+    if not bool(torch.isfinite(logits).all()) or tuple(logits.shape) != (n, cfg.n_classes):
+        raise AssertionError(f"17d logits: shape {tuple(logits.shape)}, finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    del logits
+    cut = b["src"].shape[0]
+    torch.cuda.reset_peak_memory_stats()
+    lat = [sync_ms(lambda: model.serve_step(state, b)[0])[1] for _ in range(n_serve)]
+    peak = torch.cuda.max_memory_allocated()
+    stats = {}
+    profile_call("one 17d ogb_products serve", lambda: model.serve_step(state, b)[0],
+                 stats=stats)
+    idle = 1 - stats["busy"] / stats["wall"] if stats else None
+    p50 = float(np.percentile(lat, 50))
+    log(f"17d ogb_products serve: CUT (reduced) E {cut} = {cut / e} of {e} (every {k}-th edge), "
+        f"N {n} whole; first call {ms} ms, peak {first_peak / 1e9} GB; serve ms {lat} (p50 {p50}, "
+        f"p99 {float(np.percentile(lat, 99))}, {n / p50 * 1e3} nodes/s), peak {peak / 1e9} GB; "
+        f"a profiled serve: idle share {idle}, {stats.get('ops')} device ops")
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        model.train_step(state, dict(b, label=torch.from_numpy(nb["label"]).to(dev),
+                                     label_mask=torch.from_numpy(nb["label_mask"]).to(dev)))
+        torch.cuda.synchronize()
+        train = f"fits at E {cut}, peak {torch.cuda.max_memory_allocated() / 1e9} GB"
+    except torch.OutOfMemoryError as err:
+        train = (f"does not fit at E {cut}: peak {torch.cuda.max_memory_allocated() / 1e9} GB "
+                 f"before the failed allocation ({str(err)[:160]})")
+    log(f"17d: one train step (autograd keeps each layer's edge tensors for the backward; no "
+        f"remat or edge sharding, as in the reference) {train}")
+    del b, feat
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"cut": cut, "share": cut / e, "serve_p50": p50, "peak_gb": peak / 1e9, "idle": idle,
+            "ops": stats.get("ops"), "host_s": host_s, "train": train}
+
+
 def _live_pairs(s, window):
     """(q, k) pairs a causal mask with this window keeps: sum_q min(q+1, W)."""
     w = s if window is None else min(window, s)
@@ -5382,7 +5732,8 @@ def profile_call(what, fn, skip=(), stats=None):
                   key=lambda e: -e.self_cpu_time_total)
     top_host = [(e.key[:40], e.count, e.self_cpu_time_total / 1e3) for e in host[:10]]
     if stats is not None:
-        stats.update(wall=wall, busy=busy, by_kernel={e.key: dev_us(e) / 1e3 for e in rows})
+        stats.update(wall=wall, busy=busy, by_kernel={e.key: dev_us(e) / 1e3 for e in rows},
+                     ops=sum(e.count for e in rows))
     log(f"profiler: {what} {wall} ms wall, device busy {busy} ms (sum of kernel and copy "
         f"times; idle share {1 - busy / wall}); top device (name, calls, ms): {top}; "
         f"top host ops by self time (name, calls, ms): {top_host}")
@@ -5690,6 +6041,21 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     log(f"phases 16a-16e: {time.perf_counter() - t16} s")
+
+    t17 = time.perf_counter()
+    launches = _kernel_launches()
+    for what, phase in (("17a (GatedGCN full_graph_sm)", gnn_full_graph_phase),
+                        ("17b (GatedGCN minibatch_lg)", gnn_minibatch_phase),
+                        ("17c (GatedGCN molecule)", gnn_molecule_phase),
+                        ("17d (GatedGCN ogb_products, serve)", gnn_ogb_phase)):
+        timed(what, phase, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+    if _kernel_launches() != launches:
+        raise AssertionError(f"phases 17a-17d launched a kernel of the port: counts {launches} "
+                             f"-> {_kernel_launches()}; no kernel lies on the GNN path")
+    log(f"phases 17a-17d: {time.perf_counter() - t17} s; no kernel of the port launched (every "
+        f"wrapper's count unchanged: none lies on the GNN path)")
     bf16_row, fp32_row = fa
     bf16_row["launches_by_path"].update({f"smollm_{k}": n for k, n in lm_train["launches"].items()})
     bf16_row["launches_by_path"].update(olmoe["launches"], grok_prefill=grok["launches"])

@@ -1,5 +1,6 @@
-"""Model input shapes (the recsys part of ``repro.configs.shapes``, copied:
-the port imports nothing of the JAX package)."""
+"""Model input shapes (the recsys and graph parts of
+``repro.configs.shapes``, copied: the port imports nothing of the JAX
+package)."""
 
 RECSYS_SHAPES = ("train_batch", "serve_p99", "serve_bulk", "retrieval_cand")
 RECSYS_DEFS = {
@@ -9,6 +10,8 @@ RECSYS_DEFS = {
     "retrieval_cand": ("retrieval", 1),  # + n_candidates=1_000_000
 }
 N_CANDIDATES = 1_000_000
+
+GNN_SHAPES = ("full_graph_sm", "minibatch_lg", "ogb_products", "molecule")
 
 # Criteo Kaggle per-field cardinalities (public; sum = 33,762,577)
 CRITEO_VOCABS = (

@@ -1,5 +1,6 @@
 """Carry a model state (serve or train: DLRM, FM, DIN, DIEN, MIND; the
-single-table ``CachedEmbeddingState``; LM parameters and train states)
+single-table ``CachedEmbeddingState``; LM parameters and train states;
+GatedGCN train states)
 between the JAX package and the port.
 
 The JAX side is given as nested dicts of numpy arrays under the JAX field
@@ -37,7 +38,10 @@ and ``offsets``); :func:`lm_params_from_numpy` builds an LM's parameter
 tree (``embed`` / ``groups`` / ``rem`` / ``final_norm`` / ``head``, dense
 or MoE layers, copied leaf for leaf); :func:`lm_state_from_numpy` an LM
 train state (those parameters, the AdamW ``m`` / ``v`` trees, ``step`` and
-the int8 ``Compressor``'s error-feedback tree ``comp``); :func:`to_numpy`
+the int8 ``Compressor``'s error-feedback tree ``comp``);
+:func:`gatedgcn_state_from_numpy` a GatedGCN train state (its parameters
+with the layers stacked ``[L, ...]``, Adam's ``m`` / ``v`` and ``step``);
+:func:`to_numpy`
 turns a port state back into the same layout so the two can be compared
 leaf by leaf.
 
@@ -68,7 +72,8 @@ from repro_torch.store.arena import ArenaStore
 from repro_torch.store.host_store import HostStore
 
 __all__ = ["adopt_codecs", "cached_embedding_state_from_numpy", "collection_state_from_numpy",
-           "lm_params_from_numpy", "lm_state_from_numpy", "state_from_numpy", "to_numpy"]
+           "gatedgcn_state_from_numpy", "lm_params_from_numpy", "lm_state_from_numpy",
+           "state_from_numpy", "to_numpy"]
 
 
 def _t(x: Any, device: torch.device) -> torch.Tensor:
@@ -215,6 +220,15 @@ def lm_state_from_numpy(tree: Mapping[str, Any], device: DeviceLike = None) -> D
     if "comp" in tree:
         state["comp"] = _tree(tree["comp"], dev)
     return state
+
+
+def gatedgcn_state_from_numpy(tree: Mapping[str, Any], device: DeviceLike = None
+                              ) -> Dict[str, Any]:
+    """The port's ``GatedGCNModel`` train state from the JAX one's numpy tree:
+    ``params`` (the layers stacked ``[L, ...]``), ``opt`` (Adam's ``{"m",
+    "v"}``) and ``step``, the layout of an LM's train state without
+    ``comp``."""
+    return lm_state_from_numpy(tree, device)
 
 
 def to_numpy(obj: Any) -> Any:

@@ -10,6 +10,7 @@ batches.
   PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-avazu --cache-policy lru
   PYTHONPATH=src python -m repro_torch.launch.train --obs-dir /tmp/obs --history-limit 10
   PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe-1b-7b --steps 20
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gatedgcn --steps 20
 
 Runs on the CUDA card; ``--device cpu`` runs it on the CPU.  Every arch
 builds the reference launcher's CPU-scale config: every ``dlrm*`` arch the
@@ -17,7 +18,10 @@ same small DLRM, ``fm`` six fields of 100 000 rows, ``din`` / ``dien`` /
 ``mind`` histories of 50 over 200 000 items (DIEN with 36 GRU units), and
 each LM arch (``grok-1-314b``, ``olmoe-1b-7b``, ``gemma3-27b``,
 ``smollm-360m``, ``internlm2-20b``) its SMOKE config at lr 1e-3 on token
-batches of 8 x 64.  An LM has no embedding cache: the cache flags exit.
+batches of 8 x 64, and ``gatedgcn`` an 8-layer GatedGCN of width 32 on
+neighbour-sampled blocks (256 seeds, fanouts 10 and 5) of a 20 000-node,
+100 000-edge random graph.  An LM or a GNN has no embedding cache: the cache
+flags exit.
 """
 from __future__ import annotations
 
@@ -28,8 +32,9 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 
 from repro_torch.core.policies import Policy
-from repro_torch.data import synth
+from repro_torch.data import graphs, synth
 from repro_torch.models.dlrm import DLRM, DLRMConfig
+from repro_torch.models.gatedgcn import GatedGCNConfig, GatedGCNModel
 from repro_torch.models.lm import LMModel
 from repro_torch.models.recsys_models import (DIENConfig, DIENModel, DINConfig, DINModel,
                                                FMConfig, FMModel, MINDConfig, MINDModel)
@@ -91,11 +96,21 @@ def build_lm(arch: str) -> Tuple[LMModel, Callable[[int], Dict[str, np.ndarray]]
     return LMModel(mod.SMOKE, lr=1e-3), lambda s: synth.seq_batch(mod.SMOKE.vocab, 8, 64, 0, s)
 
 
+def build_gnn() -> Tuple[GatedGCNModel, Callable[[int], Dict[str, np.ndarray]]]:
+    """The reference launcher's GatedGCN: (model, step -> sampled block)."""
+    model = GatedGCNModel(GatedGCNConfig(d_feat=32, n_classes=8, n_layers=8, d_hidden=32))
+    indptr, indices, _ = graphs.random_graph_csr(20_000, 100_000, 0)
+    feats = np.random.default_rng(0).normal(size=(20_000, 32)).astype(np.float32)
+    labels = (feats[:, 0] > 0).astype(np.int32)
+    return model, lambda s: graphs.sampled_batch(indptr, indices, feats, labels, 256, (10, 5),
+                                                 0, s)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="dlrm-criteo",
                     choices=["dlrm-criteo", "dlrm-avazu", "fm", "din", "dien", "mind",
-                             *LM_ARCHS])
+                             *LM_ARCHS, "gatedgcn"])
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=512)
     ap.add_argument("--ckpt-dir", default=None)
@@ -144,8 +159,8 @@ def main(argv=None):
     ap.add_argument("--device", default=None, help="default: the CUDA card")
     args = ap.parse_args(argv)
 
-    if args.arch in LM_ARCHS:
-        return _train_lm(args)
+    if args.arch in LM_ARCHS or args.arch == "gatedgcn":
+        return _train_without_cache(args)
     model, make_batch = build(args.arch, args.batch, args.arena_precision, args.model_shards,
                         args.replicate_top_k, args.exchange_codec, args.max_routed_per_shard,
                         args.host_precision, args.chunk_rows,
@@ -200,9 +215,9 @@ def main(argv=None):
     return trainer
 
 
-def _train_lm(args):
-    """An LM arch through the serial ``Trainer``; the cache flags exit with
-    the reference launcher's messages."""
+def _train_without_cache(args):
+    """An LM arch or the GNN through the serial ``Trainer``; the cache flags
+    exit with the reference launcher's messages."""
     if args.cache_policy:
         raise SystemExit(f"--cache-policy needs a collection-backed arch; "
                          f"{args.arch} has no embedding cache")
@@ -212,7 +227,7 @@ def _train_lm(args):
     if args.pipeline_depth > 0:
         raise SystemExit(f"--pipeline-depth needs a collection-backed arch; "
                          f"{args.arch} has no split plan/compute step")
-    model, make_batch = build_lm(args.arch)
+    model, make_batch = build_gnn() if args.arch == "gatedgcn" else build_lm(args.arch)
     tc = TrainerConfig(max_steps=args.steps, ckpt_dir=args.ckpt_dir, ckpt_every=25,
                        obs_dir=args.obs_dir, obs_annotate=args.obs_annotate,
                        history_limit=args.history_limit or None)

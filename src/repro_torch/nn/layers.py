@@ -1,5 +1,5 @@
 """Substrate layers (port of ``repro.nn.layers``): dense layers and MLP
-towers, RMSNorm, the embedding table, RoPE and grouped-query attention
+towers, RMSNorm, LayerNorm, the embedding table, RoPE and grouped-query attention
 (chunked online softmax for prefill, or the flash-attention kernel; one-token
 decode against a KV cache).
 
@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 __all__ = ["Dtypes", "dense_init", "dense", "mlp_init", "mlp", "rmsnorm_init", "rmsnorm",
-           "embed_init", "rope", "gqa_attention", "decode_attention"]
+           "layernorm_init", "layernorm", "embed_init", "rope", "gqa_attention", "decode_attention"]
 
 Params = Dict[str, torch.Tensor]
 
@@ -75,6 +75,21 @@ def rmsnorm(p: Params, x: torch.Tensor, dt: Dtypes, eps: float = 1e-6) -> torch.
     xf = x.float()
     y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
     return (y * p["scale"].float()).to(dt.compute)
+
+
+def layernorm_init(d: int, dt: Dtypes, device: torch.device) -> Params:
+    return {"scale": torch.ones((d,), dtype=dt.param, device=device),
+            "bias": torch.zeros((d,), dtype=dt.param, device=device)}
+
+
+def layernorm(p: Params, x: torch.Tensor, dt: Dtypes, eps: float = 1e-6) -> torch.Tensor:
+    """LayerNorm in fp32 (mean and biased variance over the last axis),
+    cast to the compute dtype."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"].float() + p["bias"].float()).to(dt.compute)
 
 
 def embed_init(gen: torch.Generator, vocab: int, d: int, dt: Dtypes,

@@ -16,7 +16,8 @@ capacity``, a 4-shard collection's lookups against its dense
 reference, one serve and one train step of DIN, DIEN and MIND against
 the CPU port, and the LM family's training step (the flash kernel in the
 forward and the remat recompute), MoE layers and int8 KV-cache attention
-(its integer dots exact) against the CPU port.
+(its integer dots exact) against the CPU port, and a GatedGCN train step
+against the CPU port and bitwise across two deterministic runs.
 
 Imports neither JAX nor the JAX package, so the machine with the card runs
 it as is:  ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
@@ -1269,3 +1270,87 @@ def test_moe_on_the_card_matches_cpu(cuda, impl):
     (w_out, w_aux), (g_out, g_aux) = out
     torch.testing.assert_close(g_out.cpu(), w_out, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(g_aux.cpu(), w_aux, rtol=1e-5, atol=1e-5)
+
+
+def _gnn_leaves(tree, path=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_gnn_leaves(v, f"{path}/{k}"))
+        return out
+    return {path: tree.detach().cpu()}
+
+
+@pytest.mark.cuda
+def test_gatedgcn_train_step_on_the_card_matches_cpu(cuda, monkeypatch):
+    """One SMOKE GatedGCN ``train_step`` on a full graph from one state on
+    the CPU and its copy on the card, TF32 off: the loss within rtol 1e-5,
+    the new state within ``tests/test_torch_gnn.py``'s tolerances (an
+    element whose first-step gradient is nonzero but below 1e-5 of its
+    layer's max held to 2.01 lr, as Adam's first step is ``lr * sign(g)``;
+    the batch is checked to hold no ReLU input within 1e-6 of 0); then two
+    runs of 2 steps on the card under deterministic algorithms, bitwise
+    equal (``index_add_`` sums in no fixed order outside that mode)."""
+    import torch.utils.deterministic as det
+
+    from repro_torch.configs.gatedgcn import SMOKE
+    from repro_torch.data import graphs
+    from repro_torch.models.gatedgcn import GatedGCNModel
+    from repro_torch.nn import gnn as G
+    from repro_torch.optim.optimizers import tree_map
+
+    gaps = []
+    impl = G.layernorm
+
+    def recorded(*args, **kw):
+        y = impl(*args, **kw)
+        gaps.append(float(y.detach().abs().min()))
+        return y
+
+    monkeypatch.setattr(G, "layernorm", recorded)
+    model = GatedGCNModel(SMOKE)
+    cpu_state = model.init(0, device="cpu")
+    nbs = [graphs.full_graph_batch(64, 256, 12, 5, s) for s in range(2)]
+    batches = {d: [{k: torch.from_numpy(v).to(d) for k, v in b.items()} for b in nbs]
+               for d in ("cpu", cuda)}
+    out = {}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for d in ("cpu", cuda):
+            state, m = model.train_step(tree_map(lambda x: x.to(d), cpu_state), batches[d][0])
+            out[d] = (float(m["loss"]), state)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert min(gaps) > 1e-6, f"seeded input has a ReLU near tie (|x| {min(gaps)})"
+    (w_loss, w_state), (g_loss, g_state) = out.values()
+    np.testing.assert_allclose(g_loss, w_loss, rtol=1e-5)
+    want, got = (_gnn_leaves(s["params"]) for s in (w_state, g_state))
+    for path, m in _gnn_leaves(w_state["opt"]["m"]).items():
+        g = m.double().abs() / 0.1
+        top = g.flatten(1).amax(1).view(-1, *[1] * (g.dim() - 1)) if \
+            path.startswith("/layers/") else g.max()
+        near = (g != 0) & (g < 1e-5 * top)
+        torch.testing.assert_close(got[path][~near], want[path][~near], rtol=1e-5, atol=2e-4,
+                                   msg=path)
+        if near.any():
+            assert float((got[path][near] - want[path][near]).abs().max()) <= 2.01e-3, path
+    for k, atol in (("m", 1e-6), ("v", 1e-9)):
+        w, g = (_gnn_leaves(s["opt"][k]) for s in (w_state, g_state))
+        for path in w:
+            torch.testing.assert_close(g[path], w[path], rtol=1e-4, atol=atol, msg=path)
+    runs = []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    fill, det.fill_uninitialized_memory = det.fill_uninitialized_memory, False
+    try:
+        for _ in range(2):
+            state, losses = tree_map(lambda x: x.to(cuda), cpu_state), []
+            for b in batches[cuda]:
+                state, m = model.train_step(state, b)
+                losses.append(float(m["loss"]))
+            runs.append((losses, _gnn_leaves(state)))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        det.fill_uninitialized_memory = fill
+    assert runs[0][0] == runs[1][0]
+    assert all(torch.equal(runs[0][1][k], runs[1][1][k]) for k in runs[0][1])

@@ -13,9 +13,10 @@ import torch
 from repro_torch import convert
 from repro_torch.configs import smollm_360m
 from repro_torch.device import resolve_device
-from repro_torch.configs import dien, din, mind
+from repro_torch.configs import dien, din, gatedgcn, mind
 from repro_torch.launch import serve, train
 from repro_torch.models.dlrm import DLRM, DLRMConfig
+from repro_torch.models.gatedgcn import GatedGCNModel
 from repro_torch.models.lm import LMModel
 from repro_torch.nn import transformer
 from repro_torch.models.recsys_models import DIENModel, DINModel, FMConfig, FMModel, MINDModel
@@ -49,7 +50,8 @@ def test_port_imports_no_jax_and_no_reference_package():
                      "core.cached_embedding", "configs.dlrm_avazu", "obs.report",
                      "configs.din", "configs.dien", "configs.mind", "configs.shapes",
                      "data.synth", "launch.serve", "optim.compression", "optim.schedules",
-                     "configs.olmoe_1b_7b", "configs.grok_1_314b"):
+                     "configs.olmoe_1b_7b", "configs.grok_1_314b", "nn.gnn", "data.graphs",
+                     "models.gatedgcn", "configs.gatedgcn"):
             assert "repro_torch." + need in names, need
         print(len(names))
         """
@@ -105,6 +107,18 @@ def test_lm_has_no_silent_cpu_fallback():
         convert.lm_state_from_numpy({"params": {}, "opt": {}, "step": np.int32(0)})
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main(["--arch", "olmoe-1b-7b", "--steps", "1"])
+
+
+def test_gnn_has_no_silent_cpu_fallback():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid here")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GatedGCNModel(gatedgcn.SMOKE).init(0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.gatedgcn_state_from_numpy({"params": {}, "opt": {}, "step": np.int32(0)})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "gatedgcn", "--steps", "1"])
+    assert GatedGCNModel(gatedgcn.SMOKE).init(0, device="cpu")["step"].device.type == "cpu"
 
 
 @pytest.mark.parametrize("arch", ["din", "dien", "mind"])

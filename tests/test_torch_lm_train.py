@@ -27,9 +27,44 @@ norms).  The state after each step: parameters within rtol 1e-5 / atol
 1.6e-4, 7.1e-5, 3.3e-8 and 7.1e-4).  AdamW's step ``lr * m / (sqrt(v) +
 1e-8)`` has slope ``lr / 1e-8`` at a zero gradient, so a gradient element
 within ~1e-8 of zero turns a last-bit difference into a visible one; and
-a compressor's rounding (one bf16 ulp, one int8 code) falls either way for
-gradients that agree to ~1e-6, which moves that element's ``m``, error
-feedback (one code step: the tensor's max / 127) and update.  MoE configs route by
+a compressor's rounding (one bf16 ulp) falls either way for gradients
+that agree to ~1e-6.
+
+The int8 compressor's rounding is held apart.  Its code is
+``round((g + e) / s)`` with the code step ``s = max|g + e| / 127`` of the
+tensor, and an element whose ``(g + e) / s`` lies within the two
+packages' difference (~1e-6 relative) of a half-integer lands on the
+other code in one of them: it is "flipped".  A flip moves that element's
+update and, through the error feedback, its next gradient, so free-running
+steps compound flips (read: smollm reached 142 flipped elements at step
+2) and the metrics drift with the CPU's thread count.  So the int8 cases
+start every step from the reference's state (converted afresh), and each
+step's flips are named and bounded:
+
+* flipped: the error feedback ``comp`` differs by more than half a code
+  step (``s`` as the port's encode computed it); no element may differ by
+  more than one code (1.5 s);
+* the count: a flip needs ``(g + e) / s`` within ``|d((g + e) / s)| <=
+  254 r`` of a half-integer when both ``g + e`` and ``s`` agree within
+  rtol ``r`` = 1e-5 (``|g + e| <= 127 s``), a band of ``508 r`` of each
+  unit, so at most ``1 + 508 r n`` of a tensor's ``n`` elements (read:
+  0-5 of grok's 451 904 a step, and at most 2 in one tensor, at 1, 3, 4
+  and 8 CPU threads);
+* a flipped element's parameter lies within one AdamW update of its
+  value before the step.  With ``m_t = (1 - b1) sum_i b1^(t-i) g_i`` and
+  ``v_t = (1 - b2) sum_i b2^(t-i) g_i^2``, Cauchy-Schwarz gives
+  ``|m_t / (1 - b1^t)| / sqrt(v_t / (1 - b2^t)) <= c_t = (1 - b1) / (1 -
+  b1^t) * sqrt((1 - b2^t) / (1 - b2) * sum_{k<t} (b1^2 / b2)^k)``, so a
+  step moves an element by at most ``lr * c_t`` plus its weight decay
+  ``lr * 0.01 * |p|`` (c_1 = 1, c_2 = 1.0013, c_3 = 1.0036 at the
+  default betas), and by the rounding of ``p`` to its dtype;
+* a flipped element's moments: the decoded gradients differ by one code,
+  so ``m`` by ``(1 - b1) s`` and ``v`` by ``(1 - b2) |q_a^2 - q_b^2| s^2
+  <= (1 - b2) 255 s^2``, each within its own tolerance on top;
+* every element that is not flipped keeps the tolerances above.
+
+The ``none`` and ``bf16`` cases run their 3 steps free, from one
+converted state (the stronger check), and pass at any thread count.  MoE configs route by
 ``top_k`` over router probabilities: the seeds here give no token a near
 tie between its k-th and (k+1)-th expert (``tests/test_torch_moe.py``
 checks the gap on its inputs), and a swapped expert would show as a loss
@@ -179,6 +214,79 @@ def _close_tree(want, got, rtol, atol, what):
     np.testing.assert_allclose(g, want, rtol=rtol, atol=atol, err_msg=what)
 
 
+class _ScaleRecorder:
+    """The port's compressor, keeping the sideband (each tensor's int8 code
+    step) of its last encode."""
+
+    def __init__(self, inner):
+        self.inner, self.codec, self.scales = inner, inner.codec, None
+
+    def init(self, grads_like):
+        return self.inner.init(grads_like)
+
+    def encode(self, grads, state):
+        payload, self.scales, new_state = self.inner.encode(grads, state)
+        return payload, self.scales, new_state
+
+    def decode(self, payload, sideband, target_like):
+        return self.inner.decode(payload, sideband, target_like)
+
+
+def _adam_step_bound(t, b1=0.9, b2=0.999):
+    """c_t: the most |m_hat| / sqrt(v_hat) can be after t AdamW steps
+    (the module docstring's Cauchy-Schwarz bound)."""
+    series = sum((b1 * b1 / b2) ** k for k in range(t))
+    return (1 - b1) / (1 - b1 ** t) * np.sqrt((1 - b2 ** t) / (1 - b2) * series)
+
+
+def _flat(tree, path=""):
+    """{path: numpy leaf} of a nested dict of arrays or tensors."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, f"{path}/{k}"))
+        return out
+    return {path: convert.to_numpy(tree)}
+
+
+def _int8_step_close(want, before, got, scales, t):
+    """One int8 step's state, leaf by leaf: the flipped elements named and
+    bounded, every other element at the free-running tolerances.  Returns
+    the flips a leaf."""
+    trees = {"p0": before["params"], "w": want["params"], "g": got["params"],
+             "wm": want["opt"]["m"], "gm": got["opt"]["m"], "wv": want["opt"]["v"],
+             "gv": got["opt"]["v"], "we": want["comp"], "ge": got["comp"], "s": scales}
+    flat = {k: _flat(v) for k, v in trees.items()}
+    flips = {}
+    for path, s in flat["s"].items():
+        x = {k: v[path] for k, v in flat.items()}
+        s = float(s)
+        for k in ("g", "gm", "gv", "ge"):
+            w = "w" + k[1:]
+            assert x[k].dtype == x[w].dtype and x[k].shape == x[w].shape, (path, k)
+        d_comp = np.abs(x["ge"].astype(np.float64) - x["we"])
+        assert d_comp.max() < 1.5 * s, f"{path}: error feedback more than one code apart"
+        flip = d_comp > 0.5 * s
+        n = flips[path] = int(flip.sum())
+        assert n <= 1 + 508 * 1e-5 * flip.size, f"{path}: {n} of {flip.size} elements flipped"
+        keep = ~flip
+        for g, w, (rtol, atol) in (("g", "w", STATE_TOL["params"]), ("gm", "wm", STATE_TOL["m"]),
+                                   ("gv", "wv", STATE_TOL["v"]), ("ge", "we", (0.0, 1e-3))):
+            np.testing.assert_allclose(x[g][keep], x[w][keep], rtol=rtol, atol=atol,
+                                       err_msg=f"{path} {g}")
+        if not n:
+            continue
+        p0, p1 = x["p0"][flip].astype(np.float64), x["g"][flip].astype(np.float64)
+        ulp = np.finfo(x["g"].dtype).eps
+        bound = LR * (_adam_step_bound(t) + 0.01 * np.abs(p0)) + 2 * ulp * np.abs(p0)
+        assert (np.abs(p1 - p0) <= bound * (1 + 1e-6)).all(), f"{path}: flipped update"
+        d_m = np.abs(x["gm"][flip] - x["wm"][flip])
+        d_v = np.abs(x["gv"][flip] - x["wv"][flip])
+        assert (d_m <= 0.1 * s * 1.01 + STATE_TOL["m"][1]).all(), f"{path}: flipped m"
+        assert (d_v <= 1e-3 * 255 * s * s * 1.01 + STATE_TOL["v"][1]).all(), f"{path}: flipped v"
+    return flips
+
+
 @pytest.mark.parametrize("name,use_pallas,compressor", TRAIN_CASES)
 def test_train_steps_match_reference(name, use_pallas, compressor):
     mod, jmod = CONFIGS[name]
@@ -186,11 +294,16 @@ def test_train_steps_match_reference(name, use_pallas, compressor):
     jcfg = dataclasses.replace(jmod.SMOKE, use_pallas=use_pallas)
     jmodel = JLMModel(jcfg, lr=LR, compressor=compressor)
     model = LMModel(cfg, lr=LR, compressor=compressor)
+    model.compressor = recorder = _ScaleRecorder(model.compressor)
     jstate = _jax_state(name, compressor)
     state = convert.lm_state_from_numpy(jax_to_numpy(jstate), "cpu")
     jstep = jax.jit(jmodel.train_step)
+    flips = []  # int8: flipped elements a leaf, a step
     for step in range(STEPS):
         batch = _batch(cfg.vocab, step)
+        before = jax_to_numpy(jstate)
+        if compressor == "int8":  # each step from the reference's state
+            state = convert.lm_state_from_numpy(before, "cpu")
         jstate, jm = jstep(jstate, {k: jnp.asarray(v) for k, v in batch.items()})
         state, m = model.train_step(state, {k: torch.from_numpy(v) for k, v in batch.items()})
         for k in ("loss", "xent", "aux", "grad_norm"):
@@ -198,13 +311,16 @@ def test_train_steps_match_reference(name, use_pallas, compressor):
                                        err_msg=f"step {step} {k}")
         want = jax_to_numpy(jstate)
         assert int(state["step"]) == int(want["step"]) == step + 1
+        if compressor == "int8":
+            flips.append(_int8_step_close(want, before, state, recorder.scales, step + 1))
+            continue
         _close_tree(want["params"], state["params"], *STATE_TOL["params"], f"{step} params")
         for k in ("m", "v"):
             _close_tree(want["opt"][k], state["opt"][k], *STATE_TOL[k], f"{step} opt/{k}")
-        if compressor == "int8":
-            _close_tree(want["comp"], state["comp"], 0.0, 1e-3, f"{step} comp")
-        else:
-            assert "comp" not in state
+        assert "comp" not in state
+    if compressor == "int8":
+        print(f"{name}: flipped elements a step {[sum(f.values()) for f in flips]}, at most "
+              f"{max(max(f.values()) for f in flips)} in one tensor")
 
 
 def _count_attention(monkeypatch):
