@@ -397,7 +397,26 @@ Phases (any failure exits non-zero, with no result line):
    in the reference).  17a-17d launch no kernel of the port: every
    wrapper's count is the same before and after them.
 
-They run in the order 1-5e, 6-7b, 14a-14b, 15a-15c, 9-13, 16a-16e,
+18. the hot-path contract gate on the card: ``python -m
+   repro_torch.analysis.run --strict --device cuda --json`` in a fresh
+   child process, every registered entry point's smoke case under the sync
+   census and the operation recorder; fails on a non-zero exit, and unless
+   each hand-written kernel (the threshold, ``bucketize`` and
+   ``route_bucketize``, ``gather_decode`` and ``gather_decode_encode``,
+   the bag, FM, and flash by its three routes) launched in the child with
+   no sync in its entry's case.  Prints the entries, the findings by site
+   and each wrapper's launches.  Beside it, the census
+   (``analysis.census.sync_census``) of one full-width step of the main
+   paths, each inside the phase that holds its state: a DLRM serve batch
+   (4), an int8-tiered train step (5), a depth-3 pipelined group (5d), a
+   SmolLM-360M decode token at B 8 (10) and a SmolLM-360M train step
+   (16a); and, for the CUDA-graph items, a train step of DIN, DIEN and
+   MIND (15a-15c) and of GatedGCN's full_graph_sm (17a).  Each prints its
+   syncs by ``file:line``; a site in the port that
+   ``analysis/baseline.json``'s ``sync_sites`` does not hold fails the
+   smoke.
+
+They run in the order 1-2, 18, 3-5e, 6-7b, 14a-14b, 15a-15c, 9-13, 16a-16e,
 17a-17d, 5f-5h, 8.  Each phase's seconds are printed.  The last three
 lines are the
 ``kernels`` JSON, the card's name and power limit, and ``{"ok": true,
@@ -754,8 +773,8 @@ def serve_phase(dev, vocab_scale, n_batches):
         f"rows = {spec.capacity * spec.dim * 4 / 1e6} MB on {torch.cuda.get_device_name(0)}")
 
     bspec = synth.ZipfSparseSpec(vocab_sizes=cfg.vocab_sizes, n_dense=cfg.n_dense)
-    # measured, invariant check, 3 breakdown, profiled, warm-up
-    batches = [synth.sparse_batch(bspec, cfg.batch_size, 0, i) for i in range(n_batches + 6)]
+    # measured, invariant check, 3 breakdown, profiled, warm-up, census
+    batches = [synth.sparse_batch(bspec, cfg.batch_size, 0, i) for i in range(n_batches + 7)]
     pad = {"dense": np.zeros((cfg.n_dense,), np.float32),
            "sparse": np.zeros((cfg.n_sparse,), np.int32), "label": np.zeros((), np.float32)}
     engine = ServeEngine(
@@ -794,6 +813,7 @@ def serve_phase(dev, vocab_scale, n_batches):
         f"hit rate {hits / max(hits + misses, 1)} ({hits} id hits, {misses} row misses), "
         f"host wire bytes {wire}, kernel launches {launches}")
     log(f"score span: {json.dumps(engine.tracer.stage_summary())}")
+    census_call("4 (DLRM serve batch)", lambda: engine.score(batches[n_batches + 6]))
 
     # --- cache invariant on the card: cached rows == host-table rows --------
     b = {k: torch.from_numpy(v).to(dev) for k, v in batches[n_batches].items()}
@@ -1022,14 +1042,22 @@ def train_phase(dev, vocab_scale, n_steps):
         f"{json.dumps(coll.device_bytes())}; host RSS {rss_gb()} GB")
 
     bspec = synth.ZipfSparseSpec(vocab_sizes=cfg.vocab_sizes, n_dense=cfg.n_dense)
-    # warm-up, measured, breakdown (3), profiled
-    batches = [synth.sparse_batch(bspec, cfg.batch_size, 1, i) for i in range(n_steps + 5)]
+    # warm-up, measured, breakdown (3), profiled, census
+    batches = [synth.sparse_batch(bspec, cfg.batch_size, 1, i) for i in range(n_steps + 6)]
 
     def dev_batch(i):
         return {k: torch.from_numpy(v).to(dev) for k, v in batches[i].items()}
 
     state, m = model.train_step(state, dev_batch(n_steps + 4))  # allocator, cuBLAS, autograd
     float(m["loss"])
+    b = dev_batch(n_steps + 5)  # uploaded before the census: the caller's copy
+
+    def census_step():
+        st, m = model.train_step(state, b)
+        float(m["loss"])
+        return st, m
+
+    state, m = census_call("5 (int8-tiered DLRM train step, its loss fetched)", census_step)
     counters = ("cache_evictions", "cache_misses", "uniq_overflows", "slab_hits",
                 "slab_tier_promotions", "slab_tier_demotions", "host_moved_rows")
     prev = fetch_ints({k: m[k] for k in counters})
@@ -2597,7 +2625,7 @@ def budget_phase(dev, vocab_scale, n_batches, n_steps):
 PIPE_STEPS, PIPE_DEPTHS = 9, (1, 3)  # steps a run; the pipelined runs' depths
 
 
-def _group_profile(model, state, now, ahead, depth):
+def _group_profile(model, state, now, ahead, depth, census=False):
     """One steady-state group under the profiler: the next group's plan,
     the group's computes (each loss fetched, as the trainer's), then the
     next plan's apply.  ``now`` are the group's batches (planned and applied
@@ -2621,6 +2649,8 @@ def _group_profile(model, state, now, ahead, depth):
                 st, m = model.compute_step(st, b, addrs[j])
                 float(m["loss"])
             return model.apply_step(st, nxt)
+    if census:  # the same group once more, under the sync census
+        census_call(f"5d (one depth-{depth} pipelined group, each loss fetched)", fn)
     profile_call(f"one {'serial step' if depth == 0 else f'depth-{depth} group'}", fn,
                  stats=stats)
     return 1 - stats["busy"] / stats["wall"] if stats else None
@@ -2737,7 +2767,8 @@ def pipeline_phase(dev, vocab_scale, n_steps):
         stages = tracer.stage_summary()
         g = max(depth, 1)
         idle = _group_profile(model, state, [dev_batch(2 * n_steps + j) for j in range(g)],
-                              [dev_batch(2 * n_steps + g + j) for j in range(g)], depth)
+                              [dev_batch(2 * n_steps + g + j) for j in range(g)], depth,
+                              census=depth == d_max)
         runs[name] = {"losses": [r["loss"] for r in h], "aucs": [r["auc"] for r in h],
                       "thr": thr + thr_t, "idle": idle,
                       "stage_ms": {k: 1e3 * v["total_s"] / n_steps for k, v in stages.items()
@@ -4054,6 +4085,8 @@ def recsys_phase(dev, arch, vocab_scale, n_serve, n_train, n_cand):
     ms = [1e3 * r["time_s"] for r in h]
     stats = {}
     b = {k: torch.from_numpy(v).to(dev) for k, v in train_batches[-1].items()}
+    census_call(f"15 ({arch} train step, its loss fetched)",
+                lambda: float(model.train_step(state, b)[1]["loss"]))
     profile_call(f"one {arch} train step", lambda: float(model.train_step(state, b)[1]["loss"]),
                  stats=stats)
     idle = 1 - stats["busy"] / stats["wall"] if stats else None
@@ -4519,6 +4552,8 @@ def lm_serve_phase(dev, cfg, b=LM_B, s=LM_S, n_requests=LM_PREFILLS, long_s=LM_L
     if not bool(torch.isfinite(out).all()) or fa_kernel.flash_attention.launches != 0:
         raise AssertionError(f"lm decode: finite logits {bool(torch.isfinite(out).all())}, "
                              f"{fa_kernel.flash_attention.launches} kernel launches (want 0)")
+    census_call(f"10 (SmolLM-360M decode token, B {b})",
+                lambda: model.decode_fn(params, caches, nxt, pos))
     profile_call(f"one decode step B {b}", lambda: model.decode_fn(params, caches, nxt, pos))
     dec_p50 = float(np.percentile(step_ms, 50))
     log(f"lm decode B {b}: {prompt}-token prompt from position 0 into caches of max_len "
@@ -4796,7 +4831,8 @@ def lm_train_phase(dev, cfg, s=TRAIN_S, batches=TRAIN_BATCHES, n_steps=TRAIN_STE
         norms.append(gn)
     peak = torch.cuda.max_memory_allocated()
     p50 = float(np.percentile(lat, 50))
-    log(f"lm train B {b} x S {s}, compressor none: step ms {lat}, p50 {p50}, "
+    log(f"lm train B {b} x S {s}, compressor none: step ms {lat}, p50 {p50} (4031 ms on "
+        f"this card when AdamW made two host-to-device syncs an update), "
         f"{b * s / p50 * 1e3} tokens/s; losses {losses}; grad norms {norms}; peak device "
         f"memory {peak / 1e9} GB; {want} flash launches a step, all on the {route} route")
 
@@ -4818,6 +4854,8 @@ def lm_train_phase(dev, cfg, s=TRAIN_S, batches=TRAIN_BATCHES, n_steps=TRAIN_STE
     err = check_flash(*live, f"16a live layer-0 q/k/v at B {b} x S {s}", show=True)
     stats = {}
     batch = _lm_batch(dev, cfg.vocab, b, s, n_steps + n_int8 + 1)
+    census_call(f"16a (SmolLM-360M train step B {b} x S {s}, its loss fetched)",
+                lambda: float(model.train_step(state, batch)[1]["loss"]))
     fa_kernel.flash_attention.launches = 0
     profile_call(f"one SmolLM-360M train step B {b} x S {s}",
                  lambda: model.train_step(state, batch), stats=stats)
@@ -5204,7 +5242,7 @@ def _kernel_launches():
             eb_kernel.embedding_bag_multi.launches, fa_kernel.flash_attention.launches]
 
 
-def gnn_run(model, state, batches, what, n_serve=GNN_SERVE, n_train=GNN_TRAIN):
+def gnn_run(model, state, batches, what, n_serve=GNN_SERVE, n_train=GNN_TRAIN, census=False):
     """``serve_step`` on ``n_serve`` batches, then ``n_train`` train steps
     (batch ``i`` of ``batches`` at call ``i``), after one untimed call of
     each; each call synced.  Prints p50 / p99, nodes/s, peak device memory
@@ -5233,6 +5271,9 @@ def gnn_run(model, state, batches, what, n_serve=GNN_SERVE, n_train=GNN_TRAIN):
         raise AssertionError(f"{what} train: losses {losses}")
     stats = {}
     b = batches[n_train % len(batches)]
+    if census:
+        census_call(f"{what} (train step, its loss fetched)",
+                    lambda: float(model.train_step(state, b)[1]["loss"]))
     profile_call(f"one {what} train step", lambda: float(model.train_step(state, b)[1]["loss"]),
                  stats=stats)
     idle = 1 - stats["busy"] / stats["wall"] if stats else None
@@ -5348,7 +5389,7 @@ def gnn_full_graph_phase(dev, n_serve=GNN_SERVE, n_train=GNN_TRAIN):
         raise AssertionError(f"17a deterministic runs differ: losses {l0} vs {l1}")
     log(f"17a: two runs of 2 train steps under deterministic algorithms bitwise equal (losses "
         f"{l0}, every state leaf)")
-    out = gnn_run(model, state, batches, "17a full_graph_sm", n_serve, n_train)
+    out = gnn_run(model, state, batches, "17a full_graph_sm", n_serve, n_train, census=True)
     return dict(out, host_s=host_s, logit_err=err / scale)
 
 
@@ -5808,6 +5849,78 @@ def timed(what, fn, *args):
     return out
 
 
+CENSUS = {}  # path -> its census, printed on a line of its own at the end
+
+
+def census_call(what, fn):
+    """``fn()`` under the sync census (``analysis.census``): logs its syncs by
+    site, fails on a site in the port that the baseline's ``sync_sites``
+    does not hold.  Returns ``fn()``'s result."""
+    from repro_torch.analysis import run as gate
+    from repro_torch.analysis.census import sync_census
+
+    held = {s["site"] for s in json.loads(gate._DEFAULT_BASELINE.read_text())["sync_sites"]}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with sync_census() as c:
+        out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    summary = c.summary()
+    unheld = {site: f for site, f in c.port_sites().items() if site not in held}
+    CENSUS[what] = dict(summary, unheld=unheld, seconds=secs)
+    log(f"census {what}: {summary['syncs']} host syncs ({summary['documented']} documented) "
+        f"by site {json.dumps(summary['by_site'])}; by thread {json.dumps(summary['by_thread'])}; "
+        f"sites in the port outside the baseline: {unheld or 'none'}; {secs} s")
+    if unheld:
+        raise AssertionError(f"census {what}: host syncs at sites the baseline does not hold: "
+                             f"{unheld}")
+    return out
+
+
+# the hand-written kernels each smoke case of the gate must launch on the card
+GATE_KERNELS = ("victim_threshold", "bucketize", "route_bucketize", "gather_decode",
+                "gather_decode_encode", "embedding_bag", "fm_interaction", "flash_wgmma",
+                "flash_tf32x3", "flash_simt")
+
+
+def gate_phase():
+    """Phase 18: the contract gate on the card, in a fresh child process."""
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run([sys.executable, "-m", "repro_torch.analysis.run", "--strict",
+                          "--device", "cuda", "--json"], env=env, cwd=ROOT, capture_output=True,
+                         text=True, timeout=600)
+    if out.returncode != 0:
+        log(out.stdout[-4000:])
+        log(out.stderr[-4000:])
+        raise AssertionError(f"phase 18: the gate exited {out.returncode} on the card")
+    rep = json.loads(out.stdout)
+    launches, synced = {}, {}  # over the kernels' own entries (repro_torch.kernels.*)
+    for name, e in rep["per_entry"].items():
+        if not name.startswith("repro_torch.kernels."):
+            continue
+        for k, n in e["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+        if e["syncs"] or e["documented"]:
+            synced[name] = (e["syncs"], e["documented"])
+    log(f"phase 18 gate: {len(rep['entries'])} entries on {rep['device']}: {rep['entries']}")
+    for v in rep["baselined"]:
+        log(f"  known {v['check']} {v['entry']}: {v['detail'][:300]} ({v['rationale']})")
+    for name, e in rep["per_entry"].items():
+        log(f"  entry {name}: syncs by site {e['syncs']}, documented {e['documented']}, "
+            f"largest sort {e['largest_sort']}, kernel launches {e['launches']}")
+    missing = [k for k in GATE_KERNELS if not launches.get(k)]
+    if missing or synced:
+        raise AssertionError(f"phase 18: kernels not launched by the smoke cases {missing}; "
+                             f"kernel entries that synced {synced}")
+    secs = time.perf_counter() - t0
+    log(f"phase 18: exit 0, {len(rep['new'])} new, {len(rep['baselined'])} baselined, "
+        f"{len(rep['stale_baseline'])} stale; the kernel entries' cases launched {launches} in "
+        f"the child, none with a sync; {secs} s")
+    return secs
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--vocab-scale", type=float, default=1.0)
@@ -5851,6 +5964,8 @@ def main():
     if any(r["serialised"] for r in ptxas["tf32x3"]):
         raise AssertionError(f"{fa_kernel.TF32_SOURCE.name}: ptxas serialised the wgmma "
                              f"pipeline: {ptxas['tf32x3']}")
+
+    gate_s = gate_phase()
 
     from repro_torch.configs import fm
     from repro_torch.configs.dlrm_criteo import CONFIG
@@ -6103,6 +6218,10 @@ def main():
         f"gather_decode_encode {gde['launches']}; bucketize {bz['launches']} of which "
         f"route_bucketize {rbz['launches']})")
 
+    census_s = sum(c["seconds"] for c in CENSUS.values())
+    log(f"phase 18 and the census: {gate_s} + {census_s} = {gate_s + census_s} s")
+    log(json.dumps({"census": {k: {"syncs": c["syncs"], "by_site": c["by_site"]}
+                               for k, c in CENSUS.items()}}))
     log(f"all phases: {time.perf_counter() - t0} s since the build began")
     log(json.dumps({"kernels": [thr, gd, gde, fmk, bag, bz, rbz, *fa]}))
     log(card)

@@ -27,6 +27,7 @@ from typing import Dict, Optional, Tuple, Union
 
 import torch
 
+from repro_torch.analysis.contracts import INT_COUNTERS, contract
 from repro_torch.core import freq as freq_lib
 from repro_torch.core import transmitter
 from repro_torch.core.lanes import i32, scatter_drop, take_fill
@@ -188,6 +189,7 @@ def unique_fixed(x: torch.Tensor, k: int, fill: int) -> torch.Tensor:
     return torch.cat([u, pad])
 
 
+@contract(max_sort_size=64, int_counters=INT_COUNTERS)
 def plan_prepare(
     cfg: CacheConfig,
     state: CacheState,
@@ -367,6 +369,8 @@ INDEX_FIELDS = (
 )
 
 
+@contract(in_place=("full_rows", "state"), int_counters=INT_COUNTERS, max_sort_size=0,
+          allowed_syncs=3)
 def apply_plan(cfg: CacheConfig, full_rows, state: CacheState, plan: CachePlan) -> Tuple:
     """Execute a plan: write back displaced rows (``cfg.writeback``), load
     missed rows, install the index image.  Returns ``(full_rows, state')``;
@@ -405,6 +409,7 @@ def lookup_slots(state: CacheState, slots: torch.Tensor, leaf: str = "weight") -
     return take_fill(state.cached_rows[leaf], slots, 0)
 
 
+@contract(in_place=("full_rows",), int_counters=INT_COUNTERS, max_sort_size=0, allowed_syncs=3)
 def flush(cfg: CacheConfig, full_rows, state: CacheState) -> Tuple:
     """Write every resident row back to the host table (checkpoint barrier).
     The table becomes authoritative; the cache stays warm.  Returns
@@ -419,6 +424,7 @@ def flush(cfg: CacheConfig, full_rows, state: CacheState) -> Tuple:
     return full_rows, state
 
 
+@contract(in_place=("state",), int_counters=INT_COUNTERS, max_sort_size=0, allowed_syncs=1)
 def warmup(cfg: CacheConfig, full_rows, state: CacheState) -> Tuple:
     """Paper §4.3 cache warm-up: pre-fill with the hottest (lowest-rank) rows."""
     capacity = state.slot_to_row.shape[0]

@@ -38,6 +38,7 @@ from typing import Dict, Iterator, List, Mapping, Optional, Sequence, Tuple, Uni
 import numpy as np
 import torch
 
+from repro_torch.analysis.contracts import INT_COUNTERS, METRICS_INT_COUNTERS, contract
 from repro_torch.core import cache as cache_lib
 from repro_torch.core import freq as freq_lib
 from repro_torch.core import refresh as refresh_lib
@@ -972,6 +973,7 @@ class EmbeddingCollection:
                           else cached["weight"])
         return out
 
+    @contract(max_sort_size=0)
     def gather(
         self,
         weights: Mapping[str, torch.Tensor],
@@ -1057,6 +1059,7 @@ class EmbeddingCollection:
 
     # ----- updates ----------------------------------------------------------
 
+    @contract(in_place=("state",), int_counters=INT_COUNTERS, max_sort_size=0)
     def apply_grads(
         self, state: CollectionState, grads: Mapping[str, torch.Tensor], lr
     ) -> CollectionState:
@@ -1190,6 +1193,7 @@ class EmbeddingCollection:
             "budget_bytes": self.plan.budget_bytes,
         }
 
+    @contract(int_counters=METRICS_INT_COUNTERS, max_sort_size=0)
     def metrics(self, state: CollectionState, writeback: bool = True) -> Dict[str, object]:
         """Cache telemetry over the cached slabs, as in the reference: int32
         cumulative counters per slab (reconstructed exactly by the obs hub),
@@ -1222,8 +1226,8 @@ class EmbeddingCollection:
             row_bytes = full.row_wire_bytes(batch_dims=full["weight"].dim() - 1)
             moved = i32((c.misses + c.evictions if writeback else c.misses).sum())
             per["host_moved_rows"][sname] = moved
-            per["host_row_bytes"][sname] = torch.tensor(
-                row_bytes, dtype=torch.int32, device=c.hits.device
+            per["host_row_bytes"][sname] = torch.full(
+                (), row_bytes, dtype=torch.int32, device=c.hits.device
             )
             wire = wire + moved.to(torch.float32) * row_bytes
         tot = hits + misses

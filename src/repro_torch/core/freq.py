@@ -201,7 +201,8 @@ def decay_factor(dt: torch.Tensor, half_life: int) -> torch.Tensor:
     from the CPU's), which is enough to reorder two near-tied rows of a
     refresh plan."""
     c = np.float32(np.float32(1.0 / half_life) * np.float32(np.log(2.0)))
-    return _exp_f32(-dt.to(torch.float32) * torch.tensor(c, device=dt.device))
+    return _exp_f32(-dt.to(torch.float32)
+                    * torch.full((), float(c), dtype=torch.float32, device=dt.device))
 
 
 def decay_bump(score: torch.Tensor, dt: torch.Tensor, half_life: int) -> torch.Tensor:

@@ -78,11 +78,13 @@ def scatter_rows_(
     row 0 with its own value."""
     if idx.numel() == 0 or leaves[0].shape[0] == 0:
         return
-    j = torch.argmax(keep.to(torch.int32))  # first kept lane (0 if none)
+    # the first kept lane (0 if none), as a [1] index: indexing by a 0-dim
+    # tensor would read it on the host (``.item()``, a sync on the card)
+    j = torch.argmax(keep.to(torch.int32)).reshape(1)
     has = keep.any()
-    dest = torch.where(keep, idx, torch.where(has, idx[j], 0)).to(torch.int64)
+    dest = torch.where(keep, idx, torch.where(has, idx.index_select(0, j)[0], 0)).to(torch.int64)
     for leaf, blk in zip(leaves, blocks):
-        fill = torch.where(has, blk[j], leaf[0])
+        fill = torch.where(has, blk.index_select(0, j)[0], leaf[0])
         mask = keep.reshape(keep.shape + (1,) * (blk.dim() - keep.dim()))
         leaf.index_copy_(0, dest, torch.where(mask, blk, fill))
 

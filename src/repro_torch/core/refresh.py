@@ -49,6 +49,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.analysis.contracts import INT_COUNTERS, contract
 from repro_torch.core import cache as cache_lib
 from repro_torch.core import freq as freq_lib
 from repro_torch.core import transmitter
@@ -201,6 +202,7 @@ def _remap(idx_map: torch.Tensor, a: np.ndarray, b: np.ndarray) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+@contract(int_counters=INT_COUNTERS, allowed_syncs=2)
 def apply_swaps(
     full: HostStore,
     cache: cache_lib.CacheState,
@@ -292,6 +294,7 @@ def _per_shard(cache: cache_lib.CacheState, full: HostStore, s: int):
     return full.shard(s), _shard(cache, s)
 
 
+@contract(int_counters=INT_COUNTERS, allowed_syncs=4)
 def apply_swaps_sharded(
     full: HostStore,
     cache: cache_lib.CacheState,
@@ -452,6 +455,7 @@ def refresh_sharded_slab(
 # ---------------------------------------------------------------------------
 
 
+@contract(int_counters=INT_COUNTERS, allowed_syncs=6)
 def apply_rebalance(
     full: HostStore,
     cache: cache_lib.CacheState,

@@ -56,6 +56,7 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.analysis.contracts import INT_COUNTERS, METRICS_INT_COUNTERS, contract
 from repro_torch.core import cache as cache_lib
 from repro_torch.core import freq as freq_lib
 from repro_torch.core import refresh as refresh_lib
@@ -491,6 +492,7 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
 
     # ----- the non-diff bookkeeping pass ------------------------------------
 
+    @contract(max_sort_size=64, int_counters=INT_COUNTERS)
     def plan_prepare(
         self,
         state: CollectionState,
@@ -590,6 +592,7 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
             plan.future_unresident = i32(torch.stack(unresident).sum())
         return plan
 
+    @contract(in_place=("state",), int_counters=INT_COUNTERS, max_sort_size=0, allowed_syncs=6)
     def apply_plan(self, state: CollectionState, plan: ShardedCollectionPlan
                    ) -> CollectionState:
         """Each shard's row movement between its slice of the host table and
@@ -638,6 +641,7 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
                 out[sname + "::rep"] = rep.rows
         return out
 
+    @contract(max_sort_size=0)
     def gather(
         self,
         weights: Mapping[str, torch.Tensor],
@@ -695,6 +699,7 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
         return super().pool(rows, fb, combiner, weights=weights, addresses=addresses,
                             use_pallas=use_pallas, max_bag=max_bag)
 
+    @contract(in_place=("state",), int_counters=INT_COUNTERS, max_sort_size=0)
     def apply_grads(self, state: CollectionState, grads: Mapping[str, torch.Tensor], lr
                     ) -> CollectionState:
         """SGD on the stacked fast tiers (in place), then on each replicated
@@ -849,6 +854,7 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
 
     # ----- telemetry / accounting -------------------------------------------
 
+    @contract(int_counters=METRICS_INT_COUNTERS, max_sort_size=0)
     def metrics(self, state: CollectionState, writeback: bool = True) -> Dict[str, Any]:
         """Unsharded telemetry (counters summed over shards) plus the
         exchange accounting: cumulative routed lanes per slab priced at 4 B
@@ -873,9 +879,9 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
             else:
                 rb = spec.dim * spec.dtype.itemsize
             lanes[sname] = n
-            lane_bytes[sname] = torch.tensor(4 + rb, dtype=torch.int32, device=dev)
-            id_lane_bytes[sname] = torch.tensor(4, dtype=torch.int32, device=dev)
-            row_lane_bytes[sname] = torch.tensor(rb, dtype=torch.int32, device=dev)
+            lane_bytes[sname] = torch.full((), 4 + rb, dtype=torch.int32, device=dev)
+            id_lane_bytes[sname] = torch.full((), 4, dtype=torch.int32, device=dev)
+            row_lane_bytes[sname] = torch.full((), rb, dtype=torch.int32, device=dev)
             id_bytes = id_bytes + n.to(torch.float32) * 4
             row_bytes = row_bytes + n.to(torch.float32) * rb
             per_shard = per_shard + slab.routed_lanes

@@ -47,6 +47,7 @@ from typing import Dict, Optional, Tuple, Union
 
 import torch
 
+from repro_torch.analysis.contracts import contract
 from repro_torch.core.lanes import scatter_rows_, take_fill
 from repro_torch.store.arena import ArenaStore
 from repro_torch.store.host_store import HostStore
@@ -167,12 +168,26 @@ def _active_lanes(
     return lanes[0][sel], lanes[1][sel]
 
 
+def _upload(lanes: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """Host lanes as int32 on ``dev``.  Non-blocking: from pageable memory
+    the copy returns once the lanes are staged, with no wait on the card's
+    stream (a blocking copy would sync the host with it)."""
+    return lanes.to(torch.int32).to(dev, non_blocking=True)
+
+
+def _staging_sync(dev: torch.device) -> None:
+    """A write-back's staging block lands in pinned memory before the host
+    scatters it: one sync of the source's stream a round."""
+    torch.cuda.current_stream(dev).synchronize()
+
+
 def _leaves(tree: Side) -> Tree:
     if isinstance(tree, HostStore):
         return tree.data
     return tree.head if isinstance(tree, ArenaStore) else tree
 
 
+@contract(max_sort_size=64, allowed_syncs=1)
 def move_rows(
     src_tree: Side,
     dst_tree: Side,
@@ -251,21 +266,21 @@ def move_rows(
                 side = {k: v.to(dst_dev)
                         for k, v in _pack(src_tree.sideband, s, uniq, chunk_src).items()}
             if chunk_src:  # pick the rows out of the staged chunks on the device
-                flat = plans[r][1].to(dst_dev)
+                flat = plans[r][1].to(dst_dev, non_blocking=True)
                 enc = {k: take_fill(v, flat, 0) for k, v in enc.items()}
                 side = {k: take_fill(v, flat, 0) for k, v in side.items()}
             block = src_tree.decode_block(enc, side)  # decoded on the destination's device
         elif fused:
-            block, enc, side = src_tree.gather_encoded_slots(s.to(src_dev, torch.int32),
+            block, enc, side = src_tree.gather_encoded_slots(_upload(s, src_dev),
                                                              dst_tree.codec)
         elif isinstance(src_tree, ArenaStore):
-            block = src_tree.gather_slots(s.to(src_dev, torch.int32))
+            block = src_tree.gather_slots(_upload(s, src_dev))
         elif chunk_src:
             staged = _chunks(src_tree, uniq, chunk_src)
-            flat = plans[r][1].to(dst_dev)
+            flat = plans[r][1].to(dst_dev, non_blocking=True)
             block = {k: take_fill(v.to(dst_dev), flat, 0) for k, v in staged.items()}
         else:
-            block = gather_rows(src_tree, s.to(src_dev))
+            block = gather_rows(src_tree, s.to(src_dev, non_blocking=True))
         if isinstance(dst_tree, HostStore):  # encode on the source's device
             data_blk, side_blk = dst_tree.encode_block(block)
             if fused:  # the leaves the gather encoded
@@ -277,7 +292,7 @@ def move_rows(
                             for k, v in data_blk.items()}
                 side_blk = {k: stage_side[k][:n].copy_(v, non_blocking=True)
                             for k, v in side_blk.items()}
-                torch.cuda.current_stream(src_dev).synchronize()  # lands before the scatter
+                _staging_sync(src_dev)
             else:
                 data_blk = {k: v.to(dst_dev) for k, v in data_blk.items()}
                 side_blk = {k: v.to(dst_dev) for k, v in side_blk.items()}
@@ -290,10 +305,12 @@ def move_rows(
                 payload_blk = {k: enc[k] for k in dst_tree.tail
                                if k in enc and src_tree.is_encoded(k)}
                 side_blk = {k: side[k] for k in dst_tree.sideband if k in side}
-            dst_tree.scatter_slots(d.to(dst_dev), {k: v.to(dst_dev) for k, v in block.items()},
+            dst_tree.scatter_slots(d.to(dst_dev, non_blocking=True),
+                                   {k: v.to(dst_dev) for k, v in block.items()},
                                    payload_block=payload_blk, side_block=side_blk)
         else:
-            unpack(dst_tree, d.to(dst_dev), {k: v.to(dst_dev) for k, v in block.items()})
+            unpack(dst_tree, d.to(dst_dev, non_blocking=True),
+                   {k: v.to(dst_dev) for k, v in block.items()})
     return dst_tree
 
 

@@ -9,6 +9,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.analysis.contracts import contract
 from repro_torch.kernels.cache_ops import kernel as _kernel
 from repro_torch.kernels.cache_ops import ref as _ref
 from repro_torch.kernels.cache_ops.ref import PlanImage
@@ -32,6 +33,7 @@ __all__ = [
 PAD_RANK = 2**31 - 1  # the router's padding sentinel: sorts after every real rank
 
 
+@contract(max_sort_size=64)
 def victim_topk_impl(key: torch.Tensor, kv: int) -> torch.Tensor:
     """Bounded top-K victim selection, bit-identical to
     ``argsort(key, descending=True, stable=True)[:kv]`` as int32."""
@@ -78,6 +80,7 @@ def route_image_impl(
     return _kernel.route_image(uniq.contiguous(), rank_owner, rank_local, rep_k, num_shards)
 
 
+@contract(max_sort_size=64)
 def shard_bucketize(
     rank: torch.Tensor,
     rank_owner: torch.Tensor,
@@ -100,10 +103,12 @@ def shard_bucketize(
             *route_bucketize_impl(uniq, rank_owner, rank_local, rep_k, num_shards))
 
 
+@contract(max_sort_size=64)
 def plan_image_impl(rows: torch.Tensor, row_to_slot: torch.Tensor, k: int) -> PlanImage:
     return _ref.plan_image(rows, row_to_slot, k)
 
 
+@contract(max_sort_size=0)
 def arena_gather_impl(
     head: torch.Tensor,
     tail: torch.Tensor,
@@ -116,6 +121,7 @@ def arena_gather_impl(
     return _kernel.gather_decode(head, tail, sideband, slots, codec)
 
 
+@contract(max_sort_size=0)
 def arena_gather_encode_impl(
     head: torch.Tensor,
     tail: torch.Tensor,

@@ -16,6 +16,7 @@ from typing import Sequence
 
 import torch
 
+from repro_torch.analysis.contracts import contract
 from repro_torch.core.lanes import segment_sum, take_fill
 from repro_torch.kernels.embedding_bag import kernel as _kernel
 
@@ -80,6 +81,7 @@ def embedding_bag_multi(
                                     combiner, max_bag)
 
 
+@contract(max_sort_size=0)
 def embedding_bag(
     table: torch.Tensor,
     flat_ids: torch.Tensor,

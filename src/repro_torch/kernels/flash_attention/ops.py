@@ -16,6 +16,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.analysis.contracts import contract
 from repro_torch.kernels.flash_attention import kernel as _kernel
 
 __all__ = ["flash_attention"]
@@ -39,6 +40,7 @@ class _Attn(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+@contract(max_sort_size=0)
 def flash_attention(
     q: torch.Tensor,  # [B, S, Hq, D] (model layout)
     k: torch.Tensor,  # [B, S, Hkv, D]

@@ -27,6 +27,7 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.analysis.contracts import contract
 from repro_torch.kernels import build
 from repro_torch.kernels.fm_interaction.ref import fm_interaction_ref
 
@@ -43,6 +44,7 @@ def fm_interaction_plain(v: torch.Tensor) -> torch.Tensor:
     return fm_interaction_ref(v.to(torch.float32)).to(v.dtype)
 
 
+@contract(max_sort_size=0)
 def fm_interaction(v: torch.Tensor) -> torch.Tensor:
     """[B] FM interaction of ``v`` [B, F, D]: the CUDA kernel on a CUDA
     tensor, the plain version on a CPU tensor."""

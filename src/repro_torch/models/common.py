@@ -25,6 +25,7 @@ from typing import Any, Callable, Dict, List, Tuple
 
 import torch
 
+from repro_torch.analysis.contracts import INT_COUNTERS, contract
 from repro_torch.core import cached_embedding as ce
 from repro_torch.core.collection import CollectionPlan, EmbeddingCollection, FeatureBatch
 from repro_torch.core.lanes import take_fill
@@ -160,6 +161,7 @@ class CollectionTrainStep:
         """Execute a plan's row movement (writeback first, then loads)."""
         return dict(state, emb=self.collection.apply_plan(state["emb"], plan))
 
+    @contract(in_place=("state",), int_counters=INT_COUNTERS, max_sort_size=64)
     def compute_step(
         self,
         state: Dict[str, Any],

@@ -51,8 +51,11 @@ def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
 
 def _lr_at(lr: Schedule, step) -> torch.Tensor:
     """The learning rate at ``step`` as an fp32 scalar, like the reference's
-    ``jnp.asarray(lr, float32)``."""
-    return torch.as_tensor(lr(step) if callable(lr) else lr, dtype=torch.float32)
+    ``jnp.asarray(lr, float32)``: a schedule's tensor as it is, a float
+    filled into a CPU scalar (no tensor built from Python data)."""
+    v = lr(step) if callable(lr) else lr
+    return v.to(torch.float32) if isinstance(v, torch.Tensor) else torch.full(
+        (), v, dtype=torch.float32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,8 +131,9 @@ def adam(lr: Schedule, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         t = step.to(torch.float32) + 1.0
 
         def correction(b):
-            power = torch.pow(torch.tensor(float(np.float32(b)), dtype=torch.float64,
-                                           device=t.device), t.to(torch.float64))
+            # filled on the card: no blocking host-to-device copy
+            power = torch.pow(torch.full((), float(np.float32(b)), dtype=torch.float64,
+                                         device=t.device), t.to(torch.float64))
             return 1.0 - power.to(torch.float32)
 
         bc1, bc2 = correction(b1), correction(b2)

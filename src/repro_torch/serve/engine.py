@@ -130,7 +130,8 @@ class ServeEngine:
             if pad_rows > 0:
                 pad = np.broadcast_to(self.pad_example[k], (pad_rows,) + v.shape[1:])
                 v = np.concatenate([v, pad], axis=0)
-            out[k] = torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+            # staged without a wait on the card's stream: the response is the fetch
+            out[k] = torch.from_numpy(np.ascontiguousarray(v)).to(self.device, non_blocking=True)
         return out
 
     def score(self, batch: Dict[str, np.ndarray]) -> np.ndarray:

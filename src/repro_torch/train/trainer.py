@@ -90,8 +90,11 @@ class TrainerConfig:
 
 
 def _to_device(batch: Dict[str, Any], device: torch.device) -> Dict[str, torch.Tensor]:
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-            if isinstance(v, np.ndarray) else v.to(device) for k, v in batch.items()}
+    """The batch on ``device``.  Non-blocking: from pageable memory the copy
+    returns once the batch is staged, without waiting for the card's stream
+    (a blocking copy would hold the prefetch thread until the step drains)."""
+    return {k: (torch.from_numpy(np.ascontiguousarray(v)) if isinstance(v, np.ndarray) else v)
+            .to(device, non_blocking=True) for k, v in batch.items()}
 
 
 class Trainer:
