@@ -70,7 +70,8 @@ Phases (any failure exits non-zero, with no result line):
 5b. sharded: the same DLRM split over 4 shards on the card
    (``model_shards=4``, ``replicate_top_k=2048``, fp32 exchange and arena,
    full-width plans: 4 x 425 984 slots, one 17.3 GB table pinned whole):
-   ``ServeEngine`` on ``--batches`` batches, then a warm-up and
+   ``ServeEngine`` on ``DIST_SERVE`` (3; ``--batches`` before phase 19,
+   whose ranks take these batches) batches, then a warm-up and
    ``--train-steps`` ``train_step`` calls, each run with the launch counts
    at 0 before it and read after it (one bucketize launch, the route +
    image entry, and 4 threshold launches per plan).  Checks finite scores
@@ -107,15 +108,15 @@ Phases (any failure exits non-zero, with no result line):
    of its arena row.  Prints serve and train p50 / p99, the wire bytes a
    step, the launches a plan and a profiled step's idle share.
 5d. pipelined training: the DLRM with an fp32 host tier and arena trained
-   ``PIPE_STEPS`` (9) steps by the serial ``Trainer`` (its step split into
+   ``PIPE_STEPS`` (4) steps by the serial ``Trainer`` (its step split into
    plan / apply / compute under spans: bitwise ``train_step``), then by
    the ``PipelinedTrainer`` at depths 1 and 3, each run from ``init(0)``
    under torch's deterministic algorithms (the card's ``index_add_`` sums
    duplicate lanes with atomics in no fixed order), the counts at 0 before
-   each run and read after it, then 9 more steps of the same schedule in
+   each run and read after it, then 4 more steps of the same schedule in
    the default mode for its times; each 17.3 GB pinned table freed before
    the next.  Checks losses and AUCs bitwise equal across the checked
-   runs, ``future_unresident`` 0, one threshold launch a plan (9 / 9 / 3),
+   runs, ``future_unresident`` 0, one threshold launch a plan (4 / 4 / 2),
    the depth-3 run's first lookahead key (kv = 506 438: the protected,
    pinned, policy and empty tiers) through the kernel bitwise = plain and
    the victim order = a stable argsort, and after the depth-3 schedule's
@@ -135,14 +136,14 @@ Phases (any failure exits non-zero, with no result line):
    shard.
 5f. the adaptive refresh, unsharded, on a drifting Zipf stream (the hot
    set moves every 3 steps): phase 5d's DLRM (fp32 tiers) served by a
-   ``ServeEngine`` with ``refresh_every`` 2 and by one without (8 batches,
-   scores bitwise batch by batch); trained ``REFRESH_STEPS`` (9) steps by
+   ``ServeEngine`` with ``refresh_every`` 2 and by one without (4 batches,
+   scores bitwise batch by batch); trained ``REFRESH_STEPS`` (7) steps by
    the serial ``Trainer`` without a refresh, with ``refresh_interval`` 4,
    and by the depth-3 ``PipelinedTrainer`` with it, each from ``init(0)``
    under torch's deterministic algorithms (losses bitwise equal); the
-   serial run with the refresh then goes on 9 steps in the default mode
+   serial run with the refresh then goes on 7 steps in the default mode
    for its step times and each pass's planning and surgery ms.  Then the
-   int8 host tier and arena trained 9 steps with the interval (the dirty
+   int8 host tier and arena trained 7 steps with the interval (the dirty
    passes' write-backs through the gather-decode kernel), flushed (host
    payload and sideband = the int8 encode of each resident arena row),
    and a refresh of the clean state (``dense_reference`` bitwise).
@@ -379,7 +380,7 @@ Phases (any failure exits non-zero, with no result line):
    tolerances of ``tests/test_torch_gnn.py``), two runs of 2 train steps
    under torch's deterministic algorithms bitwise equal (the card's
    ``index_add_`` sums in no fixed order outside that mode); then
-   ``GNN_SERVE`` (8) ``serve_step`` and ``GNN_TRAIN`` (8) ``train_step``
+   ``GNN_SERVE`` (5) ``serve_step`` and ``GNN_TRAIN`` (5) ``train_step``
    calls: p50 / p99, nodes/s, peak device memory, a profiled train step's
    idle share and device ops, the host seconds a batch.
 17b. minibatch_lg: a fresh ``sampled_batch`` a step (1 024 seeds, fanouts
@@ -416,8 +417,36 @@ Phases (any failure exits non-zero, with no result line):
    ``analysis/baseline.json``'s ``sync_sites`` does not hold fails the
    smoke.
 
-They run in the order 1-2, 18, 3-5e, 6-7b, 14a-14b, 15a-15c, 9-13, 16a-16e,
-17a-17d, 5f-5h, 8.  Each phase's seconds are printed.  The last three
+19. hybrid parallel over ranks, one cache shard a process (``dist/run.py``
+   spawns the ranks, which run ``tests/torch_rank_jobs.py``'s jobs, after
+   the parent built every kernel; a failing rank fails the smoke).  19a:
+   5b's DLRM (4 shards, K 2048, fp32 exchange) with an int8-tiered arena
+   and the row leg at the compact width ``DIST_WIDTH`` (16 384) in four
+   gloo ranks time-sharing the card, each pinning its 4.32 GB host slice:
+   ``DIST_SERVE`` (3) batches through a ``ServeEngine`` after a warm-up
+   batch, a warm-up step, ``DIST_TRAIN`` (4) train steps, all on 5b's
+   batches (5b serves ``DIST_SERVE`` batches too), a flush, then one
+   census step (its syncs by site, held to the baseline), in torch's
+   default mode.  Checks every rank's scores, losses and replicated leaves
+   (MLPs, replicated head, routing maps) bitwise the others', cached logits = the uncached rows as the tiered arena holds
+   them (rtol 1e-5 / atol 1e-6), a rank's plan 1 ``route_bucketize`` and 1
+   threshold launch, ``gather_decode`` launches = the write-back and flush
+   rounds the plans imply, and the count-valued exchange metrics a step = 5b's
+   stacked run on the same batches.  Prints each rank's serve and step
+   p50, the collectives, their host ms and the bytes sent a step, RSS and
+   peak device memory.  19b: at vocab scale 0.02 and batch ``DIST_BATCH``
+   (2048), gloo ranks at S 2 and 4 with the fp32 and int8 exchange, the
+   row leg at every lane's width and at compact ones, and one int8-tiered
+   arena into an int8 host (``gather_decode_encode``), 3 steps and a flush
+   each, against the one-process stacked layout run by the parent:
+   losses, arena, host slice and head of every shard bitwise (all under
+   ``deterministic()``); the int8 case's checkpoint, saved by the ranks,
+   restored into the stacked layout: its next loss bitwise the ranks'.
+   19c: one NCCL rank on ``cuda:0`` (S 1, the full Criteo DLRM, 2 steps)
+   bitwise the unsharded DLRM.
+
+They run in the order 1-2, 18, 3-5b, 19a-19c, 5c-5e, 6-7b, 14a-14b, 15a-15c,
+9-13, 16a-16e, 17a-17d, 5f-5h, 8.  Each phase's seconds are printed.  The last three
 lines are the
 ``kernels`` JSON, the card's name and power limit, and ``{"ok": true,
 "device": {...}}``.  ``--vocab-scale`` < 1 cuts only the vocabularies
@@ -434,6 +463,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -1949,6 +1979,7 @@ def sharded_phase(dev, vocab_scale, n_batches, n_steps):
     from repro_torch.core.collection import SHARED_ARENA
     from repro_torch.core.sharded import flat_store
     from repro_torch.data import synth
+    from torch_rank_jobs import count_metrics
     from repro_torch.kernels.cache_ops import kernel, ops
     from repro_torch.models.dlrm import DLRM
     from repro_torch.serve.engine import ServeEngine
@@ -2033,7 +2064,7 @@ def sharded_phase(dev, vocab_scale, n_batches, n_steps):
     # --- main path 2: train, counts at 0 before and read after --------------
     kernel.bucketize.launches = kernel.victim_threshold.launches = 0
     kernel.bucketize.fused_launches = 0
-    step_ms, losses, per_step = [], [], []
+    step_ms, losses, per_step, counts = [], [], [], []
     prev = None
     for i in range(n_steps + 1):  # step 0 warms the allocator and autograd up
         t0 = time.perf_counter()
@@ -2042,6 +2073,7 @@ def sharded_phase(dev, vocab_scale, n_batches, n_steps):
         dt = 1e3 * (time.perf_counter() - t0)
         cur = _exchange_ints(m)
         if prev is not None:
+            counts.append(count_metrics(m))  # phase 19a's ranks take these batches too
             step_ms.append(dt)
             lanes = cur["lanes"][SHARED_ARENA] - prev["lanes"][SHARED_ARENA]
             per_step.append({"routed_lanes_per_shard": [c - p for c, p in zip(
@@ -2130,7 +2162,7 @@ def sharded_phase(dev, vocab_scale, n_batches, n_steps):
     return {"launches": {"serve": serve_bz, "train": train_bz},
             "fused_launches": {"serve": serve_fused, "train": train_fused},
             "thr_launches": serve_thr + train_thr, "captured": captured[0],
-            "live_err": live_err, "plan_ops": plan_ops}
+            "live_err": live_err, "plan_ops": plan_ops, "counts": counts}
 
 
 def sharded_plan_ops(model, state, batch):
@@ -2195,6 +2227,269 @@ def sharded_crosscheck(dev, vocab_scale=0.02, n_steps=4):
     log(f"sharded cross-check: losses sharded {runs['sharded'].tolist()}, unsharded "
         f"{runs['unsharded'].tolist()}, max |diff| {diff} (rtol 1e-5)")
     return diff
+
+
+# ---------------------------------------------------------------------------
+# phase 19: hybrid parallel over ranks, one cache shard a process
+# ---------------------------------------------------------------------------
+
+DIST_SERVE, DIST_TRAIN = 3, 4  # 19a: served batches and train steps
+# 19a's compact width: 5b's plans route at most 11 299 distinct rows to a shard (its log)
+DIST_WIDTH = 16384
+# what 19a holds to 5b's full-width stacked run: the exchange's counts (the cache's own
+# counts differ: the compact plan sizes its unique and victim buffers at W, not U, and
+# takes other victims; 19b holds compact ranks bitwise to a compact stacked run)
+EXCHANGE_COUNTS = ("uniq_overflows", "exchange_id_bytes", "exchange_row_bytes", "exchange_bytes",
+                   "exchange_routed_lanes", "exchange_per_shard_lanes")
+DIST_SCALE, DIST_STEPS, DIST_BATCH = 0.02, 3, 2048  # 19b: vocab scale, train steps, batch
+# 19b's cases: (shards, exchange codec, arena and host codec, compact width (0: every
+# lane)); the int8-tiered one also hands its checkpoint to the stacked layout.  A batch of
+# 2048 routes ~2 650 distinct rows to each of 2 shards, ~1 330 to each of 4.
+DIST_CASES = ((2, "fp32", "fp32", 0), (2, "int8", "fp32", 4096), (4, "fp32", "fp32", 2048),
+              (4, "int8", "fp32", 0), (4, "fp32", "int8", 2048))
+NCCL_STEPS = 2  # 19c
+
+
+def _rank_census(res, what):
+    """Each rank's census of one step: logged, kept for the census line,
+    and held to the baseline's sync sites."""
+    from repro_torch.analysis import run as gate
+
+    held = {s["site"] for s in json.loads(gate._DEFAULT_BASELINE.read_text())["sync_sites"]}
+    for r in res:
+        c = r["census"]
+        unheld = {site: f for site, f in c["port_sites"].items() if site not in held}
+        CENSUS[f"{what}, rank {r['rank']}"] = dict(c, unheld=unheld, seconds=0.0)
+        log(f"census {what}, rank {r['rank']}: {c['syncs']} host syncs ({c['documented']} "
+            f"documented) by site {json.dumps(c['by_site'])}; by thread "
+            f"{json.dumps(c['by_thread'])}; sites in the port outside the baseline: "
+            f"{unheld or 'none'}")
+        if unheld:
+            raise AssertionError(f"census {what}: host syncs at sites the baseline does not "
+                                 f"hold: {unheld}")
+
+
+def dist_gloo_phase(vocab_scale, n_batches, n_steps, stacked_counts, warm_index):
+    """19a: phase 5b's DLRM (4 shards, K 2048, fp32 exchange) with an
+    int8-tiered arena and the row leg at the compact width ``DIST_WIDTH``,
+    one shard in each of four gloo ranks sharing the card, each pinning
+    only its host slice: a ServeEngine, a warm-up, the train steps and a
+    flush on 5b's batches, then a census step; in torch's default
+    (nondeterministic) mode, where every rank's scores, losses and
+    replicated leaves (MLPs, replicated head, routing maps) must still be
+    bitwise the others'."""
+    import torch_rank_jobs as rank_jobs
+
+    from repro_torch.dist import run
+
+    cfg = dataclasses.replace(_sharded_cfg(vocab_scale), arena_precision="int8",
+                              max_routed_per_shard=DIST_WIDTH)
+    S = cfg.model_shards
+    job = dict(cfg=cfg, serve=n_batches, warm_serve=True, check_dense=(TOL_RTOL, TOL_ATOL),
+               train=n_steps, warm_train=True, warm_index=warm_index, census=True, count=True,
+               replicated=True)
+    res = [r[0] for r in run.run_ranks(rank_jobs.dlrm_rank, S, "gloo", None, ([job],))]
+    r0 = res[0]
+    for r in res:
+        if not (np.isfinite(r["scores"]).all() and np.isfinite(r["losses"]).all()):
+            raise AssertionError(f"19a rank {r['rank']}: non-finite scores or losses")
+        if not np.array_equal(r["scores"], r0["scores"]) or r["losses"] != r0["losses"]:
+            raise AssertionError(f"19a rank {r['rank']}: scores or losses differ from rank 0's: "
+                                 f"{r['losses']} vs {r0['losses']}")
+        if r["replicated"] != r0["replicated"]:
+            bad = sorted(k for k in r0["replicated"] if r["replicated"][k] != r0["replicated"][k])
+            raise AssertionError(f"19a rank {r['rank']}: replicated leaves drifted from rank "
+                                 f"0's in the default mode: {bad}")
+        if not r["dense_close"]:
+            raise AssertionError(f"19a rank {r['rank']}: cached vs dense_reference logits differ "
+                                 f"by {r['dense_diff']}")
+        sl, tl, rounds = r["serve_launches"], r["train_launches"], r["rounds"]
+        want = {"serve": n_batches, "train": n_steps}
+        for path, got in (("serve", sl), ("train", tl)):
+            n = want[path]
+            if (got["route_bucketize"], got["bucketize"], got["victim_threshold"]) != (n, n, n):
+                raise AssertionError(f"19a rank {r['rank']} {path}: {got} for {n} plans (want "
+                                     f"1 route_bucketize and 1 threshold a plan)")
+        if sl["gather_decode"] or tl["gather_decode"] != rounds["writeback"] + rounds["flush"] \
+                or not tl["gather_decode"] or tl["gather_decode_encode"]:
+            raise AssertionError(f"19a rank {r['rank']}: gather_decode {sl['gather_decode']} "
+                                 f"serving, {tl['gather_decode']} training; the plans imply "
+                                 f"{rounds}")
+        n = min(len(stacked_counts), len(r["metrics"]))
+        got = [{k: m[k] for k in EXCHANGE_COUNTS} for m in r["metrics"][:n]]
+        want = [{k: m[k] for k in EXCHANGE_COUNTS} for m in stacked_counts[:n]]
+        if got != want:
+            raise AssertionError(f"19a rank {r['rank']}: count-valued exchange metrics differ "
+                                 f"from the stacked layout's (5b): {got} vs {want}")
+    log(f"19a: {S} gloo ranks on one card (they time-share it: these times say nothing of "
+        f"scaling), torch's default mode, the row leg at width {DIST_WIDTH}; scores, losses "
+        f"and the {len(r0['replicated'])} replicated leaves bitwise across the ranks; losses "
+        f"{r0['losses']}; cached = dense_reference within rtol "
+        f"{TOL_RTOL} atol {TOL_ATOL} (max |diff| {max(r['dense_diff'] for r in res)}); count-"
+        f"valued exchange metrics of {min(len(stacked_counts), n_steps)} steps = the stacked "
+        f"layout's (5b); a rank's plan: 1 route_bucketize, 1 threshold; gather_decode = the plans' "
+        f"write-back + flush rounds {[r['rounds'] for r in res]}")
+    for r in res:
+        tt, st = r["train_traffic"], r["serve_traffic"]
+        log(f"19a rank {r['rank']} (shard {r['model_rank']}): init {r['init_s']} s, host slice "
+            f"{r['host_process_bytes'] / 1e9} GB pinned; serve ms {r['serve_ms']} p50 "
+            f"{np.percentile(r['serve_ms'], 50)}; train step ms {r['step_ms']} p50 "
+            f"{np.percentile(r['step_ms'], 50)}; flush {r['flush_ms']} ms; collectives a step "
+            f"{tt['collectives'] / n_steps}, their host ms a step {1e3 * tt['seconds'] / n_steps}, "
+            f"bytes sent a step {tt['bytes_sent'] / n_steps} (serve: a batch "
+            f"{st['collectives'] / n_batches} collectives, {1e3 * st['seconds'] / n_batches} ms, "
+            f"{st['bytes_sent'] / n_batches} B); launches serve {r['serve_launches']} train "
+            f"{r['train_launches']}; RSS after init, serving, training, at the end "
+            f"{r['rss_gb']} GB, peak device memory {r['peak_device_gb']} GB; device_bytes "
+            f"{json.dumps(r['device_bytes'])}")
+    log(f"19a card: {card_line()}")
+    _rank_census(res, "19a (gloo rank DLRM train step, after the flush)")
+    return {k: sum(r["serve_launches"][k] + r["train_launches"][k] for r in res)
+            for k in r0["train_launches"]}
+
+
+def _stacked_case(cfg, n_steps, dev):
+    """The one-process stacked run of a 19b case: losses, each shard's
+    digests after the flush, and the flushed state."""
+    from torch_rank_jobs import shard_digests
+
+    from repro_torch.data import synth
+    from repro_torch.dist.mesh import HybridMesh
+    from repro_torch.dist.partitioning import shard_state
+    from repro_torch.models.dlrm import DLRM
+
+    model = DLRM(cfg)
+    state = model.init(0, device=dev)
+    bspec = synth.ZipfSparseSpec(vocab_sizes=cfg.vocab_sizes, n_dense=cfg.n_dense)
+    losses = []
+    for i in range(n_steps):
+        b = {k: torch.from_numpy(v).to(dev)
+             for k, v in synth.sparse_batch(bspec, cfg.batch_size, 1, i).items()}
+        state, m = model.train_step(state, b)
+        losses.append(float(m["loss"]))
+    state = model.flush(state)
+    specs = model.state_specs()
+    digests = [shard_digests(shard_state(state, specs, HybridMesh.coordinate(cfg.model_shards, s)))
+               for s in range(cfg.model_shards)]
+    return model, state, losses, digests
+
+
+def dist_bitwise_phase(dev, vocab_scale=DIST_SCALE, n_steps=DIST_STEPS):
+    """19b: gloo ranks sharing the card against the one-process stacked
+    layout, every run under ``deterministic()``: losses, arena and host
+    slices bitwise; the int8-tiered case's checkpoint, saved by the ranks,
+    restored into the stacked layout, whose next step is bitwise the
+    ranks'.  Cut to batch ``DIST_BATCH`` (the rows on the wire and the
+    time scale with it).  Cases at a compact width run the row leg at it,
+    and so does their stacked run's plan."""
+    import torch_rank_jobs as rank_jobs
+
+    from repro_torch.data import synth
+    from repro_torch.dist import run
+    from repro_torch.train import checkpoint as ckpt
+
+    ck_root = Path(ROOT) / "build" / "dist_ckpt"
+    shutil.rmtree(ck_root, ignore_errors=True)
+    launches = {"gather_decode": 0, "gather_decode_encode": 0}
+    for S in sorted({c[0] for c in DIST_CASES}):
+        cases = [c for c in DIST_CASES if c[0] == S]
+        jobs = []
+        for _, xc, prec, width in cases:
+            cfg = dataclasses.replace(_scaled(vocab_scale), model_shards=S, replicate_top_k=REP_K,
+                                      exchange_codec=xc, arena_precision=prec,
+                                      host_precision=prec, batch_size=DIST_BATCH,
+                                      max_routed_per_shard=width)
+            job = dict(cfg=cfg, train=n_steps, digests=True, count=True, deterministic=True)
+            if prec == "int8":
+                job.update(save=str(ck_root / f"s{S}"), next_step=True)
+            jobs.append(job)
+        t0 = time.perf_counter()
+        res = run.run_ranks(rank_jobs.dlrm_rank, S, "gloo", None, (jobs,))
+        log(f"19b: {S} gloo ranks, {len(jobs)} cases: {time.perf_counter() - t0} s")
+        for j, ((_, xc, prec, width), job) in enumerate(zip(cases, jobs)):
+            with deterministic():
+                model, state, losses, digests = _stacked_case(job["cfg"], n_steps, dev)
+            for r in res:
+                got = r[j]
+                if got["losses"] != losses or got["digests"] != digests[got["model_rank"]]:
+                    bad = sorted(k for k in digests[got["model_rank"]]
+                                 if got["digests"].get(k) != digests[got["model_rank"]][k])
+                    raise AssertionError(f"19b S {S} exchange {xc} codec {prec} width {width} rank "
+                                         f"{got['rank']}: losses {got['losses']} vs stacked "
+                                         f"{losses}; leaves not bitwise {bad}")
+                for k in launches:
+                    launches[k] += got["train_launches"][k]
+            if prec == "int8":
+                if not all(r[j]["train_launches"]["gather_decode_encode"] for r in res):
+                    raise AssertionError(f"19b S {S}: no gather_decode_encode launch into the "
+                                         f"int8 host")
+                with deterministic():
+                    template = model.init(1, device=dev)
+                    template, step = ckpt.restore(ck_root / f"s{S}", template)
+                    bspec = synth.ZipfSparseSpec(vocab_sizes=job["cfg"].vocab_sizes,
+                                                 n_dense=job["cfg"].n_dense)
+                    b = {k: torch.from_numpy(v).to(dev) for k, v in synth.sparse_batch(
+                        bspec, job["cfg"].batch_size, 1, n_steps).items()}
+                    template, m = model.train_step(template, b)
+                    nxt = float(m["loss"])
+                for s_ in template["emb"].slabs.values():
+                    if hasattr(s_, "full"):
+                        s_.full.close()
+                if any(r[j]["next_loss"] != nxt for r in res):
+                    raise AssertionError(f"19b S {S}: the stacked layout restored from the "
+                                         f"ranks' checkpoint steps to {nxt}, the ranks to "
+                                         f"{[r[j]['next_loss'] for r in res]}")
+                log(f"19b S {S}: the ranks' checkpoint (step {step}) restored into the stacked "
+                    f"layout; its next loss {nxt} bitwise the ranks'")
+            for s_ in state["emb"].slabs.values():
+                if hasattr(s_, "full"):
+                    s_.full.close()
+            del model, state
+            gc.collect()
+            log(f"19b S {S} exchange {xc} arena/host {prec} row leg width {width or 'every lane'}: "
+                f"losses {losses} bitwise the stacked "
+                f"layout's on every rank; arena, host slice (payload and sideband), replicated "
+                f"head and slot map of each shard bitwise after the flush; rank launches "
+                f"{[r[j]['train_launches'] for r in res]}")
+    shutil.rmtree(ck_root, ignore_errors=True)
+    return launches
+
+
+def dist_nccl_phase(dev, vocab_scale, n_steps=NCCL_STEPS):
+    """19c: one NCCL rank on cuda:0, one shard (S 1) of the full Criteo
+    DLRM (``--vocab-scale``): losses bitwise the unsharded DLRM's, both
+    under ``deterministic()``."""
+    import torch_rank_jobs as rank_jobs
+
+    from repro_torch.data import synth
+    from repro_torch.dist import run
+    from repro_torch.models.dlrm import DLRM
+
+    cfg = dataclasses.replace(_scaled(vocab_scale), model_shards=1)
+    job = dict(cfg=cfg, train=n_steps, flush=False, count=True, deterministic=True)
+    t0 = time.perf_counter()
+    (r,) = [x[0] for x in run.run_ranks(rank_jobs.dlrm_rank, 1, "nccl", None, ([job],))]
+    log(f"19c: the NCCL rank took {time.perf_counter() - t0} s (init {r['init_s']} s); its "
+        f"launches {r['train_launches']}; traffic {r['train_traffic']}")
+    ucfg = dataclasses.replace(cfg, model_shards=0)
+    model = DLRM(ucfg)
+    bspec = synth.ZipfSparseSpec(vocab_sizes=ucfg.vocab_sizes, n_dense=ucfg.n_dense)
+    losses = []
+    with deterministic():
+        state = model.init(0, device=dev)
+        for i in range(n_steps):
+            b = {k: torch.from_numpy(v).to(dev)
+                 for k, v in synth.sparse_batch(bspec, ucfg.batch_size, 1, i).items()}
+            state, m = model.train_step(state, b)
+            losses.append(float(m["loss"]))
+    for s_ in state["emb"].slabs.values():
+        s_.full.close()
+    if r["losses"] != losses:
+        raise AssertionError(f"19c: the NCCL rank's losses {r['losses']} != the unsharded "
+                             f"DLRM's {losses}")
+    log(f"19c: one NCCL rank (S 1, vocab scale {vocab_scale}): losses {losses} bitwise the "
+        f"unsharded DLRM's")
+    return r["train_launches"]
 
 
 def _route_composition(uniq, rank_owner, rank_local, rep_k, s):
@@ -2622,7 +2917,7 @@ def budget_phase(dev, vocab_scale, n_batches, n_steps):
 # phase 5d: lookahead-pipelined training (PipelinedTrainer) at full width
 # ---------------------------------------------------------------------------
 
-PIPE_STEPS, PIPE_DEPTHS = 9, (1, 3)  # steps a run; the pipelined runs' depths
+PIPE_STEPS, PIPE_DEPTHS = 4, (1, 3)  # steps a run (9 before phase 19); the runs' depths
 
 
 def _group_profile(model, state, now, ahead, depth, census=False):
@@ -3064,8 +3359,8 @@ def sharded_pipelined_crosscheck(dev, vocab_scale=0.02, n_steps=6, depth=2):
 # phases 5f-5h: the adaptive frequency refresh
 # ---------------------------------------------------------------------------
 
-REFRESH_STEPS, REFRESH_INTERVAL = 9, 4  # 5f: steps a training run, the trainers' cadence
-REFRESH_SERVE_BATCHES, REFRESH_EVERY = 8, 2  # 5f: served batches, the engine's cadence
+REFRESH_STEPS, REFRESH_INTERVAL = 7, 4  # 5f: steps a run (9 before phase 19), the cadence
+REFRESH_SERVE_BATCHES, REFRESH_EVERY = 4, 2  # 5f: served batches (8 before 19), the cadence
 REFRESH_DRIFT = 3  # 5f / 5g: steps per popularity phase of the drifting stream
 SHARDED_SWAPS, EXCHANGE_BUDGET = 4096, 1024  # 5g: pairs a pass, cross-shard rows a pass
 # 5h: benchmarks/bench_drift.py's shapes (vocab, dim, batch, drift_every,
@@ -5200,8 +5495,8 @@ def int8_decode_phase(dev, cfg, ref, prompt=LM_PROMPT, new=LM_NEW, max_len=LM_MA
 # phases 17a-17d: GatedGCN at published width (no kernel of the port)
 # ---------------------------------------------------------------------------
 
-GNN_SERVE, GNN_TRAIN = 8, 8  # 17a-17c: timed serve calls and train steps
-OGB_SERVE = 3  # 17d: timed serve calls
+GNN_SERVE, GNN_TRAIN = 5, 5  # 17a-17c: timed serve calls and train steps (8, 8 before 19)
+OGB_SERVE = 1  # 17d: timed serve calls (3 before phase 19)
 REDDIT_NODES, REDDIT_EDGES = 232_965, 11_606_919  # GraphSAGE's Reddit graph (17b)
 GNN_SEEDS, GNN_FANOUTS = 1024, (15, 10)  # 17b: minibatch_lg's block
 GNN_LOGIT_RTOL = 1e-4  # 17a: card vs CPU logits, rtol and atol 1e-5 * max|logit|
@@ -5822,23 +6117,14 @@ def time_kernels(path):
         json.dump(rows, f)
 
 
-@contextlib.contextmanager
 def deterministic():
     """torch's deterministic algorithms, for comparisons of two runs bit
-    for bit: on the card ``index_add_`` (the gather's backward) sums a
-    row's duplicate lanes with atomics in no fixed order, and the mode
-    sums them in a fixed one.  Uninitialised memory is left unfilled (the
-    port writes every tensor it allocates)."""
-    import torch.utils.deterministic as det
+    for bit (``torch_rank_jobs.deterministic``: on the card
+    ``index_add_``, the gather's backward, sums a row's duplicate lanes with
+    atomics in no fixed order, and the mode sums them in a fixed one)."""
+    from torch_rank_jobs import deterministic as det
 
-    fill = det.fill_uninitialized_memory
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    det.fill_uninitialized_memory = False
-    try:
-        yield
-    finally:
-        torch.use_deterministic_algorithms(False)
-        det.fill_uninitialized_memory = fill
+    return det()
 
 
 def timed(what, fn, *args):
@@ -5931,6 +6217,7 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device available")
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    sys.path.insert(0, os.path.join(ROOT, "tests"))  # torch_rank_jobs: phase 19's rank jobs
     if args.time_kernels:
         time_kernels(args.time_kernels)
         return
@@ -6008,7 +6295,9 @@ def main():
     del train
     gc.collect()
     log(f"host RSS after train (table unpinned and freed) {rss_gb()} GB")
-    sharded = sharded_phase(dev, args.vocab_scale, args.batches, args.train_steps)
+    # 5b serves as many batches as 19a's ranks, which are held to its counts
+    sharded = sharded_phase(dev, args.vocab_scale, min(args.batches, DIST_SERVE),
+                            args.train_steps)
     gc.collect()
     log(f"host RSS after sharded (table unpinned and freed) {rss_gb()} GB")
     sharded_crosscheck(dev)
@@ -6016,12 +6305,25 @@ def main():
     with deterministic():
         sh_pipe = timed("5b (sharded pipelined cross-check)", sharded_pipelined_crosscheck, dev)
     gc.collect()
+    # phase 19 after 5b, whose counts 19a's ranks are held to; no table is pinned here
+    log(f"host RSS before the ranks (5b's table unpinned and freed) {rss_gb()} GB")
+    dist_a = timed("19a (4 gloo ranks sharing the card, full width)", dist_gloo_phase,
+                   args.vocab_scale, min(args.batches, DIST_SERVE),
+                   min(args.train_steps, DIST_TRAIN), sharded["counts"], args.train_steps + 4)
+    gc.collect()
+    dist_b = timed("19b (gloo ranks bitwise the stacked layout)", dist_bitwise_phase, dev)
+    gc.collect()
+    dist_c = timed("19c (one NCCL rank)", dist_nccl_phase, dev, args.vocab_scale)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"host RSS after phase 19 {rss_gb()} GB")
     budget = timed("5c (budget mode)", budget_phase, dev, args.vocab_scale, args.batches,
                    args.train_steps)
     gc.collect()
     log(f"host RSS after budget (tables unpinned and freed) {rss_gb()} GB")
     pipe = timed("5d (pipelined training)", pipeline_phase, dev, args.vocab_scale, PIPE_STEPS)
     gc.collect()
+
     log(f"host RSS after pipelined (tables unpinned and freed) {rss_gb()} GB")
     sh_budget = timed("5e (sharded budget mode)", sharded_budget_phase, dev, args.vocab_scale,
                       args.batches, args.train_steps)
@@ -6102,6 +6404,15 @@ def main():
                       {**sharded["fused_launches"], "sharded_pipelined": sh_pipe["bz_fused"],
                        "sharded_budget": sh_budget["bz_launches"]}),
     })
+    # the ranks' launches (each rank's wrappers counted, summed over the ranks)
+    jobs["threshold"][2].update({"ranks_19a": dist_a["victim_threshold"],
+                                 "ranks_19c": dist_c["victim_threshold"]})
+    jobs["bucketize"][2].update({"ranks_19a": dist_a["bucketize"],
+                                 "ranks_19c": dist_c["bucketize"]})
+    jobs["bucketize"][3].update({"ranks_19a": dist_a["route_bucketize"],
+                                 "ranks_19c": dist_c["route_bucketize"]})
+    gd_paths.update({"ranks_19a": dist_a["gather_decode"], "ranks_19b": dist_b["gather_decode"]})
+    jobs["gather_decode_encode"][2]["ranks_19b"] = dist_b["gather_decode_encode"]
     del sharded, budget, fm_serve, fm_train, fm_rows, fm_chunk, fm_chunk_t, pipe, sh_budget
     del ce_run, avazu, recsys
     gc.collect()

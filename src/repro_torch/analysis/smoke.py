@@ -38,10 +38,12 @@ from repro_torch.core import refresh as refresh_lib
 from repro_torch.core import transmitter
 from repro_torch.core.collection import EmbeddingCollection, FeatureBatch, TableConfig
 from repro_torch.core.sharded import ShardedEmbeddingCollection
+from repro_torch.dist import exchange
 from repro_torch.kernels.cache_ops import ops as co_ops
 from repro_torch.kernels.embedding_bag import ops as eb_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.fm_interaction import kernel as fm_kernel
+from repro_torch.dist.mesh import HybridMesh
 from repro_torch.models.dlrm import DLRM, DLRMConfig
 from repro_torch.store.host_store import HostStore
 
@@ -253,6 +255,31 @@ def _sharded_cases(dev: torch.device) -> Dict[str, SmokeCase]:
     }
 
 
+# -- the exchange between ranks ---------------------------------------------
+
+
+def _exchange_cases(dev: torch.device) -> Dict[str, SmokeCase]:
+    """The two legs on a one-shard mesh with no process group (where each
+    is the identity): the code a rank runs, without a collective.  A
+    rank step's collectives are counted on the card by ``chip_smoke.py``'s
+    census."""
+    g = GEOMETRY
+    mesh = HybridMesh.coordinate(1, 0)
+
+    def slot_args():
+        return torch.arange(-1, g["ids"] - 1, dtype=torch.int32, device=dev)[None], mesh
+
+    def row_args():
+        rng = np.random.default_rng(3)
+        w = torch.from_numpy(rng.standard_normal((g["capacity"], g["dim"]), np.float32)).to(dev)
+        idx = torch.arange(-1, g["ids"] - 1, dtype=torch.int32, device=dev) * 5
+        return w, idx, 0, g["ids"], "int8", mesh  # the compact width
+
+    m = "repro_torch.dist.exchange"
+    return {f"{m}.slot_leg": SmokeCase(f"{m}.slot_leg", exchange.slot_leg, slot_args),
+            f"{m}.row_leg": SmokeCase(f"{m}.row_leg", exchange.row_leg, row_args)}
+
+
 # -- the trainer's compute step --------------------------------------------
 
 
@@ -433,7 +460,7 @@ def build_cases(device="cpu") -> Dict[str, SmokeCase]:
     is itself a violation."""
     dev = torch.device(device)
     cases: Dict[str, SmokeCase] = {}
-    for part in (_cache_cases, _collection_cases, _sharded_cases, _compute_step_case,
-                 _refresh_cases, _kernel_cases):
+    for part in (_cache_cases, _collection_cases, _sharded_cases, _exchange_cases,
+                 _compute_step_case, _refresh_cases, _kernel_cases):
         cases.update(part(dev))
     return cases

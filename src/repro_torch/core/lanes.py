@@ -44,6 +44,20 @@ def take_fill(x: torch.Tensor, idx: torch.Tensor, fill) -> torch.Tensor:
     return torch.where(mask, out, fill)
 
 
+def take_fill_ordered(x: torch.Tensor, idx: torch.Tensor, fill) -> torch.Tensor:
+    """``take_fill`` whose backward sums a row's duplicate lanes in one fixed
+    order on every device: ``x[idx]``, whose backward is an accumulating
+    ``index_put_`` (sorted on the card), where ``index_select``'s
+    ``index_add_`` sums with atomics on the card unless torch's
+    deterministic algorithms are on.  For a leaf that each rank of a mesh
+    steps on its own, which must stay the same on every rank."""
+    n = x.shape[0]
+    ok = (idx >= 0) & (idx < n)
+    out = x[torch.where(ok, idx, 0).to(torch.int64)]
+    mask = ok.reshape(ok.shape + (1,) * (out.dim() - ok.dim()))
+    return torch.where(mask, out, fill)
+
+
 def scatter_drop(
     x: torch.Tensor, idx: torch.Tensor, val, keep: Optional[torch.Tensor] = None
 ) -> torch.Tensor:

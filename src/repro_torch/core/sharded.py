@@ -45,8 +45,19 @@ on the device.  The port keeps that layout on one card:
   ``rebalance_threshold`` it re-homes every rank of a slab whose live
   traffic has drifted out of balance.
 
-The one-process-per-GPU placement over NCCL comes with a later slice;
-``shard_specs`` (JAX PartitionSpecs) has no counterpart here.
+Under a mesh (``create(mesh=)``, ``dist.mesh.HybridMesh`` at ``data ==
+1``, ``model == S``) each process holds one shard: shard ``s =
+model_rank`` of every stacked leaf (its cache and arena, its ``[1, vs,
+dim]`` slice of the host table, pinned by that rank alone), with the
+leading shard dim kept, and the routing tables, the replicated head and
+the MLPs whole.  The per-shard loops run over the local shards only, the
+plans' slots and the gathered rows cross between ranks through
+``dist.exchange`` (bitwise the stacked layout's), and ``metrics``
+all-gathers the per-shard counters, so that a rank reports what the
+stacked layout reports.  ``shard_specs`` gives the reference's partition
+spec of every leaf (``dist.partitioning``).  The refresh and rebalance
+across ranks, the lookahead window, the budget mode and ``pool`` raise
+under a mesh of more than one shard (ROADMAP item 13b).
 """
 from __future__ import annotations
 
@@ -64,6 +75,7 @@ from repro_torch.core import transmitter
 from repro_torch.core.collection import (
     ArenaConfig,
     CollectionState,
+    DeviceSlab,
     EmbeddingCollection,
     FeatureBatch,
     PlacementPlan,
@@ -74,11 +86,14 @@ from repro_torch.core.collection import (
     draw_chunks,
     slab_counts,
 )
-from repro_torch.core.lanes import i32, scatter_drop, take_fill
+from repro_torch.core.lanes import i32, scatter_drop, take_fill, take_fill_ordered
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.dist import exchange
+from repro_torch.dist.partitioning import MODEL_AXIS, P
 from repro_torch.kernels.cache_ops import ops as cache_ops
 from repro_torch.kernels.cache_ops import ref as cache_ref
-from repro_torch.store.arena import tiered_arena_bytes
+from repro_torch.dist.mesh import ITEM_13B, HybridMesh
+from repro_torch.store.arena import ArenaStore, tiered_arena_bytes
 from repro_torch.store.codec import get_codec
 from repro_torch.store.host_store import HostStore
 from repro_torch.store.policy import PrecisionPolicy
@@ -224,11 +239,20 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
         replicate_top_k: int = 0,
         exchange_codec: Optional[str] = None,
         max_routed_per_shard: int = 0,
+        mesh: Optional[HybridMesh] = None,
     ):
         super().__init__(tables, plan)
         if num_shards < 1:
             raise ValueError(f"num_shards must be >= 1, got {num_shards}")
         self.num_shards = int(num_shards)
+        if mesh is not None and (mesh.model != self.num_shards or mesh.data != 1):
+            raise ValueError(f"a collection of {num_shards} shards on a (data={mesh.data}, "
+                             f"model={mesh.model}) mesh: the model axis must be the shard "
+                             f"count, and data 1")
+        # None: all S shards stacked in this process; a mesh: shard model_rank alone
+        self.mesh = mesh
+        self.local_shards: Tuple[int, ...] = (
+            tuple(range(self.num_shards)) if mesh is None else (mesh.model_rank,))
         # 0: the full-width [S, U] image; > 0: a dense [S, W] image per step
         # (lanes past W count into uniq_overflows)
         self.max_routed_per_shard = max(int(max_routed_per_shard), 0)
@@ -254,13 +278,18 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
         max_routed_per_shard: int = 0,
         counts: Optional[Mapping[str, np.ndarray]] = None,
         planner: Optional[PlacementPlanner] = None,
+        mesh: Optional[HybridMesh] = None,
         **arena_kw,
     ) -> "ShardedEmbeddingCollection":
         """Plan and build, like ``EmbeddingCollection.create`` plus the
         shard count: without a budget the paper's single arena split over
         ``num_shards`` shards; with ``budget_bytes`` (the PER-DEVICE budget)
         or a ``planner``, its DEVICE / CACHED / GROUPED plan, the cached
-        slabs sharded."""
+        slabs sharded.  ``mesh``: this process holds one shard."""
+        if mesh is not None and num_shards > 1 and (budget_bytes is not None
+                                                    or planner is not None):
+            raise ValueError(f"the budget mode under a mesh of {num_shards} ranks waits for "
+                             f"{ITEM_13B}")
         if planner is None and budget_bytes is None:
             plan = PlacementPlan.single_arena(tables, **arena_kw)
         else:
@@ -273,7 +302,36 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
             )
             plan = planner.plan(tables, counts=counts)
         return cls(tables, plan, num_shards, replicate_top_k, exchange_codec,
-                   max_routed_per_shard)
+                   max_routed_per_shard, mesh)
+
+    # ----- the mesh ----------------------------------------------------------
+
+    def _split(self) -> bool:
+        """The shards live in more than one process."""
+        return self.mesh is not None and self.num_shards > 1
+
+    def _refuse_split(self, what: str) -> None:
+        if self._split():
+            raise ValueError(f"{what} under a mesh of {self.num_shards} ranks waits for "
+                             f"{ITEM_13B}")
+
+    def _local(self, per_shard: torch.Tensor) -> torch.Tensor:
+        """The local shards' entries of an ``[S, ...]`` tensor."""
+        if self.mesh is None:
+            return per_shard
+        s = self.mesh.model_rank
+        return per_shard[s : s + 1]
+
+    def _local_pos(self, device: torch.device) -> torch.Tensor:
+        """int32 ``[S]``: shard -> its index among the local shards (-1 when
+        another rank holds it)."""
+        pos = torch.full((self.num_shards,), -1, dtype=torch.int32)
+        pos[list(self.local_shards)] = torch.arange(len(self.local_shards), dtype=torch.int32)
+        return pos.to(device)
+
+    def _all_slots(self, slots: torch.Tensor) -> torch.Tensor:
+        """The local plans' ``[L, U]`` slots -> every shard's ``[S, U]``."""
+        return slots if self.mesh is None else exchange.slot_leg(slots, self.mesh)
 
     # ----- per-shard geometry ----------------------------------------------
 
@@ -338,9 +396,16 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
 
         ``host_precision`` / ``arena_precision`` override every cached
         slab's codecs; "auto" asks ``PrecisionPolicy`` from the counts, on
-        the slab's global geometry (``S`` x the shard capacity and head)."""
+        the slab's global geometry (``S`` x the shard capacity and head).
+
+        Under a mesh every chunk is drawn as above, and only the homes of
+        this rank's shard land in its ``[1, vs, dim]`` host slice: the
+        rank's state is shard ``model_rank`` of the stacked state, bitwise,
+        and no rank builds the whole table."""
         dev = resolve_device(device)
         S = self.num_shards
+        L = len(self.local_shards)
+        pos = self._local_pos(torch.device("cpu")).numpy().astype(np.int64)
         slabs: Dict[str, Any] = self._init_device_slabs(seed, dev)
         j = len(slabs)
         for sname, spec in list(self.cached_slabs.items()):
@@ -356,32 +421,39 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
             head_s = min(cap_s, max(1, int(round(spec.arena.arena_head_ratio * cap_s))))
             spec, codec = self._resolve_codecs(sname, c, S * cap_s, S * head_s,
                                                host_precision, arena_precision)
-            home = torch.from_numpy(assign.owner.astype(np.int64) * vs
-                                    + assign.local.astype(np.int64))
-            flat = HostStore.allocate({"weight": ((S * vs, spec.dim), spec.dtype)}, codec)
-            pad = torch.ones((S * vs,), dtype=torch.bool)
-            pad[home] = False
+            # each rank's home in this process's [L * vs] table (-1: another rank's)
+            lpos = pos[assign.owner]
+            home = torch.from_numpy(np.where(lpos >= 0, lpos * vs + assign.local.astype(np.int64),
+                                             -1))
+            flat = HostStore.allocate({"weight": ((L * vs, spec.dim), spec.dtype)}, codec)
+            pad = torch.ones((L * vs,), dtype=torch.bool)
+            pad[home[home >= 0]] = False
             pad_rows = torch.nonzero(pad).reshape(-1)
             flat.write_at(pad_rows, {"weight": torch.zeros((pad_rows.numel(), spec.dim),
                                                            dtype=spec.dtype, device=dev)})
             rep_rows = torch.empty((K, spec.dim), dtype=spec.dtype, device=dev)
             for r0, chunk in draw_chunks(seed + j, spec.vocab, spec.dim, spec.dtype, dev):
-                flat.write_at(home[r0 : r0 + chunk.shape[0]], {"weight": chunk})
+                h = home[r0 : r0 + chunk.shape[0]]
+                if L == S:
+                    flat.write_at(h, {"weight": chunk})
+                else:  # this rank's homes only
+                    mine = h >= 0
+                    flat.write_at(h[mine], {"weight": chunk[mine.to(dev)]})
                 if r0 < K:
                     rep_rows[r0 : r0 + chunk.shape[0]] = chunk[: K - r0]
             j += 1
             if dev.type == "cuda":
                 flat.pin()
-            full = _stack_store(flat, S, vs)
+            full = _stack_store(flat, L, vs)
             ccfg = self.shard_cache_config(spec)
             cache = _stack([
                 cache_lib.init_cache(ccfg, {"weight": torch.zeros((spec.dim,), dtype=spec.dtype)},
                                      dev)
-                for _ in range(S)
+                for _ in range(L)
             ])
             if warm:
-                warmed = [cache_lib.warmup(ccfg, full.shard(s), _shard(cache, s))[1]
-                          for s in range(S)]
+                warmed = [cache_lib.warmup(ccfg, full.shard(i), _shard(cache, i))[1]
+                          for i in range(L)]
                 cache = _with_index(cache, warmed)
             idx_map = (torch.from_numpy(stats.idx_map) if stats is not None
                        else torch.arange(spec.vocab, dtype=torch.int32))
@@ -391,7 +463,7 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
                 idx_map=idx_map.to(dev),
                 rank_owner=torch.from_numpy(assign.owner).to(dev),
                 rank_local=torch.from_numpy(assign.local).to(dev),
-                routed_lanes=torch.zeros((S,), dtype=torch.int32, device=dev),
+                routed_lanes=torch.zeros((L,), dtype=torch.int32, device=dev),
                 rep=RepArena(
                     rows=rep_rows,
                     score=torch.zeros((K,), dtype=torch.float32, device=dev),
@@ -442,6 +514,16 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
             return cache_ops.route_image_impl(rank, slab.rank_owner, slab.rank_local,
                                               slab.rep.rows.shape[0], self.num_shards)
         return self._bucketize(*self._route(slab, rank))
+
+    def _route_lanes(self, slab: ShardedSlab, rank: torch.Tensor, fused: bool = False
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``_route`` of the dedup'd ranks, or with ``fused`` the route from
+        one launch of the route + bucketize kernel on the card (bitwise the
+        same; the compact image leaves its ``[S, U]`` image unread)."""
+        if fused:
+            return cache_ops.route_bucketize_impl(rank, slab.rank_owner, slab.rank_local,
+                                                  slab.rep.rows.shape[0], self.num_shards)[:2]
+        return self._route(slab, rank)
 
     def _compact_lanes(self, owner: torch.Tensor, local: torch.Tensor, width: int
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -507,8 +589,14 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
         slab, routed and bucketized (or compacted) like the batch, whose
         row ``s`` is shard ``s``'s ``future_rows``.  The window's addresses
         come from the planned index images (replicated lanes always
-        resident), and ``future_unresident`` sums over the shards."""
+        resident), and ``future_unresident`` sums over the shards.
+
+        Under a mesh every rank routes the whole batch (the image is
+        replicated), plans its own shard, and the slot leg gathers every
+        shard's slots for the combined addresses."""
         self._check_features(fb, *fb_future)
+        if fb_future:
+            self._refuse_split("the lookahead window")
         S = self.num_shards
         addresses, *future_addresses = self._device_addresses((fb, *fb_future))
         unresident = []
@@ -532,8 +620,8 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
             if width is None:
                 rows_sh = self._route_image(slab, uniq, fused=fused)  # [S, U]
             else:
-                rows_sh, src_sh, lane_over = self._compact_lanes(*self._route(slab, uniq),
-                                                                 width)
+                rows_sh, src_sh, lane_over = self._compact_lanes(
+                    *self._route_lanes(slab, uniq, fused=fused), width)
             fut_ranks = [None if r is None else self._rank_ids(slab, r) for r in fut_raws]
             fut_parts = [r for r in fut_ranks if r is not None]
             fut_sh = None
@@ -542,25 +630,27 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
                 if width is None:
                     fut_sh = self._route_image(slab, fuq, fused=fused)
                 else:  # a dropped window lane loses its pin; the guard still counts it
-                    fut_sh = self._compact_lanes(*self._route(slab, fuq), width)[0]
+                    fut_sh = self._compact_lanes(*self._route_lanes(slab, fuq, fused=fused),
+                                                 width)[0]
             ccfg = self.shard_cache_config(spec, ids_per_step=int(rows_sh.shape[1]),
                                            writeback=writeback)
             plan = _stack([
-                cache_lib.plan_prepare(ccfg, _shard(slab.cache, s), rows_sh[s],
+                cache_lib.plan_prepare(ccfg, _shard(slab.cache, i), rows_sh[s],
                                        future_rows=None if fut_sh is None else fut_sh[s])
-                for s in range(S)])
+                for i, s in enumerate(self.local_shards)])
             if width is not None:  # a dropped lane would gather a zero row
-                plan.uniq_overflows = plan.uniq_overflows + lane_over
+                plan.uniq_overflows = plan.uniq_overflows + self._local(lane_over)
             slab_plans[sname] = plan
             routed[sname] = i32((rows_sh >= 0).sum(1))
             uniq_ranks[sname] = torch.where(uniq < _PAD_RANK, uniq, -1)
+            slots = self._all_slots(plan.slots)  # [S, U] (or [S, W])
             if width is None:
-                combined = self._combine_slots(plan.slots, cap)  # [U]
+                combined = self._combine_slots(slots, cap)  # [U]
             else:  # scatter the compact slots back to dedup'd lane order
                 u_n = int(uniq.shape[0])
                 sids = torch.arange(S, dtype=torch.int32, device=uniq.device)[:, None]
-                enc = torch.where((src_sh >= 0) & (plan.slots >= 0),
-                                  sids * cap + plan.slots + 1, 0).to(torch.int32)
+                enc = torch.where((src_sh >= 0) & (slots >= 0),
+                                  sids * cap + slots + 1, 0).to(torch.int32)
                 dest = torch.where(src_sh >= 0, src_sh, u_n).reshape(-1).to(torch.int64)
                 combined = torch.zeros((u_n + 1,), dtype=torch.int32, device=uniq.device)
                 combined = combined.index_add_(0, dest, enc.reshape(-1))[:u_n] - 1
@@ -604,8 +694,8 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
             spec = self.cached_slabs[sname]
             ccfg = self.shard_cache_config(spec, writeback=plan.writeback)
             slab = slabs[sname]
-            for s in range(self.num_shards):
-                cache_lib.apply_plan(ccfg, slab.full.shard(s), _shard(slab.cache, s), _shard(p, s))
+            for i in range(len(self.local_shards)):
+                cache_lib.apply_plan(ccfg, slab.full.shard(i), _shard(slab.cache, i), _shard(p, i))
             rep = slab.rep
             step = rep.step + 1  # ticks with the per-shard plan clocks
             K = rep.rows.shape[0]
@@ -625,7 +715,7 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
                 rep = dataclasses.replace(rep, step=step)
             slabs[sname] = dataclasses.replace(
                 slab, cache=_with_index(slab.cache, p),
-                routed_lanes=slab.routed_lanes + plan.routed[sname], rep=rep,
+                routed_lanes=slab.routed_lanes + self._local(plan.routed[sname]), rep=rep,
             )
         return CollectionState(slabs=slabs)
 
@@ -651,7 +741,8 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
         """feature -> rows through the combined addresses: the routed lanes
         from the flattened ``[S * capacity, dim]`` arena (one
         ``index_select`` per slab, encoded on the wire with an
-        ``exchange_codec``), the replicated lanes from ``<slab>::rep``."""
+        ``exchange_codec``; under a mesh, ``exchange.row_leg`` from the
+        owners' arenas), the replicated lanes from ``<slab>::rep``."""
         by_slab: Dict[str, List[str]] = {}
         for f in fb.features:
             by_slab.setdefault(self.table_slab[self.feature_to_table[f]][0], []).append(f)
@@ -662,18 +753,24 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
                 out.update(super().gather(weights, addresses,
                                           FeatureBatch(ids={f: fb.ids[f] for f in feats})))
                 continue
-            ncomb = w.shape[0] * w.shape[1]
-            w_flat = w.reshape(ncomb, w.shape[-1])
+            cap = w.shape[1]
+            ncomb = self.num_shards * cap
+            w_flat = w.reshape(-1, w.shape[-1])
             flat = torch.cat([addresses[f].reshape(-1) for f in feats])
             idx = torch.where(flat < ncomb, flat, -1)
-            if self.exchange_codec is None:
+            if self.mesh is not None:  # the row leg between the ranks
+                rows = exchange.row_leg(w_flat, idx, self.mesh.model_rank * cap,
+                                        self.max_routed_per_shard, self.exchange_codec,
+                                        self.mesh)
+            elif self.exchange_codec is None:
                 rows = take_fill(w_flat, idx, 0.0)
             else:
                 rows = _EncodedExchange.apply(w_flat, idx, self.exchange_codec)
             rep = weights.get(sname + "::rep")
             if rep is not None:  # replicated lanes never cross the exchange
                 arena = flat >= ncomb
-                loc = take_fill(rep, torch.where(arena, flat - ncomb, -1), 0.0)
+                # every rank steps its own copy of the head: its gradient sums in a fixed order
+                loc = take_fill_ordered(rep, torch.where(arena, flat - ncomb, -1), 0.0)
                 rows = torch.where(arena[:, None], loc, rows)
             parts = rows.split([addresses[f].numel() for f in feats])
             for f, part in zip(feats, parts):
@@ -684,6 +781,7 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
              use_pallas=False, max_bag=0):
         """As the unsharded ``pool``; the kernel route reads the flattened
         fast tier with the replicated arena appended past it."""
+        self._refuse_split("pool")
         if use_pallas and weights is not None:
             fused = {}
             for k, v in weights.items():
@@ -719,15 +817,16 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
         for sname, spec in self.cached_slabs.items():
             ccfg = self.shard_cache_config(spec)
             slab = state.slabs[sname]
-            for s in range(self.num_shards):
-                cache_lib.flush(ccfg, slab.full.shard(s), _shard(slab.cache, s))
+            for i in range(len(self.local_shards)):
+                cache_lib.flush(ccfg, slab.full.shard(i), _shard(slab.cache, i))
             K = slab.rep.rows.shape[0]
-            if K:
+            if K:  # the replicated homes on this process's shards
                 vs = self.rows_per_shard(spec)
-                homes = i32(slab.rank_owner[:K] * vs + slab.rank_local[:K])
+                lpos = self._local_pos(slab.rank_owner.device)[slab.rank_owner[:K].long()]
+                mine = lpos >= 0
+                homes = i32(torch.where(mine, lpos * vs + slab.rank_local[:K], -1))
                 transmitter.write_rows(
-                    {"weight": slab.rep.rows}, flat_store(slab.full), homes,
-                    torch.ones((K,), dtype=torch.bool, device=homes.device),
+                    {"weight": slab.rep.rows}, flat_store(slab.full), homes, mine,
                     buffer_rows=spec.arena.buffer_rows,
                 )
         return CollectionState(slabs=dict(state.slabs))
@@ -749,6 +848,7 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
         pass).  With ``cfg.rebalance_threshold``, a slab whose live
         imbalance exceeds it is re-homed after the swap pass.  With one
         shard the pass is bitwise the unsharded refresh."""
+        self._refuse_split("the refresh")
         cfg = cfg or refresh_lib.RefreshConfig()
         slabs = dict(state.slabs)
         report = refresh_lib.RefreshReport()
@@ -778,6 +878,7 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
         trackers move there (``refresh.apply_rebalance``), each shard's
         cache is re-warmed and the new ``rank_owner`` / ``rank_local`` are
         installed.  Pure data movement: lookups give the same values."""
+        self._refuse_split("the rebalance")
         S = self.num_shards
         vs = self.rows_per_shard(spec)
         K = int(slab.rep.rows.shape[0])
@@ -823,8 +924,14 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
         safe = torch.where(ok, rank, 0)
         owner = take_fill(slab.rank_owner, safe, -1)
         local = take_fill(slab.rank_local, safe, -1)
-        flat = torch.where(ok & (owner >= 0), owner * vs + local, -1)
-        rows = flat_store(slab.full).decode_rows(flat.cpu())["weight"].to(rank.device)
+        if self.mesh is None:
+            flat = torch.where(ok & (owner >= 0), owner * vs + local, -1)
+            rows = flat_store(slab.full).decode_rows(flat.cpu())["weight"].to(rank.device)
+        else:  # each owner's host row, through the row leg's transport
+            lpos = take_fill(self._local_pos(owner.device), owner, -1)
+            flat = torch.where(ok & (lpos >= 0), lpos * vs + local, -1)
+            part = flat_store(slab.full).decode_rows(flat.cpu())["weight"].to(rank.device)
+            rows = exchange.owner_rows(part, torch.where(owner >= 0, owner, 0), self.mesh)
         K = slab.rep.rows.shape[0]
         if K:
             in_rep = ok & (rank < K)
@@ -861,7 +968,14 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
         of id out plus one row back (at the exchange codec's width), split
         by leg; the ``[S]`` routed-lane histogram; ``shard_imbalance``, the
         live max / mean of the shards' decayed tracker mass, and
-        ``shard_imbalance_routed``, that of the cumulative routed lanes."""
+        ``shard_imbalance_routed``, that of the cumulative routed lanes.
+
+        Under a mesh the per-shard counters are all-gathered first (one
+        collective a slab), so every rank reports the stacked layout's
+        numbers."""
+        live_by: Dict[str, torch.Tensor] = {}
+        if self.mesh is not None:
+            state, live_by = self._gathered_counters(state)
         out = super().metrics(state, writeback=writeback)
         S = self.num_shards
         lanes: Dict[str, torch.Tensor] = {}
@@ -885,9 +999,8 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
             id_bytes = id_bytes + n.to(torch.float32) * 4
             row_bytes = row_bytes + n.to(torch.float32) * rb
             per_shard = per_shard + slab.routed_lanes
-            tr = slab.cache.tracker
-            live = live + freq_lib.decay_to(tr.score, tr.last_touch, slab.cache.step[:, None],
-                                            spec.arena.freq_half_life).sum(1)
+            live = live + (live_by[sname] if sname in live_by
+                           else self._live_mass(slab, spec.arena.freq_half_life))
         if not self.cached_slabs:  # every table DEVICE: no exchange
             per_shard, live = torch.zeros((S,), dtype=torch.int32), torch.zeros((S,))
         tot = i32(per_shard.sum())
@@ -907,13 +1020,57 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
             tot > 0, per_shard.max().to(torch.float32) / torch.clamp_min(mean, 1e-9), 1.0)
         return out
 
+    @staticmethod
+    def _live_mass(slab: ShardedSlab, half_life: int) -> torch.Tensor:
+        """float32 ``[L]``: each local shard's decayed tracker mass now."""
+        tr = slab.cache.tracker
+        return freq_lib.decay_to(tr.score, tr.last_touch, slab.cache.step[:, None],
+                                 half_life).sum(1)
+
+    # the per-shard counters ``metrics`` reads (cache, tracker), in one int32 row
+    _COUNTERS = ("hits", "misses", "evictions", "uniq_overflows", "tier_promotions",
+                 "tier_demotions")
+    _TRACKER_COUNTERS = ("refresh_swaps", "refresh_rows")
+    _TRACKER_FLOATS = ("win_hits", "win_misses")
+
+    def _gathered_counters(self, state: CollectionState
+                           ) -> Tuple[CollectionState, Dict[str, torch.Tensor]]:
+        """Under a mesh: ``state`` with every per-shard counter that
+        ``metrics`` reads all-gathered to ``[S]`` (the float ones as their
+        bits), and each slab's ``[S]`` live tracker mass."""
+        slabs = dict(state.slabs)
+        live_by = {}
+        for sname, spec in self.cached_slabs.items():
+            slab = slabs[sname]
+            c, tr = slab.cache, slab.cache.tracker
+            floats = [getattr(tr, k) for k in self._TRACKER_FLOATS]
+            floats.append(self._live_mass(slab, spec.arena.freq_half_life))
+            row = torch.cat([*(getattr(c, k) for k in self._COUNTERS),
+                             *(getattr(tr, k) for k in self._TRACKER_COUNTERS),
+                             slab.routed_lanes,
+                             *(f.to(torch.float32).view(torch.int32) for f in floats)])
+            g = exchange.all_gather(row, self.mesh)  # [S, 12]
+            cols = dict(zip(self._COUNTERS + self._TRACKER_COUNTERS + ("routed_lanes",)
+                            + self._TRACKER_FLOATS + ("live",), g.unbind(1)))
+            for k in self._TRACKER_FLOATS + ("live",):
+                cols[k] = cols[k].contiguous().view(torch.float32)
+            tracker = dataclasses.replace(tr, **{k: cols[k] for k in self._TRACKER_COUNTERS
+                                                 + self._TRACKER_FLOATS})
+            cache = dataclasses.replace(c, tracker=tracker,
+                                        **{k: cols[k] for k in self._COUNTERS})
+            slabs[sname] = dataclasses.replace(slab, cache=cache, routed_lanes=cols["routed_lanes"])
+            live_by[sname] = cols["live"]
+        return CollectionState(slabs=slabs), live_by
+
     def device_bytes(self) -> Dict[str, Any]:
         """Footprint of the sharded layout: ``device_total`` counts the
         DEVICE tables and the routing maps once, the stacked arrays, and
         the replicated arena S times (each GPU of a multi-GPU layout holds
         a copy); ``device_per_shard`` is one GPU's share, the number the
-        per-device budget bounds.  The host tier is priced at each slab's
-        codec."""
+        per-device budget bounds, and ``device_process`` what this process
+        holds (the stacked total, or one shard's share under a mesh).  The
+        host tier is priced at each slab's codec; ``host_process_bytes`` is
+        this process's slice of it."""
         S = self.num_shards
         per_slab: Dict[str, int] = {n: t.full_bytes for n, t in self.device_slabs.items()}
         replicated = sum(per_slab.values())
@@ -939,12 +1096,56 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
             rep_arenas += rep_arena
             slow += S * vs * get_codec(self._slab_codec(sname)).row_bytes((spec.dim,), spec.dtype)
             slow_fp32 += S * vs * spec.dim * item
+        total = replicated + stacked + S * rep_arenas
+        per_shard = replicated + rep_arenas + stacked // S
         return {
-            "device_total": replicated + stacked + S * rep_arenas,
-            "device_per_shard": replicated + rep_arenas + stacked // S,
+            "device_total": total,
+            "device_per_shard": per_shard,
+            "device_process": total if self.mesh is None else per_shard,
+            "host_process_bytes": slow if self.mesh is None else slow // S,
             "slow_tier_bytes": slow,
             "host_bytes_saved": slow_fp32 - slow,
             "arena_bytes_saved": fast_fp32 - fast_actual,
             "per_slab": per_slab,
             "budget_bytes": self.plan.budget_bytes,
         }
+
+    # ----- sharding ---------------------------------------------------------
+
+    def shard_specs(self) -> CollectionState:
+        """The partition spec of every leaf of the state (port of the
+        reference's ``shard_specs``): each stacked leaf splits its leading
+        shard dim over the ``model`` axis, the routing maps, the replicated
+        head and the DEVICE tables replicate.  Call after ``init`` (the
+        resolved codecs shape the tiers)."""
+        ax = MODEL_AXIS
+        row = P(ax, None, None)
+        slabs: Dict[str, Any] = {n: DeviceSlab(weight=P(None, None)) for n in self.device_slabs}
+        for sname, spec in self.cached_slabs.items():
+            dt = str(spec.dtype).removeprefix("torch.")
+            arena = self._slab_arena_codec(sname)
+            if arena == "fp32":
+                cached_rows: Any = {"weight": row}
+            else:  # a tiered arena: every tier carries the shard dim, sideband included
+                side = {"weight": row} if get_codec(arena).sideband_row_shape() else {}
+                cached_rows = ArenaStore(head={"weight": row}, tail={"weight": row},
+                                         sideband=side, raw={}, codec=arena, out_dtype=dt)
+            host = self._slab_codec(sname)
+            hside = {"weight": row} if get_codec(host).sideband_row_shape() else {}
+            slabs[sname] = ShardedSlab(
+                full=HostStore(data={"weight": row}, sideband=hside, codec=host, out_dtype=dt),
+                cache=cache_lib.CacheState(
+                    cached_rows=cached_rows,
+                    slot_to_row=P(ax, None), row_to_slot=P(ax, None),
+                    last_used=P(ax, None), use_count=P(ax, None),
+                    step=P(ax), hits=P(ax), misses=P(ax), evictions=P(ax),
+                    uniq_overflows=P(ax), tier_promotions=P(ax), tier_demotions=P(ax),
+                    tracker=freq_lib.FreqTracker(
+                        score=P(ax, None), last_touch=P(ax, None), win_hits=P(ax),
+                        win_misses=P(ax), refresh_swaps=P(ax), refresh_rows=P(ax)),
+                ),
+                idx_map=P(None), rank_owner=P(None), rank_local=P(None),
+                routed_lanes=P(ax),
+                rep=RepArena(rows=P(None, None), score=P(None), last_touch=P(None), step=P()),
+            )
+        return CollectionState(slabs=slabs)

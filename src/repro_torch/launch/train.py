@@ -5,6 +5,7 @@ batches.
   PYTHONPATH=src python -m repro_torch.launch.train --arch fm --steps 50 --host-precision int8
   PYTHONPATH=src python -m repro_torch.launch.train --arch din --steps 20 --pipeline-depth 2
   PYTHONPATH=src python -m repro_torch.launch.train --model-shards 4 --replicate-top-k 64
+  PYTHONPATH=src python -m repro_torch.launch.train --model-shards 2 --ranks 2 --backend gloo --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --pipeline-depth 2 --chunk-rows 8
   PYTHONPATH=src python -m repro_torch.launch.train --refresh-interval 5 --model-shards 4
   PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-avazu --cache-policy lru
@@ -22,17 +23,29 @@ batches of 8 x 64, and ``gatedgcn`` an 8-layer GatedGCN of width 32 on
 neighbour-sampled blocks (256 seeds, fanouts 10 and 5) of a 20 000-node,
 100 000-edge random graph.  An LM or a GNN has no embedding cache: the cache
 flags exit.
+
+``--ranks N --backend {gloo,nccl}`` (dlrm archs, with ``--model-shards
+N``) runs the sharded DLRM one shard a process: the launcher refuses a
+world the backend cannot run before any rank starts, then spawns N ranks
+(``dist.run``; they meet through a ``FileStore`` in a temp dir), or, where
+``RANK`` and ``WORLD_SIZE`` are set, joins torchrun's world as that rank.
+gloo runs CPU ranks (``--device cpu``) or ranks sharing the card(s); nccl
+one card a rank.
 """
 from __future__ import annotations
 
 import argparse
 import importlib
-from typing import Callable, Dict, Optional, Tuple
+import sys
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
 from repro_torch.core.policies import Policy
 from repro_torch.data import graphs, synth
+from repro_torch.dist import group
+from repro_torch.dist.mesh import ITEM_13B, HybridMesh, check_mesh_shape
+from repro_torch.launch.mesh import make_hybrid_mesh
 from repro_torch.models.dlrm import DLRM, DLRMConfig
 from repro_torch.models.gatedgcn import GatedGCNConfig, GatedGCNModel
 from repro_torch.models.lm import LMModel
@@ -43,7 +56,8 @@ from repro_torch.train.trainer import PipelinedTrainer, Trainer, TrainerConfig
 
 def build(arch: str, batch: int, arena_precision: str, model_shards: int = 0,
           replicate_top_k: int = 0, exchange_codec: str = "fp32", max_routed_per_shard: int = 0,
-          host_precision: str = "fp32", chunk_rows: int = 0, policy: Optional[Policy] = None
+          host_precision: str = "fp32", chunk_rows: int = 0, policy: Optional[Policy] = None,
+          mesh: Optional[HybridMesh] = None,
           ) -> Tuple[object, Callable[[int], Dict[str, np.ndarray]]]:
     """The reference launcher's config of ``arch``: (model, step -> batch).
     Victim selection always goes through the bounded top-K route, whose
@@ -66,7 +80,7 @@ def build(arch: str, batch: int, arena_precision: str, model_shards: int = 0,
                          exchange_codec=exchange_codec,
                          max_routed_per_shard=max_routed_per_shard)
         spec = synth.ZipfSparseSpec(vocab_sizes=cfg.vocab_sizes, n_dense=13)
-        return DLRM(cfg), lambda s: synth.sparse_batch(spec, batch, 0, s)
+        return DLRM(cfg, mesh=mesh), lambda s: synth.sparse_batch(spec, batch, 0, s)
     shared = dict(batch_size=batch, host_precision=host_precision,
                   arena_precision=arena_precision, policy=policy, use_pallas_plan=True,
                   chunk_rows=chunk_rows)
@@ -106,7 +120,7 @@ def build_gnn() -> Tuple[GatedGCNModel, Callable[[int], Dict[str, np.ndarray]]]:
                                                  0, s)
 
 
-def main(argv=None):
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="dlrm-criteo",
                     choices=["dlrm-criteo", "dlrm-avazu", "fm", "din", "dien", "mind",
@@ -156,27 +170,83 @@ def main(argv=None):
     ap.add_argument("--cache-policy", default=None, choices=[p.value for p in Policy],
                     help="cache eviction policy: freq_lfu = the paper's static frequency rank "
                          "(default), lru / uvm_row = recency, runtime_lfu = online counters")
+    ap.add_argument("--ranks", type=int, default=0,
+                    help="0 = one process; N = one cache shard a process (dlrm archs, N = "
+                         "--model-shards): N spawned ranks, or torchrun's world")
+    ap.add_argument("--backend", default=None, choices=group.BACKENDS,
+                    help="with --ranks: gloo (CPU ranks, or ranks sharing the card) or nccl "
+                         "(one card a rank)")
     ap.add_argument("--device", default=None, help="default: the CUDA card")
-    args = ap.parse_args(argv)
+    return ap
 
+
+def check_ranks(args) -> None:
+    """Refuse a ranked run the port cannot make, before any rank starts;
+    each message names what was asked for."""
+    if not args.ranks:
+        if args.backend:
+            raise SystemExit(f"--backend {args.backend} picks the ranks' backend; it needs --ranks")
+        return
+    if not args.arch.startswith("dlrm"):
+        raise SystemExit(f"--ranks {args.ranks} puts one cache shard in each process of a sharded "
+                         f"DLRM; {args.arch} is not a dlrm arch")
+    if not args.backend:
+        raise SystemExit(f"--ranks {args.ranks} needs --backend gloo or nccl")
+    try:
+        check_mesh_shape(args.model_shards, args.ranks)
+        group.check_world(args.backend, args.ranks, args.device)
+    except ValueError as e:
+        raise SystemExit(f"--ranks {args.ranks} --model-shards {args.model_shards} --backend "
+                         f"{args.backend}: {e}") from None
+    if getattr(args, "pipeline_depth", 0) or args.refresh_interval:
+        raise SystemExit(f"--ranks {args.ranks} with --pipeline-depth / --refresh-interval: the "
+                         f"lookahead window and the refresh across ranks wait for {ITEM_13B}")
+
+
+def main(argv=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = _parser().parse_args(argv)
+    check_ranks(args)
+    if args.ranks:
+        from repro_torch.dist import run
+
+        return run.launch("train", args.ranks, args.backend, args.device, argv)
     if args.arch in LM_ARCHS or args.arch == "gatedgcn":
         return _train_without_cache(args)
+    return _train(args)
+
+
+def run_rank(argv: Sequence[str], dev) -> Dict[str, Any]:
+    """This process's rank of a ``--ranks`` run (its world is up): the run
+    on its shard; returns the step history."""
+    args = _parser().parse_args(list(argv))
+    trainer = _train(args, make_hybrid_mesh(args.model_shards), dev)
+    return {"history": trainer.history}
+
+
+def _train(args, mesh: Optional[HybridMesh] = None, device=None):
+    """A collection-backed arch through the serial or pipelined trainer;
+    under a mesh this rank's shard, and only rank 0 reports."""
+    device = args.device if device is None else device
+    lead = mesh is None or mesh.rank == 0
     model, make_batch = build(args.arch, args.batch, args.arena_precision, args.model_shards,
                         args.replicate_top_k, args.exchange_codec, args.max_routed_per_shard,
                         args.host_precision, args.chunk_rows,
-                        Policy(args.cache_policy) if args.cache_policy else None)
+                        Policy(args.cache_policy) if args.cache_policy else None, mesh)
     tc = TrainerConfig(max_steps=args.steps, ckpt_dir=args.ckpt_dir, ckpt_every=25,
                        obs_dir=args.obs_dir, obs_annotate=args.obs_annotate,
                        history_limit=args.history_limit or None,
                        pipeline_depth=args.pipeline_depth,
                        refresh_interval=args.refresh_interval or None)
     kw = dict(
-        init_fn=lambda: model.init(0, device=args.device),
+        init_fn=lambda: model.init(0, device=device),
         make_batch=make_batch,
         flush_fn=model.flush,
         refresh_fn=model.refresh if args.refresh_interval else None,
         on_straggler=lambda s, dt: print(f"[straggler] step {s}: {dt * 1e3:.0f} ms"),
-        device=args.device,
+        device=device,
+        mesh=mesh,
+        state_specs=model.state_specs() if mesh is not None else None,
     )
     if args.pipeline_depth > 0:  # every arch is collection-backed (split plan/compute)
         trainer = PipelinedTrainer(tc, plan_fn=model.plan_step, compute_fn=model.compute_step,
@@ -186,6 +256,8 @@ def main(argv=None):
     state = trainer.run()
     for slab in state["emb"].slabs.values():
         slab.full.close()
+    if not lead:
+        return trainer
     h = trainer.history
     print(f"\narch={args.arch} steps={h[-1]['step'] + 1} "
           f"loss {h[0]['loss']:.4f} -> {h[-1]['loss']:.4f}")
@@ -201,6 +273,11 @@ def main(argv=None):
         print(f"arena tier ({args.arena_precision}): saved "
               f"{db['arena_bytes_saved'] / 1e6:.2f} MB HBM vs fp32")
     print(f"host<->device traffic: {h[-1]['host_wire_bytes'] / 1e6:.1f} MB total")
+    if mesh is not None:
+        t = mesh.traffic
+        print(f"ranks: {mesh.world} ({mesh.backend}), one shard each; the exchange sent "
+              f"{t.bytes_sent / 1e6:.2f} MB from rank 0 in {t.collectives} collectives "
+              f"({t.seconds * 1e3:.1f} ms host time)")
     if args.model_shards:
         print(f"hybrid parallel: {args.model_shards} shards, "
               f"exchange {h[-1]['exchange_bytes'] / 1e6:.1f} MB total "

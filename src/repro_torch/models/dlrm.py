@@ -13,7 +13,9 @@ into one shared cache arena (the paper's one-big-table layout); with
 small tables DEVICE and gives each large one its own CACHED slab.  The
 arena is fp32 or frequency-tiered (``arena_precision`` fp16 / int8 /
 auto), the host tier fp32 or encoded (``host_precision`` fp16 / int8 /
-auto).  ``use_pallas_plan`` and ``chunk_rows`` reach every cached slab
+auto).  ``DLRM(cfg, mesh=)`` puts one shard in this process (hybrid
+parallel over ranks, ``dist.mesh``); the MLPs are replicas, made the
+same on every rank by a broadcast from model rank 0.  ``use_pallas_plan`` and ``chunk_rows`` reach every cached slab
 (the reference sets them on the shared arena only; each is bit-identical
 either way).  The
 model computes in fp32; float32 matmuls run in full fp32 (``allow_tf32``
@@ -31,6 +33,7 @@ import torch
 from repro_torch.core import collection as col
 from repro_torch.core.policies import Policy
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.dist.mesh import HybridMesh
 from repro_torch.models import common
 from repro_torch.nn.layers import Dtypes, mlp, mlp_init
 from repro_torch.optim import optimizers as opt_lib
@@ -77,8 +80,11 @@ class DLRMConfig:
 
 
 class DLRM(common.CollectionModelMixin):
-    def __init__(self, cfg: DLRMConfig):
+    def __init__(self, cfg: DLRMConfig, mesh: Optional[HybridMesh] = None):
         self.cfg = cfg
+        if mesh is not None and cfg.model_shards < 1:
+            raise ValueError("a mesh holds shards of a sharded DLRM: set model_shards")
+        self.mesh = mesh
         f = cfg.n_sparse + 1  # embeddings + bottom-MLP output
         self.top_in = cfg.embed_dim + f * (f - 1) // 2
         self.optimizer = opt_lib.sgd(cfg.lr)
@@ -111,7 +117,7 @@ class DLRM(common.CollectionModelMixin):
             self.collection = ShardedEmbeddingCollection.create(
                 tables, num_shards=cfg.model_shards, replicate_top_k=cfg.replicate_top_k,
                 exchange_codec=cfg.exchange_codec,
-                max_routed_per_shard=cfg.max_routed_per_shard, **arena_kw,
+                max_routed_per_shard=cfg.max_routed_per_shard, mesh=mesh, **arena_kw,
             )
         else:
             self.collection = col.EmbeddingCollection.create(tables, **arena_kw)
@@ -122,7 +128,8 @@ class DLRM(common.CollectionModelMixin):
     ) -> Dict[str, Any]:
         """Random weights from ``seed`` (the MLPs from ``seed``, the table
         from ``seed + 1``) on ``device`` (the CUDA card unless told
-        otherwise; no silent CPU fallback)."""
+        otherwise; no silent CPU fallback).  Under a mesh the MLPs are
+        model rank 0's on every rank."""
         cfg = self.cfg
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(int(seed))
@@ -130,6 +137,10 @@ class DLRM(common.CollectionModelMixin):
             "bottom": mlp_init(gen, (cfg.n_dense,) + cfg.bottom_mlp, cfg.dtypes, dev),
             "top": mlp_init(gen, (self.top_in,) + cfg.top_mlp + (1,), cfg.dtypes, dev),
         }
+        if self.mesh is not None:
+            from repro_torch.dist import exchange
+
+            opt_lib.tree_map(lambda p: exchange.broadcast_(p, self.mesh), params)
         by_table = (self.collection.split_concat_counts(np.asarray(counts))
                     if counts is not None else None)
         emb = self.collection.init(int(seed) + 1, counts=by_table, device=dev)
@@ -139,6 +150,11 @@ class DLRM(common.CollectionModelMixin):
             "emb": emb,
             "step": torch.zeros((), dtype=torch.int32, device=dev),
         }
+
+    def state_specs(self) -> Dict[str, Any]:
+        """The partition specs of the state's sharded part (``emb``; every
+        other leaf replicates), for a checkpoint under a mesh."""
+        return {"emb": self.collection.shard_specs()} if self.cfg.model_shards > 0 else {}
 
     def features(self, batch) -> col.FeatureBatch:
         return col.FeatureBatch.from_onehot(self.feature_names, batch["sparse"])

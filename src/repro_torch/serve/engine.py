@@ -10,6 +10,10 @@ fixed-bucket histogram and cache counters go through the exact-int hub.
 With ``refresh_fn`` / ``refresh_every`` the engine re-ranks its cache
 every N scored batches, between batches and never inside ``score``'s
 span: scores are unchanged (pure reindexing), only hit rates move.
+With a ``mesh`` (hybrid parallel over ranks, one shard a rank) every rank
+scores each batch (the lookup's exchange needs them all) and the scores are
+the same on each; model rank 0's are the response, and only rank 0 writes
+the observability stream.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.dist.mesh import HybridMesh
 from repro_torch.obs import NULL_TRACER, FixedHistogram, MetricsHub, Tracer
 
 __all__ = ["ServeEngine", "ServeStats"]
@@ -75,6 +80,7 @@ class ServeEngine:
         # ^ every ``refresh_every`` scored batches, ``refresh_fn`` (usually
         #   ``lambda s: model.refresh(s, writeback=False)``: a read-only
         #   cache's rows are clean) re-ranks the live state
+        mesh: Optional[HybridMesh] = None,  # a rank of the hybrid-parallel world
     ):
         self.score_fn = score_fn
         self.state = state
@@ -86,10 +92,13 @@ class ServeEngine:
         self._batches_since_refresh = 0
         self.device = resolve_device(device)
         self.stats = ServeStats()
-        self.obs_dir = obs_dir
+        self.mesh = mesh
+        self.lead = mesh is None or mesh.rank == 0  # its scores are the response
+        self.obs_dir = obs_dir if self.lead else None
         self.obs_run = obs_run
-        self.hub = MetricsHub(run_dir=obs_dir, run=obs_run)
-        self.tracer = Tracer(annotate=obs_annotate) if (obs_dir or obs_annotate) else NULL_TRACER
+        self.hub = MetricsHub(run_dir=self.obs_dir, run=obs_run)
+        self.tracer = (Tracer(annotate=obs_annotate)
+                       if self.lead and (obs_dir or obs_annotate) else NULL_TRACER)
         self.trace_path: Optional[str] = None
 
     def summary(self) -> Dict[str, float]:

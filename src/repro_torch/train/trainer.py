@@ -20,6 +20,10 @@ the host blocks on any loss of this one.
   trainer after every N-th step, the pipelined one at the first group
   boundary at or past each multiple of N.  It is pure reindexing, so fp32
   losses are bitwise those of a run without it.
+* ranks — with a ``mesh`` (``dist.mesh.HybridMesh``) every rank of the
+  hybrid-parallel world steps, saves its shard of each checkpoint and
+  resumes from it (``state_specs`` says which leaves are split); only
+  model rank 0 writes the observability stream and reports stragglers.
 The trainers run on the CUDA card unless given ``device="cpu"``.
 """
 from __future__ import annotations
@@ -34,6 +38,7 @@ import torch
 
 from repro_torch.data.pipeline import Prefetcher
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.dist.mesh import HybridMesh
 from repro_torch.obs import NULL_TRACER, FixedHistogram, MetricsHub, Tracer
 from repro_torch.train import checkpoint as ckpt_lib
 
@@ -108,6 +113,8 @@ class Trainer:
         on_straggler: Optional[Callable[[int, float], None]] = None,
         device: DeviceLike = None,
         refresh_fn: Optional[Callable[[Any], Any]] = None,  # host-side re-rank between steps
+        mesh: Optional[HybridMesh] = None,  # a rank of the hybrid-parallel world
+        state_specs: Any = None,  # the state's partition specs under a mesh
     ):
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -115,17 +122,22 @@ class Trainer:
         self.step_fn = step_fn
         self.make_batch = make_batch
         self.flush_fn = flush_fn
-        self.on_straggler = on_straggler
+        self.mesh = mesh
+        self.lead = mesh is None or mesh.rank == 0  # logs and reports
+        self.on_straggler = on_straggler if self.lead else None
         self.refresh_fn = refresh_fn
         self.detector = StragglerDetector(factor=cfg.straggler_factor)
         self.checkpointer = (
-            ckpt_lib.Checkpointer(cfg.ckpt_dir, keep=cfg.ckpt_keep) if cfg.ckpt_dir else None
+            ckpt_lib.Checkpointer(cfg.ckpt_dir, keep=cfg.ckpt_keep, mesh=mesh, specs=state_specs)
+            if cfg.ckpt_dir else None
         )
         self.history: List[Dict[str, float]] = []
-        self.hub = MetricsHub(run_dir=cfg.obs_dir, run=cfg.obs_run)
+        obs_dir = cfg.obs_dir if self.lead else None
+        self.hub = MetricsHub(run_dir=obs_dir, run=cfg.obs_run)
         self.step_hist = FixedHistogram.latency()
         self.tracer = (
-            Tracer(annotate=cfg.obs_annotate) if (cfg.obs_dir or cfg.obs_annotate) else NULL_TRACER
+            Tracer(annotate=cfg.obs_annotate)
+            if self.lead and (cfg.obs_dir or cfg.obs_annotate) else NULL_TRACER
         )
         self.trace_path: Optional[str] = None
 
@@ -183,7 +195,7 @@ class Trainer:
         Chrome trace (also after a crash)."""
         self.hub.log_hist("step_time_s", self.step_hist)
         self.hub.log_spans(self.tracer)
-        if self.cfg.obs_dir:
+        if self.cfg.obs_dir and self.lead:
             self.trace_path = self.tracer.export_chrome_trace(
                 os.path.join(self.cfg.obs_dir, f"{self.cfg.obs_run}.trace.json")
             )
@@ -266,9 +278,12 @@ class PipelinedTrainer(Trainer):
         on_straggler: Optional[Callable[[int, float], None]] = None,
         device: DeviceLike = None,
         refresh_fn: Optional[Callable[[Any], Any]] = None,
+        mesh: Optional[HybridMesh] = None,
+        state_specs: Any = None,
     ):
         super().__init__(cfg, init_fn, step_fn=None, make_batch=make_batch, flush_fn=flush_fn,
-                         on_straggler=on_straggler, device=device, refresh_fn=refresh_fn)
+                         on_straggler=on_straggler, device=device, refresh_fn=refresh_fn,
+                         mesh=mesh, state_specs=state_specs)
         self.plan_fn = plan_fn
         self.compute_fn = compute_fn
         self.apply_fn = apply_fn

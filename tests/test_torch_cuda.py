@@ -16,8 +16,10 @@ capacity``, a 4-shard collection's lookups against its dense
 reference, one serve and one train step of DIN, DIEN and MIND against
 the CPU port, and the LM family's training step (the flash kernel in the
 forward and the remat recompute), MoE layers and int8 KV-cache attention
-(its integer dots exact) against the CPU port, and a GatedGCN train step
-against the CPU port and bitwise across two deterministic runs.
+(its integer dots exact) against the CPU port, a GatedGCN train step
+against the CPU port and bitwise across two deterministic runs, and two
+gloo ranks sharing the card (one cache shard each) bitwise the stacked
+layout.
 
 Imports neither JAX nor the JAX package, so the machine with the card runs
 it as is:  ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
@@ -1354,3 +1356,40 @@ def test_gatedgcn_train_step_on_the_card_matches_cpu(cuda, monkeypatch):
         det.fill_uninitialized_memory = fill
     assert runs[0][0] == runs[1][0]
     assert all(torch.equal(runs[0][1][k], runs[1][1][k]) for k in runs[0][1])
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_on_one_card_bitwise_the_stacked_layout(cuda):
+    """Two gloo ranks sharing the card, one shard each (int8-tiered arena,
+    a replicated head): losses and every shard's arena, host slice and
+    head bitwise the one-process stacked layout's, all under
+    ``deterministic()``."""
+    import torch_rank_jobs as rank_jobs
+
+    from repro_torch.data import synth
+    from repro_torch.dist import run
+    from repro_torch.dist.mesh import HybridMesh
+    from repro_torch.dist.partitioning import shard_state
+    from repro_torch.models.dlrm import DLRM, DLRMConfig
+
+    cfg = DLRMConfig(vocab_sizes=(2048, 256), embed_dim=8, batch_size=16, cache_ratio=0.15,
+                     lr=0.2, bottom_mlp=(16, 8), top_mlp=(16,), model_shards=2,
+                     replicate_top_k=8, arena_precision="int8", use_pallas_plan=True)
+    job = dict(cfg=cfg, train=4, digests=True, deterministic=True)
+    res = [r[0] for r in run.run_ranks(rank_jobs.dlrm_rank, 2, "gloo", None, ([job],))]
+    spec = synth.ZipfSparseSpec(vocab_sizes=cfg.vocab_sizes, n_dense=cfg.n_dense)
+    model, losses = DLRM(cfg), []
+    with rank_jobs.deterministic():
+        state = model.init(0, device=cuda)
+        for i in range(4):
+            b = {k: torch.from_numpy(v).to(cuda)
+                 for k, v in synth.sparse_batch(spec, cfg.batch_size, 1, i).items()}
+            state, m = model.train_step(state, b)
+            losses.append(float(m["loss"]))
+        state = model.flush(state)
+    for r in res:
+        assert r["losses"] == losses
+        want = shard_state(state, model.state_specs(), HybridMesh.coordinate(2, r["model_rank"]))
+        assert r["digests"] == rank_jobs.shard_digests(want)
+    for slab in state["emb"].slabs.values():
+        slab.full.close()

@@ -51,12 +51,32 @@ def test_port_imports_no_jax_and_no_reference_package():
                      "configs.din", "configs.dien", "configs.mind", "configs.shapes",
                      "data.synth", "launch.serve", "optim.compression", "optim.schedules",
                      "configs.olmoe_1b_7b", "configs.grok_1_314b", "nn.gnn", "data.graphs",
-                     "models.gatedgcn", "configs.gatedgcn"):
+                     "models.gatedgcn", "configs.gatedgcn", "launch.mesh", "dist.group",
+                     "dist.partitioning", "dist.exchange", "dist.run", "dist.mesh"):
             assert "repro_torch." + need in names, need
         print(len(names))
         """
     )
     env = dict(os.environ, PYTHONPATH=SRC)
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_rank_jobs_import_no_jax_and_no_reference_package():
+    """``tests/torch_rank_jobs.py``, which ``chip_smoke.py`` and the spawned
+    ranks import, stands on the port alone."""
+    code = textwrap.dedent(
+        """
+        import sys
+        import torch_rank_jobs
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith("jax.") or m == "repro" or m.startswith("repro."))
+        assert not bad, bad
+        """
+    )
+    tests = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([SRC, tests]))
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
