@@ -136,27 +136,28 @@ Phases (any failure exits non-zero, with no result line):
    shard.
 5f. the adaptive refresh, unsharded, on a drifting Zipf stream (the hot
    set moves every 3 steps): phase 5d's DLRM (fp32 tiers) served by a
-   ``ServeEngine`` with ``refresh_every`` 2 and by one without (4 batches,
-   scores bitwise batch by batch); trained ``REFRESH_STEPS`` (7) steps by
-   the serial ``Trainer`` without a refresh, with ``refresh_interval`` 4,
+   ``ServeEngine`` with ``refresh_every`` 2 and by one without (3 batches,
+   scores bitwise batch by batch; one init, its device leaves restored
+   between the engines: serving without a refresh writes no host row); trained ``REFRESH_STEPS`` (5) steps by
+   the serial ``Trainer`` without a refresh, with ``refresh_interval`` 3,
    and by the depth-3 ``PipelinedTrainer`` with it, each from ``init(0)``
    under torch's deterministic algorithms (losses bitwise equal); the
-   serial run with the refresh then goes on 7 steps in the default mode
+   serial run with the refresh then goes on 5 steps in the default mode
    for its step times and each pass's planning and surgery ms.  Then the
-   int8 host tier and arena trained 7 steps with the interval (the dirty
+   int8 host tier and arena trained 5 steps with the interval (the dirty
    passes' write-backs through the gather-decode kernel), flushed (host
    payload and sideband = the int8 encode of each resident arena row),
    and a refresh of the clean state (``dense_reference`` bitwise).
-5g. the sharded refresh: phase 5b's fp32 4-shard DLRM trained 4 steps on
+5g. the sharded refresh: phase 5b's fp32 4-shard DLRM trained 3 steps on
    the drifting stream and flushed, one pass at ``max_swaps`` 4096 with
    ``exchange_budget`` 1024 (``dense_reference`` after a flush bitwise
    before and after; cross-shard rows within the budget; swaps + deferred
-   = the unbudgeted plan's swaps), two steps over the swapped homes; then
+   = the unbudgeted plan's swaps), one step over the swapped homes; then
    phase 5e's sharded budget mode trained and flushed, and a re-homing
    pass with the median slab's live imbalance as ``rebalance_threshold``
    (the slabs above it re-homed, their imbalance lowered, the others
    untouched; ``dense_reference`` bitwise; served logits over the new
-   homes = ``dense_reference`` logits; the host RSS peak), two steps over
+   homes = ``dense_reference`` logits; the host RSS peak), one step over
    the new homes.
 5h. ``benchmarks/bench_drift.py``'s run in the port (vocab 400 000, dim 32,
    batch 8192, the hot set moving every 150 steps, 450 steps, a refresh
@@ -263,7 +264,8 @@ Phases (any failure exits non-zero, with no result line):
    local.  The
    threshold is timed on the DLRM serve plan's, FM's, phase 5d's depth-3
    lookahead, 14a's, 14b's, 15a's and 15c's keys (DIN's and MIND's:
-   4 194 304 entries); each call must show one device op and no memset.  The bag is timed as the main path calls
+   4 194 304 entries; the plain version and ``torch.topk`` profiled on
+   the DLRM key only); each call must show one device op and no memset.  The bag is timed as the main path calls
    it, once over a live bag step's 26 features (against one
    ``F.embedding_bag`` call over the same bags; the ``kernels`` line
    carries this call), and alone on two live features, f0 (vocab 1460) and
@@ -332,8 +334,8 @@ Phases (any failure exits non-zero, with no result line):
    ``use_pallas=True`` from ``LMModel.init`` (the reference's training
    dtypes: fp32 matrices and AdamW moments, bf16 table and norms; checked),
    at S 4096 and the largest batch of 8, 4, 2 that fits (cut from
-   train_4k's 256; printed): a warm-up and ``TRAIN_STEPS`` (3) timed
-   ``train_step`` calls with compressor ``none``, ``TRAIN_INT8_STEPS`` (2)
+   train_4k's 256; printed): a warm-up and ``TRAIN_STEPS`` (2) timed
+   ``train_step`` calls with compressor ``none``, ``TRAIN_INT8_STEPS`` (1)
    with ``int8``, each with 2 x 32 flash launches (forward and remat
    recompute), all on the tensor-core route, finite loss and gradient
    norm; layer 0's live q/k/v through kernel and plain within phase 9's
@@ -443,9 +445,38 @@ Phases (any failure exits non-zero, with no result line):
    ``deterministic()``); the int8 case's checkpoint, saved by the ranks,
    restored into the stacked layout: its next loss bitwise the ranks'.
    19c: one NCCL rank on ``cuda:0`` (S 1, the full Criteo DLRM, 2 steps)
-   bitwise the unsharded DLRM.
+   bitwise the unsharded DLRM.  19d: 5b's DLRM (K 2048, int8-tiered
+   arena, the plan at the compact width ``DATA_WIDTH``, 32 768) on a
+   ``(data=2, model=2)`` mesh of four gloo ranks sharing the card, each
+   data replica feeding 8 192 of every global batch of 16 384 and each
+   rank pinning half of the host table (``MemAvailable`` printed before
+   the spawn), in torch's default mode: ``DATA_SERVE`` (2) served batches
+   after a warm-up, a warm-up step, ``DATA_TRAIN`` (3) serial steps, a
+   flush and one ``PipelinedTrainer`` group of depth 2 from that state.
+   Checks every replica's shard (arena, host slice, head, slot map)
+   bitwise its twin's, every rank's replicated leaves (MLPs, head,
+   routing maps), losses and scores bitwise the others', cached =
+   uncached logits, a plan's 1 threshold and 1 ``route_bucketize`` (the
+   group's plan: 1 and 2, its window's image in the second), and
+   ``gather_decode`` = the rounds the plans imply.  Prints a rank's step,
+   serve and group ms, the bytes it sends a step and a batch by leg and
+   axis, RSS and peak device memory.  19e: at 19b's cut (vocab scale
+   0.02, global batch 2 048, 3 steps, an int8-tiered arena over an fp32
+   host, K 2048, ``(1, 4)`` under ``deterministic()``) gloo ranks at ``(2, 2)`` and
+   ``(1, 4)`` train, then make a refresh pass (``max_swaps`` 4096,
+   ``exchange_budget`` 1024; the replicated head made the coldest ranks,
+   so the pass demotes it) and a forced re-homing across the ranks; the
+   parent rebuilds the stacked layout from the ranks' state before the
+   passes and makes the same passes: every rank's state after each pass
+   (swaps, homes, rows, host slices, trackers) bitwise the stacked
+   layout's shard, the reports equal, a lookup and ``dense_reference``
+   after them bitwise on the replica's rows, each pass's
+   ``gather_decode`` launches = the rounds of its moves out of the arena
+   (no plan kernel in a pass), and the losses bitwise the stacked
+   layout's at ``(1, 4)`` and within rtol 1e-5 of the stacked ``(1, 2)``
+   layout's at ``(2, 2)``, on the same global batches.
 
-They run in the order 1-2, 18, 3-5b, 19a-19c, 5c-5e, 6-7b, 14a-14b, 15a-15c,
+They run in the order 1-2, 18, 3-5b, 19a-19e, 5c-5e, 6-7b, 14a-14b, 15a-15c,
 9-13, 16a-16e, 17a-17d, 5f-5h, 8.  Each phase's seconds are printed.  The last three
 lines are the
 ``kernels`` JSON, the card's name and power limit, and ``{"ok": true,
@@ -729,9 +760,10 @@ def time_threshold(live, max_err, launches_by_path):
     live key vectors (the DLRM serve plan's, FM's, the depth-3 lookahead's,
     the single table's, the Avazu DLRM's, DIN's and MIND's): back-to-back
     CUDA-event time (what a caller pays on the stream), summed device time
-    per call by op, and the kernel wrapper's host enqueue time.  Every
-    kernel call must show one device op and no memset.  The ``kernels``
-    line carries the DLRM key."""
+    per call by op (the plain version's and topk's on the DLRM key only,
+    whose row the ``kernels`` line carries), and the kernel wrapper's host
+    enqueue time.  Every kernel call must show one device op and no
+    memset."""
     from repro_torch.kernels.cache_ops import kernel
 
     rows = {}
@@ -743,7 +775,8 @@ def time_threshold(live, max_err, launches_by_path):
         ev = {name: cuda_ms(fn) for name, fn in calls.items()}
         dev, by_op = {}, {}
         for name, fn in calls.items():
-            dev[name], by_op[name] = device_ms(fn)
+            if name == "kernel" or what == "DLRM serve":
+                dev[name], by_op[name] = device_ms(fn)
         enqueue = host_ms(calls["kernel"])
         ops = by_op["kernel"]
         if len(ops) != 1 or any("emset" in op for op in ops):
@@ -2492,6 +2525,260 @@ def dist_nccl_phase(dev, vocab_scale, n_steps=NCCL_STEPS):
     return r["train_launches"]
 
 
+# 19d: the (data, model) mesh, served batches, serial steps and the pipelined group's depth
+DATA_SHAPE, DATA_SERVE, DATA_TRAIN, DATA_GROUP = (2, 2), 2, 3, 2
+# 19d's compact width: at 2 shards a full-width plan routes ~22 300 distinct rows to a shard
+# (5b's 44 610 over 4), past 19a's 16 384; 32 768 holds them
+DATA_WIDTH = 32768
+REHOME_SHAPES = ((2, 2), (1, 4))  # 19e: the (data, model) meshes
+REHOME_REFRESH = dict(max_swaps=4096, exchange_budget=1024)  # 19e's pass (5g's)
+
+
+def mem_available_gb() -> float:
+    """The host's ``MemAvailable`` now, GB."""
+    with open("/proc/meminfo") as f:
+        kb = next(int(line.split()[1]) for line in f if line.startswith("MemAvailable:"))
+    return kb * 1024 / 1e9
+
+
+def _legs_a_step(traffic, n):
+    """A rank's bytes sent a step (or batch), by leg and by axis."""
+    return {"model": traffic["bytes_sent"] / n, "data": traffic["data_bytes_sent"] / n,
+            "legs": {k: v / n for k, v in sorted(traffic["legs"].items())},
+            "collectives": (traffic["collectives"] + traffic["data_collectives"]) / n,
+            "host_ms": 1e3 * (traffic["seconds"] + traffic["data_seconds"]) / n}
+
+
+def dist_data_phase(vocab_scale):
+    """19d: phase 5b's DLRM (K 2048, fp32 exchange) with an int8-tiered arena
+    on a ``(data=2, model=2)`` mesh of four gloo ranks sharing the card,
+    each pinning its shard's half of the host table; the plan at the
+    compact width ``DATA_WIDTH``; torch's default mode.  Each data replica
+    feeds half of every global batch of 16 384: ``DATA_SERVE`` served
+    batches after a warm-up, a warm-up step, ``DATA_TRAIN`` serial steps, a
+    flush, then one ``PipelinedTrainer`` group of depth ``DATA_GROUP`` from
+    that state.  Checks every replica's shard state and every rank's
+    replicated leaves (MLPs, head, routing maps) bitwise equal, every
+    rank's losses and scores the same, cached = uncached logits, a plan's
+    1 threshold and 1 ``route_bucketize`` launch (the group's plan 1 and
+    2: its window routes in a second launch), ``gather_decode`` = the
+    rounds the plans imply."""
+    import torch_rank_jobs as rank_jobs
+
+    from repro_torch.dist import run
+
+    D, S = DATA_SHAPE
+    cfg = dataclasses.replace(_sharded_cfg(vocab_scale), model_shards=S, arena_precision="int8",
+                              max_routed_per_shard=DATA_WIDTH)
+    job = dict(cfg=cfg, serve=DATA_SERVE, warm_serve=True, check_dense=(TOL_RTOL, TOL_ATOL),
+               train=DATA_TRAIN, warm_train=True, group=DATA_GROUP, count=True, replicated=True,
+               digests=True)
+    log(f"19d: MemAvailable before spawning {mem_available_gb()} GB")
+    res = [r[0] for r in run.run_ranks(rank_jobs.dlrm_rank, D * S, "gloo", None, ([job],))]
+    r0 = res[0]
+    for r in res:
+        what = f"19d rank {r['rank']} (data {r['data_rank']}, shard {r['model_rank']})"
+        if not (np.isfinite(r["scores"]).all() and np.isfinite(r["losses"]).all()
+                and np.isfinite(r["pipe_losses"]).all()):
+            raise AssertionError(f"{what}: non-finite scores or losses")
+        if (not np.array_equal(r["scores"], r0["scores"]) or r["losses"] != r0["losses"]
+                or r["pipe_losses"] != r0["pipe_losses"]):
+            raise AssertionError(f"{what}: scores or losses differ from rank 0's: "
+                                 f"{r['losses']} {r['pipe_losses']} vs {r0['losses']} "
+                                 f"{r0['pipe_losses']}")
+        if r["replicated"] != r0["replicated"]:
+            bad = sorted(k for k in r0["replicated"] if r["replicated"][k] != r0["replicated"][k])
+            raise AssertionError(f"{what}: replicated leaves drifted from rank 0's: {bad}")
+        twin = next(x for x in res if x["model_rank"] == r["model_rank"])
+        if r["digests"] != twin["digests"]:
+            bad = sorted(k for k in twin["digests"] if r["digests"][k] != twin["digests"][k])
+            raise AssertionError(f"{what}: its shard differs from its data replica's: {bad}")
+        if not r["dense_close"]:
+            raise AssertionError(f"{what}: cached vs dense_reference logits differ by "
+                                 f"{r['dense_diff']}")
+        sl, tl, gl = r["serve_launches"], r["train_launches"], r["pipe_launches"]
+        rounds = r["rounds"]
+        for path, got, (thr, route) in (("serve", sl, (DATA_SERVE,) * 2),
+                                        ("train", tl, (DATA_TRAIN,) * 2),
+                                        ("group", gl, (1, 2))):
+            if (got["victim_threshold"], got["route_bucketize"], got["bucketize"]) != (
+                    thr, route, route):
+                raise AssertionError(f"{what} {path}: launches {got} (want {thr} threshold, "
+                                     f"{route} route_bucketize)")
+        if sl["gather_decode"] or tl["gather_decode"] != rounds["writeback"] + rounds["flush"] \
+                or not tl["gather_decode"] or tl["gather_decode_encode"]:
+            raise AssertionError(f"{what}: gather_decode {sl['gather_decode']} serving, "
+                                 f"{tl['gather_decode']} training; the plans imply {rounds}")
+    log(f"19d: ({D}, {S}) mesh of {D * S} gloo ranks on one card (they time-share it: no "
+        f"scaling figure), global batch {cfg.batch_size} ({cfg.batch_size // D} a replica), "
+        f"plan width {DATA_WIDTH}, torch's default mode; every replica's shard (arena, host "
+        f"slice, head, slot map) bitwise its twin's and the {len(r0['replicated'])} replicated "
+        f"leaves bitwise across the ranks; losses {r0['losses']}, group {r0['pipe_losses']}, "
+        f"scores the same on every rank; cached = dense_reference within rtol {TOL_RTOL} atol "
+        f"{TOL_ATOL} (max |diff| {max(r['dense_diff'] for r in res)}); a plan: 1 threshold, 1 "
+        f"route_bucketize (the group's: 1 and 2); gather_decode = the rounds "
+        f"{[r['rounds'] for r in res]}")
+    for r in res:
+        log(f"19d rank {r['rank']} (data {r['data_rank']}, shard {r['model_rank']}): init "
+            f"{r['init_s']} s, host slice {r['host_process_bytes'] / 1e9} GB pinned; serve ms "
+            f"{r['serve_ms']} p50 {np.percentile(r['serve_ms'], 50)}; train step ms "
+            f"{r['step_ms']} p50 {np.percentile(r['step_ms'], 50)}; the group's step ms "
+            f"{r['pipe_step_ms']} ({r['pipe_ms']} ms with its init); flush {r['flush_ms']} ms; "
+            f"sent a train step {json.dumps(_legs_a_step(r['train_traffic'], DATA_TRAIN))}; "
+            f"a served batch {json.dumps(_legs_a_step(r['serve_traffic'], DATA_SERVE))}; "
+            f"launches serve {r['serve_launches']} train {r['train_launches']} group "
+            f"{r['pipe_launches']}; RSS after init, serving, training, at the end {r['rss_gb']} "
+            f"GB, peak device memory {r['peak_device_gb']} GB")
+    log(f"19d card: {card_line()}")
+    return {k: sum(r["serve_launches"][k] + r["train_launches"][k] + r["pipe_launches"][k]
+                   for r in res) for k in r0["train_launches"]}
+
+
+def dist_rehome_phase(dev, vocab_scale=DIST_SCALE, n_steps=DIST_STEPS):
+    """19e: the refresh and the rebalance across ranks.  Gloo ranks sharing
+    the card at each ``REHOME_SHAPES`` mesh (19b's cut: vocab scale 0.02,
+    global batch 2 048, 3 steps; an int8-tiered arena over an fp32 host, so
+    the rows the passes move out of the arena go through ``gather_decode``;
+    K 2048; at ``(1, S)`` under ``deterministic()``) train, then make a refresh pass
+    (``REHOME_REFRESH``: ``exchange_budget`` metering the cross-shard
+    pairs; the replicated head made the coldest ranks first, so the pass
+    demotes it and the head pulls the promoted rows from their owners) and
+    a forced re-homing (threshold 0); the parent rebuilds the stacked
+    layout from the ranks' state before the passes and makes the same
+    passes.  Checks every rank's state after each pass (swaps, homes,
+    rows, host slices, trackers) bitwise the stacked layout's shard, the
+    reports equal, a lookup and ``dense_reference`` after the passes
+    bitwise the stacked layout's on the replica's rows; each pass's
+    ``gather_decode`` launches on every rank equal to the rounds of its
+    moves out of the arena (the swaps' write-backs, the re-homing's flush;
+    more than 0 in all), and no plan kernel inside a pass (the re-warm
+    loads the hottest ranks with no plan); the losses bitwise the stacked
+    layout's at ``(1, S)`` and within rtol 1e-5 of them at ``data > 1``, on
+    the same global batches."""
+    import torch_rank_jobs as rank_jobs
+
+    from repro_torch.core import refresh as refresh_lib
+    from repro_torch.dist import run
+    from repro_torch.dist.partitioning import sharded_paths
+    from repro_torch.models.dlrm import DLRM
+    from repro_torch.train import checkpoint as ckpt
+
+    digest = rank_jobs.digest
+    launches = {}
+    for D, S in REHOME_SHAPES:
+        cfg = dataclasses.replace(_scaled(vocab_scale), model_shards=S, replicate_top_k=REP_K,
+                                  batch_size=DIST_BATCH, arena_precision="int8")
+        # bitwise losses (D == 1) need deterministic mode; the passes are bitwise in either
+        job = dict(cfg=cfg, train=n_steps, flush=False, count=True, deterministic=D == 1,
+                   refresh=dict(cfg=REHOME_REFRESH, rebalance=0.0, digests=True, probe=99,
+                                cool_head=True))
+        t0 = time.perf_counter()
+        res = [r[0] for r in run.run_ranks(rank_jobs.dlrm_rank, D * S, "gloo", None, ([job],))]
+        t_ranks = time.perf_counter() - t0
+        for r in res:
+            for k in r["train_launches"]:
+                launches[k] = launches.get(k, 0) + sum(
+                    r[p][k] for p in ("train_launches", "refresh_launches", "rebalance_launches"))
+            for p in ("refresh", "rebalance"):
+                got, rounds = r[f"{p}_launches"], r[f"{p}_rounds"]
+                if (got["gather_decode"] != rounds or got["gather_decode_encode"]
+                        or got["victim_threshold"] or got["bucketize"]):
+                    raise AssertionError(f"19e ({D}, {S}) rank {r['rank']}: the {p} pass "
+                                         f"launched {got}; its moves out of the arena take "
+                                         f"{rounds} rounds")
+        if not (sum(r["refresh_rounds"] for r in res) and all(r["rebalance_rounds"] for r in res)):
+            raise AssertionError(f"19e ({D}, {S}): no gather_decode in the passes: refresh "
+                                 f"{[r['refresh_rounds'] for r in res]}, re-homing "
+                                 f"{[r['rebalance_rounds'] for r in res]} rounds")
+        model = DLRM(cfg)
+        coll = model.collection
+        state = model.init(0, device=dev)
+        split = sharded_paths(coll.shard_specs())
+        lead = sorted((r for r in res if r["data_rank"] == 0), key=lambda r: r["model_rank"])
+        for key, t in ckpt._flatten(state["emb"]):
+            parts = [r["refresh_before"][key] for r in lead]
+            t.copy_(torch.cat(parts) if key in split else parts[0])
+        emb, rep = coll.refresh(state["emb"], refresh_lib.RefreshConfig(**REHOME_REFRESH))
+        shard_after = {s: {k: digest(v[s:s + 1] if k in split else v)
+                           for k, v in ckpt._flatten(emb)} for s in range(S)}
+        emb, reb = coll.refresh(emb, refresh_lib.RefreshConfig(max_swaps=0,
+                                                               rebalance_threshold=0.0))
+        shard_reb = {s: {k: digest(v[s:s + 1] if k in split else v)
+                         for k, v in ckpt._flatten(emb)} for s in range(S)}
+        bspec = synth_spec(cfg)
+        b = {k: torch.from_numpy(v).to(dev) for k, v in
+             synth_batch(bspec, cfg.batch_size, 1, 99).items()}
+        fb = model.features(b)
+        dense = coll.dense_reference(emb, fb)
+        emb, _, rows = coll.lookup(emb, fb)
+        swaps, moves = rep.swaps["__shared__"], reb.rebalance_moves["__shared__"]
+        if not swaps or not moves or rep.cross_shard_rows["__shared__"] > \
+                REHOME_REFRESH["exchange_budget"]:
+            raise AssertionError(f"19e ({D}, {S}): swaps {rep}, re-homing {reb}")
+        bsz = cfg.batch_size // D
+        for r in res:
+            what = f"19e ({D}, {S}) rank {r['rank']}"
+            got_rep, got_reb = r["refresh_report"], r["rebalance_report"]
+            if (got_rep["swaps"], got_rep["deferred_swaps"], got_rep["cross_shard_rows"],
+                    got_reb["rebalance_moves"]) != (rep.swaps, rep.deferred_swaps,
+                                                    rep.cross_shard_rows, reb.rebalance_moves):
+                raise AssertionError(f"{what}: reports {got_rep} {got_reb} vs {rep} {reb}")
+            for name, whole, mine in (("refresh", shard_after, r["refresh_after"]),
+                                      ("rebalance", shard_reb, r["rebalance_after"])):
+                want = whole[r["model_rank"]]
+                bad = sorted(k for k in want if mine.get(k) != want[k])
+                if bad or set(mine) != set(want):
+                    raise AssertionError(f"{what}: after the {name} pass, leaves not bitwise "
+                                         f"the stacked layout's: {bad}")
+            lo = r["data_rank"] * bsz
+            for f in fb.features:
+                if not (torch.equal(r["probe_dense"][f], dense[f][lo:lo + bsz].cpu())
+                        and torch.equal(r["probe_rows"][f], rows[f][lo:lo + bsz].cpu())):
+                    raise AssertionError(f"{what}: lookup after the passes differs on {f}")
+        _close(dict(state, emb=emb))
+        del state, emb
+        gc.collect()
+        with deterministic() if D == 1 else contextlib.nullcontext():
+            _, st, losses, _ = _stacked_case(cfg, n_steps, dev)
+        _close(st)
+        del st
+        gc.collect()
+        for r in res:
+            if not (np.allclose(r["losses"], losses, rtol=1e-5, atol=0)
+                    and (D > 1 or r["losses"] == losses)):
+                raise AssertionError(f"19e ({D}, {S}) rank {r['rank']}: losses {r['losses']} "
+                                     f"vs the stacked layout's {losses}")
+        rel = max(abs(a / b - 1) for a, b in zip(res[0]["losses"], losses))
+        tol = (f"; losses {res[0]['losses']} " + (
+            f"within rtol 1e-5 of the (1, {S}) layout's {losses} (max rel {rel})" if D > 1
+            else "bitwise the stacked layout's"))
+        log(f"19e ({D}, {S}): {D * S} gloo ranks {t_ranks} s; a refresh pass ({swaps} swaps, "
+            f"{rep.deferred_swaps['__shared__']} deferred, {rep.cross_shard_rows['__shared__']} "
+            f"cross-shard rows of budget {REHOME_REFRESH['exchange_budget']}) and a forced "
+            f"re-homing ({moves} ranks moved): every rank's state after each pass bitwise the "
+            f"stacked layout's shard, the reports equal, the lookup and dense_reference after "
+            f"them bitwise{tol}; gather_decode in the passes = their rounds out of the arena "
+            f"(refresh {[r['refresh_rounds'] for r in res]}, re-homing "
+            f"{[r['rebalance_rounds'] for r in res]}), no plan kernel in them; a rank's ms: "
+            f"refresh {[r['refresh_ms'] for r in res]}, "
+            f"re-homing {[r['rebalance_ms'] for r in res]}; the re-homing sent a rank "
+            f"{[r['rebalance_traffic']['legs'] for r in res]} B")
+    log(f"19e card: {card_line()}")
+    return launches
+
+
+def synth_spec(cfg):
+    from repro_torch.data import synth
+
+    return synth.ZipfSparseSpec(vocab_sizes=cfg.vocab_sizes, n_dense=cfg.n_dense)
+
+
+def synth_batch(spec, batch, stream, step):
+    from repro_torch.data import synth
+
+    return synth.sparse_batch(spec, batch, stream, step)
+
+
 def _route_composition(uniq, rank_owner, rank_local, rep_k, s):
     """What the sharded plan's one route_bucketize launch (``route_image``)
     replaced: the route's torch ops, then the bucketize kernel; the image."""
@@ -3359,8 +3646,10 @@ def sharded_pipelined_crosscheck(dev, vocab_scale=0.02, n_steps=6, depth=2):
 # phases 5f-5h: the adaptive frequency refresh
 # ---------------------------------------------------------------------------
 
-REFRESH_STEPS, REFRESH_INTERVAL = 7, 4  # 5f: steps a run (9 before phase 19), the cadence
-REFRESH_SERVE_BATCHES, REFRESH_EVERY = 4, 2  # 5f: served batches (8 before 19), the cadence
+# 5f: steps a run and the cadence (7 and 4 before phases 19d-19e, 9 and 4 before 19a-19c:
+# at 3 a refresh still falls inside the serial run and at the depth-3 run's first boundary)
+REFRESH_STEPS, REFRESH_INTERVAL = 5, 3
+REFRESH_SERVE_BATCHES, REFRESH_EVERY = 3, 2  # 5f: served batches (4 before 19d, 8 before 19a)
 REFRESH_DRIFT = 3  # 5f / 5g: steps per popularity phase of the drifting stream
 SHARDED_SWAPS, EXCHANGE_BUDGET = 4096, 1024  # 5g: pairs a pass, cross-shard rows a pass
 # 5h: benchmarks/bench_drift.py's shapes (vocab, dim, batch, drift_every,
@@ -3504,6 +3793,32 @@ def _check_int8_flushed(coll, emb, slabs, what):
     return n
 
 
+@contextlib.contextmanager
+def _host_writes(out):
+    """Appends to ``out`` the name of each ``transmitter`` call made inside
+    that writes rows into a host table."""
+    from repro_torch.core import transmitter
+    from repro_torch.store.host_store import HostStore
+
+    move, write = transmitter.move_rows, transmitter.write_rows
+
+    def move_rows(src, dst, *a, **k):
+        if isinstance(dst, HostStore):
+            out.append("move_rows")
+        return move(src, dst, *a, **k)
+
+    def write_rows(rows, dst, *a, **k):
+        if isinstance(dst, HostStore):
+            out.append("write_rows")
+        return write(rows, dst, *a, **k)
+
+    transmitter.move_rows, transmitter.write_rows = move_rows, write_rows
+    try:
+        yield out
+    finally:
+        transmitter.move_rows, transmitter.write_rows = move, write
+
+
 def refresh_phase(dev, vocab_scale, n_steps=REFRESH_STEPS, n_serve=REFRESH_SERVE_BATCHES):
     """5f: the unsharded refresh at full width, on a drifting stream.
     Serving: an engine with ``refresh_every`` 2 against one without, scores
@@ -3521,6 +3836,7 @@ def refresh_phase(dev, vocab_scale, n_steps=REFRESH_STEPS, n_serve=REFRESH_SERVE
     from repro_torch.kernels.cache_ops import kernel
     from repro_torch.models.dlrm import DLRM
     from repro_torch.serve.engine import ServeEngine
+    from repro_torch.train import checkpoint as ckpt
     from repro_torch.train.trainer import PipelinedTrainer, Trainer, TrainerConfig
 
     cfg = _scaled(vocab_scale)
@@ -3532,25 +3848,49 @@ def refresh_phase(dev, vocab_scale, n_steps=REFRESH_STEPS, n_serve=REFRESH_SERVE
     launches = {}
 
     # --- serving: refresh_every 2 against no refresh, batch by batch -------
-    served = {}
+    served, first_hits = {}, {}
+    state = model.init(0, device=dev)
+    # serving with writeback=False and no refresh writes nothing to the host table
+    # (checked: no row move into it), so the refreshing engine starts from the same
+    # init: its device leaves restored (checked, and its first batch's hits and misses
+    # are the first engine's)
+    init_leaves = {k: v.clone() for k, v in ckpt._flatten(state) if ".full." not in k}
     for every in (None, REFRESH_EVERY):
         passes = []
-        state = model.init(0, device=dev)
+        if every:
+            for k, v in ckpt._flatten(state):
+                if k in init_leaves:
+                    v.copy_(init_leaves[k])
+            restored = dict(ckpt._flatten(state))
+            bad = sorted(k for k, v in init_leaves.items() if not torch.equal(restored[k], v))
+            if bad or {k for k in restored if ".full." not in k} != set(init_leaves):
+                raise AssertionError(f"refresh serve: device leaves not restored to the init: "
+                                     f"{bad}")
         engine = ServeEngine(
             model.serve_step, state, batch_size=cfg.batch_size, pad_example=pad, device=dev,
             state_stats_fn=lambda s: coll.metrics(s["emb"], writeback=False),
             refresh_fn=_timed_refresh(coll, passes, writeback=False) if every else None,
             refresh_every=every)
         kernel.victim_threshold.launches = 0
-        scores, lat = [], []
-        for b in batches[:n_serve]:
-            t0 = time.perf_counter()
-            scores.append(engine.score(b))
-            lat.append(1e3 * (time.perf_counter() - t0))
+        scores, lat, host_writes = [], [], []
+        with _host_writes(host_writes):
+            for i, b in enumerate(batches[:n_serve]):
+                t0 = time.perf_counter()
+                scores.append(engine.score(b))
+                lat.append(1e3 * (time.perf_counter() - t0))
+                if i == 0:  # after the clock: the counters' fetch
+                    m = coll.metrics(engine.state["emb"], writeback=False)
+                    first_hits[every] = (int(sum(m["slab_hits"].values())),
+                                        int(m["cache_misses"]))
         thr = kernel.victim_threshold.launches
+        if not every and host_writes:
+            raise AssertionError(f"refresh serve: serving with writeback=False wrote into the "
+                                 f"host table ({host_writes})")
         summary = engine.summary()
-        _close(engine.state)
-        del state, engine
+        if every:
+            _close(engine.state)
+            del state, init_leaves
+        del engine
         gc.collect()
         if thr != n_serve or not all(np.isfinite(s).all() for s in scores):
             raise AssertionError(f"refresh serve (every {every}): {thr} threshold launches for "
@@ -3571,8 +3911,12 @@ def refresh_phase(dev, vocab_scale, n_steps=REFRESH_STEPS, n_serve=REFRESH_SERVE
         if not np.array_equal(a, b):
             raise AssertionError(f"refresh serve: batch {i} scores differ (max |diff| "
                                  f"{np.abs(a - b).max()})")
+    if first_hits[None] != first_hits[REFRESH_EVERY]:
+        raise AssertionError(f"refresh serve: the engines' first batches (hits, misses) "
+                             f"{first_hits} differ: they did not start from one state")
     log(f"refresh serve: scores of all {n_serve} batches bitwise equal with and without the "
-        f"refresh")
+        f"refresh; no host row written by the first engine; both started from the init "
+        f"(first batch's hits, misses {first_hits[None]})")
 
     # --- training: deterministic runs, losses bitwise -------------------------
     def train(depth, interval, passes, init_fn, offset, steps):
@@ -3628,8 +3972,8 @@ def refresh_phase(dev, vocab_scale, n_steps=REFRESH_STEPS, n_serve=REFRESH_SERVE
     if runs["depth 3+refresh"] != runs["serial+refresh"]:
         raise AssertionError(f"refresh train: depth-3 losses {runs['depth 3+refresh']} != "
                              f"serial {runs['serial+refresh']}")
-    log("refresh train: losses with refresh_interval 4 bitwise those without, and the depth-3 "
-        "pipelined run's bitwise the serial run's (deterministic)")
+    log(f"refresh train: losses with refresh_interval {REFRESH_INTERVAL} bitwise those without, "
+        f"and the depth-3 pipelined run's bitwise the serial run's (deterministic)")
 
     # --- the int8 host tier and arena: dirty refreshes, flush, clean refresh
     cfg8 = dataclasses.replace(cfg, host_precision="int8", arena_precision="int8")
@@ -3681,7 +4025,10 @@ def refresh_phase(dev, vocab_scale, n_steps=REFRESH_STEPS, n_serve=REFRESH_SERVE
     return launches
 
 
-def sharded_refresh_phase(dev, vocab_scale, n_steps=4):
+SH_REFRESH_STEPS, SH_AFTER_STEPS = 3, 1  # 5g: steps before a pass and after it (4 and 2 before 19d)
+
+
+def sharded_refresh_phase(dev, vocab_scale, n_steps=SH_REFRESH_STEPS):
     """5g: phase 5b's fp32 4-shard DLRM trained on the drifting stream, a
     refresh with ``exchange_budget`` (``dense_reference`` after a flush
     bitwise before and after; cross-shard rows within the budget; swaps +
@@ -3751,7 +4098,8 @@ def sharded_refresh_phase(dev, vocab_scale, n_steps=4):
     if cross > EXCHANGE_BUDGET or swaps + deferred != unb or not swaps:
         raise AssertionError(f"sharded refresh: {swaps} swaps + {deferred} deferred vs {unb} "
                              f"unbudgeted; cross-shard rows {cross} of {EXCHANGE_BUDGET}")
-    state, after_losses = steps(model, dict(state, emb=emb), batches[n_steps:n_steps + 2])
+    state, after_losses = steps(model, dict(state, emb=emb),
+                                batches[n_steps:n_steps + SH_AFTER_STEPS])
     out["sharded"] = counts()
     if not (out["sharded"]["thr"] and out["sharded"]["bz"]) or (
             out["sharded"]["bz_fused"] != out["sharded"]["bz"]):
@@ -3761,8 +4109,8 @@ def sharded_refresh_phase(dev, vocab_scale, n_steps=4):
         f"{SHARDED_SWAPS} with exchange_budget {EXCHANGE_BUDGET}: {swaps} swaps ({deferred} "
         f"deferred; the unbudgeted plan {unb}), {rep.rows_moved[SHARED_ARENA]} rows moved, "
         f"{cross} cross-shard rows; {ms} ms (plan {clock.ms['plan']}, surgery "
-        f"{clock.ms['surgery']}); dense_reference bitwise before and after; 2 steps after it "
-        f"(losses {after_losses}); launches {out['sharded']}")
+        f"{clock.ms['surgery']}); dense_reference bitwise before and after; {SH_AFTER_STEPS} "
+        f"step(s) after it (losses {after_losses}); launches {out['sharded']}")
     _close(state)
     del state, emb
     gc.collect()
@@ -3810,7 +4158,8 @@ def sharded_refresh_phase(dev, vocab_scale, n_steps=4):
         raise AssertionError("rebalance: dense_reference changed across the re-homing")
     if not torch.allclose(logits, ref_logits, rtol=TOL_RTOL, atol=TOL_ATOL):
         raise AssertionError(f"rebalance: cached vs dense_reference logits differ by {diff}")
-    state, after_losses = steps(model, dict(state, emb=emb), batches[n_steps:n_steps + 2])
+    state, after_losses = steps(model, dict(state, emb=emb),
+                                batches[n_steps:n_steps + SH_AFTER_STEPS])
     out["rebalance"] = counts()
     r = out["rebalance"]
     if not all(r.values()) or (r["bz_fused"], r["gd_fused"]) != (r["bz"], r["gd"]):
@@ -3825,7 +4174,7 @@ def sharded_refresh_phase(dev, vocab_scale, n_steps=4):
         f"re-warm {clock.ms['rewarm']}); host RSS {rss0} GB before, peak {rss.peak} GB during "
         f"(sampled every 5 ms); dense_reference bitwise before and "
         f"after; served logits over the new homes = dense_reference logits (max |diff| "
-        f"{diff}); 2 steps after it (losses {after_losses}); launches "
+        f"{diff}); {SH_AFTER_STEPS} step(s) after it (losses {after_losses}); launches "
         f"{out['rebalance']}")
     _close(state)
     del state, emb
@@ -4988,7 +5337,8 @@ def gemma_phase(dev, cfg, s=GEMMA_S):
 
 TRAIN_S = 4096  # train_4k's length
 TRAIN_BATCHES = (8, 4, 2)  # 16a: the largest that fits, cut from train_4k's 256
-TRAIN_STEPS, TRAIN_INT8_STEPS = 3, 2  # 16a: timed steps with compressor none, then int8
+# 16a: timed steps with compressor none, then int8 (3 and 2 before phases 19d-19e)
+TRAIN_STEPS, TRAIN_INT8_STEPS = 2, 1
 FP32_TRAIN_LAYERS, FP32_TRAIN_B = 4, 2  # 16b: depth cut, batch (phase 11's)
 OLMOE_B, OLMOE_PREFILLS, OLMOE_NEW = 4, 3, 32  # 16c: prefills of B x S 4096, decode tokens
 OLMOE_TRAIN_LAYERS, OLMOE_TRAIN_B, OLMOE_TRAIN_STEPS = 4, 2, 2
@@ -6315,6 +6665,11 @@ def main():
     gc.collect()
     dist_c = timed("19c (one NCCL rank)", dist_nccl_phase, dev, args.vocab_scale)
     gc.collect()
+    dist_d = timed("19d ((data=2, model=2) gloo ranks sharing the card, full width)",
+                   dist_data_phase, args.vocab_scale)
+    gc.collect()
+    dist_e = timed("19e (the refresh and the rebalance across ranks)", dist_rehome_phase, dev)
+    gc.collect()
     torch.cuda.empty_cache()
     log(f"host RSS after phase 19 {rss_gb()} GB")
     budget = timed("5c (budget mode)", budget_phase, dev, args.vocab_scale, args.batches,
@@ -6406,12 +6761,19 @@ def main():
     })
     # the ranks' launches (each rank's wrappers counted, summed over the ranks)
     jobs["threshold"][2].update({"ranks_19a": dist_a["victim_threshold"],
-                                 "ranks_19c": dist_c["victim_threshold"]})
+                                 "ranks_19c": dist_c["victim_threshold"],
+                                 "ranks_19d": dist_d["victim_threshold"],
+                                 "ranks_19e": dist_e["victim_threshold"]})
     jobs["bucketize"][2].update({"ranks_19a": dist_a["bucketize"],
-                                 "ranks_19c": dist_c["bucketize"]})
+                                 "ranks_19c": dist_c["bucketize"],
+                                 "ranks_19d": dist_d["bucketize"],
+                                 "ranks_19e": dist_e["bucketize"]})
     jobs["bucketize"][3].update({"ranks_19a": dist_a["route_bucketize"],
-                                 "ranks_19c": dist_c["route_bucketize"]})
-    gd_paths.update({"ranks_19a": dist_a["gather_decode"], "ranks_19b": dist_b["gather_decode"]})
+                                 "ranks_19c": dist_c["route_bucketize"],
+                                 "ranks_19d": dist_d["route_bucketize"],
+                                 "ranks_19e": dist_e["route_bucketize"]})
+    gd_paths.update({"ranks_19a": dist_a["gather_decode"], "ranks_19b": dist_b["gather_decode"],
+                     "ranks_19d": dist_d["gather_decode"], "ranks_19e": dist_e["gather_decode"]})
     jobs["gather_decode_encode"][2]["ranks_19b"] = dist_b["gather_decode_encode"]
     del sharded, budget, fm_serve, fm_train, fm_rows, fm_chunk, fm_chunk_t, pipe, sh_budget
     del ce_run, avazu, recsys

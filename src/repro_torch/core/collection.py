@@ -496,6 +496,8 @@ class CollectionPlan:
     future_unresident: torch.Tensor = dataclasses.field(
         default_factory=lambda: torch.zeros((), dtype=torch.int32))
     writeback: bool = True
+    # the arena gradient's rows on the data axis: a sharded plan's at data > 1
+    grad_rows: Tuple[Dict[str, torch.Tensor], ...] = ()
 
 
 def draw_chunks(seed: Union[int, torch.Generator], vocab: int, dim: int, dtype: torch.dtype,

@@ -36,6 +36,16 @@ one shard the pass is bitwise the unsharded one.  ``apply_rebalance``
 re-homes every rank of a sharded slab (``ShardedEmbeddingCollection``'s
 ``rebalance_threshold``).
 
+Across ranks (``mesh=``, a ``dist.mesh.HybridMesh`` of more than one
+shard, each rank holding its shard's ``[1, ...]`` leaves) the pass is the
+same: the per-shard trackers cross the model group once
+(:func:`gathered_trackers`), every rank plans the same global permutation
+on the host, and the swaps and the re-homing become exchanges in which
+each owner sends the host rows (in the host codec's encoding, sideband
+included) and tracker entries that leave its homes
+(``dist.exchange.move_homes_``), copied, never summed.  Each rank's state
+stays shard ``model_rank`` of the stacked state's, bitwise.
+
 Planning is numpy and bitwise the reference's: ``plan_swaps`` selects the
 k coldest hot and k hottest cold ranks by an O(n) partition at the k-th
 score and sorts only those candidates, which gives the first k entries of
@@ -54,6 +64,8 @@ from repro_torch.core import cache as cache_lib
 from repro_torch.core import freq as freq_lib
 from repro_torch.core import transmitter
 from repro_torch.core.lanes import i32
+from repro_torch.dist import exchange
+from repro_torch.dist.mesh import HybridMesh
 from repro_torch.store.host_store import HostStore
 
 __all__ = [
@@ -63,6 +75,7 @@ __all__ = [
     "plan_cached",
     "plan_sharded",
     "homes",
+    "gathered_trackers",
     "sharded_scores",
     "apply_swaps",
     "apply_swaps_sharded",
@@ -294,6 +307,20 @@ def _per_shard(cache: cache_lib.CacheState, full: HostStore, s: int):
     return full.shard(s), _shard(cache, s)
 
 
+def _split(mesh: Optional[HybridMesh]) -> bool:
+    return mesh is not None and mesh.model > 1
+
+
+def _local_range(cache: cache_lib.CacheState, mesh: Optional[HybridMesh]
+                 ) -> Tuple[int, int, int]:
+    """``(S, first, L)``: the slab's shard count, the first shard this
+    process holds and how many it holds."""
+    L = int(cache.row_to_slot.shape[0])
+    if _split(mesh):
+        return mesh.model, mesh.model_rank, L
+    return L, 0, L
+
+
 @contract(int_counters=INT_COUNTERS, allowed_syncs=4)
 def apply_swaps_sharded(
     full: HostStore,
@@ -307,6 +334,7 @@ def apply_swaps_sharded(
     *,
     buffer_rows: int,
     writeback: bool,
+    mesh: Optional[HybridMesh] = None,
 ):
     """Sharded surgery of one swap set: per-shard write-back + invalidate
     on the views ``[s]`` of the stacked state, then the content exchange
@@ -317,26 +345,33 @@ def apply_swaps_sharded(
     its home before the exchange (which carries them to the promoted rank's
     old home); after it, the arena pulls the promoted rank's row and
     tracker slice from the swapped home.  Returns ``(full, cache', idx_map',
-    rep')``."""
-    S, vs = cache.row_to_slot.shape
+    rep')``.
+
+    Under a split ``mesh`` this process holds one shard: it writes back and
+    invalidates its own homes, pushes the demoted replicated rows whose
+    homes it owns, and the homes' contents cross between the ranks
+    (``exchange.move_homes_``); the arena pulls each promoted row and its
+    tracker slice from the rank that now holds it."""
+    S, base, L = _local_range(cache, mesh)
+    vs = int(cache.row_to_slot.shape[1])
     dev = cache.row_to_slot.device
     K = int(rep.rows.shape[0])
     involved = np.concatenate([a, b])
     inv_owner, inv_local = owner[involved], local[involved]
     r2s = cache.row_to_slot.clone()
     s2r = cache.slot_to_row.clone()
-    for s in range(S):
-        rows_s = torch.from_numpy(inv_local[inv_owner == s]).to(dev)
+    for i in range(L):
+        rows_s = torch.from_numpy(inv_local[inv_owner == base + i]).to(dev)
         if not rows_s.numel():
             continue
-        full_s, cache_s = _per_shard(cache, full, s)
+        full_s, cache_s = _per_shard(cache, full, i)
         slots = cache_s.row_to_slot.index_select(0, rows_s)
         act = slots >= 0
         if writeback:
             transmitter.move_rows(cache_s.cached_rows, full_s, slots, i32(rows_s), act,
                                   buffer_rows=buffer_rows)
-        r2s[s].index_fill_(0, rows_s, -1)
-        s2r[s][slots[act].long()] = -1
+        r2s[i].index_fill_(0, rows_s, -1)
+        s2r[i][slots[act].long()] = -1
     flat = _flat(full)
     tr = cache.tracker
     score = tr.score.reshape(-1).clone()
@@ -344,9 +379,10 @@ def apply_swaps_sharded(
     pa = owner[a] * vs + local[a]
     pb = owner[b] * vs + local[b]
     am = a < K  # demoted replicated ranks
-    if am.any():
-        src = torch.from_numpy(a[am]).to(dev)
-        dst = torch.from_numpy(pa[am]).to(dev)
+    push = am & (owner[a] >= base) & (owner[a] < base + L)  # ... whose homes are here
+    if push.any():
+        src = torch.from_numpy(a[push]).to(dev)
+        dst = torch.from_numpy(pa[push] - base * vs).to(dev)
         if writeback:
             transmitter.write_rows({"weight": rep.rows.index_select(0, src)}, flat, i32(dst),
                                    torch.ones(dst.shape, dtype=torch.bool, device=dev),
@@ -354,33 +390,64 @@ def apply_swaps_sharded(
         score[dst] = rep.score[src]
         last_touch[dst] = rep.last_touch[src]
     # swap host content (encoded) and tracker slices between the two homes
-    to = torch.from_numpy(np.concatenate([pa, pb]).astype(np.int64))
-    frm = torch.from_numpy(np.concatenate([pb, pa]).astype(np.int64))
-    _permute_store_(flat, to, frm)
-    score = _permuted(score, to, frm).reshape(S, vs)
-    last_touch = _permuted(last_touch, to, frm).reshape(S, vs)
+    to = np.concatenate([pa, pb]).astype(np.int64)
+    frm = np.concatenate([pb, pa]).astype(np.int64)
+    if _split(mesh):
+        exchange.move_homes_([*flat.data.values(), *flat.sideband.values(), score, last_touch],
+                             to, frm, vs, mesh, "refresh")
+    else:
+        to_t, frm_t = torch.from_numpy(to), torch.from_numpy(frm)
+        _permute_store_(flat, to_t, frm_t)
+        score = _permuted(score, to_t, frm_t)
+        last_touch = _permuted(last_touch, to_t, frm_t)
+    score = score.reshape(L, vs)
+    last_touch = last_touch.reshape(L, vs)
     # per-shard counter shares: swaps by the demoted rank's home, rows by
     # each changed home; both sum to the slab's totals
-    swaps_ps = torch.from_numpy(np.bincount(owner[a], minlength=S).astype(np.int32)).to(dev)
-    rows_ps = torch.from_numpy(np.bincount(inv_owner, minlength=S).astype(np.int32)).to(dev)
+    swaps_ps = np.bincount(owner[a], minlength=S).astype(np.int32)[base : base + L]
+    rows_ps = np.bincount(inv_owner, minlength=S).astype(np.int32)[base : base + L]
     tr = dataclasses.replace(tr, score=score, last_touch=last_touch,
-                             refresh_swaps=tr.refresh_swaps + swaps_ps,
-                             refresh_rows=tr.refresh_rows + rows_ps)
+                             refresh_swaps=tr.refresh_swaps + torch.from_numpy(swaps_ps).to(dev),
+                             refresh_rows=tr.refresh_rows + torch.from_numpy(rows_ps).to(dev))
     cache = dataclasses.replace(cache, row_to_slot=r2s, slot_to_row=s2r, tracker=tr)
     if am.any():
         # the home of each demoted rank now holds the promoted rank's content
         arena_dst = torch.from_numpy(a[am]).to(dev)
-        homes = torch.from_numpy(pa[am]).to(dev)
-        rows = rep.rows.clone()
-        transmitter.move_rows(flat, {"weight": rows}, i32(homes), i32(arena_dst),
-                              torch.ones(homes.shape, dtype=torch.bool, device=dev),
-                              buffer_rows=buffer_rows)
+        if _split(mesh):
+            rows, sc, lt = _owner_pull(flat, score, last_touch, owner[a[am]], pa[am], vs, mesh)
+            rows = rep.rows.index_copy(0, arena_dst, rows.to(rep.rows.dtype))
+        else:
+            homes_t = torch.from_numpy(pa[am]).to(dev)
+            rows = rep.rows.clone()
+            transmitter.move_rows(flat, {"weight": rows}, i32(homes_t), i32(arena_dst),
+                                  torch.ones(homes_t.shape, dtype=torch.bool, device=dev),
+                                  buffer_rows=buffer_rows)
+            sc, lt = score.reshape(-1)[homes_t], last_touch.reshape(-1)[homes_t]
         rep = dataclasses.replace(
-            rep, rows=rows,
-            score=rep.score.index_copy(0, arena_dst, score.reshape(-1)[homes]),
-            last_touch=rep.last_touch.index_copy(0, arena_dst, last_touch.reshape(-1)[homes]),
+            rep, rows=rows, score=rep.score.index_copy(0, arena_dst, sc),
+            last_touch=rep.last_touch.index_copy(0, arena_dst, lt),
         )
     return full, cache, _remap(idx_map, a, b), rep
+
+
+def _owner_pull(flat: HostStore, score: torch.Tensor, last_touch: torch.Tensor,
+                own: np.ndarray, homes: np.ndarray, vs: int, mesh: HybridMesh):
+    """Homes ``homes`` (owned by shards ``own``) decoded, with their tracker
+    entries, on every rank: each owner reads its own, and each lane is
+    copied from its owner (``exchange.owner_rows``)."""
+    s = mesh.model_rank
+    dev = score.device
+    mine = own == s
+    lh = torch.from_numpy(np.where(mine, homes - s * vs, -1))
+    rows = flat.decode_rows(lh)["weight"].to(dev)
+    at = torch.from_numpy(np.where(mine, homes - s * vs, 0)).to(dev)
+    ok = torch.from_numpy(mine).to(dev)
+    sc = torch.where(ok, score.reshape(-1)[at], 0.0)
+    lt = torch.where(ok, last_touch.reshape(-1)[at], 0)
+    leaves = [rows, sc, lt]
+    got = exchange.owner_rows(exchange.pack_rows(leaves, dev), torch.from_numpy(own).to(dev),
+                              mesh)
+    return exchange.unpack_rows(got, leaves)
 
 
 def homes(slab) -> Tuple[np.ndarray, np.ndarray]:
@@ -389,30 +456,51 @@ def homes(slab) -> Tuple[np.ndarray, np.ndarray]:
             _host_rows(slab.rank_local).astype(np.int64))
 
 
-def sharded_scores(slab, half_life: int, owner: np.ndarray, local: np.ndarray) -> np.ndarray:
+def gathered_trackers(slab, mesh: Optional[HybridMesh] = None
+                      ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Every shard's tracker on the host: ``(score [S, vs], last_touch [S,
+    vs], step [S])``.  Under a split ``mesh`` each rank's crosses the model
+    group once (one int32 row a rank: its plan clock, then its scores'
+    bits, then its last touches)."""
+    tr = slab.cache.tracker
+    if not _split(mesh):
+        return (_host_rows(tr.score), _host_rows(tr.last_touch),
+                _host_rows(slab.cache.step))
+    vs = int(tr.score.shape[1])
+    row = torch.cat([slab.cache.step.reshape(1).to(torch.int32),
+                     tr.score.reshape(-1).to(torch.float32).view(torch.int32),
+                     tr.last_touch.reshape(-1).to(torch.int32)])
+    g = _host_rows(exchange.all_gather(row, mesh, "trackers"))  # [S, 1 + 2 vs]
+    return (g[:, 1 : 1 + vs].copy().view(np.float32), g[:, 1 + vs :].copy(), g[:, 0].copy())
+
+
+def sharded_scores(slab, half_life: int, owner: np.ndarray, local: np.ndarray,
+                   mesh: Optional[HybridMesh] = None) -> np.ndarray:
     """Every rank's decayed mass (float64, rank order) read off the
     per-shard trackers at the ranks' homes ``(owner, local)``, each shard
-    as of its own plan clock."""
-    tr = slab.cache.tracker
-    steps = _host_rows(slab.cache.step).astype(np.float64)
-    local_scores = freq_lib.decayed_scores(_host_rows(tr.score), _host_rows(tr.last_touch),
-                                           steps[:, None], half_life)
+    as of its own plan clock (under a split ``mesh``, after the trackers
+    cross the model group)."""
+    score, last_touch, steps = gathered_trackers(slab, mesh)
+    local_scores = freq_lib.decayed_scores(score, last_touch,
+                                           steps.astype(np.float64)[:, None], half_life)
     return local_scores[owner, local]
 
 
 def plan_sharded(ccfg: cache_lib.CacheConfig, slab, cfg: RefreshConfig, owner: np.ndarray,
-                 local: np.ndarray) -> Tuple[np.ndarray, np.ndarray, int]:
+                 local: np.ndarray, mesh: Optional[HybridMesh] = None
+                 ) -> Tuple[np.ndarray, np.ndarray, int]:
     """The swap plan of a sharded slab whose ranks live at ``(owner,
     local)`` (:func:`homes`), global over its shards: every rank's mass read
     off its home shard's tracker (the replicated ranks' off the arena's),
     the hot set the ranks within their shard's capacity or replicated.
     With ``cfg.exchange_budget``, cross-shard pairs are kept while
     ``cumsum(cross) * 2 <= budget`` (same-shard pairs always); returns
-    ``(a, b, deferred)``, the pairs kept and the count deferred."""
+    ``(a, b, deferred)``, the pairs kept and the count deferred.  Every
+    rank of a split ``mesh`` makes the same plan."""
     rep = slab.rep
     K = int(rep.rows.shape[0])
     cap = int(slab.cache.slot_to_row.shape[1])
-    scores = sharded_scores(slab, ccfg.freq_half_life, owner, local)
+    scores = sharded_scores(slab, ccfg.freq_half_life, owner, local, mesh)
     if K:  # replicated ranks bypass the per-shard plans: their signal is the arena's
         scores[:K] = freq_lib.decayed_scores(_host_rows(rep.score), _host_rows(rep.last_touch),
                                              float(rep.step), ccfg.freq_half_life)
@@ -426,20 +514,21 @@ def plan_sharded(ccfg: cache_lib.CacheConfig, slab, cfg: RefreshConfig, owner: n
 
 
 def refresh_sharded_slab(
-    ccfg: cache_lib.CacheConfig, slab, cfg: RefreshConfig, writeback: bool = True
+    ccfg: cache_lib.CacheConfig, slab, cfg: RefreshConfig, writeback: bool = True,
+    mesh: Optional[HybridMesh] = None,
 ) -> Tuple[Any, Dict[str, int]]:
     """One refresh pass over a ``sharded.ShardedSlab``: :func:`plan_sharded`,
-    then :func:`apply_swaps_sharded`.  Homes stay fixed, so the balance
-    ``assign_devices`` gave the hot homes passes to whichever rows are hot
-    now."""
+    then :func:`apply_swaps_sharded` (across the ranks of a split
+    ``mesh``).  Homes stay fixed, so the balance ``assign_devices`` gave
+    the hot homes passes to whichever rows are hot now."""
     owner, local = homes(slab)
-    a, b, deferred = plan_sharded(ccfg, slab, cfg, owner, local)
+    a, b, deferred = plan_sharded(ccfg, slab, cfg, owner, local, mesh)
     if a.size == 0:
         return slab, {"swaps": 0, "rows_moved": 0, "cross_shard_rows": 0,
                       "deferred_swaps": deferred}
     full, new_cache, idx_map, new_rep = apply_swaps_sharded(
         slab.full, slab.cache, slab.idx_map, slab.rep, owner, local, a, b,
-        buffer_rows=ccfg.buffer_rows, writeback=writeback)
+        buffer_rows=ccfg.buffer_rows, writeback=writeback, mesh=mesh)
     new_slab = dataclasses.replace(slab, full=full, cache=new_cache, idx_map=idx_map,
                                    rep=new_rep)
     return new_slab, {
@@ -463,6 +552,7 @@ def apply_rebalance(
     *,
     buffer_rows: int,
     writeback: bool,
+    mesh: Optional[HybridMesh] = None,
 ) -> Tuple[HostStore, cache_lib.CacheState]:
     """Re-home surgery of one sharded slab: every shard writes its resident
     rows back (the dirty copy is authoritative) and drops all residency,
@@ -474,27 +564,36 @@ def apply_rebalance(
     the reference's full gather bit for bit: encoded payload and sideband
     move as they are.  ``idx_map`` is untouched (re-homing, not
     re-ranking); the caller installs the new homes and re-warms the
-    emptied caches."""
-    S, _ = cache.row_to_slot.shape
+    emptied caches.  Under a split ``mesh`` each rank writes back its own
+    shard, and a row that changes shard crosses from its old owner to its
+    new one (``exchange.move_homes_``)."""
+    _, _, L = _local_range(cache, mesh)
+    vs = int(cache.row_to_slot.shape[1])
     cap = cache.slot_to_row.shape[1]
     dev = cache.row_to_slot.device
-    for s in range(S):
-        full_s, cache_s = _per_shard(cache, full, s)
+    for i in range(L):
+        full_s, cache_s = _per_shard(cache, full, i)
         if writeback:
             rows = cache_s.slot_to_row
             slots = torch.arange(cap, dtype=torch.int32, device=dev)
             transmitter.move_rows(cache_s.cached_rows, full_s, slots, rows, rows >= 0,
                                   buffer_rows=buffer_rows)
     moved = np.flatnonzero(src_for_dest != np.arange(src_for_dest.size))
-    to = torch.from_numpy(moved.astype(np.int64))
-    frm = torch.from_numpy(src_for_dest[moved].astype(np.int64))
-    _permute_store_(_flat(full), to, frm)
     tr = cache.tracker
-    tr = dataclasses.replace(
-        tr,
-        score=_permuted(tr.score.reshape(-1), to, frm).reshape(tr.score.shape),
-        last_touch=_permuted(tr.last_touch.reshape(-1), to, frm).reshape(tr.last_touch.shape),
-    )
+    if _split(mesh):
+        flat = _flat(full)
+        score = tr.score.reshape(-1).clone()
+        last_touch = tr.last_touch.reshape(-1).clone()
+        exchange.move_homes_([*flat.data.values(), *flat.sideband.values(), score, last_touch],
+                             moved, src_for_dest[moved], vs, mesh, "rebalance")
+        score, last_touch = score.reshape(tr.score.shape), last_touch.reshape(tr.score.shape)
+    else:
+        to = torch.from_numpy(moved.astype(np.int64))
+        frm = torch.from_numpy(src_for_dest[moved].astype(np.int64))
+        _permute_store_(_flat(full), to, frm)
+        score = _permuted(tr.score.reshape(-1), to, frm).reshape(tr.score.shape)
+        last_touch = _permuted(tr.last_touch.reshape(-1), to, frm).reshape(tr.last_touch.shape)
+    tr = dataclasses.replace(tr, score=score, last_touch=last_touch)
     cache = dataclasses.replace(cache, slot_to_row=torch.full_like(cache.slot_to_row, -1),
                                 row_to_slot=torch.full_like(cache.row_to_slot, -1), tracker=tr)
     return full, cache

@@ -45,19 +45,25 @@ on the device.  The port keeps that layout on one card:
   ``rebalance_threshold`` it re-homes every rank of a slab whose live
   traffic has drifted out of balance.
 
-Under a mesh (``create(mesh=)``, ``dist.mesh.HybridMesh`` at ``data ==
-1``, ``model == S``) each process holds one shard: shard ``s =
-model_rank`` of every stacked leaf (its cache and arena, its ``[1, vs,
-dim]`` slice of the host table, pinned by that rank alone), with the
-leading shard dim kept, and the routing tables, the replicated head and
-the MLPs whole.  The per-shard loops run over the local shards only, the
-plans' slots and the gathered rows cross between ranks through
+Under a mesh (``create(mesh=)``, a ``dist.mesh.HybridMesh`` with ``model
+== S``) each process holds one shard: shard ``s = model_rank`` of every
+stacked leaf (its cache and arena, its ``[1, vs, dim]`` slice of the host
+table, pinned by that rank alone), with the leading shard dim kept, and
+the routing tables, the replicated head and the MLPs whole.  The
+per-shard loops run over the local shards only, the plans' slots and the
+gathered rows cross between the ranks of a data replica through
 ``dist.exchange`` (bitwise the stacked layout's), and ``metrics``
 all-gathers the per-shard counters, so that a rank reports what the
-stacked layout reports.  ``shard_specs`` gives the reference's partition
-spec of every leaf (``dist.partitioning``).  The refresh and rebalance
-across ranks, the lookahead window, the budget mode and ``pool`` raise
-under a mesh of more than one shard (ROADMAP item 13b).
+stacked layout reports.  At ``data > 1`` each replica holds ``1 / data``
+of the batch: ``plan_prepare`` gathers the ids over the data axis and
+plans the global batch (every replica of a shard keeps the same cache),
+a replica gathers rows for its own lanes, and the train step sums the
+gradients over the data axis in a fixed order (the arena's at the plan's
+``grad_rows`` only).  The lookahead window and the refresh and rebalance
+run across the ranks.  ``shard_specs`` gives
+the reference's partition spec of every leaf (``dist.partitioning``).
+The budget mode and ``pool`` raise under a mesh of more than one shard
+(ROADMAP item 13b).
 """
 from __future__ import annotations
 
@@ -224,6 +230,11 @@ class ShardedCollectionPlan:
     future_unresident: torch.Tensor = dataclasses.field(
         default_factory=lambda: torch.zeros((), dtype=torch.int32))
     writeback: bool = True
+    # at data > 1, for the step's batch and then each window batch: each cached
+    # slab's send list of its shard's distinct rows in the global plan (local
+    # arena slots, -1 a zero row), the rows its arena gradient crosses the
+    # data axis at (``pick_grad_rows``); empty otherwise
+    grad_rows: Tuple[Dict[str, torch.Tensor], ...] = ()
 
 
 class ShardedEmbeddingCollection(EmbeddingCollection):
@@ -245,10 +256,10 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
         if num_shards < 1:
             raise ValueError(f"num_shards must be >= 1, got {num_shards}")
         self.num_shards = int(num_shards)
-        if mesh is not None and (mesh.model != self.num_shards or mesh.data != 1):
+        if mesh is not None and mesh.model != self.num_shards:
             raise ValueError(f"a collection of {num_shards} shards on a (data={mesh.data}, "
                              f"model={mesh.model}) mesh: the model axis must be the shard "
-                             f"count, and data 1")
+                             f"count")
         # None: all S shards stacked in this process; a mesh: shard model_rank alone
         self.mesh = mesh
         self.local_shards: Tuple[int, ...] = (
@@ -553,14 +564,18 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
 
     def _lookup_combined(self, row_to_slot: torch.Tensor, owner: torch.Tensor,
                          local: torch.Tensor, cap: int) -> torch.Tensor:
-        """Combined address of each (owner, local) lane under the stacked
-        ``[S, vs]`` index image (-1 when not resident on its owner, or a
-        padding / replicated lane)."""
+        """Combined address of each (owner, local) lane under the local
+        shards' ``[L, vs]`` index images (-1 when not resident on its owner,
+        or a padding / replicated lane); under a split mesh each lane's
+        address comes from its owner's rank."""
         enc = torch.zeros(owner.shape, dtype=torch.int32, device=owner.device)
-        for s in range(self.num_shards):
-            slot = take_fill(row_to_slot[s], torch.where(owner == s, local, 0), -1)
+        for i, s in enumerate(self.local_shards):
+            slot = take_fill(row_to_slot[i], torch.where(owner == s, local, 0), -1)
             enc = enc + torch.where((owner == s) & (slot >= 0), s * cap + slot + 1, 0)
-        return i32(enc - 1)
+        out = i32(enc - 1)
+        if self._split():
+            out = exchange.owner_rows(out, torch.where(owner >= 0, owner, 0), self.mesh)
+        return out
 
     @staticmethod
     def _combine_slots(per_shard_slots: torch.Tensor, cap: int) -> torch.Tensor:
@@ -591,14 +606,23 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
         come from the planned index images (replicated lanes always
         resident), and ``future_unresident`` sums over the shards.
 
-        Under a mesh every rank routes the whole batch (the image is
-        replicated), plans its own shard, and the slot leg gathers every
-        shard's slots for the combined addresses."""
+        Under a mesh every rank routes its replica's whole batch (the image
+        is replicated), plans its own shard, and the slot leg gathers every
+        shard's slots for the combined addresses; a window lane's address
+        comes from its owner's index image.  At ``data > 1`` the batch and
+        the window are first gathered over the data axis into the global
+        batch (one collective), planned exactly as at ``data == 1``, and
+        the addresses returned are this replica's slice of the global ones;
+        ``grad_rows`` holds each batch's gradient rows.
+        Under a mesh at a compact width, a window lane past its shard's
+        ``W`` distinct rows (which the row leg would drop) counts as
+        unresident."""
         self._check_features(fb, *fb_future)
-        if fb_future:
-            self._refuse_split("the lookahead window")
         S = self.num_shards
-        addresses, *future_addresses = self._device_addresses((fb, *fb_future))
+        batches = self._global_batches((fb, *fb_future))
+        fb, fb_future = batches[0], batches[1:]
+        addresses, *future_addresses = self._device_addresses(batches)
+        grad_rows: List[Dict[str, torch.Tensor]] = [{} for _ in batches]
         unresident = []
         slab_plans: Dict[str, cache_lib.CachePlan] = {}
         routed: Dict[str, torch.Tensor] = {}
@@ -657,10 +681,7 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
             if K:
                 combined = torch.where(uniq < K, ncomb + uniq, combined)
             lane_addr = torch.where(rank >= 0, torch.index_select(combined, 0, pos), -1)
-            off = 0
-            for f, n in self._slab_lanes(fb, sname):
-                addresses[f] = lane_addr[off : off + n].reshape(fb.ids[f].shape)
-                off += n
+            self._scatter_lanes(addresses, grad_rows[0], fb, sname, lane_addr, cap)
             for j, (b, rank_j) in enumerate(zip(fb_future, fut_ranks)):
                 if rank_j is None:
                     continue
@@ -670,17 +691,97 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
                     slots_j = torch.where((rank_j >= 0) & (rank_j < K), ncomb + rank_j, slots_j)
                 # a replicated lane has l_j = -1: never unresident
                 unresident.append(((l_j >= 0) & (slots_j < 0)).sum())
-                off = 0
-                for f, n in self._slab_lanes(b, sname):
-                    future_addresses[j][f] = slots_j[off : off + n].reshape(b.ids[f].shape)
-                    off += n
+                dropped = self._scatter_lanes(future_addresses[j], grad_rows[j + 1], b, sname,
+                                              slots_j, cap, window=True)
+                if dropped is not None:
+                    unresident.append(dropped)
+        if self._data_split():
+            addresses, *future_addresses = [{f: self.mesh.data_slice(a) for f, a in addr.items()}
+                                             for addr in (addresses, *future_addresses)]
         plan = ShardedCollectionPlan(slab_plans=slab_plans, routed=routed, addresses=addresses,
                                      uniq_ranks=uniq_ranks,
                                      future_addresses=tuple(future_addresses),
+                                     grad_rows=tuple(grad_rows) if self._data_split() else (),
                                      writeback=writeback)
         if unresident:
             plan.future_unresident = i32(torch.stack(unresident).sum())
         return plan
+
+    def _scatter_lanes(self, addresses: Dict[str, torch.Tensor], grad_rows: Dict[str, torch.Tensor],
+                       fb: FeatureBatch, sname: str, lane_addr: torch.Tensor, cap: int,
+                       window: bool = False) -> Optional[torch.Tensor]:
+        """A slab's flat lane addresses into ``addresses`` by feature.  At
+        ``data > 1``, and for a window batch under a split mesh at a compact
+        width, the exchange's send list of the lanes
+        (:func:`exchange.compact_route`): its rows are the ones the shard's
+        arena gradient crosses the data axis at (``grad_rows``); returns the
+        live lanes past a shard's width (which the row leg would drop), or
+        None where nothing is computed."""
+        off = 0
+        for f, n in self._slab_lanes(fb, sname):
+            addresses[f] = lane_addr[off : off + n].reshape(fb.ids[f].shape)
+            off += n
+        W = self.max_routed_per_shard
+        if not self._data_split() and not (window and W and self._split()):
+            return None
+        n = int(lane_addr.shape[0])
+        ncomb = self.num_shards * cap
+        idx = torch.where(lane_addr < ncomb, lane_addr, -1)
+        width = W if 0 < W < n else min(cap, n)
+        send, pick = exchange.compact_route(idx, cap, width, self.mesh)
+        grad_rows[sname] = send
+        return i32(((idx >= 0) & (pick == width)).sum())
+
+    # ----- the data axis ------------------------------------------------------
+
+    def _data_split(self) -> bool:
+        """The batch is split over more than one data replica."""
+        return self.mesh is not None and self.mesh.data > 1
+
+    def _global_batches(self, fbs: Sequence[FeatureBatch]) -> List[FeatureBatch]:
+        """At ``data > 1``: each replica's feature batches gathered over the
+        data axis, in data-rank order, into the global batches (one
+        collective for all of them); else ``fbs``."""
+        fbs = list(fbs)
+        if not self._data_split():
+            return fbs
+        parts = [b.ids[f].reshape(-1).to(torch.int32) for b in fbs for f in b.features]
+        g = exchange.data_all_gather(torch.cat(parts), self.mesh, "ids")  # [D, N]
+        D, off, out = self.mesh.data, 0, []
+        for b in fbs:
+            ids = {}
+            for f in b.features:
+                t = b.ids[f]
+                ids[f] = g[:, off : off + t.numel()].reshape((D * t.shape[0],) + tuple(t.shape[1:]))
+                off += t.numel()
+            out.append(FeatureBatch(ids=ids))
+        return out
+
+    def pick_grad_rows(self, grads: Mapping[str, torch.Tensor],
+                       grad_rows: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The part of each weight gradient that crosses the data axis: a
+        cached slab's ``[1, capacity, dim]`` arena gradient at its shard's
+        distinct rows of the global plan (``grad_rows``, a plan's), never
+        the whole arena; any other weight's whole."""
+        return {k: take_fill(g[0], grad_rows[k], 0.0) if k in self.cached_slabs else g
+                for k, g in grads.items()}
+
+    def place_grad_rows(self, grads: Mapping[str, torch.Tensor], parts: Mapping[str, torch.Tensor],
+                        grad_rows: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Inverse of :meth:`pick_grad_rows` on the parts after the data
+        axis: an arena's rows scattered back into a zero gradient of its
+        shape (the rows are distinct; a -1 entry's zero row is dropped)."""
+        out = {}
+        for k, x in parts.items():
+            if k in self.cached_slabs:
+                g = grads[k]
+                cap = g.shape[1]
+                at = torch.where(grad_rows[k] >= 0, grad_rows[k], cap)
+                full = g.new_zeros((cap + 1,) + tuple(g.shape[2:]))
+                full.index_copy_(0, at, x)
+                x = full[:cap].unsqueeze(0)
+            out[k] = x
+        return out
 
     @contract(in_place=("state",), int_counters=INT_COUNTERS, max_sort_size=0, allowed_syncs=6)
     def apply_plan(self, state: CollectionState, plan: ShardedCollectionPlan
@@ -847,15 +948,20 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
         metered by ``cfg.exchange_budget`` (excess pairs defer to the next
         pass).  With ``cfg.rebalance_threshold``, a slab whose live
         imbalance exceeds it is re-homed after the swap pass.  With one
-        shard the pass is bitwise the unsharded refresh."""
-        self._refuse_split("the refresh")
+        shard the pass is bitwise the unsharded refresh.
+
+        Under a mesh the trackers cross the model group, every rank plans
+        the same permutation and the rows move between the ranks
+        (``core.refresh``): each rank's state stays its shard of the
+        stacked layout's, and the data replicas of a shard, which hold
+        equal trackers, make equal passes."""
         cfg = cfg or refresh_lib.RefreshConfig()
         slabs = dict(state.slabs)
         report = refresh_lib.RefreshReport()
         for sname, spec in self.cached_slabs.items():
             slabs[sname], stats = refresh_lib.refresh_sharded_slab(
                 self.shard_cache_config(spec, writeback=writeback), slabs[sname], cfg,
-                writeback=writeback)
+                writeback=writeback, mesh=self.mesh)
             if cfg.rebalance_threshold is not None:
                 slabs[sname], rstats = self._maybe_rebalance(sname, spec, slabs[sname], cfg,
                                                              writeback)
@@ -877,13 +983,15 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
         live scores gives every rank a new home, the slab's rows and
         trackers move there (``refresh.apply_rebalance``), each shard's
         cache is re-warmed and the new ``rank_owner`` / ``rank_local`` are
-        installed.  Pure data movement: lookups give the same values."""
-        self._refuse_split("the rebalance")
+        installed.  Pure data movement: lookups give the same values.
+        Under a mesh every rank reads the gathered trackers and makes the
+        same assignment; the rows cross between the ranks."""
         S = self.num_shards
         vs = self.rows_per_shard(spec)
         K = int(slab.rep.rows.shape[0])
         owner, local = refresh_lib.homes(slab)
-        scores = refresh_lib.sharded_scores(slab, spec.arena.freq_half_life, owner, local)
+        scores = refresh_lib.sharded_scores(slab, spec.arena.freq_half_life, owner, local,
+                                            self.mesh)
         scores[:K] = 0.0  # replicated ranks carry no routed traffic
         load = np.zeros((S,), np.float64)
         np.add.at(load, owner[K:], scores[K:])
@@ -902,9 +1010,10 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
         src_for_dest[new_flat] = old_flat
         full, cache = refresh_lib.apply_rebalance(slab.full, slab.cache, src_for_dest,
                                                   buffer_rows=spec.arena.buffer_rows,
-                                                  writeback=writeback)
+                                                  writeback=writeback, mesh=self.mesh)
         ccfg = self.shard_cache_config(spec, writeback=writeback)
-        warmed = [cache_lib.warmup(ccfg, full.shard(s), _shard(cache, s))[1] for s in range(S)]
+        warmed = [cache_lib.warmup(ccfg, full.shard(i), _shard(cache, i))[1]
+                  for i in range(len(self.local_shards))]
         self.assignments[sname] = assign
         stats["rebalance_moves"] = moved
         dev = slab.rank_owner.device
@@ -1049,7 +1158,7 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
                              *(getattr(tr, k) for k in self._TRACKER_COUNTERS),
                              slab.routed_lanes,
                              *(f.to(torch.float32).view(torch.int32) for f in floats)])
-            g = exchange.all_gather(row, self.mesh)  # [S, 12]
+            g = exchange.all_gather(row, self.mesh, "counters")  # [S, 12]
             cols = dict(zip(self._COUNTERS + self._TRACKER_COUNTERS + ("routed_lanes",)
                             + self._TRACKER_FLOATS + ("live",), g.unbind(1)))
             for k in self._TRACKER_FLOATS + ("live",):

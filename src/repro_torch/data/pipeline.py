@@ -10,6 +10,14 @@ BagPipe observation, arXiv 2202.12429): ``lookahead(k)`` shows the next k
 batches without consuming them, which is how the pipelined trainer plans a
 group's cache movement ahead.  ``make_batch`` may end a finite stream by
 raising ``StopIteration``.
+
+Under ranks (a ``data > 1`` mesh) each rank's prefetcher makes its data
+replica's slice of every batch (``HybridMesh.data_slice``), so
+``lookahead(k)`` shows the replica's slices of the next k batches; the
+sharded plan gathers the window's ids over the data axis, as it gathers
+the batch's.  Every replica must peek the same k (the gather is a
+collective): the batches are pure functions of (seed, step), so every
+replica's stream ends at the same step.
 """
 from __future__ import annotations
 

@@ -10,9 +10,10 @@ the reference launcher's config (MIND, the default, and DIN over histories
 of 50 from 200 000 items; a two-field DLRM); victim selection always goes
 through the bounded top-K route, whose threshold is the CUDA kernel on the
 card (bit-identical to the full argsort route).  ``--model-shards S``
-splits the DLRM's arena over S shards; ``--ranks S --backend {gloo,nccl}``
-puts one in each of S processes, as ``launch/train.py`` does: every rank
-scores each batch, rank 0 reports.
+splits the DLRM's arena over S shards; ``--ranks R --backend
+{gloo,nccl}`` puts one in each of R processes on a ``(data = R / S, model
+= S)`` mesh, as ``launch/train.py`` does: each data replica scores its
+slice of every batch, the slices' scores are gathered, rank 0 reports.
 """
 from __future__ import annotations
 
@@ -66,8 +67,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--model-shards", type=int, default=0,
                     help="dlrm-criteo: 0 = one collection; S = the arena split over S shards")
     ap.add_argument("--ranks", type=int, default=0,
-                    help="0 = one process; N = one cache shard a process (dlrm-criteo, N = "
-                         "--model-shards): N spawned ranks, or torchrun's world")
+                    help="0 = one process; R = one cache shard a process (dlrm-criteo, R a "
+                         "multiple of --model-shards S: a (data=R/S, model=S) mesh): R "
+                         "spawned ranks, or torchrun's world")
     ap.add_argument("--backend", default=None, choices=group.BACKENDS,
                     help="with --ranks: gloo (CPU ranks, or ranks sharing the card) or nccl "
                          "(one card a rank)")
@@ -155,6 +157,12 @@ def _serve(args, mesh: Optional[HybridMesh] = None, device=None) -> Dict[str, An
     if not lead:
         return summary
     print("stats:", summary)
+    if mesh is not None:
+        t = mesh.traffic
+        print(f"ranks: {mesh.world} on a (data={mesh.data}, model={mesh.model}) mesh; rank 0 "
+              f"sent {t.bytes_sent / 1e6:.2f} MB over the model axis and "
+              f"{t.data_bytes_sent / 1e6:.2f} MB over the data axis; bytes by leg "
+              f"{dict(sorted(t.legs.items()))}")
     print(f"cache hit rate: {summary['hit_rate']:.1%} | "
           f"host<->device traffic: {summary['host_wire_bytes']/1e6:.2f} MB")
     return summary

@@ -6,6 +6,7 @@ batches.
   PYTHONPATH=src python -m repro_torch.launch.train --arch din --steps 20 --pipeline-depth 2
   PYTHONPATH=src python -m repro_torch.launch.train --model-shards 4 --replicate-top-k 64
   PYTHONPATH=src python -m repro_torch.launch.train --model-shards 2 --ranks 2 --backend gloo --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --model-shards 2 --ranks 4 --backend gloo --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --pipeline-depth 2 --chunk-rows 8
   PYTHONPATH=src python -m repro_torch.launch.train --refresh-interval 5 --model-shards 4
   PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-avazu --cache-policy lru
@@ -24,13 +25,17 @@ neighbour-sampled blocks (256 seeds, fanouts 10 and 5) of a 20 000-node,
 100 000-edge random graph.  An LM or a GNN has no embedding cache: the cache
 flags exit.
 
-``--ranks N --backend {gloo,nccl}`` (dlrm archs, with ``--model-shards
-N``) runs the sharded DLRM one shard a process: the launcher refuses a
-world the backend cannot run before any rank starts, then spawns N ranks
+``--ranks R --backend {gloo,nccl}`` (dlrm archs, with ``--model-shards
+S``, ``R`` a multiple of ``S``) runs the sharded DLRM one shard a process
+on a ``(data = R / S, model = S)`` mesh: the launcher refuses a world the
+backend cannot run, and a global ``--batch`` that does not split over the
+``data`` replicas, before any rank starts, then spawns R ranks
 (``dist.run``; they meet through a ``FileStore`` in a temp dir), or, where
 ``RANK`` and ``WORLD_SIZE`` are set, joins torchrun's world as that rank.
-gloo runs CPU ranks (``--device cpu``) or ranks sharing the card(s); nccl
-one card a rank.
+Each rank draws the global batch from the seed and feeds its replica's
+rows.  ``--pipeline-depth`` and ``--refresh-interval`` run under ranks.
+gloo runs CPU ranks (``--device cpu``) or ranks sharing the card(s);
+nccl one card a rank.
 """
 from __future__ import annotations
 
@@ -44,7 +49,7 @@ import numpy as np
 from repro_torch.core.policies import Policy
 from repro_torch.data import graphs, synth
 from repro_torch.dist import group
-from repro_torch.dist.mesh import ITEM_13B, HybridMesh, check_mesh_shape
+from repro_torch.dist.mesh import HybridMesh, check_mesh_shape
 from repro_torch.launch.mesh import make_hybrid_mesh
 from repro_torch.models.dlrm import DLRM, DLRMConfig
 from repro_torch.models.gatedgcn import GatedGCNConfig, GatedGCNModel
@@ -171,8 +176,9 @@ def _parser() -> argparse.ArgumentParser:
                     help="cache eviction policy: freq_lfu = the paper's static frequency rank "
                          "(default), lru / uvm_row = recency, runtime_lfu = online counters")
     ap.add_argument("--ranks", type=int, default=0,
-                    help="0 = one process; N = one cache shard a process (dlrm archs, N = "
-                         "--model-shards): N spawned ranks, or torchrun's world")
+                    help="0 = one process; R = one cache shard a process (dlrm archs, R a "
+                         "multiple of --model-shards S: a (data=R/S, model=S) mesh): R "
+                         "spawned ranks, or torchrun's world")
     ap.add_argument("--backend", default=None, choices=group.BACKENDS,
                     help="with --ranks: gloo (CPU ranks, or ranks sharing the card) or nccl "
                          "(one card a rank)")
@@ -198,9 +204,10 @@ def check_ranks(args) -> None:
     except ValueError as e:
         raise SystemExit(f"--ranks {args.ranks} --model-shards {args.model_shards} --backend "
                          f"{args.backend}: {e}") from None
-    if getattr(args, "pipeline_depth", 0) or args.refresh_interval:
-        raise SystemExit(f"--ranks {args.ranks} with --pipeline-depth / --refresh-interval: the "
-                         f"lookahead window and the refresh across ranks wait for {ITEM_13B}")
+    data = args.ranks // args.model_shards
+    if args.batch % data:
+        raise SystemExit(f"--ranks {args.ranks} --model-shards {args.model_shards}: a global "
+                         f"--batch {args.batch} does not split over data={data} replicas")
 
 
 def main(argv=None):
@@ -275,9 +282,12 @@ def _train(args, mesh: Optional[HybridMesh] = None, device=None):
     print(f"host<->device traffic: {h[-1]['host_wire_bytes'] / 1e6:.1f} MB total")
     if mesh is not None:
         t = mesh.traffic
-        print(f"ranks: {mesh.world} ({mesh.backend}), one shard each; the exchange sent "
-              f"{t.bytes_sent / 1e6:.2f} MB from rank 0 in {t.collectives} collectives "
-              f"({t.seconds * 1e3:.1f} ms host time)")
+        print(f"ranks: {mesh.world} ({mesh.backend}) on a (data={mesh.data}, model="
+              f"{mesh.model}) mesh, one shard each; rank 0 sent {t.bytes_sent / 1e6:.2f} MB "
+              f"over the model axis in {t.collectives} collectives ({t.seconds * 1e3:.1f} ms "
+              f"host time) and {t.data_bytes_sent / 1e6:.2f} MB over the data axis in "
+              f"{t.data_collectives} ({t.data_seconds * 1e3:.1f} ms); bytes by leg "
+              f"{dict(sorted(t.legs.items()))}")
     if args.model_shards:
         print(f"hybrid parallel: {args.model_shards} shards, "
               f"exchange {h[-1]['exchange_bytes'] / 1e6:.1f} MB total "

@@ -15,13 +15,17 @@ dense parameters and ``collection.weights`` (the fast tier: each cached
 slab's arena and each DEVICE table, marked as autograd leaves), the
 optimizer steps the dense parameters, and ``apply_grads`` performs the
 synchronous row update with each slab's dense gradient (``[capacity, dim]``
-for an arena, ``[vocab, dim]`` for a DEVICE table).  The arena and the host table are updated in
-place, so a state passed to a step must not be used again.
+for an arena, ``[vocab, dim]`` for a DEVICE table).  Under a mesh of
+``data > 1`` replicas, each replica's gradients, loss, logits and labels
+cross the data axis before the update (``_data_mean``): every replica
+steps on the global batch's mean.  The arena
+and the host table are updated in place, so a state passed to a step
+must not be used again.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -29,6 +33,7 @@ from repro_torch.analysis.contracts import INT_COUNTERS, contract
 from repro_torch.core import cached_embedding as ce
 from repro_torch.core.collection import CollectionPlan, EmbeddingCollection, FeatureBatch
 from repro_torch.core.lanes import take_fill
+from repro_torch.dist import exchange
 from repro_torch.optim.optimizers import Optimizer, tree_map
 
 __all__ = [
@@ -129,6 +134,28 @@ class EmbTrainStep:
         return new_state, metrics
 
 
+def _data_mean(collection, mesh, p_grads, w_grads, loss, logits, labels, grad_rows):
+    """The global batch's mean from the data replicas' (``data > 1``), in
+    one collective over the data axis (``exchange.data_sum``): the dense
+    gradients, the loss and each weight's part (the arena's at the plan's
+    ``grad_rows``: ``pick_grad_rows``) summed in data-rank order and scaled
+    by ``1 / data`` (a replica's loss is the mean over its ``B / data``
+    rows), the logits and labels gathered.  The same bits on every
+    replica."""
+    if grad_rows is None:
+        raise ValueError(f"a step on {mesh.data} data replicas needs its plan's grad_rows")
+    dense = _leaves(p_grads)
+    parts = collection.pick_grad_rows(w_grads, grad_rows)
+    sums, (logits, labels) = exchange.data_sum(dense + [loss] + list(parts.values()), mesh,
+                                               (logits, labels))
+    sums = [torch.div(x, mesh.data) for x in sums]
+    it = iter(sums[: len(dense)])
+    p_grads = tree_map(lambda _: next(it), p_grads)
+    w_grads = collection.place_grad_rows(w_grads, dict(zip(parts, sums[len(dense) + 1 :])),
+                                         grad_rows)
+    return p_grads, w_grads, sums[len(dense)], logits, labels
+
+
 @dataclasses.dataclass(frozen=True)
 class CollectionTrainStep:
     """Train step over an ``EmbeddingCollection``, fused (``__call__``) and
@@ -167,9 +194,11 @@ class CollectionTrainStep:
         state: Dict[str, Any],
         batch: Dict[str, torch.Tensor],
         addresses: Dict[str, torch.Tensor],
+        grad_rows: Optional[Dict[str, torch.Tensor]] = None,
     ):
         """Dense fwd/bwd + optimizer + synchronous row update, given the
-        addresses planned for ``batch`` (whose rows are resident)."""
+        addresses planned for ``batch`` (whose rows are resident) and, at
+        ``data > 1``, the plan's ``grad_rows`` for it."""
         fb = self.features(batch)
         emb_state = state["emb"]
         params = tree_map(lambda p: p.detach().requires_grad_(), state["params"])
@@ -177,16 +206,22 @@ class CollectionTrainStep:
                    for k, w in self.collection.weights(emb_state).items()}
         rows = self.collection.gather(weights, addresses, fb)
         logits = self.fwd(params, rows, batch)
-        loss = self.loss(logits, batch["label"])
+        labels = batch["label"]
+        loss = self.loss(logits, labels)
         p_grads, w_list = _grads(loss, params, list(weights.values()))
         w_grads = dict(zip(weights, w_list))
+        loss, logits = loss.detach(), logits.detach()
+        mesh = getattr(self.collection, "mesh", None)
+        if mesh is not None and mesh.data > 1:
+            p_grads, w_grads, loss, logits, labels = _data_mean(
+                self.collection, mesh, p_grads, w_grads, loss, logits, labels, grad_rows)
         new_params, opt_state = self.optimizer.update(
             p_grads, state["opt"], state["params"], state["step"]
         )
         emb_state = self.collection.apply_grads(emb_state, w_grads, self.emb_lr)
         metrics = {
-            "loss": loss.detach(),
-            "auc": auc_proxy(logits, batch["label"]),
+            "loss": loss,
+            "auc": auc_proxy(logits, labels),
             **self.collection.metrics(emb_state),
         }
         new_state = dict(state, params=new_params, opt=opt_state, emb=emb_state,
@@ -196,7 +231,8 @@ class CollectionTrainStep:
     def __call__(self, state: Dict[str, Any], batch: Dict[str, torch.Tensor]):
         plan = self.plan_step(state, batch)
         state = self.apply_step(state, plan)
-        return self.compute_step(state, batch, plan.addresses)
+        return self.compute_step(state, batch, plan.addresses,
+                                 plan.grad_rows[0] if plan.grad_rows else None)
 
 
 class CollectionModelMixin:
@@ -227,8 +263,8 @@ class CollectionModelMixin:
     def apply_step(self, state, plan):
         return self._train_step().apply_step(state, plan)
 
-    def compute_step(self, state, batch, addresses):
-        return self._train_step().compute_step(state, batch, addresses)
+    def compute_step(self, state, batch, addresses, grad_rows=None):
+        return self._train_step().compute_step(state, batch, addresses, grad_rows)
 
     def refresh(self, state, cfg=None, writeback: bool = True):
         """Adaptive frequency refresh: re-rank the collection's cached slabs

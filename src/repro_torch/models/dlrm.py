@@ -15,7 +15,9 @@ arena is fp32 or frequency-tiered (``arena_precision`` fp16 / int8 /
 auto), the host tier fp32 or encoded (``host_precision`` fp16 / int8 /
 auto).  ``DLRM(cfg, mesh=)`` puts one shard in this process (hybrid
 parallel over ranks, ``dist.mesh``); the MLPs are replicas, made the
-same on every rank by a broadcast from model rank 0.  ``use_pallas_plan`` and ``chunk_rows`` reach every cached slab
+same on every rank by a broadcast from rank 0 over the world, and
+``cfg.batch_size`` is the global batch (a data replica feeds ``1 /
+data`` of it).  ``use_pallas_plan`` and ``chunk_rows`` reach every cached slab
 (the reference sets them on the shared arena only; each is bit-identical
 either way).  The
 model computes in fp32; float32 matmuls run in full fp32 (``allow_tf32``
@@ -129,7 +131,7 @@ class DLRM(common.CollectionModelMixin):
         """Random weights from ``seed`` (the MLPs from ``seed``, the table
         from ``seed + 1``) on ``device`` (the CUDA card unless told
         otherwise; no silent CPU fallback).  Under a mesh the MLPs are
-        model rank 0's on every rank."""
+        rank 0's on every rank of the world."""
         cfg = self.cfg
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(int(seed))

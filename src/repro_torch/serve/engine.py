@@ -11,9 +11,12 @@ With ``refresh_fn`` / ``refresh_every`` the engine re-ranks its cache
 every N scored batches, between batches and never inside ``score``'s
 span: scores are unchanged (pure reindexing), only hit rates move.
 With a ``mesh`` (hybrid parallel over ranks, one shard a rank) every rank
-scores each batch (the lookup's exchange needs them all) and the scores are
-the same on each; model rank 0's are the response, and only rank 0 writes
-the observability stream.
+scores each batch (the lookup's exchange needs them all).  At ``data ==
+1`` the scores are the same on each; at ``data > 1`` each data replica
+scores its own slice of the padded batch and the slices' scores are
+gathered over the data axis, so every rank, the lead among them, holds
+the whole batch's.  Rank 0's scores are the response, and only rank 0
+writes the observability stream.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.dist import exchange
 from repro_torch.dist.mesh import HybridMesh
 from repro_torch.obs import NULL_TRACER, FixedHistogram, MetricsHub, Tracer
 
@@ -150,7 +154,12 @@ class ServeEngine:
             raise ValueError(f"batch of {n} exceeds the engine's {self.batch_size}: split upstream")
         t0 = time.perf_counter()
         with self.tracer.span("score"):
-            scores, emb_state = self.score_fn(self.state, self._pad(batch, n))
+            padded = self._pad(batch, n)
+            if self.mesh is not None:  # this replica's slice; then every replica's scores
+                padded = {k: self.mesh.data_slice(v) for k, v in padded.items()}
+            scores, emb_state = self.score_fn(self.state, padded)
+            if self.mesh is not None:
+                scores = exchange.data_all_gather(scores, self.mesh, "scores").flatten(0, 1)
             scores = scores.cpu().numpy()[:n]
         if emb_state is not None:  # cache stays warm across requests
             self.state = dict(self.state, emb=emb_state)

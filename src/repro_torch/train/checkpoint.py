@@ -28,12 +28,13 @@ flag) and private fields are structure, not leaves.
   synchronously (the arena and the host table change in place afterwards)
   and writes them on a background thread.
 * ranks — under a hybrid mesh (``mesh=``, with the state's partition
-  ``specs``) each rank writes its shard's leaves (those whose spec splits
-  over the model axis, ``[1, ...]`` on the rank) under
-  ``step_N/shard_<s>/``, and rank 0 writes the replicated leaves and the
-  manifest, which lists the split keys and the shard count; the ranks
-  meet at a barrier before rank 0 publishes and again after, so the save
-  is a collective (``save_async`` saves in place under a mesh).  ``restore``
+  ``specs``) data rank 0 of each shard writes the shard's leaves (those
+  whose spec splits over the model axis, ``[1, ...]`` on the rank) under
+  ``step_N/shard_<s>/`` (the other data replicas hold equal copies), and
+  rank 0 writes the replicated leaves and the manifest, which lists the
+  split keys and the shard count; the whole world meets at a barrier
+  before rank 0 publishes and again after, so the save is a collective
+  (``save_async`` saves in place under a mesh).  ``restore``
   reads either layout into either template: a rank's own shard, or every
   shard concatenated into one process's stacked ``[S, ...]`` leaves, or a
   stacked checkpoint's leaf sliced to the rank's ``[1, ...]`` (the
@@ -116,18 +117,20 @@ def _write(directory: pathlib.Path, step: int, leaves, keep: int) -> pathlib.Pat
 
 def _write_ranked(directory: pathlib.Path, step: int, leaves, keep: int, mesh: HybridMesh,
                   sharded: set) -> pathlib.Path:
-    """A rank's part of a split save: its shard's leaves under
-    ``shard_<s>/``; rank 0 also the replicated leaves, the manifest and the
-    publish, between two barriers."""
+    """A rank's part of a split save: data rank 0 of each shard writes the
+    shard's leaves under ``shard_<s>/``; rank 0 also the replicated
+    leaves, the manifest and the publish, between two barriers of the
+    world."""
     final = directory / f"step_{step:09d}"
     tmp = directory / f"step_{step:09d}.tmp"
-    mine = tmp / f"shard_{mesh.model_rank:04d}"
-    if mine.exists():
-        shutil.rmtree(mine)
-    mine.mkdir(parents=True)
-    _write_leaves(mine, step, [(k, a) for k, a in leaves if k in sharded])
+    if mesh.data_rank == 0:
+        mine = tmp / f"shard_{mesh.model_rank:04d}"
+        if mine.exists():
+            shutil.rmtree(mine)
+        mine.mkdir(parents=True)
+        _write_leaves(mine, step, [(k, a) for k, a in leaves if k in sharded])
     _barrier(mesh)  # every shard is on disk
-    if mesh.model_rank == 0:
+    if mesh.rank == 0:
         keys = sorted(k for k, _ in leaves if k in sharded)
         _write_leaves(tmp, step, [(k, a) for k, a in leaves if k not in sharded],
                       {"shards": mesh.model, "sharded": keys})
@@ -137,8 +140,8 @@ def _write_ranked(directory: pathlib.Path, step: int, leaves, keep: int, mesh: H
 
 
 def _barrier(mesh: HybridMesh) -> None:
-    if mesh.group is not None:
-        dist.barrier(group=mesh.group)
+    if mesh.group is not None:  # the world: every data replica of every shard
+        dist.barrier()
 
 
 def _publish(directory: pathlib.Path, final: pathlib.Path, tmp: pathlib.Path,

@@ -23,7 +23,10 @@ the host blocks on any loss of this one.
 * ranks — with a ``mesh`` (``dist.mesh.HybridMesh``) every rank of the
   hybrid-parallel world steps, saves its shard of each checkpoint and
   resumes from it (``state_specs`` says which leaves are split); only
-  model rank 0 writes the observability stream and reports stragglers.
+  rank 0 writes the observability stream and reports stragglers.  At
+  ``data > 1`` ``make_batch`` gives the global batch and each rank feeds
+  its replica's rows ``[d * B / data, (d + 1) * B / data)`` (the
+  prefetcher, and with it the lookahead, holds the slices).
 The trainers run on the CUDA card unless given ``device="cpu"``.
 """
 from __future__ import annotations
@@ -141,6 +144,13 @@ class Trainer:
         )
         self.trace_path: Optional[str] = None
 
+    def _feed(self, step: int) -> Dict[str, torch.Tensor]:
+        """Step ``step``'s batch (this replica's slice of it) on the device."""
+        batch = self.make_batch(step)
+        if self.mesh is not None:
+            batch = {k: self.mesh.data_slice(v) for k, v in batch.items()}
+        return _to_device(batch, self.device)
+
     def _bootstrap(self):
         state = self.init_fn()
         start = 0
@@ -207,8 +217,7 @@ class Trainer:
         if start >= cfg.max_steps:
             self._finish_obs()
             return state
-        prefetch = Prefetcher(lambda s: _to_device(self.make_batch(s), self.device),
-                              start_step=start, depth=cfg.prefetch_depth)
+        prefetch = Prefetcher(self._feed, start_step=start, depth=cfg.prefetch_depth)
         try:
             for step_i, batch in prefetch:
                 if step_i >= cfg.max_steps:
@@ -236,8 +245,9 @@ class PipelinedTrainer(Trainer):
     * ``plan_fn(state, batch, future_batches) -> plan``: weight-free dedup,
       slot assignment and movement plan, with the window's ids merged in
       (their rows load early and stay pinned until used);
-    * ``compute_fn(state, batch, addresses) -> (state, metrics)``: the dense
-      forward and backward, the optimizer and the row update;
+    * ``compute_fn(state, batch, addresses, grad_rows) -> (state,
+      metrics)``: the dense forward and backward, the optimizer and the row
+      update (``grad_rows``: the plan's for the batch, or None);
     * ``apply_fn(state, plan) -> state``: the planned row movement.
 
     Steps run in groups of ``pipeline_depth``: one merged plan admits the
@@ -271,7 +281,7 @@ class PipelinedTrainer(Trainer):
         cfg: TrainerConfig,
         init_fn: Callable[[], Any],
         plan_fn: Callable[[Any, Dict, tuple], Any],  # (state, batch, window) -> plan
-        compute_fn: Callable[[Any, Dict, Any], Any],  # (state, batch, addresses)
+        compute_fn: Callable[[Any, Dict, Any, Any], Any],  # (state, batch, addresses, rows)
         apply_fn: Callable[[Any, Any], Any],  # (state, plan) -> state
         make_batch: Callable[[int], Dict],
         flush_fn: Optional[Callable[[Any], Any]] = None,
@@ -323,8 +333,7 @@ class PipelinedTrainer(Trainer):
         if start >= cfg.max_steps:
             self._finish_obs()
             return state
-        prefetch = Prefetcher(lambda s: _to_device(self.make_batch(s), self.device),
-                              start_step=start, depth=max(cfg.prefetch_depth, depth))
+        prefetch = Prefetcher(self._feed, start_step=start, depth=max(cfg.prefetch_depth, depth))
         try:
             group = self._take(prefetch, min(depth, cfg.max_steps - start))
             if not group:  # the stream ended before the first step
@@ -337,6 +346,7 @@ class PipelinedTrainer(Trainer):
             next_refresh_at = (start // every + 1) * every if every else None
             while group:
                 addrs = (plan.addresses,) + tuple(plan.future_addresses)
+                rows = plan.grad_rows or (None,) * len(addrs)
                 plan = None
                 last = group[-1][0]
                 n_next = min(depth, cfg.max_steps - (last + 1))
@@ -351,7 +361,7 @@ class PipelinedTrainer(Trainer):
                         if peek:
                             plan = self._plan(state, peek)
                     with self.tracer.span("compute"):
-                        state, metrics = self.compute_fn(state, batch, addrs[j])
+                        state, metrics = self.compute_fn(state, batch, addrs[j], rows[j])
                     if j == len(group) - 1 and plan is not None:
                         # after the group's last row update: evictions write back fresh rows
                         with self.tracer.span("apply"):

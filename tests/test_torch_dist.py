@@ -104,8 +104,9 @@ def _port_run(cfg, steps=STEPS, state=None, stream=1, serve=0):
                                      (2, 8)])
 def test_mesh_shape_and_errors_match_reference(model, n):
     """The reference refuses a device count that does not divide into the
-    shard count; the port refuses the same ranks, and ``data > 1`` too
-    (item 13b).  A coordinate-only mesh sits at (0, model_rank)."""
+    shard count; the port refuses the same ranks and builds the rest as a
+    ``(data = n / model, model)`` mesh: rank ``r`` at ``(r // model, r %
+    model)``, as a coordinate-only mesh of each rank says."""
     try:
         jax_make_hybrid_mesh(model, n)
         ref = "built"
@@ -114,14 +115,18 @@ def test_mesh_shape_and_errors_match_reference(model, n):
     if ref == "indivisible":
         with pytest.raises(ValueError, match="not divisible"):
             check_mesh_shape(model, n)
-    elif n // model > 1:
-        with pytest.raises(ValueError, match="item 13b"):
-            check_mesh_shape(model, n)
     else:
         check_mesh_shape(model, n)
-        for s in range(model):
-            m = HybridMesh.coordinate(model, s)
-            assert (m.coords, m.model_rank, m.world, m.group) == ((0, s), s, model, None)
+        data = n // model
+        for r in range(n):
+            m = HybridMesh.coordinate(model, r % model, r // model, data)
+            assert (m.coords, m.model_rank, m.data_rank, m.rank, m.world, m.group,
+                    m.data_group) == ((r // model, r % model), r % model, r // model, r, n,
+                                      None, None)
+        if data == 1:
+            for s in range(model):
+                m = HybridMesh.coordinate(model, s)
+                assert (m.coords, m.model_rank, m.world) == ((0, s), s, model)
     assert hybrid_rules() == {"batch": ("data",), "shard": ("model",)}
 
 
@@ -188,6 +193,9 @@ def test_rank_init_is_the_stacked_shard_bitwise(S, kw):
 
 
 def test_item_13b_surfaces_raise_under_a_mesh():
+    """The budget mode and ``pool`` still raise under a mesh of more than
+    one shard, naming item 13b; the refresh, the rebalance, the lookahead
+    and ``data > 1`` run (``tests/test_torch_dist_data.py``)."""
     mesh = HybridMesh.coordinate(2, 1)
     tables = [col.TableConfig("big", vocab=512, dim=8, ids_per_step=16),
               col.TableConfig("small", vocab=96, dim=8, ids_per_step=16)]
@@ -195,12 +203,7 @@ def test_item_13b_surfaces_raise_under_a_mesh():
     state = coll.init(0, device="cpu")
     fb = FeatureBatch(ids={"big": torch.arange(16, dtype=torch.int32),
                            "small": torch.arange(16, dtype=torch.int32)})
-    for what, fn in (("refresh", lambda: coll.refresh(state)),
-                     ("rebalance", lambda: coll._maybe_rebalance(
-                         SHARED_ARENA, coll.cached_slabs[SHARED_ARENA],
-                         state.slabs[SHARED_ARENA], None, True)),
-                     ("lookahead", lambda: coll.plan_prepare(state, fb, fb_future=(fb,))),
-                     ("pool", lambda: coll.pool({}, fb)),
+    for what, fn in (("pool", lambda: coll.pool({}, fb)),
                      ("budget", lambda: ShardedEmbeddingCollection.create(
                          tables, num_shards=2, budget_bytes=20_000, mesh=mesh))):
         with pytest.raises(ValueError, match="item 13b"):
@@ -209,8 +212,11 @@ def test_item_13b_surfaces_raise_under_a_mesh():
         ShardedEmbeddingCollection.create(tables, num_shards=4, mesh=mesh)
     with pytest.raises(ValueError, match="no process group"):
         coll.plan_prepare(state, fb)  # a coordinate alone cannot exchange
-    with pytest.raises(ValueError, match="item 13b"):
-        check_mesh_shape(2, 4)
+    with pytest.raises(ValueError, match="no data group"):  # nor over the data axis
+        ShardedEmbeddingCollection.create(
+            tables, num_shards=2, cache_ratio=0.2,
+            mesh=HybridMesh.coordinate(2, 1, 1)).plan_prepare(state, fb)
+    check_mesh_shape(2, 4)  # a (data=2, model=2) mesh
 
 
 @pytest.mark.parametrize("S,cap,width", [(1, 40, 40), (3, 16, 7), (4, 8, 3), (2, 32, 1)])
@@ -323,20 +329,20 @@ def no_spawn(monkeypatch):
 @pytest.mark.parametrize("argv,match", [
     (["--model-shards", "2", "--ranks", "2", "--backend", "nccl"], "nccl with 2 ranks"),
     (["--model-shards", "2", "--ranks", "2", "--backend", "nccl", "--device", "cpu"], "gloo"),
-    (["--model-shards", "2", "--ranks", "4", "--backend", "gloo", "--device", "cpu"],
-     "item 13b"),
+    (["--model-shards", "2", "--ranks", "4", "--backend", "gloo", "--device", "cpu", "--batch",
+      "15"], "does not split over data=2"),
     (["--model-shards", "4", "--ranks", "2", "--backend", "gloo", "--device", "cpu"],
      "not divisible"),
     (["--arch", "fm", "--ranks", "2", "--backend", "gloo", "--device", "cpu"], "fm is not"),
     (["--model-shards", "2", "--ranks", "2", "--device", "cpu"], "needs --backend"),
     (["--model-shards", "2", "--backend", "gloo", "--device", "cpu"], "needs --ranks"),
-    (["--model-shards", "2", "--ranks", "2", "--backend", "gloo", "--device", "cpu",
-      "--pipeline-depth", "2"], "item 13b"),
+    (["--model-shards", "1", "--ranks", "3", "--backend", "gloo", "--device", "cpu"],
+     "does not split over data=3"),
 ])
 def test_launchers_refuse_a_bad_world_before_spawning(no_spawn, argv, match):
     with pytest.raises(SystemExit, match=match):
         train_launch.main(["--steps", "1", "--batch", "16"] + argv)
-    if "--arch" not in argv and "--pipeline-depth" not in argv:
+    if "--arch" not in argv:
         with pytest.raises(SystemExit, match=match):
             serve_launch.main(["--arch", "dlrm-criteo", "--requests", "16", "--batch", "16"]
                               + argv)

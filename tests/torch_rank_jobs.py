@@ -6,12 +6,14 @@ Not part of the package: ``test_torch_dist.py``, ``test_torch_cuda.py`` and
 on ``sys.path``), and each spawned rank imports it by name on the parent's
 ``sys.path``.  It imports neither JAX nor the JAX package.
 
-* :func:`dlrm_rank` runs a list of jobs, each on a fresh mesh: a DLRM's
-  init, a serve engine, train steps, a flush, a checkpoint save or
-  restore, a step after it, digests of the rank's shard and of its
-  replicated leaves, and on the card the kernel launches and host syncs
-  of one step; or collection lookups (addresses, rows, state, metrics) on
-  one shard.
+* :func:`dlrm_rank` runs a list of jobs, each on a fresh mesh (``(data =
+  world / S, model = S)``; a rank feeds its data replica's rows of every
+  global batch): a DLRM's init, a serve engine, train steps (serial, or
+  a ``PipelinedTrainer`` group), a refresh and a forced rebalance across
+  the ranks, a flush, a checkpoint save or restore, a step after it,
+  digests of the rank's shard and of its replicated leaves, and on the
+  card the kernel launches and host syncs of one step; or collection
+  lookups (addresses, rows, state, metrics) on one shard.
 * On the card, bitwise comparisons run under :func:`deterministic`, which
   each rank enters itself.
 """
@@ -29,6 +31,8 @@ import torch
 from repro_torch import convert
 from repro_torch.analysis.census import sync_census
 from repro_torch.core import cache as cache_lib
+from repro_torch.core import refresh as refresh_lib
+from repro_torch.core import transmitter
 from repro_torch.core.collection import FeatureBatch
 from repro_torch.core.sharded import ShardedEmbeddingCollection, ShardedSlab
 from repro_torch.core.transmitter import num_rounds
@@ -41,6 +45,7 @@ from repro_torch.serve.engine import ServeEngine
 from repro_torch.store.arena import ArenaStore
 from repro_torch.store.codec import get_codec
 from repro_torch.train import checkpoint as ckpt
+from repro_torch.train.trainer import PipelinedTrainer, TrainerConfig
 
 
 @contextlib.contextmanager
@@ -134,6 +139,29 @@ class _Rounds:
         self.lib.apply_plan, self.lib.flush = self.apply, self.flush
 
 
+class _ArenaRounds:
+    """The rounds of the row moves out of a tiered arena (one gather-decode
+    launch each: the refresh's write-backs, the re-homing's flush), counted
+    off ``transmitter.move_rows`` calls."""
+
+    def __init__(self):
+        self.move = transmitter.move_rows
+        self.rounds = 0
+
+    def __enter__(self):
+        def move(src, dst, src_idx, dst_idx, active, *, buffer_rows, **kw):
+            if isinstance(src, ArenaStore):
+                self.rounds += num_rounds(int(active.sum()),
+                                          max(1, min(buffer_rows, int(src_idx.shape[0]))))
+            return self.move(src, dst, src_idx, dst_idx, active, buffer_rows=buffer_rows, **kw)
+
+        transmitter.move_rows = move
+        return self
+
+    def __exit__(self, *exc):
+        transmitter.move_rows = self.move
+
+
 def _arena_image(coll, emb, addresses, rows):
     """The uncached rows as a tiered arena holds them: a lane whose slot is
     in an encoded tail reads its host row through the arena codec (the
@@ -175,7 +203,8 @@ def _dlrm_job(rank: int, dev: torch.device, job: Dict[str, Any]) -> Dict[str, An
     mesh = make_hybrid_mesh(cfg.model_shards)
     model = DLRM(cfg, mesh=mesh)
     coll = model.collection
-    out: Dict[str, Any] = {"rank": rank, "model_rank": mesh.model_rank}
+    out: Dict[str, Any] = {"rank": rank, "model_rank": mesh.model_rank,
+                           "data_rank": mesh.data_rank}
     t0 = time.perf_counter()
     state = model.init(0, device=dev)
     _sync(dev)
@@ -193,8 +222,8 @@ def _dlrm_job(rank: int, dev: torch.device, job: Dict[str, Any]) -> Dict[str, An
     def batch(stream: int, i: int) -> Dict[str, np.ndarray]:
         return synth.sparse_batch(bspec, cfg.batch_size, stream, i)
 
-    def on_dev(b):
-        return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+    def on_dev(b):  # this data replica's rows of a global batch, on the device
+        return {k: torch.from_numpy(mesh.data_slice(v)).to(dev) for k, v in b.items()}
 
     if job.get("prepare"):  # plans and row movement only, over batches 0 .. n of stream 0
         emb = state["emb"]
@@ -278,6 +307,22 @@ def _dlrm_job(rank: int, dev: torch.device, job: Dict[str, Any]) -> Dict[str, An
     if count:
         out["train_launches"] = _launches()
         out["rounds"] = {"writeback": rounds.writeback, "flush": rounds.flushed}
+    n_pipe = job.get("pipelined", 0)
+    if n_pipe:  # a PipelinedTrainer (depth ``depth``) from a fresh init, on stream 1
+        got, st = _pipelined(model, mesh, dev, lambda s: batch(1, s), n_pipe,
+                             job.get("depth", 2), job.get("refresh_interval"), count,
+                             lambda: model.init(0, device=dev))
+        out.update(got)
+        _close(st)
+    if job.get("group"):  # one PipelinedTrainer group of that depth, from this state
+        k = job["group"]
+        got, state = _pipelined(model, mesh, dev, lambda s: batch(1, n_train + 10 + s), k, k,
+                                None, count, lambda: state)
+        out.update(got)
+    if job.get("refresh") is not None:  # a refresh pass, then (optionally) a forced re-homing
+        got, emb = _refresh(model, state, dev, on_dev, batch, job["refresh"], count)
+        out.update(got)
+        state = dict(state, emb=emb)
     if job.get("census"):  # one more step's host syncs in the port, by site (on the card)
         b = on_dev(batch(stream, n_train + 5))
         _sync(dev)
@@ -291,6 +336,8 @@ def _dlrm_job(rank: int, dev: torch.device, job: Dict[str, Any]) -> Dict[str, An
         ckpt.save(job["save"], n_train, state, mesh=mesh, specs=model.state_specs())
     if job.get("digests"):
         out["digests"] = shard_digests(state)
+    if job.get("state_out"):  # every leaf, on the host
+        out["state"] = {k: v.detach().cpu().clone() for k, v in ckpt._flatten(state)}
     if job.get("replicated"):  # every leaf the state's specs do not split
         split = sharded_paths(model.state_specs())
         out["replicated"] = {k: digest(v) for k, v in ckpt._flatten(state) if k not in split}
@@ -302,10 +349,100 @@ def _dlrm_job(rank: int, dev: torch.device, job: Dict[str, Any]) -> Dict[str, An
     rss.append(_rss_gb())
     out["rss_gb"] = rss  # after init, serving, training and at the end
     out["device_bytes"] = {k: v for k, v in coll.device_bytes().items() if k != "per_slab"}
+    _close(state)
+    return out
+
+
+def _close(state) -> None:
     for slab in state["emb"].slabs.values():
         if hasattr(slab, "full"):
             slab.full.close()
-    return out
+
+
+def _pipelined(model, mesh, dev, make_batch, n_steps, depth, refresh_interval, count, init_fn):
+    """``n_steps`` of a ``PipelinedTrainer`` at ``depth`` from ``init_fn()``
+    on ``make_batch``'s global batches: its losses, its ms and on the card
+    the kernel launches of the run; and the state it ends in."""
+    tc = TrainerConfig(max_steps=n_steps, pipeline_depth=depth, refresh_interval=refresh_interval,
+                       assert_no_uniq_overflow=True)
+    if count:
+        _zero_launches()
+    trainer = PipelinedTrainer(tc, init_fn=init_fn, plan_fn=model.plan_step,
+                               compute_fn=model.compute_step, apply_fn=model.apply_step,
+                               make_batch=make_batch, device=dev, mesh=mesh,
+                               refresh_fn=model.refresh if refresh_interval else None)
+    t0 = time.perf_counter()
+    state = trainer.run()
+    _sync(dev)
+    out = {"pipe_losses": [h["loss"] for h in trainer.history],
+           "pipe_ms": 1e3 * (time.perf_counter() - t0),
+           "pipe_step_ms": [1e3 * h["time_s"] for h in trainer.history]}
+    if count:
+        out["pipe_launches"] = _launches()
+    return out, state
+
+
+def _refresh(model, state, dev, on_dev, batch, spec, count=False):
+    """One refresh pass (``spec["cfg"]``: ``RefreshConfig`` keywords) and,
+    with ``spec["rebalance"]``, a re-homing pass at that threshold, each
+    with the state after it on the host (``spec["digests"]``: the leaves'
+    digests), the state before the passes (with digests, on data rank 0
+    only; with ``spec["cool_head"]`` the replicated head's scores set
+    below every other rank's first, so the pass demotes it), the report
+    and the ms (with ``count``, each pass's kernel launches and the rounds
+    of its moves out of a tiered arena), and the rows of a lookup and of
+    ``dense_reference`` on batch ``spec["probe"]`` of stream 1 after the
+    passes; returns them and the collection state."""
+    coll = model.collection
+    emb = state["emb"]
+    mesh = coll.mesh
+
+    def leaves(e):  # the state's leaves, or (``spec["digests"]``) their digests
+        if spec.get("digests"):
+            return {k: digest(v) for k, v in ckpt._flatten(e)}
+        return {k: v.detach().cpu().clone() for k, v in ckpt._flatten(e)}
+
+    if spec.get("cool_head"):  # the replicated head made the coldest ranks: the pass demotes it
+        for slab in emb.slabs.values():
+            slab.rep.score.fill_(-1.0)
+    out: Dict[str, Any] = {}
+    if not spec.get("digests") or mesh.data_rank == 0:  # one copy of each shard
+        out["refresh_before"] = {k: v.detach().cpu().clone() for k, v in ckpt._flatten(emb)}
+    _sync(dev)
+    if count:
+        _zero_launches()
+    moved = _ArenaRounds()
+    t0 = time.perf_counter()
+    with moved if count else contextlib.nullcontext():
+        emb, rep = coll.refresh(emb, refresh_lib.RefreshConfig(**spec["cfg"]))
+    _sync(dev)
+    out["refresh_ms"] = 1e3 * (time.perf_counter() - t0)
+    if count:
+        out["refresh_launches"], out["refresh_rounds"] = _launches(), moved.rounds
+    out["refresh_report"] = dataclasses.asdict(rep)
+    out["refresh_after"] = leaves(emb)
+    if spec.get("rebalance") is not None:
+        cfg = refresh_lib.RefreshConfig(max_swaps=0, rebalance_threshold=spec["rebalance"])
+        mesh.traffic.reset()
+        if count:
+            _zero_launches()
+        moved = _ArenaRounds()
+        t0 = time.perf_counter()
+        with moved if count else contextlib.nullcontext():
+            emb, rep = coll.refresh(emb, cfg)
+        _sync(dev)
+        out["rebalance_ms"] = 1e3 * (time.perf_counter() - t0)
+        if count:
+            out["rebalance_launches"], out["rebalance_rounds"] = _launches(), moved.rounds
+        out["rebalance_report"] = dataclasses.asdict(rep)
+        out["rebalance_traffic"] = dataclasses.asdict(mesh.traffic)
+        out["rebalance_after"] = leaves(emb)
+    fb = model.features(on_dev(batch(1, spec.get("probe", 99))))
+    dense = coll.dense_reference(emb, fb)
+    emb, _, rows = coll.lookup(emb, fb)
+    out["probe_dense"] = {k: v.detach().cpu() for k, v in dense.items()}
+    out["probe_rows"] = {k: v.detach().cpu() for k, v in rows.items()}
+    return out, emb
 
 
 def count_metrics(m: Dict[str, Any]) -> Dict[str, Any]:
