@@ -114,8 +114,10 @@ Phases (any failure exits non-zero, with no result line):
    under torch's deterministic algorithms (the card's ``index_add_`` sums
    duplicate lanes with atomics in no fixed order), the counts at 0 before
    each run and read after it, then 4 more steps of the same schedule in
-   the default mode for its times; each 17.3 GB pinned table freed before
-   the next.  Checks losses and AUCs bitwise equal across the checked
+   the default mode for its times.  Every run of 5d and 5f starts from one
+   ``init(0)`` and its host copy (``InitSnapshot``: the 17.3 GB pinned
+   table and every other leaf copied back in place; ``MemAvailable``
+   printed).  Checks losses and AUCs bitwise equal across the checked
    runs, ``future_unresident`` 0, one threshold launch a plan (4 / 4 / 2),
    the depth-3 run's first lookahead key (kv = 506 438: the protected,
    pinned, policy and empty tiers) through the kernel bitwise = plain and
@@ -133,7 +135,7 @@ Phases (any failure exits non-zero, with no result line):
    ``gather_decode_encode``), cached = ``dense_reference`` logits
    (rtol 1e-5 / atol 1e-6), and after the flush every resident row's host
    payload and sideband bitwise the int8 encode of its arena row, shard by
-   shard.
+   shard.  Then 5g's re-homing on that flushed state (below).
 5f. the adaptive refresh, unsharded, on a drifting Zipf stream (the hot
    set moves every 3 steps): phase 5d's DLRM (fp32 tiers) served by a
    ``ServeEngine`` with ``refresh_every`` 2 and by one without (3 batches,
@@ -152,13 +154,13 @@ Phases (any failure exits non-zero, with no result line):
    the drifting stream and flushed, one pass at ``max_swaps`` 4096 with
    ``exchange_budget`` 1024 (``dense_reference`` after a flush bitwise
    before and after; cross-shard rows within the budget; swaps + deferred
-   = the unbudgeted plan's swaps), one step over the swapped homes; then
-   phase 5e's sharded budget mode trained and flushed, and a re-homing
+   = the unbudgeted plan's swaps), one step over the swapped homes.  Its
+   re-homing runs at the end of 5e, on 5e's flushed state: a re-homing
    pass with the median slab's live imbalance as ``rebalance_threshold``
    (the slabs above it re-homed, their imbalance lowered, the others
    untouched; ``dense_reference`` bitwise; served logits over the new
    homes = ``dense_reference`` logits; the host RSS peak), one step over
-   the new homes.
+   the new homes, on the drifting stream.
 5h. ``benchmarks/bench_drift.py``'s run in the port (vocab 400 000, dim 32,
    batch 8192, the hot set moving every 150 steps, 450 steps, a refresh
    every 5 steps at ``max_swaps`` 4096 and ``min_gain`` 0.25), with and
@@ -166,8 +168,8 @@ Phases (any failure exits non-zero, with no result line):
    threshold kernel: hit and miss counts, hit rates, swaps and rows moved
    equal to the JAX package's on the CPU (``scripts/drift_reference.py``).
    Each new path runs with the launch counts at 0 before it and read
-   after it; the ``kernels`` line counts them by path.  Phases 5f-5h run
-   after phase 13 and before phase 8.
+   after it; the ``kernels`` line counts them by path.  Phase 5f runs
+   after 5d; 5g-5h after phase 17d and before phase 8.
 6. FM serve: ``configs/fm.CONFIG`` at full width (40 fields, 33 764 352
    rows of 11 fp32 = 1.486 GB pinned, a 2 097 152-slot arena, batch 65536)
    with ``use_pallas=True``: ``ServeEngine(FMModel.serve_step)`` on
@@ -421,7 +423,12 @@ Phases (any failure exits non-zero, with no result line):
 
 19. hybrid parallel over ranks, one cache shard a process (``dist/run.py``
    spawns the ranks, which run ``tests/torch_rank_jobs.py``'s jobs, after
-   the parent built every kernel; a failing rank fails the smoke).  19a:
+   the parent built every kernel; a failing rank fails the smoke).  Every
+   four-rank job below (19a; 19b's 4-shard and ``(2, 2)`` cases; 19d; 19f;
+   19e) runs in ONE world of four gloo ranks, each job on a fresh mesh of
+   its own shape, and 19b's two-rank jobs in one world of two
+   (``ranks_phase``); the parent checks each phase after, and prints its
+   seconds (its jobs on the slowest rank and its checks).  19a:
    5b's DLRM (4 shards, K 2048, fp32 exchange) with an int8-tiered arena
    and the row leg at the compact width ``DIST_WIDTH`` (16 384) in four
    gloo ranks time-sharing the card, each pinning its 4.32 GB host slice:
@@ -444,8 +451,19 @@ Phases (any failure exits non-zero, with no result line):
    losses, arena, host slice and head of every shard bitwise (all under
    ``deterministic()``); the int8 case's checkpoint, saved by the ranks,
    restored into the stacked layout: its next loss bitwise the ranks'.
-   19c: one NCCL rank on ``cuda:0`` (S 1, the full Criteo DLRM, 2 steps)
-   bitwise the unsharded DLRM.  19d: 5b's DLRM (K 2048, int8-tiered
+   At the same cut, phase 5e's budget plan (21 DEVICE tables, 5 cached
+   slabs, int8 host and arena, K 2048) at ``(1, 2)`` and ``(2, 2)``: 3
+   steps, a flush and a checkpoint restored into the stacked layout; the
+   same steps, then a refresh pass and a forced re-homing; a bag step
+   (``pool`` under the mesh, one ``embedding_bag`` launch a slab) from the
+   init, then a flush.  Held to the stacked layout: losses, each shard,
+   the DEVICE tables and MLPs bitwise at ``(1, 2)`` (at ``(2, 2)`` the
+   losses within rtol 1e-5, slot maps bitwise, the replicas bitwise each
+   other), the passes bitwise, the bag step's pooled rows, gradients and
+   updated shards bitwise at both (the stacked yardstick differentiates
+   each replica's bags alone and sums them in data-rank order).
+   19c: one NCCL rank on ``cuda:0`` (S 1, the Criteo DLRM at vocab scale
+   0.02, 2 steps) bitwise the unsharded DLRM.  19d: 5b's DLRM (K 2048, int8-tiered
    arena, the plan at the compact width ``DATA_WIDTH``, 32 768) on a
    ``(data=2, model=2)`` mesh of four gloo ranks sharing the card, each
    data replica feeding 8 192 of every global batch of 16 384 and each
@@ -474,10 +492,27 @@ Phases (any failure exits non-zero, with no result line):
    ``gather_decode`` launches = the rounds of its moves out of the arena
    (no plan kernel in a pass), and the losses bitwise the stacked
    layout's at ``(1, 4)`` and within rtol 1e-5 of the stacked ``(1, 2)``
-   layout's at ``(2, 2)``, on the same global batches.
+   layout's at ``(2, 2)``, on the same global batches.  19f: phase 5e's
+   plan (1 GiB a device, int8 host and arena: the 21 DEVICE tables whole
+   on every rank, each cached slab one shard a rank) on the ``(2, 2)``
+   mesh at full width, in torch's default mode: 2 served batches after a
+   warm-up, a warm-up step, 2 steps, one bag step (sum) through
+   ``pool(use_pallas=True, max_bag=4)`` on ``bag_batch``'s bags, a flush.
+   Checks ``device_process`` within 1 GiB, every replica's shard bitwise
+   its twin's, every rank's DEVICE tables, MLPs and routing maps bitwise
+   the others', losses and scores equal, cached = ``dense_reference``
+   logits, a plan's 1 threshold and 1 ``route_bucketize`` a cached slab,
+   the bag step's 26 ``embedding_bag`` launches (each output bitwise the
+   plain version on its gathered lanes), ``gather_decode_encode`` = the
+   rounds, every resident row's int8 host row the encode of its arena row
+   after the flush, the DEVICE tables' gradient leg within its bound
+   (Σ min(vocab, lanes) rows).  Prints the p50s, the bytes by leg and
+   axis (the DEVICE leg beside its bound and the whole tables), RSS and
+   peak device memory.
 
-They run in the order 1-2, 18, 3-5b, 19a-19e, 5c-5e, 6-7b, 14a-14b, 15a-15c,
-9-13, 16a-16e, 17a-17d, 5f-5h, 8.  Each phase's seconds are printed.  The last three
+They run in the order 1-2, 18, 3-5b, 19 (19a, 19b, 19d, 19f, 19e), 19c, 5c,
+5d, 5f, 5e (with 5g's re-homing), 6-7b, 14a-14b, 15a-15c, 9-13, 16a-16e,
+17a-17d, 5g-5h, 8.  Each phase's seconds are printed.  The last three
 lines are the
 ``kernels`` JSON, the card's name and power limit, and ``{"ok": true,
 "device": {...}}``.  ``--vocab-scale`` < 1 cuts only the vocabularies
@@ -2302,26 +2337,30 @@ def _rank_census(res, what):
                                  f"hold: {unheld}")
 
 
-def dist_gloo_phase(vocab_scale, n_batches, n_steps, stacked_counts, warm_index):
-    """19a: phase 5b's DLRM (4 shards, K 2048, fp32 exchange) with an
-    int8-tiered arena and the row leg at the compact width ``DIST_WIDTH``,
-    one shard in each of four gloo ranks sharing the card, each pinning
-    only its host slice: a ServeEngine, a warm-up, the train steps and a
-    flush on 5b's batches, then a census step; in torch's default
-    (nondeterministic) mode, where every rank's scores, losses and
-    replicated leaves (MLPs, replicated head, routing maps) must still be
-    bitwise the others'."""
-    import torch_rank_jobs as rank_jobs
+def _gloo_cfg(vocab_scale):
+    return dataclasses.replace(_sharded_cfg(vocab_scale), arena_precision="int8",
+                               max_routed_per_shard=DIST_WIDTH)
 
-    from repro_torch.dist import run
 
-    cfg = dataclasses.replace(_sharded_cfg(vocab_scale), arena_precision="int8",
-                              max_routed_per_shard=DIST_WIDTH)
-    S = cfg.model_shards
-    job = dict(cfg=cfg, serve=n_batches, warm_serve=True, check_dense=(TOL_RTOL, TOL_ATOL),
-               train=n_steps, warm_train=True, warm_index=warm_index, census=True, count=True,
-               replicated=True)
-    res = [r[0] for r in run.run_ranks(rank_jobs.dlrm_rank, S, "gloo", None, ([job],))]
+def dist_gloo_job(vocab_scale, n_batches, n_steps, warm_index):
+    """19a's rank job (run in :func:`ranks_phase`'s four-rank world): phase
+    5b's DLRM (4 shards, K 2048, fp32 exchange) with an int8-tiered arena
+    and the row leg at the compact width ``DIST_WIDTH``, one shard a rank,
+    each pinning only its host slice: a ServeEngine, a warm-up, the train
+    steps and a flush on 5b's batches, then a census step; in torch's
+    default (nondeterministic) mode."""
+    return dict(cfg=_gloo_cfg(vocab_scale), serve=n_batches, warm_serve=True,
+                check_dense=(TOL_RTOL, TOL_ATOL), train=n_steps, warm_train=True,
+                warm_index=warm_index, census=True, count=True, replicated=True)
+
+
+def dist_gloo_check(res, vocab_scale, n_batches, n_steps, stacked_counts):
+    """19a: every rank's scores, losses and replicated leaves (MLPs,
+    replicated head, routing maps) bitwise the others' in the default
+    mode, cached = ``dense_reference`` logits, a plan's launches, the
+    ``gather_decode`` rounds, the exchange's counts those of 5b's stacked
+    run, the census.  Returns the ranks' launches."""
+    S = _gloo_cfg(vocab_scale).model_shards
     r0 = res[0]
     for r in res:
         if not (np.isfinite(r["scores"]).all() and np.isfinite(r["losses"]).all()):
@@ -2407,91 +2446,259 @@ def _stacked_case(cfg, n_steps, dev):
     return model, state, losses, digests
 
 
-def dist_bitwise_phase(dev, vocab_scale=DIST_SCALE, n_steps=DIST_STEPS):
+def dist_bitwise_jobs(world, ck_root, vocab_scale=DIST_SCALE, n_steps=DIST_STEPS):
+    """19b's rank jobs for a world of ``world`` ranks: the ``DIST_CASES`` at
+    ``S == world`` (the int8-tiered one saves a checkpoint), then the
+    budget plan and the bag step at ``(world / 2, 2)``
+    (:func:`_budget_bitwise_jobs`).  Returns (cases, their jobs, the budget
+    jobs)."""
+    cases = [c for c in DIST_CASES if c[0] == world]
+    jobs = []
+    for S, xc, prec, width in cases:
+        cfg = dataclasses.replace(_scaled(vocab_scale), model_shards=S, replicate_top_k=REP_K,
+                                  exchange_codec=xc, arena_precision=prec, host_precision=prec,
+                                  batch_size=DIST_BATCH, max_routed_per_shard=width)
+        job = dict(cfg=cfg, train=n_steps, digests=True, count=True, deterministic=True)
+        if prec == "int8":
+            job.update(save=str(ck_root / f"s{S}"), next_step=True)
+        jobs.append(job)
+    return cases, jobs, _budget_bitwise_jobs(world // BUDGET_SHARDS, ck_root)
+
+
+def dist_bitwise_check(cases, jobs, res, dev, ck_root, n_steps=DIST_STEPS):
     """19b: gloo ranks sharing the card against the one-process stacked
     layout, every run under ``deterministic()``: losses, arena and host
     slices bitwise; the int8-tiered case's checkpoint, saved by the ranks,
     restored into the stacked layout, whose next step is bitwise the
     ranks'.  Cut to batch ``DIST_BATCH`` (the rows on the wire and the
     time scale with it).  Cases at a compact width run the row leg at it,
-    and so does their stacked run's plan."""
-    import torch_rank_jobs as rank_jobs
-
+    and so does their stacked run's plan.  ``res[r]``: rank ``r``'s results
+    of ``jobs``.  Returns the ranks' ``gather_decode`` launches."""
     from repro_torch.data import synth
-    from repro_torch.dist import run
     from repro_torch.train import checkpoint as ckpt
 
-    ck_root = Path(ROOT) / "build" / "dist_ckpt"
-    shutil.rmtree(ck_root, ignore_errors=True)
     launches = {"gather_decode": 0, "gather_decode_encode": 0}
-    for S in sorted({c[0] for c in DIST_CASES}):
-        cases = [c for c in DIST_CASES if c[0] == S]
-        jobs = []
-        for _, xc, prec, width in cases:
-            cfg = dataclasses.replace(_scaled(vocab_scale), model_shards=S, replicate_top_k=REP_K,
-                                      exchange_codec=xc, arena_precision=prec,
-                                      host_precision=prec, batch_size=DIST_BATCH,
-                                      max_routed_per_shard=width)
-            job = dict(cfg=cfg, train=n_steps, digests=True, count=True, deterministic=True)
-            if prec == "int8":
-                job.update(save=str(ck_root / f"s{S}"), next_step=True)
-            jobs.append(job)
-        t0 = time.perf_counter()
-        res = run.run_ranks(rank_jobs.dlrm_rank, S, "gloo", None, (jobs,))
-        log(f"19b: {S} gloo ranks, {len(jobs)} cases: {time.perf_counter() - t0} s")
-        for j, ((_, xc, prec, width), job) in enumerate(zip(cases, jobs)):
+    for j, ((S, xc, prec, width), job) in enumerate(zip(cases, jobs)):
+        with deterministic():
+            model, state, losses, digests = _stacked_case(job["cfg"], n_steps, dev)
+        for r in res:
+            got = r[j]
+            if got["losses"] != losses or got["digests"] != digests[got["model_rank"]]:
+                bad = sorted(k for k in digests[got["model_rank"]]
+                             if got["digests"].get(k) != digests[got["model_rank"]][k])
+                raise AssertionError(f"19b S {S} exchange {xc} codec {prec} width {width} rank "
+                                     f"{got['rank']}: losses {got['losses']} vs stacked "
+                                     f"{losses}; leaves not bitwise {bad}")
+            for k in launches:
+                launches[k] += got["train_launches"][k]
+        if prec == "int8":
+            if not all(r[j]["train_launches"]["gather_decode_encode"] for r in res):
+                raise AssertionError(f"19b S {S}: no gather_decode_encode launch into the int8 "
+                                     f"host")
             with deterministic():
-                model, state, losses, digests = _stacked_case(job["cfg"], n_steps, dev)
-            for r in res:
-                got = r[j]
-                if got["losses"] != losses or got["digests"] != digests[got["model_rank"]]:
-                    bad = sorted(k for k in digests[got["model_rank"]]
-                                 if got["digests"].get(k) != digests[got["model_rank"]][k])
-                    raise AssertionError(f"19b S {S} exchange {xc} codec {prec} width {width} rank "
-                                         f"{got['rank']}: losses {got['losses']} vs stacked "
-                                         f"{losses}; leaves not bitwise {bad}")
-                for k in launches:
-                    launches[k] += got["train_launches"][k]
-            if prec == "int8":
-                if not all(r[j]["train_launches"]["gather_decode_encode"] for r in res):
-                    raise AssertionError(f"19b S {S}: no gather_decode_encode launch into the "
-                                         f"int8 host")
-                with deterministic():
-                    template = model.init(1, device=dev)
-                    template, step = ckpt.restore(ck_root / f"s{S}", template)
-                    bspec = synth.ZipfSparseSpec(vocab_sizes=job["cfg"].vocab_sizes,
-                                                 n_dense=job["cfg"].n_dense)
-                    b = {k: torch.from_numpy(v).to(dev) for k, v in synth.sparse_batch(
-                        bspec, job["cfg"].batch_size, 1, n_steps).items()}
-                    template, m = model.train_step(template, b)
-                    nxt = float(m["loss"])
-                for s_ in template["emb"].slabs.values():
-                    if hasattr(s_, "full"):
-                        s_.full.close()
-                if any(r[j]["next_loss"] != nxt for r in res):
-                    raise AssertionError(f"19b S {S}: the stacked layout restored from the "
-                                         f"ranks' checkpoint steps to {nxt}, the ranks to "
-                                         f"{[r[j]['next_loss'] for r in res]}")
-                log(f"19b S {S}: the ranks' checkpoint (step {step}) restored into the stacked "
-                    f"layout; its next loss {nxt} bitwise the ranks'")
-            for s_ in state["emb"].slabs.values():
-                if hasattr(s_, "full"):
-                    s_.full.close()
-            del model, state
-            gc.collect()
-            log(f"19b S {S} exchange {xc} arena/host {prec} row leg width {width or 'every lane'}: "
-                f"losses {losses} bitwise the stacked "
-                f"layout's on every rank; arena, host slice (payload and sideband), replicated "
-                f"head and slot map of each shard bitwise after the flush; rank launches "
-                f"{[r[j]['train_launches'] for r in res]}")
-    shutil.rmtree(ck_root, ignore_errors=True)
+                template = model.init(1, device=dev)
+                template, step = ckpt.restore(ck_root / f"s{S}", template)
+                bspec = synth.ZipfSparseSpec(vocab_sizes=job["cfg"].vocab_sizes,
+                                             n_dense=job["cfg"].n_dense)
+                b = {k: torch.from_numpy(v).to(dev) for k, v in synth.sparse_batch(
+                    bspec, job["cfg"].batch_size, 1, n_steps).items()}
+                template, m = model.train_step(template, b)
+                nxt = float(m["loss"])
+            _close(template)
+            if any(r[j]["next_loss"] != nxt for r in res):
+                raise AssertionError(f"19b S {S}: the stacked layout restored from the ranks' "
+                                     f"checkpoint steps to {nxt}, the ranks to "
+                                     f"{[r[j]['next_loss'] for r in res]}")
+            log(f"19b S {S}: the ranks' checkpoint (step {step}) restored into the stacked "
+                f"layout; its next loss {nxt} bitwise the ranks'")
+        _close(state)
+        del model, state
+        gc.collect()
+        log(f"19b S {S} exchange {xc} arena/host {prec} row leg width {width or 'every lane'}: "
+            f"losses {losses} bitwise the stacked layout's on every rank; arena, host slice "
+            f"(payload and sideband), replicated head and slot map of each shard bitwise after "
+            f"the flush; rank launches {[r[j]['train_launches'] for r in res]}")
     return launches
 
 
+BUDGET_SHARDS = 2  # 19b's budget plan and bag step: at (1, 2) and (2, 2)
+
+
+def _budget_bitwise_jobs(D, ck_root):
+    """19b's budget cases at ``(D, 2)``, all under ``deterministic()``: phase
+    5e's plan cut to 19b's scale (vocab 0.02, global batch 2 048; the
+    budget that keeps its placements, K 2048): ``DIST_STEPS`` steps, a
+    flush and a checkpoint save; the same steps, then a refresh pass and a
+    forced re-homing; a bag step from the init (``BAG_LANES`` lanes a bag),
+    then a flush."""
+    cfg = dataclasses.replace(_budget_cfg(DIST_SCALE, DIST_BATCH), model_shards=BUDGET_SHARDS,
+                              replicate_top_k=REP_K)
+    common = dict(cfg=cfg, count=True, deterministic=True, digests=True, replicated=True)
+    return [dict(common, train=DIST_STEPS, save=str(ck_root / f"budget_{D}"), next_step=True,
+                 check_flushed=True),
+            dict(common, train=DIST_STEPS, flush=False, digests=False,
+                 refresh=dict(cfg=REHOME_REFRESH, rebalance=0.0, digests=True, probe=99,
+                              cool_head=True)),
+            dict(common, train=0, check_flushed=True,
+                 bag=dict(bags=DIST_BATCH // BAG_LANES, lanes=BAG_LANES, combiner="sum",
+                          step=0))]
+
+
+def _budget_bitwise_check(res, jobs, D, dev, ck_root):
+    """Holds 19b's budget cases (:func:`_budget_bitwise_jobs`; ``res[r]`` is
+    rank ``r``'s results of them) to the one-process stacked layout, every
+    run under ``deterministic()``:
+
+    * the steps: losses, each shard (arena, host slice and sideband, head,
+      slot map) after the flush and the leaves every rank holds whole (the
+      DEVICE tables, MLPs, routing maps) bitwise at ``(1, 2)``; at ``(2,
+      2)`` (each replica's loss is the mean of its half of the batch) the
+      losses within rtol 1e-5 of the stacked layout's and the slot maps
+      bitwise, the replicas bitwise each other and the whole leaves bitwise
+      across the ranks; the ranks' checkpoint restored into
+      the stacked layout is bitwise each rank's shard, and its next loss
+      the ranks' (within rtol 1e-5 at ``(2, 2)``);
+    * the refresh pass and the re-homing (:func:`_rehome_check`), over the
+      budget plan's five cached slabs with their own int8 host codecs;
+    * the bag step: each replica's pooled rows, its gradients, each shard
+      and the DEVICE tables after the update and a flush bitwise the
+      stacked layout's
+      (``torch_rank_jobs.stacked_bag_step``: at ``(2, 2)`` each replica's
+      bags differentiated alone, summed in data-rank order);
+
+    and a plan's one threshold and one ``route_bucketize`` launch a cached
+    slab, the bag step's one ``embedding_bag`` launch a slab (each output
+    bitwise the plain version on its gathered lanes), ``gather_decode_encode``
+    = the write-back and flush rounds.  Returns the launches by case."""
+    import torch_rank_jobs as rank_jobs
+
+    from repro_torch.dist.mesh import HybridMesh
+    from repro_torch.dist.partitioning import shard_state, sharded_paths
+    from repro_torch.train import checkpoint as ckpt
+
+    S = BUDGET_SHARDS
+    cfg = jobs[0]["cfg"]
+    what = f"19b budget ({D}, {S})"
+    train_res, refresh_res, bag_res = ([r[i] for r in res] for i in range(3))
+    with deterministic():
+        model, state, losses, digests = _stacked_case(cfg, DIST_STEPS, dev)
+    coll = model.collection
+    split = sharded_paths(model.state_specs())
+
+    def replicated(st):  # the leaves every rank holds whole: DEVICE tables, MLPs, routing maps
+        return {k: rank_jobs.digest(v) for k, v in ckpt._flatten(st) if k not in split}
+
+    whole = replicated(state)
+    n_cached, n_slabs = len(coll.cached_slabs), len(coll.cached_slabs) + len(coll.device_slabs)
+    for r in train_res + refresh_res + bag_res:
+        tl, rounds = r["train_launches"], r["rounds"]
+        n = n_cached * (DIST_STEPS if "bag_loss" not in r else 1)
+        gde = rounds["writeback"] + rounds["flush"]
+        if ((tl["victim_threshold"], tl["route_bucketize"], tl["bucketize"]) != (n, n, n)
+                or tl["gather_decode"] != gde or tl["gather_decode_encode"] != gde
+                or ("flushed_rows" in r and not gde)):
+            raise AssertionError(f"{what} rank {r['rank']}: launches {tl}; the plans imply "
+                                 f"{n} threshold and route_bucketize, {rounds} rounds")
+    for r in train_res:
+        at = f"{what} rank {r['rank']}"
+        twin = next(x for x in train_res if x["model_rank"] == r["model_rank"])
+        want = digests[r["model_rank"]]
+        if D == 1:
+            ok = r["losses"] == losses and r["digests"] == want and r["replicated"] == whole
+        else:
+            ok = (np.allclose(r["losses"], losses, rtol=1e-5, atol=0)
+                  and r["digests"] == twin["digests"]
+                  and r["replicated"] == train_res[0]["replicated"]
+                  and all(r["digests"][k] == want[k] for k in want if k.endswith("slot_to_row")))
+        if not ok or not r["flushed_rows"]:
+            bad = sorted(k for k in want if r["digests"].get(k) != want[k])
+            raise AssertionError(f"{at}: losses {r['losses']} vs stacked {losses}; leaves not "
+                                 f"bitwise {bad}; rows checked after the flush "
+                                 f"{r['flushed_rows']}")
+    # the ranks' checkpoint, restored into the stacked layout
+    template = model.init(1, device=dev)
+    with deterministic():
+        template, step = ckpt.restore(ck_root / f"budget_{D}", template)
+        restored = [rank_jobs.shard_digests(shard_state(template, model.state_specs(),
+                                                        HybridMesh.coordinate(S, s)))
+                    for s in range(S)]
+        b = {k: torch.from_numpy(v).to(dev) for k, v in
+             synth_batch(synth_spec(cfg), cfg.batch_size, 1, DIST_STEPS).items()}
+        template, m = model.train_step(template, b)
+        nxt = float(m["loss"])
+    _close(template)
+    for r in train_res:
+        if restored[r["model_rank"]] != r["digests"] or not (
+                r["next_loss"] == nxt if D == 1 else np.isclose(r["next_loss"], nxt, rtol=1e-5,
+                                                                atol=0)):
+            raise AssertionError(f"{what} rank {r['rank']}: the checkpoint (step {step}) "
+                                 f"restored into the stacked layout is not its shard, or its "
+                                 f"next loss {nxt} vs the ranks' {r['next_loss']}")
+    _close(state)
+    del state, template
+    gc.collect()
+    swaps, moves, cross, deferred = _rehome_check(refresh_res, cfg, D, S, dev,
+                                                  f"{what} refresh")
+    # the bag step: the stacked layout's from the init, with the ranks' bags
+    spec = jobs[2]["bag"]
+    with deterministic():
+        state = model.init(0, device=dev)
+        step = rank_jobs.global_bags(cfg, model.feature_names, spec["bags"], spec["lanes"],
+                                     spec["step"])
+        emb, reps, grads, _ = rank_jobs.stacked_bag_step(
+            coll, state["emb"], step, step["cot"], D, spec["combiner"], spec["lanes"], cfg.lr,
+            dev)
+        state = model.flush(dict(state, emb=emb))
+    bag_digests = [rank_jobs.shard_digests(shard_state(state, model.state_specs(),
+                                                       HybridMesh.coordinate(S, s)))
+                   for s in range(S)]
+    bag_whole = replicated(state)
+    for r in bag_res:
+        at = f"{what} bag step rank {r['rank']}"
+        s_, d_ = r["model_rank"], r["data_rank"]
+        want_g = {k: rank_jobs.digest(g[s_:s_ + 1] if k in coll.cached_slabs else g)
+                  for k, g in grads.items()}
+        want_p = {f: rank_jobs.digest(x) for f, x in reps[d_]["pooled"].items()}
+        if (r["bag_pooled"] != want_p or r["bag_grads"] != want_g
+                or r["digests"] != bag_digests[s_] or r["replicated"] != bag_whole):
+            raise AssertionError(f"{at}: pooled rows {r['bag_pooled'] == want_p}, gradients "
+                                 f"{r['bag_grads'] == want_g}, shard after the update "
+                                 f"{r['digests'] == bag_digests[s_]}, DEVICE tables and the "
+                                 f"other whole leaves {r['replicated'] == bag_whole} bitwise "
+                                 f"the stacked layout's")
+        if (r["bag_launches"]["embedding_bag"], r["bag_calls"]) != (n_slabs, n_slabs) or \
+                not r["bag_exact"]:
+            raise AssertionError(f"{at}: {r['bag_launches']} launches in {r['bag_calls']} calls "
+                                 f"for {n_slabs} slabs; bitwise the plain version: "
+                                 f"{r['bag_exact']}")
+    _close(state)
+    del state, model
+    gc.collect()
+    log(f"{what}: phase 5e's plan at vocab scale {DIST_SCALE}, batch {cfg.batch_size} "
+        f"({n_slabs - n_cached} DEVICE, {n_cached} cached slabs, K {cfg.replicate_top_k}), every "
+        f"run deterministic: losses {losses} "
+        + ("bitwise, each shard bitwise after the flush" if D == 1 else
+           "within rtol 1e-5, slot maps bitwise, replicas bitwise each other")
+        + f"; the ranks' checkpoint restored into the stacked layout bitwise each shard, next "
+        f"loss {nxt}; a refresh pass ({swaps} swaps, {deferred} deferred, {cross} cross-shard "
+        f"rows) and a re-homing ({moves} ranks moved) bitwise the stacked passes; the bag step "
+        f"({spec['bags']} bags of {spec['lanes']}): pooled rows, gradients and the updated "
+        f"shards bitwise the stacked layout's, {n_slabs} embedding_bag launches a rank, each "
+        f"bitwise the plain version; rank ms: bag {[r['bag_ms'] for r in bag_res]}, refresh "
+        f"{[r['refresh_ms'] for r in refresh_res]}, re-homing "
+        f"{[r['rebalance_ms'] for r in refresh_res]}")
+    return {name: {k: sum(r["train_launches"][k] + sum(r.get(f"{p}_launches", {}).get(k, 0)
+                                                       for p in ("refresh", "rebalance"))
+                          for r in rs) for k in rs[0]["train_launches"]}
+            for name, rs in (("budget", train_res + refresh_res), ("bag", bag_res))}
+
+
 def dist_nccl_phase(dev, vocab_scale, n_steps=NCCL_STEPS):
-    """19c: one NCCL rank on cuda:0, one shard (S 1) of the full Criteo
-    DLRM (``--vocab-scale``): losses bitwise the unsharded DLRM's, both
-    under ``deterministic()``."""
+    """19c: one NCCL rank on cuda:0, one shard (S 1) of the Criteo DLRM at
+    ``vocab_scale`` (the smoke passes 19b's ``DIST_SCALE``: the check is the
+    NCCL backend's path, which the table's height does not change; the
+    full width cost two 17.3 GB inits): losses bitwise the unsharded
+    DLRM's, both under ``deterministic()``."""
     import torch_rank_jobs as rank_jobs
 
     from repro_torch.data import synth
@@ -2549,32 +2756,64 @@ def _legs_a_step(traffic, n):
             "host_ms": 1e3 * (traffic["seconds"] + traffic["data_seconds"]) / n}
 
 
-def dist_data_phase(vocab_scale):
-    """19d: phase 5b's DLRM (K 2048, fp32 exchange) with an int8-tiered arena
-    on a ``(data=2, model=2)`` mesh of four gloo ranks sharing the card,
-    each pinning its shard's half of the host table; the plan at the
-    compact width ``DATA_WIDTH``; torch's default mode.  Each data replica
-    feeds half of every global batch of 16 384: ``DATA_SERVE`` served
-    batches after a warm-up, a warm-up step, ``DATA_TRAIN`` serial steps, a
-    flush, then one ``PipelinedTrainer`` group of depth ``DATA_GROUP`` from
-    that state.  Checks every replica's shard state and every rank's
-    replicated leaves (MLPs, head, routing maps) bitwise equal, every
-    rank's losses and scores the same, cached = uncached logits, a plan's
-    1 threshold and 1 ``route_bucketize`` launch (the group's plan 1 and
-    2: its window routes in a second launch), ``gather_decode`` = the
-    rounds the plans imply."""
-    import torch_rank_jobs as rank_jobs
+# 19f: phase 5e's budget plan on 19d's mesh: served batches and train steps
+BUDGET_SERVE, BUDGET_TRAIN = 2, 2
 
-    from repro_torch.dist import run
 
+def _budget_ranks_cfg(vocab_scale):
+    """19f's config: phase 5e's plan (1 GiB a device, int8 host and arena:
+    21 DEVICE tables + ``BUDGET_CACHED``) at ``DATA_SHAPE``'s shard count."""
+    return dataclasses.replace(_budget_cfg(vocab_scale), model_shards=DATA_SHAPE[1])
+
+
+def _device_leg_bytes(cfg, D):
+    """The DEVICE tables' gradient leg a rank sends a step over the data
+    axis (float32): each table at the global batch's distinct ids, at most
+    ``min(vocab, lanes)`` rows (the bound), and the whole tables' bytes."""
+    from repro_torch.models.dlrm import DLRM
+
+    coll = DLRM(cfg).collection
+    row = 4 * cfg.embed_dim * (D - 1)
+    bound = sum(min(t.vocab, cfg.batch_size) for t in coll.device_slabs.values()) * row
+    return bound, sum(t.vocab for t in coll.device_slabs.values()) * row
+
+
+def _data_cfg(vocab_scale):
+    return dataclasses.replace(_sharded_cfg(vocab_scale), model_shards=DATA_SHAPE[1],
+                               arena_precision="int8", max_routed_per_shard=DATA_WIDTH)
+
+
+def dist_data_job(vocab_scale):
+    """19d's rank job: phase 5b's DLRM (K 2048, fp32 exchange) with an
+    int8-tiered arena on a ``(data=2, model=2)`` mesh of four gloo ranks
+    sharing the card, each pinning its shard's half of the host table; the
+    plan at the compact width ``DATA_WIDTH``; torch's default mode.  Each
+    data replica feeds half of every global batch of 16 384:
+    ``DATA_SERVE`` served batches after a warm-up, a warm-up step,
+    ``DATA_TRAIN`` serial steps, a flush, then one ``PipelinedTrainer``
+    group of depth ``DATA_GROUP`` from that state."""
+    return dict(cfg=_data_cfg(vocab_scale), serve=DATA_SERVE, warm_serve=True,
+                check_dense=(TOL_RTOL, TOL_ATOL), train=DATA_TRAIN, warm_train=True,
+                group=DATA_GROUP, count=True, replicated=True, digests=True)
+
+
+def budget_ranks_job(vocab_scale):
+    """19f's rank job (see :func:`budget_ranks_check`)."""
+    return dict(cfg=_budget_ranks_cfg(vocab_scale), serve=BUDGET_SERVE, warm_serve=True,
+                check_dense=(TOL_RTOL, TOL_ATOL), train=BUDGET_TRAIN, warm_train=True,
+                count=True, replicated=True, digests=True, check_flushed=True,
+                bag=dict(bags=BAGS, lanes=BAG_LANES, combiner="sum", step=0))
+
+
+def dist_data_check(res, vocab_scale):
+    """19d: every replica's shard state and every rank's replicated leaves
+    (MLPs, head, routing maps) bitwise equal, every rank's losses and
+    scores the same, cached = uncached logits, a plan's 1 threshold and 1
+    ``route_bucketize`` launch (the group's plan 1 and 2: its window routes
+    in a second launch), ``gather_decode`` = the rounds the plans imply.
+    Returns the ranks' launches."""
     D, S = DATA_SHAPE
-    cfg = dataclasses.replace(_sharded_cfg(vocab_scale), model_shards=S, arena_precision="int8",
-                              max_routed_per_shard=DATA_WIDTH)
-    job = dict(cfg=cfg, serve=DATA_SERVE, warm_serve=True, check_dense=(TOL_RTOL, TOL_ATOL),
-               train=DATA_TRAIN, warm_train=True, group=DATA_GROUP, count=True, replicated=True,
-               digests=True)
-    log(f"19d: MemAvailable before spawning {mem_available_gb()} GB")
-    res = [r[0] for r in run.run_ranks(rank_jobs.dlrm_rank, D * S, "gloo", None, ([job],))]
+    cfg = _data_cfg(vocab_scale)
     r0 = res[0]
     for r in res:
         what = f"19d rank {r['rank']} (data {r['data_rank']}, shard {r['model_rank']})"
@@ -2634,7 +2873,223 @@ def dist_data_phase(vocab_scale):
                    for r in res) for k in r0["train_launches"]}
 
 
-def dist_rehome_phase(dev, vocab_scale=DIST_SCALE, n_steps=DIST_STEPS):
+def budget_ranks_check(res, vocab_scale):
+    """19f: phase 5e's budget plan (1 GiB a device, int8 host and arena: the
+    21 DEVICE tables whole on every rank, each ``BUDGET_CACHED`` slab one
+    shard a rank) on 19d's ``(data=2, model=2)`` mesh of gloo ranks sharing
+    the card, each replica feeding half of every global batch, in torch's
+    default mode: ``BUDGET_SERVE`` served batches after a warm-up, a
+    warm-up step, ``BUDGET_TRAIN`` steps, one bag step (sum) through
+    ``pool(use_pallas=True, max_bag=BAG_LANES)`` on ``bag_batch``'s bags,
+    then a flush.  Checks ``device_process`` within the budget on every
+    rank, every replica's shard bitwise its twin's, every rank's DEVICE
+    tables, MLPs and routing maps bitwise the others', losses and scores
+    the same on every rank, cached = ``dense_reference`` logits, a plan's
+    one threshold and one ``route_bucketize`` launch a cached slab, the
+    bag step's one ``embedding_bag`` launch a slab with each output bitwise
+    the kernel's plain version on the same gathered lanes,
+    ``gather_decode_encode`` = the write-back and flush rounds (every
+    ``gather_decode`` fused into the int8 host), and after the flush every
+    resident row's host payload and sideband the encode of its arena row;
+    the DEVICE tables' gradient leg within its bound.  Returns the ranks'
+    launches."""
+    from repro_torch.models.dlrm import DLRM
+
+    D, S = DATA_SHAPE
+    cfg = _budget_ranks_cfg(vocab_scale)
+    coll = DLRM(cfg).collection
+    n_cached, n_slabs = len(coll.cached_slabs), len(coll.cached_slabs) + len(coll.device_slabs)
+    if vocab_scale == 1.0 and (n_cached, n_slabs) != (len(BUDGET_CACHED), 26):
+        raise AssertionError(f"19f: the 1 GiB plan is not 21 DEVICE + {BUDGET_CACHED}: "
+                             f"{coll.plan.summary()}")
+    bound, whole = _device_leg_bytes(cfg, D)
+    r0 = res[0]
+    for r in res:
+        what = f"19f rank {r['rank']} (data {r['data_rank']}, shard {r['model_rank']})"
+        if not (np.isfinite(r["scores"]).all() and np.isfinite(r["losses"]).all()
+                and np.isfinite(r["bag_loss"])):
+            raise AssertionError(f"{what}: non-finite scores or losses")
+        if (not np.array_equal(r["scores"], r0["scores"]) or r["losses"] != r0["losses"]
+                or r["bag_loss"] != r0["bag_loss"]):
+            raise AssertionError(f"{what}: scores or losses differ from rank 0's: {r['losses']} "
+                                 f"{r['bag_loss']} vs {r0['losses']} {r0['bag_loss']}")
+        if r["replicated"] != r0["replicated"]:
+            bad = sorted(k for k in r0["replicated"] if r["replicated"][k] != r0["replicated"][k])
+            raise AssertionError(f"{what}: replicated leaves (DEVICE tables, MLPs, routing "
+                                 f"maps) drifted from rank 0's: {bad}")
+        twin = next(x for x in res if x["model_rank"] == r["model_rank"])
+        if r["digests"] != twin["digests"] or r["bag_grads"] != twin["bag_grads"]:
+            raise AssertionError(f"{what}: its shard or its bag gradients differ from its data "
+                                 f"replica's")
+        if not r["dense_close"]:
+            raise AssertionError(f"{what}: cached vs dense_reference logits differ by "
+                                 f"{r['dense_diff']}")
+        if r["device_bytes"]["device_process"] > BUDGET_BYTES:
+            raise AssertionError(f"{what}: device_process {r['device_bytes']['device_process']} "
+                                 f"over the per-device budget {BUDGET_BYTES}")
+        sl, tl, rounds = r["serve_launches"], r["train_launches"], r["rounds"]
+        plans = {"serve": BUDGET_SERVE, "train": BUDGET_TRAIN + 1}  # the bag step's plan too
+        for path, got in (("serve", sl), ("train", tl)):
+            n = n_cached * plans[path]
+            if (got["victim_threshold"], got["route_bucketize"], got["bucketize"]) != (n, n, n):
+                raise AssertionError(f"{what} {path}: launches {got} for {plans[path]} plans of "
+                                     f"{n_cached} cached slabs (want 1 threshold and 1 "
+                                     f"route_bucketize a slab)")
+        gde = rounds["writeback"] + rounds["flush"]
+        if (sl["gather_decode"] or not gde or tl["gather_decode"] != gde
+                or tl["gather_decode_encode"] != gde):
+            raise AssertionError(f"{what}: gather_decode {sl['gather_decode']} serving, "
+                                 f"{tl['gather_decode']} ({tl['gather_decode_encode']} fused) "
+                                 f"training; the plans imply {rounds}")
+        if (r["bag_launches"]["embedding_bag"], tl["embedding_bag"], r["bag_calls"]) != (
+                n_slabs, n_slabs, n_slabs) or not r["bag_exact"]:
+            raise AssertionError(f"{what}: the bag step made {r['bag_launches']} launches in "
+                                 f"{r['bag_calls']} calls for {n_slabs} slabs; outputs bitwise "
+                                 f"the plain version: {r['bag_exact']} (max |diff| "
+                                 f"{r['bag_err']})")
+        dev_leg = r["train_traffic"]["parts"]["grads.device"] / BUDGET_TRAIN
+        if not 0 < dev_leg <= bound:
+            raise AssertionError(f"{what}: the DEVICE tables' gradient leg sent {dev_leg} B a "
+                                 f"step, over its bound {bound}")
+        if not r["flushed_rows"]:
+            raise AssertionError(f"{what}: no resident row checked after the flush")
+    log(f"19f: phase 5e's budget plan ({cfg.device_budget_bytes} B a device, int8 host and "
+        f"arena: {n_slabs - n_cached} DEVICE tables whole on every rank, {n_cached} cached "
+        f"slabs one shard a rank) on a ({D}, {S}) mesh of {D * S} gloo ranks sharing the card, "
+        f"global batch {cfg.batch_size}, torch's default mode; every replica's shard bitwise "
+        f"its twin's, the {len(r0['replicated'])} replicated leaves (DEVICE tables, MLPs, "
+        f"routing maps) bitwise across the ranks; losses {r0['losses']}, bag loss "
+        f"{r0['bag_loss']}, scores the same on every rank; cached = dense_reference within "
+        f"rtol {TOL_RTOL} atol {TOL_ATOL} (max |diff| {max(r['dense_diff'] for r in res)}); a "
+        f"plan: 1 threshold and 1 route_bucketize a cached slab; the bag step: 1 embedding_bag "
+        f"launch a slab ({n_slabs}), each bitwise the plain version on its gathered lanes (max "
+        f"|diff| {max(r['bag_err'] for r in res)}); gather_decode_encode = the rounds "
+        f"{[r['rounds'] for r in res]}; after the flush {[r['flushed_rows'] for r in res]} "
+        f"resident rows' int8 host payload and sideband bitwise the encode of their arena rows; "
+        f"device_process {[r['device_bytes']['device_process'] for r in res]} B (the budget "
+        f"{BUDGET_BYTES}; the planner's {cfg.device_budget_bytes})")
+    for r in res:
+        tt = r["train_traffic"]
+        log(f"19f rank {r['rank']} (data {r['data_rank']}, shard {r['model_rank']}): init "
+            f"{r['init_s']} s, host slices {r['host_process_bytes'] / 1e9} GB pinned; serve ms "
+            f"{r['serve_ms']} p50 {np.percentile(r['serve_ms'], 50)}; train step ms "
+            f"{r['step_ms']} p50 {np.percentile(r['step_ms'], 50)}; bag step {r['bag_ms']} ms "
+            f"(p50 of 1); flush {r['flush_ms']} ms; sent a train step "
+            f"{json.dumps(_legs_a_step(tt, BUDGET_TRAIN))}, of it the DEVICE tables' gradient "
+            f"leg {tt['parts']['grads.device'] / BUDGET_TRAIN} B (bound {bound}; the whole "
+            f"tables {whole}) and the arenas' {tt['parts']['grads.arenas'] / BUDGET_TRAIN} B; "
+            f"the bag step sent {json.dumps(_legs_a_step(r['bag_traffic'], 1))}; a served batch "
+            f"{json.dumps(_legs_a_step(r['serve_traffic'], BUDGET_SERVE))}; launches serve "
+            f"{r['serve_launches']} train and bag {r['train_launches']}; RSS after init, "
+            f"serving, training, at the end {r['rss_gb']} GB, peak device memory "
+            f"{r['peak_device_gb']} GB; device_bytes {json.dumps(r['device_bytes'])}; its job "
+            f"{r['job_s']} s")
+    log(f"19f card: {card_line()}")
+    return {k: sum(r["serve_launches"][k] + r["train_launches"][k] for r in res)
+            for k in r0["train_launches"]}
+
+
+def _rehome_check(res, cfg, D, S, dev, what):
+    """The checks of a refresh pass and a forced re-homing across ranks
+    (rank jobs with ``refresh=dict(cfg=REHOME_REFRESH, rebalance=0.0,
+    digests=True, probe=99, cool_head=True)``): each pass's
+    ``gather_decode`` launches on every rank equal to the rounds of its moves
+    out of the arena (fused into the host codec's encode where the host is
+    encoded; more than 0 in all) and no plan kernel inside a pass; the
+    parent rebuilds the stacked layout from the ranks' state before the
+    passes and makes the same passes: every rank's state after each pass
+    bitwise the stacked layout's shard, the reports equal, a lookup and
+    ``dense_reference`` after the passes bitwise on the replica's rows.
+    Returns the stacked passes' swaps, ranks moved, cross-shard rows and
+    deferred swaps (summed over the cached slabs)."""
+    import torch_rank_jobs as rank_jobs
+
+    from repro_torch.core import refresh as refresh_lib
+    from repro_torch.dist.partitioning import sharded_paths
+    from repro_torch.models.dlrm import DLRM
+    from repro_torch.train import checkpoint as ckpt
+
+    digest = rank_jobs.digest
+    fused = cfg.host_precision != "fp32"
+    for r in res:
+        for p in ("refresh", "rebalance"):
+            got, rounds = r[f"{p}_launches"], r[f"{p}_rounds"]
+            if (got["gather_decode"] != rounds or got["gather_decode_encode"] != fused * rounds
+                    or got["victim_threshold"] or got["bucketize"]):
+                raise AssertionError(f"{what} rank {r['rank']}: the {p} pass launched {got}; "
+                                     f"its moves out of the arena take {rounds} rounds")
+    if not (sum(r["refresh_rounds"] for r in res) and all(r["rebalance_rounds"] for r in res)):
+        raise AssertionError(f"{what}: no gather_decode in the passes: refresh "
+                             f"{[r['refresh_rounds'] for r in res]}, re-homing "
+                             f"{[r['rebalance_rounds'] for r in res]} rounds")
+    model = DLRM(cfg)
+    coll = model.collection
+    state = model.init(0, device=dev)
+    split = sharded_paths(coll.shard_specs())
+    lead = sorted((r for r in res if r["data_rank"] == 0), key=lambda r: r["model_rank"])
+    for key, t in ckpt._flatten(state["emb"]):
+        parts = [r["refresh_before"][key] for r in lead]
+        t.copy_(torch.cat(parts) if key in split else parts[0])
+    emb, rep = coll.refresh(state["emb"], refresh_lib.RefreshConfig(**REHOME_REFRESH))
+    shard_after = {s: {k: digest(v[s:s + 1] if k in split else v)
+                       for k, v in ckpt._flatten(emb)} for s in range(S)}
+    emb, reb = coll.refresh(emb, refresh_lib.RefreshConfig(max_swaps=0, rebalance_threshold=0.0))
+    shard_reb = {s: {k: digest(v[s:s + 1] if k in split else v)
+                     for k, v in ckpt._flatten(emb)} for s in range(S)}
+    bspec = synth_spec(cfg)
+    b = {k: torch.from_numpy(v).to(dev) for k, v in
+         synth_batch(bspec, cfg.batch_size, 1, 99).items()}
+    fb = model.features(b)
+    dense = coll.dense_reference(emb, fb)
+    emb, _, rows = coll.lookup(emb, fb)
+    swaps, moves = rep.total_swaps, sum(reb.rebalance_moves.values())
+    if not swaps or not moves or max(rep.cross_shard_rows.values()) > \
+            REHOME_REFRESH["exchange_budget"]:
+        raise AssertionError(f"{what}: swaps {rep}, re-homing {reb}")
+    bsz = cfg.batch_size // D
+    for r in res:
+        at = f"{what} rank {r['rank']}"
+        got_rep, got_reb = r["refresh_report"], r["rebalance_report"]
+        if (got_rep["swaps"], got_rep["deferred_swaps"], got_rep["cross_shard_rows"],
+                got_reb["rebalance_moves"]) != (rep.swaps, rep.deferred_swaps,
+                                                rep.cross_shard_rows, reb.rebalance_moves):
+            raise AssertionError(f"{at}: reports {got_rep} {got_reb} vs {rep} {reb}")
+        for name, whole, mine in (("refresh", shard_after, r["refresh_after"]),
+                                  ("rebalance", shard_reb, r["rebalance_after"])):
+            want = whole[r["model_rank"]]
+            bad = sorted(k for k in want if mine.get(k) != want[k])
+            if bad or set(mine) != set(want):
+                raise AssertionError(f"{at}: after the {name} pass, leaves not bitwise the "
+                                     f"stacked layout's: {bad}")
+        lo = r["data_rank"] * bsz
+        for f in fb.features:
+            if not (torch.equal(r["probe_dense"][f], dense[f][lo:lo + bsz].cpu())
+                    and torch.equal(r["probe_rows"][f], rows[f][lo:lo + bsz].cpu())):
+                raise AssertionError(f"{at}: lookup after the passes differs on {f}")
+    _close(dict(state, emb=emb))
+    del state, emb
+    gc.collect()
+    return swaps, moves, sum(rep.cross_shard_rows.values()), sum(rep.deferred_swaps.values())
+
+
+def _rehome_cfg(S, vocab_scale=DIST_SCALE):
+    return dataclasses.replace(_scaled(vocab_scale), model_shards=S, replicate_top_k=REP_K,
+                               batch_size=DIST_BATCH, arena_precision="int8")
+
+
+def dist_rehome_jobs(vocab_scale=DIST_SCALE, n_steps=DIST_STEPS):
+    """19e's rank jobs, one a ``REHOME_SHAPES`` mesh (see
+    :func:`dist_rehome_check`)."""
+    return [dict(cfg=_rehome_cfg(S, vocab_scale), train=n_steps, flush=False, count=True,
+                 # bitwise losses (D == 1) need deterministic mode; the passes are bitwise
+                 # in either
+                 deterministic=D == 1,
+                 refresh=dict(cfg=REHOME_REFRESH, rebalance=0.0, digests=True, probe=99,
+                              cool_head=True))
+            for D, S in REHOME_SHAPES]
+
+
+def dist_rehome_check(res_by_shape, dev, vocab_scale=DIST_SCALE, n_steps=DIST_STEPS):
     """19e: the refresh and the rebalance across ranks.  Gloo ranks sharing
     the card at each ``REHOME_SHAPES`` mesh (19b's cut: vocab scale 0.02,
     global batch 2 048, 3 steps; an int8-tiered arena over an fp32 host, so
@@ -2655,89 +3110,14 @@ def dist_rehome_phase(dev, vocab_scale=DIST_SCALE, n_steps=DIST_STEPS):
     loads the hottest ranks with no plan); the losses bitwise the stacked
     layout's at ``(1, S)`` and within rtol 1e-5 of them at ``data > 1``, on
     the same global batches."""
-    import torch_rank_jobs as rank_jobs
-
-    from repro_torch.core import refresh as refresh_lib
-    from repro_torch.dist import run
-    from repro_torch.dist.partitioning import sharded_paths
-    from repro_torch.models.dlrm import DLRM
-    from repro_torch.train import checkpoint as ckpt
-
-    digest = rank_jobs.digest
     launches = {}
-    for D, S in REHOME_SHAPES:
-        cfg = dataclasses.replace(_scaled(vocab_scale), model_shards=S, replicate_top_k=REP_K,
-                                  batch_size=DIST_BATCH, arena_precision="int8")
-        # bitwise losses (D == 1) need deterministic mode; the passes are bitwise in either
-        job = dict(cfg=cfg, train=n_steps, flush=False, count=True, deterministic=D == 1,
-                   refresh=dict(cfg=REHOME_REFRESH, rebalance=0.0, digests=True, probe=99,
-                                cool_head=True))
-        t0 = time.perf_counter()
-        res = [r[0] for r in run.run_ranks(rank_jobs.dlrm_rank, D * S, "gloo", None, ([job],))]
-        t_ranks = time.perf_counter() - t0
+    for (D, S), res in zip(REHOME_SHAPES, res_by_shape):
+        cfg = _rehome_cfg(S, vocab_scale)
         for r in res:
             for k in r["train_launches"]:
                 launches[k] = launches.get(k, 0) + sum(
                     r[p][k] for p in ("train_launches", "refresh_launches", "rebalance_launches"))
-            for p in ("refresh", "rebalance"):
-                got, rounds = r[f"{p}_launches"], r[f"{p}_rounds"]
-                if (got["gather_decode"] != rounds or got["gather_decode_encode"]
-                        or got["victim_threshold"] or got["bucketize"]):
-                    raise AssertionError(f"19e ({D}, {S}) rank {r['rank']}: the {p} pass "
-                                         f"launched {got}; its moves out of the arena take "
-                                         f"{rounds} rounds")
-        if not (sum(r["refresh_rounds"] for r in res) and all(r["rebalance_rounds"] for r in res)):
-            raise AssertionError(f"19e ({D}, {S}): no gather_decode in the passes: refresh "
-                                 f"{[r['refresh_rounds'] for r in res]}, re-homing "
-                                 f"{[r['rebalance_rounds'] for r in res]} rounds")
-        model = DLRM(cfg)
-        coll = model.collection
-        state = model.init(0, device=dev)
-        split = sharded_paths(coll.shard_specs())
-        lead = sorted((r for r in res if r["data_rank"] == 0), key=lambda r: r["model_rank"])
-        for key, t in ckpt._flatten(state["emb"]):
-            parts = [r["refresh_before"][key] for r in lead]
-            t.copy_(torch.cat(parts) if key in split else parts[0])
-        emb, rep = coll.refresh(state["emb"], refresh_lib.RefreshConfig(**REHOME_REFRESH))
-        shard_after = {s: {k: digest(v[s:s + 1] if k in split else v)
-                           for k, v in ckpt._flatten(emb)} for s in range(S)}
-        emb, reb = coll.refresh(emb, refresh_lib.RefreshConfig(max_swaps=0,
-                                                               rebalance_threshold=0.0))
-        shard_reb = {s: {k: digest(v[s:s + 1] if k in split else v)
-                         for k, v in ckpt._flatten(emb)} for s in range(S)}
-        bspec = synth_spec(cfg)
-        b = {k: torch.from_numpy(v).to(dev) for k, v in
-             synth_batch(bspec, cfg.batch_size, 1, 99).items()}
-        fb = model.features(b)
-        dense = coll.dense_reference(emb, fb)
-        emb, _, rows = coll.lookup(emb, fb)
-        swaps, moves = rep.swaps["__shared__"], reb.rebalance_moves["__shared__"]
-        if not swaps or not moves or rep.cross_shard_rows["__shared__"] > \
-                REHOME_REFRESH["exchange_budget"]:
-            raise AssertionError(f"19e ({D}, {S}): swaps {rep}, re-homing {reb}")
-        bsz = cfg.batch_size // D
-        for r in res:
-            what = f"19e ({D}, {S}) rank {r['rank']}"
-            got_rep, got_reb = r["refresh_report"], r["rebalance_report"]
-            if (got_rep["swaps"], got_rep["deferred_swaps"], got_rep["cross_shard_rows"],
-                    got_reb["rebalance_moves"]) != (rep.swaps, rep.deferred_swaps,
-                                                    rep.cross_shard_rows, reb.rebalance_moves):
-                raise AssertionError(f"{what}: reports {got_rep} {got_reb} vs {rep} {reb}")
-            for name, whole, mine in (("refresh", shard_after, r["refresh_after"]),
-                                      ("rebalance", shard_reb, r["rebalance_after"])):
-                want = whole[r["model_rank"]]
-                bad = sorted(k for k in want if mine.get(k) != want[k])
-                if bad or set(mine) != set(want):
-                    raise AssertionError(f"{what}: after the {name} pass, leaves not bitwise "
-                                         f"the stacked layout's: {bad}")
-            lo = r["data_rank"] * bsz
-            for f in fb.features:
-                if not (torch.equal(r["probe_dense"][f], dense[f][lo:lo + bsz].cpu())
-                        and torch.equal(r["probe_rows"][f], rows[f][lo:lo + bsz].cpu())):
-                    raise AssertionError(f"{what}: lookup after the passes differs on {f}")
-        _close(dict(state, emb=emb))
-        del state, emb
-        gc.collect()
+        swaps, moves, cross, deferred = _rehome_check(res, cfg, D, S, dev, f"19e ({D}, {S})")
         with deterministic() if D == 1 else contextlib.nullcontext():
             _, st, losses, _ = _stacked_case(cfg, n_steps, dev)
         _close(st)
@@ -2752,8 +3132,7 @@ def dist_rehome_phase(dev, vocab_scale=DIST_SCALE, n_steps=DIST_STEPS):
         tol = (f"; losses {res[0]['losses']} " + (
             f"within rtol 1e-5 of the (1, {S}) layout's {losses} (max rel {rel})" if D > 1
             else "bitwise the stacked layout's"))
-        log(f"19e ({D}, {S}): {D * S} gloo ranks {t_ranks} s; a refresh pass ({swaps} swaps, "
-            f"{rep.deferred_swaps['__shared__']} deferred, {rep.cross_shard_rows['__shared__']} "
+        log(f"19e ({D}, {S}): a refresh pass ({swaps} swaps, {deferred} deferred, {cross} "
             f"cross-shard rows of budget {REHOME_REFRESH['exchange_budget']}) and a forced "
             f"re-homing ({moves} ranks moved): every rank's state after each pass bitwise the "
             f"stacked layout's shard, the reports equal, the lookup and dense_reference after "
@@ -2765,6 +3144,78 @@ def dist_rehome_phase(dev, vocab_scale=DIST_SCALE, n_steps=DIST_STEPS):
             f"{[r['rebalance_traffic']['legs'] for r in res]} B")
     log(f"19e card: {card_line()}")
     return launches
+
+
+def ranks_phase(dev, vocab_scale, n_batches, n_steps, stacked_counts, warm_index):
+    """Phase 19's gloo ranks, one spawn a world size: every four-rank job
+    (19a; 19b's 4-shard cases and its budget cases at ``(2, 2)``; 19d; 19f;
+    19e at ``(2, 2)`` and ``(1, 4)``) runs in ONE world of four ranks
+    sharing the card, each job on a fresh mesh of its own shape, then 19b's
+    2-shard cases and its budget cases at ``(1, 2)`` in one world of two;
+    the parent checks each phase's results after.  Each phase logs its
+    seconds: its jobs on the slowest rank plus its checks here.  Returns
+    each phase's launches (19b's budget and bag cases apart)."""
+    import torch_rank_jobs as rank_jobs
+
+    from repro_torch.dist import run
+
+    ck_root = Path(ROOT) / "build" / "dist_ckpt"
+    shutil.rmtree(ck_root, ignore_errors=True)
+    b4, b2 = dist_bitwise_jobs(4, ck_root), dist_bitwise_jobs(2, ck_root)
+    four = {"19a": [dist_gloo_job(vocab_scale, n_batches, n_steps, warm_index)],
+            "19b": b4[1] + b4[2], "19d": [dist_data_job(vocab_scale)],
+            "19f": [budget_ranks_job(vocab_scale)], "19e": dist_rehome_jobs()}
+    log(f"19: MemAvailable before spawning {mem_available_gb()} GB")
+    worlds = {}
+    for world, jobs in ((4, four), (2, {"19b": b2[1] + b2[2]})):
+        flat = [j for js in jobs.values() for j in js]
+        t0 = time.perf_counter()
+        res = run.run_ranks(rank_jobs.dlrm_rank, world, "gloo", None, (flat,))
+        worlds[world] = {}
+        i = 0
+        for phase, js in jobs.items():  # [job][rank]
+            worlds[world][phase] = [[r[i + j] for r in res] for j in range(len(js))]
+            i += len(js)
+        log(f"19: the world of {world} gloo ranks ran {len(flat)} jobs in "
+            f"{time.perf_counter() - t0} s (spawn, rendezvous and jobs; by phase, the jobs on "
+            f"the slowest rank: "
+            f"{ {p: sum(max(r['job_s'] for r in x) for x in v) for p, v in worlds[world].items()} })")
+
+    def jobs_s(world, phase):
+        return sum(max(r["job_s"] for r in x) for x in worlds[world][phase])
+
+    out = {}
+    t0 = time.perf_counter()
+    out["19a"] = dist_gloo_check(worlds[4]["19a"][0], vocab_scale, n_batches, n_steps,
+                                 stacked_counts)
+    log(f"phase 19a: {jobs_s(4, '19a') + time.perf_counter() - t0} s (its job on the slowest "
+        f"rank and its checks)")
+    t0 = time.perf_counter()
+    out["19b"], out["19b_budget"] = {}, {}
+    for world, (cases, jobs, budget) in ((2, b2), (4, b4)):
+        res = [[x[j] for x in worlds[world]["19b"]] for j in range(world)]  # [rank][job]
+        got = dist_bitwise_check(cases, jobs, [r[:len(jobs)] for r in res], dev, ck_root)
+        for k, v in got.items():
+            out["19b"][k] = out["19b"].get(k, 0) + v
+        got = _budget_bitwise_check([r[len(jobs):] for r in res], budget,
+                                    world // BUDGET_SHARDS, dev, ck_root)
+        for case, v in got.items():
+            out["19b_budget"].setdefault(case, {})
+            for k, n in v.items():
+                out["19b_budget"][case][k] = out["19b_budget"][case].get(k, 0) + n
+    shutil.rmtree(ck_root, ignore_errors=True)
+    log(f"phase 19b: {jobs_s(2, '19b') + jobs_s(4, '19b') + time.perf_counter() - t0} s (its "
+        f"jobs on the slowest rank of each world and its checks)")
+    for phase, check in (("19d", dist_data_check), ("19f", budget_ranks_check)):
+        t0 = time.perf_counter()
+        out[phase] = check(worlds[4][phase][0], vocab_scale)
+        log(f"phase {phase}: {jobs_s(4, phase) + time.perf_counter() - t0} s (its job on the "
+            f"slowest rank and its checks)")
+    t0 = time.perf_counter()
+    out["19e"] = dist_rehome_check(worlds[4]["19e"], dev)
+    log(f"phase 19e: {jobs_s(4, '19e') + time.perf_counter() - t0} s (its jobs on the slowest "
+        f"rank and its checks)")
+    return out
 
 
 def synth_spec(cfg):
@@ -2908,16 +3359,18 @@ BUDGET_CACHED = ("f2", "f3", "f11", "f15", "f20")  # what the planner caches at 
 INT8_ROW_BYTES = 128 + 8  # an int8 host row of dim 128: payload + (scale, zp)
 
 
-def _budget_cfg(vocab_scale):
+def _budget_cfg(vocab_scale, batch_size=None):
     """The Criteo DLRM under a 1 GiB device budget with int8 host and arena
-    codecs.  A cut vocabulary gets the budget that holds the other 21
-    tables whole and the five at their own ratio, so the cut keeps the
-    full-width placements."""
+    codecs.  A cut vocabulary (or a cut ``batch_size``) gets the budget that
+    holds the other 21 tables whole and the five at their own ratio, so the
+    cut keeps the full-width placements."""
     from repro_torch.core.collection import PlacementPlanner
     from repro_torch.models.dlrm import DLRM
 
     cfg = dataclasses.replace(_scaled(vocab_scale), device_budget_bytes=BUDGET_BYTES,
                               host_precision="int8", arena_precision="int8")
+    if batch_size is not None:
+        cfg = dataclasses.replace(cfg, batch_size=batch_size)
     if vocab_scale != 1.0:  # the planner's own prices; no table is built
         price = PlacementPlanner(0, arena_precision="int8")
         budget = sum(price._fast_bytes(t, t.cache_ratio) if t.name in BUDGET_CACHED
@@ -3207,6 +3660,44 @@ def budget_phase(dev, vocab_scale, n_batches, n_steps):
 PIPE_STEPS, PIPE_DEPTHS = 4, (1, 3)  # steps a run (9 before phase 19); the runs' depths
 
 
+class InitSnapshot:
+    """One ``model.init(0)`` of the fp32 Criteo DLRM (phases 5d and 5f) and a
+    host copy of its every leaf: :meth:`restore` copies them back into the
+    init's own tensors, in place, and returns that state, equal leaf for
+    leaf to a fresh ``init(0)`` (the host table keeps its pin; a run that
+    started from it updated the same tensors).  One full-width init in
+    place of seven; the copy holds a second 17.3 GB in host memory."""
+
+    def __init__(self, model, dev):
+        from repro_torch.train import checkpoint as ckpt
+
+        log(f"init snapshot: MemAvailable {mem_available_gb()} GB before")
+        t0 = time.perf_counter()
+        self.state = model.init(0, device=dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        self.leaves = [(v, v.detach().clone()) for _, v in ckpt._flatten(self.state)]
+        torch.cuda.synchronize()
+        self.restores = 0
+        log(f"init snapshot: init(0) {t1 - t0} s, its copy {time.perf_counter() - t1} s "
+            f"({sum(c.numel() * c.element_size() for _, c in self.leaves) / 1e9} GB); "
+            f"MemAvailable {mem_available_gb()} GB after")
+
+    def restore(self):
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            for v, c in self.leaves:
+                v.copy_(c)
+        torch.cuda.synchronize()
+        self.restores += 1
+        log(f"init snapshot: restore {self.restores} in {time.perf_counter() - t0} s")
+        return self.state
+
+    def close(self):
+        _close(self.state)
+        self.leaves = self.state = None
+
+
 def _group_profile(model, state, now, ahead, depth, census=False):
     """One steady-state group under the profiler: the next group's plan,
     the group's computes (each loss fetched, as the trainer's), then the
@@ -3269,7 +3760,7 @@ def _train_run(model, depth, init_fn, make_batch, n_steps, dev, tracer, plans):
     return trainer.run(), trainer.history
 
 
-def pipeline_phase(dev, vocab_scale, n_steps):
+def pipeline_phase(dev, vocab_scale, n_steps, snap):
     """The paper's DLRM (fp32 host tier and arena, ``use_pallas_plan``)
     trained by the serial ``Trainer`` and by the ``PipelinedTrainer`` at each
     depth of ``PIPE_DEPTHS``.  Each schedule first runs ``n_steps`` from
@@ -3281,8 +3772,8 @@ def pipeline_phase(dev, vocab_scale, n_steps):
     deterministic sums take the card's slow sort-based path).  The
     depth-3 run's first lookahead key (kv = capacity) is held to the plain
     version and a stable argsort; after that schedule's flush every
-    resident arena row is bitwise its host row.  Each table is freed
-    before the next schedule."""
+    resident arena row is bitwise its host row.  Every schedule starts
+    from ``snap``'s ``init(0)`` (:class:`InitSnapshot`), restored in place."""
     from repro_torch.core.collection import SHARED_ARENA
     from repro_torch.data import synth
     from repro_torch.kernels.cache_ops import kernel, ops
@@ -3320,8 +3811,8 @@ def pipeline_phase(dev, vocab_scale, n_steps):
         t0 = time.perf_counter()
         try:
             with deterministic():
-                state, h = _train_run(model, depth, lambda: model.init(0, device=dev),
-                                      lambda s: batches[s], n_steps, dev, Tracer(), plans)
+                state, h = _train_run(model, depth, snap.restore, lambda s: batches[s],
+                                      n_steps, dev, Tracer(), plans)
         finally:
             ops.victim_topk_impl = select
         run_s = time.perf_counter() - t0
@@ -3356,7 +3847,7 @@ def pipeline_phase(dev, vocab_scale, n_steps):
                       "stage_ms": {k: 1e3 * v["total_s"] / n_steps for k, v in stages.items()
                                    if k in ("plan", "apply", "compute")}}
         log(f"pipelined {name}: checked run ({n_steps} steps from init(0), deterministic) "
-            f"{run_s} s with the {spec.vocab} x {spec.dim} fp32 table's init; losses "
+            f"{run_s} s with the {spec.vocab} x {spec.dim} fp32 table's restore; losses "
             f"{runs[name]['losses']}; its step ms {det_ms}; plans {len(plans)} (window lengths "
             f"{[n for _, n in plans]}: one a group), threshold launches {thr}, "
             f"future_unresident 0.  Timed run ({n_steps} more steps, default mode): step ms "
@@ -3374,8 +3865,7 @@ def pipeline_phase(dev, vocab_scale, n_steps):
             check_resident(coll.weights(emb)[SHARED_ARENA],
                            emb.slabs[SHARED_ARENA].cache.slot_to_row,
                            emb.slabs[SHARED_ARENA].full, f"pipelined {name}")
-        state["emb"].slabs[SHARED_ARENA].full.close()
-        del state
+        del state  # its table is the snapshot's: the next schedule restores it
         gc.collect()
     base = runs["serial"]
     for name, r in runs.items():
@@ -3408,7 +3898,8 @@ def sharded_budget_phase(dev, vocab_scale, n_batches, n_steps):
     path with the counts at 0 before it and read after it.  Cached logits
     = ``dense_reference`` logits within the sharded bound; after the flush
     every resident row's host payload and sideband bitwise the int8 encode
-    of its arena row, shard by shard."""
+    of its arena row, shard by shard.  Then phase 5g's re-homing on the
+    flushed state (:func:`rebalance_on`)."""
     from repro_torch.core import collection as col
     from repro_torch.data import synth
     from repro_torch.kernels.cache_ops import kernel
@@ -3562,10 +4053,13 @@ def sharded_budget_phase(dev, vocab_scale, n_batches, n_steps):
         f"gather_decode_encode); post-flush: all {resident} resident rows of {len(cached)} "
         f"slabs x {SHARDS} shards: host payload and sideband bitwise the int8 encode of the "
         f"arena row")
+    t0 = time.perf_counter()
+    rebalance, state = rebalance_on(model, state, dev)  # 5g's re-homing, on this state
+    log(f"phase 5g (the re-homing, on 5e's state): {time.perf_counter() - t0} s")
     for n in cached:
         state["emb"].slabs[n].full.close()
     return {"thr_launches": serve_thr + train_thr, "bz_launches": serve_bz + train_bz,
-            "gd_launches": serve_gd + train_gd + flush_gd}
+            "gd_launches": serve_gd + train_gd + flush_gd, "rebalance": rebalance}
 
 
 def sharded_pipelined_crosscheck(dev, vocab_scale=0.02, n_steps=6, depth=2):
@@ -3819,13 +4313,14 @@ def _host_writes(out):
         transmitter.move_rows, transmitter.write_rows = move, write
 
 
-def refresh_phase(dev, vocab_scale, n_steps=REFRESH_STEPS, n_serve=REFRESH_SERVE_BATCHES):
+def refresh_phase(dev, vocab_scale, snap, n_steps=REFRESH_STEPS, n_serve=REFRESH_SERVE_BATCHES):
     """5f: the unsharded refresh at full width, on a drifting stream.
     Serving: an engine with ``refresh_every`` 2 against one without, scores
     bitwise batch by batch.  Training (fp32 host tier and arena, phase
     5d's DLRM): ``refresh_interval`` 4 against none, and the depth-3
     ``PipelinedTrainer`` with the interval against the serial run with it,
-    each from ``init(0)`` under ``deterministic()``: losses bitwise; then
+    each from ``init(0)`` (``snap``, phase 5d's :class:`InitSnapshot`,
+    restored) under ``deterministic()``: losses bitwise; then
     the serial run with the interval goes on in the default mode for its
     step times and each pass's planning and surgery ms.  Last the int8
     host tier and arena: training with the interval (dirty refreshes,
@@ -3849,7 +4344,7 @@ def refresh_phase(dev, vocab_scale, n_steps=REFRESH_STEPS, n_serve=REFRESH_SERVE
 
     # --- serving: refresh_every 2 against no refresh, batch by batch -------
     served, first_hits = {}, {}
-    state = model.init(0, device=dev)
+    state = snap.restore()
     # serving with writeback=False and no refresh writes nothing to the host table
     # (checked: no row move into it), so the refreshing engine starts from the same
     # init: its device leaves restored (checked, and its first batch's hits and misses
@@ -3887,8 +4382,7 @@ def refresh_phase(dev, vocab_scale, n_steps=REFRESH_STEPS, n_serve=REFRESH_SERVE
             raise AssertionError(f"refresh serve: serving with writeback=False wrote into the "
                                  f"host table ({host_writes})")
         summary = engine.summary()
-        if every:
-            _close(engine.state)
+        if every:  # the table is the snapshot's: the training runs restore it
             del state, init_leaves
         del engine
         gc.collect()
@@ -3937,8 +4431,7 @@ def refresh_phase(dev, vocab_scale, n_steps=REFRESH_STEPS, n_serve=REFRESH_SERVE
         kernel.victim_threshold.launches = 0
         t0 = time.perf_counter()
         with deterministic():
-            state, h = train(depth, interval, passes, lambda: model.init(0, device=dev), 0,
-                             n_steps)
+            state, h = train(depth, interval, passes, snap.restore, 0, n_steps)
         thr = kernel.victim_threshold.launches
         runs[name] = [r["loss"] for r in h]
         if len(h) != n_steps or not np.isfinite(runs[name]).all():
@@ -3963,8 +4456,7 @@ def refresh_phase(dev, vocab_scale, n_steps=REFRESH_STEPS, n_serve=REFRESH_SERVE
                 f"p99 {np.percentile(step_ms, 99)} ms (numpy, of {n_steps}; a pass runs between "
                 f"steps, outside the step clock); passes (swaps, rows moved, host ms = plan + "
                 f"surgery): {passes}; threshold launches {launches['train_timed']}")
-        _close(state)
-        del state
+        del state  # its table is the snapshot's
         gc.collect()
     if runs["serial+refresh"] != runs["serial"]:
         raise AssertionError(f"refresh train: losses with the refresh {runs['serial+refresh']} "
@@ -4033,13 +4525,8 @@ def sharded_refresh_phase(dev, vocab_scale, n_steps=SH_REFRESH_STEPS):
     refresh with ``exchange_budget`` (``dense_reference`` after a flush
     bitwise before and after; cross-shard rows within the budget; swaps +
     deferred = the unbudgeted plan's swaps), then two steps planned over
-    the swapped homes.  Then phase 5e's sharded budget mode (int8 host and
-    arena) trained on it and flushed, and a re-homing pass (no swaps) with
-    ``rebalance_threshold`` the median slab's live imbalance: the live
-    imbalance before and after, the
-    moves, the host RSS peak; ``dense_reference`` bitwise before and after,
-    served logits over the new homes = ``dense_reference`` logits; then two
-    steps over the new homes."""
+    the swapped homes.  (The re-homing of phase 5e's sharded budget mode
+    runs on 5e's flushed state: :func:`rebalance_on`.)"""
     from repro_torch.core import refresh as refresh_lib
     from repro_torch.core.collection import SHARED_ARENA
     from repro_torch.kernels.cache_ops import kernel
@@ -4115,18 +4602,29 @@ def sharded_refresh_phase(dev, vocab_scale, n_steps=SH_REFRESH_STEPS):
     del state, emb
     gc.collect()
 
-    # --- the sharded budget mode: rebalance -------------------------------------
-    cfg = dataclasses.replace(_budget_cfg(vocab_scale), model_shards=SHARDS)
-    model = DLRM(cfg)
-    coll = model.collection
+    return out
+
+
+def rebalance_on(model, state, dev):
+    """5g's re-homing, on phase 5e's flushed state (the sharded budget mode,
+    int8 host and arena, 4 shards stacked): a re-homing pass (no swaps)
+    with ``rebalance_threshold`` the median slab's live imbalance: the live
+    imbalance before and after, the moves, the host RSS peak;
+    ``dense_reference`` bitwise before and after, served logits over the
+    new homes = ``dense_reference`` logits; then ``SH_AFTER_STEPS`` steps
+    over the new homes on the drifting stream.  The launches from the pass
+    on.  Returns them and the state."""
+    from repro_torch.core import refresh as refresh_lib
+    from repro_torch.kernels.cache_ops import kernel
+
+    coll, cfg = model.collection, model.cfg
     cached = sorted(coll.cached_slabs, key=lambda n: int(n[1:]))
-    batches = _drift_batches(cfg, n_steps + 4, 5)
-    counts_zero()
-    state = model.init(0, device=dev)
-    state, losses = steps(model, state, batches[:n_steps])
-    state = model.flush(state)
-    n_checked = _check_int8_flushed(coll, state["emb"], cached, "rebalance pre-flush")
-    b = dev_batch(batches[n_steps + 3])
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+               for b in _drift_batches(cfg, SH_AFTER_STEPS + 1, 5)]
+    kernel.victim_threshold.launches = kernel.bucketize.launches = 0
+    kernel.gather_decode.launches = 0
+    kernel.bucketize.fused_launches = kernel.gather_decode.fused_launches = 0
+    b = batches[SH_AFTER_STEPS]
     fb = model.features(b)
     before = coll.dense_reference(state["emb"], fb)
     imb0 = {n: _live_imbalance(coll, state["emb"], n) for n in cached}
@@ -4158,28 +4656,28 @@ def sharded_refresh_phase(dev, vocab_scale, n_steps=SH_REFRESH_STEPS):
         raise AssertionError("rebalance: dense_reference changed across the re-homing")
     if not torch.allclose(logits, ref_logits, rtol=TOL_RTOL, atol=TOL_ATOL):
         raise AssertionError(f"rebalance: cached vs dense_reference logits differ by {diff}")
-    state, after_losses = steps(model, dict(state, emb=emb),
-                                batches[n_steps:n_steps + SH_AFTER_STEPS])
-    out["rebalance"] = counts()
-    r = out["rebalance"]
+    state = dict(state, emb=emb)
+    after_losses = []
+    for bt in batches[:SH_AFTER_STEPS]:
+        state, m = model.train_step(state, bt)
+        after_losses.append(float(m["loss"]))
+    if not np.isfinite(after_losses).all() or int(m["uniq_overflows"]):
+        raise AssertionError(f"rebalance: losses after it {after_losses}")
+    r = {"thr": kernel.victim_threshold.launches, "bz": kernel.bucketize.launches,
+         "gd": kernel.gather_decode.launches, "bz_fused": kernel.bucketize.fused_launches,
+         "gd_fused": kernel.gather_decode.fused_launches}
     if not all(r.values()) or (r["bz_fused"], r["gd_fused"]) != (r["bz"], r["gd"]):
-        raise AssertionError(f"rebalance: launches {out['rebalance']}")
-    log(f"rebalance (sharded budget mode, int8 host and arena, {SHARDS} shards, "
-        f"{len(cached)} CACHED slabs, threshold {threshold}, the median slab's): {n_steps} train "
-        f"steps "
-        f"(losses {losses}), flush ({n_checked} resident rows' host payload and sideband = the "
-        f"int8 encode); per-slab live imbalance {rep.rebalance_imbalance}, moves {moved}, "
-        f"live imbalance by slab {imb0} -> {imb1}; {ms} ms (swap plan {clock.ms['plan']}, "
-        f"assign_devices {clock.ms['assign']}, re-homing surgery {clock.ms['rebalance']}, "
-        f"re-warm {clock.ms['rewarm']}); host RSS {rss0} GB before, peak {rss.peak} GB during "
-        f"(sampled every 5 ms); dense_reference bitwise before and "
-        f"after; served logits over the new homes = dense_reference logits (max |diff| "
-        f"{diff}); {SH_AFTER_STEPS} step(s) after it (losses {after_losses}); launches "
-        f"{out['rebalance']}")
-    _close(state)
-    del state, emb
-    gc.collect()
-    return out
+        raise AssertionError(f"rebalance: launches {r}")
+    log(f"rebalance (5e's flushed state: sharded budget mode, int8 host and arena, {SHARDS} "
+        f"shards, {len(cached)} CACHED slabs, threshold {threshold}, the median slab's): "
+        f"per-slab live imbalance {rep.rebalance_imbalance}, moves {moved}, live imbalance by "
+        f"slab {imb0} -> {imb1}; {ms} ms (swap plan {clock.ms['plan']}, assign_devices "
+        f"{clock.ms['assign']}, re-homing surgery {clock.ms['rebalance']}, re-warm "
+        f"{clock.ms['rewarm']}); host RSS {rss0} GB before, peak {rss.peak} GB during (sampled "
+        f"every 5 ms); dense_reference bitwise before and after; served logits over the new "
+        f"homes = dense_reference logits (max |diff| {diff}); {SH_AFTER_STEPS} step(s) after "
+        f"it on the drifting stream (losses {after_losses}); launches from the pass on {r}")
+    return r, state
 
 
 def _live_imbalance(coll, emb, name):
@@ -6657,18 +7155,14 @@ def main():
     gc.collect()
     # phase 19 after 5b, whose counts 19a's ranks are held to; no table is pinned here
     log(f"host RSS before the ranks (5b's table unpinned and freed) {rss_gb()} GB")
-    dist_a = timed("19a (4 gloo ranks sharing the card, full width)", dist_gloo_phase,
-                   args.vocab_scale, min(args.batches, DIST_SERVE),
-                   min(args.train_steps, DIST_TRAIN), sharded["counts"], args.train_steps + 4)
+    # 19a, 19b, 19d, 19e and 19f: one world of four gloo ranks and one of two
+    ranks = timed("19 (gloo ranks sharing the card: 19a, 19b, 19d, 19e, 19f)", ranks_phase,
+                  dev, args.vocab_scale, min(args.batches, DIST_SERVE),
+                  min(args.train_steps, DIST_TRAIN), sharded["counts"], args.train_steps + 4)
+    dist_a, dist_b, dist_bb, dist_d, dist_e, dist_f = (
+        ranks[k] for k in ("19a", "19b", "19b_budget", "19d", "19e", "19f"))
     gc.collect()
-    dist_b = timed("19b (gloo ranks bitwise the stacked layout)", dist_bitwise_phase, dev)
-    gc.collect()
-    dist_c = timed("19c (one NCCL rank)", dist_nccl_phase, dev, args.vocab_scale)
-    gc.collect()
-    dist_d = timed("19d ((data=2, model=2) gloo ranks sharing the card, full width)",
-                   dist_data_phase, args.vocab_scale)
-    gc.collect()
-    dist_e = timed("19e (the refresh and the rebalance across ranks)", dist_rehome_phase, dev)
+    dist_c = timed("19c (one NCCL rank)", dist_nccl_phase, dev, DIST_SCALE)
     gc.collect()
     torch.cuda.empty_cache()
     log(f"host RSS after phase 19 {rss_gb()} GB")
@@ -6676,7 +7170,13 @@ def main():
                    args.train_steps)
     gc.collect()
     log(f"host RSS after budget (tables unpinned and freed) {rss_gb()} GB")
-    pipe = timed("5d (pipelined training)", pipeline_phase, dev, args.vocab_scale, PIPE_STEPS)
+    snap = timed("5d-5f init snapshot", InitSnapshot, DLRM(_scaled(args.vocab_scale)), dev)
+    pipe = timed("5d (pipelined training)", pipeline_phase, dev, args.vocab_scale, PIPE_STEPS,
+                 snap)
+    gc.collect()
+    rf = timed("5f (refresh)", refresh_phase, dev, args.vocab_scale, snap)
+    snap.close()
+    del snap
     gc.collect()
 
     log(f"host RSS after pipelined (tables unpinned and freed) {rss_gb()} GB")
@@ -6688,6 +7188,7 @@ def main():
                 "sharded_budget": sh_budget["gd_launches"]}
     # every write-back of these two paths went into an int8 host: all fused
     gde_paths = {"budget": budget["gd_launches"], "sharded_budget": sh_budget["gd_launches"]}
+    rebalance = sh_budget["rebalance"]
     jobs["gather_decode_encode"] = (budget["captured"], max(gd_err, budget["live_err"]),
                                     gde_paths)
     bag_paths = {"train": bag_launches, "budget": budget["bag_launches"]}
@@ -6760,21 +7261,22 @@ def main():
                        "sharded_budget": sh_budget["bz_launches"]}),
     })
     # the ranks' launches (each rank's wrappers counted, summed over the ranks)
-    jobs["threshold"][2].update({"ranks_19a": dist_a["victim_threshold"],
-                                 "ranks_19c": dist_c["victim_threshold"],
-                                 "ranks_19d": dist_d["victim_threshold"],
-                                 "ranks_19e": dist_e["victim_threshold"]})
-    jobs["bucketize"][2].update({"ranks_19a": dist_a["bucketize"],
-                                 "ranks_19c": dist_c["bucketize"],
-                                 "ranks_19d": dist_d["bucketize"],
-                                 "ranks_19e": dist_e["bucketize"]})
-    jobs["bucketize"][3].update({"ranks_19a": dist_a["route_bucketize"],
-                                 "ranks_19c": dist_c["route_bucketize"],
-                                 "ranks_19d": dist_d["route_bucketize"],
-                                 "ranks_19e": dist_e["route_bucketize"]})
-    gd_paths.update({"ranks_19a": dist_a["gather_decode"], "ranks_19b": dist_b["gather_decode"],
-                     "ranks_19d": dist_d["gather_decode"], "ranks_19e": dist_e["gather_decode"]})
-    jobs["gather_decode_encode"][2]["ranks_19b"] = dist_b["gather_decode_encode"]
+    # 19b's budget and bag cases and 19f count under their own keys
+    ranks = {"ranks_19a": dist_a, "ranks_19c": dist_c, "ranks_19d": dist_d, "ranks_19e": dist_e,
+             "ranks_19b_budget": dist_bb["budget"], "ranks_19b_bag": dist_bb["bag"],
+             "ranks_19f": dist_f}
+    jobs["threshold"][2].update({k: v["victim_threshold"] for k, v in ranks.items()})
+    jobs["bucketize"][2].update({k: v["bucketize"] for k, v in ranks.items()})
+    jobs["bucketize"][3].update({k: v["route_bucketize"] for k, v in ranks.items()})
+    gd_paths.update({k: ranks[k]["gather_decode"] for k in ("ranks_19a", "ranks_19d", "ranks_19e",
+                                                            "ranks_19b_budget", "ranks_19b_bag",
+                                                            "ranks_19f")},
+                    ranks_19b=dist_b["gather_decode"])
+    jobs["gather_decode_encode"][2].update(
+        {k: ranks[k]["gather_decode_encode"] for k in ("ranks_19b_budget", "ranks_19b_bag",
+                                                       "ranks_19f")},
+        ranks_19b=dist_b["gather_decode_encode"])
+    bag_paths.update({k: ranks[k]["embedding_bag"] for k in ("ranks_19b_bag", "ranks_19f")})
     del sharded, budget, fm_serve, fm_train, fm_rows, fm_chunk, fm_chunk_t, pipe, sh_budget
     del ce_run, avazu, recsys
     gc.collect()
@@ -6856,10 +7358,8 @@ def main():
         row["launches"] = sum(row["launches_by_path"].values())
     del lm_train, olmoe, grok
 
-    rf = timed("5f (refresh)", refresh_phase, dev, args.vocab_scale)
-    gc.collect()
-    sh_rf = timed("5g (sharded refresh and rebalance)", sharded_refresh_phase, dev,
-                  args.vocab_scale)
+    sh_rf = timed("5g (sharded refresh; its re-homing ran on 5e's state)",
+                  sharded_refresh_phase, dev, args.vocab_scale)
     gc.collect()
     log(f"host RSS after the refresh phases (tables unpinned and freed) {rss_gb()} GB")
     drift_thr = timed("5h (drift)", drift_phase, dev)
@@ -6869,19 +7369,19 @@ def main():
     jobs["threshold"][2].update({
         "refresh_serve": rf["serve"], "refresh_train": rf["train"] + rf["train_timed"],
         "refresh_pipelined": rf["pipelined"], "refresh_int8": rf["int8_thr"],
-        "refresh_sharded": sh_rf["sharded"]["thr"], "rebalance": sh_rf["rebalance"]["thr"],
+        "refresh_sharded": sh_rf["sharded"]["thr"], "rebalance": rebalance["thr"],
         "drift": drift_thr})
     jobs["bucketize"][2].update({"refresh_sharded": sh_rf["sharded"]["bz"],
-                                 "rebalance": sh_rf["rebalance"]["bz"]})
+                                 "rebalance": rebalance["bz"]})
     jobs["bucketize"][3].update({"refresh_sharded": sh_rf["sharded"]["bz_fused"],
-                                 "rebalance": sh_rf["rebalance"]["bz_fused"]})
+                                 "rebalance": rebalance["bz_fused"]})
     jobs["gather_decode_encode"][2].update({"refresh_int8": rf["int8_gd_fused"],
-                                            "rebalance": sh_rf["rebalance"]["gd_fused"]})
+                                            "rebalance": rebalance["gd_fused"]})
     rows = timed("8 (kernel timing, in a fresh process)", time_in_fresh_process, jobs)
     fmk, thr, bz, rbz, gd, gde, bag = (rows[k] for k in (
         "fm", "threshold", "bucketize", "route_bucketize", "gather_decode",
         "gather_decode_encode", "bag"))
-    gd_paths.update({"refresh_int8": rf["int8_gd"], "rebalance": sh_rf["rebalance"]["gd"]})
+    gd_paths.update({"refresh_int8": rf["int8_gd"], "rebalance": rebalance["gd"]})
     for row, paths in ((gd, gd_paths), (bag, bag_paths)):
         row["launches_by_path"] = paths
         row["launches"] = sum(paths.values())

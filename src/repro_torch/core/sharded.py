@@ -35,7 +35,8 @@ on the device.  The port keeps that layout on one card:
   resolved from the slab's global geometry), its int8 sideband stacked
   ``[S, rows_per_shard, 2]`` with the payload.  The card holds all S
   shards' arenas, so it holds S times the per-device arena bytes that
-  ``device_bytes()["device_per_shard"]`` prices.
+  ``device_bytes()["device_per_shard"]`` prices (under a mesh a rank holds
+  exactly that share).
 * ``plan_prepare(fb_future=)`` merges a lookahead window per shard: one
   dedup'd image of the window, routed (a second bucketize per plan) and
   handed to each shard's plan as its ``future_rows``.
@@ -62,8 +63,20 @@ gradients over the data axis in a fixed order (the arena's at the plan's
 ``grad_rows`` only).  The lookahead window and the refresh and rebalance
 run across the ranks.  ``shard_specs`` gives
 the reference's partition spec of every leaf (``dist.partitioning``).
-The budget mode and ``pool`` raise under a mesh of more than one shard
-(ROADMAP item 13b).
+
+The budget mode runs under a mesh: every rank draws the DEVICE tables
+whole from the same seeds (replicas, bitwise equal), and each cached slab
+splits one shard a rank, its host codec resolved alike on every rank.
+Under a split mesh a DEVICE table is read by the ordered take
+(``lanes.take_fill_ordered``), so every rank steps an equal copy in
+torch's default mode, and at ``data > 1`` its gradient crosses the data
+axis only at the global batch's distinct ids of the table (the plan's
+``grad_rows``; the whole table where its vocab is no larger than its
+lanes).  ``pool``'s kernel route under a split mesh pools each slab's
+gathered lanes in one ``embedding_bag_multi`` launch (:meth:`_pool_lanes`),
+bitwise the stacked kernel route; at ``data > 1`` the ids cross the data
+axis and the segments stay each replica's, which must feed the same
+number of lanes of every feature.
 """
 from __future__ import annotations
 
@@ -98,7 +111,7 @@ from repro_torch.dist import exchange
 from repro_torch.dist.partitioning import MODEL_AXIS, P
 from repro_torch.kernels.cache_ops import ops as cache_ops
 from repro_torch.kernels.cache_ops import ref as cache_ref
-from repro_torch.dist.mesh import ITEM_13B, HybridMesh
+from repro_torch.dist.mesh import HybridMesh
 from repro_torch.store.arena import ArenaStore, tiered_arena_bytes
 from repro_torch.store.codec import get_codec
 from repro_torch.store.host_store import HostStore
@@ -297,10 +310,6 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
         ``num_shards`` shards; with ``budget_bytes`` (the PER-DEVICE budget)
         or a ``planner``, its DEVICE / CACHED / GROUPED plan, the cached
         slabs sharded.  ``mesh``: this process holds one shard."""
-        if mesh is not None and num_shards > 1 and (budget_bytes is not None
-                                                    or planner is not None):
-            raise ValueError(f"the budget mode under a mesh of {num_shards} ranks waits for "
-                             f"{ITEM_13B}")
         if planner is None and budget_bytes is None:
             plan = PlacementPlan.single_arena(tables, **arena_kw)
         else:
@@ -320,11 +329,6 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
     def _split(self) -> bool:
         """The shards live in more than one process."""
         return self.mesh is not None and self.num_shards > 1
-
-    def _refuse_split(self, what: str) -> None:
-        if self._split():
-            raise ValueError(f"{what} under a mesh of {self.num_shards} ranks waits for "
-                             f"{ITEM_13B}")
 
     def _local(self, per_shard: torch.Tensor) -> torch.Tensor:
         """The local shards' entries of an ``[S, ...]`` tensor."""
@@ -622,7 +626,8 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
         batches = self._global_batches((fb, *fb_future))
         fb, fb_future = batches[0], batches[1:]
         addresses, *future_addresses = self._device_addresses(batches)
-        grad_rows: List[Dict[str, torch.Tensor]] = [{} for _ in batches]
+        grad_rows: List[Dict[str, torch.Tensor]] = [
+            self._device_grad_rows(b) if self._data_split() else {} for b in batches]
         unresident = []
         slab_plans: Dict[str, cache_lib.CachePlan] = {}
         routed: Dict[str, torch.Tensor] = {}
@@ -745,6 +750,8 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
         fbs = list(fbs)
         if not self._data_split():
             return fbs
+        if any(b.segments for b in fbs):
+            self._check_lanes(fbs)
         parts = [b.ids[f].reshape(-1).to(torch.int32) for b in fbs for f in b.features]
         g = exchange.data_all_gather(torch.cat(parts), self.mesh, "ids")  # [D, N]
         D, off, out = self.mesh.data, 0, []
@@ -757,29 +764,76 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
             out.append(FeatureBatch(ids=ids))
         return out
 
+    def _check_lanes(self, fbs: Sequence[FeatureBatch]) -> None:
+        """Bag batches at ``data > 1``: every replica must feed the same
+        number of lanes of each feature (the ids cross the data axis in
+        one all-gather of equal parts).  The lane counts cross first, in a
+        small collective of their own; refuses, naming the feature, on
+        every rank alike."""
+        names = [f for b in fbs for f in b.features]
+        n = torch.tensor([b.ids[f].numel() for b in fbs for f in b.features], dtype=torch.int64)
+        if self.mesh.backend == "nccl":  # NCCL moves card tensors only
+            n = n.to(fbs[0].ids[names[0]].device)
+        g = exchange.data_all_gather(n, self.mesh, "lanes").cpu()  # [D, F]
+        bad = {f: c.tolist() for f, c in zip(names, g.unbind(1)) if bool((c != c[0]).any())}
+        if bad:
+            raise ValueError(f"the {self.mesh.data} data replicas feed different lane counts of "
+                             f"feature(s) {sorted(bad)} (by replica: {bad}); each must feed the "
+                             f"same number of lanes of a feature")
+
+    def _device_grad_rows(self, fb: FeatureBatch) -> Dict[str, torch.Tensor]:
+        """At ``data > 1``: each DEVICE table's distinct ids in the global
+        batch ``fb`` (ascending, -1 padding to the table's lanes), the rows
+        its gradient crosses the data axis at (no other row of a replica's
+        gradient is nonzero); none for a table no larger than its lanes,
+        whose whole gradient crosses.  One sort a table, no host sync."""
+        by_table: Dict[str, List[torch.Tensor]] = {}
+        for f in fb.features:
+            t = self.feature_to_table[f]
+            if t in self.device_slabs:
+                by_table.setdefault(t, []).append(fb.ids[f].reshape(-1))
+        out = {}
+        for t, parts in by_table.items():
+            ids = torch.cat(parts).to(torch.int32)
+            vocab = self.device_slabs[t].vocab
+            if vocab <= ids.shape[0]:
+                continue
+            key = torch.where((ids >= 0) & (ids < vocab), ids, _PAD_RANK)
+            uniq, _ = cache_ops.dedup_impl(key, int(ids.shape[0]), _PAD_RANK)
+            out[t] = torch.where(uniq < _PAD_RANK, uniq, -1)
+        return out
+
     def pick_grad_rows(self, grads: Mapping[str, torch.Tensor],
                        grad_rows: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """The part of each weight gradient that crosses the data axis: a
         cached slab's ``[1, capacity, dim]`` arena gradient at its shard's
-        distinct rows of the global plan (``grad_rows``, a plan's), never
-        the whole arena; any other weight's whole."""
-        return {k: take_fill(g[0], grad_rows[k], 0.0) if k in self.cached_slabs else g
-                for k, g in grads.items()}
+        distinct rows of the global plan and a DEVICE table's at the
+        global batch's distinct ids (``grad_rows``, a plan's); any other
+        weight's whole (a DEVICE table no larger than its lanes, the
+        replicated head)."""
+        out = {}
+        for k, g in grads.items():
+            if k in grad_rows:
+                g = take_fill(g[0] if k in self.cached_slabs else g, grad_rows[k], 0.0)
+            out[k] = g
+        return out
 
     def place_grad_rows(self, grads: Mapping[str, torch.Tensor], parts: Mapping[str, torch.Tensor],
                         grad_rows: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Inverse of :meth:`pick_grad_rows` on the parts after the data
-        axis: an arena's rows scattered back into a zero gradient of its
-        shape (the rows are distinct; a -1 entry's zero row is dropped)."""
+        axis: an arena's or a DEVICE table's rows scattered back into a
+        zero gradient of its shape (the rows are distinct; a -1 entry's
+        zero row is dropped)."""
         out = {}
         for k, x in parts.items():
-            if k in self.cached_slabs:
-                g = grads[k]
-                cap = g.shape[1]
-                at = torch.where(grad_rows[k] >= 0, grad_rows[k], cap)
-                full = g.new_zeros((cap + 1,) + tuple(g.shape[2:]))
+            if k in grad_rows:
+                arena = k in self.cached_slabs
+                g = grads[k][0] if arena else grads[k]
+                n = g.shape[0]
+                at = torch.where(grad_rows[k] >= 0, grad_rows[k], n).to(torch.int64)
+                full = g.new_zeros((n + 1,) + tuple(g.shape[1:]))
                 full.index_copy_(0, at, x)
-                x = full[:cap].unsqueeze(0)
+                x = full[:n].unsqueeze(0) if arena else full[:n]
             out[k] = x
         return out
 
@@ -850,14 +904,18 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
         out = {}
         for sname, feats in by_slab.items():
             w = weights[sname]
+            flat = torch.cat([addresses[f].reshape(-1) for f in feats])
+            parts = [addresses[f].numel() for f in feats]
             if sname not in self.cached_slabs:  # a DEVICE table: row ids
-                out.update(super().gather(weights, addresses,
-                                          FeatureBatch(ids={f: fb.ids[f] for f in feats})))
+                # under a split mesh every rank steps its own copy: its
+                # gradient sums a row's lanes in a fixed order
+                take = take_fill_ordered if self._split() else take_fill
+                for f, part in zip(feats, take(w, flat, 0.0).split(parts)):
+                    out[f] = part.reshape(addresses[f].shape + (w.shape[-1],))
                 continue
             cap = w.shape[1]
             ncomb = self.num_shards * cap
             w_flat = w.reshape(-1, w.shape[-1])
-            flat = torch.cat([addresses[f].reshape(-1) for f in feats])
             idx = torch.where(flat < ncomb, flat, -1)
             if self.mesh is not None:  # the row leg between the ranks
                 rows = exchange.row_leg(w_flat, idx, self.mesh.model_rank * cap,
@@ -873,16 +931,20 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
                 # every rank steps its own copy of the head: its gradient sums in a fixed order
                 loc = take_fill_ordered(rep, torch.where(arena, flat - ncomb, -1), 0.0)
                 rows = torch.where(arena[:, None], loc, rows)
-            parts = rows.split([addresses[f].numel() for f in feats])
-            for f, part in zip(feats, parts):
+            for f, part in zip(feats, rows.split(parts)):
                 out[f] = part.reshape(addresses[f].shape + (w.shape[-1],))
         return out
 
     def pool(self, rows, fb, combiner="sum", *, weights=None, addresses=None,
              use_pallas=False, max_bag=0):
         """As the unsharded ``pool``; the kernel route reads the flattened
-        fast tier with the replicated arena appended past it."""
-        self._refuse_split("pool")
+        fast tier with the replicated arena appended past it.  Under a
+        split mesh the kernel route pools each slab's gathered lanes
+        (:meth:`_pool_lanes`): this rank holds one shard of the arena.
+        ``fb`` is this replica's batch (its segments its own), and
+        ``addresses`` its slice of the plan's."""
+        if use_pallas and weights is not None and addresses is not None and self._split():
+            return self._pool_lanes(rows, fb, combiner, weights, addresses, max_bag)
         if use_pallas and weights is not None:
             fused = {}
             for k, v in weights.items():
@@ -897,6 +959,42 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
             weights = fused
         return super().pool(rows, fb, combiner, weights=weights, addresses=addresses,
                             use_pallas=use_pallas, max_bag=max_bag)
+
+    def _pool_lanes(self, rows, fb, combiner, weights, addresses, max_bag):
+        """The kernel route under a split mesh: each slab's bag lanes read
+        as :meth:`gather` reads them (a cached slab's through the row leg,
+        the replicated head overlaid; a DEVICE table's by the ordered
+        take) into one ``[lanes, dim]`` tensor, then one
+        ``embedding_bag_multi`` launch a slab over it, its ids the lane
+        positions (-1 where the address is -1).  The kernel sums each
+        bag's rows in bag order off the same values, so the pooled rows
+        are bitwise the stacked kernel route's.  In the backward every lane
+        has its own index (the kernel's ``index_add_`` is exact); a row's
+        duplicate lanes are summed by the row leg's backward on the owner
+        or by the ordered take's."""
+        from repro_torch.kernels.embedding_bag import ops as eb_ops
+
+        out = dict(rows)
+        lanes = self.gather(weights, addresses, FeatureBatch(ids={f: fb.ids[f]
+                                                                  for f in fb.segments}))
+        by_slab: Dict[str, List[str]] = {}
+        for f in fb.segments:
+            by_slab.setdefault(self.table_slab[self.feature_to_table[f]][0], []).append(f)
+        pooled = {}
+        for feats in by_slab.values():
+            table = torch.cat([lanes[f].reshape(-1, lanes[f].shape[-1]) for f in feats])
+            addr = torch.cat([addresses[f].reshape(-1) for f in feats])
+            pos = torch.arange(addr.shape[0], dtype=torch.int32, device=addr.device)
+            offsets = [0]
+            for f in feats:
+                offsets.append(offsets[-1] + addresses[f].numel())
+            stacked = eb_ops.embedding_bag_multi(
+                table, torch.where(addr >= 0, pos, -1), torch.cat([fb.segments[f] for f in feats]),
+                offsets, fb.num_segments, combiner=combiner, max_bag=max_bag)
+            pooled.update(zip(feats, torch.unbind(stacked)))
+        for f in fb.segments:  # in the batch's feature order
+            out[f] = pooled[f]
+        return out
 
     @contract(in_place=("state",), int_counters=INT_COUNTERS, max_sort_size=0)
     def apply_grads(self, state: CollectionState, grads: Mapping[str, torch.Tensor], lr

@@ -29,9 +29,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
-__all__ = ["ITEM_13B", "HybridMesh", "Traffic", "check_mesh_shape"]
-
-ITEM_13B = "ROADMAP item 13b"
+__all__ = ["HybridMesh", "Traffic", "check_mesh_shape"]
 
 
 @dataclasses.dataclass
@@ -41,7 +39,8 @@ class Traffic:
     the calls over the model group (``collectives`` / ``bytes_sent`` /
     ``seconds``) and over the data group (``data_*``); ``legs`` splits the
     bytes sent by leg (``slot``, ``row``, ``counters``, ``ids``, ``grads``,
-    ...)."""
+    ...) and ``parts`` names parts of a leg's bytes (``grads.device``, the
+    DEVICE tables' rows in ``grads``), counted in their leg too."""
 
     collectives: int = 0
     bytes_sent: int = 0
@@ -50,11 +49,16 @@ class Traffic:
     data_bytes_sent: int = 0
     data_seconds: float = 0.0
     legs: Dict[str, int] = dataclasses.field(default_factory=dict)
+    parts: Dict[str, int] = dataclasses.field(default_factory=dict)
 
     def reset(self) -> None:
         self.collectives, self.bytes_sent, self.seconds = 0, 0, 0.0
         self.data_collectives, self.data_bytes_sent, self.data_seconds = 0, 0, 0.0
-        self.legs = {}
+        self.legs, self.parts = {}, {}
+
+    def part(self, name: str, nbytes: int) -> None:
+        """``nbytes`` of a leg already counted, named ``name``."""
+        self.parts[name] = self.parts.get(name, 0) + nbytes
 
     def add(self, leg: str, nbytes: int, seconds: float, data: bool = False) -> None:
         """One collective of ``leg`` that sent ``nbytes`` from this rank."""

@@ -18,7 +18,12 @@ synchronous row update with each slab's dense gradient (``[capacity, dim]``
 for an arena, ``[vocab, dim]`` for a DEVICE table).  Under a mesh of
 ``data > 1`` replicas, each replica's gradients, loss, logits and labels
 cross the data axis before the update (``_data_mean``): every replica
-steps on the global batch's mean.  The arena
+steps on the global batch's mean.  A weight's gradient crosses at the rows
+the plan's ``grad_rows`` name (``pick_grad_rows``): an arena's at its
+shard's distinct rows of the global plan, a DEVICE table's at the global
+batch's distinct ids of the table (its whole gradient where its vocab is
+no larger than its lanes), in ascending order; no other row of a
+replica's gradient is nonzero.  The arena
 and the host table are updated in place, so a state passed to a step
 must not be used again.
 """
@@ -137,17 +142,22 @@ class EmbTrainStep:
 def _data_mean(collection, mesh, p_grads, w_grads, loss, logits, labels, grad_rows):
     """The global batch's mean from the data replicas' (``data > 1``), in
     one collective over the data axis (``exchange.data_sum``): the dense
-    gradients, the loss and each weight's part (the arena's at the plan's
-    ``grad_rows``: ``pick_grad_rows``) summed in data-rank order and scaled
-    by ``1 / data`` (a replica's loss is the mean over its ``B / data``
-    rows), the logits and labels gathered.  The same bits on every
-    replica."""
+    gradients, the loss and each weight's part (an arena's and a DEVICE
+    table's at the plan's ``grad_rows``: ``pick_grad_rows``) summed in
+    data-rank order and scaled by ``1 / data`` (a replica's loss is the
+    mean over its ``B / data`` rows), the logits and labels gathered.  The
+    same bits on every replica.  ``mesh.traffic`` names the DEVICE tables'
+    and the arenas' parts of the bytes sent."""
     if grad_rows is None:
         raise ValueError(f"a step on {mesh.data} data replicas needs its plan's grad_rows")
     dense = _leaves(p_grads)
     parts = collection.pick_grad_rows(w_grads, grad_rows)
     sums, (logits, labels) = exchange.data_sum(dense + [loss] + list(parts.values()), mesh,
                                                (logits, labels))
+    for name, keys in (("grads.device", collection.device_slabs),
+                       ("grads.arenas", collection.cached_slabs)):  # float32 on the wire
+        mesh.traffic.part(name, 4 * (mesh.data - 1) * sum(parts[k].numel() for k in keys
+                                                           if k in parts))
     sums = [torch.div(x, mesh.data) for x in sums]
     it = iter(sums[: len(dense)])
     p_grads = tree_map(lambda _: next(it), p_grads)

@@ -14,7 +14,8 @@ small tables DEVICE and gives each large one its own CACHED slab.  The
 arena is fp32 or frequency-tiered (``arena_precision`` fp16 / int8 /
 auto), the host tier fp32 or encoded (``host_precision`` fp16 / int8 /
 auto).  ``DLRM(cfg, mesh=)`` puts one shard in this process (hybrid
-parallel over ranks, ``dist.mesh``); the MLPs are replicas, made the
+parallel over ranks, ``dist.mesh``; with a budget, one shard of each
+cached slab and the DEVICE tables whole); the MLPs are replicas, made the
 same on every rank by a broadcast from rank 0 over the world, and
 ``cfg.batch_size`` is the global batch (a data replica feeds ``1 /
 data`` of it).  ``use_pallas_plan`` and ``chunk_rows`` reach every cached slab

@@ -37,8 +37,10 @@ from repro_torch.core.collection import FeatureBatch
 from repro_torch.core.sharded import ShardedEmbeddingCollection, ShardedSlab
 from repro_torch.core.transmitter import num_rounds
 from repro_torch.data import synth
+from repro_torch.dist.mesh import HybridMesh
 from repro_torch.dist.partitioning import shard_state, sharded_paths
 from repro_torch.kernels.cache_ops import kernel
+from repro_torch.kernels.embedding_bag import kernel as eb_kernel
 from repro_torch.launch.mesh import make_hybrid_mesh
 from repro_torch.models.dlrm import DLRM
 from repro_torch.serve.engine import ServeEngine
@@ -100,13 +102,15 @@ def _launches() -> Dict[str, int]:
             "route_bucketize": kernel.bucketize.fused_launches,
             "victim_threshold": kernel.victim_threshold.launches,
             "gather_decode": kernel.gather_decode.launches,
-            "gather_decode_encode": kernel.gather_decode.fused_launches}
+            "gather_decode_encode": kernel.gather_decode.fused_launches,
+            "embedding_bag": eb_kernel.embedding_bag_multi.launches}
 
 
 def _zero_launches() -> None:
     kernel.bucketize.launches = kernel.bucketize.fused_launches = 0
     kernel.victim_threshold.launches = 0
     kernel.gather_decode.launches = kernel.gather_decode.fused_launches = 0
+    eb_kernel.embedding_bag_multi.launches = 0
 
 
 class _Rounds:
@@ -199,6 +203,7 @@ def _sync(dev: torch.device) -> None:
 def _dlrm_job(rank: int, dev: torch.device, job: Dict[str, Any]) -> Dict[str, Any]:
     """One DLRM job on this rank; see :func:`dlrm_rank`."""
 
+    t_job = time.perf_counter()
     cfg = job["cfg"]
     mesh = make_hybrid_mesh(cfg.model_shards)
     model = DLRM(cfg, mesh=mesh)
@@ -298,11 +303,16 @@ def _dlrm_job(rank: int, dev: torch.device, job: Dict[str, Any]) -> Dict[str, An
             step_ms.append(1e3 * (time.perf_counter() - t0))
             metrics.append(count_metrics(m))
         out["train_traffic"] = dataclasses.asdict(mesh.traffic)  # the counted steps
-        if job.get("flush", True) and n_train:
+        if job.get("bag"):  # a bag step through pool's kernel route
+            out.update(_dlrm_bag(model, state, mesh, dev, job["bag"], count))
+            state = out.pop("state")
+        if job.get("flush", True) and (n_train or job.get("bag")):
             t0 = time.perf_counter()
             state = model.flush(state)
             _sync(dev)
             out["flush_ms"] = 1e3 * (time.perf_counter() - t0)
+            if job.get("check_flushed"):
+                out["flushed_rows"] = check_flushed(coll, state["emb"])
     rss.append(_rss_gb())
     if count:
         out["train_launches"] = _launches()
@@ -350,6 +360,7 @@ def _dlrm_job(rank: int, dev: torch.device, job: Dict[str, Any]) -> Dict[str, An
     out["rss_gb"] = rss  # after init, serving, training and at the end
     out["device_bytes"] = {k: v for k, v in coll.device_bytes().items() if k != "per_slab"}
     _close(state)
+    out["job_s"] = time.perf_counter() - t_job
     return out
 
 
@@ -357,6 +368,92 @@ def _close(state) -> None:
     for slab in state["emb"].slabs.values():
         if hasattr(slab, "full"):
             slab.full.close()
+
+
+def global_bags(cfg, names, bags: int, lanes: int, step: int) -> Dict[str, Any]:
+    """A global bag step of ``bags`` bags of ``lanes`` slots a feature, as
+    ``chip_smoke.bag_batch`` makes one: a ``synth.sparse_batch`` of ``bags *
+    lanes`` rows (stream 2) regrouped per field, each bag 1 to ``lanes``
+    lanes long (the rest -1), and a cotangent ``[bags, dim]`` of the size
+    a batch-mean loss gives a bag, from seed ``step`` (the same on every
+    rank)."""
+    spec = synth.ZipfSparseSpec(vocab_sizes=cfg.vocab_sizes, n_dense=cfg.n_dense)
+    sparse = synth.sparse_batch(spec, bags * lanes, 2, step)["sparse"]
+    rng = np.random.default_rng(step)
+    ids = {}
+    for j, name in enumerate(names):
+        x = sparse[:, j].reshape(bags, lanes).copy()
+        x[np.arange(lanes)[None, :] >= rng.integers(1, lanes + 1, size=bags)[:, None]] = -1
+        ids[name] = x.reshape(-1)
+    cot = {n: (rng.standard_normal((bags, cfg.embed_dim)) / bags).astype(np.float32)
+           for n in names}
+    return {"ids": ids, "bags": bags, "lanes": lanes, "cot": cot}
+
+
+def _dlrm_bag(model, state, mesh, dev, spec: Dict[str, Any], count: bool) -> Dict[str, Any]:
+    """One bag step (:func:`bag_step`, the kernel route only) on the DLRM's
+    collection with ``spec`` (``bags``, ``lanes``, ``combiner``, ``step``;
+    the update at the model's lr): digests of this replica's pooled rows
+    and of the gradients, each launch's output against the kernel's plain
+    version on the same gathered lanes (max |diff|, bitwise), its ms and
+    traffic, and with ``count`` the launches of the step."""
+    coll = model.collection
+    step = global_bags(model.cfg, model.feature_names, spec["bags"], spec["lanes"],
+                       spec.get("step", 0))
+    fb = replica_bags(step, mesh, dev)
+    cot = {f: torch.from_numpy(mesh.data_slice(v)).to(dev) for f, v in step["cot"].items()}
+    if count:
+        before = _launches()
+    calls: List[Any] = []
+    mesh.traffic.reset()
+    _sync(dev)
+    t0 = time.perf_counter()
+    emb, got = bag_step(coll, state["emb"], fb, cot, spec["combiner"], spec["lanes"],
+                        model.cfg.lr, capture=calls, plain=False)
+    _sync(dev)
+    out: Dict[str, Any] = {"bag_ms": 1e3 * (time.perf_counter() - t0),
+                           "bag_traffic": dataclasses.asdict(mesh.traffic)}
+    if count:
+        out["bag_launches"] = {k: v - before[k] for k, v in _launches().items()}
+    err, exact = 0.0, True
+    for a, k, kern in calls:  # each slab's launch against the plain version on its inputs
+        plain = eb_kernel.embedding_bag_multi_plain(*a, **k)
+        err = max(err, float((kern - plain).abs().max()) if kern.numel() else 0.0)
+        exact = exact and torch.equal(kern, plain)
+    out["bag_calls"] = len(calls)
+    out.update(bag_err=err, bag_exact=exact,
+               bag_loss=float(got["loss"]),
+               bag_pooled={f: digest(x) for f, x in got["pooled"].items()},
+               bag_grads={k: digest(x) for k, x in got["grads"].items()},
+               state=dict(state, emb=emb))
+    return out
+
+
+def check_flushed(coll, emb) -> int:
+    """After a flush, each resident row of every cached slab on this rank:
+    its host payload and sideband bitwise its host codec's encode of the
+    arena row (shard by shard).  Returns the rows checked; raises on the
+    first mismatch."""
+    weights = coll.weights(emb)
+    n = 0
+    for sname in coll.cached_slabs:
+        slab = emb.slabs[sname]
+        codec = get_codec(slab.full.codec)
+        for i in range(slab.cache.slot_to_row.shape[0]):
+            rows = slab.cache.slot_to_row[i]
+            slots = torch.nonzero(rows >= 0)[:, 0]
+            idx = rows[slots].cpu().to(torch.int64)
+            payload, side = codec.encode(weights[sname][i][slots])
+            shard = slab.full.shard(i)
+            ok = torch.equal(payload.cpu(), shard.data["weight"][idx])
+            if side is not None:
+                ok = ok and torch.equal(side.cpu(), shard.sideband["weight"][idx])
+            if not ok:
+                raise AssertionError(f"slab {sname} shard {i}: host rows != the "
+                                     f"{slab.full.codec} encode of their arena rows after "
+                                     f"the flush")
+            n += int(slots.numel())
+    return n
 
 
 def _pipelined(model, mesh, dev, make_batch, n_steps, depth, refresh_interval, count, init_fn):
@@ -404,7 +501,8 @@ def _refresh(model, state, dev, on_dev, batch, spec, count=False):
 
     if spec.get("cool_head"):  # the replicated head made the coldest ranks: the pass demotes it
         for slab in emb.slabs.values():
-            slab.rep.score.fill_(-1.0)
+            if isinstance(slab, ShardedSlab):  # a DEVICE table has no head
+                slab.rep.score.fill_(-1.0)
     out: Dict[str, Any] = {}
     if not spec.get("digests") or mesh.data_rank == 0:  # one copy of each shard
         out["refresh_before"] = {k: v.detach().cpu().clone() for k, v in ckpt._flatten(emb)}
@@ -467,20 +565,24 @@ def dlrm_rank(rank: int, dev: torch.device, jobs: Sequence[Dict[str, Any]]) -> L
     ``ServeEngine`` (``warm_serve`` first, ``check_dense`` (rtol, atol)
     against ``dense_reference`` after); ``train`` steps of stream 1
     (``warm_train`` first, on batch ``warm_index``; ``census`` of one more
-    step after the flush), then a flush (unless ``flush`` is False);
+    step after the flush), then ``bag``, a bag step (:func:`_dlrm_bag`),
+    then a flush (unless ``flush`` is False; ``check_flushed``: every
+    resident row's host row the encode of its arena row after it);
     ``state_np``, a stacked state (numpy tree) to start from; ``prepare``
     n: plans over batches 0 .. n alone, the exchange metrics after the
     first and the last; ``restore`` / ``save`` a checkpoint directory,
     ``next_step`` (batch ``next_index``, default ``train``); ``digests``
     of the rank's shard, ``replicated`` digests of the leaves every rank
     holds whole; ``count`` kernel launches and the rounds the plans imply;
-    ``deterministic``.  A job with ``tables`` runs collection lookups
-    instead (``_lookup_job``)."""
+    ``deterministic``; each job's ``job_s``.  A job with ``tables`` runs
+    collection lookups instead (``_lookup_job``), one with ``bags`` too bag
+    steps (``_bag_job``)."""
     out = []
     for job in jobs:
         ctx = deterministic() if job.get("deterministic") else contextlib.nullcontext()
         with ctx:
-            out.append((_lookup_job if "tables" in job else _dlrm_job)(rank, dev, job))
+            fn = _bag_job if "bags" in job else _lookup_job if "tables" in job else _dlrm_job
+            out.append(fn(rank, dev, job))
     return out
 
 
@@ -518,3 +620,141 @@ def _lookup_job(rank: int, dev: torch.device, job: Dict[str, Any]) -> Dict[str, 
     after = {k: v.detach().cpu().clone() for k, v in ckpt._flatten(flushed)}
     return {"steps": steps, "metrics": metrics, "state": before, "flushed": after,
             "model_rank": mesh.model_rank, "traffic": dataclasses.asdict(mesh.traffic)}
+
+
+# ----- bag steps ------------------------------------------------------------------
+
+
+def replica_bags(step: Dict[str, Any], mesh, dev: torch.device) -> FeatureBatch:
+    """This data replica's part of a global bag step (``step``: feature ->
+    int32 ids ``[bags * lanes]``, ``lanes`` slots a bag, -1 padding, and
+    ``bags``): its ``bags / data`` bags, their lanes and their segments
+    counted from 0."""
+    nb = step["bags"] // mesh.data
+    ids = {f: torch.from_numpy(mesh.data_slice(np.asarray(v, np.int32))).to(dev)
+           for f, v in step["ids"].items()}
+    seg = torch.arange(nb, dtype=torch.int32, device=dev).repeat_interleave(step["lanes"])
+    return FeatureBatch(ids=ids, segments={f: seg for f in ids}, num_segments=nb)
+
+
+def bag_step(coll, state, fb, cot, combiner, max_bag, lr, capture=None, plain=True):
+    """One bag step: plan (the global batch's at ``data > 1``) and apply,
+    (with ``plain``) the rows gathered and ``pool``'s segment-sum route,
+    ``pool``'s kernel route (``use_pallas``), loss ``sum_f <pooled_f,
+    cot_f>`` differentiated w.r.t. the fast-tier weights, the gradients
+    over the data axis as the train step takes them
+    (``models.common._data_mean``), then ``apply_grads`` at ``lr`` (none at
+    0).  ``capture`` (a list) receives each ``embedding_bag_multi`` call's
+    arguments and output.  Returns (state, the step's addresses, rows and
+    pooled outputs of both routes, loss and gradients)."""
+    from repro_torch.kernels.embedding_bag import ops as eb_ops
+    from repro_torch.models import common
+
+    plan = coll.plan_prepare(state, fb)
+    state = coll.apply_plan(state, plan)
+    w = {k: v.detach().requires_grad_() for k, v in coll.weights(state).items()}
+    rows = coll.gather(w, plan.addresses, fb) if plain else {}
+    seg_route = coll.pool(rows, fb, combiner) if plain else {}
+    multi = eb_ops.embedding_bag_multi
+    if capture is not None:
+        def watch(*a, **k):
+            got = multi(*a, **k)
+            capture.append((tuple(x.detach() if isinstance(x, torch.Tensor) else x for x in a),
+                            k, got.detach()))
+            return got
+
+        eb_ops.embedding_bag_multi = watch
+    try:
+        pooled = coll.pool({}, fb, combiner, weights=w, addresses=plan.addresses,
+                           use_pallas=True, max_bag=max_bag)
+    finally:
+        eb_ops.embedding_bag_multi = multi
+    loss = sum(torch.sum(pooled[f] * cot[f]) for f in fb.segments)
+    grads = torch.autograd.grad(loss, list(w.values()), allow_unused=True)
+    grads = {k: torch.zeros_like(v) if g is None else g for (k, v), g in zip(w.items(), grads)}
+    loss = loss.detach()
+    mesh = getattr(coll, "mesh", None)
+    if mesh is not None and mesh.data > 1:
+        z = torch.zeros((1,), device=loss.device)
+        _, grads, loss, _, _ = common._data_mean(coll, mesh, {}, grads, loss, z, z,
+                                                 plan.grad_rows[0])
+    if lr:
+        state = coll.apply_grads(state, grads, lr)
+    out = {"addresses": plan.addresses, "rows": rows, "pooled": pooled, "plain": seg_route,
+           "loss": loss, "grads": grads}
+    return state, {k: ({n: t.detach() for n, t in v.items()} if isinstance(v, dict)
+                       else v.detach()) for k, v in out.items()}
+
+
+def stacked_bag_step(coll, state, step, cot, D: int, combiner: str, max_bag: int, lr: float,
+                     dev: torch.device):
+    """The yardstick of a bag step of ``D`` data replicas in the one-process
+    stacked layout: the global batch planned and applied, then each
+    replica's bags pooled by the kernel route (and the segment-sum route)
+    off the plan's addresses and differentiated alone; the gradients summed
+    in data-rank order and scaled by ``1 / D`` as ``_data_mean`` does (the
+    whole batch's sum would reassociate), then ``apply_grads`` at ``lr``.
+    ``cot``: feature -> the global ``[bags, dim]`` cotangent (numpy).
+    Returns (state, each replica's outputs, the gradients, the addresses)."""
+    S = getattr(coll, "num_shards", 1)
+    fb = replica_bags(step, HybridMesh.coordinate(S, 0), dev)
+    plan = coll.plan_prepare(state, fb)
+    state = coll.apply_plan(state, plan)
+    w = {k: v.detach().requires_grad_() for k, v in coll.weights(state).items()}
+    reps = []
+    for d in range(D):
+        mesh = HybridMesh.coordinate(S, 0, d, D)
+        fb_d = replica_bags(step, mesh, dev)
+        addr = {f: mesh.data_slice(a) for f, a in plan.addresses.items()}
+        pooled = coll.pool({}, fb_d, combiner, weights=w, addresses=addr, use_pallas=True,
+                           max_bag=max_bag)
+        plain = coll.pool(coll.gather(w, addr, fb_d), fb_d, combiner)
+        loss = sum(torch.sum(pooled[f] * torch.from_numpy(mesh.data_slice(cot[f])).to(dev))
+                   for f in fb_d.segments)
+        g = torch.autograd.grad(loss, list(w.values()), allow_unused=True)
+        reps.append({"pooled": {f: x.detach() for f, x in pooled.items()},
+                     "plain": {f: x.detach() for f, x in plain.items()},
+                     "grads": {k: torch.zeros_like(v) if x is None else x
+                               for (k, v), x in zip(w.items(), g)},
+                     "loss": loss.detach()})
+    if D == 1:
+        grads = reps[0]["grads"]
+    else:
+        from repro_torch.dist.exchange import _ordered_sum
+
+        grads = {k: torch.div(_ordered_sum(torch.stack([r["grads"][k] for r in reps])), D)
+                 for k in w}
+    if lr:
+        state = coll.apply_grads(state, grads, lr)
+    return state, reps, grads, plan.addresses
+
+
+def _bag_job(rank: int, dev: torch.device, job: Dict[str, Any]) -> Dict[str, Any]:
+    """Bag steps on one shard: ``job`` holds ``tables``, ``S``, ``kw``
+    (``ShardedEmbeddingCollection.create`` keywords, a budget among them),
+    ``counts``, ``state`` (a stacked state to take this rank's shard of;
+    None: the init from seed 0), ``bags`` (global steps, see
+    :func:`replica_bags`), ``cot`` (feature -> ``[bags, dim]`` cotangents
+    of each global step), ``combiner``, ``max_bag`` and ``lr``.  Returns
+    each step's outputs (this replica's), the state after the steps and
+    its host precision per slab, the traffic and the mesh place."""
+    mesh = make_hybrid_mesh(job["S"])
+    coll = ShardedEmbeddingCollection.create(job["tables"], num_shards=job["S"], mesh=mesh,
+                                             **job["kw"])
+    state = coll.init(0, counts=job.get("counts"), device=dev)
+    if job.get("state") is not None:
+        state = shard_state(job["state"], coll.shard_specs(), mesh)
+    mesh.traffic.reset()
+    steps = []
+    for step, cot in zip(job["bags"], job["cot"]):
+        fb = replica_bags(step, mesh, dev)
+        c = {f: torch.from_numpy(mesh.data_slice(np.asarray(v, np.float32))).to(dev)
+             for f, v in cot.items()}
+        state, got = bag_step(coll, state, fb, c, job["combiner"], job["max_bag"], job["lr"])
+        steps.append({k: ({n: t.cpu() for n, t in v.items()} if isinstance(v, dict) else v.cpu())
+                      for k, v in got.items()})
+    return {"steps": steps, "state": {k: v.detach().cpu().clone() for k, v in ckpt._flatten(state)},
+            "host_precision": dict(coll.host_precision), "model_rank": mesh.model_rank,
+            "data_rank": mesh.data_rank, "rank": rank,
+            "device_bytes": {k: v for k, v in coll.device_bytes().items() if k != "per_slab"},
+            "traffic": dataclasses.asdict(mesh.traffic)}
