@@ -510,9 +510,32 @@ Phases (any failure exits non-zero, with no result line):
    axis (the DEVICE leg beside its bound and the whole tables), RSS and
    peak device memory.
 
+20. examples: each of the port's four examples (``examples/torch_*.py``)
+   through its ``main`` on the card at its twin's sizes, and again with
+   ``--device cpu`` at the same arguments (a card run starts from the CPU
+   run's weights: each model's ``init`` draws on the CPU, the state moved
+   through numpy): quickstart (30 lookups of 4 096 Zipf ids through a
+   4 096-slot cache of 100 000 x 64 rows), serve_recsys (MIND at 200 000
+   items: 8 batches, one user against 100 000 candidates), train_dlrm
+   (five tables, 380 000 rows, batch 1 024: 50 steps with a checkpoint,
+   the same directory resumed to 100, an uninterrupted 100;
+   ``--device-budget-mb 20`` for 50; ``--verify-pipeline --pipeline-depth
+   2 --cache-ratio 0.05`` for 50) and multi_device_scaling (8 gloo ranks
+   sharing the card on a ``(data=2, model=4)`` mesh, 5 steps; its CPU
+   world of 8 ranks from the same stacked init).  Checks every card run's
+   hit, miss and eviction counts (host wire bytes, plans, assignments,
+   device bytes) equal to the CPU run's, losses and retrieval scores within
+   rtol 1e-4, quickstart's cache equal to the dense table, the resumed
+   curve the uninterrupted one's, ``--verify-pipeline``'s own assert
+   (bitwise, deterministic mode on the card), a threshold launch on every
+   example's path and ``route_bucketize`` on the ranks, and no bag, FM or
+   flash launch.  Each kernel row of the ``kernels`` line gains the
+   examples' launches as ``examples_*`` paths.  Prints each example's
+   step or batch p50.
+
 They run in the order 1-2, 18, 3-5b, 19 (19a, 19b, 19d, 19f, 19e), 19c, 5c,
 5d, 5f, 5e (with 5g's re-homing), 6-7b, 14a-14b, 15a-15c, 9-13, 16a-16e,
-17a-17d, 5g-5h, 8.  Each phase's seconds are printed.  The last three
+17a-17d, 5g-5h, 20, 8.  Each phase's seconds are printed.  The last three
 lines are the
 ``kernels`` JSON, the card's name and power limit, and ``{"ok": true,
 "device": {...}}``.  ``--vocab-scale`` < 1 cuts only the vocabularies
@@ -6373,18 +6396,6 @@ def _gnn_state_to(state, dev):
     return tree_map(lambda x: x.to(dev), state)
 
 
-def _kernel_launches():
-    """Every kernel wrapper's launch count (none lies on the GNN path)."""
-    from repro_torch.kernels.cache_ops import kernel
-    from repro_torch.kernels.embedding_bag import kernel as eb_kernel
-    from repro_torch.kernels.flash_attention import kernel as fa_kernel
-    from repro_torch.kernels.fm_interaction import kernel as fm_kernel
-
-    return [kernel.victim_threshold.launches, kernel.gather_decode.launches,
-            kernel.bucketize.launches, fm_kernel.fm_interaction.launches,
-            eb_kernel.embedding_bag_multi.launches, fa_kernel.flash_attention.launches]
-
-
 def gnn_run(model, state, batches, what, n_serve=GNN_SERVE, n_train=GNN_TRAIN, census=False):
     """``serve_step`` on ``n_serve`` batches, then ``n_train`` train steps
     (batch ``i`` of ``batches`` at call ``i``), after one untimed call of
@@ -6967,10 +6978,10 @@ def time_kernels(path):
 
 def deterministic():
     """torch's deterministic algorithms, for comparisons of two runs bit
-    for bit (``torch_rank_jobs.deterministic``: on the card
+    for bit (``repro_torch.device.deterministic``: on the card
     ``index_add_``, the gather's backward, sums a row's duplicate lanes with
     atomics in no fixed order, and the mode sums them in a fixed one)."""
-    from torch_rank_jobs import deterministic as det
+    from repro_torch.device import deterministic as det
 
     return det()
 
@@ -7053,6 +7064,244 @@ def gate_phase():
         f"{len(rep['stale_baseline'])} stale; the kernel entries' cases launched {launches} in "
         f"the child, none with a sync; {secs} s")
     return secs
+
+
+# ----- phase 20: the port's four examples ---------------------------------------------
+
+EX_RESUME = (50, 100)  # train_dlrm: a run cut at its checkpoint (ckpt_every 50), resumed
+EX_STEPS = 50  # train_dlrm's budget and pipelined runs
+EX_RTOL = 1e-4  # card vs CPU losses and scores (default mode); the resumed curve
+EX_COUNTS = ("cache_hits", "cache_misses", "cache_evictions", "host_wire_bytes")
+EX_OFF_PATH = ("embedding_bag", "fm_interaction", "flash_attention")  # no example launches them
+
+
+def example_module(name):
+    """``examples/<name>.py`` (the port's examples import ``repro_torch`` only)."""
+    import importlib
+
+    path = os.path.join(ROOT, "examples")
+    if path not in sys.path:  # the spawned ranks import the example by name too
+        sys.path.insert(0, path)
+    return importlib.import_module(name)
+
+
+def _kernel_launches():
+    """Every kernel wrapper's launch count (``repro_torch.kernels.counters``:
+    the one table the examples' ranks read too), the flash kernel's also by
+    route."""
+    from repro_torch.kernels import counters
+
+    return counters.launch_counts()
+
+
+def zero_launch_counts():
+    from repro_torch.kernels import counters
+
+    counters.zero_launch_counts()
+
+
+@contextlib.contextmanager
+def cpu_drawn_init(*classes):
+    """Each class's ``init`` draws on the CPU and moves the state to the
+    asked device through numpy (``convert``): a card run starts from the
+    weights of the CPU run it is held to (the two devices' generators draw
+    different numbers)."""
+    from repro_torch import convert
+
+    saved = {cls: cls.init for cls in classes}
+
+    def wrap(orig):
+        def init(self, seed, counts=None, device=None):
+            state = orig(self, seed, counts=counts, device="cpu")
+            if device is not None and torch.device(device).type == "cpu":
+                return state
+            return convert.state_from_numpy(convert.to_numpy(state), device=device,
+                                            collection=self.collection)
+        return init
+
+    for cls, orig in saved.items():
+        cls.init = wrap(orig)
+    try:
+        yield
+    finally:
+        for cls, orig in saved.items():
+            cls.init = orig
+
+
+def run_example(name, argv, card=True, what=None):
+    """``main(argv)`` of the example on the card (its launches counted from
+    0 just before and read just after) or with ``--device cpu``."""
+    mod = example_module(name)
+    argv = [*argv, "--device", "cuda" if card else "cpu"]
+    if card:
+        torch.cuda.synchronize()
+        zero_launch_counts()
+    t0 = time.perf_counter()
+    out = mod.main(argv)
+    if card:
+        torch.cuda.synchronize()
+        out["launches"] = _kernel_launches()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"example {what or name} {' '.join(argv)}: {out['seconds']} s"
+        + (f"; launches {json.dumps(out['launches'])}" if card else ""))
+    return out
+
+
+def _history_counts(h):
+    return [[r[k] for k in EX_COUNTS] for r in h]
+
+
+def check_example_history(card, cpu, what, rtol=EX_RTOL):
+    """A card run's step counts equal the CPU run's; losses within ``rtol``."""
+    if _history_counts(card) != _history_counts(cpu):
+        raise AssertionError(f"{what}: card counts {_history_counts(card)[-3:]} != CPU "
+                             f"{_history_counts(cpu)[-3:]} (last 3 steps)")
+    a, b = np.array([r["loss"] for r in card]), np.array([r["loss"] for r in cpu])
+    if len(a) != len(b) or not np.all(np.isfinite(a)) or not np.allclose(a, b, rtol=rtol,
+                                                                         atol=0):
+        raise AssertionError(f"{what}: card losses {a[-3:]} vs CPU {b[-3:]} beyond rtol {rtol}")
+    return float(np.max(np.abs(a - b) / np.abs(b)))
+
+
+def examples_phase(dev):
+    """Phase 20: each of the port's four examples through its ``main`` on
+    the card at its twin's sizes, held to the same example with ``--device
+    cpu`` at the same arguments: hit, miss and eviction counts (and host
+    wire bytes) equal, losses within ``EX_RTOL`` from the same weights, and
+    each example's own checks (the cache equals the dense table, the
+    pipelined losses bitwise the serial ones, the resume)."""
+    from repro_torch import convert
+    from repro_torch.models.dlrm import DLRM
+    from repro_torch.models.recsys_models import MINDModel
+
+    launches, p50, rel = {}, {}, {}
+
+    card, cpu = (run_example("torch_quickstart", [], c) for c in (True, False))
+    keys = ("hits", "misses", "evictions", "capacity")
+    if [card[k] for k in keys] != [cpu[k] for k in keys] or not (card["exact"] and cpu["exact"]):
+        raise AssertionError(f"quickstart: card {[card[k] for k in keys]} exact "
+                             f"{card['exact']} vs CPU {[cpu[k] for k in keys]} {cpu['exact']}")
+    launches["examples_quickstart"], p50["quickstart lookup"] = (
+        card["launches"], float(np.median(card["step_ms"])))
+    log(f"quickstart: hits {card['hits']}, misses {card['misses']}, evictions "
+        f"{card['evictions']} on the card = the CPU run's; cache == dense table")
+
+    with cpu_drawn_init(MINDModel):
+        card, cpu = (run_example("torch_serve_recsys", [], c) for c in (True, False))
+    keys = ("hits", "misses", "evictions")
+    if [card[k] for k in keys] != [cpu[k] for k in keys]:
+        raise AssertionError(f"serve_recsys: card {[card[k] for k in keys]} != CPU "
+                             f"{[cpu[k] for k in keys]}")
+    s_card, s_cpu = card["retrieval_scores"], cpu["retrieval_scores"]
+    scale = float(np.abs(s_cpu).max())
+    if not np.allclose(s_card, s_cpu, rtol=EX_RTOL, atol=EX_RTOL * scale):
+        raise AssertionError(f"serve_recsys: retrieval scores differ by "
+                             f"{np.abs(s_card - s_cpu).max()} (max |score| {scale})")
+    rel["serve_recsys retrieval"] = float(np.abs(s_card - s_cpu).max() / scale)
+    launches["examples_serve_recsys"], p50["serve_recsys batch"] = (
+        card["launches"], float(np.median(card["batch_ms"])))
+    log(f"serve_recsys: hits {card['hits']}, misses {card['misses']} = the CPU run's; top-5 "
+        f"card {card['top5']}, CPU {cpu['top5']}")
+
+    ck = os.path.join(ROOT, "build", f"examples-{os.getpid()}")
+    dlrm_runs = (  # (key, arguments, checkpoint directory: the cut run's is resumed)
+        ("cut", ["--steps", str(EX_RESUME[0])], "resume"),
+        ("resume", ["--steps", str(EX_RESUME[1])], "resume"),
+        ("budget", ["--steps", str(EX_STEPS), "--device-budget-mb", "20"], "budget"),
+        ("pipeline", ["--verify-pipeline", "--pipeline-depth", "2", "--cache-ratio", "0.05",
+                      "--steps", str(EX_STEPS)], None))
+    shutil.rmtree(ck, ignore_errors=True)
+    runs = {}
+    try:
+        with cpu_drawn_init(DLRM):
+            for key, argv, ckpt in dlrm_runs:
+                for on_card in (True, False):
+                    a = argv + (["--ckpt-dir", os.path.join(ck, ckpt + ("" if on_card else "-cpu"))]
+                                if ckpt else [])
+                    runs[key, on_card] = run_example("torch_train_dlrm", a, on_card,
+                                                     f"train_dlrm ({key})")
+            whole = run_example("torch_train_dlrm", ["--steps", str(EX_RESUME[1]), "--ckpt-dir",
+                                                     os.path.join(ck, "whole")],
+                                True, "train_dlrm (uninterrupted)")
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    for key in ("cut", "resume", "budget", "pipeline"):
+        rel[f"train_dlrm {key}"] = check_example_history(
+            runs[key, True]["history"], runs[key, False]["history"], f"train_dlrm ({key})")
+        if runs[key, True]["plan"] != runs[key, False]["plan"]:
+            raise AssertionError(f"train_dlrm ({key}): plans differ")
+        launches[f"examples_train_dlrm_{key}"] = runs[key, True]["launches"]
+        p50[f"train_dlrm {key} step"] = runs[key, True]["p50_ms"]
+    pipe = runs["pipeline", True]
+    rel["train_dlrm pipeline serial"] = check_example_history(
+        pipe["serial_history"], runs["pipeline", False]["serial_history"],
+        "train_dlrm (pipeline, its serial run)")
+    if not (pipe["verified"] and runs["pipeline", False]["verified"]):
+        raise AssertionError("train_dlrm --verify-pipeline did not verify")
+    p50["train_dlrm pipeline serial step"] = pipe["serial_p50_ms"]
+    resumed = runs["resume", True]["history"]
+    if [r["step"] for r in resumed] != list(range(*EX_RESUME)):
+        raise AssertionError(f"train_dlrm: the resumed run stepped {resumed[0]['step']}.."
+                             f"{resumed[-1]['step']}, not {EX_RESUME[0]}..{EX_RESUME[1] - 1}")
+    rel["train_dlrm resume vs uninterrupted"] = check_example_history(
+        resumed, whole["history"][EX_RESUME[0]:], "train_dlrm (resumed vs uninterrupted)")
+    check_example_history(runs["cut", True]["history"], whole["history"][:EX_RESUME[0]],
+                          "train_dlrm (cut vs uninterrupted)")
+    launches["examples_train_dlrm_uninterrupted"] = whole["launches"]
+    budget = runs["budget", True]
+    log(f"train_dlrm: plan {runs['cut', True]['plan']}; budget plan {budget['plan']} (device "
+        f"bytes {budget['device_bytes']['device_total']} of 20 000 000); the budget run "
+        f"launched gather_decode {budget['launches']['gather_decode']} times; the resumed curve {EX_RESUME[0]}..{EX_RESUME[1] - 1} = the "
+        f"uninterrupted run's within rtol {EX_RTOL}, counts equal")
+
+    mds = example_module("torch_multi_device_scaling")
+    init = DLRM(mds.CFG).init(0, counts=mds.counts(), device="cpu")  # the stacked layout
+    init_np = convert.to_numpy(init)
+    card, cpu = (mds.main(["--device", d], init_state=init_np) for d in ("cuda", "cpu"))
+    if ({len(r["steps"]) for r in card["ranks"] + cpu["ranks"]} != {mds.STEPS}
+            or not len(card["ranks"]) == len(cpu["ranks"]) == mds.WORLD):
+        raise AssertionError("multi_device_scaling: a rank is missing, or a step")
+    for r_card, r_cpu in zip(card["ranks"], cpu["ranks"]):
+        what = f"multi_device_scaling rank {r_card['rank']}"
+        for s_card, s_cpu in zip(r_card["steps"], r_cpu["steps"]):
+            for k in (*mds._EXACT, "exchange_bytes", "hit_rate"):
+                if s_card[k] != s_cpu[k]:
+                    raise AssertionError(f"{what}: {k} card {s_card[k]} != CPU {s_cpu[k]}")
+        a = np.array([s["loss"] for s in r_card["steps"]])
+        b = np.array([s["loss"] for s in r_cpu["steps"]])
+        if not np.allclose(a, b, rtol=EX_RTOL, atol=0):
+            raise AssertionError(f"{what}: losses card {a} vs CPU {b}")
+        if r_card["assignments"] != r_cpu["assignments"] or r_card["device_bytes"] != r_cpu[
+                "device_bytes"]:
+            raise AssertionError(f"{what}: assignments or device bytes differ")
+    # every rank reads every wrapper's count (the table of _kernel_launches)
+    total = {k: sum(r["launches"][k] for r in card["ranks"]) for k in _kernel_launches()}
+    launches["examples_multi_device_scaling"] = total
+    p50["multi_device_scaling step (rank 0)"] = card["p50_ms"]
+    log(f"multi_device_scaling: 8 gloo ranks sharing the card, (data=2, model=4), "
+        f"{card['world_s']} s (the CPU world {cpu['world_s']} s); launches summed over the "
+        f"ranks {json.dumps(total)}; counts = the CPU ranks', losses within rtol {EX_RTOL}")
+
+    for path, n in launches.items():
+        if n["victim_threshold"] <= 0:
+            raise AssertionError(f"{path}: no victim-threshold launch on the card")
+        if any(n[k] for k in EX_OFF_PATH):
+            raise AssertionError(f"{path}: a kernel off the example's path launched: {n}")
+    if total["route_bucketize"] <= 0:
+        raise AssertionError("multi_device_scaling: no route_bucketize launch on the ranks")
+    log(f"phase 20 p50 ms (host clock to a sync): {json.dumps(p50)}")
+    log(f"phase 20 card vs CPU largest relative loss / score difference: {json.dumps(rel)}")
+    return launches
+
+
+def add_example_launches(rows, launches):
+    """Each ``kernels`` row gains the examples' launches as ``examples_*``
+    paths (0 where the row's kernel did not launch), and its total."""
+    for key, row in rows.items():
+        paths = row["launches_by_path"]
+        for path, n in launches.items():
+            paths[path] = n.get(key, 0)
+        row["launches"] = sum(paths.values())
 
 
 def main():
@@ -7377,6 +7626,9 @@ def main():
                                  "rebalance": rebalance["bz_fused"]})
     jobs["gather_decode_encode"][2].update({"refresh_int8": rf["int8_gd_fused"],
                                             "rebalance": rebalance["gd_fused"]})
+    ex_launches = timed("20 (the port's examples)", examples_phase, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
     rows = timed("8 (kernel timing, in a fresh process)", time_in_fresh_process, jobs)
     fmk, thr, bz, rbz, gd, gde, bag = (rows[k] for k in (
         "fm", "threshold", "bucketize", "route_bucketize", "gather_decode",
@@ -7385,6 +7637,11 @@ def main():
     for row, paths in ((gd, gd_paths), (bag, bag_paths)):
         row["launches_by_path"] = paths
         row["launches"] = sum(paths.values())
+    fmk["launches_by_path"] = {"fm_serve": fmk["launches"]}
+    add_example_launches({"victim_threshold": thr, "gather_decode": gd,
+                          "gather_decode_encode": gde, "fm_interaction": fmk,
+                          "embedding_bag": bag, "bucketize": bz, "route_bucketize": rbz,
+                          "flash_wgmma": bf16_row, "flash_tf32x3": fp32_row}, ex_launches)
     gd["fused_launches"] = gde["launches"]
     log(f"launch floor {json.dumps(rows['launch_floor'])}; the fused entries' launches are "
         f"counted in their kernels' rows too (gather_decode {gd['launches']} of which "

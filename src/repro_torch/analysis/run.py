@@ -43,19 +43,12 @@ def load_baseline(path: Path) -> List[Dict[str, str]]:
 def kernel_counts() -> Dict[str, int]:
     """Every hand-written kernel's launch count, by wrapper (the fused
     entries and the flash routes apart)."""
-    from repro_torch.kernels.cache_ops import kernel as co
-    from repro_torch.kernels.embedding_bag import kernel as eb
-    from repro_torch.kernels.flash_attention import kernel as fa
-    from repro_torch.kernels.fm_interaction import kernel as fm
+    from repro_torch.kernels import counters
 
-    out = {"victim_threshold": co.victim_threshold.launches,
-           "gather_decode": co.gather_decode.launches - co.gather_decode.fused_launches,
-           "gather_decode_encode": co.gather_decode.fused_launches,
-           "bucketize": co.bucketize.launches - co.bucketize.fused_launches,
-           "route_bucketize": co.bucketize.fused_launches,
-           "embedding_bag": eb.embedding_bag_multi.launches,
-           "fm_interaction": fm.fm_interaction.launches}
-    out.update({f"flash_{r}": n for r, n in fa.flash_attention.route_launches.items()})
+    c = counters.launch_counts()
+    out = {k: n for k, n in c.items() if k != "flash_attention"}  # its routes apart
+    out["gather_decode"] -= c["gather_decode_encode"]
+    out["bucketize"] -= c["route_bucketize"]
     return out
 
 

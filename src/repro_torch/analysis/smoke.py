@@ -33,6 +33,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.analysis.contracts import registry
 from repro_torch.core import cache as cache_lib
 from repro_torch.core import refresh as refresh_lib
 from repro_torch.core import transmitter
@@ -47,7 +48,7 @@ from repro_torch.dist.mesh import HybridMesh
 from repro_torch.models.dlrm import DLRM, DLRMConfig
 from repro_torch.store.host_store import HostStore
 
-__all__ = ["GEOMETRY", "SmokeCase", "build_cases"]
+__all__ = ["GEOMETRY", "SmokeCase", "build_cases", "registered_without_smoke"]
 
 GEOMETRY = dict(
     vocab=256, capacity=128, dim=8, ids=16, buffer_rows=64,
@@ -464,3 +465,9 @@ def build_cases(device="cpu") -> Dict[str, SmokeCase]:
                  _compute_step_case, _refresh_cases, _kernel_cases):
         cases.update(part(dev))
     return cases
+
+
+def registered_without_smoke(device="cpu") -> Tuple[str, ...]:
+    """The registered entries that :func:`build_cases` gives no case on
+    ``device`` (sorted); the gate needs this empty."""
+    return tuple(sorted(set(registry()) - set(build_cases(device))))

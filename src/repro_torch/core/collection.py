@@ -33,7 +33,7 @@ from __future__ import annotations
 import dataclasses
 import enum
 import heapq
-from typing import Dict, Iterator, List, Mapping, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, Iterator, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -45,6 +45,7 @@ from repro_torch.core import refresh as refresh_lib
 from repro_torch.core.lanes import i32, segment_sum, take_fill
 from repro_torch.core.policies import Policy
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.obs.hub import ExactCounter, fetch_ints
 from repro_torch.store.arena import ArenaStore, tiered_arena_bytes
 from repro_torch.store.codec import get_codec
 from repro_torch.store.host_store import HostStore
@@ -70,6 +71,9 @@ __all__ = [
     "cached_slab_plan",
     "cached_slab_prepare",
     "cached_slab_warmup",
+    "METRICS_INT_COUNTERS",
+    "exact_metric_bytes",
+    "ExactCounterTotals",
 ]
 
 SHARED_ARENA = "__shared__"
@@ -195,6 +199,9 @@ class PlacementPlan:
     placements: Dict[str, TablePlacement]
     arena: ArenaConfig = ArenaConfig()
     budget_bytes: Optional[int] = None
+
+    def placement(self, name: str) -> Placement:
+        return self.placements[name].placement
 
     @classmethod
     def single_arena(cls, tables: Sequence[TableConfig], **arena_kw) -> "PlacementPlan":
@@ -1247,3 +1254,28 @@ class EmbeddingCollection:
             "host_wire_bytes": wire,
             **per,
         }
+
+
+def exact_metric_bytes(
+    metrics: Mapping[str, Any], counts_key: str, bytes_key: str
+) -> Optional[int]:
+    """An exact cumulative byte count from a ``metrics()`` dict, as a
+    Python int: ``metrics[counts_key]`` holds per-slab int32 cumulative
+    counts and ``metrics[bytes_key]`` their per-unit byte sizes; the
+    products are summed in Python integers (one host copy of both), so,
+    unlike the float32 ``host_wire_bytes``, the result is exact over the
+    counters' whole int32 range.  None when either key is absent.  Host-side
+    reporting: no step calls it."""
+    if counts_key not in metrics or bytes_key not in metrics:
+        return None
+    got = fetch_ints({"counts": metrics[counts_key], "unit": metrics[bytes_key]})
+    return sum(int(n) * int(got["unit"][k]) for k, n in got["counts"].items())
+
+
+class ExactCounterTotals(ExactCounter):
+    """:class:`repro_torch.obs.hub.ExactCounter` under its older name, with
+    ``update(per_slab)`` for ``observe(per_slab)``: wrap-safe modulo-2^32
+    totals of per-slab cumulative counters."""
+
+    def update(self, per_slab: Mapping[str, Any]) -> int:
+        return self.observe(per_slab)

@@ -22,6 +22,7 @@ __all__ = [
     "FreqTracker",
     "build_freq_stats",
     "concat_table_offsets",
+    "collect_counts",
     "collect_counts_sampled",
     "collect_counts_stream",
     "coverage",
@@ -65,6 +66,14 @@ def build_freq_stats(counts: np.ndarray) -> FreqStats:
     idx_map = np.empty_like(inv_map)
     idx_map[inv_map] = np.arange(vocab, dtype=np.int32)
     return FreqStats(idx_map=idx_map, inv_map=inv_map, counts=counts.astype(np.int64), vocab=vocab)
+
+
+def collect_counts(id_batches: Iterable[np.ndarray], vocab: int) -> np.ndarray:
+    """The paper's one pass over the dataset: each id's occurrences, int64."""
+    counts = np.zeros((vocab,), dtype=np.int64)
+    for ids in id_batches:
+        np.add.at(counts, ids.reshape(-1).astype(np.int64), 1)
+    return counts
 
 
 def collect_counts_sampled(

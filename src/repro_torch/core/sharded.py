@@ -427,11 +427,8 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
             vs = self.rows_per_shard(spec)
             c = slab_counts(spec, counts)
             stats = None if c is None else freq_lib.build_freq_stats(c)
-            counts_ranked = stats.counts[stats.inv_map] if stats is not None else None
             K = min(self.replicate_top_k, spec.vocab)
-            assign = PlacementPlanner.assign_devices(spec.vocab, S, counts_ranked,
-                                                     replicate_top_k=K)
-            self.assignments[sname] = assign
+            assign = self.assignments[sname] = self._assign(spec, stats)
             cap_s = self.shard_capacity(spec)
             head_s = min(cap_s, max(1, int(round(spec.arena.arena_head_ratio * cap_s))))
             spec, codec = self._resolve_codecs(sname, c, S * cap_s, S * head_s,
@@ -487,6 +484,25 @@ class ShardedEmbeddingCollection(EmbeddingCollection):
                 ),
             )
         return CollectionState(slabs=slabs)
+
+    def _assign(self, spec: _CachedSlabSpec, stats: Optional[freq_lib.FreqStats]
+                ) -> ShardAssignment:
+        """The slab's shard assignment, its ranks weighed by ``stats``' counts."""
+        counts_ranked = stats.counts[stats.inv_map] if stats is not None else None
+        return PlacementPlanner.assign_devices(spec.vocab, self.num_shards, counts_ranked,
+                                               replicate_top_k=min(self.replicate_top_k,
+                                                                   spec.vocab))
+
+    def assign(self, counts: Optional[Mapping[str, np.ndarray]] = None
+               ) -> Dict[str, ShardAssignment]:
+        """Every cached slab's shard assignment from the per-table counts, as
+        ``init`` makes it, without drawing a state: for a rank that takes its
+        shard of a state drawn elsewhere (``partitioning.shard_state``)."""
+        for sname, spec in self.cached_slabs.items():
+            c = slab_counts(spec, counts)
+            stats = None if c is None else freq_lib.build_freq_stats(c)
+            self.assignments[sname] = self._assign(spec, stats)
+        return self.assignments
 
     # ----- id routing -------------------------------------------------------
 

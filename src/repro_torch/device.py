@@ -7,11 +7,12 @@ explicit ``"cpu"`` runs on the CPU (the tests do this).
 """
 from __future__ import annotations
 
-from typing import Union
+import contextlib
+from typing import Iterator, Union
 
 import torch
 
-__all__ = ["DeviceLike", "resolve_device"]
+__all__ = ["DeviceLike", "deterministic", "resolve_device"]
 
 DeviceLike = Union[str, torch.device, None]
 
@@ -26,3 +27,24 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+@contextlib.contextmanager
+def deterministic() -> Iterator[None]:
+    """torch's deterministic algorithms (warnings only where none exists),
+    for two runs on the card that must agree bit for bit: outside that
+    mode ``index_add_``, the gather's backward, sums a row's duplicate
+    lanes with atomics in no fixed order.  Uninitialised memory is left
+    unfilled.  The caller's mode is restored on exit."""
+    import torch.utils.deterministic as det
+
+    mode = torch.are_deterministic_algorithms_enabled()
+    warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    fill = det.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    det.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(mode, warn_only=warn)
+        det.fill_uninitialized_memory = fill

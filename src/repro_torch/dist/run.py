@@ -14,6 +14,7 @@ one imports neither a test module nor JAX.  :func:`launch` and
 from __future__ import annotations
 
 import os
+import pickle
 import tempfile
 from typing import Any, Callable, List, Optional, Sequence
 
@@ -33,15 +34,22 @@ def run_ranks(fn: Callable[..., Any], world: int, backend: str = "gloo",
     in rank order.  ``threads`` sets each rank's torch CPU threads."""
     group.check_world(backend, world, device)
     with tempfile.TemporaryDirectory(prefix="repro_ranks_") as d:
-        mp.spawn(_entry, args=(fn, world, backend, d, device, threads, tuple(args)),
-                 nprocs=world, join=True)
+        # the job reaches the ranks through a file, not the spawn pipe: a
+        # spawned process reads its spawn arguments only after its imports,
+        # and the parent's write of a large one blocks until then, so each
+        # rank would start only once the one before it had imported
+        with open(os.path.join(d, "job.pkl"), "wb") as f:
+            pickle.dump((fn, tuple(args)), f, protocol=pickle.HIGHEST_PROTOCOL)
+        mp.spawn(_entry, args=(world, backend, d, device, threads), nprocs=world, join=True)
         return [torch.load(os.path.join(d, f"result_{r}.pt"), weights_only=False)
                 for r in range(world)]
 
 
-def _entry(rank: int, fn, world, backend, d, device, threads, args) -> None:
+def _entry(rank: int, world, backend, d, device, threads) -> None:
     if threads:
         torch.set_num_threads(threads)
+    with open(os.path.join(d, "job.pkl"), "rb") as f:
+        fn, args = pickle.load(f)
     dev = group.init_ranks(backend, rank, world, d, device)
     try:
         torch.save(fn(rank, dev, *args), os.path.join(d, f"result_{rank}.pt"))

@@ -28,7 +28,7 @@ from repro_torch.data import synth
 from repro_torch.dist import group
 from repro_torch.dist.mesh import HybridMesh
 from repro_torch.launch.mesh import make_hybrid_mesh
-from repro_torch.launch.train import check_ranks
+from repro_torch.launch.train import cache_policy, check_ranks
 from repro_torch.models.dlrm import DLRM, DLRMConfig
 from repro_torch.models.recsys_models import DINConfig, DINModel, MINDConfig, MINDModel
 from repro_torch.serve.engine import ServeEngine
@@ -101,7 +101,7 @@ def run_rank(argv: Sequence[str], dev) -> Dict[str, Any]:
 def _serve(args, mesh: Optional[HybridMesh] = None, device=None) -> Dict[str, Any]:
     device = args.device if device is None else device
     lead = mesh is None or mesh.rank == 0
-    policy = Policy(args.cache_policy) if args.cache_policy else None
+    policy = cache_policy(args.cache_policy)
 
     if args.arch == "mind":
         cfg = MINDConfig(n_items=200_000, n_users=20_000, embed_dim=32, seq_len=50,

@@ -59,6 +59,11 @@ from repro_torch.models.recsys_models import (DIENConfig, DIENModel, DINConfig, 
 from repro_torch.train.trainer import PipelinedTrainer, Trainer, TrainerConfig
 
 
+def cache_policy(name: Optional[str]) -> Optional[Policy]:
+    """A ``--cache-policy`` value -> ``Policy`` (None keeps the model's default)."""
+    return Policy(name) if name else None
+
+
 def build(arch: str, batch: int, arena_precision: str, model_shards: int = 0,
           replicate_top_k: int = 0, exchange_codec: str = "fp32", max_routed_per_shard: int = 0,
           host_precision: str = "fp32", chunk_rows: int = 0, policy: Optional[Policy] = None,
@@ -239,7 +244,7 @@ def _train(args, mesh: Optional[HybridMesh] = None, device=None):
     model, make_batch = build(args.arch, args.batch, args.arena_precision, args.model_shards,
                         args.replicate_top_k, args.exchange_codec, args.max_routed_per_shard,
                         args.host_precision, args.chunk_rows,
-                        Policy(args.cache_policy) if args.cache_policy else None, mesh)
+                        cache_policy(args.cache_policy), mesh)
     tc = TrainerConfig(max_steps=args.steps, ckpt_dir=args.ckpt_dir, ckpt_every=25,
                        obs_dir=args.obs_dir, obs_annotate=args.obs_annotate,
                        history_limit=args.history_limit or None,

@@ -26,7 +26,7 @@ from typing import Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
-__all__ = ["Codec", "Fp16Codec", "Int8Codec", "CODECS", "get_codec"]
+__all__ = ["Codec", "Fp32Codec", "Fp16Codec", "Int8Codec", "CODECS", "get_codec"]
 
 _EPS = 1e-12
 DType = Union[torch.dtype, str]
@@ -39,7 +39,8 @@ def as_dtype(dt: DType) -> torch.dtype:
 
 @dataclasses.dataclass(frozen=True)
 class Codec:
-    """Bit-exact passthrough (the ``fp32`` codec)."""
+    """Bit-exact passthrough: the base of every codec (``Fp32Codec`` is it
+    under its own name, ``CODECS["fp32"]``)."""
 
     name: str = "fp32"
 
@@ -71,6 +72,11 @@ class Codec:
         if side is not None:
             b += int(np.prod(side, dtype=np.int64)) * 4
         return b
+
+
+@dataclasses.dataclass(frozen=True)
+class Fp32Codec(Codec):
+    name: str = "fp32"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,7 +129,7 @@ class Int8Codec(Codec):
         return (2,)
 
 
-CODECS: Dict[str, Codec] = {"fp32": Codec(), "fp16": Fp16Codec(), "int8": Int8Codec()}
+CODECS: Dict[str, Codec] = {"fp32": Fp32Codec(), "fp16": Fp16Codec(), "int8": Int8Codec()}
 
 
 def get_codec(name: str) -> Codec:

@@ -424,3 +424,33 @@ def test_int_counters_regex_matches_the_cache_counters():
     pats = [re.compile(p) for p in INT_COUNTERS]
     assert any(p.search(".cache.hits") for p in pats)
     assert not any(p.search("['step']") for p in pats)
+
+
+def test_launch_counts_read_and_zero_every_wrapper():
+    """``kernels.counters`` reads every wrapper's count (the flash kernel's
+    by route too) and zeroes them all; the gate's ``kernel_counts`` takes
+    the fused entries and the flash routes apart from the same table."""
+    from repro_torch.kernels import counters
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+
+    table = counters.counters()
+    routes = fa_kernel.flash_attention.route_launches
+    saved = ([getattr(fn, attr) for _, fn, attr in table], dict(routes))
+    try:
+        for i, (_, fn, attr) in enumerate(table):
+            setattr(fn, attr, 10 * (i + 1))
+        routes.update({r: 100 + i for i, r in enumerate(routes)})
+        got = counters.launch_counts()
+        assert {k: got[k] for k, _, _ in table} == {k: 10 * (i + 1)
+                                                    for i, (k, _, _) in enumerate(table)}
+        assert {r: got[f"flash_{r}"] for r in routes} == dict(routes)
+        split = run.kernel_counts()
+        assert split["gather_decode"] == got["gather_decode"] - got["gather_decode_encode"]
+        assert split["bucketize"] == got["bucketize"] - got["route_bucketize"]
+        assert "flash_attention" not in split and split["flash_wgmma"] == routes["wgmma"]
+        counters.zero_launch_counts()
+        assert set(counters.launch_counts().values()) == {0}
+    finally:
+        for (_, fn, attr), n in zip(table, saved[0]):
+            setattr(fn, attr, n)
+        routes.update(saved[1])

@@ -1293,10 +1293,9 @@ def test_gatedgcn_train_step_on_the_card_matches_cpu(cuda, monkeypatch):
     the batch is checked to hold no ReLU input within 1e-6 of 0); then two
     runs of 2 steps on the card under deterministic algorithms, bitwise
     equal (``index_add_`` sums in no fixed order outside that mode)."""
-    import torch.utils.deterministic as det
-
     from repro_torch.configs.gatedgcn import SMOKE
     from repro_torch.data import graphs
+    from repro_torch.device import deterministic
     from repro_torch.models.gatedgcn import GatedGCNModel
     from repro_torch.nn import gnn as G
     from repro_torch.optim.optimizers import tree_map
@@ -1342,18 +1341,13 @@ def test_gatedgcn_train_step_on_the_card_matches_cpu(cuda, monkeypatch):
         for path in w:
             torch.testing.assert_close(g[path], w[path], rtol=1e-4, atol=atol, msg=path)
     runs = []
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    fill, det.fill_uninitialized_memory = det.fill_uninitialized_memory, False
-    try:
+    with deterministic():
         for _ in range(2):
             state, losses = tree_map(lambda x: x.to(cuda), cpu_state), []
             for b in batches[cuda]:
                 state, m = model.train_step(state, b)
                 losses.append(float(m["loss"]))
             runs.append((losses, _gnn_leaves(state)))
-    finally:
-        torch.use_deterministic_algorithms(False)
-        det.fill_uninitialized_memory = fill
     assert runs[0][0] == runs[1][0]
     assert all(torch.equal(runs[0][1][k], runs[1][1][k]) for k in runs[0][1])
 

@@ -158,3 +158,53 @@ def test_recsys_families_have_no_silent_cpu_fallback(arch):
             serve.main(["--arch", arch, "--requests", "4", "--batch", "4"])
     state = cls(smoke).init(0, device="cpu")
     assert state["emb"].slabs["__shared__"].idx_map.device == torch.device("cpu")
+
+
+EXAMPLES = os.path.join(os.path.dirname(SRC), "examples")
+PORT_EXAMPLES = ("torch_quickstart", "torch_serve_recsys", "torch_train_dlrm",
+                 "torch_multi_device_scaling")
+
+
+def test_port_examples_import_no_jax_and_no_reference_package():
+    """``examples/torch_*.py`` name no JAX or ``repro`` import in their
+    source, and importing each loads neither."""
+    import ast
+
+    found = sorted(f[:-3] for f in os.listdir(EXAMPLES)
+                   if f.startswith("torch_") and f.endswith(".py"))
+    assert found == sorted(PORT_EXAMPLES)
+    for name in found:
+        tree = ast.parse(open(os.path.join(EXAMPLES, f"{name}.py")).read())
+        mods = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+        mods += [n.module or "" for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)]
+        bad = [m for m in mods if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+        assert not bad, (name, bad)
+    code = textwrap.dedent(
+        f"""
+        import importlib, sys
+        for name in {list(found)!r}:
+            importlib.import_module(name)
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith("jax.") or m == "repro" or m.startswith("repro."))
+        assert not bad, bad
+        """
+    )
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([SRC, EXAMPLES]))
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("name", PORT_EXAMPLES)
+def test_port_examples_have_no_silent_cpu_fallback(name):
+    """Each port example raises without a card unless given ``--device
+    cpu`` (the multi-rank one before it spawns a rank)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid here")
+    from torch_parity import load_example
+
+    mod = load_example(name, "isolation")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main([])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main(["--device", "cuda"])

@@ -93,6 +93,23 @@ def test_assign_devices_matches_reference_bitwise(counts, S, K):
     assert got.imbalance() == want.imbalance()
 
 
+@pytest.mark.parametrize("with_counts", [True, False])
+def test_collection_assign_equals_the_assignments_of_init(with_counts):
+    """``assign`` places every cached slab as ``init`` does, drawing no
+    state (a rank that takes its shard of a state drawn elsewhere)."""
+    tables = small_tables()
+    counts = _counts(tables) if with_counts else None
+    drawn = ShardedEmbeddingCollection.create(tables, num_shards=3, replicate_top_k=4)
+    drawn.init(0, counts=counts, device="cpu")
+    got = ShardedEmbeddingCollection.create(tables, num_shards=3,
+                                            replicate_top_k=4).assign(counts)
+    assert got.keys() == drawn.assignments.keys() and got
+    for name, want in drawn.assignments.items():
+        for f in ("owner", "local", "shard_rows", "shard_load"):
+            assert np.array_equal(getattr(got[name], f), getattr(want, f)), (name, f)
+        assert got[name].imbalance() == want.imbalance()
+
+
 def test_assign_devices_balances_expected_traffic():
     a = col.PlacementPlanner.assign_devices(1000, 4, ZIPF)
     assert a.owner.shape == (1000,) and a.local.shape == (1000,)

@@ -7,11 +7,26 @@ torch and XLA may round differently in the last ulp, so they are compared
 within ``TRACKER_RTOL``; every other leaf is compared bitwise.
 """
 import dataclasses
+import importlib.util
+import os
 
 import numpy as np
 
 TRACKER_RTOL = 1e-6  # a few fp32 ulps
 TRACKER_FLOATS = ("score", "win_hits", "win_misses")
+
+
+EXAMPLES = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "examples")
+
+
+def load_example(name, prefix="example"):
+    """``examples/<name>.py`` as a fresh module named ``<prefix>_<name>``
+    (its ``main`` not run)."""
+    spec = importlib.util.spec_from_file_location(f"{prefix}_{name}",
+                                                  os.path.join(EXAMPLES, f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def jax_to_numpy(obj):

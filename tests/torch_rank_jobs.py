@@ -37,9 +37,10 @@ from repro_torch.core.collection import FeatureBatch
 from repro_torch.core.sharded import ShardedEmbeddingCollection, ShardedSlab
 from repro_torch.core.transmitter import num_rounds
 from repro_torch.data import synth
+from repro_torch.device import deterministic  # noqa: F401  (the jobs' and callers' one)
 from repro_torch.dist.mesh import HybridMesh
 from repro_torch.dist.partitioning import shard_state, sharded_paths
-from repro_torch.kernels.cache_ops import kernel
+from repro_torch.kernels import counters
 from repro_torch.kernels.embedding_bag import kernel as eb_kernel
 from repro_torch.launch.mesh import make_hybrid_mesh
 from repro_torch.models.dlrm import DLRM
@@ -48,23 +49,6 @@ from repro_torch.store.arena import ArenaStore
 from repro_torch.store.codec import get_codec
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.trainer import PipelinedTrainer, TrainerConfig
-
-
-@contextlib.contextmanager
-def deterministic():
-    """torch's deterministic algorithms, for bitwise comparisons on the card
-    (``index_add_``, the gather's backward, sums duplicate lanes with
-    atomics otherwise); uninitialised memory is left unfilled."""
-    import torch.utils.deterministic as det
-
-    fill = det.fill_uninitialized_memory
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    det.fill_uninitialized_memory = False
-    try:
-        yield
-    finally:
-        torch.use_deterministic_algorithms(False)
-        det.fill_uninitialized_memory = fill
 
 
 def digest(t: torch.Tensor) -> str:
@@ -97,20 +81,20 @@ def shard_digests(state: Dict[str, Any]) -> Dict[str, str]:
 # ----- DLRM jobs --------------------------------------------------------------
 
 
+# the kernels a rank's DLRM path can launch
+RANK_KERNELS = ("bucketize", "route_bucketize", "victim_threshold", "gather_decode",
+                "gather_decode_encode", "embedding_bag")
+
+
 def _launches() -> Dict[str, int]:
-    return {"bucketize": kernel.bucketize.launches,
-            "route_bucketize": kernel.bucketize.fused_launches,
-            "victim_threshold": kernel.victim_threshold.launches,
-            "gather_decode": kernel.gather_decode.launches,
-            "gather_decode_encode": kernel.gather_decode.fused_launches,
-            "embedding_bag": eb_kernel.embedding_bag_multi.launches}
+    c = counters.launch_counts()
+    return {k: c[k] for k in RANK_KERNELS}
 
 
 def _zero_launches() -> None:
-    kernel.bucketize.launches = kernel.bucketize.fused_launches = 0
-    kernel.victim_threshold.launches = 0
-    kernel.gather_decode.launches = kernel.gather_decode.fused_launches = 0
-    eb_kernel.embedding_bag_multi.launches = 0
+    for name, fn, attr in counters.counters():
+        if name in RANK_KERNELS:
+            setattr(fn, attr, 0)
 
 
 class _Rounds:
