@@ -1,0 +1,4 @@
+"""The serving window's useful flops as a share of the card's fp32 peak (%)."""
+from portbench.lib import readers
+
+read = readers.mfu("serve")

@@ -1,0 +1,4 @@
+"""The eviction-threshold kernel's bound (one read of the plan's int32 key) over its traced time a launch, in training (%)."""
+from portbench.lib import readers
+
+read = readers.roofline("train", "threshold_grid", "key_bytes")
